@@ -1,0 +1,83 @@
+"""Build the hand-written CUDA kernels in `csrc/` and load them with ctypes.
+
+All `csrc/*.cu` files are compiled by `nvcc` for Hopper (sm_90a) into one
+shared library with a plain C interface, at first use, into `_build/` beside
+this file (git-ignored).  The library's name carries a hash of the sources
+and flags, so an edited source is rebuilt and a built one is reused.  No
+PyTorch headers are involved, which keeps a build to seconds.
+
+Wrappers pass pointers (`tensor.data_ptr()`) and the stream
+(`torch.cuda.current_stream().cuda_stream`) as `ctypes.c_void_p`, and ints as
+`ctypes.c_int`; each wrapper declares the argtypes of its own function.
+
+With no `nvcc` (PATH, `$CUDA_HOME/bin`, `/usr/local/cuda/bin`) or a failed
+compile, `load_library` raises: there is nothing to fall back to.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+CSRC_DIR = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent / "_build"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+
+def find_nvcc() -> str | None:
+    exe = shutil.which("nvcc")
+    if exe:
+        return exe
+    for root in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if root and (Path(root) / "bin" / "nvcc").is_file():
+            return str(Path(root) / "bin" / "nvcc")
+    return None
+
+
+def _sources() -> list[Path]:
+    return sorted(p for p in CSRC_DIR.iterdir() if p.suffix in (".cu", ".cuh"))
+
+
+def library_path() -> Path:
+    """Where the library for the current sources and flags lives."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libomfs4d_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build_log() -> str:
+    """nvcc's output (ptxas register and shared-memory report) of the build
+    that made the current library, or '' when it was not built."""
+    log = library_path().with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library."""
+    lib_path = library_path()
+    if not lib_path.exists():
+        nvcc = find_nvcc()
+        if nvcc is None:
+            raise RuntimeError(
+                "no nvcc found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                "the CUDA kernels in omfs4d_torch/csrc cannot be built")
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+               *(str(p) for p in _sources() if p.suffix == ".cu")]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stderr[-6000:]}")
+        lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
+        os.replace(tmp, lib_path)      # atomic: concurrent builds agree
+    return ctypes.CDLL(str(lib_path))
