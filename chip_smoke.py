@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's surgical-prediction render path once on one CUDA card.
+"""Drive the PyTorch port's render and training paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -22,6 +22,25 @@ Phase C: for every frame, the kernel against its plain PyTorch version on
   PNGs of phase B), the 5/3 mm render held different from a 0 mm render,
   and both composites timed with CUDA events (median of 20 after warm-up).
 
+Phase D: the training path at full width (bench.py's avatar and shapes):
+  the bench avatar (65,536 alive gaussians, SH degree 3) placed in capacity
+  131,072 and compacted to 73,728 (compact_to_alive), the phase-A dataset as
+  the `data` dict the pipeline runner builds, FLAME co-optimization on.
+  After a warm-up on a copy of the state, both launch counters are zeroed
+  and AvatarTrainer.train runs 60 iterations (a densify event at 20, window
+  checks, checkpoints at 15, 30, 60), then read: K2 launches must equal the
+  training steps.  Printed: it/s of that run and of 20 further bare steps
+  (host clock, synchronized), per-step stage laps, loss and PSNR of the
+  first and last step.  Checked: loss and every parameter finite, the last
+  loss below the first, one step with no host sync (it runs under
+  torch.cuda.set_sync_debug_mode("error")), the final checkpoint rendered
+  by render_dataset_frames.
+Phase E: K2 against its plain version (autograd through composite_plain) on
+  phase C's frame-0 inputs and on one training frame, with a seeded random
+  cotangent on image and alpha: gradients of uv, conic, colours and opacity
+  within atol 2e-4 * max|plain|, rtol 2e-3 (the reference's own bound), and
+  both backwards timed with CUDA events (median of 20 after warm-up).
+
 Any failure raises and exits non-zero.  With no CUDA card the script exits
 non-zero before printing any result.  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
@@ -41,6 +60,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+# the port is imported from this script's own checkout, wherever it is run from
+sys.path.insert(0, str(Path(__file__).resolve().parent))
+
 SIZE = 512
 N_FRAMES = 8
 N_VERTICES = 5143
@@ -51,6 +73,10 @@ ITERATION = 5000
 LEFORT_MM, BSSO_MM = 5.0, 3.0
 TOL = 1e-4
 N_TIMED = 20
+CAPACITY = 131_072
+TRAIN_ITERS = 60
+STEADY_STEPS = 20
+GRAD_TOL = 2e-4, 2e-3      # atol * max|plain grad|, rtol
 
 
 def card_line() -> str:
@@ -65,9 +91,10 @@ def check(ok: bool, what: str) -> None:
         raise RuntimeError(f"check failed: {what}")
 
 
-def bench_avatar(model, device):
+def bench_avatar(model, device, capacity=N_GAUSSIANS):
     """The bench-scale avatar (bench.py's recipe): the per-face textured GT
-    avatar replicated to N_GAUSSIANS alive gaussians with seeded jitter."""
+    avatar replicated to N_GAUSSIANS alive gaussians with seeded jitter,
+    padded with dead slots to `capacity`."""
     from omfs4d_torch.convert import gaussians_from_numpy, to_numpy
     from omfs4d_torch.io.synthetic import textured_gt_avatar
 
@@ -76,7 +103,7 @@ def bench_avatar(model, device):
     reps = int(np.ceil(N_GAUSSIANS / F))
     idx = np.tile(np.arange(F), reps)[:N_GAUSSIANS]
     rng = np.random.default_rng(0)
-    return gaussians_from_numpy({
+    fields = {
         "parent_face": g0["parent_face"][idx],
         "mu_local": g0["mu_local"][idx]
         + rng.normal(0, 0.3, (N_GAUSSIANS, 3)).astype(np.float32),
@@ -86,7 +113,74 @@ def bench_avatar(model, device):
         "color": g0["color"][idx],
         "sh": g0["sh"][idx],
         "alive": np.ones(N_GAUSSIANS, bool),
-    }, device=device)
+    }
+    pad = capacity - N_GAUSSIANS
+    fields = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
+              for k, v in fields.items()}
+    fields["quat_local"][N_GAUSSIANS:, 0] = 1.0
+    return gaussians_from_numpy(fields, device=device)
+
+
+def training_data(model, data_dir, device):
+    """The `data` dict and FLAME params the pipeline runner's train stage
+    builds from a dataset (omfs4d/pipeline/runner.py:280-307)."""
+    from omfs4d_torch.io.dataset import FrameDataset
+    from omfs4d_torch.models.flame import flame_forward
+
+    ds = FrameDataset(data_dir, split="train")
+    T = len(ds)
+    params = {k: v for k, v in ds.flame_params.items() if k != "dynamic_offset"}
+    with torch.no_grad():
+        verts = flame_forward(model, params)
+    cams = [ds.camera(i) for i in range(T)]
+    data = {
+        "images": np.stack([ds.load_image(i) for i in range(T)]),
+        "verts": verts,
+        "w2c": np.stack([c.w2c.numpy() for c in cams]),
+        **{k: np.array([float(getattr(c, k)) for c in cams], np.float32)
+           for k in ("fx", "fy", "cx", "cy")},
+    }
+    if ds.load_mask(0) is not None:
+        data["masks"] = np.stack([(ds.load_mask(i) * 255).astype(np.uint8) for i in range(T)])
+    return data, params
+
+
+def grad_inputs(trainer, state, data, frame):
+    """The composite's inputs of one training frame (the trainer's render
+    path up to the composite), detached."""
+    from omfs4d_torch.models.gaussians import bind_to_mesh, eval_colors
+    from omfs4d_torch.ops.camera import project_gaussians
+    from omfs4d_torch.render.rasterize import bin_gaussians
+    from omfs4d_torch.train.trainer import _frame_camera
+
+    rc = trainer.render_cfg
+    with torch.no_grad():
+        g = state.gaussians
+        means, rot, scales, opac, _ = bind_to_mesh(g, data["verts"][frame], trainer.faces)
+        cam = _frame_camera(data, frame, trainer.width, trainer.height)
+        cols = eval_colors(g, means, cam.position)
+        proj = project_gaussians(cam, means, rot, scales)
+        binning = bin_gaussians(proj, opac, trainer.width, trainer.height, rc["tile"],
+                                rc["max_per_tile"], rc["max_tiles_per_gaussian"],
+                                large_frac=rc["large_frac"])
+    return (proj["uv"], proj["conic"], cols, opac, binning, trainer.width, trainer.height)
+
+
+def composite_grads(fn, args, seed=1):
+    """Gradients of uv, conic, colours and opacity under a seeded random
+    cotangent on image and alpha, and a closure that reruns the backward
+    alone (for timing)."""
+    *inputs, binning, width, height = args
+    # clones: phase C's tensors were made under inference_mode, and autograd
+    # cannot save those for the backward
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+    binning = type(binning)(*(t.clone() for t in binning))
+    img, alpha = fn(*leaves, binning, width, height)
+    gen = torch.Generator(device=img.device).manual_seed(seed)
+    loss = ((img * torch.randn(img.shape, generator=gen, device=img.device)).sum()
+            + (alpha * torch.randn(alpha.shape, generator=gen, device=img.device)).sum())
+    grads = torch.autograd.grad(loss, leaves, retain_graph=True)
+    return grads, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
 
 def frame_inputs(model, gaussians, data_dir, device, max_tiles):
@@ -111,6 +205,17 @@ def frame_inputs(model, gaussians, data_dir, device, max_tiles):
                                 max_per_tile=MAX_PER_TILE,
                                 max_tiles_per_gaussian=max_tiles, large_frac=1.0)
         yield (proj["uv"], proj["conic"], cols, opac, binning, cam.width, cam.height)
+
+
+class Recorder:
+    """Keeps the trainer's per-step `train_step` events."""
+
+    def __init__(self):
+        self.steps = []
+
+    def emit(self, event, **fields):
+        if event == "train_step":
+            self.steps.append(fields)
 
 
 def median_ms(fn) -> float:
@@ -148,8 +253,11 @@ def main() -> int:
     from omfs4d_torch.predict.surgery import compute_offset, create_modified_dataset
     from omfs4d_torch.render.composite import composite, composite_plain
     from omfs4d_torch.render.rasterize import render_avatar_frame
+    from omfs4d_torch.core.config import TrainConfig
     from omfs4d_torch.train.checkpoints import (export_point_cloud, latest_iteration,
-                                                load_point_cloud, trained_render_meta)
+                                                load_point_cloud, snapshot_state,
+                                                trained_render_meta)
+    from omfs4d_torch.train.trainer import AvatarTrainer
 
     device = torch.device("cuda", 0)
     card = card_line()
@@ -266,6 +374,126 @@ def main() -> int:
               f"P=256 ({n_pairs} list entries, frame 0): kernel {kernel_ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms (median of {N_TIMED}); max abs err "
               f"{max(errs):.3e} over {N_FRAMES} frames [{card}]")
+
+        # ── phase D: the training path at full width ────────
+        data, flame_params = training_data(model, case["path"], device)
+        cfg = TrainConfig(iterations=TRAIN_ITERS, densify_from=20, densify_interval=20,
+                          opacity_reset_interval=0, batch_frames=1)
+        trainer = AvatarTrainer(model.faces.cpu().numpy(), cfg, SIZE, SIZE,
+                                max_per_tile=MAX_PER_TILE, flame_model=model)
+        state = trainer.init_state(capacity=CAPACITY, flame_params=flame_params)
+        # the bench avatar in place of the init cloud (same capacity: the
+        # zero Adam moments and accumulators of init_state fit it as they are)
+        state = state._replace(gaussians=bench_avatar(model, device, CAPACITY))
+        state = trainer.compact_to_alive(state)
+        compacted = int(np.ceil(N_GAUSSIANS * cfg.compact_slack / 1024) * 1024)   # 73,728
+        check(state.gaussians.capacity == compacted
+              and int(state.gaussians.alive.sum()) == N_GAUSSIANS,
+              f"compacted to {state.gaussians.capacity} == {compacted} slots, "
+              f"{N_GAUSSIANS} alive")
+        tdata = {k: (v if torch.is_tensor(v) else torch.from_numpy(v)).to(device)
+                 for k, v in data.items()}
+        warm = snapshot_state(state)        # warm-up on a copy: shapes, allocator, cuBLAS
+        for i in range(3):
+            warm, _ = trainer.train_step(warm, tdata, [i % N_FRAMES])
+        del warm
+        rec = Recorder()
+        train_dir = work / "train"
+        composite.launches = 0
+        composite.backward_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = trainer.train(data, iterations=TRAIN_ITERS, state=state,
+                              output_dir=train_dir, events=rec, log_every=1)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_fwd, train_bwd = composite.launches, composite.backward_launches
+        check(len(rec.steps) == TRAIN_ITERS, f"{len(rec.steps)} steps logged")
+        check(train_bwd == TRAIN_ITERS and train_fwd == TRAIN_ITERS,
+              f"K1 {train_fwd} and K2 {train_bwd} launches == {TRAIN_ITERS} training steps")
+        first_m, last_m = rec.steps[0], rec.steps[-1]
+        losses = [m["loss"] for m in rec.steps]
+        check(all(np.isfinite(losses)), "finite losses")
+        check(last_m["loss"] < first_m["loss"],
+              f"loss fell: {first_m['loss']:.5f} -> {last_m['loss']:.5f}")
+        params_ok = all(bool(torch.isfinite(getattr(state.gaussians, k)).all())
+                        for k in ("mu_local", "quat_local", "log_scale", "opacity_logit",
+                                  "color", "sh"))
+        params_ok &= all(bool(torch.isfinite(v).all()) for v in state.flame_params.values())
+        check(params_ok, "every gaussian and FLAME parameter finite")
+
+        clock = StageClock(device)
+        trainer.clock = clock
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rng = np.random.default_rng(1)
+        for _ in range(STEADY_STEPS):
+            state, m = trainer.train_step(state, tdata, rng.integers(0, N_FRAMES, 1))
+        torch.cuda.synchronize()
+        steady_s = time.perf_counter() - t0
+        trainer.clock = None
+        laps = clock.totals_ms()
+        check(np.isfinite(float(m["loss"])), "finite loss after the steady steps")
+        # one further step with every host sync made an error
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state, _ = trainer.train_step(state, tdata, [0])
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        print(f"phase D: AvatarTrainer.train, {TRAIN_ITERS} iterations at {SIZE}^2, "
+              f"K={MAX_PER_TILE}, {N_GAUSSIANS} alive in capacity "
+              f"{int(last_m['capacity'])} (compacted from {CAPACITY} to {compacted}; "
+              f"densify at 20), FLAME co-optimization on [{card}]")
+        print(f"  train(): {TRAIN_ITERS / train_s:.3f} it/s ({train_s:.3f} s, host clock, "
+              f"synchronized; densify, window checks, metric reads and 3 checkpoints "
+              f"included)")
+        print(f"  bare steps: {STEADY_STEPS / steady_s:.3f} it/s "
+              f"({steady_s / STEADY_STEPS * 1e3:.3f} ms/step over {STEADY_STEPS} steps); "
+              f"a further step ran under set_sync_debug_mode('error'): no host sync")
+        for name in ("flame", "bind_colors", "project", "bin", "composite", "loss",
+                     "backward", "optimizer"):
+            print(f"  stage {name:12s} {laps.get(name, 0.0) / STEADY_STEPS:9.3f} ms/step")
+        print(f"  launches in train(): K1 {train_fwd}, K2 {train_bwd} "
+              f"({TRAIN_ITERS} steps)")
+        print(f"  step 1: loss {first_m['loss']:.5f} psnr {first_m['psnr']:.3f} dB; "
+              f"step {TRAIN_ITERS}: loss {last_m['loss']:.5f} psnr {last_m['psnr']:.3f} dB; "
+              f"alive {int(first_m['n_alive'])} -> {int(last_m['n_alive'])}")
+        it_ck = latest_iteration(train_dir)
+        check(it_ck == TRAIN_ITERS, f"final checkpoint iteration {it_ck}")
+        trained = load_point_cloud(train_dir / "point_cloud" / f"iteration_{it_ck}"
+                                   / "point_cloud.ply", device=device)
+        tmeta = trained_render_meta(train_dir, it_ck)
+        out = render_dataset_frames(model, trained, case["path"], train_dir / "renders",
+                                    max_per_tile=int(tmeta["max_per_tile"]),
+                                    max_tiles_per_gaussian=int(tmeta["max_tiles_per_gaussian"]))
+        rendered = sorted(out.glob("*.png"))
+        check(len(rendered) == N_FRAMES, f"{len(rendered)} renders of the trained checkpoint")
+        check(read_image(rendered[0]).std() > 0, "the trained checkpoint renders an image")
+        print(f"  checkpoint iteration {it_ck} ({int(trained.alive.sum())} gaussians) "
+              f"rendered through render_dataset_frames: {len(rendered)} frames")
+
+        # ── phase E: K2 against its plain version ───────────
+        bwd_errs, bwd_times = [], {}
+        cases = {"phase C frame 0": first,
+                 "training frame 0": grad_inputs(trainer, state, tdata, 0)}
+        for label, args in cases.items():
+            g_k, rerun_k = composite_grads(composite, args)
+            g_p, rerun_p = composite_grads(composite_plain, args)
+            torch.cuda.synchronize()
+            for name, a, b in zip(("uv", "conic", "colors", "opacity"), g_k, g_p):
+                scale = b.abs().max().item()
+                err = (a - b).abs().max().item()
+                bad = ((a - b).abs() > GRAD_TOL[0] * scale + GRAD_TOL[1] * b.abs()).sum().item()
+                check(bad == 0 and bool(torch.isfinite(a).all()),
+                      f"{label}: K2 d{name} within atol {GRAD_TOL[0]}*{scale:.3e}, rtol "
+                      f"{GRAD_TOL[1]} ({bad} outside; max abs err {err:.3e})")
+                bwd_errs.append(err)
+                print(f"  {label}: d{name} max abs err {err:.3e} (max |plain| {scale:.3e})")
+            bwd_times[label] = (median_ms(rerun_k), median_ms(rerun_p))
+            del g_p, rerun_p
+            print(f"phase E: {label}: backward K2 {bwd_times[label][0]:.4f} ms, plain "
+                  f"{bwd_times[label][1]:.4f} ms (median of {N_TIMED}) [{card}]")
+        bwd_ms, bwd_plain_ms = bwd_times["training frame 0"]
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
@@ -275,8 +503,13 @@ def main() -> int:
         "name": "composite_fwd", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_fwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:210",
-        "launches": launches, "max_abs_err": max(errs),
-        "ms": kernel_ms, "plain_ms": plain_ms}]}))
+        "launches": launches + train_fwd, "max_abs_err": max(errs),
+        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "name": "composite_bwd", "route": "cuda",
+        "source": "omfs4d_torch/csrc/composite_bwd.cu",
+        "replaces": "omfs4d/render/pallas_kernels.py:305",
+        "launches": train_bwd, "max_abs_err": max(bwd_errs),
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ never `jax`, `omfs4d` or `cv2`.
 Hand-written CUDA kernels live in `csrc/` and are built with `nvcc` at first
 use (`omfs4d_torch._build`).  Every kernel has a plain PyTorch version beside
 it in the same module; the wrapper takes the plain version for a CPU tensor
-and launches the kernel (or raises) for a CUDA tensor.
+and launches the kernel (or raises) for a CUDA tensor.  The composite's
+gradient is a `torch.autograd.Function` whose backward is a kernel too.
 
 Float32 precision is pinned here, once, for the whole package: the reference
 runs its matmuls at `Precision.HIGHEST` (models/flame.py, ops/camera.py), and

@@ -1,13 +1,16 @@
-"""Move parameters between the JAX package and this port as numpy arrays.
+"""Move parameters and training state between the JAX package and this port.
 
 The `*_from_numpy` functions take the fields of the JAX NamedTuples as numpy
 arrays (in a test: `jax.tree_util.tree_map(np.asarray, x)._asdict()`) and
 return this package's objects on `device`; `to_numpy` goes the other way.
-Both packages then compute on the same numbers.
+`opt_state_from_optax` and `train_state_from_jax` read the reference's
+optax / TrainState objects by their attributes (no jax or optax import
+here), so a test can start both trainers from the same state.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from omfs4d_torch.models.flame import FlameModel
@@ -27,6 +30,54 @@ def gaussians_from_numpy(fields: dict, device: str | torch.device = "cpu") -> Ga
 def camera_from_numpy(w2c, fx, fy, cx, cy, width, height,
                       device: str | torch.device = "cpu") -> Camera:
     return _camera(w2c, fx, fy, cx, cy, width, height, device)
+
+
+def flame_params_from_numpy(params: dict, device: str | torch.device = "cpu") -> dict:
+    """FLAME parameter dict (arrays) -> float32 tensors on `device`."""
+    return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+            for k, v in params.items()}
+
+
+def opt_state_from_optax(state, device: str | torch.device = "cpu") -> dict:
+    """An `optax.multi_transform` state of `optax.adam` groups -> the port's
+    {group: {"count", "mu": {name}, "nu": {name}}}.  Groups with no Adam
+    state (`set_to_zero`) are left out; masked leaves are dropped."""
+    out = {}
+    for group, masked in state.inner_states.items():
+        inner = masked.inner_state
+        if not (isinstance(inner, tuple) and inner and hasattr(inner[0], "mu")):
+            continue
+        adam = inner[0]
+
+        def leaves(tree):
+            return {k: torch.tensor(np.asarray(v), dtype=torch.float32, device=device)
+                    for k, v in tree.items() if hasattr(v, "shape")}
+
+        out[group] = {"count": torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32,
+                                            device=device),
+                      "mu": leaves(adam.mu), "nu": leaves(adam.nu)}
+    return out
+
+
+def train_state_from_jax(state, device: str | torch.device = "cpu"):
+    """The reference's `TrainState` -> the port's, on `device`."""
+    from omfs4d_torch.train.trainer import TrainState
+
+    def t(x, dtype=torch.float32):
+        return torch.tensor(np.asarray(x), dtype=dtype, device=device)
+
+    g = {k: np.asarray(v) for k, v in state.gaussians._asdict().items()}
+    return TrainState(
+        gaussians=gaussians_from_numpy(g, device),
+        opt_state=opt_state_from_optax(state.opt_state, device),
+        step=t(state.step, torch.int32),
+        grad_accum=t(state.grad_accum),
+        grad_count=t(state.grad_count),
+        flame_params=(None if state.flame_params is None
+                      else flame_params_from_numpy(state.flame_params, device)),
+        flame_opt_state=(None if state.flame_opt_state is None
+                         else opt_state_from_optax(state.flame_opt_state, device)),
+    )
 
 
 def to_numpy(x):

@@ -100,9 +100,12 @@ def _rigid_chain(rot_mats: torch.Tensor, joints: torch.Tensor, parents) -> tuple
     """
     parents = [int(p) for p in parents]
     B, J = joints.shape[:2]
-    rel = torch.cat([joints[:, :1], joints[:, 1:] - joints[:, parents[1:]]], dim=1)
-    bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=rot_mats.dtype,
-                          device=rot_mats.device).expand(B, 1, 4)
+    # parents gathered as views and the bottom row made on the device: an
+    # index list or a tensor literal would copy to the card and wait
+    parent_joints = torch.stack([joints[:, p] for p in parents[1:]], dim=1)
+    rel = torch.cat([joints[:, :1], joints[:, 1:] - parent_joints], dim=1)
+    bottom = torch.zeros((B, 1, 4), dtype=rot_mats.dtype, device=rot_mats.device)
+    bottom[..., 3] = 1.0
 
     def make44(R, t):
         return torch.cat([torch.cat([R, t[..., None]], dim=-1), bottom], dim=-2)

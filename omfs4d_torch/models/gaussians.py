@@ -35,17 +35,24 @@ class GaussianAvatar(nn.Module):
 
     def __init__(self, parent_face, mu_local, quat_local, log_scale,
                  opacity_logit, color, sh, alive):
+        """Fields as arrays or tensors; the module owns a copy of each, on
+        the device a tensor field is on."""
         super().__init__()
-        # torch.tensor copies: the module owns its storage
-        self.register_buffer("parent_face", torch.tensor(parent_face, dtype=torch.int32))
+        self.register_buffer("parent_face", _owned(parent_face, torch.int32))
         for name, value in zip(PARAM_FIELDS, (mu_local, quat_local, log_scale,
                                               opacity_logit, color, sh)):
-            setattr(self, name, nn.Parameter(torch.tensor(value, dtype=torch.float32)))
-        self.register_buffer("alive", torch.tensor(alive, dtype=torch.bool))
+            setattr(self, name, nn.Parameter(_owned(value, torch.float32)))
+        self.register_buffer("alive", _owned(alive, torch.bool))
 
     @property
     def capacity(self) -> int:
         return self.mu_local.shape[0]
+
+
+def _owned(value, dtype) -> torch.Tensor:
+    if torch.is_tensor(value):
+        return value.detach().to(dtype).clone()
+    return torch.tensor(np.asarray(value), dtype=dtype)
 
 
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
@@ -182,12 +189,17 @@ def init_gaussians_on_mesh(
     init_scale: float = 0.5,
     seed: int = 0,
     sh_degree: int = 3,
+    ref_verts: np.ndarray | None = None,
     device: str | torch.device = "cpu",
 ) -> GaussianAvatar:
     """One gaussian per triangle (GaussianAvatars' binding init), padded to
     a fixed capacity.  The numbers come from numpy with `seed`, as in the
-    JAX package, so both packages start from the same cloud.  (The JAX
-    `ref_verts` k-NN scale init belongs to the trainer slice.)"""
+    JAX package, so both packages start from the same cloud.
+
+    `ref_verts` (V, 3): when given, per-face init scales follow the CUDA
+    3DGS / simple-knn convention: world-space init sigma = mean distance to
+    the 3 nearest triangle centroids, expressed in the parent triangle's
+    local units and never above `init_scale`."""
     F = len(faces)
     n = min(F, capacity)
     rng = np.random.default_rng(seed)
@@ -198,6 +210,15 @@ def init_gaussians_on_mesh(
     quat[:, 0] = 1.0
     mu = np.zeros((capacity, 3), dtype=np.float32)
     log_scale = np.full((capacity, 3), np.log(init_scale), dtype=np.float32)
+    if ref_verts is not None:
+        from omfs4d_torch.ops.knn import knn_mean_distance
+        _, t_, s = triangle_frames(torch.as_tensor(np.asarray(ref_verts, np.float32)),
+                                   torch.as_tensor(np.asarray(faces)))
+        s = np.maximum(s.numpy(), 1e-9)
+        d_knn = knn_mean_distance(t_, k=3).numpy()          # (F,)
+        local = np.clip(d_knn / s, None, init_scale)        # never grow
+        log_scale = np.log(np.maximum(local[parent], 1e-6)
+                           ).astype(np.float32)[:, None].repeat(3, 1)
     opac = np.full((capacity,), inverse_sigmoid(init_opacity), dtype=np.float32)
     color = np.full((capacity, 3), inverse_sigmoid(np.clip(init_color, 1e-3, 1 - 1e-3)),
                     dtype=np.float32)
@@ -211,6 +232,57 @@ def init_gaussians_on_mesh(
         sh=np.zeros((capacity, SH_DIM[sh_degree], 3), np.float32),
         alive=alive,
     ).to(device)
+
+
+def init_gaussians_from_points(
+    points: np.ndarray,
+    verts: np.ndarray,
+    faces: np.ndarray,
+    capacity: int,
+    init_opacity: float = 0.1,
+    init_color: float = 0.5,
+    sh_degree: int = 3,
+    device: str | torch.device = "cpu",
+) -> GaussianAvatar:
+    """Initialize gaussians from a point cloud (the points3d.ply contract):
+    per-point scale from the mean distance to the 3 nearest neighbours, each
+    point bound to its nearest canonical FLAME triangle centroid and
+    expressed in that triangle's local frame."""
+    from omfs4d_torch.ops.knn import knn_mean_distance
+
+    points = np.asarray(points, dtype=np.float32)
+    n = min(len(points), capacity)
+    pts = points[:n]
+
+    R_f, t_f, s_f = triangle_frames(torch.as_tensor(np.asarray(verts, np.float32)),
+                                    torch.as_tensor(np.asarray(faces, np.int32)))
+    R_f, t_f, s_f = R_f.numpy(), t_f.numpy(), s_f.numpy()
+
+    # nearest face centroid per point (blocked to bound memory)
+    parent = np.zeros(n, dtype=np.int32)
+    for start in range(0, n, 8192):
+        chunk = pts[start : start + 8192]
+        d2 = ((chunk[:, None, :] - t_f[None, :, :]) ** 2).sum(-1)
+        parent[start : start + len(chunk)] = d2.argmin(1).astype(np.int32)
+
+    # local frame coordinates: mu = R^T (p - t) / s
+    rel = pts - t_f[parent]
+    mu = np.einsum("nij,ni->nj", R_f[parent], rel) / s_f[parent][:, None]
+
+    knn_d = knn_mean_distance(pts, k=3).numpy()
+    local_scale = np.clip(knn_d / np.maximum(s_f[parent], 1e-8), 1e-3, 10.0)
+
+    g = init_gaussians_on_mesh(np.asarray(faces), capacity,
+                               init_opacity=init_opacity, init_color=init_color,
+                               sh_degree=sh_degree)
+    fields = {k: v.detach().numpy().copy() for k, v in
+              list(g.named_parameters()) + list(g.named_buffers())}
+    fields["parent_face"][:n] = parent
+    fields["mu_local"][:n] = mu
+    fields["log_scale"][:n] = np.log(local_scale)[:, None]
+    fields["alive"][:] = False
+    fields["alive"][:n] = True
+    return GaussianAvatar(**fields).to(device)
 
 
 def n_alive(g: GaussianAvatar) -> torch.Tensor:

@@ -135,8 +135,7 @@ def bin_gaussians(
         needs_large = visible & ((span_x > kw_s) | (span_y > kh_s))
         m = min(n, max(large_min, int(round(n * large_frac))))
         # exact top-m by radius through one full sort
-        neg_score = torch.where(needs_large, -radius,
-                                torch.tensor(3.4e38, dtype=radius.dtype, device=dev))
+        neg_score = torch.where(needs_large, -radius, 3.4e38)
         large_sel = torch.sort(neg_score, stable=True).indices[:m]
         sel_ok = needs_large[large_sel]
         is_large = torch.zeros(n, dtype=torch.bool, device=dev)

@@ -1,11 +1,12 @@
-"""Gaussian PLY snapshots and checkpoint metadata.
+"""Training-state checkpoints, gaussian PLY snapshots and checkpoint metadata.
 
-Port of the render-side half of `omfs4d.train.checkpoints`
-(`export_point_cloud`, `load_point_cloud`, `latest_iteration`,
-`trained_render_meta`).  The layout is the reference's training output,
-`point_cloud/iteration_N/point_cloud.ply` + `checkpoints/iter_*_meta.json`,
-and a PLY written by either package loads in the other.  The full-state
-checkpoints (`save_state` / `restore_state`) come with the trainer.
+Port of `omfs4d.train.checkpoints`.  The layout is the reference's training
+output: `checkpoints/iter_XXXXXXX/` (the state), `checkpoints/
+iter_XXXXXXX_meta.json` and `point_cloud/iteration_N/point_cloud.ply`.  A
+PLY written by either package loads in the other.  The state itself is in
+the port's own format (orbax is the JAX package's): `state.pt` in the
+checkpoint directory, a `torch.save` of plain dicts of tensors, which
+`torch.load(weights_only=True)` reads back.
 """
 
 from __future__ import annotations
@@ -17,7 +18,87 @@ import numpy as np
 import torch
 
 from omfs4d_torch.io.ply import load_ply, save_ply
+from omfs4d_torch.models.gaussians import FIELDS as GAUSSIAN_FIELDS
 from omfs4d_torch.models.gaussians import GaussianAvatar
+
+STATE_FILE = "state.pt"
+
+
+def _tree_map(fn, x):
+    if isinstance(x, dict):
+        return {k: _tree_map(fn, v) for k, v in x.items()}
+    return None if x is None else fn(x)
+
+
+def state_to_dict(state) -> dict:
+    """A TrainState as nested dicts of tensors (gaussians by field)."""
+    g = state.gaussians
+    return {
+        "gaussians": {k: getattr(g, k).detach() for k in GAUSSIAN_FIELDS},
+        "opt_state": state.opt_state,
+        "step": state.step,
+        "grad_accum": state.grad_accum,
+        "grad_count": state.grad_count,
+        "flame_params": state.flame_params,
+        "flame_opt_state": state.flame_opt_state,
+    }
+
+
+def state_from_dict(d: dict):
+    """Inverse of `state_to_dict`."""
+    from omfs4d_torch.train.trainer import TrainState
+
+    return TrainState(
+        gaussians=GaussianAvatar(**d["gaussians"]),
+        opt_state=d["opt_state"], step=d["step"], grad_accum=d["grad_accum"],
+        grad_count=d["grad_count"], flame_params=d.get("flame_params"),
+        flame_opt_state=d.get("flame_opt_state"))
+
+
+def snapshot_state(state):
+    """A copy of the state on its device, so a writer thread never sees the
+    tensors the next training step updates in place."""
+    return state_from_dict(_tree_map(lambda t: t.detach().clone(), state_to_dict(state)))
+
+
+def save_state(path: str | Path, state) -> Path:
+    """Write the state into directory `path` (created).  Returns `path`."""
+    path = Path(path).resolve()
+    path.mkdir(parents=True, exist_ok=True)
+    host = _tree_map(lambda t: t.detach().cpu(), state_to_dict(state))
+    tmp = path / f"{STATE_FILE}.tmp"
+    torch.save(host, tmp)
+    tmp.replace(path / STATE_FILE)
+    return path
+
+
+def restore_state(path: str | Path, device: str | torch.device = "cpu"):
+    """Read a state written by `save_state` onto `device`."""
+    d = torch.load(Path(path) / STATE_FILE, map_location="cpu", weights_only=True)
+    return state_from_dict(_tree_map(lambda t: t.to(device), d))
+
+
+def latest_checkpoint(output_dir: str | Path) -> tuple[Path, int] | None:
+    """Newest full-state checkpoint under `<output_dir>/checkpoints/iter_*`."""
+    rows = checkpoint_lineage(output_dir)
+    if not rows:
+        return None
+    return Path(rows[-1]["path"]), rows[-1]["iteration"]
+
+
+def checkpoint_lineage(output_dir: str | Path) -> list[dict]:
+    """All checkpoints on disk, oldest first."""
+    ckpt_root = Path(output_dir) / "checkpoints"
+    if not ckpt_root.is_dir():
+        return []
+    rows = []
+    for d in ckpt_root.iterdir():
+        if d.is_dir() and d.name.startswith("iter_"):
+            try:
+                rows.append({"iteration": int(d.name.split("_", 1)[1]), "path": str(d)})
+            except ValueError:
+                pass
+    return sorted(rows, key=lambda r: r["iteration"])
 
 
 def trained_render_meta(output_dir: str | Path,
@@ -40,6 +121,14 @@ def trained_render_meta(output_dir: str | Path,
         return json.loads(metas[-1].read_text())
     except (ValueError, OSError):
         return {}
+
+
+def trained_tile_window(output_dir: str | Path,
+                        iteration: int | None = None) -> int | None:
+    """max_tiles_per_gaussian from the checkpoint meta (see
+    `trained_render_meta`)."""
+    return int(trained_render_meta(output_dir, iteration)
+               .get("max_tiles_per_gaussian", 0)) or None
 
 
 def latest_iteration(output_dir: str | Path) -> int | None:

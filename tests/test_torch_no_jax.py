@@ -1,5 +1,6 @@
 """Package rules of the port, checked on the CPU: it imports neither jax,
-omfs4d nor cv2, and a CUDA tensor never falls back to the plain composite."""
+omfs4d nor cv2, and a CUDA tensor never falls back to the plain composite,
+forward (K1) or backward (K2)."""
 
 import pkgutil
 import subprocess
@@ -38,8 +39,8 @@ def test_port_imports_no_jax_omfs4d_or_cv2():
     assert res.returncode == 0, res.stderr
 
 
-def small_inputs(requires_grad=False):
-    uv = torch.zeros(4, 2, requires_grad=requires_grad)
+def small_inputs():
+    uv = torch.zeros(4, 2)
     binning = TileBinning(torch.zeros(1, 8, dtype=torch.int32),
                           torch.ones(1, dtype=torch.int32), *[torch.zeros((), dtype=torch.int32)] * 3)
     return uv, torch.zeros(4, 3), torch.zeros(4, 3), torch.zeros(4), binning
@@ -54,9 +55,11 @@ def cuda_typed(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
     _build.load_library.cache_clear()
     tc._kernel.cache_clear()
+    tc._bwd_kernel.cache_clear()
     yield tmp_path / "build"
     _build.load_library.cache_clear()
     tc._kernel.cache_clear()
+    tc._bwd_kernel.cache_clear()
 
 
 def test_composite_on_cuda_raises_without_a_kernel(cuda_typed):
@@ -70,7 +73,6 @@ def test_composite_on_cuda_raises_without_a_kernel(cuda_typed):
 def test_composite_on_cuda_refuses_what_the_kernel_does_not_take(cuda_typed):
     uv, conic, colors, opacity, b = small_inputs()
     bad_calls = {
-        "requires grad": (small_inputs(requires_grad=True), {}),
         "float64": ((uv.double(), conic, colors, opacity, b), {}),
         "int64 lists": ((uv, conic, colors, opacity,
                          b._replace(tile_lists=b.tile_lists.long())), {}),
@@ -84,8 +86,30 @@ def test_composite_on_cuda_refuses_what_the_kernel_does_not_take(cuda_typed):
     assert not cuda_typed.exists()
 
 
+def test_composite_backward_on_cuda_raises_without_a_kernel(cuda_typed, monkeypatch):
+    """The forward is stood in by the plain version so that the graph
+    exists; the backward must then raise for want of K2, build nothing and
+    count no launch."""
+    monkeypatch.setattr(tc, "_launch_fwd", lambda uv, conic, colors, opacity, lists, counts,
+                        width, height, tile, tile_base, grid_w: tuple(
+                            t.detach() for t in tc.composite_plain(
+                                uv, conic, colors, opacity,
+                                TileBinning(lists, counts, *[None] * 3), width, height,
+                                tile, tile_base)))
+    uv, conic, colors, opacity, b = small_inputs()
+    uv.requires_grad_()
+    img, alpha = tc.composite(uv, conic, colors, opacity, b, 16, 16)
+    assert img.requires_grad and alpha.requires_grad
+    before = tc.composite.backward_launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        (img.sum() + alpha.sum()).backward()
+    assert tc.composite.backward_launches == before
+    assert uv.grad is None
+    assert not cuda_typed.exists()
+
+
 def test_library_path_tracks_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p == _build.library_path()
-    assert [s.name for s in _build._sources()] == ["composite_fwd.cu"]
+    assert [s.name for s in _build._sources()] == ["composite_bwd.cu", "composite_fwd.cu"]
