@@ -40,6 +40,17 @@ Phase E: K2 against its plain version (autograd through composite_plain) on
   cotangent on image and alpha: gradients of uv, conic, colours and opacity
   within atol 2e-4 * max|plain|, rtol 2e-3 (the reference's own bound), and
   both backwards timed with CUDA events (median of 20 after warm-up).
+Phase F: the K2 ablation profiler.  Every V launch count is zeroed, then
+  `omfs4d_torch.scripts.profile_composite_variants.main()` runs as a user
+  runs it (K1, K2, the five modes of kernel V and the sort rows on the
+  reference's seeded T = 1024, K = 512 table) and the counts are read: each
+  mode must have launched.  Then, on that table and on phase E's training
+  frame packed by `pack_lists` at K = 256 with phase E's seeded cotangent,
+  each mode of V is held to `variant_plain` within its bound (pcv.compare),
+  the bound of each bf16 mode is shown to reject `variant_plain` without
+  its roundings (the control), and V and its plain version are timed beside
+  K1 and K2 (their launch functions alone) on the same data (median of 20
+  after warm-up).
 
 Any failure raises and exits non-zero.  With no CUDA card the script exits
 non-zero before printing any result.  The last line is
@@ -51,7 +62,6 @@ from __future__ import annotations
 import json
 import shutil
 import statistics
-import subprocess
 import sys
 import tempfile
 import time
@@ -77,13 +87,6 @@ CAPACITY = 131_072
 TRAIN_ITERS = 60
 STEADY_STEPS = 20
 GRAD_TOL = 2e-4, 2e-3      # atol * max|plain grad|, rtol
-
-
-def card_line() -> str:
-    res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    return res.stdout.strip().splitlines()[0]
 
 
 def check(ok: bool, what: str) -> None:
@@ -166,6 +169,13 @@ def grad_inputs(trainer, state, data, frame):
     return (proj["uv"], proj["conic"], cols, opac, binning, trainer.width, trainer.height)
 
 
+def seeded_cotangent(height, width, device, seed=1):
+    """The seeded random cotangent of an (H, W, 3) image and (H, W) alpha."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return (torch.randn((height, width, 3), generator=gen, device=device),
+            torch.randn((height, width), generator=gen, device=device))
+
+
 def composite_grads(fn, args, seed=1):
     """Gradients of uv, conic, colours and opacity under a seeded random
     cotangent on image and alpha, and a closure that reruns the backward
@@ -176,9 +186,8 @@ def composite_grads(fn, args, seed=1):
     leaves = [t.detach().clone().requires_grad_() for t in inputs]
     binning = type(binning)(*(t.clone() for t in binning))
     img, alpha = fn(*leaves, binning, width, height)
-    gen = torch.Generator(device=img.device).manual_seed(seed)
-    loss = ((img * torch.randn(img.shape, generator=gen, device=img.device)).sum()
-            + (alpha * torch.randn(alpha.shape, generator=gen, device=img.device)).sum())
+    dimg, dalpha = seeded_cotangent(height, width, img.device, seed)
+    loss = (img * dimg).sum() + (alpha * dalpha).sum()
     grads = torch.autograd.grad(loss, leaves, retain_graph=True)
     return grads, lambda: torch.autograd.grad(loss, leaves, retain_graph=True)
 
@@ -251,7 +260,8 @@ def main() -> int:
     from omfs4d_torch.models.flame import flame_forward
     from omfs4d_torch.predict.render_video import render_dataset_frames
     from omfs4d_torch.predict.surgery import compute_offset, create_modified_dataset
-    from omfs4d_torch.render.composite import composite, composite_plain
+    from omfs4d_torch.render.composite import composite, composite_plain, pack_lists
+    from omfs4d_torch.scripts import profile_composite_variants as pcv
     from omfs4d_torch.render.rasterize import render_avatar_frame
     from omfs4d_torch.core.config import TrainConfig
     from omfs4d_torch.train.checkpoints import (export_point_cloud, latest_iteration,
@@ -260,7 +270,7 @@ def main() -> int:
     from omfs4d_torch.train.trainer import AvatarTrainer
 
     device = torch.device("cuda", 0)
-    card = card_line()
+    card = pcv.card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
 
@@ -494,6 +504,70 @@ def main() -> int:
             print(f"phase E: {label}: backward K2 {bwd_times[label][0]:.4f} ms, plain "
                   f"{bwd_times[label][1]:.4f} ms (median of {N_TIMED}) [{card}]")
         bwd_ms, bwd_plain_ms = bwd_times["training frame 0"]
+
+        # ── phase F: the K2 ablation profiler, kernel V ─────
+        for mode in pcv.MODES:
+            pcv.launches[mode] = 0
+        t0 = time.perf_counter()
+        check(pcv.main() == 0, "profile_composite_variants.main() returned 0")
+        v_launches = dict(pcv.launches)
+        check(all(v_launches[m] > 0 for m in pcv.MODES),
+              f"V launched in every mode of the profiler's run: {v_launches}")
+        print(f"phase F: profile_composite_variants.main() ran in "
+              f"{time.perf_counter() - t0:.2f} s; V launches {v_launches} [{card}]")
+        ref_table = [torch.from_numpy(a).to(device) for a in pcv.synthetic_inputs(0)[:3]]
+        uv, conic, cols, opac, tb, tw, th = cases["training frame 0"]
+        dimg, d_alpha = seeded_cotangent(th, tw, device)
+        tables = {
+            f"reference table T={pcv.T} K={pcv.K} (identity lists)": (
+                *ref_table, pcv.GRID_W,
+                (*pcv.as_gaussians(ref_table[0]), pcv.GRID_W * pcv.TILE,
+                 pcv.T // pcv.GRID_W * pcv.TILE,
+                 *pcv.to_image(*ref_table[1:], grid_w=pcv.GRID_W))),
+            f"training frame 0 K={MAX_PER_TILE} (real lists)": (
+                pack_lists(uv, conic, cols, opac, tb.tile_lists, tb.tile_counts),
+                *pcv.to_tiles(dimg, d_alpha), tw // pcv.TILE,
+                (*cases["training frame 0"], dimg, d_alpha)),
+        }
+        variant_rows = {mode: [] for mode in pcv.MODES}
+        print(f"phase F: bound per element, every mode but copy (exact): "
+              f"{pcv.BOUND[0]:g}*s + {pcv.BOUND[1]:g}*|plain|, s its row's scale "
+              f"(pcv.row_scale); the control, variant_plain without its bf16 roundings, "
+              f"must fail it")
+        failed = []
+        for label, (packed, dcol, dalpha, grid_w, current) in tables.items():
+            k1_ms, k2_ms = pcv.current_times(*current, n=N_TIMED)
+            print(f"phase F: {label}: K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms, each through its "
+                  f"launch function (median of {N_TIMED}); K2's atomics "
+                  + ("never collide here" if "identity" in label else "collide here")
+                  + f" [{card}]")
+            for mode in pcv.MODES:
+                fn = pcv.make_variant_kernel(mode)
+                got = fn(packed, dcol, dalpha, grid_w=grid_w)
+                ref = pcv.variant_plain(mode, packed, dcol, dalpha, grid_w=grid_w)
+                res = pcv.compare(mode, got, ref, packed)
+                line = (f"max abs err {res['max_abs_err']:.3e} (max |plain| "
+                        f"{ref.abs().max().item():.3e}), {res['outside']} outside "
+                        f"({res['share']:.3e} of the nonzero)")
+                if not (res["ok"] and bool(torch.isfinite(got).all())):
+                    failed.append(f"{label}: V {mode}: {line}")
+                if mode in ("bf16_matmuls", "full_bf16"):
+                    ctrl = pcv.compare(mode, pcv.variant_plain(mode, packed, dcol, dalpha,
+                                                               grid_w=grid_w, rounded=False),
+                                       ref, packed)
+                    line += (f"; control: max abs err {ctrl['max_abs_err']:.3e}, "
+                             f"{ctrl['outside']} outside ({ctrl['share']:.3e}), "
+                             + ("passed" if ctrl["ok"] else "rejected"))
+                    if ctrl["ok"]:
+                        failed.append(f"{label}: the bound of {mode} passed the control")
+                v_ms = pcv.timed(fn, packed, dcol, dalpha, pcv.TILE, grid_w, n=N_TIMED)
+                v_plain_ms = pcv.timed(pcv.variant_plain, mode, packed, dcol, dalpha,
+                                       pcv.TILE, grid_w, n=N_TIMED)
+                variant_rows[mode].append((res["max_abs_err"], v_ms, v_plain_ms))
+                print(f"  {mode:13s} V {v_ms:.4f} ms, plain {v_plain_ms:.4f} ms (median of "
+                      f"{N_TIMED}); {line}")
+            del got, ref
+        check(not failed, "phase F:\n  " + "\n  ".join(failed))
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
@@ -509,7 +583,12 @@ def main() -> int:
         "source": "omfs4d_torch/csrc/composite_bwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:305",
         "launches": train_bwd, "max_abs_err": max(bwd_errs),
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms}]}))
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms}] + [{
+        "name": f"composite_variant:{mode}", "route": "cuda",
+        "source": "omfs4d_torch/csrc/composite_variants.cu",
+        "replaces": "scripts/profile_composite_variants.py:49",
+        "launches": v_launches[mode], "max_abs_err": max(r[0] for r in rows),
+        "ms": rows[0][1], "plain_ms": rows[0][2]} for mode, rows in variant_rows.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,10 +1,11 @@
 """Build the hand-written CUDA kernels in `csrc/` and load them with ctypes.
 
-All `csrc/*.cu` files are compiled by `nvcc` for Hopper (sm_90a) into one
-shared library with a plain C interface, at first use, into `_build/` beside
-this file (git-ignored).  The library's name carries a hash of the sources
-and flags, so an edited source is rebuilt and a built one is reused.  No
-PyTorch headers are involved, which keeps a build to seconds.
+Each `csrc/*.cu` file is compiled by its own `nvcc` for Hopper (sm_90a), all
+at once, and the objects are linked into one shared library with a plain C
+interface, at first use, into `_build/` beside this file (git-ignored).  The
+library's name carries a hash of the sources and flags, so an edited source
+is rebuilt and a built one is reused.  No PyTorch headers are involved, which
+keeps a build to seconds.
 
 Wrappers pass pointers (`tensor.data_ptr()`) and the stream
 (`torch.cuda.current_stream().cuda_stream`) as `ctypes.c_void_p`, and ints as
@@ -22,12 +23,13 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def find_nvcc() -> str | None:
@@ -71,13 +73,34 @@ def load_library() -> ctypes.CDLL:
                 "no nvcc found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
                 "the CUDA kernels in omfs4d_torch/csrc cannot be built")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib_path.with_name(f"{lib_path.stem}.{os.getpid()}.tmp.so")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-               *(str(p) for p in _sources() if p.suffix == ".cu")]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
-                               f"{' '.join(cmd)}\n{res.stderr[-6000:]}")
-        lib_path.with_suffix(".log").write_text(res.stdout + res.stderr)
-        os.replace(tmp, lib_path)      # atomic: concurrent builds agree
+        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+            objs, log = _compile_all(nvcc, Path(tmp_dir))
+            tmp = Path(tmp_dir) / lib_path.name
+            _run([nvcc, "-shared", "-o", str(tmp), *objs])
+            lib_path.with_suffix(".log").write_text(log)
+            os.replace(tmp, lib_path)      # atomic: concurrent builds agree
     return ctypes.CDLL(str(lib_path))
+
+
+def _run(cmd: list[str]) -> None:
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed (exit {res.returncode}):\n"
+                           f"{' '.join(cmd)}\n{res.stderr[-6000:]}")
+
+
+def _compile_all(nvcc: str, out_dir: Path) -> tuple[list[str], str]:
+    """One nvcc per source, all started together; waits for every one of
+    them before it reports a failure.  Returns the objects and the joined
+    output (the ptxas reports)."""
+    srcs = [p for p in _sources() if p.suffix == ".cu"]
+    objs = [str(out_dir / f"{src.stem}.o") for src in srcs]
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outputs = [proc.communicate()[0] for proc in procs]
+    for cmd, proc, out in zip(cmds, procs, outputs):
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed (exit {proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out[-6000:]}")
+    return objs, "".join(outputs)

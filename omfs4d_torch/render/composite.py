@@ -13,6 +13,11 @@ forward launches K1 and whose backward launches K2, or the call raises:
 there is no fallback.  The Function saves only its inputs (no (T, K, P)
 residual): K2 recomputes alpha, as the reference's backward does.
 `composite.launches` counts K1 launches, `composite.backward_launches` K2.
+
+`pack_lists` is the reference's `_pack_lists`: the (T, 9, K) per-tile table
+that the TPU kernels read.  K1 and K2 gather from the (N, .) tensors
+themselves; the packed table feeds the K2 ablation variants
+(`omfs4d_torch.scripts.profile_composite_variants`).
 """
 
 from __future__ import annotations
@@ -27,6 +32,30 @@ from omfs4d_torch.render.rasterize import TileBinning, composite_reference
 
 #: the kernel's plain PyTorch version: same arguments, same outputs
 composite_plain = composite_reference
+
+# rows of the packed (T, 9, K) table, in the reference's order
+ROW_UX, ROW_UY = 0, 1
+ROW_CA, ROW_CB, ROW_CC = 2, 3, 4
+ROW_R, ROW_G, ROW_B = 5, 6, 7
+ROW_OPAC = 8
+N_ROWS = 9
+
+
+def _gather_packed(params9: torch.Tensor, lists: torch.Tensor) -> torch.Tensor:
+    """(N, 9) table + (T, K) per-tile indices -> (T, 9, K)."""
+    return params9[lists.long()].transpose(1, 2)
+
+
+def pack_lists(uv, conic, colors, opacity, lists, counts) -> torch.Tensor:
+    """Gather the (T, 9, K) packed per-tile parameter table (rows ux, uy,
+    conic a/b/c, r, g, b, opacity), with opacity 0 past each tile's count,
+    so that those entries' alpha is exactly 0."""
+    K = lists.shape[1]
+    params9 = torch.cat([uv, conic, colors, opacity[:, None]], dim=1)
+    packed = _gather_packed(params9, lists)
+    k_valid = torch.arange(K, device=lists.device)[None, :] < counts[:, None]
+    opac_row = torch.where(k_valid, packed[:, ROW_OPAC], 0.0)
+    return torch.cat([packed[:, :ROW_OPAC], opac_row[:, None]], dim=1)
 
 
 def _device_type(t: torch.Tensor) -> str:

@@ -1,6 +1,7 @@
 """Package rules of the port, checked on the CPU: it imports neither jax,
-omfs4d nor cv2, and a CUDA tensor never falls back to the plain composite,
-forward (K1) or backward (K2)."""
+omfs4d nor cv2, and a CUDA tensor never falls back to a plain version: not
+the composite's, forward (K1) or backward (K2), and not the K2 ablation
+variants' (V)."""
 
 import pkgutil
 import subprocess
@@ -14,6 +15,7 @@ import omfs4d_torch
 from omfs4d_torch import _build
 from omfs4d_torch.render import composite as tc
 from omfs4d_torch.render.rasterize import TileBinning
+from omfs4d_torch.scripts import profile_composite_variants as pcv
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -26,6 +28,7 @@ def port_modules():
 def test_port_imports_no_jax_omfs4d_or_cv2():
     mods = port_modules()
     assert "omfs4d_torch.render.composite" in mods and len(mods) > 20
+    assert "omfs4d_torch.scripts.profile_composite_variants" in mods
     code = (
         "import importlib, sys, torch\n"
         f"for m in {mods!r}:\n"
@@ -53,13 +56,12 @@ def cuda_typed(monkeypatch, tmp_path):
     monkeypatch.setattr(tc, "_device_type", lambda t: "cuda")
     monkeypatch.setattr(_build, "find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "BUILD_DIR", tmp_path / "build")
-    _build.load_library.cache_clear()
-    tc._kernel.cache_clear()
-    tc._bwd_kernel.cache_clear()
+    kernels = (_build.load_library, tc._kernel, tc._bwd_kernel, pcv._kernel)
+    for k in kernels:
+        k.cache_clear()
     yield tmp_path / "build"
-    _build.load_library.cache_clear()
-    tc._kernel.cache_clear()
-    tc._bwd_kernel.cache_clear()
+    for k in kernels:
+        k.cache_clear()
 
 
 def test_composite_on_cuda_raises_without_a_kernel(cuda_typed):
@@ -108,8 +110,40 @@ def test_composite_backward_on_cuda_raises_without_a_kernel(cuda_typed, monkeypa
     assert not cuda_typed.exists()
 
 
+def variant_inputs(k=8, tile=16):
+    return torch.zeros(2, 9, k), torch.zeros(2, 3, tile * tile), torch.zeros(2, 1, tile * tile)
+
+
+def test_variant_on_cuda_raises_without_a_kernel(cuda_typed):
+    before = dict(pcv.launches)
+    for mode in pcv.MODES:
+        with pytest.raises(RuntimeError, match="nvcc"):
+            pcv.make_variant_kernel(mode)(*variant_inputs())
+    assert pcv.launches == before
+    assert not cuda_typed.exists()
+
+
+def test_variant_on_cuda_refuses_what_the_kernel_does_not_take(cuda_typed):
+    packed, dcol, dalpha = variant_inputs()
+    call = pcv.make_variant_kernel("full_bf16")
+    bad_calls = {
+        "float64": ((packed.double(), dcol, dalpha), {}),
+        "rows": ((packed[:, :8].contiguous(), dcol, dalpha), {}),
+        "pixels": ((packed, dcol, dalpha), {"tile": 8}),
+        "tiles": ((packed, dcol[:1], dalpha), {}),
+        "contiguity": ((packed.transpose(0, 2).contiguous().transpose(0, 2), dcol, dalpha), {}),
+        "tile size": ((packed, torch.zeros(2, 3, 33 * 33), torch.zeros(2, 1, 33 * 33)),
+                      {"tile": 33}),
+    }
+    for args, kw in bad_calls.values():
+        with pytest.raises(ValueError):
+            call(*args, **kw)
+    assert not cuda_typed.exists()
+
+
 def test_library_path_tracks_sources():
     p = _build.library_path()
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p == _build.library_path()
-    assert [s.name for s in _build._sources()] == ["composite_bwd.cu", "composite_fwd.cu"]
+    assert [s.name for s in _build._sources()] == [
+        "composite_bwd.cu", "composite_fwd.cu", "composite_variants.cu"]
