@@ -39,7 +39,12 @@ Phase E: K2 against its plain version (autograd through composite_plain) on
   phase C's frame-0 inputs and on one training frame, with a seeded random
   cotangent on image and alpha: gradients of uv, conic, colours and opacity
   within atol 2e-4 * max|plain|, rtol 2e-3 (the reference's own bound), and
-  both backwards timed with CUDA events (median of 20 after warm-up).
+  both backwards timed with CUDA events (median of 20 after warm-up).  Then
+  one line per kernel, K1 (with its tile-ordering kernel, writing T_tot as in
+  training) and K2, at the training frame: device us per launch
+  (torch.profiler, 20 launches, through `composite` and autograd), the bound
+  (`bound_us`: the FP32 instructions the function needs on this frame, from
+  `pair_counts`, or its bytes, whichever takes longer) and the share of it.
 Phase F: the K2 ablation profiler.  Every V launch count is zeroed, then
   `omfs4d_torch.scripts.profile_composite_variants.main()` runs as a user
   runs it (K1, K2, the five modes of kernel V and the sort rows on the
@@ -50,10 +55,23 @@ Phase F: the K2 ablation profiler.  Every V launch count is zeroed, then
   the bound of each bf16 mode is shown to reject `variant_plain` without
   its roundings (the control), and V and its plain version are timed beside
   K1 and K2 (their launch functions alone) on the same data (median of 20
-  after warm-up).
+  after warm-up).  Last, host us per call (1,000 unsynchronised calls) of K1,
+  K2, V copy and `packed * 2`, and of each step of V copy's wrapper.
+
+    python3 chip_smoke.py --trees DIR [DIR ...]
+
+times K1 and K2 of other checkouts of this repository instead (for example
+the parent commit unpacked with `git archive` into the git-ignored
+_archive/; '.' is this one): one process per tree, in the order given, each
+importing the port from its tree and building that tree's kernels, on the
+same two frames (phase C's frame 0 and the untrained training frame 0) and
+through `composite` and autograd alone (kernel_times, host_costs).
 
 Any failure raises and exits non-zero.  With no CUDA card the script exits
-non-zero before printing any result.  The last line is
+non-zero before printing any result.  The line before the card's name holds
+every kernel's launches, error, ms, plain_ms, bound_ms (with bound_by) and
+library_ms (one PyTorch call for the same function: `packed * 2` for V's
+copy mode, none for the others).  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -62,6 +80,7 @@ from __future__ import annotations
 import json
 import shutil
 import statistics
+import subprocess
 import sys
 import tempfile
 import time
@@ -83,10 +102,25 @@ ITERATION = 5000
 LEFORT_MM, BSSO_MM = 5.0, 3.0
 TOL = 1e-4
 N_TIMED = 20
+N_HOST = 1000             # calls per host-time measurement
 CAPACITY = 131_072
 TRAIN_ITERS = 60
 STEADY_STEPS = 20
 GRAD_TOL = 2e-4, 2e-3      # atol * max|plain grad|, rtol
+
+# The bound of a kernel: the larger of its FP32 instructions over the card's
+# issue rate and its bytes over its memory rate.  NVIDIA H100 SXM: 67 TFLOP/s
+# FP32 outside the tensor cores, an FMA counted as 2 (so 33.5 T instructions
+# a second), 3.35 TB/s.  Only the work the function needs is counted, on
+# this run's data (`pair_counts`): the alpha of composite_common.cuh, ~16
+# instructions, at each (pixel, entry) pair whose pixel lies in the entry's
+# reach box (elsewhere a = 0 without evaluating it); the running step, ~6,
+# only at live pairs (a > 0: at a = 0 it is the identity); and at live
+# pairs K2's chain ~35 and its share of the sums ~9.  Bytes: each input read
+# once, each output written once.
+FP32_INSTR_PER_S = 67e12 / 2
+HBM_BYTES_PER_S = 3.35e12
+ALPHA_OPS, STEP_OPS, CHAIN_OPS, SUM_OPS = 16, 6, 35, 9
 
 
 def check(ok: bool, what: str) -> None:
@@ -240,6 +274,179 @@ def median_ms(fn) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_us(fn, *kernels: str) -> dict[str, float]:
+    """Device us per launch of each named kernel (torch.profiler, N_TIMED
+    calls of fn); 0.0 for a name after the first that did not run.  A trace
+    now and then comes back without the first kernel's launches: up to three
+    tries."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(N_TIMED):
+                fn()
+            torch.cuda.synchronize()
+        per = {}
+        for evt in prof.key_averages():
+            for name in kernels:
+                if name in evt.key and evt.count == N_TIMED:
+                    total = getattr(evt, "device_time_total", None)
+                    per[name] = (evt.cuda_time_total if total is None else total) / evt.count
+        if kernels[0] in per:
+            return {name: per.get(name, 0.0) for name in kernels}
+    raise RuntimeError(f"check failed: {kernels[0]} not in 3 profiles of {N_TIMED} launches")
+
+
+def kernel_times(args) -> dict:
+    """K1's and K2's times on one frame, through `composite` and autograd
+    alone, as a training step runs them (so any commit of the port since its
+    trainer can be measured alike): device us per launch (torch.profiler),
+    K1's with the tile-ordering kernel its launch also starts where the port
+    has one, and CUDA-event ms per call (median of N_TIMED)."""
+    from omfs4d_torch.render.composite import composite
+
+    *inputs, binning, width, height = args
+    leaves = [t.detach().clone().requires_grad_() for t in inputs]
+
+    def fwd():
+        return composite(*leaves, binning, width, height)
+
+    _, bwd = composite_grads(composite, args)
+    k1 = device_us(fwd, "composite_fwd_kernel", "heavy_first_kernel")
+    k2 = device_us(bwd, "composite_bwd_kernel")
+    return {"k1_us": k1["composite_fwd_kernel"] + k1["heavy_first_kernel"],
+            "k1_kernel_us": k1["composite_fwd_kernel"], "order_us": k1["heavy_first_kernel"],
+            "k2_us": k2["composite_bwd_kernel"], "k1_ms": median_ms(fwd), "k2_ms": median_ms(bwd)}
+
+
+def host_us(fn) -> float:
+    """Host us per call over N_HOST calls with no synchronisation between them."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_HOST):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / N_HOST * 1e6
+
+
+def host_costs(args) -> dict:
+    """Host us per call, through the public calls: K1 (`composite` under
+    inference_mode) and K2 (autograd.grad through `composite`) on the first
+    non-empty tile of a frame, V copy and `packed * 2` on the profiler's
+    reference table."""
+    from omfs4d_torch.render.composite import composite
+    from omfs4d_torch.scripts import profile_composite_variants as pcv
+
+    *inputs, b, _, _ = args
+    keep = int((b.tile_counts > 0).nonzero()[0, 0])
+    tiny = (*inputs, b._replace(tile_lists=b.tile_lists[keep:keep + 1].contiguous(),
+                                tile_counts=b.tile_counts[keep:keep + 1].contiguous()), 16, 16)
+    with torch.inference_mode():
+        k1 = host_us(lambda: composite(*tiny))
+    _, k2 = composite_grads(composite, tiny)
+    packed, dcol, dalpha = (torch.from_numpy(a).to(inputs[0].device)
+                            for a in pcv.synthetic_inputs(0)[:3])
+    copy = pcv.make_variant_kernel("copy")
+    return {"k1": k1, "k2": host_us(k2), "v_copy": host_us(lambda: copy(packed, dcol, dalpha)),
+            "packed_x2": host_us(lambda: packed * 2.0)}
+
+
+def v_copy_host_parts(packed, dcol, dalpha) -> dict:
+    """Where the host time of V copy's wrapper goes: each of its steps alone,
+    host us per call."""
+    from omfs4d_torch.scripts import profile_composite_variants as pcv
+
+    kernel = pcv._kernel()
+    dst = torch.empty_like(packed)
+    ptrs = (packed.data_ptr(), dcol.data_ptr(), dalpha.data_ptr())
+    stream = torch.cuda.current_stream().cuda_stream
+    return {
+        "check_inputs": host_us(lambda: pcv._check_inputs(packed, dcol, dalpha, 16, 32)),
+        "empty_like": host_us(lambda: torch.empty_like(packed)),
+        "current_device": host_us(torch.cuda.current_device),
+        "raw_stream": host_us(lambda: torch._C._cuda_getCurrentRawStream(0)),
+        "current_stream": host_us(lambda: torch.cuda.current_stream().cuda_stream),
+        "data_ptr_x4": host_us(lambda: (packed.data_ptr(), dcol.data_ptr(),
+                                        dalpha.data_ptr(), dst.data_ptr())),
+        "ctypes_launch": host_us(lambda: kernel(0, *ptrs, packed.shape[0], packed.shape[2],
+                                                16, 32, dst.data_ptr(), stream)),
+    }
+
+
+def pair_counts(packed: torch.Tensor, width: int, height: int, grid_w: int,
+                tile: int = 16) -> tuple[int, int]:
+    """(pixel, slot) pairs of a packed (T, 9, K) table, at pixels inside the
+    image: those whose pixel centre lies in the entry's reach box (K1's
+    `reach_of`: every pixel for a non-finite or ill-conditioned entry, none
+    below the 1/255 opacity; outside the box a = 0), and the live ones
+    (a > 0).  Opacity is 0 past each count, so padding adds none."""
+    from omfs4d_torch.render.rasterize import ALPHA_CAP, ALPHA_CUTOFF
+
+    p = torch.arange(tile * tile, device=packed.device)
+    reached = live = 0
+    for s in range(0, packed.shape[0], 32):
+        rows = packed[s:s + 32]
+        t = torch.arange(s, s + rows.shape[0], device=packed.device)[:, None]
+        px, py = (t % grid_w) * tile + p % tile, (t // grid_w) * tile + p // tile
+        inside = ((px < width) & (py < height))[..., None]
+        ux, uy, ca, cb, cc, *_, o = (rows[:, None, i] for i in range(9))
+        dx = (px.float() + 0.5)[..., None] - ux
+        dy = (py.float() + 0.5)[..., None] - uy
+        power = torch.clamp_max(-0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy, 0.0)
+        a = torch.clamp_max(o * torch.exp(power), ALPHA_CAP)
+        live += int(((a >= ALPHA_CUTOFF) & inside).sum())
+        # K1's reach_of, in its order of tests
+        finite = torch.isfinite(rows.sum(1))[:, None]
+        det = ca * cc - cb * cb
+        wide = ~((ca > 0) & (cc > 0) & (det > 1e-3 * ca * cc))
+        level = 2.04 * torch.log(255.0 * o) + 1e-3
+        in_box = ((dx.abs() <= torch.sqrt(level * cc / det) + 1.0)
+                  & (dy.abs() <= torch.sqrt(level * ca / det) + 1.0))
+        reach = ~finite | ((o >= ALPHA_CUTOFF) & (wide | in_box))
+        reached += int((reach & inside).sum())
+    return reached, live
+
+
+def bound_us(ops: float, nbytes: float) -> tuple[float, str]:
+    """The least time for `ops` FP32 instructions and `nbytes` of traffic."""
+    t_ops, t_bytes = ops / FP32_INSTR_PER_S * 1e6, nbytes / HBM_BYTES_PER_S * 1e6
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def composite_bounds(args, packed) -> dict:
+    """K1's and K2's bounds (us, what sets it) on one frame's inputs, from
+    its pairs in reach and its live pairs (`pair_counts`)."""
+    uv, _, _, _, binning, width, height = args
+    entries = int(binning.tile_counts.sum())
+    reached, live = pair_counts(packed, width, height, (width + 15) // 16)
+    list_bytes = entries * (9 + 1) * 4 + binning.tile_lists.shape[0] * 4
+    pixels = width * height
+    k1 = bound_us(reached * ALPHA_OPS + live * STEP_OPS,
+                  list_bytes + pixels * (3 + 1 + 1) * 4)
+    k2 = bound_us(reached * ALPHA_OPS + live * (STEP_OPS + CHAIN_OPS + SUM_OPS),
+                  list_bytes + pixels * (3 + 1 + 3 + 1) * 4 + uv.shape[0] * 9 * 4)
+    return {"composite_fwd": k1, "composite_bwd": k2, "in_lists": entries * 256,
+            "reached": reached, "live": live}
+
+
+def variant_bound(mode: str, packed, grid_w: int) -> tuple[float, str]:
+    """V's bound on a packed (T, 9, K) table: copy moves the table twice;
+    every other mode computes K2's function on it (the same counts as K2's
+    bound, `pair_counts`) and reads dcol and dalpha."""
+    T = packed.shape[0]
+    nbytes = 2 * packed.numel() * 4
+    if mode == "copy":
+        return bound_us(0, nbytes)
+    reached, live = pair_counts(packed, grid_w * 16, T // grid_w * 16, grid_w)
+    return bound_us(reached * ALPHA_OPS + live * (STEP_OPS + CHAIN_OPS + SUM_OPS),
+                    nbytes + T * 4 * 256 * 4)
 
 
 def quantize(img: torch.Tensor) -> np.ndarray:
@@ -504,6 +711,22 @@ def main() -> int:
             print(f"phase E: {label}: backward K2 {bwd_times[label][0]:.4f} ms, plain "
                   f"{bwd_times[label][1]:.4f} ms (median of {N_TIMED}) [{card}]")
         bwd_ms, bwd_plain_ms = bwd_times["training frame 0"]
+        # K1 and K2 at the training frame against their bounds
+        targs = cases["training frame 0"]
+        tb = targs[4]
+        times = kernel_times(targs)
+        bounds = composite_bounds(targs, pack_lists(*targs[:4], tb.tile_lists, tb.tile_counts))
+        print(f"phase E: the training frame holds {bounds['in_lists']} (pixel, entry) pairs "
+              f"in its lists, {bounds['reached']} in reach, {bounds['live']} live")
+        for name, label, us, what in (
+                ("composite_fwd", "K1", times["k1_us"],
+                 f"composite_fwd_kernel {times['k1_kernel_us']:.2f} + heavy_first_kernel "
+                 f"{times['order_us']:.2f}"),
+                ("composite_bwd", "K2", times["k2_us"], "composite_bwd_kernel")):
+            b_us, b_by = bounds[name]
+            print(f"phase E: {label} at the training frame: {us:.2f} us of device time "
+                  f"({what}; torch.profiler, {N_TIMED} launches), bound {b_us:.2f} us "
+                  f"({b_by}), {b_us / us:.1%} of the bound [{card}]")
 
         # ── phase F: the K2 ablation profiler, kernel V ─────
         for mode in pcv.MODES:
@@ -563,32 +786,53 @@ def main() -> int:
                 v_ms = pcv.timed(fn, packed, dcol, dalpha, pcv.TILE, grid_w, n=N_TIMED)
                 v_plain_ms = pcv.timed(pcv.variant_plain, mode, packed, dcol, dalpha,
                                        pcv.TILE, grid_w, n=N_TIMED)
-                variant_rows[mode].append((res["max_abs_err"], v_ms, v_plain_ms))
+                lib_ms = (pcv.timed(lambda: packed * 2.0, n=N_TIMED) if mode == "copy"
+                          else None)
+                v_bound = variant_bound(mode, packed, grid_w)
+                variant_rows[mode].append((res["max_abs_err"], v_ms, v_plain_ms, v_bound,
+                                           lib_ms))
                 print(f"  {mode:13s} V {v_ms:.4f} ms, plain {v_plain_ms:.4f} ms (median of "
                       f"{N_TIMED}); {line}")
             del got, ref
         check(not failed, "phase F:\n  " + "\n  ".join(failed))
+        host = host_costs(first)
+        parts = v_copy_host_parts(*ref_table)
+        print(f"phase F: host us per call ({N_HOST} calls, unsynchronised): "
+              f"K1 composite() on one tile {host['k1']:.2f}, K2 autograd.grad on one tile "
+              f"{host['k2']:.2f}, V copy {host['v_copy']:.2f}, packed * 2 "
+              f"{host['packed_x2']:.2f}; V copy's wrapper by step: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f" [{card}]")
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
             shutil.rmtree(modified, ignore_errors=True)
 
+    # ms and plain_ms are each kernel's CUDA-event times (K1 at phase C's
+    # frame 0, K2 at the training frame, V at the reference table); the
+    # bounds are those frames' and that table's
+    k1_bound = composite_bounds(first, pack_lists(*first[:4], first[4].tile_lists,
+                                                  first[4].tile_counts))["composite_fwd"]
     print(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_fwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:210",
         "launches": launches + train_fwd, "max_abs_err": max(errs),
-        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k1_bound[0] / 1e3,
+        "bound_by": k1_bound[1], "library_ms": None}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_bwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:305",
         "launches": train_bwd, "max_abs_err": max(bwd_errs),
-        "ms": bwd_ms, "plain_ms": bwd_plain_ms}] + [{
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms,
+        "bound_ms": bounds["composite_bwd"][0] / 1e3, "bound_by": bounds["composite_bwd"][1],
+        "library_ms": None}] + [{
         "name": f"composite_variant:{mode}", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_variants.cu",
         "replaces": "scripts/profile_composite_variants.py:49",
         "launches": v_launches[mode], "max_abs_err": max(r[0] for r in rows),
-        "ms": rows[0][1], "plain_ms": rows[0][2]} for mode, rows in variant_rows.items()]}))
+        "ms": rows[0][1], "plain_ms": rows[0][2], "bound_ms": rows[0][3][0] / 1e3,
+        "bound_by": rows[0][3][1], "library_ms": rows[0][4]}
+        for mode, rows in variant_rows.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
@@ -596,5 +840,104 @@ def main() -> int:
     return 0
 
 
+def save_frames(path: Path, work: Path, device) -> None:
+    """The two frames of `compare_trees`, saved with torch.save: phase C's
+    frame 0 (the bench avatar under Le Fort 5 mm / BSSO 3 mm) and the
+    trainer's frame 0 of the compacted, untrained bench avatar."""
+    from omfs4d_torch.core.config import TrainConfig
+    from omfs4d_torch.io.synthetic import make_synthetic_dataset
+    from omfs4d_torch.predict.surgery import compute_offset, create_modified_dataset
+    from omfs4d_torch.train.trainer import AvatarTrainer
+
+    case = make_synthetic_dataset(work / "data", n_frames=N_FRAMES, width=SIZE, height=SIZE,
+                                  n_vertices=N_VERTICES, seed=0, device=device)
+    model = case["model"]
+    modified = create_modified_dataset(str(case["path"]), compute_offset(LEFORT_MM, 1.0),
+                                       compute_offset(BSSO_MM, 1.0))
+    try:
+        render = next(frame_inputs(model, bench_avatar(model, device), modified, device,
+                                   TILES_PER_GAUSSIAN))
+    finally:
+        shutil.rmtree(modified, ignore_errors=True)
+    data, flame_params = training_data(model, case["path"], device)
+    trainer = AvatarTrainer(model.faces.cpu().numpy(), TrainConfig(batch_frames=1), SIZE, SIZE,
+                            max_per_tile=MAX_PER_TILE, flame_model=model)
+    state = trainer.init_state(capacity=CAPACITY, flame_params=flame_params)
+    state = trainer.compact_to_alive(
+        state._replace(gaussians=bench_avatar(model, device, CAPACITY)))
+    tdata = {k: (v if torch.is_tensor(v) else torch.from_numpy(v)).to(device)
+             for k, v in data.items()}
+    train = grad_inputs(trainer, state, tdata, 0)
+    torch.save({name: (*f[:4], tuple(f[4]), *f[5:]) for name, f in
+                (("render", render), ("train", train))}, path)
+
+
+def measure_tree(tree: Path, frames: Path) -> dict:
+    """kernel_times at both saved frames and host_costs, with the port of
+    the checkout at `tree` (imported from there, its kernels built there)."""
+    sys.path.insert(0, str(tree.resolve()))
+    import omfs4d_torch
+    from omfs4d_torch.render.rasterize import TileBinning
+
+    check(Path(omfs4d_torch.__file__).resolve().is_relative_to(tree.resolve()),
+          f"omfs4d_torch imported from {omfs4d_torch.__file__}, not from {tree}")
+    out = {"tree": str(tree), "frames": {}}
+    loaded = torch.load(frames, map_location=torch.device("cuda", 0))
+    args = {}
+    for name, f in loaded.items():
+        args[name] = (*f[:4], TileBinning(*f[4]), *f[5:])
+        out["frames"][name] = {"entries": int(args[name][4].tile_counts.sum()),
+                               **kernel_times(args[name])}
+    out["host_us"] = host_costs(args["render"])
+    return out
+
+
+def compare_trees(trees: list[Path]) -> int:
+    """K1 and K2 of checkouts of this repository on the same two frames
+    (save_frames), one process per tree, in the order given."""
+    from omfs4d_torch.scripts.profile_composite_variants import card_line
+
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trees_") as tmp:
+        frames = Path(tmp) / "frames.pt"
+        save_frames(frames, Path(tmp), torch.device("cuda", 0))
+        for tree in trees:
+            res = subprocess.run([sys.executable, __file__, "--measure", str(tree), str(frames)],
+                                 capture_output=True, text=True, timeout=900)
+            if res.returncode != 0:
+                print(res.stdout[-3000:], res.stderr[-6000:], file=sys.stderr)
+                return 1
+            runs.append(json.loads(res.stdout.strip().splitlines()[-1]))
+            print(json.dumps(runs[-1]), flush=True)
+    print(f"{'tree':<24s} {'frame':<7s} {'K1 us':>8s} {'order us':>9s} {'K2 us':>8s} "
+          f"{'K1 ms':>8s} {'K2 ms':>8s}  [{card}]")
+    for r in runs:
+        for name, f in r["frames"].items():
+            print(f"{r['tree']:<24s} {name:<7s} {f['k1_us']:8.2f} {f['order_us']:9.2f} "
+                  f"{f['k2_us']:8.2f} {f['k1_ms']:8.4f} {f['k2_ms']:8.4f}")
+        print(f"{r['tree']:<24s} host us per call: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in r["host_us"].items()))
+    return 0
+
+
 if __name__ == "__main__":
+    if len(sys.argv) > 1:
+        import argparse
+
+        ap = argparse.ArgumentParser(description="Without arguments: the smoke run above.")
+        ap.add_argument("--trees", type=Path, nargs="+",
+                        help="time K1 and K2 of these checkouts of the repository, one "
+                             "process each, in this order ('.' is this one)")
+        ap.add_argument("--measure", type=Path, nargs=2, help=argparse.SUPPRESS)
+        opts = ap.parse_args()
+        if not torch.cuda.is_available():
+            print("chip_smoke: no CUDA device; this script runs only on a card",
+                  file=sys.stderr)
+            sys.exit(2)
+        if opts.measure:
+            print(json.dumps(measure_tree(*opts.measure)))
+            sys.exit(0)
+        sys.exit(compare_trees(opts.trees))
     sys.exit(main())

@@ -23,54 +23,95 @@
 // derivative of the min(power, 0) clamp, and there is no early exit on
 // transmittance.
 //
-// Order of the walk.  CUDA 3DGS walks back to front from the final
-// transmittance, recovering T_k = T_{k+1} / (1 - a_k).  With no early exit
-// (K = 256, alphas capped at 0.99) T underflows to 0 in f32 after ~20
-// saturated entries, and that division then returns 0 for every earlier
-// entry.  So this kernel walks FRONT to back twice, as K1 does: a first
-// pass recomputes the pixel's T_tot and C_tot = sum_j w_j rgb_j (the
-// reference's own choice: recompute, keep no (K, P) residuals), and the
-// second keeps a running T_k and C_<=k and uses
-// suffix_k = dcol . (C_tot - C_<=k), which is exactly 0 at the last entry
-// because both passes add the same terms in the same order.
+// One pass.  CUDA 3DGS walks back to front from T_tot, recovering
+// T_k = T_{k+1} / (1 - a_k); with no early exit (K = 256, alphas capped at
+// 0.99) T underflows to 0 in f32 after ~20 saturated entries and that
+// division returns 0 for every earlier entry.  So K2 walks front to back,
+// once: it reads each pixel's C_tot (the forward's image before any
+// background) and T_tot (the residual K1 writes), keeps a running T_k and
+// C_<=k with the alpha and step of composite_common.cuh, and takes
+// suffix_k = dcol . (C_tot - C_<=k).  K1 added the same terms in the same
+// order, so the suffix is exactly 0 at each pixel's last entry.
 //
 // Layout.  One block per tile, one thread per pixel (tile*tile, rounded up
-// to whole warps; the extra threads are pixels with zero cotangent).  The
-// block loops to its own count, never to K: padded list entries point at
+// to whole warps; the extra threads are pixels with zero cotangent), in the
+// heaviest-first order K1 wrote (composite_fwd.cu, "Tiles").  The block
+// loops to its own count, never to K: padded list entries point at
 // gaussian 0, whose gradient must not collect them.  An index outside
-// [0, N) traps, as in K1.  Entries are staged through shared memory in
-// batches of `batch`.  Per entry each warp sums its 9 per-pixel terms with
-// shuffles (skipped when no pixel of the warp has a > 0, which is most of
-// them: a gaussian covers a small part of a tile), lane 0 parks the 9 sums
-// in shared memory, and after the batch the block adds the warps' sums and
-// issues one float atomicAdd per nonzero (entry, row) into the (N, 2),
-// (N, 3), (N, 3) and (N,) gradients.  That scatter replaces the reference's
-// transpose of the (T, 9, K) gather (one row scatter-add into (N, 9)).
-// Atomics add in an order that changes from run to run, so the sums agree
-// with the plain version to rounding (tests hold them to the reference's
-// own atol 2e-4 * max|grad|, rtol 2e-3).  Pixels past the image edge read
-// no cotangent and add nothing.  Gaussians in no list get exactly 0.
+// [0, N) traps, as in K1.  Up to 256 entries (the whole list at K = 256)
+// are staged at a time as 16-byte records (ux, uy, A, B), (C, o, r, g),
+// (b, index) and the entry's reach box (composite_common.cuh, reach_of), so
+// a tile syncs twice per batch and not twice per 32 entries.  Each warp
+// walks only the entries whose reach box meets the box of its 32 pixels,
+// listed as in K1 (~56% of them at a training frame), and skips an entry on
+// which no pixel of it inside the image has a > 0 (`__any_sync`): a
+// gaussian covers a small part of a tile.  (With that skip alone K2 took
+// 5-10% longer at a 512^2 frame, and with a box test per entry in the walk
+// 22-26% longer: the lists take the box tests out of the walk.)  Otherwise
+// the warp sums its 9 per-pixel terms in one multi-value exchange
+// (`warp_sum9`, 14 shuffles where 9 shuffle trees take 45), which leaves
+// the 9 sums on 9 distinct lanes, and those lanes add them into the batch's
+// (entry, 9) accumulator in shared memory with float atomics
+// (red.shared.add.f32).  After the batch, one global float atomicAdd per
+// nonzero (entry, row) scatters into the (N, 9) gradient, which replaces
+// the reference's transpose of the (T, 9, K) gather.  Atomics add in an
+// order that changes from run to run, so the sums agree with the plain
+// version to rounding (tests hold them to the reference's own atol
+// 2e-4 * max|grad|, rtol 2e-3).  Pixels past the image edge read no
+// cotangent and add nothing.  Gaussians in no list get exactly 0.
 //
-// What bounds it.  At 512^2 with K = 256 a step is at most
-// 1024 tiles x 256 entries x 256 pixels ~ 67 M (pixel, entry) pairs, each
-// evaluated twice (~25 + ~60 flops: ~6 GFLOP, ~0.1 ms of the card's f32
-// rate), ~9 MB of list-entry reads per pass and up to 1024 x 256 x 9
-// atomics (~2.4 M).  The per-entry reductions are the cost: 45 shuffles a
-// warp per entry that reaches it, plus a block barrier per batch.  The
-// any-lane skip cuts the shuffles to the warps a gaussian actually covers.
+// What bounds it.  At a 512^2 training frame (T = 1024, K = 256) the lists
+// hold ~25 M (pixel, entry) pairs.  The function needs the alpha (~16 FP32
+// instructions) at the ~7.8 M of them whose pixel lies in the entry's reach
+// box, and the step, the chain and the sums (~50) at the ~4.8 M live ones
+// (a > 0): ~11 us of FP32 issue, against ~3 us of memory.
 
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr float kAlphaCutoff = 1.0f / 255.0f;
-constexpr float kAlphaCap = 0.99f;
-constexpr int kRows = 9;  // ux, uy, conic a/b/c, r, g, b, opacity
-constexpr unsigned kFull = 0xffffffffu;
+using omfs4d::Alpha;
+using omfs4d::Running;
+using omfs4d::kFull;
+using omfs4d::kRows;
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
-  return v;
+constexpr int kMaxBatch = 256;  // entries staged at a time
+
+// Sums v[0..8] over the warp's 32 lanes.  At each of the first three
+// __shfl_xor_sync steps (16, 8, 4) a lane sends the half of its remaining
+// values that its partner keeps and adds the half it receives: 8 values
+// take 4 + 2 + 1 shuffles to 1 per lane, then 2 more (xor 2, 1) finish the
+// sum.  Lane l ends with the sum of value (l >> 2) & 7; value 8 takes a
+// plain xor butterfly of 5 shuffles and ends on every lane.  Every sum is
+// the tree ((x_l + x_{l^16}) + (x_{l^8} + ...)) of the butterfly, the same
+// on every lane.
+__device__ __forceinline__ void warp_sum9(const float (&v)[kRows], int lane, float& mine,
+                                          float& last) {
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+  float s4[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float send = hi16 ? v[i] : v[i + 4];
+    const float keep = hi16 ? v[i + 4] : v[i];
+    s4[i] = keep + __shfl_xor_sync(kFull, send, 16);
+  }
+  float s2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = hi8 ? s4[i] : s4[i + 2];
+    const float keep = hi8 ? s4[i + 2] : s4[i];
+    s2[i] = keep + __shfl_xor_sync(kFull, send, 8);
+  }
+  float s = (hi4 ? s2[1] : s2[0]) + __shfl_xor_sync(kFull, hi4 ? s2[0] : s2[1], 4);
+  s += __shfl_xor_sync(kFull, s, 2);
+  s += __shfl_xor_sync(kFull, s, 1);
+  mine = s;
+  float u = v[8];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) u += __shfl_xor_sync(kFull, u, off);
+  last = u;
 }
 
 __global__ void composite_bwd_kernel(
@@ -82,194 +123,144 @@ __global__ void composite_bwd_kernel(
     const int* __restrict__ tile_counts,   // (T,)
     const float* __restrict__ dimg,        // (H, W, 3)
     const float* __restrict__ dalpha,      // (H, W)
+    const float* __restrict__ img,         // (H, W, 3) the forward's C_tot
+    const float* __restrict__ trans,       // (H, W) the forward's T_tot
+    const int* __restrict__ order,         // (T,) list rows in launch order (K1's)
     int n_gauss, int K, int tile_base, int tile, int grid_w,
     int width, int height, int batch,
-    float* __restrict__ d_uv,              // (N, 2), zeroed by the caller
-    float* __restrict__ d_conic,           // (N, 3)
-    float* __restrict__ d_rgb,             // (N, 3)
-    float* __restrict__ d_opacity) {       // (N,)
-  extern __shared__ float smem[];
-  const int n_warps = blockDim.x >> 5;
-  // staged entries: 9 rows of `batch`, then the per-warp partial sums
-  // part[(warp * batch + j) * 9 + row]
-  float* s_ux = smem;
-  float* s_uy = smem + batch;
-  float* s_ca = smem + 2 * batch;
-  float* s_cb = smem + 3 * batch;
-  float* s_cc = smem + 4 * batch;
-  float* s_r = smem + 5 * batch;
-  float* s_g = smem + 6 * batch;
-  float* s_b = smem + 7 * batch;
-  float* s_o = smem + 8 * batch;
-  int* s_idx = reinterpret_cast<int*>(smem + kRows * batch);
-  float* part = smem + (kRows + 1) * batch;
+    float* __restrict__ grad) {            // (N, 9), zeroed by the caller
+  extern __shared__ float4 smem4[];
+  float4* s_geo = smem4;                                        // ux, uy, A, B
+  float4* s_mat = smem4 + batch;                                // C, o, r, g
+  float4* s_reach = smem4 + 2 * batch;                          // x0, x1, y0, y1
+  float2* s_tail = reinterpret_cast<float2*>(smem4 + 3 * batch);  // b, index bits
+  float* s_acc = reinterpret_cast<float*>(s_tail + batch);      // (batch, 9)
+  unsigned short* s_list =                                      // per warp: entries that reach it
+      reinterpret_cast<unsigned short*>(s_acc + batch * kRows) + (threadIdx.x >> 5) * batch;
 
-  const int t = blockIdx.x;
+  const int t = order[blockIdx.x];
   const int tid = t + tile_base;
   const int p = threadIdx.x;
-  const int P = tile * tile;
-  const int warp = p >> 5;
   const int lane = p & 31;
   const int px = (tid % grid_w) * tile + p % tile;
   const int py = (tid / grid_w) * tile + p / tile;
   const float x = static_cast<float>(px) + 0.5f;
   const float y = static_cast<float>(py) + 0.5f;
+  const float4 box = omfs4d::warp_box(x, x, y, y);
 
-  // this pixel's cotangents: 0 for threads past the tile and pixels past
-  // the image edge (K1 never wrote them)
+  // this pixel's cotangents and residuals: none for threads past the tile
+  // and pixels past the image edge (K1 never wrote them)
+  const bool inside = p < tile * tile && px < width && py < height;
   float dr = 0.0f, dg = 0.0f, db = 0.0f, dA = 0.0f;
-  if (p < P && px < width && py < height) {
+  float tot_r = 0.0f, tot_g = 0.0f, tot_b = 0.0f, t_tot = 1.0f;  // C_tot, T_tot
+  if (inside) {
     const long long i = static_cast<long long>(py) * width + px;
     dr = dimg[3 * i];
     dg = dimg[3 * i + 1];
     db = dimg[3 * i + 2];
     dA = dalpha[i];
+    tot_r = img[3 * i];
+    tot_g = img[3 * i + 1];
+    tot_b = img[3 * i + 2];
+    t_tot = trans[i];
   }
+  const float dA_t = dA * t_tot;
 
   const int count = max(0, min(tile_counts[t], K));
   const int* list = tile_lists + static_cast<long long>(t) * K;
 
-  auto stage = [&](int start, int n) {
+  Running s;
+  for (int start = 0; start < count; start += batch) {
+    const int n = min(batch, count - start);
     for (int j = p; j < n; j += blockDim.x) {
       const int g = list[start + j];
       if (static_cast<unsigned>(g) >= static_cast<unsigned>(n_gauss)) __trap();
-      s_idx[j] = g;
-      s_ux[j] = uv[2 * g];
-      s_uy[j] = uv[2 * g + 1];
-      s_ca[j] = conic[3 * g];
-      s_cb[j] = conic[3 * g + 1];
-      s_cc[j] = conic[3 * g + 2];
-      s_r[j] = rgb[3 * g];
-      s_g[j] = rgb[3 * g + 1];
-      s_b[j] = rgb[3 * g + 2];
-      s_o[j] = opacity[g];
-    }
-  };
-
-  // pass 1: the pixel's final transmittance and colour, as K1 computes them
-  float t_tot = 1.0f, cr_tot = 0.0f, cg_tot = 0.0f, cb_tot = 0.0f;
-  for (int start = 0; start < count; start += batch) {
-    const int n = min(batch, count - start);
-    stage(start, n);
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float dx = x - s_ux[j];
-      const float dy = y - s_uy[j];
-      const float power = fminf(
-          -0.5f * (s_ca[j] * dx * dx + s_cc[j] * dy * dy) - s_cb[j] * dx * dy,
-          0.0f);
-      float a = fminf(s_o[j] * expf(power), kAlphaCap);
-      if (a < kAlphaCutoff) a = 0.0f;
-      const float w = a * t_tot;
-      cr_tot += w * s_r[j];
-      cg_tot += w * s_g[j];
-      cb_tot += w * s_b[j];
-      t_tot *= 1.0f - a;
+      const float4 geo = make_float4(uv[2 * g], uv[2 * g + 1], conic[3 * g], conic[3 * g + 1]);
+      const float cc = conic[3 * g + 2], o = opacity[g];
+      const float4 mat = make_float4(cc, o, rgb[3 * g], rgb[3 * g + 1]);
+      const float b = rgb[3 * g + 2];
+      s_geo[j] = geo;
+      s_mat[j] = mat;
+      s_reach[j] = omfs4d::reach_of(geo.x, geo.y, geo.z, geo.w, cc, o, mat.z, mat.w, b);
+      s_tail[j] = make_float2(b, __int_as_float(g));
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) s_acc[j * kRows + r] = 0.0f;
     }
     __syncthreads();
-  }
-
-  // pass 2: per-entry gradients, summed over the tile's pixels
-  float trans = 1.0f, cr = 0.0f, cg = 0.0f, cb = 0.0f;
-  for (int start = 0; start < count; start += batch) {
-    const int n = min(batch, count - start);
-    stage(start, n);
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      const float dx = x - s_ux[j];
-      const float dy = y - s_uy[j];
-      const float ca = s_ca[j], cbq = s_cb[j], cc = s_cc[j];
-      const float power =
-          fminf(-0.5f * (ca * dx * dx + cc * dy * dy) - cbq * dx * dy, 0.0f);
-      const float e = expf(power);
-      const float a_full = s_o[j] * e;
-      const bool capped = a_full > kAlphaCap;
-      float a = capped ? kAlphaCap : a_full;
-      const bool cut = a < kAlphaCutoff;
-      if (cut) a = 0.0f;
-      float* out = part + (warp * batch + j) * kRows;
-      if (!__any_sync(kFull, a > 0.0f)) {
-        // no pixel of this warp sees the entry: every term is 0
-        if (lane == 0) {
-          for (int r = 0; r < kRows; ++r) out[r] = 0.0f;
-        }
-        continue;
-      }
-      const float w = a * trans;
-      cr += w * s_r[j];
-      cg += w * s_g[j];
-      cb += w * s_b[j];
-      const float one_minus = fmaxf(1.0f - a, 1e-6f);
-      const float dw = dr * s_r[j] + dg * s_g[j] + db * s_b[j];
-      const float suffix =
-          dr * (cr_tot - cr) + dg * (cg_tot - cg) + db * (cb_tot - cb);
-      float da = dw * trans - suffix / one_minus + dA * t_tot / one_minus;
-      if (capped || cut) da = 0.0f;
-      const float dq = da * a_full;
+    const int m = omfs4d::reaching(s_reach, n, box, lane, s_list);
+    for (int i = 0; i < m; ++i) {
+      const int j = s_list[i];
+      const float4 geo = s_geo[j];
+      const float4 mat = s_mat[j];
+      const Alpha al = omfs4d::alpha_of(x, y, geo.x, geo.y, geo.z, geo.w, mat.x, mat.y);
+      // a = 0 leaves the running state as it was, and every term 0
+      if (!__any_sync(kFull, inside && al.a > 0.0f)) continue;
+      const float cr = mat.z, cg = mat.w, cb = s_tail[j].x;
+      const float t_k = s.t;
+      const float w = omfs4d::step(s, al.a, cr, cg, cb);
+      // one reciprocal, not two IEEE divisions: (dA T_tot - suffix) / (1 - a)
+      const float inv = __frcp_rn(fmaxf(1.0f - al.a, 1e-6f));
+      const float dw = dr * cr + dg * cg + db * cb;
+      const float suffix = dr * (tot_r - s.r) + dg * (tot_g - s.g) + db * (tot_b - s.b);
+      float da = __fmaf_rn(dA_t - suffix, inv, dw * t_k);
+      if (al.capped || al.cut) da = 0.0f;
+      const float dq = da * al.a_full;
+      const float ca = geo.z, cbq = geo.w, cc = mat.x;
       float v[kRows];
-      v[0] = dq * (ca * dx + cbq * dy);
-      v[1] = dq * (cc * dy + cbq * dx);
-      v[2] = dq * (-0.5f * dx * dx);
-      v[3] = dq * (-dx * dy);
-      v[4] = dq * (-0.5f * dy * dy);
+      v[0] = dq * (ca * al.dx + cbq * al.dy);
+      v[1] = dq * (cc * al.dy + cbq * al.dx);
+      v[2] = dq * (-0.5f * al.dx * al.dx);
+      v[3] = dq * (-al.dx * al.dy);
+      v[4] = dq * (-0.5f * al.dy * al.dy);
       v[5] = dr * w;
       v[6] = dg * w;
       v[7] = db * w;
-      v[8] = da * e;
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) v[r] = warp_sum(v[r]);
-      if (lane == 0) {
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) out[r] = v[r];
-      }
-      trans *= 1.0f - a;
+      v[8] = da * al.e;
+      float mine, last;
+      warp_sum9(v, lane, mine, last);
+      float* acc = s_acc + j * kRows;
+      if ((lane & 3) == 0) atomicAdd(acc + (lane >> 2), mine);
+      if (lane == 1) atomicAdd(acc + 8, last);
     }
     __syncthreads();
-    // add the warps' sums and scatter them into the (N, .) gradients
+    // scatter the batch's sums into the (N, 9) gradient
     for (int q = p; q < n * kRows; q += blockDim.x) {
-      const int j = q / kRows;
-      const int r = q - j * kRows;
-      float s = 0.0f;
-      for (int wi = 0; wi < n_warps; ++wi) s += part[(wi * batch + j) * kRows + r];
-      if (s != 0.0f) {
-        const int g = s_idx[j];
-        float* dst = r < 2 ? d_uv + 2 * g + r
-                   : r < 5 ? d_conic + 3 * g + (r - 2)
-                   : r < 8 ? d_rgb + 3 * g + (r - 5)
-                           : d_opacity + g;
-        atomicAdd(dst, s);
+      const float v = s_acc[q];
+      if (v != 0.0f) {
+        const int j = q / kRows;
+        const int g = __float_as_int(s_tail[j].y);
+        atomicAdd(grad + static_cast<long long>(g) * kRows + (q - j * kRows), v);
       }
     }
-    __syncthreads();
+    if (start + batch < count) __syncthreads();  // before the next batch is staged
   }
 }
 
 }  // namespace
 
-// Launches one block per list row on `stream`; the four gradient buffers
-// must be zeroed first.  Returns cudaGetLastError() as an int, so a
-// refused launch reaches the caller.
+// Launches one block per list row on `stream`, in `order` (the
+// heaviest-first order K1 wrote); `grad` (N, 9) must be zeroed first.
+// `img` and `trans` are the colour and final transmittance K1 wrote for
+// these lists.  Returns cudaGetLastError() as an int, so a refused launch
+// reaches the caller.
 extern "C" int omfs4d_composite_bwd(
     const void* uv, const void* conic, const void* rgb, const void* opacity,
     const void* tile_lists, const void* tile_counts,
-    const void* dimg, const void* dalpha,
-    int n_gauss, int n_lists, int K, int tile_base, int tile, int grid_w,
-    int width, int height,
-    void* d_uv, void* d_conic, void* d_rgb, void* d_opacity, void* stream) {
+    const void* dimg, const void* dalpha, const void* img, const void* trans,
+    const void* order, int n_gauss, int n_lists, int K, int tile_base, int tile, int grid_w,
+    int width, int height, void* grad, void* stream) {
   const int threads = (tile * tile + 31) / 32 * 32;
-  const int n_warps = threads / 32;
-  const int batch = n_warps > 16 ? 32 : 64;
-  const size_t smem =
-      static_cast<size_t>((kRows + 1) * batch + n_warps * batch * kRows) *
-      sizeof(float);
-  composite_bwd_kernel<<<n_lists, threads, smem,
-                         static_cast<cudaStream_t>(stream)>>>(
+  const int batch = K < kMaxBatch ? K : kMaxBatch;
+  const size_t smem = static_cast<size_t>(batch) *
+                      (3 * sizeof(float4) + sizeof(float2) + kRows * sizeof(float) +
+                       threads / 32 * sizeof(unsigned short));
+  composite_bwd_kernel<<<n_lists, threads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(uv), static_cast<const float*>(conic),
       static_cast<const float*>(rgb), static_cast<const float*>(opacity),
       static_cast<const int*>(tile_lists), static_cast<const int*>(tile_counts),
       static_cast<const float*>(dimg), static_cast<const float*>(dalpha),
-      n_gauss, K, tile_base, tile, grid_w, width, height, batch,
-      static_cast<float*>(d_uv), static_cast<float*>(d_conic),
-      static_cast<float*>(d_rgb), static_cast<float*>(d_opacity));
+      static_cast<const float*>(img), static_cast<const float*>(trans),
+      static_cast<const int*>(order), n_gauss, K, tile_base, tile, grid_w, width, height,
+      batch, static_cast<float*>(grad));
   return static_cast<int>(cudaGetLastError());
 }

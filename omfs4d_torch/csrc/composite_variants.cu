@@ -79,13 +79,13 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr float kAlphaCutoff = 1.0f / 255.0f;
-constexpr float kAlphaCap = 0.99f;
-constexpr int kRows = 9;  // ux, uy, conic a/b/c, r, g, b, opacity
+using omfs4d::kFull;
+using omfs4d::kRows;
 constexpr int kUx = 0, kUy = 1, kCa = 2, kCb = 3, kCc = 4, kR = 5, kG = 6, kB = 7, kO = 8;
-constexpr unsigned kFull = 0xffffffffu;
 
 // modes, in the order of the Python wrapper's MODES
 constexpr int kCopy = 0, kElementwise = 1, kMatmuls = 2, kBf16Matmuls = 3, kFullBf16 = 4;
@@ -121,27 +121,22 @@ struct Alpha {
   bool ok;  // neither capped at 0.99 nor cut below 1/255 (the reference's grad_ok)
 };
 
-// Every operation rounded on its own, in the reference's order
-// (-0.5 ((A dx) dx + (C dy) dy) - (B dx) dy; no FMA contraction), so that
-// a_full, and with it the cap, the cut and the bf16 roundings of lg, w and
-// m, are the bits the plain version computes on the card: the two then
-// differ only by the order of their f32 sums.
+// composite_common.cuh's alpha, which rounds each operation on its own in
+// the reference's order (no FMA contraction), so that a_full, and with it
+// the cap, the cut and the bf16 roundings of lg, w and m, are the bits the
+// plain version computes on the card: the two then differ only by the
+// order of their f32 sums.  Threads that are not pixels see a = 0.
 __device__ __forceinline__ Alpha alpha_of(float x, float y, const float* s, int batch,
                                           int j, bool pixel) {
+  const omfs4d::Alpha c =
+      omfs4d::alpha_of(x, y, s[kUx * batch + j], s[kUy * batch + j], s[kCa * batch + j],
+                       s[kCb * batch + j], s[kCc * batch + j], s[kO * batch + j]);
   Alpha e;
-  e.dx = x - s[kUx * batch + j];
-  e.dy = y - s[kUy * batch + j];
-  const float quad = __fadd_rn(__fmul_rn(__fmul_rn(s[kCa * batch + j], e.dx), e.dx),
-                               __fmul_rn(__fmul_rn(s[kCc * batch + j], e.dy), e.dy));
-  const float power = fminf(
-      __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(s[kCb * batch + j], e.dx), e.dy)),
-      0.0f);
-  e.a_full = pixel ? __fmul_rn(s[kO * batch + j], expf(power)) : 0.0f;
-  const bool capped = e.a_full > kAlphaCap;
-  const float a = capped ? kAlphaCap : e.a_full;
-  const bool cut = a < kAlphaCutoff;
-  e.a = cut ? 0.0f : a;
-  e.ok = !(capped || cut);
+  e.dx = c.dx;
+  e.dy = c.dy;
+  e.a_full = pixel ? c.a_full : 0.0f;
+  e.a = pixel ? c.a : 0.0f;
+  e.ok = pixel && !(c.capped || c.cut);
   return e;
 }
 

@@ -164,10 +164,15 @@ def render_prediction(
     white_background: bool = True,
     n_tile: int = 1,
     max_per_tile: int = 512,
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> dict:
     """Full prediction pipeline on `device`: offsets -> modified dataset ->
-    render -> MP4.  `flame_model` is moved to `device` in place."""
+    render -> MP4.  `flame_model` is moved to `device` in place.  It runs on
+    the CUDA card unless the caller asks for the CPU, and raises when there
+    is no card."""
+    if torch.device(device).type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("render_prediction: no CUDA device; pass device='cpu' to "
+                           "render on the CPU")
     flame_model = flame_model.to(device)
     lefort_offset = compute_offset(lefort_mm, sensitivity)
     bsso_offset = compute_offset(bsso_mm, sensitivity)

@@ -8,11 +8,14 @@ Port of `omfs4d.render.pallas_kernels` (`composite_pallas` ->
 headers say what bounds each on the card and what the design does about it.
 
 `composite` is the wrapper.  A CPU tensor takes `composite_plain`, with
-PyTorch autograd through it.  A CUDA tensor goes through `_Composite`, whose
-forward launches K1 and whose backward launches K2, or the call raises:
-there is no fallback.  The Function saves only its inputs (no (T, K, P)
-residual): K2 recomputes alpha, as the reference's backward does.
-`composite.launches` counts K1 launches, `composite.backward_launches` K2.
+PyTorch autograd through it.  A CUDA tensor launches K1, through
+`_Composite` when a gradient is wanted, whose backward launches K2, or the
+call raises: there is no fallback.  The Function saves its inputs, the
+image, and the per-pixel final transmittance T_tot and heaviest-first tile
+order that K1 writes on request (no (T, K, P) residual): K2 recomputes
+alpha, as the reference's backward does, in one front-to-back pass from
+C_tot and T_tot.  `composite.launches` counts K1 launches,
+`composite.backward_launches` K2.
 
 `pack_lists` is the reference's `_pack_lists`: the (T, 9, K) per-tile table
 that the TPU kernels read.  K1 and K2 gather from the (N, .) tensors
@@ -65,7 +68,7 @@ def _device_type(t: torch.Tensor) -> str:
 @functools.cache
 def _kernel():
     fn = _build.load_library().omfs4d_composite_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 3
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
     fn.restype = ctypes.c_int
     return fn
 
@@ -73,7 +76,7 @@ def _kernel():
 @functools.cache
 def _bwd_kernel():
     fn = _build.load_library().omfs4d_composite_bwd
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 5
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 8 + [ctypes.c_void_p] * 2
     fn.restype = ctypes.c_int
     return fn
 
@@ -85,19 +88,30 @@ def _error_string(err: int) -> str:
     return fn(err).decode()
 
 
+def launch_on(device: torch.device, kernel, *args) -> int:
+    """kernel(*args, stream) on `device`'s current stream, with `device`
+    made current for the call only when it is not already.  The stream's
+    handle comes as a raw int (`torch.cuda.current_stream().cuda_stream`
+    builds a Stream object first, ~8 us of host time on an H100's host)."""
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    if device.index == torch.cuda.current_device():
+        return kernel(*args, stream)
+    with torch.cuda.device(device):
+        return kernel(*args, stream)
+
+
+_F32, _I32 = torch.float32, torch.int32
+_NAMES = ("uv", "conic", "colors", "opacity", "tile_lists", "tile_counts")
+
+
 def _check_inputs(uv, conic, colors, opacity, lists, counts, width, height,
                   tile, tile_base):
-    named = {"uv": uv, "conic": conic, "colors": colors, "opacity": opacity,
-             "tile_lists": lists, "tile_counts": counts}
-    for name, t in named.items():
-        if _device_type(t) != "cuda" or t.device != uv.device:
-            raise ValueError(f"composite: {name} is on {t.device}, expected "
-                             f"the CUDA device of uv ({uv.device})")
-        if not t.is_contiguous():
-            raise ValueError(f"composite: {name} must be contiguous")
-        want = torch.int32 if name.startswith("tile_") else torch.float32
-        if t.dtype != want:
-            raise ValueError(f"composite: {name} is {t.dtype}, expected {want}")
+    named = (uv, conic, colors, opacity, lists, counts)
+    dev = uv.device
+    for i, t in enumerate(named):
+        if (t.dtype is not (_I32 if i >= 4 else _F32) or t.device != dev
+                or not t.is_contiguous() or _device_type(t) != "cuda"):
+            _refuse(_NAMES[i], t, uv)
     n = uv.shape[0]
     shapes_ok = (uv.shape == (n, 2) and conic.shape == (n, 3)
                  and colors.shape == (n, 3) and opacity.shape == (n,)
@@ -106,74 +120,98 @@ def _check_inputs(uv, conic, colors, opacity, lists, counts, width, height,
         raise ValueError(
             "composite: expected uv (N, 2), conic (N, 3), colors (N, 3), "
             "opacity (N,), tile_lists (T, K), tile_counts (T,) with N, T, K "
-            f">= 1; got {[tuple(t.shape) for t in named.values()]}")
+            f">= 1; got {[tuple(t.shape) for t in named]}")
     grid_w = (width + tile - 1) // tile
     num_tiles = grid_w * ((height + tile - 1) // tile)
     if not 1 <= tile * tile <= 1024:
-        raise ValueError(f"composite: tile {tile} gives {tile * tile} threads "
-                         "per block; the kernel takes 1..1024")
+        raise ValueError(f"composite: tile {tile} gives {tile * tile} pixels "
+                         "per block; the kernels take 1..1024")
     if tile_base < 0 or tile_base + lists.shape[0] > num_tiles:
         raise ValueError(f"composite: tiles {tile_base}..{tile_base + lists.shape[0] - 1} "
                          f"outside the {num_tiles}-tile grid")
     return grid_w
 
 
+def _refuse(name, t, uv):
+    if _device_type(t) != "cuda" or t.device != uv.device:
+        raise ValueError(f"composite: {name} is on {t.device}, expected "
+                         f"the CUDA device of uv ({uv.device})")
+    if not t.is_contiguous():
+        raise ValueError(f"composite: {name} must be contiguous")
+    want = _I32 if name.startswith("tile_") else _F32
+    raise ValueError(f"composite: {name} is {t.dtype}, expected {want}")
+
+
 def _launch_fwd(uv, conic, colors, opacity, lists, counts, width, height,
-                tile, tile_base, grid_w):
+                tile, tile_base, grid_w, residual=False):
+    """K1 on checked inputs.  Returns (image (H, W, 3), alpha (H, W), the
+    residual K2 reads or None): with `residual`, (T_tot (H, W), the
+    heaviest-first order of the list rows (T,) that K1 took them in)."""
     kernel = _kernel()
-    img = torch.zeros((height, width, 3), dtype=torch.float32, device=uv.device)
-    alpha = torch.zeros((height, width), dtype=torch.float32, device=uv.device)
-    with torch.cuda.device(uv.device):
-        err = kernel(uv.data_ptr(), conic.data_ptr(), colors.data_ptr(),
-                     opacity.data_ptr(), lists.data_ptr(), counts.data_ptr(),
-                     uv.shape[0], lists.shape[0], lists.shape[1], tile_base, tile,
-                     grid_w, width, height, img.data_ptr(), alpha.data_ptr(),
-                     torch.cuda.current_stream(uv.device).cuda_stream)
+    dev = uv.device
+    n_lists = lists.shape[0]
+    # every pixel is written when the lists cover the whole grid
+    full = tile_base == 0 and n_lists == grid_w * ((height + tile - 1) // tile)
+    alloc = torch.empty if full else torch.zeros
+    img = alloc((height, width, 3), dtype=_F32, device=dev)
+    alpha = alloc((height, width), dtype=_F32, device=dev)
+    trans = torch.empty((height, width), dtype=_F32, device=dev) if residual else None
+    order = torch.empty(n_lists, dtype=_I32, device=dev)
+    err = launch_on(dev, kernel, uv.data_ptr(), conic.data_ptr(), colors.data_ptr(),
+                    opacity.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+                    uv.shape[0], n_lists, lists.shape[1], tile_base, tile, grid_w,
+                    width, height, img.data_ptr(), alpha.data_ptr(),
+                    None if trans is None else trans.data_ptr(), order.data_ptr())
     if err != 0:
         raise RuntimeError(f"composite_fwd launch failed: {_error_string(err)} ({err})")
     composite.launches += 1
-    return img, alpha
+    return img, alpha, (trans, order) if residual else None
 
 
-def _launch_bwd(uv, conic, colors, opacity, lists, counts, dimg, dalpha,
+def _launch_bwd(uv, conic, colors, opacity, lists, counts, img, trans, order, dimg, dalpha,
                 width, height, tile, tile_base, grid_w):
+    """K2 on checked inputs, the forward's image and residual (T_tot and the
+    order, `_launch_fwd` with `residual`) and the cotangents.  Returns the
+    gradients of uv, conic, colors and opacity: views of one (N, 9) buffer."""
     if dimg.shape != (height, width, 3) or dalpha.shape != (height, width):
         raise ValueError(f"composite backward: cotangents {tuple(dimg.shape)}, "
                          f"{tuple(dalpha.shape)} for a {height}x{width} image")
-    dimg = dimg.to(torch.float32).contiguous()
-    dalpha = dalpha.to(torch.float32).contiguous()
+    dimg = dimg.to(_F32).contiguous()
+    dalpha = dalpha.to(_F32).contiguous()
     kernel = _bwd_kernel()
-    grads = [torch.zeros_like(t) for t in (uv, conic, colors, opacity)]
-    with torch.cuda.device(uv.device):
-        err = kernel(uv.data_ptr(), conic.data_ptr(), colors.data_ptr(),
-                     opacity.data_ptr(), lists.data_ptr(), counts.data_ptr(),
-                     dimg.data_ptr(), dalpha.data_ptr(),
-                     uv.shape[0], lists.shape[0], lists.shape[1], tile_base, tile,
-                     grid_w, width, height, *(g.data_ptr() for g in grads),
-                     torch.cuda.current_stream(uv.device).cuda_stream)
+    grad = torch.zeros((uv.shape[0], N_ROWS), dtype=_F32, device=uv.device)
+    err = launch_on(uv.device, kernel, uv.data_ptr(), conic.data_ptr(), colors.data_ptr(),
+                    opacity.data_ptr(), lists.data_ptr(), counts.data_ptr(),
+                    dimg.data_ptr(), dalpha.data_ptr(), img.data_ptr(), trans.data_ptr(),
+                    order.data_ptr(),
+                    uv.shape[0], lists.shape[0], lists.shape[1], tile_base, tile,
+                    grid_w, width, height, grad.data_ptr())
     if err != 0:
         raise RuntimeError(f"composite_bwd launch failed: {_error_string(err)} ({err})")
     composite.backward_launches += 1
-    return grads
+    return (grad[:, ROW_UX:ROW_UY + 1], grad[:, ROW_CA:ROW_CC + 1],
+            grad[:, ROW_R:ROW_B + 1], grad[:, ROW_OPAC])
 
 
 class _Composite(torch.autograd.Function):
-    """K1 forward, K2 backward.  Saves the inputs and the lists only."""
+    """K1 forward, K2 backward.  Saves the inputs, the lists, the image and
+    K1's T_tot and tile order: K2 walks each list once from them.  An in-place edit of the
+    returned image before the backward makes autograd raise."""
 
     @staticmethod
     def forward(ctx, uv, conic, colors, opacity, lists, counts, width, height,
                 tile, tile_base, grid_w):
-        ctx.save_for_backward(uv, conic, colors, opacity, lists, counts)
+        img, alpha, (trans, order) = _launch_fwd(uv, conic, colors, opacity, lists, counts,
+                                                 width, height, tile, tile_base, grid_w,
+                                                 residual=True)
+        ctx.save_for_backward(uv, conic, colors, opacity, lists, counts, img, trans, order)
         ctx.geometry = (width, height, tile, tile_base, grid_w)
-        return _launch_fwd(uv, conic, colors, opacity, lists, counts, width,
-                           height, tile, tile_base, grid_w)
+        return img, alpha
 
     @staticmethod
     def backward(ctx, dimg, dalpha):
-        width, height, tile, tile_base, grid_w = ctx.geometry
-        d_uv, d_conic, d_colors, d_opacity = _launch_bwd(
-            *ctx.saved_tensors, dimg, dalpha, width, height, tile, tile_base, grid_w)
-        return d_uv, d_conic, d_colors, d_opacity, *([None] * 7)
+        grads = _launch_bwd(*ctx.saved_tensors, dimg, dalpha, *ctx.geometry)
+        return *grads, *([None] * 7)
 
 
 def composite(uv, conic, colors, opacity, binning: TileBinning,
@@ -192,8 +230,14 @@ def composite(uv, conic, colors, opacity, binning: TileBinning,
     lists, counts = binning.tile_lists, binning.tile_counts
     grid_w = _check_inputs(uv, conic, colors, opacity, lists, counts,
                            width, height, tile, tile_base)
-    return _Composite.apply(uv, conic, colors, opacity, lists, counts,
-                            width, height, tile, tile_base, grid_w)
+    if torch.is_grad_enabled() and (uv.requires_grad or conic.requires_grad
+                                    or colors.requires_grad or opacity.requires_grad):
+        return _Composite.apply(uv, conic, colors, opacity, lists, counts,
+                                width, height, tile, tile_base, grid_w)
+    # no graph (inference_mode, no_grad, constants): no residual either
+    img, alpha, _ = _launch_fwd(uv, conic, colors, opacity, lists, counts, width,
+                                height, tile, tile_base, grid_w)
+    return img, alpha
 
 
 composite.launches = 0

@@ -63,14 +63,11 @@ def _kernel():
 
 
 def _check_inputs(packed, dcol, dalpha, tile, grid_w):
-    named = {"packed": packed, "dcol": dcol, "dalpha": dalpha}
-    for name, t in named.items():
-        if _composite._device_type(t) != "cuda" or t.device != packed.device:
-            raise ValueError(f"composite variant: {name} is on {t.device}, expected "
-                             f"the CUDA device of packed ({packed.device})")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"composite variant: {name} must be contiguous float32, "
-                             f"got {t.dtype}")
+    dev = packed.device
+    for t in (packed, dcol, dalpha):
+        if (t.dtype is not torch.float32 or t.device != dev or not t.is_contiguous()
+                or _composite._device_type(t) != "cuda"):
+            _refuse(packed, dcol, dalpha)
     n, _, k = packed.shape
     p = tile * tile
     if (packed.shape != (n, N_ROWS, k) or dcol.shape != (n, 3, p)
@@ -78,10 +75,20 @@ def _check_inputs(packed, dcol, dalpha, tile, grid_w):
         raise ValueError(
             f"composite variant: expected packed (T, {N_ROWS}, K), dcol (T, 3, {p}), "
             f"dalpha (T, 1, {p}) with T, K >= 1; got "
-            f"{[tuple(t.shape) for t in named.values()]}")
+            f"{[tuple(t.shape) for t in (packed, dcol, dalpha)]}")
     if not 1 <= p <= 1024 or grid_w < 1:
         raise ValueError(f"composite variant: tile {tile} ({p} threads a block, the "
                          f"kernel takes 1..1024), grid_w {grid_w}")
+
+
+def _refuse(packed, dcol, dalpha):
+    for name, t in {"packed": packed, "dcol": dcol, "dalpha": dalpha}.items():
+        if _composite._device_type(t) != "cuda" or t.device != packed.device:
+            raise ValueError(f"composite variant: {name} is on {t.device}, expected "
+                             f"the CUDA device of packed ({packed.device})")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"composite variant: {name} must be contiguous float32, "
+                             f"got {t.dtype}")
 
 
 def make_variant_kernel(mode: str):
@@ -91,6 +98,7 @@ def make_variant_kernel(mode: str):
     tile=TILE, grid_w=GRID_W) -> (T, 9, K) float32."""
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; one of {MODES}")
+    mode_id = MODES.index(mode)
 
     def call(packed, dcol, dalpha, tile: int = TILE, grid_w: int = GRID_W):
         if _composite._device_type(packed) == "cpu":
@@ -98,11 +106,9 @@ def make_variant_kernel(mode: str):
         _check_inputs(packed, dcol, dalpha, tile, grid_w)
         kernel = _kernel()
         out = torch.empty_like(packed)
-        with torch.cuda.device(packed.device):
-            err = kernel(MODES.index(mode), packed.data_ptr(), dcol.data_ptr(),
-                            dalpha.data_ptr(), packed.shape[0], packed.shape[2], tile,
-                            grid_w, out.data_ptr(),
-                            torch.cuda.current_stream(packed.device).cuda_stream)
+        err = _composite.launch_on(packed.device, kernel, mode_id, packed.data_ptr(),
+                                   dcol.data_ptr(), dalpha.data_ptr(), packed.shape[0],
+                                   packed.shape[2], tile, grid_w, out.data_ptr())
         if err != 0:
             raise RuntimeError(f"composite_variant launch failed: "
                                f"{_composite._error_string(err)} ({err})")
@@ -306,17 +312,23 @@ def timed(fn, *args, n: int = 30, label: str = "") -> float:
 def current_times(uv, conic, colors, opacity, binning, width, height, dimg, dalpha,
                   n: int = 30, labelled: bool = False) -> tuple[float, float]:
     """K1 and K2 on the same inputs, each through the launch function that
-    `composite`'s autograd Function calls (checked inputs, zeroed outputs,
-    one kernel), as the reference times `_call_fwd` and `_call_bwd` alone:
-    K2 takes the cotangents dimg (H, W, 3) and dalpha (H, W).  In ms."""
+    `composite`'s autograd Function calls (checked inputs, outputs
+    allocated, the kernel), as the reference times `_call_fwd` and
+    `_call_bwd` alone: K1 writing the residual as it does under autograd,
+    K2 taking that forward's image and residual and the cotangents
+    dimg (H, W, 3) and dalpha (H, W).  In ms."""
     lists, counts = binning.tile_lists, binning.tile_counts
     grid_w = _composite._check_inputs(uv, conic, colors, opacity, lists, counts,
                                       width, height, TILE, 0)
     geometry = (width, height, TILE, 0, grid_w)
-    fwd_ms = timed(_composite._launch_fwd, uv, conic, colors, opacity, lists, counts,
-                   *geometry, n=n, label="fwd (current)" if labelled else "")
+    fwd_ms = timed(lambda: _composite._launch_fwd(uv, conic, colors, opacity, lists, counts,
+                                                  *geometry, residual=True),
+                   n=n, label="fwd (current)" if labelled else "")
+    img, _, res = _composite._launch_fwd(uv, conic, colors, opacity, lists, counts,
+                                         *geometry, residual=True)
     bwd_ms = timed(_composite._launch_bwd, uv, conic, colors, opacity, lists, counts,
-                   dimg, dalpha, *geometry, n=n, label="bwd (current)" if labelled else "")
+                   img, *res, dimg, dalpha, *geometry, n=n,
+                   label="bwd (current)" if labelled else "")
     return fwd_ms, bwd_ms
 
 

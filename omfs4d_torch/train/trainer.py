@@ -455,13 +455,16 @@ class AvatarTrainer:
     ):
         """`flame_model` enables FLAME-parameter co-optimization
         (cfg.optimize_flame).  `device` defaults to the FLAME model's, else
-        the CUDA card when there is one (as the reference runs on the default
-        accelerator), else the CPU.  The composite takes the CUDA kernels on
-        a CUDA device and the plain version on the CPU."""
+        the CUDA card (as the reference runs on the default accelerator):
+        with no card the trainer raises, and runs on the CPU only when the
+        caller asks for it.  The composite takes the CUDA kernels on a CUDA
+        device and the plain version on the CPU."""
         if device is None:
-            device = (flame_model.v_template.device if flame_model is not None
-                      else "cuda" if torch.cuda.is_available() else "cpu")
+            device = flame_model.v_template.device if flame_model is not None else "cuda"
         self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("AvatarTrainer: no CUDA device; pass device='cpu' to "
+                               "train on the CPU")
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
         self.flame_model = flame_model

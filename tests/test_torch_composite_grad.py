@@ -3,9 +3,11 @@
 custom VJP over the Pallas kernels, in interpret mode) and
 `composite_reference` (JAX autodiff), on tests/test_pallas_composite.py's
 scene and its two-level occupancy case; the finite-difference check on
-opacity; and the arithmetic of kernel K2 (`csrc/composite_bwd.cu`: two
-front-to-back passes, suffix_k = dcol . (C_tot - C_<=k)) written out in
-numpy and held to the same autograd.
+opacity; and the arithmetic of kernel K2 (`csrc/composite_bwd.cu`: one
+front-to-back pass from the forward's colour C_tot and transmittance T_tot,
+suffix_k = dcol . (C_tot - C_<=k)) written out in numpy and held to the same
+autograd.  tests/test_torch_composite_onepass.py transcribes it in f32, in
+the kernel's order of sums.
 
 Tolerance atol = 2e-4 * max|reference grad|, rtol = 2e-3: the reference's
 own gradient bound (tests/test_pallas_composite.py); the packages sum the
@@ -117,10 +119,11 @@ def test_gradcheck_finite_difference_on_opacity():
         assert abs(fd - float(g[i])) < 2e-2 * max(abs(fd), 1.0), (i, fd, float(g[i]))
 
 
-def k2_numpy(uv, conic, rgb, opac, lists, counts, dimg, dalpha, width, height, tile):
-    """Kernel K2's arithmetic, vectorised over a tile's pixels: pass 1
-    recomputes T_tot and C_tot front to back, pass 2 walks front to back
-    again with suffix_k = dcol . (C_tot - C_<=k)."""
+def k2_numpy(uv, conic, rgb, opac, lists, counts, img, trans, dimg, dalpha, width, height,
+             tile):
+    """Kernel K2's arithmetic, vectorised over a tile's pixels: one pass
+    front to back from the forward's C_tot (img) and T_tot (trans), with
+    suffix_k = dcol . (C_tot - C_<=k)."""
     grid_w = (width + tile - 1) // tile
     out = [np.zeros_like(uv), np.zeros_like(conic), np.zeros_like(rgb), np.zeros_like(opac)]
     p = np.arange(tile * tile)
@@ -128,39 +131,31 @@ def k2_numpy(uv, conic, rgb, opac, lists, counts, dimg, dalpha, width, height, t
         px, py = (t % grid_w) * tile + p % tile, (t // grid_w) * tile + p // tile
         inside = (px < width) & (py < height)
         x, y = px + 0.5, py + 0.5
-        d = np.where(inside[:, None], dimg[np.minimum(py, height - 1), np.minimum(px, width - 1)], 0)
-        dA = np.where(inside, dalpha[np.minimum(py, height - 1), np.minimum(px, width - 1)], 0)
+        cy, cx = np.minimum(py, height - 1), np.minimum(px, width - 1)
+        d = np.where(inside[:, None], dimg[cy, cx], 0)
+        dA = np.where(inside, dalpha[cy, cx], 0)
+        c_tot = np.where(inside[:, None], img[cy, cx], 0)
+        t_tot = np.where(inside, trans[cy, cx], 1)
 
-        def alpha(g):
+        trans_k, c_le = np.ones(len(p)), np.zeros((len(p), 3))
+        for g in lists[t, :counts[t]]:
             dx, dy = x - uv[g, 0], y - uv[g, 1]
             a_, b_, c_ = conic[g]
             e = np.exp(np.minimum(-0.5 * (a_ * dx * dx + c_ * dy * dy) - b_ * dx * dy, 0))
             a_full = opac[g] * e
-            a = np.minimum(a_full, 0.99)
-            ok = (a_full <= 0.99) & (a >= 1 / 255)
-            return dx, dy, e, a_full, np.where(a < 1 / 255, 0, a), ok
-
-        idx = lists[t, :counts[t]]
-        trans, c_tot = np.ones(len(p)), np.zeros((len(p), 3))
-        for g in idx:
-            a = alpha(g)[4]
-            c_tot += (a * trans)[:, None] * rgb[g]
-            trans = trans * (1 - a)
-        t_tot, trans, c_le = trans, np.ones(len(p)), np.zeros((len(p), 3))
-        for g in idx:
-            dx, dy, e, a_full, a, ok = alpha(g)
-            w = a * trans
+            ok = (a_full <= 0.99) & (np.minimum(a_full, 0.99) >= 1 / 255)
+            a = np.where(np.minimum(a_full, 0.99) < 1 / 255, 0, np.minimum(a_full, 0.99))
+            w = a * trans_k
             c_le += w[:, None] * rgb[g]
             om = np.maximum(1 - a, 1e-6)
-            da = (d @ rgb[g]) * trans - np.sum(d * (c_tot - c_le), 1) / om + dA * t_tot / om
+            da = (d @ rgb[g]) * trans_k - np.sum(d * (c_tot - c_le), 1) / om + dA * t_tot / om
             dq = np.where(ok, da, 0) * a_full
-            a_, b_, c_ = conic[g]
             out[0][g] += [np.sum(dq * (a_ * dx + b_ * dy)), np.sum(dq * (c_ * dy + b_ * dx))]
             out[1][g] += [np.sum(-0.5 * dq * dx * dx), np.sum(-dq * dx * dy),
                           np.sum(-0.5 * dq * dy * dy)]
             out[2][g] += np.sum(d * w[:, None], 0)
             out[3][g] += np.sum(np.where(ok, da, 0) * e)
-            trans = trans * (1 - a)
+            trans_k = trans_k * (1 - a)
     return out
 
 
@@ -176,7 +171,8 @@ def test_k2_arithmetic_matches_autograd(scene):
     loss = (img * t_(dimg)).sum() + (alpha * t_(dalpha)).sum()
     g_ref = torch.autograd.grad(loss, leaves)
     g_k2 = k2_numpy(*(x.detach().numpy() for x in leaves), np.asarray(binning.tile_lists),
-                    np.asarray(binning.tile_counts), dimg, dalpha, W, H, 16)
+                    np.asarray(binning.tile_counts), img.detach().numpy(),
+                    1 - alpha.detach().numpy(), dimg, dalpha, W, H, 16)
     for name, a, ref in zip(NAMES, g_k2, g_ref):
         ref = ref.numpy()
         np.testing.assert_allclose(a, ref, atol=1e-9 * max(np.abs(ref).max(), 1.0),

@@ -92,12 +92,14 @@ def test_composite_backward_on_cuda_raises_without_a_kernel(cuda_typed, monkeypa
     """The forward is stood in by the plain version so that the graph
     exists; the backward must then raise for want of K2, build nothing and
     count no launch."""
-    monkeypatch.setattr(tc, "_launch_fwd", lambda uv, conic, colors, opacity, lists, counts,
-                        width, height, tile, tile_base, grid_w: tuple(
-                            t.detach() for t in tc.composite_plain(
-                                uv, conic, colors, opacity,
-                                TileBinning(lists, counts, *[None] * 3), width, height,
-                                tile, tile_base)))
+    def plain_fwd(uv, conic, colors, opacity, lists, counts, width, height, tile, tile_base,
+                  grid_w, residual=False):
+        img, alpha = (t.detach() for t in tc.composite_plain(
+            uv, conic, colors, opacity, TileBinning(lists, counts, *[None] * 3), width, height,
+            tile, tile_base))
+        return img, alpha, (1.0 - alpha, None) if residual else None
+
+    monkeypatch.setattr(tc, "_launch_fwd", plain_fwd)
     uv, conic, colors, opacity, b = small_inputs()
     uv.requires_grad_()
     img, alpha = tc.composite(uv, conic, colors, opacity, b, 16, 16)
@@ -146,4 +148,5 @@ def test_library_path_tracks_sources():
     assert p.parent == _build.BUILD_DIR and p.suffix == ".so"
     assert p == _build.library_path()
     assert [s.name for s in _build._sources()] == [
-        "composite_bwd.cu", "composite_fwd.cu", "composite_variants.cu"]
+        "composite_bwd.cu", "composite_common.cuh", "composite_fwd.cu",
+        "composite_variants.cu"]

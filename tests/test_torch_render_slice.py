@@ -10,6 +10,7 @@ atol 1e-4 before quantisation, the decoded PNGs within 1 grey level.
 """
 
 import importlib
+import inspect
 import json
 import shutil
 from pathlib import Path
@@ -179,3 +180,17 @@ def test_render_prediction_end_to_end(case, monkeypatch, tmp_path):
     with pytest.raises(NotImplementedError):
         trv.render_dataset_frames(case["t_model"], t_load(case["ply"]), case["modified"],
                                   tmp_path / "x", n_tile=2)
+
+
+def test_render_prediction_defaults_to_the_card_and_raises_without_one(case, monkeypatch,
+                                                                      tmp_path):
+    """With no `device` the request runs on the CUDA card; with no card it
+    raises before it touches the model or writes anything."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert inspect.signature(trv.render_prediction).parameters["device"].default == "cuda"
+    before = case["t_model"].v_template.device
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        trv.render_prediction(case["model_dir"], case["data"], case["t_model"],
+                              output=tmp_path / "pred.mp4", lefort_mm=5.0, bsso_mm=3.0)
+    assert case["t_model"].v_template.device == before
+    assert not (tmp_path / "pred.mp4").exists()

@@ -95,7 +95,8 @@ def trainers(scene, co_opt, **cfg_kw):
                          use_pallas="never", white_background=False,
                          flame_model=model if co_opt else None)
     t = tt.AvatarTrainer(np.asarray(model.faces), TConfig(**kw), W, H, max_per_tile=K,
-                         white_background=False, flame_model=t_model if co_opt else None)
+                         white_background=False, flame_model=t_model if co_opt else None,
+                         device="cpu")
     return j, t
 
 

@@ -56,7 +56,7 @@ def test_train_resume_matches_uninterrupted(case, tmp_path):
                   max_gaussians=1024, batch_frames=1)
 
     def make():
-        t = tt.AvatarTrainer(faces, cfg, W, H, max_per_tile=K)
+        t = tt.AvatarTrainer(faces, cfg, W, H, max_per_tile=K, device="cpu")
         return t, t.init_state(capacity=1024)
 
     t_full, s_full = make()
@@ -93,7 +93,8 @@ def test_single_frame_overfit(case, tmp_path):
     # the untrained avatar's PSNR on frame 0 (the experiment's own init)
     ds = FrameDataset(case["path"])
     params = {k: v for k, v in ds.load_frame_params(0).items() if k != "dynamic_offset"}
-    t0 = tt.AvatarTrainer(case["model"].faces.numpy(), TrainConfig(), W, H, max_per_tile=K)
+    t0 = tt.AvatarTrainer(case["model"].faces.numpy(), TrainConfig(), W, H, max_per_tile=K,
+                          device="cpu")
     img0 = t0.render_frame(t0.init_state(), flame_forward(case["model"], params)[0],
                            ds.camera(0))
     p0 = float(psnr(img0, torch.tensor(ds.load_image(0) / 255.0, dtype=torch.float32)))
@@ -130,3 +131,19 @@ def test_train_refuses_data_or_state_on_another_device(case, where):
         t.train(data, iterations=2, state=state, log_every=1000)
     if where == "data":
         assert int(state.step) == 0
+
+
+def test_trainer_defaults_to_the_card_and_raises_without_one(case, monkeypatch):
+    """With no FLAME model and no `device`, the trainer takes the CUDA card;
+    with no card it raises and never carries on on the CPU.  A FLAME model
+    lends its device."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    faces = case["model"].faces.numpy()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.AvatarTrainer(faces, TrainConfig(), W, H, max_per_tile=K)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tt.AvatarTrainer(faces, TrainConfig(), W, H, max_per_tile=K, device="cuda")
+    assert tt.AvatarTrainer(faces, TrainConfig(), W, H, max_per_tile=K,
+                            flame_model=case["model"]).device.type == "cpu"
+    assert tt.AvatarTrainer(faces, TrainConfig(), W, H, max_per_tile=K,
+                            device="cpu").device.type == "cpu"
