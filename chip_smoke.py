@@ -55,17 +55,30 @@ Phase F: the K2 ablation profiler.  Every V launch count is zeroed, then
   the bound of each bf16 mode is shown to reject `variant_plain` without
   its roundings (the control), and V and its plain version are timed beside
   K1 and K2 (their launch functions alone) on the same data (median of 20
-  after warm-up).  Last, host us per call (1,000 unsynchronised calls) of K1,
-  K2, V copy and `packed * 2`, and of each step of V copy's wrapper.
+  after warm-up).  Per mode, and for the one PyTorch call `packed * 2`:
+  device us per launch (torch.profiler) warm, the table just read, and cold,
+  a buffer twice the L2 written before each launch (`l2_flusher`); the share
+  of the bound is taken from the cold time (warm, an 18.9 MB table stays in
+  the 50 MB L2 and beats its bytes bound).  Then every mode is held to
+  `variant_plain` on the hand-built table of the tests
+  (`pcv.fixture_inputs`: slots that reach no pixel, singular and indefinite
+  conics, capped and cut entries, a padding tile, K no multiple of 4), finite
+  and with each non-finite entry of `pcv.NON_FINITE` in the middle of two
+  lists (`pcv.compare_non_finite`: NaN exactly where the plain version has
+  NaN).  Last, host us per call (1,000 unsynchronised calls) of K1, K2, V
+  copy and `packed * 2`, and of each step of V copy's wrapper.
 
     python3 chip_smoke.py --trees DIR [DIR ...]
 
-times K1 and K2 of other checkouts of this repository instead (for example
+times K1, K2 and V of other checkouts of this repository instead (for example
 the parent commit unpacked with `git archive` into the git-ignored
 _archive/; '.' is this one): one process per tree, in the order given, each
-importing the port from its tree and building that tree's kernels, on the
-same two frames (phase C's frame 0 and the untrained training frame 0) and
-through `composite` and autograd alone (kernel_times, host_costs).
+importing the port from its tree and building that tree's kernels.  K1 and
+K2 run on the same two frames (phase C's frame 0 and the untrained training
+frame 0), through `composite` and autograd alone (kernel_times, host_costs);
+V, in trees that have it, runs each mode through `make_variant_kernel(mode)`
+on the reference table and on that training frame packed at K = 256, warm
+and with the L2 flushed before each launch (variant_times).
 
 Any failure raises and exits non-zero.  With no CUDA card the script exits
 non-zero before printing any result.  The line before the card's name holds
@@ -77,6 +90,7 @@ copy mode, none for the others).  The last line is
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import shutil
 import statistics
@@ -103,6 +117,7 @@ LEFORT_MM, BSSO_MM = 5.0, 3.0
 TOL = 1e-4
 N_TIMED = 20
 N_HOST = 1000             # calls per host-time measurement
+PROFILE_TRIES = 6         # torch.profiler traces per device time, until one holds the kernel
 CAPACITY = 131_072
 TRAIN_ITERS = 60
 STEADY_STEPS = 20
@@ -261,13 +276,25 @@ class Recorder:
             self.steps.append(fields)
 
 
-def median_ms(fn) -> float:
+def l2_flusher(device):
+    """A function that writes a buffer twice the size of an H100's 50 MB L2
+    cache: what the next kernel reads then comes from device memory (a cold
+    launch, as a caller finds it whose table was not just read)."""
+    buf = torch.empty(2 * 50 * 2 ** 20 // 4, dtype=torch.float32, device=device)
+    return buf.zero_
+
+
+def median_ms(fn, before=None) -> float:
+    """Median CUDA-event ms of N_TIMED calls of fn after 3 warm-ups; `before`
+    (an `l2_flusher`) runs ahead of each call, outside the events."""
     for _ in range(3):
         fn()
     times = []
     for _ in range(N_TIMED):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
+        if before is not None:
+            before()
         a.record()
         fn()
         b.record()
@@ -276,29 +303,34 @@ def median_ms(fn) -> float:
     return statistics.median(times)
 
 
-def device_us(fn, *kernels: str) -> dict[str, float]:
+def device_us(fn, *kernels: str, before=None) -> dict[str, float]:
     """Device us per launch of each named kernel (torch.profiler, N_TIMED
     calls of fn); 0.0 for a name after the first that did not run.  A trace
-    now and then comes back without the first kernel's launches: up to three
-    tries."""
+    now and then comes back without the first kernel's launches: up to
+    PROFILE_TRIES tries.  `before` (an `l2_flusher`, whose fill kernel is
+    left out) runs ahead of each call: the cold time."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(PROFILE_TRIES):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(N_TIMED):
+                if before is not None:
+                    before()
                 fn()
             torch.cuda.synchronize()
         per = {}
         for evt in prof.key_averages():
             for name in kernels:
-                if name in evt.key and evt.count == N_TIMED:
+                if name in evt.key and "FillFunctor" not in evt.key and evt.count == N_TIMED:
                     total = getattr(evt, "device_time_total", None)
                     per[name] = (evt.cuda_time_total if total is None else total) / evt.count
         if kernels[0] in per:
             return {name: per.get(name, 0.0) for name in kernels}
-    raise RuntimeError(f"check failed: {kernels[0]} not in 3 profiles of {N_TIMED} launches")
+    seen = [(evt.key[:60], evt.count) for evt in prof.key_averages()]
+    raise RuntimeError(f"check failed: {kernels[0]} not in {PROFILE_TRIES} profiles of "
+                       f"{N_TIMED} launches; the last one holds {seen}")
 
 
 def kernel_times(args) -> dict:
@@ -321,6 +353,38 @@ def kernel_times(args) -> dict:
     return {"k1_us": k1["composite_fwd_kernel"] + k1["heavy_first_kernel"],
             "k1_kernel_us": k1["composite_fwd_kernel"], "order_us": k1["heavy_first_kernel"],
             "k2_us": k2["composite_bwd_kernel"], "k1_ms": median_ms(fwd), "k2_ms": median_ms(bwd)}
+
+
+def variant_times(pcv, packed, dcol, dalpha, grid_w, flush) -> dict:
+    """Per mode of V through `make_variant_kernel(mode)` on one table: device
+    us per launch warm (the table just read: 20 launches in a row) and cold
+    (the L2 flushed before each), torch.profiler, and CUDA-event ms per call;
+    under "packed_x2" the same for the one PyTorch call `packed * 2`, copy's
+    yardstick (device us None where the profile does not name its kernel)."""
+    out = {}
+    for mode in pcv.MODES:
+        fn = pcv.make_variant_kernel(mode)
+
+        def call():
+            return fn(packed, dcol, dalpha, pcv.TILE, grid_w)
+
+        out[mode] = {"us": device_us(call, "composite_variant")["composite_variant"],
+                     "cold_us": device_us(call, "composite_variant",
+                                          before=flush)["composite_variant"],
+                     "ms": median_ms(call), "cold_ms": median_ms(call, before=flush)}
+
+    def library():
+        return packed * 2.0
+
+    lib = {"ms": median_ms(library), "cold_ms": median_ms(library, before=flush)}
+    for key, before in (("us", None), ("cold_us", flush)):
+        try:
+            lib[key] = device_us(library, "elementwise_kernel",
+                                 before=before)["elementwise_kernel"]
+        except RuntimeError:
+            lib[key] = None
+    out["packed_x2"] = lib
+    return out
 
 
 def host_us(fn) -> float:
@@ -758,12 +822,14 @@ def main() -> int:
               f"(pcv.row_scale); the control, variant_plain without its bf16 roundings, "
               f"must fail it")
         failed = []
+        flush = l2_flusher(device)
         for label, (packed, dcol, dalpha, grid_w, current) in tables.items():
             k1_ms, k2_ms = pcv.current_times(*current, n=N_TIMED)
             print(f"phase F: {label}: K1 {k1_ms:.4f} ms, K2 {k2_ms:.4f} ms, each through its "
                   f"launch function (median of {N_TIMED}); K2's atomics "
                   + ("never collide here" if "identity" in label else "collide here")
                   + f" [{card}]")
+            times_v = variant_times(pcv, packed, dcol, dalpha, grid_w, flush)
             for mode in pcv.MODES:
                 fn = pcv.make_variant_kernel(mode)
                 got = fn(packed, dcol, dalpha, grid_w=grid_w)
@@ -783,17 +849,46 @@ def main() -> int:
                              + ("passed" if ctrl["ok"] else "rejected"))
                     if ctrl["ok"]:
                         failed.append(f"{label}: the bound of {mode} passed the control")
-                v_ms = pcv.timed(fn, packed, dcol, dalpha, pcv.TILE, grid_w, n=N_TIMED)
+                tv = times_v[mode]
                 v_plain_ms = pcv.timed(pcv.variant_plain, mode, packed, dcol, dalpha,
                                        pcv.TILE, grid_w, n=N_TIMED)
-                lib_ms = (pcv.timed(lambda: packed * 2.0, n=N_TIMED) if mode == "copy"
-                          else None)
+                lib_ms = times_v["packed_x2"]["ms"] if mode == "copy" else None
                 v_bound = variant_bound(mode, packed, grid_w)
-                variant_rows[mode].append((res["max_abs_err"], v_ms, v_plain_ms, v_bound,
+                variant_rows[mode].append((res["max_abs_err"], tv["ms"], v_plain_ms, v_bound,
                                            lib_ms))
-                print(f"  {mode:13s} V {v_ms:.4f} ms, plain {v_plain_ms:.4f} ms (median of "
-                      f"{N_TIMED}); {line}")
+                # the bytes of the bound come from device memory: only the cold
+                # time is held against it (warm, the table stays in the L2)
+                print(f"  {mode:13s} V {tv['ms']:.4f} ms warm, {tv['cold_ms']:.4f} ms cold, plain "
+                      f"{v_plain_ms:.4f} ms (median of {N_TIMED}); device {tv['us']:.2f} us "
+                      f"warm, {tv['cold_us']:.2f} us cold (torch.profiler, {N_TIMED} launches); "
+                      f"bound {v_bound[0]:.2f} us ({v_bound[1]}), "
+                      f"{v_bound[0] / tv['cold_us']:.1%} of the bound cold; {line}")
+            lib = times_v["packed_x2"]
+            print(f"  packed * 2    {lib['ms']:.4f} ms warm, {lib['cold_ms']:.4f} ms cold; device "
+                  + ", ".join(f"{lib[k]:.2f} us {w}" if lib[k] is not None
+                              else f"not measured {w}" for k, w in (("us", "warm"),
+                                                                    ("cold_us", "cold")))
+                  + " (the one PyTorch call for V copy's function)")
             del got, ref
+        # the hand-built table of the tests, and a non-finite entry in the
+        # middle of two of its lists: NaN where the plain version has NaN
+        for kind in (None, *pcv.NON_FINITE):
+            args = [torch.from_numpy(a).to(device)
+                    for a in pcv.fixture_inputs(non_finite=kind)]
+            worst = 0.0
+            for mode in pcv.MODES:
+                got = pcv.make_variant_kernel(mode)(*args, grid_w=pcv.FIXTURE_GRID_W)
+                ref = pcv.variant_plain(mode, *args, grid_w=pcv.FIXTURE_GRID_W)
+                res = pcv.compare_non_finite(mode, got, ref, args[0])
+                if not res["ok"] or (kind is None and res["non_finite"]):
+                    failed.append(f"fixture table ({kind}): V {mode}: {res}")
+                worst = max(worst, res["max_abs_err"])
+                if kind is None:
+                    variant_rows[mode].append((res["max_abs_err"],))
+            print(f"phase F: fixture table T=5 K={args[0].shape[2]} ("
+                  + ("finite" if kind is None else kind)
+                  + f"): every mode within its bound, non-finite where the plain version is; "
+                  f"max abs err {worst:.3e}")
         check(not failed, "phase F:\n  " + "\n  ".join(failed))
         host = host_costs(first)
         parts = v_copy_host_parts(*ref_table)
@@ -873,8 +968,9 @@ def save_frames(path: Path, work: Path, device) -> None:
 
 
 def measure_tree(tree: Path, frames: Path) -> dict:
-    """kernel_times at both saved frames and host_costs, with the port of
-    the checkout at `tree` (imported from there, its kernels built there)."""
+    """kernel_times at both saved frames, host_costs and variant_times, with
+    the port of the checkout at `tree` (imported from there, its kernels
+    built there)."""
     sys.path.insert(0, str(tree.resolve()))
     import omfs4d_torch
     from omfs4d_torch.render.rasterize import TileBinning
@@ -889,12 +985,27 @@ def measure_tree(tree: Path, frames: Path) -> dict:
         out["frames"][name] = {"entries": int(args[name][4].tile_counts.sum()),
                                **kernel_times(args[name])}
     out["host_us"] = host_costs(args["render"])
+    # kernel V, in trees that have it (since its port)
+    if importlib.util.find_spec("omfs4d_torch.scripts.profile_composite_variants"):
+        from omfs4d_torch.render.composite import pack_lists
+        from omfs4d_torch.scripts import profile_composite_variants as pcv
+
+        device = torch.device("cuda", 0)
+        flush = l2_flusher(device)
+        table = [torch.from_numpy(a).to(device) for a in pcv.synthetic_inputs(0)[:3]]
+        uv, conic, cols, opac, tb, tw, th = args["train"]
+        packed = pack_lists(uv, conic, cols, opac, tb.tile_lists, tb.tile_counts)
+        out["variants"] = {
+            "reference": variant_times(pcv, *table, pcv.GRID_W, flush),
+            "train": variant_times(pcv, packed, *pcv.to_tiles(*seeded_cotangent(th, tw, device)),
+                                   tw // pcv.TILE, flush)}
     return out
 
 
 def compare_trees(trees: list[Path]) -> int:
-    """K1 and K2 of checkouts of this repository on the same two frames
-    (save_frames), one process per tree, in the order given."""
+    """K1, K2 and V of checkouts of this repository on the same two frames
+    (save_frames) and V's reference table, one process per tree, in the
+    order given."""
     from omfs4d_torch.scripts.profile_composite_variants import card_line
 
     card = card_line()
@@ -919,6 +1030,15 @@ def compare_trees(trees: list[Path]) -> int:
                   f"{f['k2_us']:8.2f} {f['k1_ms']:8.4f} {f['k2_ms']:8.4f}")
         print(f"{r['tree']:<24s} host us per call: "
               + ", ".join(f"{k} {v:.2f}" for k, v in r["host_us"].items()))
+    print("kernel V, device us per launch warm / cold (the L2 flushed before each launch) and "
+          "CUDA-event ms per call warm, on the reference table (T=1024, K=512) and the "
+          f"training frame packed at K={MAX_PER_TILE}  [{card}]")
+    for r in runs:
+        for name, modes in r.get("variants", {}).items():
+            print(f"{r['tree']:<24s} {name:<9s} "
+                  + ", ".join(f"{m} " + ("not measured" if v["us"] is None else
+                                         f"{v['us']:.2f} / {v['cold_us']:.2f} us")
+                              + f" {v['ms']:.4f} ms" for m, v in modes.items()))
     return 0
 
 
@@ -928,7 +1048,7 @@ if __name__ == "__main__":
 
         ap = argparse.ArgumentParser(description="Without arguments: the smoke run above.")
         ap.add_argument("--trees", type=Path, nargs="+",
-                        help="time K1 and K2 of these checkouts of the repository, one "
+                        help="time K1, K2 and V of these checkouts of the repository, one "
                              "process each, in this order ('.' is this one)")
         ap.add_argument("--measure", type=Path, nargs=2, help=argparse.SUPPRESS)
         opts = ap.parse_args()

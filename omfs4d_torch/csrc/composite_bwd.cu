@@ -79,41 +79,6 @@ using omfs4d::kRows;
 
 constexpr int kMaxBatch = 256;  // entries staged at a time
 
-// Sums v[0..8] over the warp's 32 lanes.  At each of the first three
-// __shfl_xor_sync steps (16, 8, 4) a lane sends the half of its remaining
-// values that its partner keeps and adds the half it receives: 8 values
-// take 4 + 2 + 1 shuffles to 1 per lane, then 2 more (xor 2, 1) finish the
-// sum.  Lane l ends with the sum of value (l >> 2) & 7; value 8 takes a
-// plain xor butterfly of 5 shuffles and ends on every lane.  Every sum is
-// the tree ((x_l + x_{l^16}) + (x_{l^8} + ...)) of the butterfly, the same
-// on every lane.
-__device__ __forceinline__ void warp_sum9(const float (&v)[kRows], int lane, float& mine,
-                                          float& last) {
-  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
-  float s4[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float send = hi16 ? v[i] : v[i + 4];
-    const float keep = hi16 ? v[i + 4] : v[i];
-    s4[i] = keep + __shfl_xor_sync(kFull, send, 16);
-  }
-  float s2[2];
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const float send = hi8 ? s4[i] : s4[i + 2];
-    const float keep = hi8 ? s4[i + 2] : s4[i];
-    s2[i] = keep + __shfl_xor_sync(kFull, send, 8);
-  }
-  float s = (hi4 ? s2[1] : s2[0]) + __shfl_xor_sync(kFull, hi4 ? s2[0] : s2[1], 4);
-  s += __shfl_xor_sync(kFull, s, 2);
-  s += __shfl_xor_sync(kFull, s, 1);
-  mine = s;
-  float u = v[8];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) u += __shfl_xor_sync(kFull, u, off);
-  last = u;
-}
-
 __global__ void composite_bwd_kernel(
     const float* __restrict__ uv,          // (N, 2)
     const float* __restrict__ conic,       // (N, 3)
@@ -217,7 +182,7 @@ __global__ void composite_bwd_kernel(
       v[7] = db * w;
       v[8] = da * al.e;
       float mine, last;
-      warp_sum9(v, lane, mine, last);
+      omfs4d::warp_sum9(v, lane, mine, last);
       float* acc = s_acc + j * kRows;
       if ((lane & 3) == 0) atomicAdd(acc + (lane >> 2), mine);
       if (lane == 1) atomicAdd(acc + 8, last);

@@ -1,7 +1,8 @@
 // What the composite kernels K1 (composite_fwd.cu), K2 (composite_bwd.cu) and
 // V (composite_variants.cu) evaluate alike: one (pixel, list entry) alpha and
-// the running front-to-back step; and, for K1 and K2, the box outside which
-// an entry's alpha is 0, by which each warp lists the entries it walks.
+// the running front-to-back step; the box outside which an entry's alpha is
+// 0, by which each warp lists the entries it walks; and, for K2 and V, the
+// multi-value exchanges that sum a warp's per-pixel terms.
 //
 // Every operation is rounded on its own (__fmul_rn / __fadd_rn / __fsub_rn /
 // __fmaf_rn), in one fixed order, so nvcc cannot contract them into other
@@ -33,7 +34,11 @@ struct Alpha {
 };
 
 // power = min(-0.5 ((A dx) dx + (C dy) dy) - (B dx) dy, 0), then
-// a_full = o exp(power), a = min(a_full, 0.99) and 0 below 1/255.
+// a_full = o exp(power), a = min(a_full, 0.99) and 0 below 1/255.  fminf
+// returns 0 for a NaN power; with kNanPower the NaN stays, as in
+// torch.clamp_max (V takes that: its plain version keeps the NaN).  For any
+// other power the two give the same bits.
+template <bool kNanPower = false>
 __device__ __forceinline__ Alpha alpha_of(float x, float y, float ux, float uy, float ca,
                                           float cb, float cc, float o) {
   Alpha r;
@@ -41,8 +46,8 @@ __device__ __forceinline__ Alpha alpha_of(float x, float y, float ux, float uy, 
   r.dy = __fsub_rn(y, uy);
   const float quad = __fadd_rn(__fmul_rn(__fmul_rn(ca, r.dx), r.dx),
                                __fmul_rn(__fmul_rn(cc, r.dy), r.dy));
-  const float power =
-      fminf(__fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, r.dx), r.dy)), 0.0f);
+  const float raw = __fsub_rn(__fmul_rn(-0.5f, quad), __fmul_rn(__fmul_rn(cb, r.dx), r.dy));
+  const float power = kNanPower ? (raw > 0.0f ? 0.0f : raw) : fminf(raw, 0.0f);
   r.e = expf(power);
   r.a_full = __fmul_rn(o, r.e);
   r.capped = r.a_full > kAlphaCap;
@@ -112,6 +117,65 @@ __device__ __forceinline__ int reaching(const float4* __restrict__ reach, int n,
   }
   __syncwarp();
   return m;
+}
+
+// Sums v[0..7] over the warp's 32 lanes.  At each of the first three
+// __shfl_xor_sync steps (16, 8, 4) a lane sends the half of its remaining
+// values that its partner keeps and adds the half it receives: 8 values
+// take 4 + 2 + 1 shuffles to 1 per lane, then 2 more (xor 2, 1) finish the
+// sum.  Lane l ends with the sum of value (l >> 2) & 7.  Every sum is the
+// tree ((x_l + x_{l^16}) + (x_{l^8} + ...)) of the butterfly, the same on
+// every lane.
+__device__ __forceinline__ float warp_sum8(const float* v, int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8, hi4 = lane & 4;
+  float s4[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float send = hi16 ? v[i] : v[i + 4];
+    const float keep = hi16 ? v[i + 4] : v[i];
+    s4[i] = keep + __shfl_xor_sync(kFull, send, 16);
+  }
+  float s2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = hi8 ? s4[i] : s4[i + 2];
+    const float keep = hi8 ? s4[i + 2] : s4[i];
+    s2[i] = keep + __shfl_xor_sync(kFull, send, 8);
+  }
+  float s = (hi4 ? s2[1] : s2[0]) + __shfl_xor_sync(kFull, hi4 ? s2[0] : s2[1], 4);
+  s += __shfl_xor_sync(kFull, s, 2);
+  s += __shfl_xor_sync(kFull, s, 1);
+  return s;
+}
+
+// The same for 4 values: 2 + 1 shuffles (xor 16, 8) to 1 per lane, then xor
+// 4, 2, 1.  Lane l ends with the sum of value (l >> 3) & 3.
+__device__ __forceinline__ float warp_sum4(const float* v, int lane) {
+  const bool hi16 = lane & 16, hi8 = lane & 8;
+  float s2[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float send = hi16 ? v[i] : v[i + 2];
+    const float keep = hi16 ? v[i + 2] : v[i];
+    s2[i] = keep + __shfl_xor_sync(kFull, send, 16);
+  }
+  float s = (hi8 ? s2[1] : s2[0]) + __shfl_xor_sync(kFull, hi8 ? s2[0] : s2[1], 8);
+  s += __shfl_xor_sync(kFull, s, 4);
+  s += __shfl_xor_sync(kFull, s, 2);
+  s += __shfl_xor_sync(kFull, s, 1);
+  return s;
+}
+
+// Sums v[0..8]: the first 8 by warp_sum8 (`mine`, on lane l the sum of
+// value (l >> 2) & 7); value 8 takes a plain xor butterfly of 5 shuffles and
+// ends on every lane (`last`).  14 shuffles where 9 shuffle trees take 45.
+__device__ __forceinline__ void warp_sum9(const float (&v)[kRows], int lane, float& mine,
+                                          float& last) {
+  mine = warp_sum8(v, lane);
+  float u = v[8];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) u += __shfl_xor_sync(kFull, u, off);
+  last = u;
 }
 
 // A pixel's running transmittance and colour, front to back.

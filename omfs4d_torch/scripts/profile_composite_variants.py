@@ -15,7 +15,10 @@ With no CUDA card it exits non-zero and prints no table.
 `make_variant_kernel(mode)` is V's wrapper: a CUDA tensor launches V or the
 call raises; a CPU tensor takes `variant_plain`, its plain PyTorch version
 (dense (P, K) tensors per tile, as the reference's body).  `launches` counts
-V's launches per mode.
+V's launches per mode.  `compare` holds V to the plain version
+(`compare_non_finite` on a table with NaN or Inf entries), and
+`fixture_inputs` is the hand-built table that the tests and the smoke run
+hold V to beside the reference's own.
 """
 
 from __future__ import annotations
@@ -62,7 +65,19 @@ def _kernel():
     return fn
 
 
+#: signatures that `_check_inputs` has taken
+_taken: set = set()
+
+
 def _check_inputs(packed, dcol, dalpha, tile, grid_w):
+    """Raises on what V does not take.  The verdict depends only on each
+    tensor's shape, strides, dtype and device, so a signature that passed
+    once is not checked again."""
+    key = (packed.shape, packed.stride(), packed.dtype, packed.device,
+           dcol.shape, dcol.stride(), dcol.dtype, dcol.device,
+           dalpha.shape, dalpha.stride(), dalpha.dtype, dalpha.device, tile, grid_w)
+    if key in _taken:
+        return
     dev = packed.device
     for t in (packed, dcol, dalpha):
         if (t.dtype is not torch.float32 or t.device != dev or not t.is_contiguous()
@@ -79,6 +94,7 @@ def _check_inputs(packed, dcol, dalpha, tile, grid_w):
     if not 1 <= p <= 1024 or grid_w < 1:
         raise ValueError(f"composite variant: tile {tile} ({p} threads a block, the "
                          f"kernel takes 1..1024), grid_w {grid_w}")
+    _taken.add(key)
 
 
 def _refuse(packed, dcol, dalpha):
@@ -234,6 +250,22 @@ def compare(mode: str, got: torch.Tensor, ref: torch.Tensor, packed: torch.Tenso
             "share": outside / max(1, int((ref != 0).sum())), "ok": outside == 0}
 
 
+def compare_non_finite(mode: str, got: torch.Tensor, ref: torch.Tensor,
+                       packed: torch.Tensor) -> dict:
+    """`compare` for a table with non-finite entries: `got` must be NaN
+    exactly where `ref` is and equal to it where it is infinite (else
+    `same_places` is False, and ok); everywhere else `compare`'s bound
+    holds, with those elements and the table's non-finite entries taken
+    as 0."""
+    odd = ~torch.isfinite(ref)
+    same = (torch.equal(torch.isnan(got), torch.isnan(ref))
+            and torch.equal(got[odd & ~torch.isnan(ref)], ref[odd & ~torch.isnan(ref)]))
+    res = compare(mode, torch.where(odd, 0.0, got), torch.where(odd, 0.0, ref),
+                  torch.nan_to_num(packed, nan=0.0, posinf=0.0, neginf=0.0))
+    return {**res, "same_places": same, "non_finite": int(odd.sum()),
+            "ok": res["ok"] and same}
+
+
 def synthetic_inputs(seed: int = 0, T: int = T, K: int = K):
     """The reference script's inputs (its `main()`), as numpy: the packed
     (T, 9, K) table with every entry live, the cotangents dcol (T, 3, P) and
@@ -251,6 +283,78 @@ def synthetic_inputs(seed: int = 0, T: int = T, K: int = K):
     dalpha = rng.normal(0, 1, (T, 1, P)).astype(np.float32)
     keys = rng.integers(0, 2**31, N_PAIRS).astype(np.int32)
     return packed, dcol, dalpha, keys
+
+
+#: what `fixture_inputs` can put into an entry in the middle of a list:
+#: (row of the packed table, value)
+NON_FINITE = {"nan_mean": (ROW_UX, np.nan), "inf_mean": (ROW_UX, np.inf),
+              "nan_colour": (ROW_R, np.nan), "inf_colour": (ROW_R + 1, np.inf),
+              "nan_opacity": (ROW_OPAC, np.nan)}
+FIXTURE_GRID_W = 3
+
+
+def fixture_inputs(seed: int = 0, K: int = 38, non_finite: str | None = None):
+    """A hand-built table for V's walk over the entries that reach a tile, as
+    numpy: packed (5, 9, K), dcol (5, 3, 256), dalpha (5, 1, 256), for
+    16-px tiles on a grid FIXTURE_GRID_W = 3 wide whose second row stops
+    after two tiles.  K = 38 is no multiple of 4 (the slab is then not
+    16-byte aligned); K >= 38.
+
+    Tile 0: slot 0 and a slot in the middle reach no pixel of the tile, in
+    front of live ones (row 0 of the matmul modes is nonzero on them); a
+    singular and an indefinite conic far away (a = o along a band of the
+    tile and at every pixel); an opacity below 1/255; a capped entry (o = 1
+    at the centre); an entry whose reach box meets the tile but whose alpha
+    is cut at all its pixels.  Tile 1: saturated entries in front of
+    ordinary ones (the transmittance underflows), entries straddling its
+    edges.  Tile 2: means past the right edge of the grid.  Tile 3: padding
+    only.  Tile 4: means past the bottom edge.  Slots past a tile's entries
+    are padding (all zeros).
+
+    `non_finite` (a key of NON_FINITE) puts that value into the sixth entry
+    of tiles 0 and 4, in the middle of their lists."""
+    rng = np.random.default_rng(seed)
+    tiles = [[] for _ in range(5)]
+
+    def add(t, ux, uy, sigma, o, conic=None):
+        ca, cb, cc = conic or (1 / sigma ** 2, rng.uniform(-0.2, 0.2) / sigma ** 2,
+                               1 / sigma ** 2)
+        tiles[t].append([ux, uy, ca, cb, cc, *rng.uniform(0, 1, 3), o])
+
+    add(0, 200.0, 200.0, 2.0, 0.9)                          # reaches no pixel, in front
+    for _ in range(4):
+        add(0, *rng.uniform(1, 15, 2), rng.uniform(2, 5), rng.uniform(0.3, 0.9))
+    add(0, 9.0, 6.0, 4.0, 0.6)                              # the sixth entry
+    add(0, 300.0, -284.0, 1.0, 0.4, conic=(0.05, 0.05, 0.05))  # singular: a = o along a band
+    add(0, -150.0, 120.0, 1.0, 0.3, conic=(0.01, 0.1, 0.01))  # indefinite
+    add(0, 90.0, 150.0, 3.0, 0.8)                           # reaches no pixel, in the middle
+    add(0, 8.0, 8.0, 3.0, 0.003)                            # opacity below 1/255
+    add(0, 8.0, 8.0, 6.0, 1.0)                              # capped at the centre
+    add(0, 25.4, 8.0, 3.0, 0.5, conic=(1 / 9, 0.0, 1 / 9))  # box meets the tile, alpha cut
+    for _ in range(4):
+        add(0, *rng.uniform(1, 15, 2), rng.uniform(2, 5), rng.uniform(0.3, 0.9))
+    for i in range(12):                                     # tile 1: T underflows
+        add(1, 24 + rng.uniform(-1, 1), 8 + rng.uniform(-1, 1), 60.0,
+            1.0 if i % 5 == 3 else 0.98)
+    for _ in range(5):
+        add(1, *rng.uniform(17, 31, 2), 3.0, 0.6)
+    for _ in range(4):                                      # straddling tile 1's edges
+        add(1, rng.choice([16.0, 32.0]) + rng.uniform(-2, 2), rng.uniform(2, 14), 4.0, 0.7)
+    for _ in range(8):                                      # tile 2: past the right edge
+        add(2, rng.uniform(40, 56), rng.uniform(1, 15), rng.uniform(2, 4), 0.8)
+    for _ in range(10):                                     # tile 4: past the bottom edge
+        add(4, rng.uniform(17, 31), rng.uniform(26, 40), rng.uniform(2, 4), 0.8)
+    if non_finite is not None:
+        row, value = NON_FINITE[non_finite]
+        tiles[0][5][row] = value
+        tiles[4][5][row] = value
+    packed = np.zeros((5, N_ROWS, K), np.float32)
+    for t, rows in enumerate(tiles):
+        if rows:
+            packed[t, :, :len(rows)] = np.asarray(rows, np.float32).T
+    dcol = rng.normal(size=(5, 3, P)).astype(np.float32)
+    dalpha = rng.normal(size=(5, 1, P)).astype(np.float32)
+    return packed, dcol, dalpha
 
 
 def as_gaussians(packed: torch.Tensor):

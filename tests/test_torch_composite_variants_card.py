@@ -6,7 +6,9 @@ This file imports only the port (no jax), so it also runs on a machine
 without JAX:
     python -m pytest --noconftest tests/test_torch_composite_variants_card.py
 Bounds are `profile_composite_variants.compare`'s, derived in
-tests/test_torch_composite_variants.py.
+tests/test_torch_composite_variants.py.  The hand-built table
+(`profile_composite_variants.fixture_inputs`) is the one the CPU tests of
+V's walk use (tests/test_torch_composite_variants_lists.py).
 """
 
 import numpy as np
@@ -58,7 +60,8 @@ def assert_matches_plain(mode, args, tile, grid_w):
 
 @pytest.mark.parametrize("T,K,grid_w,tile", [
     (4, 32, 2, 16),        # the CPU parity test's shape
-    (6, 100, 3, 16),       # K not a multiple of the 64-entry batch
+    (6, 100, 3, 16),       # two chunks of the block list, the second partial
+    (4, 200, 2, 16),       # four chunks: both buffers of parked sums reused
     (9, 70, 3, 8),         # 8-px tiles: 64-thread blocks
     (3, 40, 2, 6),         # 36 pixels: a partial second warp of non-pixels
 ])
@@ -69,6 +72,55 @@ def test_variant_matches_plain_on_card(cuda_device, mode, T, K, grid_w, tile):
     # one block owns each tile's output: no atomics, the same bits every run
     again = pcv.make_variant_kernel(mode)(*args, tile=tile, grid_w=grid_w)
     assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("K", [38, 40])
+@pytest.mark.parametrize("mode", pcv.MODES)
+def test_variant_matches_plain_on_the_fixture_on_card(cuda_device, mode, K):
+    """The hand-built table: slots that reach no pixel in front of live ones,
+    singular and indefinite conics, an opacity below 1/255, capped and cut
+    entries, a saturated tile, means past the grid's edges, a padding tile;
+    K = 38 takes the unaligned staging and stores, K = 40 the bulk copy."""
+    args = [torch.from_numpy(a).to(cuda_device) for a in pcv.fixture_inputs(K=K)]
+    got = assert_matches_plain(mode, args, pcv.TILE, pcv.FIXTURE_GRID_W)
+    assert not got[3].any()
+    if mode in ("matmuls", "bf16_matmuls"):
+        assert got[0, 0, 0] != 0 and got[0, 0, 8] == got[0, 0, 9] != 0
+    again = pcv.make_variant_kernel(mode)(*args, grid_w=pcv.FIXTURE_GRID_W)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("kind", list(pcv.NON_FINITE))
+@pytest.mark.parametrize("mode", [m for m in pcv.MODES if m != "copy"])
+def test_non_finite_entry_matches_plain_on_card(cuda_device, mode, kind):
+    """A NaN or Inf entry in the middle of a list: V is NaN exactly where the
+    plain version is (at the entry and, through 0 * NaN, at later entries of
+    the tile, also those that reach no pixel), and within the bound
+    elsewhere."""
+    args = [torch.from_numpy(a).to(cuda_device)
+            for a in pcv.fixture_inputs(K=40, non_finite=kind)]
+    got = pcv.make_variant_kernel(mode)(*args, grid_w=pcv.FIXTURE_GRID_W)
+    ref = pcv.variant_plain(mode, *args, grid_w=pcv.FIXTURE_GRID_W)
+    res = pcv.compare_non_finite(mode, got, ref, args[0])
+    assert res["ok"], f"{mode} {kind}: {res}"
+    if mode != "elementwise" or "colour" not in kind:
+        assert res["non_finite"] > 0
+    assert bool(torch.isfinite(got[1:4]).all())
+
+
+def test_a_refused_launch_raises_on_card(cuda_device):
+    """K = 8192: the tile's slab alone (288 KB) is past a block's shared
+    memory, so the launch is refused and the call raises."""
+    packed = torch.zeros((1, 9, 8192), device=cuda_device)
+    dcol = torch.zeros((1, 3, 256), device=cuda_device)
+    dalpha = torch.zeros((1, 1, 256), device=cuda_device)
+    before = dict(pcv.launches)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pcv.make_variant_kernel("full_bf16")(packed, dcol, dalpha, grid_w=1)
+    assert pcv.launches == before
+    torch.cuda.synchronize()
+    out = pcv.make_variant_kernel("copy")(packed, dcol, dalpha, grid_w=1)   # the card is fine
+    assert not out.any()
 
 
 def test_copy_of_an_unaligned_table_on_card(cuda_device):
