@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render and training paths once on one CUDA card.
+"""Drive the PyTorch port's render, training and tracking paths once on one
+CUDA card.
 
     python3 chip_smoke.py
 
@@ -67,6 +68,34 @@ Phase F: the K2 ablation profiler.  Every V launch count is zeroed, then
   lists (`pcv.compare_non_finite`: NaN exactly where the plain version has
   NaN).  Last, host us per call (1,000 unsynchronised calls) of K1, K2, V
   copy and `packed * 2`, and of each step of V copy's wrapper.
+Phase G: the tracking path at full width (512^2 frames, the 5143-vertex
+  asset with 10,282 faces, K = 256, the default TrackConfig widths: n_shape
+  300, n_expr 100, texture_res 128, rgb_downsample 2 as the pipeline picks at
+  >= 384 px; step counts cut, and printed).  An 8-frame clip with a static
+  camera and a moving head is rendered on the card and written as PNGs with a
+  landmarks.npz from the `synthetic` source; then detect_landmarks("file") ->
+  landmark_preflight -> FlameTracker.fit (splat backend, uv atlas, events to
+  a JSONL file) -> write_dataset with the refined focal -> FrameDataset reads
+  it back.  Both launch counters are zeroed before fit and read after: K1 and
+  K2 must each have launched once per rendered frame of the rgb steps.
+  Checked: the landmark loss falls tenfold over the landmark stages, the
+  photometric loss after fit lies below the one at landmark-only parameters,
+  one rgb step and one sequential step run under
+  torch.cuda.set_sync_debug_mode("error"), a track_stage event per stage, the
+  contract's shapes.  K1 and K2 are held to their plain versions on frame 0's
+  face splats (TOL and GRAD_TOL, as phases C and E) and timed there beside
+  their bounds.  Then the mesh backend, uv and flat, 5 steps of
+  rgb_init_texture each (the loss falls, no kernel launches); FLAME-fit it/s
+  as the reference's bench defines it (T = 150, n_shape 100, n_expr 50,
+  landmark loss + regularizers, every key an Adam group, 200 steps after a
+  warm-up: host clock, CUDA events, and torch.profiler's kernel count and
+  busy time per step); and ms per rgb step (B = 4, splat, 256^2) with
+  StageClock laps.
+
+    python3 chip_smoke.py --only-track
+
+runs the set-up and phase G alone (no kernels line, no last line): for work
+on the tracker.
 
     python3 chip_smoke.py --trees DIR [DIR ...]
 
@@ -82,8 +111,10 @@ and with the L2 flushed before each launch (variant_times).
 
 Any failure raises and exits non-zero.  With no CUDA card the script exits
 non-zero before printing any result.  The line before the card's name holds
-every kernel's launches, error, ms, plain_ms, bound_ms (with bound_by) and
-library_ms (one PyTorch call for the same function: `packed * 2` for V's
+every kernel's launches (the sum over phases B, D and G for K1 and K2, with
+each path's own under `launches_by_path` and the launches of one tracker rgb
+step under `launches_per_tracker_step`), error, ms, plain_ms, bound_ms (with
+bound_by) and library_ms (one PyTorch call for the same function: `packed * 2` for V's
 copy mode, none for the others).  The last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
@@ -122,6 +153,16 @@ CAPACITY = 131_072
 TRAIN_ITERS = 60
 STEADY_STEPS = 20
 GRAD_TOL = 2e-4, 2e-3      # atol * max|plain grad|, rtol
+# phase G: the tracker's schedule with its step counts cut (the widths are
+# the defaults), and the reference bench's FLAME-fit shape
+TRACK_STEPS = dict(steps_lmk_init_rigid=100, steps_lmk_init_all=100,
+                   steps_rgb_init_texture=20, steps_rgb_init_all=20,
+                   steps_rgb_init_offset=10, steps_rgb_sequential=3,
+                   steps_global=20, epochs_global=1)
+RGB_BATCH = 4
+MESH_STEPS = 5
+FIT_FRAMES, FIT_SHAPE, FIT_EXPR, FIT_STEPS, FIT_WARMUP = 150, 100, 50, 200, 20
+RGB_TIMED_STEPS = 10
 
 # The bound of a kernel: the larger of its FP32 instructions over the card's
 # issue rate and its bytes over its memory rate.  NVIDIA H100 SXM: 67 TFLOP/s
@@ -518,7 +559,371 @@ def quantize(img: torch.Tensor) -> np.ndarray:
     return np.clip(img.cpu().numpy() * 255.0, 0, 255).astype(np.uint8)
 
 
-def main() -> int:
+def tracking_clip(model, device, work: Path):
+    """An 8-frame 512^2 clip with a static camera and a moving head, rendered
+    on the card by the textured ground-truth avatar and written as PNGs with
+    a landmarks.npz from the `synthetic` source.  Returns (images dir, camera)."""
+    from omfs4d_torch.io.synthetic import (animated_flame_params, orbit_c2w_nerf,
+                                           textured_gt_avatar)
+    from omfs4d_torch.io.video import write_image
+    from omfs4d_torch.models.flame import flame_forward
+    from omfs4d_torch.ops.camera import camera_from_nerf
+    from omfs4d_torch.render.rasterize import render_avatar_frame
+    from omfs4d_torch.track.landmarks import detect_landmarks, save_landmarks
+
+    cam = camera_from_nerf(orbit_c2w_nerf(1)[0], SIZE * 1.8, SIZE * 1.8, SIZE / 2, SIZE / 2,
+                           SIZE, SIZE, device=device)
+    gt = animated_flame_params(N_FRAMES, model.n_vertices, jaw_amp=0.1)
+    gt["translation"][:, 0] += 0.01
+    avatar = textured_gt_avatar(model, seed=0)
+    images = work / "capture" / "images"
+    images.mkdir(parents=True)
+    with torch.inference_mode():
+        verts = flame_forward(model, gt)
+        for i in range(N_FRAMES):
+            img, _ = render_avatar_frame(avatar, verts[i], model.faces, cam, SIZE, SIZE,
+                                         max_per_tile=MAX_PER_TILE, large_frac=1.0)
+            write_image(images / f"{i:05d}.png", quantize(img))
+    lmk, valid = detect_landmarks(None, method="synthetic", model=model, params=gt, cameras=cam)
+    save_landmarks(images / "landmarks.npz", lmk, valid)
+    return images, cam
+
+
+def tracker_params(tracker, result, n_frames: int) -> dict:
+    """The tracker's parameter dict of a TrackerResult (the contract's padding
+    cut off, the texture back in logits)."""
+    cfg = tracker.cfg
+    p = tracker.init_params(n_frames)
+    for k in p:
+        if k in ("shape", "expr"):
+            n = cfg.n_shape if k == "shape" else cfg.n_expr
+            p[k] = torch.from_numpy(result.params[k][..., :n]).to(tracker.device)
+        elif k in result.params:
+            p[k] = torch.from_numpy(result.params[k]).to(tracker.device)
+    tex = np.clip(result.texture, 1e-3, 1 - 1e-3)
+    p["texture"] = torch.from_numpy(np.log(tex / (1 - tex)).astype(np.float32)).to(tracker.device)
+    p["focal_log_scale"] = torch.tensor(np.float32(np.log(result.focal_scale))).to(tracker.device)
+    return p
+
+
+def tracker_frame_inputs(tracker, p: dict, frame: int):
+    """The composite's inputs of one tracker frame (the splat backend's
+    render path up to the composite), detached."""
+    from omfs4d_torch.models.flame import flame_forward
+    from omfs4d_torch.models.gaussians import bind_to_mesh
+    from omfs4d_torch.ops.camera import project_gaussians
+    from omfs4d_torch.render.rasterize import bin_gaussians
+    from omfs4d_torch.render.texture import bilinear_sample, face_center_uv
+    from omfs4d_torch.track.fitter import _texture_avatar
+
+    model = tracker.model
+    with torch.no_grad():
+        verts = flame_forward(model, tracker._flame_args(p))
+        logits = bilinear_sample(p["texture"], face_center_uv(model.uv_coords, model.faces))
+        means, rot, scales, opac, cols = bind_to_mesh(_texture_avatar(model, logits),
+                                                      verts[frame], model.faces)
+        proj = project_gaussians(tracker._scaled_camera(tracker.p_camera, p), means, rot, scales)
+        binning = bin_gaussians(proj, opac, tracker.p_width, tracker.p_height, tracker.tile,
+                                tracker.max_per_tile, large_frac=1.0)
+    return (proj["uv"], proj["conic"], cols, opac, binning, tracker.p_width, tracker.p_height)
+
+
+def hold_composite(label: str, args) -> tuple[float, float]:
+    """K1 and K2 against their plain versions on one frame's inputs: image
+    and alpha within TOL, the four gradients within GRAD_TOL under the
+    seeded cotangent.  Returns (K1's, K2's) max abs error."""
+    from omfs4d_torch.render.composite import composite, composite_plain
+
+    with torch.no_grad():
+        img_k, alpha_k = composite(*args)
+        img_p, alpha_p = composite_plain(*args)
+    err = max((img_k - img_p).abs().max().item(), (alpha_k - alpha_p).abs().max().item())
+    check(err <= TOL and bool(torch.isfinite(img_k).all()),
+          f"{label}: K1 vs plain max abs err {err} <= {TOL}")
+    g_k, _ = composite_grads(composite, args)
+    g_p, _ = composite_grads(composite_plain, args)
+    worst = 0.0
+    for name, a, b in zip(("uv", "conic", "colors", "opacity"), g_k, g_p):
+        scale = b.abs().max().item()
+        bad = ((a - b).abs() > GRAD_TOL[0] * scale + GRAD_TOL[1] * b.abs()).sum().item()
+        check(bad == 0 and bool(torch.isfinite(a).all()),
+              f"{label}: K2 d{name} within atol {GRAD_TOL[0]}*{scale:.3e}, rtol {GRAD_TOL[1]} "
+              f"({bad} outside)")
+        worst = max(worst, (a - b).abs().max().item())
+    return err, worst
+
+
+def profiled_kernels(fn, steps: int) -> tuple[float, float]:
+    """(kernel launches, device busy ms) per call of fn over `steps` calls
+    (torch.profiler: every CUDA kernel and memset/memcpy it records)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    count = busy_us = 0
+    for evt in prof.key_averages():
+        total = getattr(evt, "device_time_total", None)
+        total = evt.cuda_time_total if total is None else total
+        if total > 0:
+            count += evt.count
+            busy_us += total
+    return count / steps, busy_us / steps / 1e3
+
+
+def phase_g(model, device, card: str, work: Path) -> dict:
+    """The tracking path at full width; returns K1's and K2's launches in
+    FlameTracker.fit and in one rgb step."""
+    import dataclasses
+
+    from omfs4d_torch.core.config import TrackConfig
+    from omfs4d_torch.core.logging import EventLogger
+    from omfs4d_torch.core.timing import StageClock
+    from omfs4d_torch.io.dataset import FrameDataset, write_dataset
+    from omfs4d_torch.models.flame import flame_forward
+    from omfs4d_torch.render.composite import composite, pack_lists
+    from omfs4d_torch.track.fitter import FlameTracker
+    from omfs4d_torch.track.landmarks import _load_frames, detect_landmarks
+    from omfs4d_torch.track.preflight import landmark_preflight
+    from omfs4d_torch.train.trainer import adam_init
+
+    t_phase = time.perf_counter()
+    images, cam = tracking_clip(model, device, work)
+
+    # ── landmarks -> preflight -> fit -> dataset, as the pipeline's track stage ──
+    frames = _load_frames(images)
+    T, H, W = frames.shape[:3]
+    lmk, valid = detect_landmarks(images, method="file")
+    report = landmark_preflight(lmk, valid, W, H)
+    check(report.ok, f"landmark preflight passes: {report.reasons}")
+    cfg = TrackConfig(**TRACK_STEPS)
+    if cfg.rgb_downsample == 1 and max(W, H) >= 384:
+        cfg = dataclasses.replace(cfg, rgb_downsample=2)
+    check((cfg.n_shape, cfg.n_expr, cfg.texture_res, cfg.photometric_backend, cfg.texture_mode)
+          == (300, 100, 128, "splat", "uv"), "default TrackConfig widths and backend")
+    tracker = FlameTracker(model, cfg, cam, (W, H), max_per_tile=MAX_PER_TILE)
+    check(tracker.device == device, f"the tracker took the card ({tracker.device})")
+    data = {"landmarks": torch.from_numpy(lmk).to(device),
+            "valid": torch.from_numpy(valid).to(device),
+            "frames": tracker._prep_frames(frames)}
+    B = min(RGB_BATCH, T)
+    # warm-up on throwaway parameters: shapes, allocator, cuBLAS handles
+    warm = tracker.init_params(T)
+    rgb_keys = ("shape", "expr", "rotation", "neck_pose", "jaw_pose", "eyes_pose",
+                "translation", "texture", "static_offset")
+    warm_opt = {k: adam_init({k: warm[k]}) for k in rgb_keys}
+    for i in range(2):
+        tracker._stage_step(warm, warm_opt, data, [i, 1, 2, 3][:B], 0.3, 1.0)
+    with torch.no_grad():
+        lmk_init = float(tracker._landmark_loss(tracker.init_params(T), data["landmarks"],
+                                                data["valid"]))
+    events_path = work / "track_events.jsonl"
+    composite.launches = 0
+    composite.backward_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = tracker.fit(lmk, valid, frames=frames, events=EventLogger(events_path))
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    fit_fwd, fit_bwd = composite.launches, composite.backward_launches
+    rgb_steps = (cfg.steps_rgb_init_texture + cfg.steps_rgb_init_all + cfg.steps_rgb_init_offset
+                 + cfg.steps_global * cfg.epochs_global)
+    rendered = B * rgb_steps + T * cfg.steps_rgb_sequential
+    check(fit_fwd == rendered and fit_bwd == rendered,
+          f"K1 {fit_fwd} and K2 {fit_bwd} launches == {rendered} rendered frames "
+          f"({B} x {rgb_steps} rgb steps + {T} x {cfg.steps_rgb_sequential} sequential)")
+    stages = [json.loads(line) for line in events_path.read_text().splitlines()]
+    names = [s["stage"] for s in stages if s["event"] == "track_stage"]
+    want = ["lmk_init_rigid", "lmk_init_all", "rgb_init_texture", "rgb_init_all",
+            "rgb_init_offset", "rgb_sequential_tracking", "global_optimization_0"]
+    check(names == want, f"a track_stage event per stage: {names}")
+    check(all(np.isfinite(s["loss"]) for s in stages), "finite stage losses")
+    lmk_end = stages[1]["loss"]
+    check(lmk_end * 10 <= lmk_init,
+          f"landmark loss fell tenfold over the landmark stages: {lmk_init:.6f} -> "
+          f"{lmk_end:.6f} (with regularizers)")
+    V = model.n_vertices
+    shapes = {k: result.params[k].shape for k in ("shape", "expr", "static_offset",
+                                                  "dynamic_offset")}
+    check(shapes == {"shape": (300,), "expr": (T, 100), "static_offset": (1, V, 3),
+                     "dynamic_offset": (T, V, 3)}, f"contract shapes: {shapes}")
+    check(all(np.isfinite(v).all() for v in result.params.values())
+          and np.isfinite(result.texture).all(), "finite exported parameters and texture")
+
+    # photometric loss at landmark-only parameters (grey texture) and after fit
+    lmk_only = FlameTracker(model, dataclasses.replace(cfg, photometric=False), cam, (W, H),
+                            max_per_tile=MAX_PER_TILE).fit(lmk, valid)
+    every = list(range(T))
+    with torch.no_grad():
+        p_lmk = tracker_params(tracker, lmk_only, T)
+        p_lmk["texture"] = torch.zeros_like(p_lmk["texture"])
+        photo_lmk = float(tracker._photometric_loss(p_lmk, data["frames"], every))
+        p_fit = tracker_params(tracker, result, T)
+        photo_fit = float(tracker._photometric_loss(p_fit, data["frames"], every))
+    check(photo_fit < photo_lmk, f"photometric loss after fit {photo_fit:.5f} < "
+          f"{photo_lmk:.5f} at the landmark-only parameters")
+
+    # one rgb step and one sequential step with every host sync made an error
+    step_opt = {k: adam_init({k: p_fit[k]}) for k in rgb_keys}
+    fixed = {k: (v if k in ("shape", "texture", "static_offset", "focal_log_scale")
+                 else v[:1]) for k, v in p_fit.items() if k != "rotation"}
+    row = {"rotation": p_fit["rotation"][0].clone()}
+    frame = {k: v[:1] for k, v in data.items()}
+    before = composite.launches, composite.backward_launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tracker._stage_step(p_fit, step_opt, data, [0, 1, 2, 3][:B], 0.3, 1.0)
+        step_launches = (composite.launches - before[0],
+                         composite.backward_launches - before[1])
+        moved = tracker._row_step(row, adam_init(row), fixed, frame, 0.3, 1.0, cfg.lr)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(moved and step_launches == (B, B),
+          f"one rgb step launched K1 and K2 {step_launches} == ({B}, {B}) times; it and a "
+          "sequential step made no host sync")
+
+    # the dataset, with the refined focal, as the pipeline's track stage writes it
+    c2w = np.linalg.inv(cam.w2c.cpu().numpy().astype(np.float64))
+    c2w[:3, 1:3] *= -1.0
+    with torch.no_grad():
+        verts0 = flame_forward(model, {k: v for k, v in result.params.items()
+                                       if k != "dynamic_offset"})[0]
+    fl = float(cam.fx) * result.focal_scale
+    out = write_dataset(work / "tracked", frames, np.tile(c2w[None], (T, 1, 1)), fl,
+                        float(cam.fy) * result.focal_scale, float(cam.cx), float(cam.cy),
+                        flame_params=result.params, points3d=verts0.cpu().numpy(),
+                        n_verts=V)
+    ds = FrameDataset(out, split="train")
+    check(len(ds) == T - T // 10 and ds.flame_params["expr"].shape == (T, 100)
+          and abs(ds.intrinsics["fl_x"] - fl) < 1e-6 * fl
+          and np.array_equal(ds.load_image(0), frames[0])
+          and ds.points3d().shape == (V, 3), "the tracked dataset reads back")
+    print(f"phase G: FlameTracker.fit, {T} frames at {W}x{H} (photometric at "
+          f"{tracker.p_width}x{tracker.p_height}), {model.faces.shape[0]} face splats, "
+          f"K={MAX_PER_TILE}, n_shape {cfg.n_shape}, n_expr {cfg.n_expr}, texture "
+          f"{cfg.texture_res}^2, splat/uv; steps {TRACK_STEPS} [{card}]")
+    print(f"  fit(): {fit_s:.3f} s (host clock, synchronized); stages: "
+          + ", ".join(f"{s['stage']} {s['steps']} steps {s['seconds']} s loss {s['loss']:.5f}"
+                      for s in stages))
+    print(f"  landmark loss {lmk_init:.6f} -> {lmk_end:.6f} over the landmark stages, "
+          f"{result.losses['landmark']:.6f} after fit; focal x{result.focal_scale:.4f}; "
+          f"photometric loss {photo_lmk:.5f} at landmark-only parameters -> "
+          f"{photo_fit:.5f} after fit")
+    print(f"  launches in fit(): K1 {fit_fwd}, K2 {fit_bwd} ({rendered} rendered frames); "
+          f"one rgb step: K1 {step_launches[0]}, K2 {step_launches[1]}; dataset written "
+          f"with fl_x {fl:.2f} and read back ({len(ds)} train frames)")
+
+    # K1 and K2 against their plain versions at the tracker's own shapes
+    targs = tracker_frame_inputs(tracker, tracker_params(tracker, result, T), 0)
+    err_k1, err_k2 = hold_composite("tracker frame 0", targs)
+    times = kernel_times(targs)
+    tb = targs[4]
+    bounds = composite_bounds(targs, pack_lists(*targs[:4], tb.tile_lists, tb.tile_counts))
+    print(f"  tracker frame 0 ({targs[0].shape[0]} face splats, "
+          f"{int(tb.tile_counts.sum())} list entries at {tracker.p_width}x{tracker.p_height}, "
+          f"{bounds['reached']} pairs in reach, {bounds['live']} live): K1 vs plain max abs "
+          f"err {err_k1:.3e}, K2 {err_k2:.3e}; device us a launch (torch.profiler, {N_TIMED} "
+          f"launches): K1 {times['k1_us']:.2f} (kernel {times['k1_kernel_us']:.2f} + ordering "
+          f"{times['order_us']:.2f}; bound {bounds['composite_fwd'][0]:.2f}, "
+          f"{bounds['composite_fwd'][1]}), K2 {times['k2_us']:.2f} (bound "
+          f"{bounds['composite_bwd'][0]:.2f}, {bounds['composite_bwd'][1]}); CUDA-event ms "
+          f"K1 {times['k1_ms']:.4f}, K2 {times['k2_ms']:.4f} [{card}]")
+
+    # ── the mesh backend: plain PyTorch, no kernel ──
+    for mode in ("uv", "flat"):
+        mcfg = dataclasses.replace(cfg, photometric_backend="mesh", texture_mode=mode)
+        mtracker = FlameTracker(model, mcfg, cam, (W, H), max_per_tile=MAX_PER_TILE)
+        p0 = tracker_params(tracker, lmk_only, T)
+        p0["texture"] = torch.zeros(mtracker._texture_shape(), device=device)
+        before = composite.launches, composite.backward_launches
+        with torch.no_grad():
+            first = float(mtracker._photometric_loss(p0, data["frames"], every[:B]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p1 = mtracker._run_stage("rgb_init_texture", p0, MESH_STEPS, ("texture",), 0.0, 1.0,
+                                 data, EventLogger())
+        torch.cuda.synchronize()
+        mesh_ms = (time.perf_counter() - t0) / MESH_STEPS * 1e3
+        with torch.no_grad():
+            last = float(mtracker._photometric_loss(p1, data["frames"], every[:B]))
+        check(np.isfinite(last) and last < first,
+              f"mesh/{mode}: photometric loss fell over {MESH_STEPS} texture steps: "
+              f"{first:.5f} -> {last:.5f}")
+        check((composite.launches, composite.backward_launches) == before,
+              f"mesh/{mode}: K1 and K2 launch counts did not move")
+        print(f"  mesh/{mode}: {MESH_STEPS} rgb_init_texture steps, {mesh_ms:.3f} ms/step "
+              f"(host clock, the first step included), loss {first:.5f} -> {last:.5f}, "
+              f"K1/K2 launches 0 [{card}]")
+        del mtracker, p0, p1
+    torch.cuda.empty_cache()
+
+    # ── FLAME-fit it/s, as the reference's bench defines it ──
+    fcfg = TrackConfig(n_shape=FIT_SHAPE, n_expr=FIT_EXPR, photometric=False)
+    ftracker = FlameTracker(model, fcfg, cam, (W, H), max_per_tile=MAX_PER_TILE)
+    fp = ftracker.init_params(FIT_FRAMES)
+    fdata = {"landmarks": torch.full((FIT_FRAMES, model.lmk_faces_idx.shape[0], 2), W / 2.0,
+                                     device=device),
+             "valid": torch.ones(FIT_FRAMES, dtype=torch.bool, device=device), "frames": None}
+    fopt = {k: adam_init({k: v}) for k, v in fp.items()}       # every key an Adam group
+
+    def fit_step():
+        return ftracker._stage_step(fp, fopt, fdata, [0], 1.0, 0.0)
+
+    for _ in range(FIT_WARMUP):
+        fit_step()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(FIT_STEPS):
+        loss = fit_step()
+    end.record()
+    torch.cuda.synchronize()
+    fit_host_s = time.perf_counter() - t0
+    fit_dev_ms = start.elapsed_time(end) / FIT_STEPS
+    check(bool(torch.isfinite(loss)), "finite FLAME-fit loss")
+    n_kernels, busy_ms = profiled_kernels(fit_step, 20)
+    print(f"  FLAME-fit: {FIT_STEPS / fit_host_s:.3f} it/s (T={FIT_FRAMES}, n_shape {FIT_SHAPE}, "
+          f"n_expr {FIT_EXPR}, landmark loss + regularizers, 11 Adam groups; {FIT_STEPS} steps "
+          f"after {FIT_WARMUP}, host clock, synchronized at both ends: "
+          f"{fit_host_s / FIT_STEPS * 1e3:.3f} ms/step); {fit_dev_ms:.3f} ms/step between CUDA "
+          f"events; {n_kernels:.0f} kernels and {busy_ms:.3f} ms of device time a step "
+          f"(torch.profiler, 20 steps) [{card}]")
+    del ftracker, fp, fopt, fdata
+
+    # ── ms per rgb step, with its laps ──
+    p_rgb = tracker_params(tracker, result, T)
+    rgb_opt = {k: adam_init({k: p_rgb[k]}) for k in rgb_keys}
+    rng = np.random.default_rng(0)
+    clock = StageClock(device)
+    tracker.clock = clock
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(RGB_TIMED_STEPS):
+        tracker._stage_step(p_rgb, rgb_opt, data, rng.integers(0, T, size=(B,)).tolist(),
+                            0.3, 1.0)
+    torch.cuda.synchronize()
+    rgb_ms = (time.perf_counter() - t0) / RGB_TIMED_STEPS * 1e3
+    tracker.clock = None
+    laps = clock.totals_ms()
+    n_rgb, busy_rgb = profiled_kernels(
+        lambda: tracker._stage_step(p_rgb, rgb_opt, data, [0, 1, 2, 3][:B], 0.3, 1.0), 5)
+    print(f"  rgb step (rgb_init_all: B={B}, splat/uv, {tracker.p_width}x{tracker.p_height}, "
+          f"landmark weight 0.3): {rgb_ms:.3f} ms/step over {RGB_TIMED_STEPS} steps (host "
+          f"clock, synchronized); {n_rgb:.0f} kernels and {busy_rgb:.3f} ms of device time a "
+          f"step (torch.profiler, 5 steps) [{card}]")
+    for name in ("flame", "landmark", "bind", "project", "bin", "composite", "l1", "backward",
+                 "optimizer"):
+        print(f"  stage {name:12s} {laps.get(name, 0.0) / RGB_TIMED_STEPS:9.3f} ms/step")
+    print(f"phase G ran in {time.perf_counter() - t_phase:.2f} s")
+    return {"fit_fwd": fit_fwd, "fit_bwd": fit_bwd, "step_fwd": step_launches[0],
+            "step_bwd": step_launches[1], "err_k1": err_k1, "err_k2": err_k2}
+
+
+def main(only_track: bool = False) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
               file=sys.stderr)
@@ -561,6 +966,9 @@ def main() -> int:
                                       height=SIZE, n_vertices=N_VERTICES, seed=0,
                                       device=device)
         model = case["model"]
+        if only_track:
+            phase_g(model, device, card, work)
+            return 0
         model_dir = work / "model"
         export_point_cloud(model_dir / "point_cloud" / f"iteration_{ITERATION}"
                            / "point_cloud.ply", bench_avatar(model, device))
@@ -897,6 +1305,9 @@ def main() -> int:
               f"{host['k2']:.2f}, V copy {host['v_copy']:.2f}, packed * 2 "
               f"{host['packed_x2']:.2f}; V copy's wrapper by step: "
               + ", ".join(f"{k} {v:.2f}" for k, v in parts.items()) + f" [{card}]")
+
+        # ── phase G: the tracking path at full width ────────
+        track = phase_g(model, device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
@@ -911,20 +1322,27 @@ def main() -> int:
         "name": "composite_fwd", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_fwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:210",
-        "launches": launches + train_fwd, "max_abs_err": max(errs),
+        "launches": launches + train_fwd + track["fit_fwd"],
+        "launches_by_path": {"render": launches, "train": train_fwd, "track": track["fit_fwd"]},
+        "launches_per_tracker_step": track["step_fwd"],
+        "max_abs_err": max(*errs, track["err_k1"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": k1_bound[0] / 1e3,
         "bound_by": k1_bound[1], "library_ms": None}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_bwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:305",
-        "launches": train_bwd, "max_abs_err": max(bwd_errs),
+        "launches": train_bwd + track["fit_bwd"],
+        "launches_by_path": {"render": 0, "train": train_bwd, "track": track["fit_bwd"]},
+        "launches_per_tracker_step": track["step_bwd"],
+        "max_abs_err": max(*bwd_errs, track["err_k2"]),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms,
         "bound_ms": bounds["composite_bwd"][0] / 1e3, "bound_by": bounds["composite_bwd"][1],
         "library_ms": None}] + [{
         "name": f"composite_variant:{mode}", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_variants.cu",
         "replaces": "scripts/profile_composite_variants.py:49",
-        "launches": v_launches[mode], "max_abs_err": max(r[0] for r in rows),
+        "launches": v_launches[mode], "launches_per_tracker_step": 0,
+        "max_abs_err": max(r[0] for r in rows),
         "ms": rows[0][1], "plain_ms": rows[0][2], "bound_ms": rows[0][3][0] / 1e3,
         "bound_by": rows[0][3][1], "library_ms": rows[0][4]}
         for mode, rows in variant_rows.items()]}))
@@ -1050,6 +1468,8 @@ if __name__ == "__main__":
         ap.add_argument("--trees", type=Path, nargs="+",
                         help="time K1, K2 and V of these checkouts of the repository, one "
                              "process each, in this order ('.' is this one)")
+        ap.add_argument("--only-track", action="store_true",
+                        help="run the set-up and phase G (the tracking path) alone")
         ap.add_argument("--measure", type=Path, nargs=2, help=argparse.SUPPRESS)
         opts = ap.parse_args()
         if not torch.cuda.is_available():
@@ -1059,5 +1479,7 @@ if __name__ == "__main__":
         if opts.measure:
             print(json.dumps(measure_tree(*opts.measure)))
             sys.exit(0)
+        if opts.only_track:
+            sys.exit(main(only_track=True))
         sys.exit(compare_trees(opts.trees))
     sys.exit(main())

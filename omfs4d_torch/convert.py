@@ -38,6 +38,22 @@ def flame_params_from_numpy(params: dict, device: str | torch.device = "cpu") ->
             for k, v in params.items()}
 
 
+#: the tracker's parameter dict (`FlameTracker.init_params`)
+TRACKER_KEYS = ("shape", "expr", "rotation", "neck_pose", "jaw_pose", "eyes_pose",
+                "translation", "texture", "static_offset", "dynamic_offset",
+                "focal_log_scale")
+
+
+def tracker_params_from_numpy(params: dict, device: str | torch.device = "cpu") -> dict:
+    """The 11-key tracker dict of `FlameTracker.init_params` (arrays, in a
+    test `jax.tree_util.tree_map(np.asarray, p)`) -> float32 tensors on
+    `device`; `to_numpy` is the way back."""
+    missing = [k for k in TRACKER_KEYS if k not in params]
+    if missing:
+        raise KeyError(f"tracker params lack {missing}")
+    return flame_params_from_numpy({k: params[k] for k in TRACKER_KEYS}, device)
+
+
 def opt_state_from_optax(state, device: str | torch.device = "cpu") -> dict:
     """An `optax.multi_transform` state of `optax.adam` groups -> the port's
     {group: {"count", "mu": {name}, "nu": {name}}}.  Groups with no Adam

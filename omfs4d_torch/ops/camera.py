@@ -84,12 +84,12 @@ def look_at_camera(
 
 
 def project_points(cam: Camera, pts: torch.Tensor):
-    """World points (N, 3) -> (uv (N, 2), depth (N,))."""
+    """World points (..., 3) -> (uv (..., 2), depth (...)); float32 throughout."""
     p = pts @ cam.w2c[:3, :3].T + cam.w2c[:3, 3]
-    z = p[:, 2]
+    z = p[..., 2]
     safe_z = torch.where(torch.abs(z) < 1e-6, torch.full_like(z, 1e-6), z)
-    u = cam.fx * p[:, 0] / safe_z + cam.cx
-    v = cam.fy * p[:, 1] / safe_z + cam.cy
+    u = cam.fx * p[..., 0] / safe_z + cam.cx
+    v = cam.fy * p[..., 1] / safe_z + cam.cy
     return torch.stack([u, v], dim=-1), z
 
 

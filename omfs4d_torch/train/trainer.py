@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from omfs4d_torch.core.config import TrainConfig
-from omfs4d_torch.core.logging import get_logger
+from omfs4d_torch.core.logging import EventLogger, get_logger
 from omfs4d_torch.models.flame import flame_forward
 from omfs4d_torch.models.gaussians import (
     PARAM_FIELDS,
@@ -813,10 +813,12 @@ class AvatarTrainer:
         `start_iteration` resumes a restored state: the loop runs
         (start, iterations], and the host frame-sampling stream is replayed
         past the completed iterations, so a kill-and-resume run draws what
-        an uninterrupted one draws.  `events`, when given, is any object
-        with `emit(name, **fields)`."""
+        an uninterrupted one draws.  `events` is any object with
+        `emit(name, **fields)`; with none given an `EventLogger()` takes the
+        `train_step` records."""
         cfg = self.cfg
         iterations = iterations or cfg.iterations
+        events = events or EventLogger()
         # host data moves to the trainer's device; data or a state already on
         # another device is refused, never moved off it
         on = {f"data[{k!r}]": v.device for k, v in data.items()
@@ -896,12 +898,11 @@ class AvatarTrainer:
                 m = {k: float(v) for k, v in metrics.items()}
                 log.info(f"iter {it}/{iterations} loss={m['loss']:.4f} "
                          f"psnr={m['psnr']:.2f} alive={int(m['n_alive'])}")
-                if events is not None:
-                    import resource
-                    m["rss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
-                    m["capacity"] = int(state.gaussians.capacity)
-                    m["ckpt_threads"] = sum(t.is_alive() for t in self._ckpt_threads)
-                    events.emit("train_step", iter=it, **m)
+                import resource
+                m["rss_mb"] = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0
+                m["capacity"] = int(state.gaussians.capacity)
+                m["ckpt_threads"] = sum(t.is_alive() for t in self._ckpt_threads)
+                events.emit("train_step", iter=it, **m)
 
             if (cfg.densify_interval > 0
                     and cfg.densify_from <= it <= densify_until

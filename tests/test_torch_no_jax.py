@@ -1,7 +1,7 @@
 """Package rules of the port, checked on the CPU: it imports neither jax,
-omfs4d nor cv2, and a CUDA tensor never falls back to a plain version: not
-the composite's, forward (K1) or backward (K2), and not the K2 ablation
-variants' (V)."""
+optax, omfs4d nor cv2, and a CUDA tensor never falls back to a plain version:
+not the composite's, forward (K1) or backward (K2), not under the tracker's
+splat backend, and not the K2 ablation variants' (V)."""
 
 import pkgutil
 import subprocess
@@ -25,21 +25,45 @@ def port_modules():
                                                         prefix="omfs4d_torch."))
 
 
+TRACKING_MODULES = ("omfs4d_torch.core.logging", "omfs4d_torch.render.texture",
+                    "omfs4d_torch.render.mesh_raster", "omfs4d_torch.track.fitter",
+                    "omfs4d_torch.track.landmarks", "omfs4d_torch.track.preflight",
+                    "omfs4d_torch.convert")
+
+
 def test_port_imports_no_jax_omfs4d_or_cv2():
     mods = port_modules()
     assert "omfs4d_torch.render.composite" in mods and len(mods) > 20
     assert "omfs4d_torch.scripts.profile_composite_variants" in mods
+    assert set(TRACKING_MODULES) <= set(mods)
     code = (
         "import importlib, sys, torch\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'omfs4d', 'cv2'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'omfs4d', 'cv2'))\n"
         "assert not bad, bad\n"
         "assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32\n"
     )
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+
+
+@pytest.mark.parametrize("module", TRACKING_MODULES)
+def test_tracking_module_names_no_jax_package(module):
+    """No import statement of a tracking module names jax, optax or the JAX
+    package, lazy ones inside functions included."""
+    import ast
+    import importlib
+
+    tree = ast.parse(Path(importlib.import_module(module).__file__).read_text())
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots |= {a.name.split(".")[0] for a in node.names}
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            roots.add(node.module.split(".")[0])
+    assert not roots & {"jax", "jaxlib", "optax", "omfs4d", "cv2"}, roots
 
 
 def small_inputs():
@@ -109,6 +133,29 @@ def test_composite_backward_on_cuda_raises_without_a_kernel(cuda_typed, monkeypa
         (img.sum() + alpha.sum()).backward()
     assert tc.composite.backward_launches == before
     assert uv.grad is None
+    assert not cuda_typed.exists()
+
+
+def test_tracker_splat_backend_on_cuda_raises_without_a_kernel(cuda_typed):
+    """The tracker reaches K1 and K2 only through `composite`: with tensors
+    that claim the card and no kernel, its photometric loss raises; it never
+    gives way to the plain version."""
+    from omfs4d_torch.core.config import TrackConfig
+    from omfs4d_torch.models.assets import synthetic_flame_asset
+    from omfs4d_torch.models.flame import FlameModel
+    from omfs4d_torch.ops.camera import look_at_camera
+    from omfs4d_torch.track.fitter import FlameTracker
+
+    model = FlameModel.from_asset(synthetic_flame_asset(n_vertices=300, seed=0))
+    cam = look_at_camera(eye=(0, 0, 0.5), target=(0, 0, 0), fx=50.0, width=32, height=32)
+    tracker = FlameTracker(model, TrackConfig(n_shape=5, n_expr=5, texture_res=8), cam,
+                           (32, 32), max_per_tile=32, device="cpu")
+    p = {k: v.requires_grad_() for k, v in tracker.init_params(1).items()}
+    frames = torch.zeros((1, 32, 32, 3), dtype=torch.uint8)
+    before = tc.composite.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        tracker._photometric_loss(p, frames, [0])
+    assert tc.composite.launches == before
     assert not cuda_typed.exists()
 
 
