@@ -6,6 +6,9 @@ return this package's objects on `device`; `to_numpy` goes the other way.
 `opt_state_from_optax` and `train_state_from_jax` read the reference's
 optax / TrainState objects by their attributes (no jax or optax import
 here), so a test can start both trainers from the same state.
+`detector_params_from_numpy` / `segnet_params_from_numpy` turn the reference's
+flat weight dicts (HWIO convolutions) into this package's nets (OIHW), and
+`net_params_to_numpy` goes back: one .npz serves both packages.
 """
 
 from __future__ import annotations
@@ -94,6 +97,28 @@ def train_state_from_jax(state, device: str | torch.device = "cpu"):
         flame_opt_state=(None if state.flame_opt_state is None
                          else opt_state_from_optax(state.flame_opt_state, device)),
     )
+
+
+def detector_params_from_numpy(params: dict, device: str | torch.device):
+    """The reference's flat detector dict (`conv0/w` ... HWIO, `head/log_temp`,
+    `meta/size`) as numpy arrays -> a `LandmarkNet` on `device`."""
+    from omfs4d_torch.track.detector import LandmarkNet
+
+    return LandmarkNet._from_flat(params, device)
+
+
+def segnet_params_from_numpy(params: dict, device: str | torch.device):
+    """The reference's flat matting-net dict (`enc0/w` ... HWIO) as numpy
+    arrays -> a `SegNet` on `device`."""
+    from omfs4d_torch.track.segnet import SegNet
+
+    return SegNet._from_flat(params, device)
+
+
+def net_params_to_numpy(net) -> dict:
+    """A `LandmarkNet` or `SegNet` -> the reference's flat dict of numpy
+    arrays (HWIO convolutions), what `save_detector` writes."""
+    return net._flat()
 
 
 def to_numpy(x):

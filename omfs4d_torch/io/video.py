@@ -1,12 +1,17 @@
-"""Image read/write and video stitching, without OpenCV.
+"""Image read/write, frame extraction and video stitching, without OpenCV.
 
-Port of `omfs4d.io.video` (`read_image`, `write_image`, `find_ffmpeg`,
-`ffmpeg_stitch_cmd`, `stitch_video`).  PNG is encoded and decoded here with
+Port of `omfs4d.io.video` (`probe_video`, `extract_frames`, `read_image`,
+`write_image`, `find_ffmpeg`, `ffmpeg_stitch_cmd`, `stitch_video`).  PNG is encoded and decoded here with
 the standard library's `zlib` and `struct` plus numpy: 8-bit grayscale,
 grayscale+alpha, RGB and RGBA, non-interlaced, all five row filters on read.
 That reads what the JAX package wrote with cv2, and cv2 reads what this
 module writes.  Stitching needs an ffmpeg binary (libx264 yuv420p CRF 18,
 the reference's encode contract); there is no cv2 codec ladder.
+
+`probe_video` and `extract_frames` take a directory of PNG frames as the
+capture (sorted by name).  A video file needs a decoder: it goes through an
+ffmpeg binary when `find_ffmpeg` finds one, else the call raises and says why.
+JPEG frames are refused: there is no JPEG decoder here.
 """
 
 from __future__ import annotations
@@ -130,6 +135,124 @@ def write_image(path: str | Path, rgb: np.ndarray) -> None:
     if not (arr.ndim == 2 or (arr.ndim == 3 and arr.shape[2] == 3)):
         raise ValueError(f"write_image: shape {arr.shape}; expected (H, W) or (H, W, 3)")
     Path(path).write_bytes(encode_png(arr))
+
+
+def area_resize(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Shrink (H, W, C) uint8 by area averaging (each output pixel is the mean
+    of the input area it covers, fractional overlaps weighted: OpenCV's
+    INTER_AREA), rounded to uint8."""
+    def weights(n_in: int, n_out: int) -> np.ndarray:
+        edges = np.linspace(0.0, n_in, n_out + 1)
+        lo, hi = edges[:-1, None], edges[1:, None]
+        cells = np.arange(n_in)[None, :]
+        overlap = np.clip(np.minimum(hi, cells + 1) - np.maximum(lo, cells), 0.0, None)
+        return overlap / overlap.sum(axis=1, keepdims=True)
+
+    x = np.asarray(img, np.float64)
+    x = np.einsum("oh,hwc->owc", weights(x.shape[0], height), x)
+    x = np.einsum("ow,hwc->hoc", weights(x.shape[1], width), x)
+    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+
+
+def capture_frames(path: str | Path) -> list[Path]:
+    """The PNG frames of a directory capture (its `images/` when it has
+    one), sorted by name.  JPEG frames are refused."""
+    path = Path(path)
+    images = path / "images" if (path / "images").is_dir() else path
+    if sorted(images.glob("*.jpg")) + sorted(images.glob("*.jpeg")):
+        raise RuntimeError(f"{images}: JPEG frames need a decoder this package does not "
+                           "have; convert them to PNG")
+    frames = sorted(images.glob("*.png"))
+    if not frames:
+        raise FileNotFoundError(f"no PNG frames under {images}")
+    return frames
+
+
+def _decode_with_ffmpeg(video_path: Path, out_dir: Path) -> list[Path]:
+    """Every frame of a video file as a PNG under `out_dir`, through ffmpeg."""
+    ffmpeg_bin = find_ffmpeg()
+    if ffmpeg_bin is None:
+        raise RuntimeError(
+            f"{video_path}: decoding a video file needs an ffmpeg binary (none on PATH or "
+            "from imageio_ffmpeg); pass a directory of PNG frames instead")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    res = subprocess.run([ffmpeg_bin, "-y", "-i", str(video_path), "-vsync", "0",
+                          str(out_dir / "%05d.png")], capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"ffmpeg failed:\n{res.stderr[-2000:]}")
+    return sorted(out_dir.glob("*.png"))
+
+
+def probe_video(path: str | Path) -> dict:
+    """Width, height, fps and frame count of a capture: a directory of PNG
+    frames (fps is then the 30.0 the reference assumes), or a video file read
+    through ffmpeg."""
+    import re
+
+    p = Path(path)
+    if p.is_dir():
+        frames = capture_frames(p)
+        h, w = decode_png(frames[0].read_bytes()).shape[:2]
+        return {"width": w, "height": h, "fps": 30.0, "frame_count": len(frames)}
+    if not p.is_file():
+        raise FileNotFoundError(f"no capture at {path}")
+    ffmpeg_bin = find_ffmpeg()
+    if ffmpeg_bin is None:
+        raise RuntimeError(
+            f"{path}: probing a video file needs an ffmpeg binary (none on PATH or from "
+            "imageio_ffmpeg); pass a directory of PNG frames instead")
+    # ffmpeg with no output file prints the stream description and exits non-zero
+    text = subprocess.run([ffmpeg_bin, "-hide_banner", "-i", str(p)], capture_output=True,
+                          text=True).stderr
+    size = re.search(r"Video:.*?\b(\d{2,5})x(\d{2,5})\b", text)
+    if size is None:
+        raise RuntimeError(f"{path}: ffmpeg found no video stream:\n{text[-2000:]}")
+    rate = re.search(r"([\d.]+) fps", text)
+    dur = re.search(r"Duration: (\d+):(\d+):([\d.]+)", text)
+    fps = float(rate.group(1)) if rate else 30.0
+    seconds = (int(dur.group(1)) * 3600 + int(dur.group(2)) * 60 + float(dur.group(3))
+               if dur else 0.0)
+    return {"width": int(size.group(1)), "height": int(size.group(2)), "fps": fps or 30.0,
+            "frame_count": int(round(seconds * fps))}
+
+
+def extract_frames(
+    video_path: str | Path,
+    output_dir: str | Path,
+    target_size: int = 0,
+    max_frames: int = 0,
+    stride: int = 1,
+) -> list[Path]:
+    """Turn a capture (a directory of PNG frames, or a video file when there
+    is an ffmpeg binary) into numbered PNG frames (RGB), every `stride`-th
+    one, at most `max_frames`, shrunk by area averaging so that
+    min(H, W) ~ target_size."""
+    import tempfile
+
+    src = Path(video_path)
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(prefix="decode_") as tmp:
+        if src.is_dir():
+            frames = capture_frames(src)
+        elif src.is_file():
+            frames = _decode_with_ffmpeg(src, Path(tmp))
+        else:
+            raise FileNotFoundError(f"no capture at {video_path}")
+        paths = []
+        for frame_path in frames[::max(stride, 1)]:
+            frame = read_image(frame_path)
+            if target_size > 0:
+                h, w = frame.shape[:2]
+                scale = target_size / min(h, w)
+                if scale < 1.0:
+                    frame = area_resize(frame, int(round(h * scale)), int(round(w * scale)))
+            p = out / f"{len(paths):05d}.png"
+            write_image(p, frame)
+            paths.append(p)
+            if max_frames and len(paths) >= max_frames:
+                break
+    return paths
 
 
 def find_ffmpeg() -> str | None:

@@ -33,7 +33,6 @@ Sharding the frame axis over several devices (`mesh=`) is not ported.
 
 from __future__ import annotations
 
-import copy
 import dataclasses
 import math
 import time
@@ -44,6 +43,7 @@ import torch
 import torch.nn.functional as F
 
 from omfs4d_torch.core.config import TrackConfig
+from omfs4d_torch.core.device import model_on, resolve_device
 from omfs4d_torch.core.logging import EventLogger, get_logger
 from omfs4d_torch.models.flame import FlameModel, flame_forward, flame_landmarks
 from omfs4d_torch.models.gaussians import bind_to_mesh, inverse_sigmoid
@@ -143,15 +143,8 @@ class FlameTracker:
             raise NotImplementedError(
                 "FlameTracker: mesh= (sharding the frame axis over devices) waits for "
                 "the port's parallel slice; fit on one device")
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("FlameTracker: no CUDA device; pass device='cpu' to "
-                               "track on the CPU")
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
-        if model.v_template.device != self.device:
-            model = copy.deepcopy(model).to(self.device)
-        self.model = model
+        self.device = resolve_device(device, "FlameTracker")
+        self.model = model_on(model, self.device)
         self.cfg = cfg
         self.camera = dataclasses.replace(
             camera, **{k: getattr(camera, k).to(self.device, torch.float32)

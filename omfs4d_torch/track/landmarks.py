@@ -7,8 +7,10 @@ used by tests and benches, and adapters for MediaPipe FaceMesh and the FAN
 detector that raise when their library is not installed.  The MediaPipe
 478 -> 68 index map is kept so that a MediaPipe plugin drops in unchanged.
 
-The self-trained `neural` detector is not ported yet: it, and `auto` when it
-finds no `landmarks.npz`, raise `NotImplementedError`.
+`neural` is the self-trained CNN of `omfs4d_torch.track.detector`: it needs
+`model=` (a FlameModel) to render its training set, trains on first use and
+caches its weights.  `auto` takes a `landmarks.npz` beside the frames when
+there is one and falls through to `neural` otherwise.
 """
 
 from __future__ import annotations
@@ -76,27 +78,32 @@ def _synthetic(source, model=None, params=None, cameras=None, **kw):
 
 
 def _load_frames(source) -> np.ndarray:
-    """images dir | (T,H,W,3) array -> uint8 frame stack."""
+    """images dir (PNG frames) | (T,H,W,3) array -> uint8 frame stack."""
     if isinstance(source, np.ndarray):
         return source
-    from omfs4d_torch.io.video import read_image
+    from omfs4d_torch.io.video import capture_frames, read_image
 
-    p = Path(source)
-    images_dir = p / "images" if (p / "images").is_dir() else p
-    paths = sorted(images_dir.glob("*.png")) + sorted(images_dir.glob("*.jpg"))
-    if not paths:
-        raise FileNotFoundError(f"no frames under {images_dir}")
-    return np.stack([read_image(q) for q in paths])
+    return np.stack([read_image(q) for q in capture_frames(source)])
 
 
 @register_detector("neural")
-def _neural(source, **kw):
-    """The self-trained CNN regressor of the JAX package
-    (`omfs4d.track.detector`) is not ported yet."""
-    raise NotImplementedError(
-        "landmark detector 'neural' waits for the port's detector slice "
-        "(track/detector.py); provide landmarks.npz (method='file') or use "
-        "method='mediapipe' / 'face_alignment'")
+def _neural(source, model=None, weights=None, image_size: int = 96,
+            train_steps: int = 1500, device=None, **kw):
+    """First-party self-trained CNN regressor (`omfs4d_torch.track.detector`).
+
+    Trains on domain-randomized synthetic FLAME renders on first use and
+    caches the weights; afterwards detection is one forward per chunk of
+    frames.  `device=None` takes the CUDA card and raises when there is none.
+    """
+    from omfs4d_torch.track import detector
+
+    if model is None:
+        raise ValueError("neural detector needs model= (FlameModel)")
+    net = detector.get_or_train_detector(
+        model, weights=weights, image_size=image_size, steps=train_steps,
+        device=device,
+    )
+    return detector.detect(net, _load_frames(source), image_size=image_size)
 
 
 @register_detector("mediapipe")
@@ -155,8 +162,7 @@ def _face_alignment(source, **kw):
 
 @register_detector("auto")
 def _auto(source, **kw):
-    """file if landmarks.npz exists next to the frames, else neural (which
-    is not ported yet and raises)."""
+    """file if landmarks.npz exists next to the frames, else neural."""
     if not isinstance(source, np.ndarray):
         p = Path(source)
         for cand in (p / "landmarks.npz", p.parent / "landmarks.npz"):

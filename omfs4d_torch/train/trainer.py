@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from omfs4d_torch.core.config import TrainConfig
+from omfs4d_torch.core.device import resolve_device
 from omfs4d_torch.core.logging import EventLogger, get_logger
 from omfs4d_torch.models.flame import flame_forward
 from omfs4d_torch.models.gaussians import (
@@ -461,12 +462,7 @@ class AvatarTrainer:
         device and the plain version on the CPU."""
         if device is None:
             device = flame_model.v_template.device if flame_model is not None else "cuda"
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("AvatarTrainer: no CUDA device; pass device='cpu' to "
-                               "train on the CPU")
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = resolve_device(device, "AvatarTrainer")
         self.flame_model = flame_model
         self.co_optimize = cfg.optimize_flame and flame_model is not None
         self.flame_lrs = ({"pose": _flame_lr(cfg, cfg.lr_flame_pose),

@@ -30,12 +30,18 @@ TRACKING_MODULES = ("omfs4d_torch.core.logging", "omfs4d_torch.render.texture",
                     "omfs4d_torch.track.landmarks", "omfs4d_torch.track.preflight",
                     "omfs4d_torch.convert")
 
+FRONT_END_MODULES = ("omfs4d_torch.track.detector", "omfs4d_torch.track.segnet",
+                     "omfs4d_torch.track.matting", "omfs4d_torch.track.robustness",
+                     "omfs4d_torch.core.artifacts", "omfs4d_torch.core.device",
+                     "omfs4d_torch.io.video",
+                     "omfs4d_torch.pipeline.runner")
+
 
 def test_port_imports_no_jax_omfs4d_or_cv2():
     mods = port_modules()
     assert "omfs4d_torch.render.composite" in mods and len(mods) > 20
     assert "omfs4d_torch.scripts.profile_composite_variants" in mods
-    assert set(TRACKING_MODULES) <= set(mods)
+    assert set(TRACKING_MODULES) <= set(mods) and set(FRONT_END_MODULES) <= set(mods)
     code = (
         "import importlib, sys, torch\n"
         f"for m in {mods!r}:\n"
@@ -49,10 +55,10 @@ def test_port_imports_no_jax_omfs4d_or_cv2():
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("module", TRACKING_MODULES)
+@pytest.mark.parametrize("module", TRACKING_MODULES + FRONT_END_MODULES)
 def test_tracking_module_names_no_jax_package(module):
-    """No import statement of a tracking module names jax, optax or the JAX
-    package, lazy ones inside functions included."""
+    """No import statement of a tracking or front-end module names jax, optax
+    or the JAX package, lazy ones inside functions included."""
     import ast
     import importlib
 
@@ -155,6 +161,23 @@ def test_tracker_splat_backend_on_cuda_raises_without_a_kernel(cuda_typed):
     before = tc.composite.launches
     with pytest.raises(RuntimeError, match="nvcc"):
         tracker._photometric_loss(p, frames, [0])
+    assert tc.composite.launches == before
+    assert not cuda_typed.exists()
+
+
+def test_sampler_on_cuda_raises_without_a_kernel(cuda_typed):
+    """The synthetic-face sampler reaches K1 only through `composite`: with
+    tensors that claim the card and no kernel a batch raises; it never gives
+    way to the plain version."""
+    from omfs4d_torch.models.assets import synthetic_flame_asset
+    from omfs4d_torch.models.flame import FlameModel
+    from omfs4d_torch.track.detector import SyntheticFaceSampler
+
+    model = FlameModel.from_asset(synthetic_flame_asset(n_vertices=300, seed=0))
+    sampler = SyntheticFaceSampler(model, image_size=32, max_per_tile=32)
+    before = tc.composite.launches
+    with pytest.raises(RuntimeError, match="nvcc"):
+        sampler.batch(torch.Generator().manual_seed(0), 2)
     assert tc.composite.launches == before
     assert not cuda_typed.exists()
 

@@ -102,14 +102,18 @@ def test_unknown_detector_raises():
 
 
 def test_neural_and_auto_without_a_file_are_refused(tmp_path):
+    """`neural`, and `auto` when it finds no landmarks.npz, need `model=` to
+    render their training set: without it they raise, as the reference does."""
     (tmp_path / "images").mkdir()
-    with pytest.raises(NotImplementedError, match="detector slice"):
+    with pytest.raises(ValueError, match="model"):
         tl.detect_landmarks(tmp_path / "images", method="neural")
-    with pytest.raises(NotImplementedError, match="detector slice"):
+    with pytest.raises(ValueError, match="model"):
         tl.detect_landmarks(tmp_path / "images", method="auto")
-    with pytest.raises(NotImplementedError, match="detector slice"):
+    with pytest.raises(ValueError, match="model"):
         tl.detect_landmarks(np.zeros((1, 8, 8, 3), np.uint8), method="auto")
-    # auto finds a landmarks.npz beside the images directory
+    with pytest.raises(ValueError, match="model"):
+        jl.detect_landmarks(np.zeros((1, 8, 8, 3), np.uint8), method="neural")
+    # auto prefers a landmarks.npz beside the images directory, and needs no model
     lmk = np.ones((1, 68, 2), np.float32)
     tl.save_landmarks(tmp_path / "landmarks.npz", lmk)
     got, _ = tl.detect_landmarks(tmp_path / "images", method="auto")
@@ -138,6 +142,15 @@ def test_load_frames_reads_a_directory_in_order(tmp_path):
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError):
         tl._load_frames(tmp_path / "empty")
+
+
+def test_load_frames_refuses_jpeg(tmp_path):
+    """There is no JPEG decoder here: a frame directory with JPEGs is refused
+    with the reason, as `extract_frames` refuses it, not read past."""
+    write_image(tmp_path / "00000.png", np.zeros((8, 10, 3), np.uint8))
+    (tmp_path / "00001.jpg").write_bytes(b"\xff\xd8")
+    with pytest.raises(RuntimeError, match="JPEG"):
+        tl._load_frames(tmp_path)
 
 
 # ── preflight gates ──────────────────────────────────────────
