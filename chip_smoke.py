@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training, tracking and video front-end
-paths once on one CUDA card.
+"""Drive the PyTorch port's render, training, tracking, video front-end and
+pipeline paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -121,11 +121,31 @@ Phase H: the video front end at full width (the 5143-vertex asset, 10,282 face
   the same frames; a second Pipeline.track call answered by the stage cache
   with no launch.
 
+Phase I: the pipeline end to end at full width through the port's CLI, in
+  process (`cli.main`): phase G's clip as PNG frames, `preprocess`, its
+  landmarks.npz put beside the extracted frames, then `run --landmarks auto
+  --iterations 1200` at Le Fort 5 mm / BSSO 3 mm (the tracker's steps cut as
+  phase G cuts them; the trainer at its defaults: a gaussian per face of the
+  5143-vertex asset, SH degree 3, K = 256, co-optimization on, densify every
+  100 at this size: at 500 and 600), `render-surgery` at 0 mm with
+  `--export-frames-dir` and `report` (the selfrecon PSNR), `render-surgery` at
+  5/3 mm and `report --baseline-renders` (front psnr and psnr_unchanged).
+  Checked: a stage_end event per stage, the model's artifacts, one strict row
+  per exported frame, no video (no ffmpeg), K1 and K2 launches per stage (the
+  tracker's rendered frames; the training iterations, to which the trainer's
+  metric renders add none; one K1 a rendered frame), the loss falls,
+  densification moved the cloud, the 5/3 mm frames differ from the 0 mm ones,
+  the selfrecon PSNR at or above its floor.  Then `fit_shared_shape` on the
+  clip as two sequences of 4 frames (landmark stages) -> ingest, register,
+  `build_canonical_head` -> an asset `choose_rig_mode("hybrid_full_head")`
+  takes.
+
     python3 chip_smoke.py --only-track
     python3 chip_smoke.py --only-nets
+    python3 chip_smoke.py --only-e2e
 
-run the set-up and phase G, or phase H, alone (no kernels line, no last
-line): for work on the tracker or on the front end.
+run the set-up and phase G, H or I alone (no kernels line, no last line): for
+work on the tracker, the front end or the pipeline.
 
     python3 chip_smoke.py --net-gates 200,240,280,320 320,400,480,560,640
 
@@ -148,8 +168,8 @@ and with the L2 flushed before each launch (variant_times).
 
 Any failure raises and exits non-zero.  With no CUDA card the script exits
 non-zero before printing any result.  The line before the card's name holds
-every kernel's launches (the sum over phases B, D, G and H for K1 and K2, with
-each path's own under `launches_by_path`, the launches of one tracker rgb step
+every kernel's launches (the sum over phases B, D, G, H and I for K1 and K2,
+with each path's own under `launches_by_path`, the launches of one tracker rgb step
 under `launches_per_tracker_step` and of one detector step under
 `launches_per_detector_step`), error, ms, plain_ms, bound_ms (with
 bound_by) and library_ms (one PyTorch call for the same function: `packed * 2` for V's
@@ -222,6 +242,13 @@ NET_TIMED = 5
 # what it was given).  Phase G's posed landmarks are printed beside them and
 # not used: at the cut step counts they scatter 9.6-20.6 px between runs.
 DETECTION_RMS_PX, NEURAL_FIT_PHOTO, NEURAL_FIT_LMK = 45.0, 2.0, 1.5
+# phase I: the CLI's `run` on phase G's clip with 1,200 iterations, enough for
+# the pipeline's hires densify cadence (every 100 at >= 384 px, from 500 until
+# half the run) to fire at 500 and 600.  The selfrecon PSNR's floor sits more
+# than 3 dB under the lowest measured: 36.40 dB over the 8 frames, 34.63 on the
+# worst one (NVIDIA H100 80GB HBM3, 700 W)
+E2E_ITERS, E2E_DENSIFY_INTERVAL = 1200, 100
+E2E_PSNR_FLOOR = 32.0
 
 # The bound of a kernel: the larger of its FP32 instructions over the card's
 # issue rate and its bytes over its memory rate.  NVIDIA H100 SXM: 67 TFLOP/s
@@ -1422,6 +1449,222 @@ def phase_h(model, device, card: str, work: Path, file_fit: dict | None = None) 
             "k1_ms": k1_ms, "plain_ms": plain_ms, "bound_us": b_us, "bound_by": b_by}
 
 
+def phase_i(model, device, card: str, work: Path) -> dict:
+    """The pipeline end to end at full width through the port's CLI, in
+    process; returns K1's and K2's launches over the phase and its figures."""
+    import dataclasses
+
+    from omfs4d_torch.core.config import Config, TrackConfig, apply_override
+    from omfs4d_torch.headrecon import (build_canonical_head, fit_shared_shape,
+                                        ingest_sequences, register_sequences)
+    from omfs4d_torch.io.video import read_image
+    from omfs4d_torch.pipeline import cli
+    from omfs4d_torch.pipeline.runner import Pipeline
+    from omfs4d_torch.predict.surgery import choose_rig_mode
+    from omfs4d_torch.render.composite import composite
+    from omfs4d_torch.track.fitter import FlameTracker
+    from omfs4d_torch.track.landmarks import detect_landmarks
+    from omfs4d_torch.train.trainer import densify_until_iter
+
+    t_phase = time.perf_counter()
+    work = work / "e2e"
+    work.mkdir()
+    images, cam, _ = tracking_clip(model, device, work)
+    wd = work / "wd"
+    overrides = ([f"track.{k}={v}" for k, v in TRACK_STEPS.items()]
+                 + [f"pipeline.min_train_frames={N_FRAMES}"])
+    common = ["--workdir", str(wd), *overrides]
+    cfg = Config()
+    for kv in overrides:
+        apply_override(cfg, *kv.split("=", 1))
+    tcfg = dataclasses.replace(cfg.train, densify_interval=E2E_DENSIFY_INTERVAL)
+    check(cfg.train.densify_interval == 300 and tcfg.densify_from < E2E_ITERS
+          and cfg.train.sh_degree == 3 and cfg.train.optimize_flame
+          and cfg.render.max_per_tile == MAX_PER_TILE,
+          "the trainer's defaults: densify every 300 (100 at >= 384 px), SH 3, "
+          "co-optimization on, K=256")
+    densify_at = [i for i in range(E2E_DENSIFY_INTERVAL, E2E_ITERS + 1, E2E_DENSIFY_INTERVAL)
+                  if tcfg.densify_from <= i <= densify_until_iter(tcfg, E2E_ITERS)]
+    check(len(densify_at) >= 2, f"densification fires at {densify_at}")
+
+    # the launches of each stage, and what render_surgery returns, noted as
+    # the stages pass
+    stage_launches, predictions = {}, []
+    wrapped = {}
+    for name in ("track", "train", "render_surgery"):
+        wrapped[name] = getattr(Pipeline, name)
+
+        def noted(self, *args, _name=name, **kwargs):
+            before = composite.launches, composite.backward_launches
+            out = wrapped[_name](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            stage_launches.setdefault(_name, []).append(
+                (composite.launches - before[0], composite.backward_launches - before[1]))
+            if _name == "render_surgery":
+                predictions.append(out)
+            return out
+
+        setattr(Pipeline, name, noted)
+    composite.launches = 0
+    composite.backward_launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        # the capture is the clip's PNG frames; its landmark file goes beside
+        # the preprocessed frames, where `--landmarks auto` takes it
+        check(cli.main(["preprocess", "--video", str(images), *common]) == 0, "cli preprocess")
+        stage_dirs = list((wd / "stages").glob("preprocess-*"))
+        check(len(stage_dirs) == 1, f"one preprocess stage directory: {stage_dirs}")
+        shutil.copy2(images / "landmarks.npz", stage_dirs[0] / "landmarks.npz")
+        check(cli.main(["run", "--video", str(images), "--landmarks", "auto",
+                        "--iterations", str(E2E_ITERS), "--lefort-mm", str(LEFORT_MM),
+                        "--bsso-mm", str(BSSO_MM), "--output", str(work / "pred.mp4"),
+                        *common]) == 0, "cli run")
+        run_s = time.perf_counter() - t0
+        model_dir = wd / "model"
+        renders = model_dir / "train" / f"ours_{E2E_ITERS}" / "renders"
+        shutil.copytree(renders, work / "pred_renders")
+        # the zero-offset render: the selfrecon PSNR, and the baseline of
+        # psnr_unchanged on the 5/3 mm prediction
+        data_dir = next((wd / "stages").glob("track-*"))
+        for mm, det in ((0.0, "det_self"), (LEFORT_MM, "det_mod")):
+            check(cli.main(["render-surgery", "--model", str(model_dir), "--data", str(data_dir),
+                            "--lefort-mm", str(mm), "--bsso-mm", str(BSSO_MM if mm else 0.0),
+                            "--output", str(work / f"{det}.mp4"),
+                            "--export-frames-dir", str(work / det), *common]) == 0,
+                  f"cli render-surgery {mm} mm")
+            if det == "det_self":
+                check(cli.main(["report", "--model", str(model_dir), "--frames",
+                                str(work / det), "--out", str(work / "selfrecon")]) == 0,
+                      "cli report (selfrecon)")
+                shutil.copytree(renders, work / "baseline_renders")
+        check(cli.main(["report", "--model", str(model_dir), "--frames", str(work / "det_mod"),
+                        "--out", str(work / "report"), "--baseline-renders",
+                        str(work / "baseline_renders")]) == 0, "cli report --baseline-renders")
+    finally:
+        for name, fn in wrapped.items():
+            setattr(Pipeline, name, fn)
+    torch.cuda.synchronize()
+    e2e_s = time.perf_counter() - t0
+    fwd, bwd = composite.launches, composite.backward_launches
+
+    # ── the checks ──
+    evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
+    stage_s = {}
+    for e in evs:
+        if e["event"] == "stage_end":
+            stage_s.setdefault(e["stage"], []).append(e["seconds"])
+    check({"preprocess", "track", "train", "render_surgery", "report"} <= set(stage_s),
+          f"a stage_end event for each stage: {sorted(stage_s)}")
+    check((model_dir / "point_cloud" / f"iteration_{E2E_ITERS}" / "point_cloud.ply").exists()
+          and (model_dir / "flame_param_refined.npz").exists()
+          and len(list((model_dir / "experiment_manifests").glob("*.json"))) == 1,
+          f"point_cloud/iteration_{E2E_ITERS}, flame_param_refined.npz and a manifest")
+    n_train = N_FRAMES - N_FRAMES // 10
+    scores = json.loads((model_dir / "eval_strict" / "reports" / "strict_scores.json").read_text())
+    exported = json.loads((wd / "deterministic_frames"
+                           / "deterministic_indices_manifest.json").read_text())["exports"]
+    check(len(scores["rows"]) == len(exported) == n_train,
+          f"strict_scores.json: {len(scores['rows'])} rows == {len(exported)} exported frames")
+    check(len(predictions) == 3 and all(
+        r["video"] is None and "ffmpeg" in r["video_error"] for r in predictions)
+        and not list(work.glob("*.mp4")),
+        f"no video without an ffmpeg binary, and the reason: {predictions[0]['video_error']}")
+    (track_k,), (train_k,) = stage_launches["track"], stage_launches["train"]
+    B = min(RGB_BATCH, N_FRAMES)
+    track_cfg = TrackConfig(**TRACK_STEPS)
+    rendered = (B * (track_cfg.steps_rgb_init_texture + track_cfg.steps_rgb_init_all
+                     + track_cfg.steps_rgb_init_offset
+                     + track_cfg.steps_global * track_cfg.epochs_global)
+                + N_FRAMES * track_cfg.steps_rgb_sequential)
+    check(track_k == (rendered, rendered), f"track: K1, K2 {track_k} == {rendered} each")
+    # the trainer's own metric renders add no launch: K1 once a step
+    check(train_k == (E2E_ITERS, E2E_ITERS),
+          f"train: K1, K2 {train_k} == {E2E_ITERS} training iterations each")
+    check(all(k == (n_train, 0) for k in stage_launches["render_surgery"])
+          and len(stage_launches["render_surgery"]) == 3,
+          f"render_surgery: K1 once a frame, no K2: {stage_launches['render_surgery']}")
+    check((fwd, bwd) == (rendered + E2E_ITERS + 3 * n_train, rendered + E2E_ITERS),
+          f"phase I launches K1 {fwd}, K2 {bwd}")
+    steps = {e["iter"]: e for e in evs if e["event"] == "train_step"}
+    first, last = steps[min(steps)], steps[E2E_ITERS]
+    check(np.isfinite(last["loss"]) and last["loss"] < first["loss"],
+          f"the loss fell: {first['loss']:.5f} at {min(steps)} -> {last['loss']:.5f}")
+    alive = {i: int(e["n_alive"]) for i, e in sorted(steps.items())}
+    check(alive[E2E_ITERS] != alive[min(steps)],
+          f"densification moved the cloud: alive {alive}")
+    pred = [read_image(p).astype(int) for p in sorted((work / "pred_renders").glob("*.png"))]
+    zero = [read_image(p).astype(int) for p in sorted((work / "baseline_renders").glob("*.png"))]
+    moved = np.mean([(np.abs(a - b).max(-1) > 0).mean() for a, b in zip(pred, zero)])
+    check(len(pred) == len(zero) == n_train and moved > 0,
+          f"the 5/3 mm frames differ from the 0 mm ones on {moved:.4f} of pixels")
+    self_rows = json.loads((work / "selfrecon" / "strict_scores.json").read_text())["rows"]
+    selfrecon = float(np.mean([r["psnr"] for r in self_rows]))
+    check(len(self_rows) == n_train and np.isfinite(selfrecon) and selfrecon >= E2E_PSNR_FLOOR,
+          f"selfrecon PSNR {selfrecon:.3f} dB >= {E2E_PSNR_FLOOR} dB over {len(self_rows)} frames")
+    front = json.loads((work / "report" / "strict_scores.json").read_text()
+                       )["summary"]["by_bucket"]["front"]
+    check(np.isfinite(front["psnr"]) and np.isfinite(front["psnr_unchanged"]),
+          f"front bucket of the 5/3 mm prediction: {front}")
+    it_s = (E2E_ITERS - min(steps)) / (last["t"] - first["t"])
+    print(f"phase I: cli run, {N_FRAMES} frames at {SIZE}^2 as PNGs with a landmarks.npz, "
+          f"{E2E_ITERS} iterations (densify every {E2E_DENSIFY_INTERVAL} at {densify_at}), "
+          f"Le Fort {LEFORT_MM} / BSSO {BSSO_MM} mm, tracker steps {TRACK_STEPS}; the trainer "
+          f"at its defaults: {model.faces.shape[0]} face gaussians, capacity "
+          f"{int(last['capacity'])}, SH {cfg.train.sh_degree}, K={MAX_PER_TILE}, "
+          f"co-optimization on [{card}]")
+    print("  stage seconds (stage_timer): " + ", ".join(
+        f"{k} " + "/".join(f"{s:.3f}" for s in v) for k, v in stage_s.items()))
+    print(f"  cli run {run_s:.3f} s, the phase's CLI calls {e2e_s:.3f} s (host clock); train() "
+          f"inside the pipeline {it_s:.3f} it/s (iterations {min(steps)}-{E2E_ITERS}, between "
+          f"train_step events), {E2E_ITERS / stage_s['train'][0]:.3f} it/s over the train stage; "
+          f"render {stage_s['render_surgery'][0] / n_train * 1e3:.3f} ms/frame (first "
+          f"render_surgery stage, PNG and dataset set-up included)")
+    print(f"  loss {first['loss']:.5f} (iteration {min(steps)}) -> {last['loss']:.5f}; alive "
+          f"{alive}; launches: track K1/K2 {track_k}, train {train_k} (the trainer's metric "
+          f"renders add none), render_surgery {stage_launches['render_surgery']}")
+    print(f"  selfrecon PSNR {selfrecon:.4f} dB (floor {E2E_PSNR_FLOOR} dB; frames "
+          + ", ".join(f"{r['psnr']:.2f}" for r in self_rows) + f"); 5/3 mm front psnr "
+          f"{front['psnr']:.4f}, psnr_unchanged {front['psnr_unchanged']:.4f} dB; the 5/3 mm "
+          f"frames differ from the 0 mm ones on {moved:.4f} of pixels; video None: "
+          f"{predictions[0]['video_error']} [{card}]")
+
+    # ── fit_shared_shape on the clip as two sequences -> canonical head ──
+    t0 = time.perf_counter()
+    lmk, valid = detect_landmarks(images, method="file")
+    half = N_FRAMES // 2
+    hcfg = TrackConfig(photometric=False, steps_lmk_init_rigid=TRACK_STEPS["steps_lmk_init_rigid"],
+                       steps_lmk_init_all=TRACK_STEPS["steps_lmk_init_all"])
+    tracker = FlameTracker(model, hcfg, cam, (SIZE, SIZE), max_per_tile=MAX_PER_TILE)
+    before = composite.launches, composite.backward_launches
+    shape, per_seq = fit_shared_shape(tracker, [(lmk[:half], valid[:half]),
+                                                (lmk[half:], valid[half:])])
+    check((composite.launches, composite.backward_launches) == before,
+          "fit_shared_shape (landmark stages): no kernel launch")
+    check(shape.shape == (300,) and np.isfinite(shape).all() and np.abs(shape).max() > 0
+          and all(np.array_equal(p["shape"], shape) for p in per_seq)
+          and [p["expr"].shape[0] for p in per_seq] == [half, N_FRAMES - half]
+          and all(p[k].shape[0] == n for p, n in zip(per_seq, (half, N_FRAMES - half))
+                  for k in ("rotation", "translation", "jaw_pose")),
+          "one shared shape, per-sequence parameters in the sequences' lengths")
+    root = work / "sequences"
+    for i, p in enumerate(per_seq):
+        seq = root / f"seq_{i}"
+        (seq / "images").mkdir(parents=True)
+        np.savez(seq / "flame_param.npz", **p)
+    table = register_sequences(ingest_sequences(root, work / "head"), work / "head")
+    asset = build_canonical_head(table, work / "head" / "canonical_head.npz", shape)
+    mode, reason = choose_rig_mode("hybrid_full_head", str(asset))
+    check(mode == "hybrid_full_head", f"the canonical head asset is taken: {mode} ({reason})")
+    regs = json.loads(table.read_text())["registrations"]
+    print(f"  fit_shared_shape: {N_FRAMES} frames as {half} + {N_FRAMES - half}, landmark stages "
+          f"({hcfg.steps_lmk_init_rigid} + {hcfg.steps_lmk_init_all} steps), "
+          f"{time.perf_counter() - t0:.3f} s; shared shape |max| {np.abs(shape).max():.4f}; "
+          f"registration residual {regs[1]['residual']:.2e}; rig mode {mode}")
+    print(f"phase I ran in {time.perf_counter() - t_phase:.2f} s")
+    return {"fwd": fwd, "bwd": bwd, "selfrecon": selfrecon, "it_s": it_s}
+
+
 def main(only: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -1467,7 +1710,7 @@ def main(only: str | None = None) -> int:
                                       device=device)
         model = case["model"]
         if only is not None:
-            {"track": phase_g, "nets": phase_h}[only](model, device, card, work)
+            {"track": phase_g, "nets": phase_h, "e2e": phase_i}[only](model, device, card, work)
             return 0
         model_dir = work / "model"
         export_point_cloud(model_dir / "point_cloud" / f"iteration_{ITERATION}"
@@ -1813,6 +2056,9 @@ def main(only: str | None = None) -> int:
 
         # ── phase H: the video front end at full width ──────
         nets = phase_h(model, device, card, work, track["quality"])
+
+        # ── phase I: the pipeline end to end through the CLI ─
+        e2e = phase_i(model, device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
@@ -1829,9 +2075,10 @@ def main(only: str | None = None) -> int:
         "source": "omfs4d_torch/csrc/composite_fwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:210",
         "launches": (launches + train_fwd + track["fit_fwd"] + nets["nets_fwd"]
-                     + nets["pipe_fwd"]),
+                     + nets["pipe_fwd"] + e2e["fwd"]),
         "launches_by_path": {"render": launches, "train": train_fwd, "track": track["fit_fwd"],
-                             "nets": nets["nets_fwd"], "pipeline": nets["pipe_fwd"]},
+                             "nets": nets["nets_fwd"], "pipeline": nets["pipe_fwd"],
+                             "e2e": e2e["fwd"]},
         "launches_per_tracker_step": track["step_fwd"],
         "launches_per_detector_step": nets["step_fwd"],
         "at_sampler_frame": {k: nets[k] for k in ("k1_ms", "plain_ms")}
@@ -1842,9 +2089,9 @@ def main(only: str | None = None) -> int:
         "name": "composite_bwd", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_bwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:305",
-        "launches": train_bwd + track["fit_bwd"] + nets["pipe_bwd"],
+        "launches": train_bwd + track["fit_bwd"] + nets["pipe_bwd"] + e2e["bwd"],
         "launches_by_path": {"render": 0, "train": train_bwd, "track": track["fit_bwd"],
-                             "nets": 0, "pipeline": nets["pipe_bwd"]},
+                             "nets": 0, "pipeline": nets["pipe_bwd"], "e2e": e2e["bwd"]},
         "launches_per_tracker_step": track["step_bwd"],
         "launches_per_detector_step": nets["step_bwd"],
         "max_abs_err": max(*bwd_errs, track["err_k2"]),
@@ -1986,6 +2233,8 @@ if __name__ == "__main__":
                         help="run the set-up and phase G (the tracking path) alone")
         ap.add_argument("--only-nets", action="store_true",
                         help="run the set-up and phase H (the video front end) alone")
+        ap.add_argument("--only-e2e", action="store_true",
+                        help="run the set-up and phase I (the pipeline through the CLI) alone")
         ap.add_argument("--net-gates", nargs=2, metavar=("DETECTOR_STEPS", "SEGNET_STEPS"),
                         help="train each net at each of these step counts (two comma-separated "
                              "lists) and read the learning gates: how phase H's counts were chosen")
@@ -2001,7 +2250,11 @@ if __name__ == "__main__":
         if opts.net_gates:
             sys.exit(gate_readings(*([int(n) for n in arg.split(",") if n]
                                      for arg in opts.net_gates)))
-        if opts.only_track or opts.only_nets:
-            sys.exit(main(only="track" if opts.only_track else "nets"))
+        only = [name for name, on in (("track", opts.only_track), ("nets", opts.only_nets),
+                                      ("e2e", opts.only_e2e)) if on]
+        if len(only) > 1:
+            ap.error("at most one --only-* option")
+        if only:
+            sys.exit(main(only=only[0]))
         sys.exit(compare_trees(opts.trees))
     sys.exit(main())

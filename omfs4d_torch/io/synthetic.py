@@ -13,6 +13,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from omfs4d_torch.core.device import resolve_device
 from omfs4d_torch.io.dataset import default_flame_params, write_dataset
 from omfs4d_torch.models.assets import synthetic_flame_asset
 from omfs4d_torch.models.flame import FlameModel, flame_forward
@@ -88,11 +89,13 @@ def make_synthetic_dataset(
     n_vertices: int = 1500,
     fl: float | None = None,
     seed: int = 0,
-    device: str | torch.device = "cpu",
+    device: str | torch.device | None = None,
 ) -> dict:
     """Render a synthetic GT capture on `device` and write the contract
     dataset.  Returns dict with the model, gt gaussians, dataset path and
-    the FLAME params."""
+    the FLAME params.  `device=None` is the CUDA card; with no card it
+    raises, and it renders on the CPU only when the caller asks for it."""
+    device = resolve_device(device, "make_synthetic_dataset")
     model = FlameModel.from_asset(
         synthetic_flame_asset(n_vertices=n_vertices, seed=seed), device=device)
     gt = textured_gt_avatar(model, seed=seed)

@@ -25,8 +25,13 @@ from pathlib import Path
 import numpy as np
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}          # PNG colour type -> channels
 _COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
+
+
+class NoFFmpegError(RuntimeError):
+    """No ffmpeg binary was found: the frames cannot be stitched into a video."""
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -285,7 +290,8 @@ def ffmpeg_stitch_cmd(ffmpeg_bin: str, pattern: str, output_path: str,
 
 def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30) -> Path:
     """Stitch sorted PNG frames into an MP4 with ffmpeg.  Raises
-    RuntimeError when no ffmpeg binary is found."""
+    `NoFFmpegError` (a RuntimeError) when no ffmpeg binary is found, and
+    RuntimeError when ffmpeg fails."""
     import tempfile
 
     frames = sorted(Path(frames_dir).glob("*.png"))
@@ -293,8 +299,8 @@ def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30)
         raise FileNotFoundError(f"No PNG frames in {frames_dir}")
     ffmpeg_bin = find_ffmpeg()
     if ffmpeg_bin is None:
-        raise RuntimeError("stitch_video: no ffmpeg binary on PATH or from "
-                           "imageio_ffmpeg; the frames are in " + str(frames_dir))
+        raise NoFFmpegError("stitch_video: no ffmpeg binary on PATH or from "
+                            "imageio_ffmpeg; the frames are in " + str(frames_dir))
     out_path = Path(output_path)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="stitch_") as tmp:

@@ -4,7 +4,9 @@ Port of `omfs4d.predict.render_video`:
 
   * picks the highest `point_cloud/iteration_*` unless pinned;
   * clears stale renders, writes `train/ours_N/renders/*.png` (+ gt/);
-  * optional deterministic frame export; stitches H.264/MP4 with ffmpeg.
+  * optional deterministic frame export; stitches H.264/MP4 with ffmpeg
+    when there is an ffmpeg binary, else the PNG frames are the product and
+    the result says why there is no video.
 
 Runs eagerly on the device of the FLAME model: one batched FLAME forward
 for all frames, then one frame at a time through bind -> colours ->
@@ -22,7 +24,7 @@ import torch
 
 from omfs4d_torch.core.logging import get_logger
 from omfs4d_torch.io.dataset import FrameDataset
-from omfs4d_torch.io.video import stitch_video, write_image
+from omfs4d_torch.io.video import NoFFmpegError, stitch_video, write_image
 from omfs4d_torch.models.flame import FlameModel, flame_forward
 from omfs4d_torch.predict.surgery import (
     choose_rig_mode,
@@ -169,7 +171,11 @@ def render_prediction(
     """Full prediction pipeline on `device`: offsets -> modified dataset ->
     render -> MP4.  `flame_model` is moved to `device` in place.  It runs on
     the CUDA card unless the caller asks for the CPU, and raises when there
-    is no card."""
+    is no card.
+
+    With no ffmpeg binary the rendered PNG frames are the product: the result
+    has `"video": None` and the reason under `"video_error"`.  An ffmpeg that
+    is found and fails raises."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render_prediction: no CUDA device; pass device='cpu' to "
                            "render on the CPU")
@@ -235,10 +241,16 @@ def render_prediction(
                 max_frames=deterministic_max_frames,
             )
 
-        out_path = stitch_video(renders_dir, output, fps=fps)
-        log.info(f"Video saved to {out_path}")
+        video, video_error = None, None
+        try:
+            video = str(stitch_video(renders_dir, output, fps=fps))
+            log.info(f"Video saved to {video}")
+        except NoFFmpegError as e:
+            video_error = str(e)
+            log.warning(f"no video, the prediction is the PNG frames: {video_error}")
         return {
-            "video": str(out_path),
+            "video": video,
+            "video_error": video_error,
             "renders_dir": str(renders_dir),
             "iteration": it,
             "rig_mode": effective_mode,

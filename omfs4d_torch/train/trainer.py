@@ -344,10 +344,14 @@ def probe_tile_spans(gaussians, faces, data: dict, width: int, height: int,
     grid_h = (height + tile - 1) // tile
     T = data["verts"].shape[0]
     probe_idx = np.unique(np.linspace(0, T - 1, min(n_probe, T)).astype(int))
+    # the pipeline's `verts` cover every frame of the FLAME params, the
+    # cameras only the train split: the reference's gather clamps an index
+    # past the cameras to the last one, and so does this
+    last_cam = data["w2c"].shape[0] - 1
     sides = []
     with torch.no_grad():
         for i in probe_idx:
-            cam = _frame_camera(data, int(i), width, height)
+            cam = _frame_camera(data, min(int(i), last_cam), width, height)
             means, rot, scales, opac, _ = bind_to_mesh(gaussians, data["verts"][i], faces)
             proj = project_gaussians(cam, means, rot, scales)
             uv, radius = proj["uv"], proj["radius"]

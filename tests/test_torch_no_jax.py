@@ -36,12 +36,17 @@ FRONT_END_MODULES = ("omfs4d_torch.track.detector", "omfs4d_torch.track.segnet",
                      "omfs4d_torch.io.video",
                      "omfs4d_torch.pipeline.runner")
 
+BACK_HALF_MODULES = ("omfs4d_torch.eval.reporting", "omfs4d_torch.pipeline.cli",
+                     "omfs4d_torch.pipeline.watch", "omfs4d_torch.headrecon.pipeline",
+                     "omfs4d_torch.scripts.e2e_case")
+
 
 def test_port_imports_no_jax_omfs4d_or_cv2():
     mods = port_modules()
     assert "omfs4d_torch.render.composite" in mods and len(mods) > 20
     assert "omfs4d_torch.scripts.profile_composite_variants" in mods
     assert set(TRACKING_MODULES) <= set(mods) and set(FRONT_END_MODULES) <= set(mods)
+    assert set(BACK_HALF_MODULES) <= set(mods)
     code = (
         "import importlib, sys, torch\n"
         f"for m in {mods!r}:\n"
@@ -55,10 +60,10 @@ def test_port_imports_no_jax_omfs4d_or_cv2():
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("module", TRACKING_MODULES + FRONT_END_MODULES)
+@pytest.mark.parametrize("module", TRACKING_MODULES + FRONT_END_MODULES + BACK_HALF_MODULES)
 def test_tracking_module_names_no_jax_package(module):
-    """No import statement of a tracking or front-end module names jax, optax
-    or the JAX package, lazy ones inside functions included."""
+    """No import statement of a tracking, front-end or pipeline module names
+    jax, optax or the JAX package, lazy ones inside functions included."""
     import ast
     import importlib
 

@@ -304,10 +304,16 @@ def test_pipeline_takes_the_card_by_default_and_raises_without_one(small_asset, 
     assert runner.model.n_vertices == 700
 
 
-@pytest.mark.parametrize("stage", ["train", "render_surgery", "report"])
-def test_unported_stages_raise(pipe, stage):
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        getattr(pipe, stage)("model", "data")
+@pytest.mark.parametrize("stage,setting", [("train", "n_gauss"), ("render_surgery", "n_tile"),
+                                           ("train", "n_data")],
+                         ids=["train", "render_surgery", "train_n_data"])
+def test_unported_stages_raise(pipe, stage, setting):
+    """What is left unported of the stages: their sharded branches, which wait
+    for the parallel slice, refuse before they touch a file."""
+    setattr(pipe.cfg.parallel, setting, 2)
+    args = ("data",) if stage == "train" else ("model", "data", "out.mp4", 5.0, 3.0)
+    with pytest.raises(NotImplementedError, match=f"{setting} > 1.*queue 1 item 9"):
+        getattr(pipe, stage)(*args)
 
 
 def test_track_refuses_frame_sharding(pipe, tmp_path):

@@ -73,7 +73,7 @@ def replicated_avatar(model):
 def case(tmp_path_factory):
     root = tmp_path_factory.mktemp("slice")
     data = make_synthetic_dataset(root / "data", n_frames=N_FRAMES, width=SIZE,
-                                  height=SIZE, n_vertices=N_VERTICES, seed=0)
+                                  height=SIZE, n_vertices=N_VERTICES, seed=0, device="cpu")
     t_model = data["model"]
     fields = {k: v.numpy() for k, v in t_model.named_buffers()}
     j_model = JFlame(**fields)

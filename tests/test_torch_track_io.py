@@ -313,7 +313,7 @@ def test_train_sends_its_events_to_a_given_logger_and_makes_one_otherwise(tmp_pa
     from tests.test_torch_train_resume import capture_data
 
     case = make_synthetic_dataset(tmp_path / "data", n_frames=2, width=W, height=H,
-                                  n_vertices=700, seed=0)
+                                  n_vertices=700, seed=0, device="cpu")
     data = capture_data(case)
     cfg = TrainConfig(iterations=4, opacity_reset_interval=0, densify_interval=0,
                       max_gaussians=1024, batch_frames=1)

@@ -29,7 +29,7 @@ K = 128
 @pytest.fixture(scope="module")
 def case(tmp_path_factory):
     return make_synthetic_dataset(tmp_path_factory.mktemp("capture") / "data", n_frames=2,
-                                  width=W, height=H, n_vertices=700, seed=0)
+                                  width=W, height=H, n_vertices=700, seed=0, device="cpu")
 
 
 def capture_data(case):
