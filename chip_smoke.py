@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's render, training, tracking, video front-end and
-pipeline paths once on one CUDA card.
+"""Drive the PyTorch port's render, training, tracking, video front-end,
+pipeline and clinical paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -140,12 +140,40 @@ Phase I: the pipeline end to end at full width through the port's CLI, in
   `build_canonical_head` -> an asset `choose_rig_mode("hybrid_full_head")`
   takes.
 
+Phase J: the clinical engine at the size of a head CBCT.  A seeded skull
+  phantom (Z, Y, X) = (320, 448, 448) at 0.3 mm, built on the card (a cranial
+  shell 5 mm thick, an upper jaw and an arch-shaped mandible with 32 teeth,
+  air -1000 HU, bone 1200 HU with partial volume at the edges, noise of 30
+  HU), is written as a DICOM series of 320 slices (`write_dicom_slice`) and
+  as a ToothFairy3-style NIfTI label volume.  The DICOM path
+  (`dicom_to_bone_mesh` at the config's defaults: HU 300, 30 smoothing
+  iterations, keep 0.5) is timed stage by stage (the read, the copy to the
+  card, threshold, active cells, emission, dedup, clean, adjacency,
+  smoothing, QEM on the host); the raw marching mesh must be closed (every
+  edge in two faces) and enclose a positive volume within CT_VOLUME_SHARE of
+  the phantom's bone voxels; the card's mesh must equal the port's own CPU
+  path on a 128^3 crop (raw marching array for array, the whole pipeline's
+  faces equal and vertices within 1e-5 mm, the cut's segments); then a
+  single-mesh cut, a 5/3 mm move (fixed segments untouched, mobile ones
+  moved along +Y) and an STL export.  The NIfTI path
+  (`nifti_label_to_separate_meshes`) feeds a `PlanningSession` with no
+  device (the card): preview, cut, `set_movement` 5/3 mm, undo and redo
+  (the same segments back), a distance and an angle, STL / PLY / OBJ
+  exports read back equal, the preview HTML.  Then `cli.main(["clinical",
+  "--dicom", ...])` at the same cut must write the DICOM path's STL byte for
+  byte, and the session's `surgical_plan()` goes to `render_prediction` on
+  phase A's avatar for 2 frames: K1 launches once a frame, and the PNGs equal
+  phase B's 5/3 mm frames within 1 grey level.  Printed: stage seconds,
+  counts at each step, peak card memory.
+
     python3 chip_smoke.py --only-track
     python3 chip_smoke.py --only-nets
     python3 chip_smoke.py --only-e2e
+    python3 chip_smoke.py --only-clinical
 
-run the set-up and phase G, H or I alone (no kernels line, no last line): for
-work on the tracker, the front end or the pipeline.
+run the set-up and phase G, H, I or J alone (no kernels line, no last line):
+for work on the tracker, the front end, the pipeline or the clinical engine
+(J renders its own phase-B reference frames).
 
     python3 chip_smoke.py --net-gates 200,240,280,320 320,400,480,560,640
 
@@ -168,7 +196,7 @@ and with the L2 flushed before each launch (variant_times).
 
 Any failure raises and exits non-zero.  With no CUDA card the script exits
 non-zero before printing any result.  The line before the card's name holds
-every kernel's launches (the sum over phases B, D, G, H and I for K1 and K2,
+every kernel's launches (the sum over phases B, D, G, H, I and J for K1 and K2,
 with each path's own under `launches_by_path`, the launches of one tracker rgb step
 under `launches_per_tracker_step` and of one detector step under
 `launches_per_detector_step`), error, ms, plain_ms, bound_ms (with
@@ -187,6 +215,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
@@ -249,6 +278,15 @@ DETECTION_RMS_PX, NEURAL_FIT_PHOTO, NEURAL_FIT_LMK = 45.0, 2.0, 1.5
 # worst one (NVIDIA H100 80GB HBM3, 700 W)
 E2E_ITERS, E2E_DENSIFY_INTERVAL = 1200, 100
 E2E_PSNR_FLOOR = 32.0
+# phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
+# the skull phantom's seed and noise, the crop held against the CPU path, the
+# share by which the raw mesh's enclosed volume may differ from the phantom's
+# bone voxels x the voxel volume, and the frames the plan renders
+CT_SHAPE, CT_SPACING, CT_SEED, CT_NOISE_HU = (320, 448, 448), 0.3, 0, 30.0
+CT_CROP = 128
+CROP_ORIGIN = (4, 230, 160)      # the jaws' front: z -46 ... -8, y 2 ... 40, x -19 ... 19 mm
+CT_VOLUME_SHARE = 0.03
+BRIDGE_FRAMES = 2
 
 # The bound of a kernel: the larger of its FP32 instructions over the card's
 # issue rate and its bytes over its memory rate.  NVIDIA H100 SXM: 67 TFLOP/s
@@ -1665,6 +1703,484 @@ def phase_i(model, device, card: str, work: Path) -> dict:
     return {"fwd": fwd, "bwd": bwd, "selfrecon": selfrecon, "it_s": it_s}
 
 
+# ── phase J: the clinical engine at the size of a head CBCT ────────────
+
+
+def skull_phantom(shape, spacing: float, seed: int, device):
+    """A seeded synthetic head CT on `device`: (HU int16, labels uint8), both
+    (Z, Y, X) with Z superior, Y anterior and X toward the patient's right, in
+    mm about the volume's centre.  A cranial shell 5 mm thick; below it a
+    horseshoe upper jaw with 16 teeth; 2 mm below those an arch-shaped
+    mandible with its posterior branches, its rami and 16 teeth.  HU: air
+    -1000, bone 1200, partial volume at the edges (a 3-voxel box blur of the
+    bone), seeded Gaussian noise of CT_NOISE_HU, rounded.  Labels in
+    ToothFairy3's scheme: 1 lower jaw, 2 upper jaw, 11-28 upper and 31-48
+    lower teeth (FDI), 5 and 6 the maxillary sinuses (air inside the shell);
+    the cranium has none."""
+    Z, Y, X = shape
+
+    def axis(n, dims):
+        return ((torch.arange(n, device=device, dtype=torch.float32) - (n - 1) / 2)
+                * spacing).reshape(dims)
+
+    z, y, x = axis(Z, (Z, 1, 1)), axis(Y, (1, Y, 1)), axis(X, (1, 1, X))
+
+    def ellipsoid(c, r):
+        return (((x - c[0]) / r[0]) ** 2 + ((y - c[1]) / r[1]) ** 2
+                + ((z - c[2]) / r[2]) ** 2) <= 1
+
+    def zband(lo, hi):
+        return (z >= lo) & (z <= hi)
+
+    def arch(yc, r0, r1):
+        rho = torch.sqrt(x ** 2 + (y - yc) ** 2)
+        return (rho >= r0) & (rho <= r1) & (y >= yc)
+
+    side = (x.abs() >= 22) & (x.abs() <= 31)
+    parts = [  # (mask, label), later ones over earlier ones
+        (ellipsoid((0, -4, 14), (56, 60, 30)) & ~ellipsoid((0, -4, 14), (51, 55, 25)), 0),
+        (arch(8, 19, 29) & zband(-26, -12), 2),
+        ((arch(6, 22, 31) | (side & (y >= -14) & (y < 6))) & zband(-44, -34), 1),
+        (side & (y >= -14) & (y <= -6) & zband(-34, -20), 1),
+    ]
+    for i in range(16):                       # FDI: 1 at the midline, 8 at the back
+        theta = np.pi * (i + 0.5) / 16
+        n = 8 - i if i < 8 else i - 7
+        for yc, rho, zs, quadrants in ((8, 24.0, (-30, -25), (1, 2)), (6, 26.5, (-34, -32), (4, 3))):
+            cx, cy = rho * np.cos(theta), yc + rho * np.sin(theta)
+            tooth = ((x - cx) ** 2 + (y - cy) ** 2 <= 2.5 ** 2) & zband(*zs)
+            parts.append((tooth, 10 * quadrants[i >= 8] + n))
+    bone = torch.zeros(shape, dtype=torch.bool, device=device)
+    labels = torch.zeros(shape, dtype=torch.uint8, device=device)
+    for mask, label in parts:
+        bone |= mask
+        labels = torch.where(mask, label, labels)
+    for cx, label in ((15, 5), (-15, 6)):
+        labels = torch.where(ellipsoid((cx, 12, -2), (6, 6, 6)), label, labels)
+    frac = torch.nn.functional.avg_pool3d(bone[None, None].float(), 3, stride=1, padding=1)[0, 0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    noise = torch.randn(shape, generator=gen, device=device) * CT_NOISE_HU
+    hu = torch.round(-1000.0 + 2200.0 * frac + noise).clamp(-1024, 3071).to(torch.int16)
+    return hu, labels
+
+
+class StageTimer:
+    """Wraps functions of the port's modules so that each call is timed on
+    the host clock between two synchronisations, and optionally keeps what
+    it returns; `restore` puts the originals back."""
+
+    def __init__(self):
+        self.s = defaultdict(float)
+        self.calls = defaultdict(int)
+        self._undo = []
+
+    def wrap(self, owner, attr: str, name: str, keep: list | None = None) -> None:
+        fn = getattr(owner, attr)
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.s[name] += time.perf_counter() - t0
+            self.calls[name] += 1
+            if keep is not None:
+                keep.append(out)
+            return out
+
+        setattr(owner, attr, timed)
+        self._undo.append((owner, attr, fn))
+
+    def restore(self) -> None:
+        for owner, attr, fn in reversed(self._undo):
+            setattr(owner, attr, fn)
+        self._undo.clear()
+
+    def line(self, names) -> str:
+        return ", ".join(f"{n} {self.s[n]:.3f}" + (f" ({self.calls[n]} calls)"
+                                                   if self.calls[n] > 1 else "")
+                         for n in names if self.calls[n])
+
+
+def closed_and_outward(verts: torch.Tensor, faces: torch.Tensor) -> tuple[int, float]:
+    """(edges not in exactly two faces, signed volume) of a triangle mesh;
+    the volume is positive when the faces are wound outward."""
+    e = torch.cat([faces[:, [0, 1]], faces[:, [1, 2]], faces[:, [2, 0]]]).sort(dim=1).values
+    _, counts = torch.unique(e[:, 0] * len(verts) + e[:, 1], return_counts=True)
+    v = verts.double()
+    a, b, c = v[faces[:, 0]], v[faces[:, 1]], v[faces[:, 2]]
+    return int((counts != 2).sum()), float((a * torch.linalg.cross(b, c)).sum() / 6)
+
+
+def same_mesh(a, b) -> tuple[bool, float]:
+    """(faces equal array for array, max abs vertex difference) of two
+    TriMeshes, on the host."""
+    (va, fa), (vb, fb) = a.numpy(), b.numpy()
+    if fa.shape != fb.shape or va.shape != vb.shape:
+        return False, float("inf")
+    return bool((fa == fb).all()), float(np.abs(va - vb).max()) if len(va) else 0.0
+
+
+def moved_by(before, after, mm: float) -> float:
+    """Largest deviation of `after` from `before` shifted by `mm` along +Y,
+    the plan's default advancement direction."""
+    d = after.vertices.double() - before.vertices.double()
+    d[:, 1] -= mm
+    return float(d.abs().max())
+
+
+def two_frame_dataset(data_dir: Path, out: Path) -> Path:
+    """A copy of the dataset that lists only its first BRIDGE_FRAMES frames."""
+    shutil.copytree(data_dir, out, symlinks=True)
+    for t in out.glob("transforms*.json"):
+        meta = json.loads(t.read_text())
+        meta["frames"] = meta["frames"][:BRIDGE_FRAMES]
+        t.write_text(json.dumps(meta))
+    return out
+
+
+def write_bench_model(model, device, model_dir: Path) -> None:
+    """Phase A's trained model: the bench avatar as a point cloud and the
+    checkpoint meta with K = MAX_PER_TILE."""
+    from omfs4d_torch.train.checkpoints import export_point_cloud
+
+    export_point_cloud(model_dir / "point_cloud" / f"iteration_{ITERATION}"
+                       / "point_cloud.ply", bench_avatar(model, device))
+    (model_dir / "checkpoints").mkdir(parents=True)
+    (model_dir / "checkpoints" / f"iter_{ITERATION:07d}_meta.json").write_text(
+        json.dumps({"max_per_tile": MAX_PER_TILE,
+                    "max_tiles_per_gaussian": TILES_PER_GAUSSIAN}))
+
+
+def phase_b_frames(model, device, data_dir: Path, model_dir: Path, out: Path) -> list[Path]:
+    """The Le Fort / BSSO frames of `data_dir` rendered as phase B renders
+    them (create_modified_dataset + render_dataset_frames)."""
+    from omfs4d_torch.predict.render_video import render_dataset_frames
+    from omfs4d_torch.predict.surgery import compute_offset, create_modified_dataset
+    from omfs4d_torch.train.checkpoints import (latest_iteration, load_point_cloud,
+                                                trained_render_meta)
+
+    it = latest_iteration(model_dir)
+    gaussians = load_point_cloud(model_dir / "point_cloud" / f"iteration_{it}"
+                                 / "point_cloud.ply", device=device)
+    meta = trained_render_meta(model_dir, it)
+    modified = create_modified_dataset(str(data_dir), compute_offset(LEFORT_MM, 1.0),
+                                       compute_offset(BSSO_MM, 1.0))
+    try:
+        render_dataset_frames(model, gaussians, modified, out,
+                              max_per_tile=int(meta["max_per_tile"]),
+                              max_tiles_per_gaussian=max(16, int(meta["max_tiles_per_gaussian"])))
+    finally:
+        shutil.rmtree(modified, ignore_errors=True)
+    return sorted(out.glob("*.png"))
+
+
+def phase_j(model, device, card: str, work: Path, data_dir: Path,
+            model_dir: Path | None = None, reference: list[Path] | None = None) -> dict:
+    """The clinical engine at the size of a head CBCT: the phantom through
+    both ingest paths, the cutter, the planning session, the CLI, and the
+    plan's two scalars rendered; returns K1's launches and the figures."""
+    from omfs4d_torch import native
+    from omfs4d_torch.app.session import PlanningSession
+    from omfs4d_torch.clinical import loader
+    from omfs4d_torch.clinical.surgical import SurgicalCutter
+    from omfs4d_torch.core.config import Config
+    from omfs4d_torch.io.dicom import write_dicom_slice
+    from omfs4d_torch.io.meshio import load_mesh, save_stl
+    from omfs4d_torch.io.nifti import save_nifti
+    from omfs4d_torch.io.video import read_image
+    from omfs4d_torch.ops import marching
+    from omfs4d_torch.ops import mesh as tmesh
+    from omfs4d_torch.pipeline import cli
+    from omfs4d_torch.predict.render_video import render_prediction
+    from omfs4d_torch.render.composite import composite
+
+    t_phase = time.perf_counter()
+    work = work / "clinical"
+    work.mkdir()
+    c = Config().clinical
+    Z, Y, X = CT_SHAPE
+    secs = {}
+
+    # ── the phantom, written as a DICOM series and a NIfTI label volume ──
+    t0 = time.perf_counter()
+    hu, labels = skull_phantom(CT_SHAPE, CT_SPACING, CT_SEED, device)
+    bone_voxels = int((hu >= c.hu_threshold).sum())
+    hu_np = hu.cpu().numpy()
+    secs["phantom"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    series = work / "series"
+    series.mkdir()
+    raw = (hu_np.astype(np.int32) + 1024).astype(np.int16)
+    for i in range(Z):
+        write_dicom_slice(series / f"{i:04d}.dcm", raw[i], position=(0.0, 0.0, i * CT_SPACING),
+                          pixel_spacing=(CT_SPACING, CT_SPACING), slice_thickness=CT_SPACING,
+                          rescale_intercept=-1024.0)
+    nifti = work / "labels.nii.gz"
+    # ToothFairy3's layout: (i, j, k) = (x, y, z) with k running inferior, so
+    # that the loader's Z flip puts the upper jaw up
+    save_nifti(nifti, labels.permute(2, 1, 0).flip(2).cpu().numpy(),
+               affine=np.diag([CT_SPACING] * 3 + [1.0]), spacing=(CT_SPACING,) * 3)
+    secs["write"] = time.perf_counter() - t0
+    present = sorted(int(v) for v in torch.unique(labels).tolist())
+    check(present == sorted({0, 1, 2, 5, 6} | set(range(11, 19)) | set(range(21, 29))
+                            | set(range(31, 39)) | set(range(41, 49))),
+          f"every label of the phantom is present: {present}")
+    print(f"phase J: skull phantom {Z} x {Y} x {X} at {CT_SPACING} mm ({Z * Y * X:,} voxels, "
+          f"{hu.numel() * 2 / 1e6:.1f} MB int16, {hu.numel() * 4 / 1e6:.1f} MB float32), "
+          f"{bone_voxels:,} voxels >= {c.hu_threshold} HU; {len(present) - 1} labels; built in "
+          f"{secs['phantom']:.3f} s, written as {Z} DICOM slices + {nifti.name} "
+          f"({nifti.stat().st_size / 1e6:.2f} MB) in {secs['write']:.3f} s [{card}]")
+
+    # ── the DICOM path at the config's defaults ──
+    timer, raw_mesh, active, cleaned = StageTimer(), [], [], []
+    timer.wrap(loader, "load_dicom_series", "DICOM read")
+    timer.wrap(loader, "_to_device", "host->card")
+    timer.wrap(loader, "marching_cubes", "marching", keep=raw_mesh)
+    timer.wrap(marching, "_threshold", "threshold")
+    timer.wrap(marching, "_active_cells", "active cells", keep=active)
+    timer.wrap(marching, "_emit_chunk", "emission")
+    timer.wrap(marching, "_dedup", "dedup")
+    timer.wrap(tmesh.TriMesh, "clean", "clean", keep=cleaned)
+    timer.wrap(tmesh, "vertex_adjacency", "adjacency")
+    timer.wrap(tmesh, "smooth_vertices", f"{c.smooth_iterations} smoothing iterations")
+    timer.wrap(native, "qem_decimate", "QEM (host)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        bone = loader.dicom_to_bone_mesh(str(series), c.hu_threshold, c.smooth_iterations,
+                                         c.decimate_fraction)
+    finally:
+        timer.restore()
+    secs["dicom path"] = time.perf_counter() - t0
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(bone.device == device and bone.n_faces > 0, f"the bone mesh is on {bone.device}")
+    rv, rf = raw_mesh[0]
+    open_edges, volume = closed_and_outward(rv, rf)
+    voxel_volume = bone_voxels * CT_SPACING ** 3
+    check(open_edges == 0, f"the raw marching mesh is closed: {open_edges} edges not in "
+                           f"exactly two faces")
+    check(volume > 0 and abs(volume / voxel_volume - 1) <= CT_VOLUME_SHARE,
+          f"the raw mesh encloses {volume:.1f} mm^3, outward, within {CT_VOLUME_SHARE:.0%} of "
+          f"the {voxel_volume:.1f} mm^3 of voxels >= {c.hu_threshold} HU")
+    dicom_stages = ("DICOM read", "host->card", "threshold", "active cells", "emission",
+                    "dedup", "marching", "clean", "adjacency",
+                    f"{c.smooth_iterations} smoothing iterations", "QEM (host)")
+    print(f"phase J: dicom_to_bone_mesh at the defaults (HU {c.hu_threshold}, "
+          f"{c.smooth_iterations} smoothing iterations, keep {c.decimate_fraction}) "
+          f"{secs['dicom path']:.3f} s; peak card memory {peak_gb:.3f} GB "
+          f"(torch.cuda.max_memory_allocated) [{card}]")
+    print("  seconds per stage (synchronized host clock): " + timer.line(dicom_stages))
+    print(f"  counts: {active[0].numel():,} active cells, {len(rf):,} triangles and {len(rv):,} "
+          f"vertices raw (closed: every edge in two faces; enclosed {volume:.1f} mm^3 = "
+          f"{volume / voxel_volume:.4f} x the voxels'), {cleaned[0].n_points:,} vertices / "
+          f"{cleaned[0].n_faces:,} faces after clean, {bone.n_points:,} / {bone.n_faces:,} "
+          f"after decimation")
+
+    # the card's mesh held to the port's own CPU path on a crop of the phantom
+    t0 = time.perf_counter()
+    z0, y0, x0 = CROP_ORIGIN
+    crop = hu_np[z0:z0 + CT_CROP, y0:y0 + CT_CROP, x0:x0 + CT_CROP].astype(np.float32)
+    spacing = (CT_SPACING,) * 3
+    cpu = torch.device("cpu")
+    raws = [marching.marching_cubes(crop, c.hu_threshold, spacing, device=d) for d in (device, cpu)]
+    check(all(torch.equal(a.cpu(), b) for a, b in zip(*raws)),
+          f"raw marching on the {CT_CROP}^3 crop: card equals CPU array for array "
+          f"({len(raws[1][1]):,} faces)")
+    crops = [loader.hu_volume_to_bone_mesh(crop, spacing, c.hu_threshold, c.smooth_iterations,
+                                           c.decimate_fraction, device=d) for d in (device, cpu)]
+    faces_eq, vdiff = same_mesh(*crops)
+    check(faces_eq and vdiff <= 1e-5, f"crop mesh: faces equal {faces_eq}, vertices within "
+                                      f"{vdiff:.2e} <= 1e-5 mm, card vs CPU")
+    cb = crops[1].bounds
+    crop_cut = dict(lefort_z=float(cb[4] + 0.5 * (cb[5] - cb[4])), bsso_l_x=-10.0, bsso_r_x=10.0)
+    segs = [SurgicalCutter(m).perform_cut(**crop_cut) for m in crops]
+    for k in segs[0]:
+        eq, d = same_mesh(segs[0][k], segs[1][k])
+        check(eq and d <= 1e-5, f"crop cut {k}: card equals CPU ({d:.2e})")
+    secs["crop parity"] = time.perf_counter() - t0
+    print(f"  {CT_CROP}^3 crop at {CROP_ORIGIN}: raw marching, hu_volume_to_bone_mesh "
+          f"({crops[0].n_faces:,} faces, vertices within {vdiff:.2e} mm) and the cut equal on "
+          f"the card and the CPU; {secs['crop parity']:.3f} s")
+
+    # single-mesh cut and move, exported as the CLI exports it
+    b = bone.bounds
+    # the upper jaw's middle (z = -21 of the phantom's -44 ... 44 mm) and
+    # 18 mm either side of the midline
+    cut = dict(lefort_z=float(b[4] + (23 / 88) * (b[5] - b[4])),
+               bsso_l_x=float((b[0] + b[1]) / 2 - 18), bsso_r_x=float((b[0] + b[1]) / 2 + 18))
+    cutter = SurgicalCutter(bone)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pieces = cutter.perform_cut(**cut)
+    torch.cuda.synchronize()
+    secs["dicom cut"] = time.perf_counter() - t0
+    check(all(m.n_points > 0 for m in pieces.values()),
+          "single-mesh cut: four segments, none empty: "
+          + ", ".join(f"{k} {m.n_faces}" for k, m in pieces.items()))
+    t0 = time.perf_counter()
+    moved = cutter.move_segments(LEFORT_MM, BSSO_MM)
+    torch.cuda.synchronize()
+    secs["dicom move"] = time.perf_counter() - t0
+    check(moved["upper_skull"] is pieces["upper_skull"]
+          and moved["proximal_rami"] is pieces["proximal_rami"], "the fixed segments stay")
+    dev_max = moved_by(pieces["mobile_maxilla"], moved["mobile_maxilla"], LEFORT_MM)
+    dev_mand = moved_by(pieces["distal_mandible"], moved["distal_mandible"], BSSO_MM)
+    check(dev_max <= 1e-4 and dev_mand <= 1e-4,
+          f"mobile segments moved {LEFORT_MM} / {BSSO_MM} mm along +Y ({dev_max:.2e}, "
+          f"{dev_mand:.2e})")
+    t0 = time.perf_counter()
+    combined = None
+    for seg in moved.values():
+        if seg.n_points:
+            combined = seg if combined is None else combined.merge(seg)
+    dicom_stl = work / "dicom_plan.stl"
+    save_stl(dicom_stl, *combined.numpy())
+    secs["dicom export"] = time.perf_counter() - t0
+    print(f"  single-mesh cut at Le Fort z {cut['lefort_z']:.3f}, BSSO x {cut['bsso_l_x']:.3f} / "
+          f"{cut['bsso_r_x']:.3f} mm: " + ", ".join(f"{k} {m.n_points:,} / {m.n_faces:,}"
+                                                   for k, m in pieces.items())
+          + f" (vertices / faces); cut {secs['dicom cut']:.3f} s, move {secs['dicom move']:.3f} s, "
+          f"STL export {secs['dicom export']:.3f} s ({dicom_stl.stat().st_size / 1e6:.1f} MB)")
+
+    # ── the NIfTI path into the planning session ──
+    timer = StageTimer()
+    timer.wrap(loader, "load_nifti", "NIfTI read")
+    timer.wrap(loader, "_to_device", "host->card")
+    timer.wrap(loader, "_label_mask", "label masks")
+    timer.wrap(loader, "marching_cubes", "marching")
+    timer.wrap(tmesh.TriMesh, "clean", "clean")
+    timer.wrap(tmesh, "smooth_vertices", f"{c.smooth_iterations} smoothing iterations")
+    timer.wrap(native, "qem_decimate", "QEM (host)")
+    t0 = time.perf_counter()
+    try:
+        jaws = loader.nifti_label_to_separate_meshes(str(nifti))
+    finally:
+        timer.restore()
+    secs["nifti path"] = time.perf_counter() - t0
+    maxilla, mandible = jaws["maxilla_mesh"], jaws["mandible_mesh"]
+    check(maxilla.n_faces > 0 and mandible.n_faces > 0 and maxilla.device == device
+          and maxilla.center[2] > mandible.center[2],
+          "separate jaws on the card, the upper jaw above the lower")
+    print(f"phase J: nifti_label_to_separate_meshes {secs['nifti path']:.3f} s: " + timer.line(
+        ("NIfTI read", "host->card", "label masks", "marching", "clean",
+         f"{c.smooth_iterations} smoothing iterations", "QEM (host)"))
+          + f"; maxilla {maxilla.n_points:,} / {maxilla.n_faces:,}, mandible "
+          f"{mandible.n_points:,} / {mandible.n_faces:,}")
+
+    session = PlanningSession()
+    check(session.device == device, f"a session with no device is on the card: {session.device}")
+    session.load_meshes(maxilla, mandible)
+    plan_cut = dict(lefort_z=float(maxilla.center[2]),
+                    bsso_l_x=float(mandible.center[0] - 18), bsso_r_x=float(mandible.center[0] + 18))
+    preview = session.preview(**plan_cut)
+    check({"lefort", "bsso_l", "bsso_r"} <= set(preview), "preview planes")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seg0 = session.perform_cut(**plan_cut)
+    torch.cuda.synchronize()
+    secs["session cut"] = time.perf_counter() - t0
+    check("_warnings" not in seg0 and all(seg0[k].n_points > 0 for k in session.ALL_SEGMENTS),
+          "session cut: four segments, none empty: "
+          + ", ".join(f"{k} {seg0[k].n_faces}" for k in session.ALL_SEGMENTS))
+    t0 = time.perf_counter()
+    seg1 = session.set_movement(maxilla_mm=LEFORT_MM, mandible_mm=BSSO_MM)
+    torch.cuda.synchronize()
+    secs["session move"] = time.perf_counter() - t0
+    check(all(seg1[k] is seg0[k] for k in ("upper_skull", "proximal_rami")),
+          "fixed segments do not move")
+    dev_max = moved_by(seg0["mobile_maxilla"], seg1["mobile_maxilla"], LEFORT_MM)
+    dev_mand = moved_by(seg0["distal_mandible"], seg1["distal_mandible"], BSSO_MM)
+    check(dev_max <= 1e-4 and dev_mand <= 1e-4,
+          f"session: mobile segments moved {LEFORT_MM} / {BSSO_MM} mm along +Y")
+    undone = session.undo()
+    check(session.movement.maxilla_mm == 0.0 and all(
+        torch.equal(undone[k].vertices, seg0[k].vertices) for k in session.ALL_SEGMENTS),
+        "undo gives the cut segments back")
+    redone = session.redo()
+    check(session.surgical_plan() == {"maxilla_mm": LEFORT_MM, "mandible_mm": BSSO_MM}
+          and all(torch.equal(redone[k].vertices, seg1[k].vertices) and torch.equal(
+              redone[k].faces, seg1[k].faces) for k in session.ALL_SEGMENTS),
+          "redo gives the moved segments back")
+    p_max = session.measure_distance(maxilla.center, mandible.center, snap_mesh=maxilla)
+    rec_d = session.add_measurement("distance", [maxilla.center, mandible.center])
+    rec_a = session.add_measurement("angle", [maxilla.center, (0.0, 0.0, 0.0), mandible.center])
+    check(np.isfinite(p_max) and rec_d["value"].endswith(" mm") and rec_a["value"].endswith("°"),
+          f"measurements: {rec_d['value']}, {rec_a['value']}, snapped {p_max:.3f} mm")
+    merged = None
+    for k in session.ALL_SEGMENTS:
+        merged = redone[k] if merged is None else merged.merge(redone[k])
+    mv, mf = merged.numpy()
+    t0 = time.perf_counter()
+    for ext in ("stl", "ply", "obj"):
+        path = session.export(work / f"plan.{ext}")
+        lv, lf = load_mesh(path)
+        if ext == "stl":    # a triangle soup, vertices rounded to 6 decimals on load
+            err, same = float(np.abs(lv[lf] - mv[mf]).max()), lf.shape == mf.shape
+        else:
+            same = lf.shape == mf.shape and bool((lf == mf).all()) and lv.shape == mv.shape
+            err = float(np.abs(lv - mv).max()) if same else float("inf")
+        check(same and err <= 1e-5, f"{ext} export loads back equal ({err:.2e})")
+    secs["session export"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    html = session.write_preview_html(work / "plan.html", moved=True)
+    check("<canvas" in html.read_text(), "the preview HTML holds its canvas")
+    secs["preview html"] = time.perf_counter() - t0
+    print(f"  session: cut {secs['session cut']:.3f} s ("
+          + ", ".join(f"{k} {seg0[k].n_points:,} / {seg0[k].n_faces:,}" for k in session.ALL_SEGMENTS)
+          + f"), move {secs['session move']:.3f} s, undo/redo equal, {rec_d['value']} and "
+          f"{rec_a['value']}, STL/PLY/OBJ exported and read back equal "
+          f"{secs['session export']:.3f} s, preview HTML {secs['preview html']:.3f} s "
+          f"({html.stat().st_size / 1e6:.1f} MB)")
+
+    # ── the CLI ──
+    t0 = time.perf_counter()
+    cli_stl = work / "cli_plan.stl"
+    check(cli.main(["clinical", "--dicom", str(series), "--lefort-z", repr(cut["lefort_z"]),
+                    "--bsso-l-x", repr(cut["bsso_l_x"]), "--bsso-r-x", repr(cut["bsso_r_x"]),
+                    "--maxilla-mm", str(LEFORT_MM), "--mandible-mm", str(BSSO_MM),
+                    "--out", str(cli_stl)]) == 0, "cli clinical returned 0")
+    secs["cli"] = time.perf_counter() - t0
+    lv, lf = load_mesh(cli_stl)
+    check(len(lf) == combined.n_faces and np.isfinite(lv).all()
+          and cli_stl.read_bytes() == dicom_stl.read_bytes(),
+          "the CLI's STL loads back and equals the DICOM path's plan byte for byte")
+    print(f"phase J: cli clinical --dicom at the same cut, 5/3 mm: {secs['cli']:.3f} s, "
+          f"{len(lf):,} faces, the STL equals the DICOM path's")
+
+    # ── the bridge: the session's plan renders with K1 ──
+    if model_dir is None:
+        model_dir = work / "model"
+        write_bench_model(model, device, model_dir)
+    frames = two_frame_dataset(data_dir, work / "two_frames")
+    if reference is None:
+        reference = phase_b_frames(model, device, frames, model_dir, work / "phase_b")
+    ref = [read_image(p).astype(int) for p in reference[:BRIDGE_FRAMES]]
+    plan = session.surgical_plan()
+    before = composite.launches, composite.backward_launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    result = render_prediction(model_dir, frames, model, work / "plan.mp4",
+                               lefort_mm=plan["maxilla_mm"], bsso_mm=plan["mandible_mm"],
+                               device=device)
+    torch.cuda.synchronize()
+    secs["bridge"] = time.perf_counter() - t0
+    fwd = composite.launches - before[0]
+    bwd = composite.backward_launches - before[1]
+    check(fwd == BRIDGE_FRAMES and bwd == 0,
+          f"K1 launches {fwd} == {BRIDGE_FRAMES} rendered frames, K2 {bwd} == 0")
+    got = [read_image(p).astype(int) for p in sorted(Path(result["renders_dir"]).glob("*.png"))]
+    grey = max(int(np.abs(a - r).max()) for a, r in zip(got, ref))
+    check(len(got) == BRIDGE_FRAMES and grey <= 1,
+          f"the plan's {len(got)} frames equal phase B's 5/3 mm frames within 1 grey level ({grey})")
+    print(f"phase J: bridge {plan} -> render_prediction, {BRIDGE_FRAMES} frames in "
+          f"{secs['bridge']:.3f} s, K1 launches {fwd}, max grey difference to phase B {grey}")
+    secs["phase"] = time.perf_counter() - t_phase
+    print(f"phase J ran in {secs['phase']:.2f} s [{card}]")
+    return {"fwd": fwd, "bwd": bwd, "secs": secs}
+
+
 def main(only: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -1682,9 +2198,8 @@ def main(only: str | None = None) -> int:
     from omfs4d_torch.scripts import profile_composite_variants as pcv
     from omfs4d_torch.render.rasterize import render_avatar_frame
     from omfs4d_torch.core.config import TrainConfig
-    from omfs4d_torch.train.checkpoints import (export_point_cloud, latest_iteration,
-                                                load_point_cloud, snapshot_state,
-                                                trained_render_meta)
+    from omfs4d_torch.train.checkpoints import (latest_iteration, load_point_cloud,
+                                                snapshot_state, trained_render_meta)
     from omfs4d_torch.train.trainer import AvatarTrainer
 
     t_main = time.perf_counter()
@@ -1709,16 +2224,14 @@ def main(only: str | None = None) -> int:
                                       height=SIZE, n_vertices=N_VERTICES, seed=0,
                                       device=device)
         model = case["model"]
+        if only == "clinical":
+            phase_j(model, device, card, work, case["path"])
+            return 0
         if only is not None:
             {"track": phase_g, "nets": phase_h, "e2e": phase_i}[only](model, device, card, work)
             return 0
         model_dir = work / "model"
-        export_point_cloud(model_dir / "point_cloud" / f"iteration_{ITERATION}"
-                           / "point_cloud.ply", bench_avatar(model, device))
-        (model_dir / "checkpoints").mkdir(parents=True)
-        (model_dir / "checkpoints" / f"iter_{ITERATION:07d}_meta.json").write_text(
-            json.dumps({"max_per_tile": MAX_PER_TILE,
-                        "max_tiles_per_gaussian": TILES_PER_GAUSSIAN}))
+        write_bench_model(model, device, model_dir)
         print(f"phase A: {N_FRAMES} GT frames at {SIZE}^2, {model.faces.shape[0]} faces, "
               f"avatar of {N_GAUSSIANS} gaussians written in "
               f"{time.perf_counter() - t0:.2f} s")
@@ -2059,6 +2572,10 @@ def main(only: str | None = None) -> int:
 
         # ── phase I: the pipeline end to end through the CLI ─
         e2e = phase_i(model, device, card, work)
+
+        # ── phase J: the clinical engine at a head CBCT's size ─
+        clinical = phase_j(model, device, card, work, case["path"], model_dir,
+                           pngs[:BRIDGE_FRAMES])
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
@@ -2075,10 +2592,10 @@ def main(only: str | None = None) -> int:
         "source": "omfs4d_torch/csrc/composite_fwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:210",
         "launches": (launches + train_fwd + track["fit_fwd"] + nets["nets_fwd"]
-                     + nets["pipe_fwd"] + e2e["fwd"]),
+                     + nets["pipe_fwd"] + e2e["fwd"] + clinical["fwd"]),
         "launches_by_path": {"render": launches, "train": train_fwd, "track": track["fit_fwd"],
                              "nets": nets["nets_fwd"], "pipeline": nets["pipe_fwd"],
-                             "e2e": e2e["fwd"]},
+                             "e2e": e2e["fwd"], "clinical": clinical["fwd"]},
         "launches_per_tracker_step": track["step_fwd"],
         "launches_per_detector_step": nets["step_fwd"],
         "at_sampler_frame": {k: nets[k] for k in ("k1_ms", "plain_ms")}
@@ -2089,9 +2606,10 @@ def main(only: str | None = None) -> int:
         "name": "composite_bwd", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_bwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:305",
-        "launches": train_bwd + track["fit_bwd"] + nets["pipe_bwd"] + e2e["bwd"],
+        "launches": train_bwd + track["fit_bwd"] + nets["pipe_bwd"] + e2e["bwd"] + clinical["bwd"],
         "launches_by_path": {"render": 0, "train": train_bwd, "track": track["fit_bwd"],
-                             "nets": 0, "pipeline": nets["pipe_bwd"], "e2e": e2e["bwd"]},
+                             "nets": 0, "pipeline": nets["pipe_bwd"], "e2e": e2e["bwd"],
+                             "clinical": clinical["bwd"]},
         "launches_per_tracker_step": track["step_bwd"],
         "launches_per_detector_step": nets["step_bwd"],
         "max_abs_err": max(*bwd_errs, track["err_k2"]),
@@ -2235,6 +2753,8 @@ if __name__ == "__main__":
                         help="run the set-up and phase H (the video front end) alone")
         ap.add_argument("--only-e2e", action="store_true",
                         help="run the set-up and phase I (the pipeline through the CLI) alone")
+        ap.add_argument("--only-clinical", action="store_true",
+                        help="run the set-up and phase J (the clinical engine) alone")
         ap.add_argument("--net-gates", nargs=2, metavar=("DETECTOR_STEPS", "SEGNET_STEPS"),
                         help="train each net at each of these step counts (two comma-separated "
                              "lists) and read the learning gates: how phase H's counts were chosen")
@@ -2251,7 +2771,8 @@ if __name__ == "__main__":
             sys.exit(gate_readings(*([int(n) for n in arg.split(",") if n]
                                      for arg in opts.net_gates)))
         only = [name for name, on in (("track", opts.only_track), ("nets", opts.only_nets),
-                                      ("e2e", opts.only_e2e)) if on]
+                                      ("e2e", opts.only_e2e), ("clinical", opts.only_clinical))
+                if on]
         if len(only) > 1:
             ap.error("at most one --only-* option")
         if only:

@@ -1,5 +1,7 @@
 """Unified CLI of the PyTorch port (port of `omfs4d.pipeline.cli`).
 
+    python -m omfs4d_torch.pipeline.cli clinical --dicom DIR --out mesh.stl \
+        clinical.hu_threshold=700
     python -m omfs4d_torch.pipeline.cli synthetic-data --out data/ --frames 60
     python -m omfs4d_torch.pipeline.cli track --frames-dir W/stages/preprocess-x ...
     python -m omfs4d_torch.pipeline.cli train --data data/ --out model/
@@ -13,7 +15,7 @@ anywhere override the config tree.  Every subcommand that touches a model runs
 on the CUDA card and raises without one; `--device cpu` asks for the CPU.  A
 capture (`--video`) is a directory of PNG frames, or a video file when there
 is an ffmpeg binary; with no ffmpeg the prediction is its PNG frames and no
-MP4.  `clinical` is not ported yet and raises.
+MP4.
 """
 
 from __future__ import annotations
@@ -59,7 +61,7 @@ def main(argv: list[str] | None = None):
     parser = argparse.ArgumentParser(prog="omfs4d_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
-    p = sub.add_parser("clinical", help="DICOM/NIfTI -> bone mesh (+ cuts); not ported yet")
+    p = sub.add_parser("clinical", help="DICOM/NIfTI -> bone mesh (+ cuts)")
     p.add_argument("--dicom", default="")
     p.add_argument("--nifti-labels", default="")
     p.add_argument("--nifti-image", default="")
@@ -69,6 +71,7 @@ def main(argv: list[str] | None = None):
     p.add_argument("--bsso-r-x", type=float, default=None)
     p.add_argument("--maxilla-mm", type=float, default=0.0)
     p.add_argument("--mandible-mm", type=float, default=0.0)
+    _add_device(p)
 
     p = sub.add_parser("synthetic-data", help="generate a synthetic GT dataset")
     p.add_argument("--out", required=True)
@@ -138,9 +141,7 @@ def main(argv: list[str] | None = None):
     args = parser.parse_args(rest)
 
     if args.cmd == "clinical":
-        raise NotImplementedError(
-            "clinical: the clinical engine is not ported yet; it needs clinical/, "
-            "ops/marching.py and io/meshio.py (ROADMAP.md queue 1 items 6 and 8)")
+        return _cmd_clinical(args, cfg)
     if args.cmd == "synthetic-data":
         from omfs4d_torch.io.synthetic import make_synthetic_dataset
         out = make_synthetic_dataset(args.out, n_frames=args.frames,
@@ -223,6 +224,52 @@ def main(argv: list[str] | None = None):
             log.info(f"pipeline complete, no video ({result['video_error']}); "
                      f"frames in {result['renders_dir']}")
         log.info(f"strict report buckets: {report['summary']['by_bucket']}")
+    return 0
+
+
+def _cmd_clinical(args, cfg) -> int:
+    """The reference's `clinical` as written (`omfs4d/pipeline/cli.py:209-248`),
+    on `--device`: a missing `--bsso-l-x` / `--bsso-r-x` is -15 / 15 mm, and
+    so is 0.0 (`or`)."""
+    from omfs4d_torch.clinical.loader import (
+        dicom_to_bone_mesh, nifti_image_to_bone_mesh,
+        nifti_label_to_separate_meshes,
+    )
+    from omfs4d_torch.clinical.surgical import SurgicalCutter
+    from omfs4d_torch.io.meshio import save_mesh
+
+    c = cfg.clinical
+    maxilla = mandible = None
+    if args.dicom:
+        maxilla = dicom_to_bone_mesh(args.dicom, c.hu_threshold, c.smooth_iterations,
+                                     c.decimate_fraction, device=args.device)
+    elif args.nifti_labels:
+        out = nifti_label_to_separate_meshes(
+            args.nifti_labels, smooth_iterations=c.smooth_iterations,
+            decimate_fraction=c.decimate_fraction, device=args.device)
+        maxilla, mandible = out["maxilla_mesh"], out["mandible_mesh"]
+    elif args.nifti_image:
+        maxilla = nifti_image_to_bone_mesh(args.nifti_image, c.hu_threshold,
+                                           c.smooth_iterations, c.decimate_fraction,
+                                           device=args.device)
+    else:
+        log.error("one of --dicom / --nifti-labels / --nifti-image required")
+        return 1
+
+    if args.lefort_z is not None:
+        cutter = SurgicalCutter(maxilla, mandible)
+        cutter.perform_cut(args.lefort_z, args.bsso_l_x or -15.0,
+                           args.bsso_r_x or 15.0)
+        moved = cutter.move_segments(args.maxilla_mm, args.mandible_mm)
+        combined = None
+        for seg in moved.values():
+            if seg is not None and seg.n_points:
+                combined = seg if combined is None else combined.merge(seg)
+        save_mesh(args.out, *combined.numpy())
+    else:
+        mesh = maxilla if mandible is None else maxilla.merge(mandible)
+        save_mesh(args.out, *mesh.numpy())
+    log.info(f"mesh written to {args.out}")
     return 0
 
 

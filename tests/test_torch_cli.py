@@ -1,7 +1,8 @@
 """The port's CLI (`python -m omfs4d_torch.pipeline.cli`) on the CPU, as
 `tests/test_cli.py` drives the reference's: dotted overrides, `synthetic-data`,
-`prepare-models` (the nets' trainers cut small), `clinical` (not ported: it
-raises), and `run` from a 64^2 directory of PNG frames with a landmark file to
+`prepare-models` (the nets' trainers cut small), `clinical` (the STL the port
+writes from a DICOM series, a label volume or a CT image, with and without the
+cut, equals the one the reference's CLI writes), and `run` from a 64^2 directory of PNG frames with a landmark file to
 a prediction and its strict report with no ffmpeg (the PNG frames are the
 product, `video` is None).  Then `render-surgery` and `preprocess` through a
 stand-in ffmpeg binary: its encode command line is the reference's, a failing
@@ -143,9 +144,65 @@ def test_cli_prepare_models(tmp_path, monkeypatch, no_ffmpeg_small_asset):
     assert len(trained) == 2
 
 
-def test_cli_clinical_is_not_ported(tmp_path):
-    with pytest.raises(NotImplementedError, match="items 6 and 8"):
-        cli.main(["clinical", "--dicom", str(tmp_path), "--out", str(tmp_path / "m.stl")])
+def clinical_inputs(root: Path) -> dict:
+    """A DICOM series of a bone sphere, a ToothFairy3-style label volume of
+    two jaws and a CT image, each small."""
+    from omfs4d.io.dicom import write_dicom_slice
+    from omfs4d.io.nifti import save_nifti
+
+    n = 22
+    z, y, x = np.mgrid[0:n, 0:n, 0:n].astype(np.float32)
+    c = (n - 1) / 2
+    r = np.sqrt((z - c) ** 2 + (y - c) ** 2 + (x - c) ** 2)
+    hu = np.where((r < 9) & (r > 5), 1200.0, -1000.0) + np.random.default_rng(0).normal(0, 30, r.shape)
+    series = root / "series"
+    series.mkdir(parents=True)
+    for i, s in enumerate((np.round(hu) + 1024).astype(np.int16)):
+        write_dicom_slice(series / f"{i:03d}.dcm", s, position=(0, 0, 0.5 * i),
+                          pixel_spacing=(0.5, 0.5), rescale_intercept=-1024.0)
+    labels = np.zeros((n, n, n), np.uint8)
+    labels[(np.abs(x - c) < 7) & (np.abs(y - c) < 4) & (z > 12) & (z < 18)] = 1
+    labels[(np.abs(x - c) < 6) & (np.abs(y - c) < 4) & (z > 4) & (z < 10)] = 2
+    labels[(np.abs(x - c) < 2) & (np.abs(y - c - 5) < 2) & (z > 9) & (z < 12)] = 11
+    save_nifti(root / "labels.nii.gz", labels, affine=np.diag([0.5, 0.5, 0.5, 1.0]))
+    save_nifti(root / "ct.nii", hu.astype(np.float32), affine=np.diag([0.5, 0.5, 0.5, 1.0]))
+    return {"--dicom": series, "--nifti-labels": root / "labels.nii.gz",
+            "--nifti-image": root / "ct.nii"}
+
+
+CUT_ARGS = {"no cut": [],
+            "cut, BSSO 0.0 read as the default": ["--lefort-z", "0.5", "--bsso-l-x", "-1.5",
+                                                  "--bsso-r-x", "0", "--maxilla-mm", "5",
+                                                  "--mandible-mm", "3"],
+            "cut": ["--lefort-z", "-0.25", "--bsso-l-x", "-2", "--bsso-r-x", "1.5",
+                    "--maxilla-mm", "-2.5", "--mandible-mm", "4", "clinical.smooth_iterations=7"]}
+
+
+@pytest.mark.parametrize("cut", list(CUT_ARGS))
+@pytest.mark.parametrize("source", ["--dicom", "--nifti-labels", "--nifti-image"])
+def test_cli_clinical_writes_the_reference_stl(tmp_path, source, cut):
+    from omfs4d.pipeline import cli as jcli
+
+    inputs = clinical_inputs(tmp_path)
+    args = ["clinical", source, str(inputs[source]), *CUT_ARGS[cut]]
+    assert jcli.main(args + ["--out", str(tmp_path / "ref.stl")]) == 0
+    assert cli.main(args + ["--out", str(tmp_path / "port.stl"), "--device", "cpu"]) == 0
+    assert (tmp_path / "port.stl").read_bytes() == (tmp_path / "ref.stl").read_bytes()
+
+
+def test_cli_clinical_formats_and_errors(tmp_path, monkeypatch):
+    from omfs4d.pipeline import cli as jcli
+
+    series = clinical_inputs(tmp_path)["--dicom"]
+    for ext in ("ply", "obj"):
+        args = ["clinical", "--dicom", str(series), "--lefort-z", "0"]
+        assert jcli.main(args + ["--out", str(tmp_path / f"ref.{ext}")]) == 0
+        assert cli.main(args + ["--out", str(tmp_path / f"port.{ext}"), "--device", "cpu"]) == 0
+        assert (tmp_path / f"port.{ext}").read_bytes() == (tmp_path / f"ref.{ext}").read_bytes()
+    assert cli.main(["clinical", "--out", str(tmp_path / "x.stl"), "--device", "cpu"]) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["clinical", "--dicom", str(series), "--out", str(tmp_path / "card.stl")])
 
 
 def capture_dir(root: Path) -> Path:

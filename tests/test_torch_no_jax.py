@@ -1,5 +1,7 @@
 """Package rules of the port, checked on the CPU: it imports neither jax,
-optax, omfs4d nor cv2, and a CUDA tensor never falls back to a plain version:
+optax, omfs4d nor cv2 (the clinical engine, its IO, the app and the meshkit
+loader included; the streamlit dashboard is read, not imported, since it
+exits without streamlit), and a CUDA tensor never falls back to a plain version:
 not the composite's, forward (K1) or backward (K2), not under the tracker's
 splat backend, and not the K2 ablation variants' (V)."""
 
@@ -40,13 +42,26 @@ BACK_HALF_MODULES = ("omfs4d_torch.eval.reporting", "omfs4d_torch.pipeline.cli",
                      "omfs4d_torch.pipeline.watch", "omfs4d_torch.headrecon.pipeline",
                      "omfs4d_torch.scripts.e2e_case")
 
+CLINICAL_MODULES = ("omfs4d_torch.io.meshio", "omfs4d_torch.io.nifti", "omfs4d_torch.io.dicom",
+                    "omfs4d_torch.ops.mesh", "omfs4d_torch.ops.marching",
+                    "omfs4d_torch.ops.primitives", "omfs4d_torch.native",
+                    "omfs4d_torch.clinical", "omfs4d_torch.clinical.loader",
+                    "omfs4d_torch.clinical.surgical", "omfs4d_torch.clinical.measure",
+                    "omfs4d_torch.clinical.segmentation", "omfs4d_torch.app",
+                    "omfs4d_torch.app.session", "omfs4d_torch.app.viewer",
+                    "omfs4d_torch.app.progress")
+# a streamlit script: it exits when streamlit is missing, so it is read, not imported
+DASHBOARD = "omfs4d_torch.app.dashboard"
+
 
 def test_port_imports_no_jax_omfs4d_or_cv2():
     mods = port_modules()
     assert "omfs4d_torch.render.composite" in mods and len(mods) > 20
     assert "omfs4d_torch.scripts.profile_composite_variants" in mods
     assert set(TRACKING_MODULES) <= set(mods) and set(FRONT_END_MODULES) <= set(mods)
-    assert set(BACK_HALF_MODULES) <= set(mods)
+    assert set(BACK_HALF_MODULES) <= set(mods) and set(CLINICAL_MODULES) <= set(mods)
+    assert DASHBOARD in mods
+    mods.remove(DASHBOARD)
     code = (
         "import importlib, sys, torch\n"
         f"for m in {mods!r}:\n"
@@ -60,14 +75,16 @@ def test_port_imports_no_jax_omfs4d_or_cv2():
     assert res.returncode == 0, res.stderr
 
 
-@pytest.mark.parametrize("module", TRACKING_MODULES + FRONT_END_MODULES + BACK_HALF_MODULES)
+@pytest.mark.parametrize("module", TRACKING_MODULES + FRONT_END_MODULES + BACK_HALF_MODULES
+                         + CLINICAL_MODULES + (DASHBOARD,))
 def test_tracking_module_names_no_jax_package(module):
-    """No import statement of a tracking, front-end or pipeline module names
-    jax, optax or the JAX package, lazy ones inside functions included."""
+    """No import statement of a tracking, front-end, pipeline, clinical or app
+    module names jax, optax or the JAX package, lazy ones inside functions
+    included."""
     import ast
-    import importlib
+    import importlib.util
 
-    tree = ast.parse(Path(importlib.import_module(module).__file__).read_text())
+    tree = ast.parse(Path(importlib.util.find_spec(module).origin).read_text())
     roots = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
