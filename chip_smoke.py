@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render, training, tracking, video front-end,
-pipeline and clinical paths once on one CUDA card.
+pipeline, clinical and parallel paths once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -166,14 +166,51 @@ Phase J: the clinical engine at the size of a head CBCT.  A seeded skull
   phase B's 5/3 mm frames within 1 grey level.  Printed: stage seconds,
   counts at each step, peak card memory.
 
+Phase K: the parallel package, SPMD over torch.distributed, with rank groups
+  of gloo processes sharing the one card (`chip_smoke.py --k-rank ...`, one
+  process each; nccl refuses two ranks on a card).  The one-process runs come
+  first, in this process: the trainer over a 30-step window from phase D's
+  init (the bench avatar compacted to 73,728 slots, co-optimization on, the
+  frame indices drawn once), twice each for the run-to-run spread (K2 sums
+  with float atomics), and the tracker's landmark stages on phase I's clip.
+  Then 2 ranks: phase B's 8 frames as 2 tile slabs (bases 0 and 512) against
+  one K1 launch on the same binning (1e-4, PNG within 1 grey level); the
+  gaussian-sharded loss on training frame 0 (CAPACITY slots, 65,536 alive):
+  at K = 256, K1 and K2 on each rank's depth slice held to the plain version
+  on the slice's inputs (TOL, GRAD_TOL), and at K_EXACT = 4096 with every
+  large gaussian in the large window (no list overflows in either) the loss
+  and every gradient, verts included, held to one process; the overflow
+  counters at K = 256 printed (a depth slice keeps its own K nearest of a
+  tile, one process K in all: the results differ there, as the reference's);
+  ShardedAvatarTrainer over the window at K_EXACT (the first step's Adam
+  moments, (1 - b1) x its gradient, at K2's bound of one process's for every
+  gaussian field and FLAME key but for <= K_MOMENT_OUTSIDE of a leaf; the
+  curve within max(4 x the spread,
+  K_CURVE_FLOOR) of one process) and at K = 256 (the loss falls); frame-DP
+  AvatarTrainer(mesh=) with batch_frames 2 at K = 256 (the same checks; the
+  replicas equal bit for bit); FlameTracker(mesh=) on the clip (the landmark
+  stages within rel 2e-3 of one process, K1 and K2 on each rank in 5 rgb
+  steps, the replicas equal bit for bit).  Then 4 ranks: the 2 x 2 data x
+  gauss trainer at K_EXACT (the same checks).  Then `python -m
+  torch.distributed.run --standalone --nproc-per-node 2 -m
+  omfs4d_torch.pipeline.cli run ... parallel.n_gauss=2` on phase I's stage
+  cache, and the same `run` in one process, both at K_E2E_CAPACITY
+  gaussians (the selfrecon PSNRs within K_E2E_PSNR_TOL).  Printed: the
+  backend, world size and ranks per card; per case its seconds and K1 / K2
+  launches per rank; the sharded ms/step beside the one-process one; one
+  step's bytes and ms per collective (each call wrapped here, the device
+  synchronized around it); peak memory per rank.
+
     python3 chip_smoke.py --only-track
     python3 chip_smoke.py --only-nets
     python3 chip_smoke.py --only-e2e
     python3 chip_smoke.py --only-clinical
+    python3 chip_smoke.py --only-parallel
 
-run the set-up and phase G, H, I or J alone (no kernels line, no last line):
-for work on the tracker, the front end, the pipeline or the clinical engine
-(J renders its own phase-B reference frames).
+run the set-up and phase G, H, I, J or K alone (no kernels line, no last
+line): for work on the tracker, the front end, the pipeline, the clinical
+engine or the parallel package (J renders its own phase-B reference frames;
+K makes phase A and phase I's stage cache first).
 
     python3 chip_smoke.py --net-gates 200,240,280,320 320,400,480,560,640
 
@@ -196,7 +233,8 @@ and with the L2 flushed before each launch (variant_times).
 
 Any failure raises and exits non-zero.  With no CUDA card the script exits
 non-zero before printing any result.  The line before the card's name holds
-every kernel's launches (the sum over phases B, D, G, H, I and J for K1 and K2,
+every kernel's launches (the sum over phases B, D, G, H, I, J and K for K1 and K2,
+phase K's summed over its ranks,
 with each path's own under `launches_by_path`, the launches of one tracker rgb step
 under `launches_per_tracker_step` and of one detector step under
 `launches_per_detector_step`), error, ms, plain_ms, bound_ms (with
@@ -207,6 +245,7 @@ copy mode, none for the others).  The last line is
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import shutil
@@ -287,6 +326,35 @@ CT_CROP = 128
 CROP_ORIGIN = (4, 230, 160)      # the jaws' front: z -46 ... -8, y 2 ... 40, x -19 ... 19 mm
 CT_VOLUME_SHARE = 0.03
 BRIDGE_FRAMES = 2
+# phase K: rank groups sharing the one card; the trainers' compared window,
+# from phase D's init (the bench avatar compacted to 73,728 slots); the
+# tracker's rgb steps on its ranks; the torchrun pipeline's iterations
+K_PAIR, K_QUAD = 2, 4
+K_STEPS = 30
+K_COMPACTED = 73_728
+K_RGB_STEPS = 5
+K_E2E_ITERS = 60
+# the per-tile capacity at which no list of the bench frame overflows, in one
+# process or in a depth slice: the sharded and one-process losses and curves
+# are held to each other there (every large gaussian in the large window)
+K_EXACT = 4096
+K_TIMEOUT_S = 400
+# the trainers' 30-step curves are held to one process within max(4 x the
+# one-process run-to-run spread, K_CURVE_FLOOR): the floor is 2.5 x the
+# largest sharded-vs-one-process difference measured (1.2e-4, on an H100 SXM at 700 W)
+K_CURVE_FLOOR = 3e-4
+# the torchrun `run` and the same `run` in one process: both at the
+# one-process trainer's own capacity for the asset (6 x 10,282 faces rounded
+# up to 16,384), the selfrecon PSNRs within K_E2E_PSNR_TOL
+K_E2E_CAPACITY = 65_536
+K_E2E_PSNR_TOL = 0.5
+# the first step's Adam moments, sharded against one process: K2's bound on
+# every element but a share of at most K_MOMENT_OUTSIDE of each leaf.  A few
+# sh / colour elements of gaussians at the edge of a tile's K-list or of a
+# depth slice move by more than K2's noise when the forward is reassociated
+# (70 per million at most, up to 7 x their bound, on an H100 SXM); a
+# wrong transpose moves every element
+K_MOMENT_OUTSIDE = 1e-3
 
 # The bound of a kernel: the larger of its FP32 instructions over the card's
 # issue rate and its bytes over its memory rate.  NVIDIA H100 SXM: 67 TFLOP/s
@@ -2181,6 +2249,700 @@ def phase_j(model, device, card: str, work: Path, data_dir: Path,
     return {"fwd": fwd, "bwd": bwd, "secs": secs}
 
 
+# ── phase K: the parallel package, rank groups on the one card ──────────
+
+
+def k_trainer_setup(model, data_path: Path, device, batch: int):
+    """Phase D's init for the compared trainers: the bench avatar compacted
+    to K_COMPACTED slots (alive rows first, as compact_to_alive leaves
+    them), the phase-A data, FLAME co-optimization on, no densify or reset."""
+    from omfs4d_torch.core.config import TrainConfig
+
+    data, params = training_data(model, data_path, device)
+    cfg = TrainConfig(iterations=K_STEPS, densify_interval=0, opacity_reset_interval=0,
+                      batch_frames=batch)
+    return cfg, data, params, bench_avatar(model, device, K_COMPACTED)
+
+
+def k_frame_draws(batch: int) -> list[list[int]]:
+    """The compared window's frame indices, one list per step (every rank
+    and the one-process run take the same)."""
+    rng = np.random.default_rng(2)
+    return [rng.integers(0, N_FRAMES, size=batch).tolist() for _ in range(K_STEPS)]
+
+
+def k_first_moments(tr, st) -> dict:
+    """Adam's first moments after the window's first step, whole (gathered
+    from a sharded trainer's rows, a collective there): (1 - b1) x that
+    step's gradient, per gaussian field and co-optimized FLAME key.  A loss
+    curve cannot see a gradient off by a constant factor, since Adam divides
+    it out; these moments can."""
+    if hasattr(tr, "gather_state"):
+        st = tr.gather_state(st)
+    out = {k: v.detach().clone() for grp in st.opt_state.values() for k, v in grp["mu"].items()}
+    for grp in (st.flame_opt_state or {}).values():
+        out.update({"flame_" + k: v.detach().clone() for k, v in grp["mu"].items()})
+    return out
+
+
+def k_one_process_curve(model, data_path: Path, device, batch: int, K: int,
+                        large_frac: float) -> tuple[list, float, dict]:
+    """The one-process trainer over the compared window at per-tile capacity
+    K: (losses, ms/step, the first step's `k_first_moments`)."""
+    from omfs4d_torch.train.trainer import AvatarTrainer, init_opt_state
+
+    cfg, data, params, g = k_trainer_setup(model, data_path, device, batch)
+    tr = AvatarTrainer(model.faces.cpu().numpy(), cfg, SIZE, SIZE, max_per_tile=K,
+                       flame_model=model)
+    tr.render_cfg["large_frac"] = large_frac
+    st = tr.init_state(capacity=K_COMPACTED, flame_params=params)
+    st = st._replace(gaussians=g, opt_state=init_opt_state(g))
+    tdata = {k: (v if torch.is_tensor(v) else torch.from_numpy(v)).to(device)
+             for k, v in data.items()}
+    losses, m1 = [], None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx in k_frame_draws(batch):
+        st, m = tr.train_step(st, tdata, idx)
+        losses.append(m["loss"])
+        m1 = m1 or k_first_moments(tr, st)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / K_STEPS * 1e3
+    return [float(v) for v in losses], ms, m1
+
+
+def k_rank(group: str, rank: int, world: int, port: int, work: Path) -> None:
+    """One rank of a phase-K group: joins the gloo group on the card, runs
+    the group's cases and writes `work/k_<group>_<rank>.json`."""
+    from omfs4d_torch.models.assets import synthetic_flame_asset
+    from omfs4d_torch.models.flame import FlameModel
+    from omfs4d_torch.parallel import collectives as C
+    from omfs4d_torch.parallel.distributed import init_distributed
+    from omfs4d_torch.parallel.mesh import Mesh
+    from omfs4d_torch.render.composite import composite
+
+    device = init_distributed(f"tcp://127.0.0.1:{port}", world, rank)
+    model = FlameModel.from_asset(synthetic_flame_asset(n_vertices=N_VERTICES, seed=0),
+                                  device=device)
+    data_path = work / "data"
+    out = {"backend": torch.distributed.get_backend(), "world": world,
+           "ranks_per_card": world / torch.cuda.device_count(), "cases": {}}
+    torch.cuda.reset_peak_memory_stats()
+
+    def case(name, fn):
+        composite.launches = composite.backward_launches = 0
+        C.reset_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        res["seconds"] = time.perf_counter() - t0
+        res.setdefault("k1", composite.launches)
+        res.setdefault("k2", composite.backward_launches)
+        res["collectives"] = {op: {"calls": C.calls[op], "bytes": C.traffic[op]}
+                              for op in C.OPS}
+        out["cases"][name] = res
+
+    if group == "pair":
+        mesh = Mesh(np.arange(world), ("tile",))
+        case("tile", lambda: k_tile_render(model, work, device, mesh))
+        gmesh = Mesh(np.arange(world), ("gauss",))
+        case("gauss_loss", lambda: k_gauss_loss(model, data_path, device, gmesh))
+        case("sharded_1d", lambda: k_sharded_curve(model, data_path, device, gmesh, None, 1,
+                                                   K_EXACT, 1.0, "exact_1"))
+        case("sharded_1d_k256", lambda: k_sharded_curve(model, data_path, device, gmesh, None,
+                                                        1, MAX_PER_TILE, 0.125, None))
+        dmesh = Mesh(np.arange(world), ("data",))
+        case("frame_dp", lambda: k_frame_dp(model, data_path, device, dmesh))
+        case("tracker", lambda: k_tracker(model, work, device, dmesh))
+    else:
+        mesh2 = Mesh(np.arange(world).reshape(2, world // 2), ("data", "gauss"))
+        case("sharded_2d", lambda: k_sharded_curve(model, data_path, device, mesh2, "data", 2,
+                                                   K_EXACT, 1.0, "exact_2"))
+    out["peak_mib"] = torch.cuda.max_memory_allocated() / 2 ** 20
+    (work / f"k_{group}_{rank}.json").write_text(json.dumps(out))
+    torch.distributed.destroy_process_group()
+
+
+def k_tile_render(model, work: Path, device, mesh) -> dict:
+    """Phase B's frames (the bench avatar under Le Fort 5 / BSSO 3 mm), each
+    as 2 tile slabs (bases 0 and 512 of the 1,024 tiles), against one K1
+    launch of the whole grid on the same binning."""
+    from omfs4d_torch.io.dataset import FrameDataset
+    from omfs4d_torch.models.flame import flame_forward
+    from omfs4d_torch.models.gaussians import bind_to_mesh, eval_colors
+    from omfs4d_torch.ops.camera import project_gaussians
+    from omfs4d_torch.parallel.shard import composite_tile_sharded
+    from omfs4d_torch.predict.render_video import batched_frame_params
+    from omfs4d_torch.render.composite import composite
+    from omfs4d_torch.render.rasterize import bin_gaussians
+    from omfs4d_torch.train.checkpoints import load_point_cloud
+
+    g = load_point_cloud(next((work / "model" / "point_cloud").glob("iteration_*"))
+                         / "point_cloud.ply", device=device)
+    ds = FrameDataset(work / "modified")
+    errs, greys, k1 = [], [], 0
+    with torch.inference_mode():
+        verts = flame_forward(model, batched_frame_params(ds))
+        for i in range(len(ds)):
+            cam = ds.camera(i, device=device)
+            means, rot, scales, opac, _ = bind_to_mesh(g, verts[i], model.faces)
+            cols = eval_colors(g, means, cam.position)
+            proj = project_gaussians(cam, means, rot, scales)
+            b = bin_gaussians(proj, opac, SIZE, SIZE, max_per_tile=MAX_PER_TILE,
+                              max_tiles_per_gaussian=36)
+            before = composite.launches
+            img, alpha = composite_tile_sharded(proj["uv"], proj["conic"], cols, opac, b,
+                                                SIZE, SIZE, 16, mesh, "tile")
+            k1 += composite.launches - before
+            one, one_a = composite(proj["uv"], proj["conic"], cols, opac, b, SIZE, SIZE, 16)
+            errs.append(max(float((img - one).abs().max()), float((alpha - one_a).abs().max())))
+            greys.append(int(np.abs(quantize(img + (1 - alpha)[..., None]).astype(int)
+                                    - quantize(one + (1 - one_a)[..., None]).astype(int)).max()))
+    return {"frames": len(ds), "max_abs_err": max(errs), "grey": max(greys), "k1": k1,
+            "base": mesh.axis_index("tile") * (SIZE // 16) ** 2 // mesh.axis_size("tile")}
+
+
+def k_grads_within(got, want, names) -> dict:
+    """Per leaf: max abs error, scale and the elements outside K2's bound.
+    As in tests/test_torch_train.py, atol gains 1e-10: a gradient that is 0
+    analytically (the quaternions of the isotropic bench cloud) is rounding
+    noise of ~1e-11."""
+    out = {}
+    for k, a, b in zip(names, got, want):
+        scale = max(b.abs().max().item(), 1e-12)
+        ratio = (a - b).abs() / (GRAD_TOL[0] * scale + 1e-10 + GRAD_TOL[1] * b.abs())
+        out[k] = {"max_abs_err": (a - b).abs().max().item(), "scale": scale,
+                  "outside": int((ratio > 1).sum()), "excess": ratio.max().item(),
+                  "size": b.numel(),
+                  "finite": bool(torch.isfinite(a).all())}
+    return out
+
+
+def k_gauss_loss(model, data_path: Path, device, mesh) -> dict:
+    """avatar_loss_gaussian_sharded on training frame 0, the bench avatar in
+    CAPACITY slots (65,536 alive) split over the ranks.  At K = 256: K1 and
+    K2 on this rank's depth slice (the inputs `composite_lists` was given)
+    against the plain version on the card.  At K_EXACT, every large gaussian
+    in the large window: no list overflows in either, so the sharded loss
+    and every gradient are held to the one-process loss's (at K = 256 each
+    depth slice keeps its own K nearest of a tile, one process K in all, as
+    in the reference)."""
+    from omfs4d_torch.models.gaussians import bind_to_mesh, eval_colors
+    from omfs4d_torch.parallel import shard
+    from omfs4d_torch.render.composite import _slab_pixel_centers, composite
+    from omfs4d_torch.render.rasterize import composite_tiles_torch, rasterize
+    from omfs4d_torch.train.trainer import FLOAT_FIELDS, _frame_camera
+
+    data, _ = training_data(model, data_path, device)
+    g = bench_avatar(model, device, CAPACITY)
+    verts = data["verts"][0].to(device)
+    cam = _frame_camera({k: torch.as_tensor(v).to(device) for k, v in data.items()}, 0,
+                        SIZE, SIZE)
+    gt = torch.as_tensor(data["images"][0]).to(device).float() / 255.0
+    n, i = mesh.axis_size("gauss"), mesh.axis_index("gauss")
+    sl = slice(i * CAPACITY // n, (i + 1) * CAPACITY // n)
+    names = list(FLOAT_FIELDS) + ["verts"]
+
+    def sharded(K, large_frac):
+        fl = {k: getattr(g, k)[sl].detach().clone().requires_grad_() for k in FLOAT_FIELDS}
+        v = verts.clone().requires_grad_()
+        local = shard.fields_of(g, fl)._replace(parent_face=g.parent_face[sl],
+                                                alive=g.alive[sl])
+        loss, aux = shard.avatar_loss_gaussian_sharded(
+            local, v, model.faces, cam, gt, mesh=mesh, max_per_tile=K, large_frac=large_frac,
+            return_aux=True)
+        return loss, torch.autograd.grad(loss, list(fl.values()) + [v]), aux
+
+    def one(K, large_frac):
+        fl = {k: getattr(g, k).detach().clone().requires_grad_() for k in FLOAT_FIELDS}
+        v = verts.clone().requires_grad_()
+        g1 = shard.fields_of(g, fl)
+        means, rot, scales, opac, _ = bind_to_mesh(g1, v, model.faces)
+        img, aux = rasterize(means, rot, scales, opac, eval_colors(g1, means, cam.position),
+                             cam, SIZE, SIZE, max_per_tile=K, large_frac=large_frac)
+        loss = torch.mean(torch.abs(img - gt))
+        grads = torch.autograd.grad(loss, list(fl.values()) + [v])
+        return loss, [gr if k == "verts" else gr[sl] for k, gr in zip(names, grads)], aux
+
+    def timed(fn, *args):
+        fn(*args)                              # the first call allocates
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    # K = 256: the slice's composite, kernel against plain
+    seen, real = [], shard.composite_lists
+    shard.composite_lists = lambda *a, **kw: seen.append(a) or real(*a, **kw)
+    try:
+        before = (composite.launches, composite.backward_launches)
+        (loss256, _, aux256), ms = timed(sharded, MAX_PER_TILE, 0.125)
+        k1, k2 = composite.launches - before[0], composite.backward_launches - before[1]
+    finally:
+        shard.composite_lists = real
+    uv, conic, cols, opac, lists, counts, tile, grid_w = (
+        t.detach() if torch.is_tensor(t) else t for t in seen[-1])
+    cot = [torch.randn((lists.shape[0], tile * tile) + s, generator=torch.Generator(
+        device=device).manual_seed(3), device=device) for s in ((3,), ())]
+    res = {}
+    for where in ("kernel", "plain"):
+        leaves = [t.clone().requires_grad_() for t in (uv, conic, cols, opac)]
+        if where == "kernel":
+            col, alp = real(*leaves, lists, counts, tile, grid_w)
+        else:
+            pix = _slab_pixel_centers(0, lists.shape[0], tile, grid_w, device)
+            col, alp = composite_tiles_torch(*leaves, lists, counts, pix)
+        res[where] = [col.detach(), alp.detach(),
+                      *torch.autograd.grad([col, alp], leaves, cot)]
+    fwd_err = max((res["kernel"][j] - res["plain"][j]).abs().max().item() for j in (0, 1))
+    slice_grads = k_grads_within(res["kernel"][2:], res["plain"][2:],
+                                 ["uv", "conic", "colors", "opacity"])
+    (one256, _, one_aux256), one_ms = timed(one, MAX_PER_TILE, 0.125)
+    # K_EXACT: the same function in both
+    loss_x, grads_x, aux_x = sharded(K_EXACT, 1.0)
+    one_x, one_grads_x, one_aux_x = one(K_EXACT, 1.0)
+    return {"loss": float(loss256.detach()), "one_loss": float(one256.detach()), "ms": ms,
+            "one_ms": one_ms, "overflow": int(aux256["overflow"]),
+            "one_overflow": int(one_aux256["overflow"]), "spilled": int(aux256["spilled"]),
+            "entries": int(counts.sum()), "slice_fwd_err": fwd_err,
+            "slice_grads": slice_grads, "exact_loss": float(loss_x.detach()),
+            "exact_one_loss": float(one_x.detach()),
+            "exact_overflow": [int(aux_x["overflow"]), int(one_aux_x["overflow"])],
+            "exact_spilled": [int(aux_x["spilled"]), int(one_aux_x["spilled"])],
+            "exact_grads": k_grads_within(grads_x, one_grads_x, names), "k1": k1, "k2": k2}
+
+
+def k_sharded_curve(model, data_path: Path, device, mesh, data_axis, batch: int, K: int,
+                    large_frac: float, ref: str | None) -> dict:
+    """ShardedAvatarTrainer over the compared window from phase D's init, at
+    per-tile capacity K; its first step's moments held to the one-process
+    run `ref`'s."""
+    from omfs4d_torch.parallel.sharded_trainer import ShardedAvatarTrainer
+
+    cfg, data, params, g = k_trainer_setup(model, data_path, device, batch)
+    tr = ShardedAvatarTrainer(model.faces.cpu().numpy(), cfg, SIZE, SIZE, mesh=mesh,
+                              max_per_tile=K, flame_model=model, data_axis=data_axis)
+    tr.render_cfg["large_frac"] = large_frac
+    st = tr.init_state(gaussians=g, flame_params=params)
+    tdata = {k: (v if torch.is_tensor(v) else torch.from_numpy(v)).to(device)
+             for k, v in data.items()}
+    return k_run_window(tr, st, tdata, batch, ref and data_path.parent / f"k_m1_{ref}.pt")
+
+
+def k_frame_dp(model, data_path: Path, device, mesh) -> dict:
+    """AvatarTrainer(mesh=) over the compared window, batch_frames 2."""
+    from omfs4d_torch.train.trainer import AvatarTrainer, init_opt_state
+
+    cfg, data, params, g = k_trainer_setup(model, data_path, device, 2)
+    tr = AvatarTrainer(model.faces.cpu().numpy(), cfg, SIZE, SIZE, max_per_tile=MAX_PER_TILE,
+                       flame_model=model, mesh=mesh)
+    st = tr.init_state(capacity=K_COMPACTED, flame_params=params)
+    st = st._replace(gaussians=g, opt_state=init_opt_state(g))
+    tdata = {k: (v if torch.is_tensor(v) else torch.from_numpy(v)).to(device)
+             for k, v in data.items()}
+    res = k_run_window(tr, st, tdata, 2, data_path.parent / "k_m1_k256_2.pt")
+    res["state_hash"] = k_state_hash(st)
+    return res
+
+
+def k_run_window(tr, st, tdata, batch: int, m1_ref: Path | None) -> dict:
+    """K_STEPS steps on `k_frame_draws`: losses; the first step's moments
+    against the one-process run's in `m1_ref` (K2's bound); ms per step over
+    the steps between the first and the last (host clock, synchronized); the
+    last step's collectives, bytes and ms each (`k_timed_collectives`)."""
+    from omfs4d_torch.parallel import collectives as C
+
+    draws = k_frame_draws(batch)
+    st, m = tr.train_step(st, tdata, draws[0])
+    losses = [m["loss"]]
+    m1 = k_first_moments(tr, st)
+    res = {}
+    if m1_ref is not None:
+        want = torch.load(m1_ref, map_location=m1["mu_local"].device)
+        res["first_moments"] = k_grads_within([m1[k] for k in want], list(want.values()),
+                                              list(want))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for idx in draws[1:-1]:
+        st, m = tr.train_step(st, tdata, idx)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / (K_STEPS - 2) * 1e3
+    C.reset_counters()
+    with k_timed_collectives() as millis:
+        st, m = tr.train_step(st, tdata, draws[-1])
+    losses.append(m["loss"])
+    step = {op: {"calls": C.calls[op], "bytes": C.traffic[op], "ms": millis[op]}
+            for op in C.OPS}
+    return {"losses": [float(v) for v in losses], "ms": ms, "step_collectives": step, **res}
+
+
+@contextlib.contextmanager
+def k_timed_collectives():
+    """Wrap each collective of `omfs4d_torch.parallel.collectives` for the
+    block: the ms of each call (host clock, the device synchronized before
+    and after) add up in the dict it yields, by collective."""
+    from omfs4d_torch.parallel import collectives as C
+
+    millis = {op: 0.0 for op in C.OPS}
+    real = {"all_reduce_": "all_reduce", "all_gather": "all_gather",
+            "all_to_all": "all_to_all", "broadcast_": "broadcast"}
+
+    def timed(fn, op):
+        def inner(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            millis[op] += (time.perf_counter() - t0) * 1e3
+            return out
+        return inner
+
+    fns = {name: getattr(C, name) for name in real}
+    for name, op in real.items():
+        setattr(C, name, timed(fns[name], op))
+    try:
+        yield millis
+    finally:
+        for name, fn in fns.items():
+            setattr(C, name, fn)
+
+
+def k_state_hash(st) -> str:
+    import hashlib
+
+    from omfs4d_torch.train.checkpoints import state_to_dict
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                walk(x[k])
+        elif x is not None:
+            h.update(x.detach().cpu().numpy().tobytes())
+
+    walk(state_to_dict(st))
+    return h.hexdigest()
+
+
+def k_tracker_inputs(model, work: Path, device):
+    from omfs4d_torch.core.config import TrackConfig
+    from omfs4d_torch.io.synthetic import orbit_c2w_nerf
+    from omfs4d_torch.io.video import read_image
+    from omfs4d_torch.ops.camera import camera_from_nerf
+
+    images = work / "e2e" / "capture" / "images"
+    frames = np.stack([read_image(p) for p in sorted(images.glob("*.png"))])
+    lmk = np.load(images / "landmarks.npz")
+    cam = camera_from_nerf(orbit_c2w_nerf(1)[0], SIZE * 1.8, SIZE * 1.8, SIZE / 2, SIZE / 2,
+                           SIZE, SIZE, device=device)
+    cfg = TrackConfig(**TRACK_STEPS, rgb_downsample=2)
+    return cfg, cam, frames, lmk["landmarks"], lmk["valid"]
+
+
+def k_tracker_stages(tracker, frames, landmarks, valid, rgb_steps: int) -> dict:
+    """The landmark stages (at their cut step counts), then `rgb_steps` of
+    rgb_init_all; returns the stages' losses and seconds."""
+    from omfs4d_torch.core.logging import EventLogger
+
+    rec = []
+    ev = EventLogger()
+    ev.emit = lambda event, **f: rec.append(f)
+    cfg = tracker.cfg
+    data = {"landmarks": torch.as_tensor(landmarks).to(tracker.device, torch.float32),
+            "valid": torch.as_tensor(valid).to(tracker.device),
+            "frames": tracker._prep_frames(frames)}
+    p = tracker.init_params(len(landmarks))
+    p = tracker._run_stage("lmk_init_rigid", p, cfg.steps_lmk_init_rigid,
+                           ("rotation", "translation", "focal_log_scale"), 1.0, 0.0, data, ev)
+    p = tracker._run_stage("lmk_init_all", p, cfg.steps_lmk_init_all,
+                           ("shape", "expr", "rotation", "neck_pose", "jaw_pose", "eyes_pose",
+                            "translation", "focal_log_scale"), 1.0, 0.0, data, ev)
+    if rgb_steps:
+        p = tracker._run_stage("rgb_init_all", p, rgb_steps,
+                               ("shape", "expr", "rotation", "neck_pose", "jaw_pose",
+                                "eyes_pose", "translation", "texture"), 0.3, 1.0, data, ev)
+    return {"losses": {r["stage"]: r["loss"] for r in rec},
+            "seconds": {r["stage"]: r["seconds"] for r in rec},
+            "params_hash": k_params_hash(p)}
+
+
+def k_params_hash(p: dict) -> str:
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(p):
+        h.update(p[k].detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def k_tracker(model, work: Path, device, mesh) -> dict:
+    """FlameTracker(mesh=) on phase G's clip (phase I's copy): the landmark
+    stages and K_RGB_STEPS rgb steps, each rank its block of the 8 frames."""
+    from omfs4d_torch.track.fitter import FlameTracker
+
+    cfg, cam, frames, lmk, valid = k_tracker_inputs(model, work, device)
+    tracker = FlameTracker(model, cfg, cam, (SIZE, SIZE), max_per_tile=MAX_PER_TILE, mesh=mesh,
+                           device=device)
+    return k_tracker_stages(tracker, frames, lmk, valid, K_RGB_STEPS)
+
+
+def k_spawn(group: str, world: int, work: Path) -> list[dict]:
+    """Start `world` rank processes of `group` on the card and wait for
+    them; a rank that fails fails the phase."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()), "--k-rank", group,
+                               str(r), str(world), str(port), str(work)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for r in range(world)]
+    deadline = time.time() + K_TIMEOUT_S
+    logs = []
+    try:
+        for proc in procs:
+            logs.append(proc.communicate(timeout=max(deadline - time.time(), 1))[0])
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    bad = [r for r, proc in enumerate(procs) if proc.returncode != 0]
+    if bad:
+        for r in bad:
+            print(f"phase K rank {r} of {group} exited {procs[r].returncode}:\n{logs[r][-6000:]}",
+                  file=sys.stderr)
+        raise RuntimeError(f"phase K: ranks {bad} of the {group} group failed")
+    return [json.loads((work / f"k_{group}_{r}.json").read_text()) for r in range(world)]
+
+
+def k_curve_err(got: list, ref: list) -> float:
+    return float(np.max(np.abs(np.asarray(got) - np.asarray(ref)) / np.abs(np.asarray(ref))))
+
+
+def k_stage_cache(model, device, work: Path) -> None:
+    """Phase I's stage cache, for --only-parallel: the clip, `cli preprocess`
+    and `cli track` in this process, at phase I's settings."""
+    from omfs4d_torch.pipeline import cli
+
+    images, _, _ = tracking_clip(model, device, work / "e2e")
+    common = ["--workdir", str(work / "e2e" / "wd"),
+              *[f"track.{k}={v}" for k, v in TRACK_STEPS.items()],
+              f"pipeline.min_train_frames={N_FRAMES}"]
+    check(cli.main(["preprocess", "--video", str(images), *common]) == 0, "cli preprocess")
+    stage = next((work / "e2e" / "wd" / "stages").glob("preprocess-*"))
+    shutil.copy2(images / "landmarks.npz", stage / "landmarks.npz")
+    check(cli.main(["track", "--frames-dir", str(stage), "--landmarks", "auto", *common]) == 0,
+          "cli track")
+
+
+def phase_k(model, device, card: str, work: Path, modified: Path) -> dict:
+    """The parallel package on the one card: rank groups of gloo processes
+    sharing it (2, then 4), each case held to the one-process run made here,
+    in the same call; then the CLI under torchrun.  Returns the K1 / K2
+    launches summed over the ranks and cases."""
+    from omfs4d_torch.core.config import TrackConfig  # noqa: F401  (the ranks' widths)
+    from omfs4d_torch.track.fitter import FlameTracker
+
+    t_phase = time.perf_counter()
+    clip = work / "e2e" / "capture" / "images"
+    if not clip.exists():
+        tracking_clip(model, device, work / "e2e")
+    if not (work / "modified").exists():
+        (work / "modified").symlink_to(modified)
+
+    # the one-process runs: the trainers' run-to-run spread (K2 sums with
+    # float atomics), the curves, the tracker's landmark stages
+    t0 = time.perf_counter()
+    one = {}
+    for key, batch, K, frac in (("exact_1", 1, K_EXACT, 1.0), ("exact_2", 2, K_EXACT, 1.0),
+                                ("k256_2", 2, MAX_PER_TILE, 0.125)):
+        a, ms, m1a = k_one_process_curve(model, work / "data", device, batch, K, frac)
+        b, _, m1b = k_one_process_curve(model, work / "data", device, batch, K, frac)
+        torch.save(m1a, work / f"k_m1_{key}.pt")
+        # the first step's moments run to run: K2's atomics against its bound
+        m1_spread = k_grads_within(list(m1b.values()), list(m1a.values()), list(m1a))
+        one[key] = {"losses": a, "ms": ms, "spread": k_curve_err(b, a),
+                    "m1_outside": sum(g["outside"] for g in m1_spread.values()),
+                    "m1_excess": max(g["excess"] for g in m1_spread.values())}
+    cfg, cam, frames, lmk, valid = k_tracker_inputs(model, work, device)
+    tracker = FlameTracker(model, cfg, cam, (SIZE, SIZE), max_per_tile=MAX_PER_TILE,
+                           device=device)
+    one_track = k_tracker_stages(tracker, frames, lmk, valid, 0)
+    ref_s = time.perf_counter() - t0
+    bounds = {k: max(4 * v["spread"], K_CURVE_FLOOR) for k, v in one.items()}
+    print(f"phase K: one-process trainer references in {ref_s:.2f} s, {K_STEPS} steps twice "
+          "each: " + "; ".join(
+              f"{k} {v['ms']:.3f} ms/step, run-to-run spread (max rel) {v['spread']:.3e}, "
+              f"bound max(4 x spread, {K_CURVE_FLOOR:g}) {bounds[k]:.3e}, first-step moments "
+              f"run to run at worst {v['m1_excess']:.3f} x K2's bound ({v['m1_outside']} "
+              f"outside)" for k, v in one.items())
+          + f" [{card}]")
+
+    t0 = time.perf_counter()
+    pair = k_spawn("pair", K_PAIR, work)
+    pair_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    quad = k_spawn("quad", K_QUAD, work)
+    quad_s = time.perf_counter() - t0
+    for label, ranks, secs in (("pair", pair, pair_s), ("quad", quad, quad_s)):
+        r0 = ranks[0]
+        print(f"phase K: {label} group: backend {r0['backend']}, world {r0['world']}, "
+              f"{r0['ranks_per_card']:g} ranks per card, CUDA tensors handed to the backend "
+              f"as they are; {secs:.2f} s with start-up; peak MiB per "
+              f"rank {[round(r['peak_mib'], 1) for r in ranks]}")
+        for name in r0["cases"]:
+            cs = [r["cases"][name] for r in ranks]
+            print(f"  case {name}: {max(c['seconds'] for c in cs):.2f} s; K1 per rank "
+                  f"{[c['k1'] for c in cs]}, K2 per rank {[c['k2'] for c in cs]}")
+            if "step_collectives" in cs[0]:
+                sc = cs[0]["step_collectives"]
+                print("    one step's collectives on rank 0 (device synchronized around "
+                      "each): " + ", ".join(
+                          f"{op} {sc[op]['calls']}x {sc[op]['bytes'] / 2 ** 20:.3f} MiB "
+                          f"{sc[op]['ms']:.3f} ms" for op in ("all_to_all", "all_gather",
+                                                              "all_reduce", "broadcast")))
+    checks = []
+    # 1. tile-sharded render
+    for r, rr in enumerate(pair):
+        c = rr["cases"]["tile"]
+        checks.append((c["max_abs_err"] <= TOL and c["grey"] <= 1 and c["k1"] == c["frames"]
+                       and c["base"] == r * (SIZE // 16) ** 2 // K_PAIR,
+                       f"tile slabs rank {r} (base {c['base']}): max abs err "
+                       f"{c['max_abs_err']:.3e} <= {TOL}, PNG {c['grey']} <= 1 grey level, "
+                       f"K1 {c['k1']} == {c['frames']} frames"))
+    # 2. gaussian-sharded loss: K1 and K2 on each depth slice, and the loss
+    # against one process where no list overflows
+    for r, rr in enumerate(pair):
+        c = rr["cases"]["gauss_loss"]
+        rel = abs(c["exact_loss"] - c["exact_one_loss"]) / c["exact_one_loss"]
+        print(f"  gauss_loss rank {r}, K = {MAX_PER_TILE}: loss {c['loss']:.6f} (one process "
+              f"{c['one_loss']:.6f}); pairs dropped by K: {c['overflow']} over the depth slices, "
+              f"{c['one_overflow']} in one process; spilled {c['spilled']}; step ms "
+              f"{c['ms']:.3f} vs one process {c['one_ms']:.3f} (second call) [{card}]")
+        print(f"    this rank's depth slice: {c['entries']} list entries; K1 vs plain max abs "
+              f"err {c['slice_fwd_err']:.3e}; K2: " + ", ".join(
+                  f"d{k} {gk['max_abs_err']:.3e} of {gk['scale']:.3e} ({gk['outside']} outside)"
+                  for k, gk in c["slice_grads"].items()))
+        print(f"    K = {K_EXACT}, large_frac 1: overflow {c['exact_overflow']}, spilled "
+              f"{c['exact_spilled']} (sharded, one process); loss {c['exact_loss']:.7f} vs "
+              f"{c['exact_one_loss']:.7f} (rel {rel:.2e}); " + ", ".join(
+                  f"d{k} {gk['max_abs_err']:.3e} of {gk['scale']:.3e} ({gk['outside']} outside)"
+                  for k, gk in c["exact_grads"].items()))
+        checks.append((c["slice_fwd_err"] <= TOL and c["k1"] == 2 and c["k2"] == 2
+                       and all(g["outside"] == 0 and g["finite"]
+                               for g in c["slice_grads"].values()),
+                       f"depth slice of rank {r}: K1 within {TOL} and K2 at its bound of the "
+                       f"plain version; K1 {c['k1']} and K2 {c['k2']} == 2 (two sharded calls)"))
+        checks.append((c["exact_overflow"] == [0, 0] and rel <= 1e-4
+                       and all(g["outside"] == 0 and g["finite"]
+                               for g in c["exact_grads"].values()),
+                       f"gauss_loss rank {r} at K = {K_EXACT}: no overflow, loss rel {rel:.2e} "
+                       f"<= 1e-4, every gradient (verts included) at K2's bound"))
+    # 3, 4. the trainers' curves
+    for label, ranks, case, ref in (("sharded 1-D", pair, "sharded_1d", "exact_1"),
+                                    ("frame-DP", pair, "frame_dp", "k256_2"),
+                                    ("sharded 2x2", quad, "sharded_2d", "exact_2")):
+        errs = [k_curve_err(r["cases"][case]["losses"], one[ref]["losses"]) for r in ranks]
+        c0 = ranks[0]["cases"][case]
+        print(f"  {label} ({ref}): {K_STEPS} steps, loss {c0['losses'][0]:.5f} -> "
+              f"{c0['losses'][-1]:.5f} (one process {one[ref]['losses'][0]:.5f} -> "
+              f"{one[ref]['losses'][-1]:.5f}), max rel diff per rank "
+              f"{[f'{e:.2e}' for e in errs]}; ms/step "
+              f"{max(r['cases'][case]['ms'] for r in ranks):.3f} vs one process "
+              f"{one[ref]['ms']:.3f} [{card}]")
+        checks.append((max(errs) <= bounds[ref],
+                       f"{label} curve within {bounds[ref]:.2e} of one process"))
+        print(f"    first step's moments on rank 0 against one process: " + ", ".join(
+            f"{k} {g['max_abs_err']:.3e} of {g['scale']:.3e} ({g['outside']} of "
+            f"{g['size']} outside, worst {g['excess']:.2f} x its bound)"
+            for k, g in c0["first_moments"].items()))
+        for r, rr in enumerate(ranks):
+            fm = rr["cases"][case]["first_moments"]
+            worst = max(fm, key=lambda k: fm[k]["outside"] / fm[k]["size"])
+            share = fm[worst]["outside"] / fm[worst]["size"]
+            checks.append((share <= K_MOMENT_OUTSIDE and all(g["finite"] for g in fm.values()),
+                           f"{label} rank {r}: the first step's moments (every gaussian field "
+                           f"and FLAME key) at K2's bound of one process but for <= "
+                           f"{K_MOMENT_OUTSIDE:g} of a leaf; worst {worst}, {share:.2e} outside"))
+    c0 = pair[0]["cases"]["sharded_1d_k256"]
+    print(f"  sharded 1-D at K = {MAX_PER_TILE}: loss {c0['losses'][0]:.5f} -> "
+          f"{c0['losses'][-1]:.5f}, {c0['ms']:.3f} ms/step [{card}]")
+    checks.append((c0["losses"][-1] < c0["losses"][0],
+                   f"the sharded trainer trains at K = {MAX_PER_TILE}"))
+    checks.append((len({r["cases"]["frame_dp"]["state_hash"] for r in pair}) == 1,
+                   "frame-DP replicas equal bit for bit"))
+    # 5. the tracker
+    for r, rr in enumerate(pair):
+        c = rr["cases"]["tracker"]
+        for stage in ("lmk_init_rigid", "lmk_init_all"):
+            rel = abs(c["losses"][stage] - one_track["losses"][stage]) / one_track["losses"][stage]
+            checks.append((rel <= 2e-3, f"tracker rank {r} {stage} loss rel {rel:.2e} <= 2e-3"))
+        checks.append((c["k1"] > 0 and c["k2"] > 0,
+                       f"tracker rank {r}: K1 {c['k1']} and K2 {c['k2']} in the rgb steps"))
+    c0 = pair[0]["cases"]["tracker"]
+    print(f"  tracker: landmark stages {c0['losses']} vs one process {one_track['losses']}; "
+          f"seconds {c0['seconds']} vs one process {one_track['seconds']} [{card}]")
+    checks.append((len({r["cases"]["tracker"]["params_hash"] for r in pair}) == 1,
+                   "tracker replicas equal bit for bit"))
+
+    # 6. the pipeline under torchrun, on phase I's stage cache, and the same
+    # `run` in this process, both at K_E2E_CAPACITY gaussians
+    from omfs4d_torch.pipeline import cli
+
+    def run_args(wd: Path, extra: list) -> list:
+        shutil.copytree(work / "e2e" / "wd" / "stages", wd / "stages")
+        return ["run", "--video", str(clip), "--landmarks", "auto", "--iterations",
+                str(K_E2E_ITERS), "--workdir", str(wd), "--output", str(wd / "pred.mp4"),
+                *[f"track.{k}={v}" for k, v in TRACK_STEPS.items()],
+                f"pipeline.min_train_frames={N_FRAMES}",
+                f"train.max_gaussians={K_E2E_CAPACITY}", *extra]
+
+    def selfrecon(wd: Path) -> float:
+        scores = wd / "model" / "eval_strict" / "reports" / "strict_scores.json"
+        return (float(np.mean([r["psnr"] for r in json.loads(scores.read_text())["rows"]]))
+                if scores.exists() else float("nan"))
+
+    wd = work / "k_wd"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                          "--nproc-per-node", str(K_PAIR), "-m", "omfs4d_torch.pipeline.cli",
+                          *run_args(wd, ["parallel.n_gauss=2"])],
+                         cwd=Path(__file__).resolve().parent, capture_output=True, text=True,
+                         timeout=K_TIMEOUT_S)
+    torchrun_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        print(res.stdout[-4000:], res.stderr[-8000:], file=sys.stderr)
+    checks.append((res.returncode == 0, f"torchrun cli run exited {res.returncode}"))
+    wd1 = work / "k_wd1"
+    t0 = time.perf_counter()
+    checks.append((cli.main(run_args(wd1, [])) == 0, "one-process cli run"))
+    one_s = time.perf_counter() - t0
+    psnr, psnr1 = selfrecon(wd), selfrecon(wd1)
+    checks.append((abs(psnr - psnr1) <= K_E2E_PSNR_TOL,
+                   f"selfrecon PSNR of the torchrun run {psnr:.3f} dB within "
+                   f"{K_E2E_PSNR_TOL} dB of the one-process run's {psnr1:.3f} dB"))
+    print(f"  torchrun --nproc-per-node {K_PAIR} -m omfs4d_torch.pipeline.cli run "
+          f"parallel.n_gauss=2 --iterations {K_E2E_ITERS} train.max_gaussians="
+          f"{K_E2E_CAPACITY} (preprocess and track from phase I's stage cache): "
+          f"{torchrun_s:.2f} s, selfrecon PSNR {psnr:.3f} dB; the same run in one process "
+          f"{one_s:.2f} s, {psnr1:.3f} dB [{card}]")
+    failed = [what for ok, what in checks if not ok]
+    for ok, what in checks:
+        print(f"  {'ok' if ok else 'FAILED'}: {what}")
+    check(not failed, "phase K:\n  " + "\n  ".join(failed))
+    fwd = sum(c["k1"] for r in pair + quad for c in r["cases"].values())
+    bwd = sum(c["k2"] for r in pair + quad for c in r["cases"].values())
+    print(f"phase K ran in {time.perf_counter() - t_phase:.2f} s; K1 {fwd} and K2 {bwd} "
+          f"launches over the ranks' cases [{card}]")
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def main(only: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2226,6 +2988,13 @@ def main(only: str | None = None) -> int:
         model = case["model"]
         if only == "clinical":
             phase_j(model, device, card, work, case["path"])
+            return 0
+        if only == "parallel":
+            write_bench_model(model, device, work / "model")
+            modified = create_modified_dataset(str(case["path"]), compute_offset(LEFORT_MM, 1.0),
+                                               compute_offset(BSSO_MM, 1.0))
+            k_stage_cache(model, device, work)
+            phase_k(model, device, card, work, Path(modified))
             return 0
         if only is not None:
             {"track": phase_g, "nets": phase_h, "e2e": phase_i}[only](model, device, card, work)
@@ -2576,6 +3345,9 @@ def main(only: str | None = None) -> int:
         # ── phase J: the clinical engine at a head CBCT's size ─
         clinical = phase_j(model, device, card, work, case["path"], model_dir,
                            pngs[:BRIDGE_FRAMES])
+
+        # ── phase K: the parallel package, ranks sharing the card ─
+        parallel = phase_k(model, device, card, work, Path(modified))
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
@@ -2592,10 +3364,11 @@ def main(only: str | None = None) -> int:
         "source": "omfs4d_torch/csrc/composite_fwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:210",
         "launches": (launches + train_fwd + track["fit_fwd"] + nets["nets_fwd"]
-                     + nets["pipe_fwd"] + e2e["fwd"] + clinical["fwd"]),
+                     + nets["pipe_fwd"] + e2e["fwd"] + clinical["fwd"] + parallel["fwd"]),
         "launches_by_path": {"render": launches, "train": train_fwd, "track": track["fit_fwd"],
                              "nets": nets["nets_fwd"], "pipeline": nets["pipe_fwd"],
-                             "e2e": e2e["fwd"], "clinical": clinical["fwd"]},
+                             "e2e": e2e["fwd"], "clinical": clinical["fwd"],
+                             "parallel": parallel["fwd"]},
         "launches_per_tracker_step": track["step_fwd"],
         "launches_per_detector_step": nets["step_fwd"],
         "at_sampler_frame": {k: nets[k] for k in ("k1_ms", "plain_ms")}
@@ -2606,10 +3379,11 @@ def main(only: str | None = None) -> int:
         "name": "composite_bwd", "route": "cuda",
         "source": "omfs4d_torch/csrc/composite_bwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:305",
-        "launches": train_bwd + track["fit_bwd"] + nets["pipe_bwd"] + e2e["bwd"] + clinical["bwd"],
+        "launches": (train_bwd + track["fit_bwd"] + nets["pipe_bwd"] + e2e["bwd"]
+                     + clinical["bwd"] + parallel["bwd"]),
         "launches_by_path": {"render": 0, "train": train_bwd, "track": track["fit_bwd"],
                              "nets": 0, "pipeline": nets["pipe_bwd"], "e2e": e2e["bwd"],
-                             "clinical": clinical["bwd"]},
+                             "clinical": clinical["bwd"], "parallel": parallel["bwd"]},
         "launches_per_tracker_step": track["step_bwd"],
         "launches_per_detector_step": nets["step_bwd"],
         "max_abs_err": max(*bwd_errs, track["err_k2"]),
@@ -2755,6 +3529,9 @@ if __name__ == "__main__":
                         help="run the set-up and phase I (the pipeline through the CLI) alone")
         ap.add_argument("--only-clinical", action="store_true",
                         help="run the set-up and phase J (the clinical engine) alone")
+        ap.add_argument("--only-parallel", action="store_true",
+                        help="run the set-up and phase K (the parallel package) alone")
+        ap.add_argument("--k-rank", nargs=5, help=argparse.SUPPRESS)
         ap.add_argument("--net-gates", nargs=2, metavar=("DETECTOR_STEPS", "SEGNET_STEPS"),
                         help="train each net at each of these step counts (two comma-separated "
                              "lists) and read the learning gates: how phase H's counts were chosen")
@@ -2767,11 +3544,16 @@ if __name__ == "__main__":
         if opts.measure:
             print(json.dumps(measure_tree(*opts.measure)))
             sys.exit(0)
+        if opts.k_rank:
+            group, rank, world, port, kwork = opts.k_rank
+            k_rank(group, int(rank), int(world), int(port), Path(kwork))
+            sys.exit(0)
         if opts.net_gates:
             sys.exit(gate_readings(*([int(n) for n in arg.split(",") if n]
                                      for arg in opts.net_gates)))
         only = [name for name, on in (("track", opts.only_track), ("nets", opts.only_nets),
-                                      ("e2e", opts.only_e2e), ("clinical", opts.only_clinical))
+                                      ("e2e", opts.only_e2e), ("clinical", opts.only_clinical),
+                                      ("parallel", opts.only_parallel))
                 if on]
         if len(only) > 1:
             ap.error("at most one --only-* option")

@@ -62,24 +62,49 @@ def build_log() -> str:
     return log.read_text() if log.exists() else ""
 
 
+def _rank_and_world() -> tuple[int, int]:
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 @functools.cache
 def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library."""
+    """Build (if needed) and load the kernel library.  Under a process group
+    every rank must call it: rank 0 builds while the others wait at a
+    barrier, so that N ranks run nvcc once."""
     lib_path = library_path()
+    rank, n = _rank_and_world()
+    try:
+        if rank == 0 and not lib_path.exists():
+            _build_library(lib_path)
+    finally:
+        if n > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
     if not lib_path.exists():
-        nvcc = find_nvcc()
-        if nvcc is None:
-            raise RuntimeError(
-                "no nvcc found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-                "the CUDA kernels in omfs4d_torch/csrc cannot be built")
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
-            objs, log = _compile_all(nvcc, Path(tmp_dir))
-            tmp = Path(tmp_dir) / lib_path.name
-            _run([nvcc, "-shared", "-o", str(tmp), *objs])
-            lib_path.with_suffix(".log").write_text(log)
-            os.replace(tmp, lib_path)      # atomic: concurrent builds agree
+        if n > 1:
+            raise RuntimeError(f"rank 0 did not build {lib_path.name}; see its error")
+        _build_library(lib_path)
     return ctypes.CDLL(str(lib_path))
+
+
+def _build_library(lib_path: Path) -> None:
+    nvcc = find_nvcc()
+    if nvcc is None:
+        raise RuntimeError(
+            "no nvcc found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+            "the CUDA kernels in omfs4d_torch/csrc cannot be built")
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
+        objs, log = _compile_all(nvcc, Path(tmp_dir))
+        tmp = Path(tmp_dir) / lib_path.name
+        _run([nvcc, "-shared", "-o", str(tmp), *objs])
+        lib_path.with_suffix(".log").write_text(log)
+        os.replace(tmp, lib_path)      # atomic: concurrent builds agree
 
 
 def _run(cmd: list[str]) -> None:

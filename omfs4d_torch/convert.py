@@ -9,6 +9,8 @@ here), so a test can start both trainers from the same state.
 `detector_params_from_numpy` / `segnet_params_from_numpy` turn the reference's
 flat weight dicts (HWIO convolutions) into this package's nets (OIHW), and
 `net_params_to_numpy` goes back: one .npz serves both packages.
+`sharded_state_from_jax` carries the reference's state to one rank's shard of the
+port's gaussian-sharded trainer, and `gathered_state_to_numpy` gathers it back.
 """
 
 from __future__ import annotations
@@ -135,3 +137,20 @@ def to_numpy(x):
     if isinstance(x, dict):
         return {k: to_numpy(v) for k, v in x.items()}
     return x
+
+
+def sharded_state_from_jax(state, trainer):
+    """The reference's `TrainState` of a whole cloud (a `ShardedAvatarTrainer`
+    state is a global array on the JAX side) -> this rank's shard of the
+    port's state for `trainer`, a port `ShardedAvatarTrainer`, on its
+    device."""
+    return trainer.shard_state(train_state_from_jax(state, trainer.device))
+
+
+def gathered_state_to_numpy(trainer, state) -> dict:
+    """This rank's shard -> the whole state as nested dicts of numpy arrays
+    (`checkpoints.state_to_dict`'s layout).  A collective: every rank of the
+    trainer's axis calls it."""
+    from omfs4d_torch.train.checkpoints import state_to_dict
+
+    return to_numpy(state_to_dict(trainer.gather_state(state)))

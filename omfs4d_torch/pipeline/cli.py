@@ -16,11 +16,20 @@ on the CUDA card and raises without one; `--device cpu` asks for the CPU.  A
 capture (`--video`) is a directory of PNG frames, or a video file when there
 is an ffmpeg binary; with no ffmpeg the prediction is its PNG frames and no
 MP4.
+
+Under `torchrun` (WORLD_SIZE > 1) each process is one rank: the pipeline's
+commands join the process group first (`init_distributed`; the backend is
+nccl when every rank has a card of its own, else gloo) and `parallel.*`
+overrides shard their stages, e.g.
+
+    torchrun --nproc-per-node 2 -m omfs4d_torch.pipeline.cli run --video F/ \
+        --lefort-mm 5 --bsso-mm 3 parallel.n_gauss=2
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 from pathlib import Path
 
@@ -139,6 +148,20 @@ def main(argv: list[str] | None = None):
                         "region-excluded psnr_unchanged metric")
 
     args = parser.parse_args(rest)
+
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # started by torchrun: one rank of an SPMD job.  The pipeline's
+        # stages join the process group; the single-process commands run on
+        # rank 0 alone
+        if args.cmd in ("clinical", "synthetic-data", "report"):
+            if int(os.environ.get("RANK", "0")) != 0:
+                return 0
+        else:
+            import torch.distributed as dist
+
+            from omfs4d_torch.parallel.distributed import init_distributed
+            if not dist.is_initialized():
+                args.device = init_distributed(device=args.device)
 
     if args.cmd == "clinical":
         return _cmd_clinical(args, cfg)

@@ -8,9 +8,17 @@ events.  Stages: `preprocess` (a capture to numbered frames), `track`
 contract dataset), `train` (the avatar), `render_surgery` (the prediction)
 and `report` (strict PSNR/SSIM by view bucket).
 
-The pipeline runs on one device: `device=None` takes the CUDA card and raises
-when there is none.  Spreading a stage over devices (`parallel.n_data`,
-`n_gauss` or `n_tile` > 1) waits for the port's parallel slice and raises.
+`device=None` takes the CUDA card and raises when there is none.  Started
+as one rank of a process group (`torchrun`, `omfs4d_torch.parallel.
+distributed.init_distributed`), the pipeline runs SPMD: `parallel.n_data`,
+`n_gauss` and `n_tile` > 1 shard the tracker, the trainer and the prediction
+render over the first ranks of the group, a stage that is not sharded runs
+on rank 0 alone, and rank 0 alone writes the stage cache, `events.jsonl` and
+the outputs.  A rank with no part in a stage waits for it at a barrier whose
+timeout is a stage's (`collectives.wait_group`).  Rank 0 decides each
+stage-cache hit and every rank follows it.  With too few ranks, tracking and
+rendering run unsharded and training raises, as the reference does with too
+few devices.
 """
 
 from __future__ import annotations
@@ -29,6 +37,8 @@ from omfs4d_torch.io.dataset import FrameDataset, write_dataset
 from omfs4d_torch.io.video import extract_frames, probe_video, read_image
 from omfs4d_torch.models.assets import load_flame_asset, synthetic_flame_asset
 from omfs4d_torch.models.flame import FlameModel, flame_forward
+from omfs4d_torch.parallel import collectives as C
+from omfs4d_torch.parallel.mesh import Mesh, world
 from omfs4d_torch.track.fitter import FlameTracker
 from omfs4d_torch.track.landmarks import detect_landmarks
 from omfs4d_torch.train.checkpoints import checkpoint_lineage
@@ -36,9 +46,6 @@ from omfs4d_torch.train.gates import run_quality_gates
 from omfs4d_torch.train.trainer import AvatarTrainer
 
 log = get_logger("pipeline")
-
-_SHARDED = ("Pipeline.{}: {} waits for the port's parallel slice (ROADMAP.md queue 1 "
-            "item 9); run on one device")
 
 
 class Pipeline:
@@ -50,7 +57,8 @@ class Pipeline:
         self.workdir = Path(workdir)
         self.workdir.mkdir(parents=True, exist_ok=True)
         self.store = ArtifactStore(self.workdir / "stages")
-        self.events = EventLogger(self.workdir / "events.jsonl")
+        self.rank, self.n_ranks = world()
+        self.events = EventLogger(self.workdir / "events.jsonl" if self.rank == 0 else None)
         if flame_asset:
             asset = load_flame_asset(flame_asset)
         else:
@@ -71,19 +79,47 @@ class Pipeline:
                 )
                 return {"n_frames": len(paths), **info}
 
-        return self.store.run(
-            "preprocess", {"video": str(video_path)},
-            {"target_size": cfg.target_size, "max_frames": cfg.max_frames},
-            run, force=force,
-        )
+        return self._stage("preprocess", {"video": str(video_path)},
+                           {"target_size": cfg.target_size, "max_frames": cfg.max_frames},
+                           run, force)
+
+    def _stage(self, name: str, inputs: dict, cfg: dict, run, force: bool,
+               n_run: int = 1) -> Path:
+        """`store.run` under SPMD: rank 0 decides the cache hit and every
+        rank follows it; on a miss the first `n_run` ranks run the stage (a
+        sharded stage's collectives need them all), rank 0 into the store and
+        the others into a scratch directory, and all meet at a barrier."""
+        if self.n_ranks == 1:
+            return self.store.run(name, inputs, cfg, run, force=force)
+        import tempfile
+
+        out_dir = self.store.root / f"{name}-{self.store.stage_key(name, inputs, cfg)}"
+        hit = [not force and (out_dir / ".stage_complete.json").exists()]
+        torch.distributed.broadcast_object_list(hit, src=0)
+        if not hit[0]:
+            if self.rank == 0:
+                self.store.run(name, inputs, cfg, run, force=True)
+            elif self.rank < n_run:
+                with tempfile.TemporaryDirectory() as tmp:
+                    run(Path(tmp))
+        C.barrier()
+        return out_dir
 
     # ── stage 2+3: landmarks + FLAME tracking -> dataset ────
     def track(self, frames_dir: Path, camera, landmark_method: str = "file",
               landmark_kwargs: dict | None = None, force: bool = False) -> Path:
         cfg = self.cfg
-        if cfg.parallel.n_data > 1:
-            raise NotImplementedError(_SHARDED.format(
-                "track", "parallel.n_data > 1 (sharding the frame axis over devices)"))
+        nd, track_mesh = cfg.parallel.n_data, None
+        if nd > 1:
+            # the frame axis of the batched stages over the first nd ranks,
+            # which alone run the stage (every rank builds the mesh: its
+            # groups are collectives of the world); with fewer ranks the
+            # tracker runs unsharded
+            if self.n_ranks >= nd:
+                track_mesh = Mesh(np.arange(nd), ("data",))
+            else:
+                log.warning(f"parallel.n_data={nd} but only {self.n_ranks} ranks; "
+                            "tracking unsharded")
 
         def run(out: Path):
             with stage_timer("track", self.events):
@@ -137,6 +173,7 @@ class Pipeline:
                     self.model, track_cfg, camera, (W, H),
                     max_per_tile=cfg.render.max_per_tile,
                     device=self.device,
+                    mesh=track_mesh,
                 )
                 result = tracker.fit(lmk, valid, frames=frames,
                                      events=self.events)
@@ -169,12 +206,11 @@ class Pipeline:
                 )
                 return {"n_frames": T, "losses": result.losses}
 
-        return self.store.run(
+        return self._stage(
             "track", {"frames": str(frames_dir)},
             {"track": self.cfg.track.__dict__, "lmk": landmark_method,
              "matting": self.cfg.pipeline.matting},
-            run, force=force,
-        )
+            run, force, n_run=track_mesh.size if track_mesh is not None else 1)
 
     # ── runtime preflight fallbacks (see track/preflight.py) ─
     def _landmarks_with_fallback(self, lmk, valid, images_dir, W, H):
@@ -254,12 +290,6 @@ class Pipeline:
               resume: bool = False) -> Path:
         cfg = self.cfg
         output_dir = Path(output_dir) if output_dir else self.workdir / "model"
-        if cfg.parallel.n_gauss > 1:
-            raise NotImplementedError(_SHARDED.format(
-                "train", "parallel.n_gauss > 1 (the gaussian-sharded trainer)"))
-        if cfg.parallel.n_data > 1:
-            raise NotImplementedError(_SHARDED.format(
-                "train", "parallel.n_data > 1 (frame data parallelism)"))
 
         run_quality_gates(data_dir, min_frames=min(cfg.pipeline.min_train_frames,
                                                    50))
@@ -304,22 +334,16 @@ class Pipeline:
             train_cfg = dataclasses.replace(train_cfg, densify_interval=100)
             log.info("hires dataset: densify_interval 300 -> 100")
 
-        trainer = AvatarTrainer(
-            self.model.faces.cpu().numpy(), train_cfg, W, H,
-            white_background=cfg.render.white_background,
-            tile=cfg.render.tile,
-            max_per_tile=cfg.render.max_per_tile,
-            flame_model=self.model if cfg.train.optimize_flame else None,
-            device=self.device,
-        )
-        state = trainer.init_state(
-            flame_params=params if cfg.train.optimize_flame else None,
-            canonical_verts=verts[0].cpu().numpy(),
-        )
+        trainer, state = self._make_trainer(train_cfg, W, H, params, verts)
+        if trainer is None:
+            # a rank with no part in training waits for rank 0's files
+            C.barrier()
+            return output_dir
         start_iter = 0
         if resume:
             # continue a killed run from its newest checkpoint (ref lineage:
-            # train_ghost.py:141-156 over GA's chkpnt*.pth)
+            # train_ghost.py:141-156 over GA's chkpnt*.pth); both trainers
+            # read the same checkpoints
             try:
                 state, start_iter = trainer.restore_checkpoint(
                     output_dir, template=state)
@@ -331,20 +355,77 @@ class Pipeline:
             state = trainer.train(data, iterations=iterations, state=state,
                                   output_dir=output_dir, events=self.events,
                                   start_iteration=start_iter)
-        if cfg.train.optimize_flame and state.flame_params is not None:
+        if self.rank == 0 and cfg.train.optimize_flame and state.flame_params is not None:
             # export the co-optimized FLAME params: the avatar was trained
             # against these poses, so the prediction renderer re-poses from
             # them (render_prediction picks this file up)
             np.savez(output_dir / "flame_param_refined.npz",
                      **{k: v.detach().cpu().numpy()
                         for k, v in state.flame_params.items()})
-
-        write_experiment_manifest(
-            output_dir, data_dir, cfg.to_dict(),
-            extra={"iterations": iterations or cfg.train.iterations,
-                   "resumed_from_iteration": start_iter,
-                   "checkpoint_lineage": checkpoint_lineage(output_dir)})
+        if self.rank == 0:
+            write_experiment_manifest(
+                output_dir, data_dir, cfg.to_dict(),
+                extra={"iterations": iterations or cfg.train.iterations,
+                       "resumed_from_iteration": start_iter,
+                       "checkpoint_lineage": checkpoint_lineage(output_dir)})
+        C.barrier()
         return output_dir
+
+    def _make_trainer(self, train_cfg, W: int, H: int, params: dict, verts):
+        """The trainer of `parallel`'s settings and its initial state:
+        `n_gauss` > 1 the gaussian-sharded trainer on a (data x) gauss mesh,
+        `n_data` > 1 the frame-DP trainer, else the one-process trainer on
+        rank 0.  (None, None) on a rank with no part in training;
+        RuntimeError with too few ranks."""
+        cfg = self.cfg
+        faces = self.model.faces.cpu().numpy()
+        flame = self.model if cfg.train.optimize_flame else None
+        flame_params = params if cfg.train.optimize_flame else None
+        common = dict(white_background=cfg.render.white_background, tile=cfg.render.tile,
+                      max_per_tile=cfg.render.max_per_tile, flame_model=flame,
+                      device=self.device)
+        n_data = max(cfg.parallel.n_data, 1)   # -1/0/1 = no frame DP here
+        if cfg.parallel.n_gauss > 1:
+            from omfs4d_torch.models.gaussians import init_gaussians_on_mesh
+            from omfs4d_torch.parallel.sharded_trainer import ShardedAvatarTrainer
+
+            n = cfg.parallel.n_gauss
+            need = n * n_data
+            if self.n_ranks < need:
+                raise RuntimeError(f"parallel n_data x n_gauss = {n_data}x{n} but only "
+                                   f"{self.n_ranks} ranks")
+            if n_data > 1:
+                mesh = Mesh(np.arange(need).reshape(n_data, n), ("data", "gauss"))
+            else:
+                mesh = Mesh(np.arange(n), ("gauss",))
+            if not mesh.contains():
+                return None, None
+            trainer = ShardedAvatarTrainer(faces, train_cfg, W, H, mesh=mesh,
+                                           data_axis="data" if n_data > 1 else None, **common)
+            capacity = (train_cfg.max_gaussians // n) * n
+            g0 = init_gaussians_on_mesh(faces, capacity, seed=train_cfg.seed,
+                                        sh_degree=train_cfg.sh_degree,
+                                        ref_verts=verts[0].cpu().numpy(), device=self.device)
+            return trainer, trainer.init_state(gaussians=g0, flame_params=flame_params)
+        mesh = None
+        if n_data > 1:
+            if self.n_ranks < n_data:
+                raise RuntimeError(f"parallel.n_data={n_data} but only {self.n_ranks} ranks")
+            mesh = Mesh(np.arange(n_data), ("data",))
+            if not mesh.contains():
+                return None, None
+            if train_cfg.batch_frames % n_data:
+                b = train_cfg.batch_frames
+                train_cfg = dataclasses.replace(
+                    train_cfg, batch_frames=max(b, 1) * n_data if b < n_data
+                    else (b + n_data - 1) // n_data * n_data)
+                log.info(f"frame-DP: batch_frames -> {train_cfg.batch_frames} "
+                         f"({n_data} ranks)")
+        elif self.rank != 0:
+            return None, None
+        trainer = AvatarTrainer(faces, train_cfg, W, H, mesh=mesh, **common)
+        return trainer, trainer.init_state(flame_params=flame_params,
+                                           canonical_verts=verts[0].cpu().numpy())
 
     # ── stage 5: surgical prediction render ──────────────────
     def render_surgery(self, model_dir: Path, data_dir: Path, output: Path,
@@ -361,9 +442,6 @@ class Pipeline:
                     n_tile=max(self.cfg.parallel.n_tile, 1),
                     max_per_tile=self.cfg.render.max_per_tile)
         opts.update(kw)
-        if opts["n_tile"] > 1:
-            raise NotImplementedError(_SHARDED.format(
-                "render_surgery", "parallel.n_tile > 1 (tile-sharded rendering)"))
         with stage_timer("render_surgery", self.events):
             return render_prediction(
                 model_dir, data_dir, self.model, output=output,
@@ -377,7 +455,13 @@ class Pipeline:
         from omfs4d_torch.eval.reporting import generate_report
 
         output_dir = output_dir or (Path(model_dir) / "eval_strict" / "reports")
-        with stage_timer("report", self.events):
-            return generate_report(Path(model_dir), Path(deterministic_dir),
-                                   Path(output_dir),
-                                   baseline_renders_dir=baseline_renders_dir)
+        result = [None]
+        if self.rank == 0:
+            with stage_timer("report", self.events):
+                result = [generate_report(Path(model_dir), Path(deterministic_dir),
+                                          Path(output_dir),
+                                          baseline_renders_dir=baseline_renders_dir)]
+        if self.n_ranks > 1:
+            # every rank returns rank 0's report, once it is written
+            torch.distributed.broadcast_object_list(result, src=0, group=C.wait_group())
+        return result[0]

@@ -10,7 +10,9 @@ Port of `omfs4d.predict.render_video`:
 
 Runs eagerly on the device of the FLAME model: one batched FLAME forward
 for all frames, then one frame at a time through bind -> colours ->
-project -> bin -> composite.
+project -> bin -> composite.  With `n_tile` > 1 and as many ranks in the
+process group (`omfs4d_torch.parallel`), each frame's tile grid is sharded
+over them (`rasterize_tile_sharded`); rank 0 alone writes files.
 """
 
 from __future__ import annotations
@@ -80,12 +82,27 @@ def render_dataset_frames(
     `clock`, a `omfs4d_torch.core.timing.StageClock`, collects per-stage
     times (flame, bind_colors, project, bin, composite on the device; png
     on the host, after the frame's copy to the host) and the per-frame
-    binning counters.  Tile-sharded rendering (`n_tile` > 1) belongs to the
-    parallel slice and raises NotImplementedError.
+    binning counters.
+
+    `n_tile` > 1 rasterizes each frame with its tile grid sharded over the
+    first `n_tile` ranks of the process group (a `tile` mesh): every rank of
+    the group must call this, rank 0 writes the files, a rank past the mesh
+    renders nothing.  With fewer ranks than `n_tile` it warns and renders
+    unsharded, as the reference does with too few devices.
     """
-    if n_tile > 1:
-        raise NotImplementedError("tile-sharded rendering (n_tile > 1) is not ported yet")
+    from omfs4d_torch.parallel.mesh import Mesh, world
+
     device = flame_model.v_template.device
+    rank, n_ranks = world()
+    tile_mesh = None
+    if n_tile > 1:
+        if n_ranks >= n_tile:
+            tile_mesh = Mesh(np.arange(n_tile), ("tile",))
+        else:
+            log.warning(f"n_tile={n_tile} but only {n_ranks} ranks; rendering unsharded")
+    writer = rank == 0
+    if not writer and (tile_mesh is None or not tile_mesh.contains()):
+        return Path(out_renders)
     bg_value = 1.0 if white_background else 0.0
     ds = FrameDataset(data_dir, split=split)
     out_renders = Path(out_renders)
@@ -131,19 +148,41 @@ def render_dataset_frames(
             cam = ds.camera(i, device=device)
             if clock is not None:
                 clock.start()
-            img, aux = render_avatar_frame(
-                gaussians, verts_all[i], flame_model.faces, cam, W, H,
-                background=bg, max_per_tile=max_per_tile,
-                max_tiles_per_gaussian=max_tiles_per_gaussian,
-                large_frac=large_frac, clock=clock)
-            if clock is not None:
-                clock.add_counters({k: aux[k] for k in COUNTERS})
+            if tile_mesh is not None:
+                img = _render_tile_sharded(gaussians, verts_all[i], flame_model.faces, cam,
+                                           W, H, bg, tile_mesh, max_per_tile,
+                                           max_tiles_per_gaussian)
+                if not writer:
+                    continue
+            else:
+                img, aux = render_avatar_frame(
+                    gaussians, verts_all[i], flame_model.faces, cam, W, H,
+                    background=bg, max_per_tile=max_per_tile,
+                    max_tiles_per_gaussian=max_tiles_per_gaussian,
+                    large_frac=large_frac, clock=clock)
+                if clock is not None:
+                    clock.add_counters({k: aux[k] for k in COUNTERS})
             pending.append((i, img))
             if len(pending) >= window:
                 drain(*pending.pop(0))
         for entry in pending:
             drain(*entry)
     return out_renders
+
+
+def _render_tile_sharded(gaussians, verts, faces, cam, W, H, bg, mesh, max_per_tile,
+                         max_tiles_per_gaussian):
+    """One frame through `rasterize_tile_sharded`, with the reference's
+    window there (at least 36 tiles per gaussian)."""
+    from omfs4d_torch.models.gaussians import bind_to_mesh, eval_colors
+    from omfs4d_torch.parallel.shard import rasterize_tile_sharded
+
+    means, rot, scales, opac, _ = bind_to_mesh(gaussians, verts, faces)
+    cols = eval_colors(gaussians, means, cam.position)
+    img, _ = rasterize_tile_sharded(means, rot, scales, opac, cols, cam, W, H, mesh=mesh,
+                                    axis="tile", background=bg, max_per_tile=max_per_tile,
+                                    max_tiles_per_gaussian=max(36, max_tiles_per_gaussian))
+    return img
 
 
 def render_prediction(
@@ -210,9 +249,14 @@ def render_prediction(
         log.info(f"render per-tile capacity: max_per_tile={max_per_tile} "
                  f"(from training meta)")
 
+    # under a process group every rank renders (the tile-sharded path needs
+    # them all) and rank 0 alone touches the model directory's files
+    from omfs4d_torch.parallel.mesh import world
+
+    rank, n_ranks = world()
     # clear stale renders
     train_dir = model_dir / "train"
-    if train_dir.is_dir():
+    if rank == 0 and train_dir.is_dir():
         for d in train_dir.iterdir():
             renders = d / "renders"
             if renders.is_dir():
@@ -233,30 +277,36 @@ def render_prediction(
             max_tiles_per_gaussian=window, n_tile=n_tile,
             max_per_tile=max_per_tile,
         )
+        result = [None]
+        if rank == 0:
+            if export_frames_dir:
+                export_deterministic_frames(
+                    str(renders_dir), export_frames_dir,
+                    index_file=deterministic_indices or None,
+                    max_frames=deterministic_max_frames,
+                )
+            video, video_error = None, None
+            try:
+                video = str(stitch_video(renders_dir, output, fps=fps))
+                log.info(f"Video saved to {video}")
+            except NoFFmpegError as e:
+                video_error = str(e)
+                log.warning(f"no video, the prediction is the PNG frames: {video_error}")
+            result = [{
+                "video": video,
+                "video_error": video_error,
+                "renders_dir": str(renders_dir),
+                "iteration": it,
+                "rig_mode": effective_mode,
+                "lefort_offset": lefort_offset,
+                "bsso_offset": bsso_offset,
+            }]
+        if n_ranks > 1:
+            # every rank returns rank 0's result, once its files are written
+            from omfs4d_torch.parallel.collectives import wait_group
 
-        if export_frames_dir:
-            export_deterministic_frames(
-                str(renders_dir), export_frames_dir,
-                index_file=deterministic_indices or None,
-                max_frames=deterministic_max_frames,
-            )
-
-        video, video_error = None, None
-        try:
-            video = str(stitch_video(renders_dir, output, fps=fps))
-            log.info(f"Video saved to {video}")
-        except NoFFmpegError as e:
-            video_error = str(e)
-            log.warning(f"no video, the prediction is the PNG frames: {video_error}")
-        return {
-            "video": video,
-            "video_error": video_error,
-            "renders_dir": str(renders_dir),
-            "iteration": it,
-            "rig_mode": effective_mode,
-            "lefort_offset": lefort_offset,
-            "bsso_offset": bsso_offset,
-        }
+            torch.distributed.broadcast_object_list(result, src=0, group=wait_group())
+        return result[0]
     finally:
         if not keep_modified_dataset:
             shutil.rmtree(modified, ignore_errors=True)

@@ -242,3 +242,54 @@ def composite(uv, conic, colors, opacity, binning: TileBinning,
 
 composite.launches = 0
 composite.backward_launches = 0
+
+
+def _slab_pixel_centers(tile_base: int, n_tiles: int, tile: int, grid_w: int,
+                        device) -> torch.Tensor:
+    """(n_tiles, tile*tile, 2) pixel centres of tiles tile_base.. in a grid
+    grid_w tiles wide; tile ids past the grid continue it downwards."""
+    tid = torch.arange(tile_base, tile_base + n_tiles, device=device)
+    py, px = torch.meshgrid(torch.arange(tile, device=device),
+                            torch.arange(tile, device=device), indexing="ij")
+    x = (tid % grid_w)[:, None] * tile + px.reshape(1, -1) + 0.5
+    y = (tid // grid_w)[:, None] * tile + py.reshape(1, -1) + 0.5
+    return torch.stack([x, y], dim=-1).to(torch.float32)
+
+
+def composite_lists(uv, conic, colors, opacity, lists, counts, tile: int, grid_w: int,
+                    tile_base: int = 0, num_tiles: int | None = None):
+    """Per-tile composite of a contiguous slab of tiles, the port of
+    `composite_lists_pallas`: `lists` (T, K) / `counts` (T,) are tiles
+    `tile_base .. tile_base + T - 1` of a grid `grid_w` tiles wide.  Returns
+    ((T, P, 3) colours, (T, P) alpha), P = tile*tile pixels each, in global
+    pixel coordinates.
+
+    A CPU tensor takes the plain version (`composite_tiles_torch`).  A CUDA
+    tensor goes through `composite` (K1 forward, K2 backward) on the image of
+    the slab's rows of tiles.  Rows at or past `num_tiles` (the padding a
+    sharded grid gives its last slab, count 0) are trimmed before K1, whose
+    lists must lie in the grid, and come back as zeros; a slab of padding
+    alone launches nothing."""
+    from omfs4d_torch.render.rasterize import composite_tiles_torch
+
+    T = lists.shape[0]
+    P = tile * tile
+    if _device_type(uv) == "cpu":
+        pix = _slab_pixel_centers(tile_base, T, tile, grid_w, uv.device)
+        return composite_tiles_torch(uv, conic, colors, opacity, lists, counts, pix)
+    live = T if num_tiles is None else max(0, min(T, num_tiles - tile_base))
+    if live == 0:
+        return uv.new_zeros((T, P, 3)), uv.new_zeros((T, P))
+    # K1 renders an image grid_w tiles wide, down to the row of the slab's
+    # last tile; the slab is cut out of it tile by tile
+    rows = (tile_base + live + grid_w - 1) // grid_w
+    binning = TileBinning(lists[:live].contiguous(), counts[:live].contiguous(), None, None, None)
+    img, alpha = composite(uv, conic, colors, opacity, binning, grid_w * tile, rows * tile,
+                           tile, tile_base)
+    img_t = img.reshape(rows, tile, grid_w, tile, 3).permute(0, 2, 1, 3, 4).reshape(-1, P, 3)
+    alp_t = alpha.reshape(rows, tile, grid_w, tile).permute(0, 2, 1, 3).reshape(-1, P)
+    col, alp = img_t[tile_base:tile_base + live], alp_t[tile_base:tile_base + live]
+    if live < T:
+        col = torch.nn.functional.pad(col, (0, 0, 0, 0, 0, T - live))
+        alp = torch.nn.functional.pad(alp, (0, 0, 0, T - live))
+    return col, alp

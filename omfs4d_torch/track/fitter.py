@@ -28,7 +28,15 @@ loss is read once, at the end of a stage.  The frame indices of a step come
 from the same host stream as the reference's (`np.random.default_rng(0)` per
 stage), so a stage's curve can be held against it.
 
-Sharding the frame axis over several devices (`mesh=`) is not ported.
+`mesh=` shards the frame axis of the batched stages over the ranks of its
+`data_axis` (SPMD, `omfs4d_torch.parallel`): the parameters and Adam stay
+replicated (they are small), and each rank computes the terms of the frames
+it owns — the landmark loss of its block of frames, the per-frame and
+temporal regularizers of its rows (the previous rank's last row comes by a
+halo exchange), the rgb batch entries whose frame it owns (every rank draws
+the same indices) — while the first rank adds the global priors.  The
+gradients are all-reduced, so every rank takes the unsharded step.  The
+sequential sweep runs per frame on every rank, as in the reference.
 """
 
 from __future__ import annotations
@@ -133,16 +141,14 @@ class FlameTracker:
         max_per_tile: int = 256,
         mesh=None,
         device: str | torch.device | None = None,
+        data_axis: str = "data",
     ):
         """`device` defaults to the CUDA card: with no card the tracker
         raises, and it runs on the CPU only when the caller asks for it.  A
         model or camera on another device is copied to the tracker's.  The
         splat backend's composite takes the CUDA kernels on a CUDA device and
         the plain version on the CPU."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "FlameTracker: mesh= (sharding the frame axis over devices) waits for "
-                "the port's parallel slice; fit on one device")
+        self.mesh, self.data_axis = mesh, data_axis
         self.device = resolve_device(device, "FlameTracker")
         self.model = model_on(model, self.device)
         self.cfg = cfg
@@ -239,8 +245,9 @@ class FlameTracker:
             f = torch.clamp(f, 0, 255).to(torch.uint8)
         return f.contiguous()
 
-    def _landmark_loss(self, p: dict, target_lmk, valid_mask, verts=None):
-        """`verts`: the posed vertices of `p`, when the caller has them."""
+    def _landmark_loss(self, p: dict, target_lmk, valid_mask, verts=None, n_valid=None):
+        """`verts`: the posed vertices of `p`, when the caller has them;
+        `n_valid`: the valid frames the mean is over (default: `valid_mask`'s)."""
         if verts is None:
             verts = flame_forward(self.model, self._flame_args(p))
         lmk3d = flame_landmarks(self.model, verts)                 # (T, L, 3)
@@ -250,7 +257,8 @@ class FlameTracker:
         scale = float(max(self.width, self.height))
         diff = (uv - target_lmk) / scale
         m = valid_mask[:, None, None].to(torch.float32)
-        return torch.sum(diff * diff * m) / (torch.clamp_min(m.sum(), 1.0) * L)
+        n_valid = m.sum() if n_valid is None else n_valid
+        return torch.sum(diff * diff * m) / (torch.clamp_min(n_valid, 1.0) * L)
 
     def _photometric_loss(self, p: dict, frames, frame_idx, verts=None):
         """Render the textured FLAME mesh for a frame subset (`frame_idx`:
@@ -368,6 +376,73 @@ class FlameTracker:
                 p, data["frames"], frame_idx, verts=verts)
         return loss
 
+    def _frame_block(self, T: int) -> tuple[int, int]:
+        """This rank's frames [a, b): balanced contiguous blocks."""
+        n = self.mesh.axis_size(self.data_axis)
+        if T < n:
+            raise ValueError(f"FlameTracker: {T} frames for {n} ranks of the mesh")
+        r = self.mesh.axis_index(self.data_axis)
+        return r * T // n, (r + 1) * T // n
+
+    def _stage_loss_sharded(self, params: dict, leaves: dict, data: dict, frame_idx,
+                            lmk_w: float, rgb_w: float) -> torch.Tensor:
+        """This rank's part of `_stage_loss` (the parts sum to it): the
+        terms of its block of frames, and on the first rank the priors of
+        the global keys.  The leaves are replicated inputs, so their
+        gradients come out summed over the ranks."""
+        from omfs4d_torch.parallel import collectives as C
+
+        cfg, mesh, axis = self.cfg, self.mesh, self.data_axis
+        used = dict(zip(leaves, C.replicated(mesh, axis, *leaves.values())))
+        p = {**params, **used}
+        T = p["expr"].shape[0]
+        a, b = self._frame_block(T)
+        loc = {k: (p[k][a:b] if k in FRAME_KEYS else p[k]) for k in p}
+
+        # regularizers: per-frame means over all T frames, from this block
+        def block_mean(k):
+            return torch.sum(loc[k] ** 2) / p[k].numel()
+
+        loss = cfg.reg_expr * block_mean("expr") + cfg.reg_jaw * block_mean("jaw_pose")
+        if mesh.axis_index(axis) == 0:
+            loss = loss + (cfg.reg_shape * torch.mean(p["shape"] ** 2)
+                           + 1e-2 * torch.mean(p["static_offset"] ** 2))
+        temporal = [("expr", 30.0 * cfg.temporal_smoothness),
+                    ("jaw_pose", 300.0 * cfg.temporal_smoothness),
+                    ("rotation", 3.0 * cfg.temporal_smoothness),
+                    ("translation", 3.0 * cfg.temporal_smoothness)]
+        if cfg.use_dynamic_offset:
+            loss = loss + cfg.reg_dynamic * block_mean("dynamic_offset")
+            temporal.insert(0, ("dynamic_offset", cfg.temporal_smoothness * 100.0))
+        if T > 1:
+            # one halo exchange: the previous rank's last row of every key
+            last = torch.cat([loc[k][-1].reshape(-1) for k, _ in temporal])
+            prev = C.halo_prev(last, mesh, axis)
+            if a == 0:
+                loss = C.joined(loss, prev)     # the first block has no previous frame
+            at = 0
+            for k, w in temporal:
+                row = loc[k][-1].numel()
+                rows = loc[k]
+                if a > 0:
+                    rows = torch.cat([prev[at:at + row].view(1, *rows.shape[1:]), rows])
+                at += row
+                diff = torch.diff(rows, dim=0)
+                loss = loss + w * torch.sum(diff ** 2) / ((T - 1) * p[k][0].numel())
+        if lmk_w > 0 or rgb_w > 0:
+            verts = flame_forward(self.model, self._flame_args(loc))
+        if lmk_w > 0:
+            n_valid = data["valid"].to(torch.float32).sum()
+            loss = loss + lmk_w * self._landmark_loss(
+                loc, data["landmarks"][a:b], data["valid"][a:b], verts=verts, n_valid=n_valid)
+        if rgb_w > 0:
+            mine = [int(i) - a for i in frame_idx if a <= int(i) < b]
+            if mine:
+                loss = loss + rgb_w * len(mine) / len(frame_idx) * self._photometric_loss(
+                    loc, data["frames"][a:b], mine, verts=verts)
+        # every rank joins the gradient's all-reduce, whatever its terms used
+        return C.joined(loss, *used.values())
+
     def _stage_step(self, params: dict, opt_state: dict, data: dict, frame_idx,
                     lmk_w: float, rgb_w: float) -> torch.Tensor:
         """One Adam step, in place, on the keys of `params` that `opt_state`
@@ -377,8 +452,15 @@ class FlameTracker:
         if clock is not None:
             clock.start()
         leaves = {k: params[k].detach().requires_grad_() for k in opt_state}
-        loss = self._stage_loss({**params, **leaves}, data, frame_idx, lmk_w, rgb_w)
+        if self.mesh is None:
+            loss = self._stage_loss({**params, **leaves}, data, frame_idx, lmk_w, rgb_w)
+        else:
+            loss = self._stage_loss_sharded(params, leaves, data, frame_idx, lmk_w, rgb_w)
         grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        if self.mesh is not None:
+            from omfs4d_torch.parallel import collectives as C
+
+            loss = C.all_reduce_(loss.detach().clone(), self.mesh, self.data_axis)
         if clock is not None:
             clock.lap("backward")
         for (k, state), g in zip(opt_state.items(), grads):

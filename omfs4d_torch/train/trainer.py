@@ -48,7 +48,7 @@ from omfs4d_torch.models.gaussians import (
 from omfs4d_torch.ops.camera import Camera, project_gaussians
 from omfs4d_torch.render.composite import composite
 from omfs4d_torch.render.rasterize import ALPHA_CUTOFF, bin_gaussians
-from omfs4d_torch.train.losses import dssim_loss, l1_loss, psnr
+from omfs4d_torch.train.losses import dssim_loss, l1_loss
 
 log = get_logger("train")
 
@@ -242,12 +242,15 @@ UNSEEN_MARK = -0.25
 
 def densify_prune_arrays(g: GaussianAvatar, grad_accum: torch.Tensor,
                          grad_count: torch.Tensor, noise, max_new: int,
-                         cfg: TrainConfig):
-    """Fixed-capacity densify / clone / split / prune.
+                         cfg: TrainConfig, window_observed=None):
+    """Fixed-capacity densify / clone / split / prune of one capacity block
+    (the whole cloud, or one shard of it).
 
     `noise` is the (max_new, 3) standard-normal draw for the children's
-    offsets (`AvatarTrainer.densify_noise`; tests inject JAX's).  Returns
-    (g2, slots, ok, new_grad_count); `new_grad_count` carries the
+    offsets (`AvatarTrainer.densify_noise`; tests inject JAX's).
+    `window_observed`: whether any gaussian of the whole cloud was observed
+    in the window (a shard passes the global flag); default: of this block.
+    Returns (g2, slots, ok, new_grad_count); `new_grad_count` carries the
     UNSEEN_MARK streak state the zero-observation prune needs."""
     dev = grad_accum.device
     alive = g.alive
@@ -297,7 +300,7 @@ def densify_prune_arrays(g: GaussianAvatar, grad_accum: torch.Tensor,
         & (torch.sigmoid(fields["opacity_logit"]) > cfg.prune_opacity)
         & (torch.exp(log_scale).max(dim=-1).values < cfg.prune_scale)
     )
-    obs = torch.any(grad_count > 0)
+    obs = torch.any(grad_count > 0) if window_observed is None else window_observed
     if cfg.prune_zero_observed:
         # prune rows that stayed unobserved through two consecutive observed
         # windows (grad_count < 0 carries the previous window's mark); a
@@ -457,13 +460,27 @@ class AvatarTrainer:
         max_tiles_per_gaussian: int = 16,
         flame_model=None,
         device: str | torch.device | None = None,
+        mesh=None,
+        data_axis: str = "data",
     ):
         """`flame_model` enables FLAME-parameter co-optimization
-        (cfg.optimize_flame).  `device` defaults to the FLAME model's, else
-        the CUDA card (as the reference runs on the default accelerator):
+        (cfg.optimize_flame).  `mesh` + `data_axis` (an
+        `omfs4d_torch.parallel.Mesh`) enable frame data parallelism: the
+        state is replicated on every rank of the axis, each rank renders its
+        block of the sampled batch, and the gradients (the densify probe's
+        included) are all-reduced, so every replica takes the same update
+        (cfg.batch_frames must be a multiple of the axis size); the mesh's
+        first rank writes the checkpoints.  `device` defaults to the FLAME
+        model's, else the CUDA card (as the reference runs on the default
+        accelerator):
         with no card the trainer raises, and runs on the CPU only when the
         caller asks for it.  The composite takes the CUDA kernels on a CUDA
         device and the plain version on the CPU."""
+        if mesh is not None and cfg.batch_frames % mesh.shape[data_axis]:
+            raise ValueError(f"batch_frames={cfg.batch_frames} not divisible by mesh "
+                             f"axis {data_axis}={mesh.shape[data_axis]}")
+        self.mesh = mesh
+        self.data_axis = data_axis
         if device is None:
             device = flame_model.v_template.device if flame_model is not None else "cuda"
         self.device = resolve_device(device, "AvatarTrainer")
@@ -543,20 +560,29 @@ class AvatarTrainer:
     # ── one training step ────────────────────────────────────
     def train_step(self, state: TrainState, data: dict, idx) -> tuple[TrainState, dict]:
         """One step on frames `idx` (host ints) of `data` (device tensors).
-        Returns (state, metrics of device tensors)."""
+        Returns (state, metrics of device tensors).  Under a mesh, every rank
+        is given the same `idx` and renders its own block of it."""
+        from omfs4d_torch.parallel import collectives as C
+        from omfs4d_torch.parallel.shard import fields_of
+
         cfg = self.cfg
         W, H = self.width, self.height
         bg = self.bg
         clock = self.clock
         idx = [int(i) for i in idx]
+        mine = idx
+        if self.mesh is not None:
+            per = len(idx) // self.mesh.axis_size(self.data_axis)
+            r = self.mesh.axis_index(self.data_axis)
+            mine = idx[r * per:(r + 1) * per]
         if clock is not None:
             clock.start()
         g = state.gaussians
         params = float_fields(g)
 
-        imgs = _take(data["images"], idx).to(torch.float32) / 255.0
+        imgs = _take(data["images"], mine).to(torch.float32) / 255.0
         if "masks" in data:
-            m = _take(data["masks"], idx).to(torch.float32)[..., None] / 255.0
+            m = _take(data["masks"], mine).to(torch.float32)[..., None] / 255.0
             imgs = imgs * m + bg * (1.0 - m)
 
         probe = torch.zeros((g.capacity, 2), device=self.device, requires_grad=True)
@@ -565,29 +591,42 @@ class AvatarTrainer:
             groups = flame_groups(state.flame_params)
             flame_leaves = {k: v.detach().requires_grad_()
                             for k, v in state.flame_params.items() if groups[k] != "frozen"}
-            sliced = {k: (v if k in FLAME_FROZEN else _take(flame_leaves.get(k, v), idx))
+        leaves = list(params.values()) + list(flame_leaves.values()) + [probe]
+        render_g, used_flame, used_probe = g, flame_leaves, probe
+        if self.mesh is not None:
+            # every replica renders its frames from the same state: the
+            # gradient of each leaf is the sum over the ranks
+            used = C.replicated(self.mesh, self.data_axis, *leaves)
+            render_g = fields_of(g, dict(zip(params, used)))
+            used_flame = dict(zip(flame_leaves, used[len(params):-1]))
+            used_probe = used[-1]
+        if self.co_optimize:
+            sliced = {k: (v if k in FLAME_FROZEN else _take(used_flame.get(k, v), mine))
                       for k, v in state.flame_params.items()}
             verts = flame_forward(self.flame_model, sliced)
             if clock is not None:
                 clock.lap("flame")
         else:
-            verts = _take(data["verts"], idx)
+            verts = _take(data["verts"], mine)
 
         losses, rendered, stats = [], [], []
-        for b, i in enumerate(idx):
+        for b, i in enumerate(mine):
             cam = _frame_camera(data, i, W, H)
-            img, st = _render_with_probe(g, probe, verts[b], self.faces, cam, W, H,
+            img, st = _render_with_probe(render_g, used_probe, verts[b], self.faces, cam, W, H,
                                          bg, self.render_cfg, clock)
             gt = imgs[b]
             losses.append((1.0 - cfg.lambda_dssim) * l1_loss(img, gt)
                           + cfg.lambda_dssim * dssim_loss(img, gt))
             rendered.append(img)
             stats.append(st)
-        loss = losses[0] if len(losses) == 1 else torch.stack(losses).mean()
+        if self.mesh is not None:
+            # this rank's share of the batch mean
+            loss = torch.stack(losses).sum() / len(idx)
+        else:
+            loss = losses[0] if len(losses) == 1 else torch.stack(losses).mean()
         if clock is not None:
             clock.lap("loss")
 
-        leaves = list(params.values()) + list(flame_leaves.values()) + [probe]
         grads = torch.autograd.grad(loss, leaves)
         n_p = len(params)
         g_params = dict(zip(params, grads[:n_p]))
@@ -602,27 +641,8 @@ class AvatarTrainer:
         with torch.no_grad():
             q = g.quat_local
             q.copy_(q / (torch.linalg.norm(q, dim=-1, keepdim=True) + 1e-12))
-
         if self.co_optimize:
-            groups = flame_groups(state.flame_params)
-            for grp, lr in self.flame_lrs.items():
-                keys = [k for k in g_flame if groups[k] == grp]
-                if keys:
-                    adam_update(state.flame_opt_state[grp],
-                                {k: g_flame[k] for k in keys},
-                                {k: state.flame_params[k] for k in keys}, lr)
-            beta = cfg.flame_anchor_decay
-            if beta > 0.0 and self._flame_anchor is not None:
-                # per-visit leash toward the tracked params: a frame's
-                # gradient arrives in ~B/T of the steps
-                T_frames = int(data["images"].shape[0])
-                visits = max(cfg.batch_frames, 1) / max(T_frames, 1)
-                beta = 1.0 - (1.0 - beta) ** visits
-                with torch.no_grad():
-                    for k, v in state.flame_params.items():
-                        if k in self._flame_anchor:
-                            a = self._flame_anchor[k]
-                            v.copy_(a + (1.0 - beta) * (v - a))
+            self._update_flame(state, g_flame, data, cfg.batch_frames)
 
         with torch.no_grad():
             # NDC units: d(loss)/d(uv_pixels) x (W/2), as CUDA 3DGS thresholds
@@ -630,17 +650,50 @@ class AvatarTrainer:
             state.grad_accum.add_(gnorm)
             state.grad_count.add_((gnorm > 0).to(torch.float32))
             state.step.add_(1)
+            counters = torch.stack([sum(s[k] for s in stats) for k in range(3)])
+            sq = ((torch.stack(rendered) - imgs) ** 2).sum()
+            loss_v = loss.detach()
+            if self.mesh is not None:
+                # the metrics' sums in one all-reduce (float64: the counters
+                # stay exact integers)
+                packed = torch.cat([t.reshape(-1).double() for t in (loss_v, sq, counters)])
+                C.all_reduce_(packed, self.mesh, self.data_axis)
+                loss_v, sq = packed[0].float(), packed[1].float()
+                counters = packed[2:].to(counters.dtype)
+            mse = sq / (len(idx) * imgs[0].numel())
             metrics = {
-                "loss": loss.detach(),
-                "psnr": psnr(torch.stack(rendered), imgs),
-                "overflow": sum(s[0] for s in stats),
-                "window_clipped": sum(s[1] for s in stats),
-                "window_spilled": sum(s[2] for s in stats),
+                "loss": loss_v,
+                "psnr": 10.0 * torch.log10(1.0 / torch.clamp_min(mse, 1e-12)),
+                "overflow": counters[0],
+                "window_clipped": counters[1],
+                "window_spilled": counters[2],
                 "n_alive": g.alive.sum(),
             }
         if clock is not None:
             clock.lap("optimizer")
         return state, metrics
+
+    def _update_flame(self, state: TrainState, g_flame: dict, data: dict, batch: int) -> None:
+        """Adam on the co-optimized FLAME params, then the per-visit leash
+        toward the tracked params: a frame's gradient arrives in ~batch/T of
+        the steps."""
+        cfg = self.cfg
+        groups = flame_groups(state.flame_params)
+        for grp, lr in self.flame_lrs.items():
+            keys = [k for k in g_flame if groups[k] == grp]
+            if keys:
+                adam_update(state.flame_opt_state[grp], {k: g_flame[k] for k in keys},
+                            {k: state.flame_params[k] for k in keys}, lr)
+        beta = cfg.flame_anchor_decay
+        if beta > 0.0 and self._flame_anchor is not None:
+            T_frames = int(data["images"].shape[0])
+            visits = max(batch, 1) / max(T_frames, 1)
+            beta = 1.0 - (1.0 - beta) ** visits
+            with torch.no_grad():
+                for k, v in state.flame_params.items():
+                    if k in self._flame_anchor:
+                        a = self._flame_anchor[k]
+                        v.copy_(a + (1.0 - beta) * (v - a))
 
     # ── densify / prune ──────────────────────────────────────
     def densify_prune(self, state: TrainState, noise, max_new: int) -> TrainState:
@@ -663,16 +716,20 @@ class AvatarTrainer:
         gen = torch.Generator().manual_seed(int(rng_seed) * 1_000_003 + int(iteration))
         return torch.randn((max_new, 3), generator=gen).to(self.device)
 
+    def _tile_spans(self, state: TrainState, data: dict, n_probe: int):
+        """(probed tile-span sides, frames probed, capacity) of the cloud."""
+        sides, n_frames = probe_tile_spans(
+            state.gaussians, self.faces, data, self.width, self.height,
+            self.render_cfg["tile"], n_probe)
+        return sides, n_frames, int(state.gaussians.capacity)
+
     def preflight_tile_window(self, state: TrainState, data: dict,
                               n_probe: int = 4) -> None:
         """Size the binning windows from the initial cloud, before the
         first step (the init cloud holds the run's largest gaussians)."""
-        sides, n_frames = probe_tile_spans(
-            state.gaussians, self.faces, data, self.width, self.height,
-            self.render_cfg["tile"], n_probe)
-        updates = size_binning_windows(
-            sides, n_frames, self.render_cfg, int(state.gaussians.capacity),
-            self.MAX_TILE_WINDOW)
+        sides, n_frames, capacity = self._tile_spans(state, data, n_probe)
+        updates = size_binning_windows(sides, n_frames, self.render_cfg, capacity,
+                                       self.MAX_TILE_WINDOW)
         if updates:
             self.render_cfg.update(updates)
             log.info(f"preflight binning windows: max_tiles_per_gaussian="
@@ -683,12 +740,9 @@ class AvatarTrainer:
                           n_probe: int = 4) -> None:
         """Re-size the binning windows for the post-densification cloud
         (they may shrink); the runtime escalation stays live."""
-        sides, n_frames = probe_tile_spans(
-            state.gaussians, self.faces, data, self.width, self.height,
-            self.render_cfg["tile"], n_probe)
-        updates = size_binning_windows(
-            sides, n_frames, self.render_cfg, int(state.gaussians.capacity),
-            self.MAX_TILE_WINDOW, allow_shrink=True)
+        sides, n_frames, capacity = self._tile_spans(state, data, n_probe)
+        updates = size_binning_windows(sides, n_frames, self.render_cfg, capacity,
+                                       self.MAX_TILE_WINDOW, allow_shrink=True)
         if updates:
             self.render_cfg.update(updates)
             self._window_capped = False
@@ -796,6 +850,10 @@ class AvatarTrainer:
             opt_state=reset_opacity_opt_state(state.opt_state, state.gaussians))
 
     # ── full loop ────────────────────────────────────────────
+    def _draw(self, rng: np.random.Generator, T: int):
+        """The frame indices of one step, from the loop's host stream."""
+        return rng.integers(0, T, size=(self.cfg.batch_frames,))
+
     def train(
         self,
         data: dict,
@@ -833,7 +891,6 @@ class AvatarTrainer:
         rng = np.random.default_rng(rng_seed)
 
         T = data["images"].shape[0]
-        B = cfg.batch_frames
         data = {k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
                     ).to(self.device) for k, v in data.items()}
         if start_iteration == 0:
@@ -844,7 +901,7 @@ class AvatarTrainer:
         densify_until = densify_until_iter(cfg, iterations)
 
         for _ in range(1, start_iteration + 1):
-            rng.integers(0, T, size=(B,))
+            self._draw(rng, T)
 
         it = start_iteration
         while it < iterations:
@@ -872,8 +929,7 @@ class AvatarTrainer:
                 n = self.CHUNK if target - it >= self.CHUNK else 1
                 peak = None
                 for _ in range(n):
-                    state, metrics = self.train_step(state, data,
-                                                     rng.integers(0, T, size=(B,)))
+                    state, metrics = self.train_step(state, data, self._draw(rng, T))
                     if n > 1:
                         cur = (metrics["window_clipped"], metrics["window_spilled"])
                         peak = cur if peak is None else tuple(
@@ -952,7 +1008,10 @@ class AvatarTrainer:
         """Write `checkpoints/iter_XXXXXXX/` (the state), its meta JSON and
         the `point_cloud/iteration_N` PLY.  `block=False` snapshots the
         state on the device and does the copy to the host and the writes on
-        a thread; `train()` joins it before returning."""
+        a thread; `train()` joins it before returning.  Under a mesh the
+        replicas are equal and the mesh's first rank alone writes."""
+        if self.mesh is not None and self.mesh.rank != self.mesh.first_rank():
+            return
         from omfs4d_torch.train.checkpoints import (export_point_cloud,
                                                     save_state, snapshot_state)
 

@@ -50,6 +50,10 @@ CLINICAL_MODULES = ("omfs4d_torch.io.meshio", "omfs4d_torch.io.nifti", "omfs4d_t
                     "omfs4d_torch.clinical.segmentation", "omfs4d_torch.app",
                     "omfs4d_torch.app.session", "omfs4d_torch.app.viewer",
                     "omfs4d_torch.app.progress")
+PARALLEL_MODULES = ("omfs4d_torch.parallel", "omfs4d_torch.parallel.mesh",
+                    "omfs4d_torch.parallel.collectives", "omfs4d_torch.parallel.shard",
+                    "omfs4d_torch.parallel.sharded_trainer",
+                    "omfs4d_torch.parallel.distributed")
 # a streamlit script: it exits when streamlit is missing, so it is read, not imported
 DASHBOARD = "omfs4d_torch.app.dashboard"
 
@@ -60,6 +64,7 @@ def test_port_imports_no_jax_omfs4d_or_cv2():
     assert "omfs4d_torch.scripts.profile_composite_variants" in mods
     assert set(TRACKING_MODULES) <= set(mods) and set(FRONT_END_MODULES) <= set(mods)
     assert set(BACK_HALF_MODULES) <= set(mods) and set(CLINICAL_MODULES) <= set(mods)
+    assert set(PARALLEL_MODULES) <= set(mods)
     assert DASHBOARD in mods
     mods.remove(DASHBOARD)
     code = (
@@ -76,11 +81,11 @@ def test_port_imports_no_jax_omfs4d_or_cv2():
 
 
 @pytest.mark.parametrize("module", TRACKING_MODULES + FRONT_END_MODULES + BACK_HALF_MODULES
-                         + CLINICAL_MODULES + (DASHBOARD,))
+                         + CLINICAL_MODULES + PARALLEL_MODULES + (DASHBOARD,))
 def test_tracking_module_names_no_jax_package(module):
-    """No import statement of a tracking, front-end, pipeline, clinical or app
-    module names jax, optax or the JAX package, lazy ones inside functions
-    included."""
+    """No import statement of a tracking, front-end, pipeline, clinical, app
+    or parallel module names jax, optax or the JAX package, lazy ones inside
+    functions included."""
     import ast
     import importlib.util
 
@@ -120,6 +125,26 @@ def test_composite_on_cuda_raises_without_a_kernel(cuda_typed):
     before = tc.composite.launches
     with pytest.raises(RuntimeError, match="nvcc"):
         tc.composite(*small_inputs(), 16, 16)
+    assert tc.composite.launches == before
+    assert not cuda_typed.exists()
+
+
+def test_composite_lists_on_cuda_raises_without_a_kernel(cuda_typed):
+    """The sharded renders reach K1 through `composite_lists`: a slab with a
+    non-zero base and the padded last slab raise for want of the kernel; a
+    slab of padding alone launches nothing and is zeros."""
+    uv, conic, colors, opacity, b = small_inputs()
+    lists = b.tile_lists.expand(2, -1).contiguous()
+    counts = torch.tensor([1, 0], dtype=torch.int32)
+    before = tc.composite.launches
+    for base, num_tiles in ((1, None), (3, 4)):
+        with pytest.raises(RuntimeError, match="nvcc"):
+            tc.composite_lists(uv, conic, colors, opacity, lists, counts, 16, 2,
+                               tile_base=base, num_tiles=num_tiles)
+    col, alp = tc.composite_lists(uv, conic, colors, opacity, lists, counts, 16, 2,
+                                  tile_base=4, num_tiles=4)
+    assert col.shape == (2, 256, 3) and alp.shape == (2, 256)
+    assert not col.any() and not alp.any()
     assert tc.composite.launches == before
     assert not cuda_typed.exists()
 

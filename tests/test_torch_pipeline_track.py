@@ -304,22 +304,80 @@ def test_pipeline_takes_the_card_by_default_and_raises_without_one(small_asset, 
     assert runner.model.n_vertices == 700
 
 
-@pytest.mark.parametrize("stage,setting", [("train", "n_gauss"), ("render_surgery", "n_tile"),
-                                           ("train", "n_data")],
-                         ids=["train", "render_surgery", "train_n_data"])
-def test_unported_stages_raise(pipe, stage, setting):
-    """What is left unported of the stages: their sharded branches, which wait
-    for the parallel slice, refuse before they touch a file."""
-    setattr(pipe.cfg.parallel, setting, 2)
-    args = ("data",) if stage == "train" else ("model", "data", "out.mp4", 5.0, 3.0)
-    with pytest.raises(NotImplementedError, match=f"{setting} > 1.*queue 1 item 9"):
-        getattr(pipe, stage)(*args)
+@pytest.fixture
+def small_case(small_asset, tmp_path):
+    """A 32^2 synthetic dataset of 4 frames on the 700-vertex asset, and a
+    capture of its frames with the true landmarks beside them."""
+    from tests.test_torch_parallel_pipeline import small_case as make
+
+    return make(tmp_path)
 
 
-def test_track_refuses_frame_sharding(pipe, tmp_path):
-    pipe.cfg.parallel.n_data = 2
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        pipe.track(tmp_path, None)
+def small_pipeline(workdir, **parallel):
+    from tests.test_torch_parallel_pipeline import small_pipeline as make
+
+    return make(workdir, **parallel)
+
+
+@pytest.mark.parametrize("n_gauss,n_data,match", [
+    (2, 1, "n_data x n_gauss = 1x2 but only 1 ranks"),
+    (1, 2, "parallel.n_data=2 but only 1 ranks"),
+    (2, 2, "n_data x n_gauss = 2x2 but only 1 ranks")], ids=["n_gauss", "n_data", "both"])
+def test_sharded_training_needs_the_ranks(small_case, tmp_path, n_gauss, n_data, match):
+    """With fewer ranks than the mesh (here a world of one process) the
+    sharded training branches raise RuntimeError naming the counts, as the
+    reference does with too few devices; their runs on a world of 2 are in
+    test_torch_parallel_pipeline."""
+    pipe = small_pipeline(tmp_path / "work", n_gauss=n_gauss, n_data=n_data)
+    with pytest.raises(RuntimeError, match=match):
+        pipe.train(small_case["path"], tmp_path / "model", iterations=2)
+
+
+def test_render_surgery_with_too_few_ranks_renders_unsharded(small_case, tmp_path,
+                                                            monkeypatch):
+    """parallel.n_tile = 2 with one rank: a warning, and the frames of the
+    one-rank render."""
+    from omfs4d_torch.predict import render_video
+    from omfs4d_torch.train.checkpoints import export_point_cloud
+
+    monkeypatch.setattr(tvideo, "find_ffmpeg", lambda: None)
+    model_dir = tmp_path / "model"
+    export_point_cloud(model_dir / "point_cloud" / "iteration_1" / "point_cloud.ply",
+                       small_case["gt_gaussians"])
+    warned = []
+    monkeypatch.setattr(render_video.log, "warning", lambda msg, *a: warned.append(msg))
+    frames = {}
+    for n_tile in (2, 1):
+        pipe = small_pipeline(tmp_path / f"work_{n_tile}", n_tile=n_tile)
+        res = pipe.render_surgery(model_dir, small_case["path"], tmp_path / "out.mp4", 5.0, 3.0)
+        frames[n_tile] = [tvideo.read_image(p) for p in sorted(
+            tvideo.Path(res["renders_dir"]).glob("*.png"))]
+    assert any("n_tile=2 but only 1 ranks; rendering unsharded" in w for w in warned)
+    assert len(frames[2]) == 4
+    for a, b in zip(frames[2], frames[1]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_track_with_too_few_ranks_fits_unsharded(small_case, tmp_path, monkeypatch):
+    """parallel.n_data = 2 with one rank: the tracker is built without a
+    mesh, and the dataset equals a track with n_data = 1."""
+    built = []
+    real = trunner.FlameTracker
+
+    def recording(*a, **kw):
+        built.append(kw.get("mesh"))
+        return real(*a, **kw)
+
+    monkeypatch.setattr(trunner, "FlameTracker", recording)
+    cam = FrameDataset(small_case["path"]).camera(0)
+    params = {}
+    for n_data in (2, 1):
+        out = small_pipeline(tmp_path / f"work_{n_data}", n_data=n_data).track(
+            tmp_path / "frames", cam, landmark_method="file")
+        params[n_data] = FrameDataset(out).flame_params
+    assert built == [None, None]
+    for k in ("expr", "rotation", "jaw_pose", "translation", "shape"):
+        np.testing.assert_array_equal(params[2][k], params[1][k])
 
 
 # ── frames -> dataset with no landmark file ──────────────────

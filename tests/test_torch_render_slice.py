@@ -177,9 +177,14 @@ def test_render_prediction_end_to_end(case, monkeypatch, tmp_path):
                               direct, max_per_tile=K, max_tiles_per_gaussian=WINDOW)
     for png in stitched["frames"]:
         np.testing.assert_array_equal(read_image(png), read_image(direct / png.name))
-    with pytest.raises(NotImplementedError):
-        trv.render_dataset_frames(case["t_model"], t_load(case["ply"]), case["modified"],
-                                  tmp_path / "x", n_tile=2)
+    # n_tile = 2 with one process: rendered unsharded, as the reference does
+    # with too few devices (the sharded render is in test_torch_parallel_*)
+    trv.render_dataset_frames(case["t_model"], t_load(case["ply"]), case["modified"],
+                              tmp_path / "x", max_per_tile=K, max_tiles_per_gaussian=WINDOW,
+                              n_tile=2)
+    for png in stitched["frames"]:
+        np.testing.assert_array_equal(read_image(tmp_path / "x" / png.name),
+                                      read_image(direct / png.name))
 
 
 def test_render_prediction_defaults_to_the_card_and_raises_without_one(case, monkeypatch,

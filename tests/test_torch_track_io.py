@@ -272,9 +272,27 @@ def test_tracker_defaults_to_the_card_and_raises_without_one(models, monkeypatch
     assert all(v.device.type == "cpu" for v in tracker.init_params(2).values())
 
 
-def test_tracker_refuses_a_device_mesh(models):
-    with pytest.raises(NotImplementedError, match="parallel slice"):
-        tfit.FlameTracker(*tracker_args(models), mesh=object(), device="cpu")
+def test_tracker_takes_a_device_mesh(models):
+    """`mesh=` shards the frame axis of the batched stages (its world of 2 is
+    in test_torch_parallel_pipeline); on a mesh of one rank a landmark stage
+    equals the one without a mesh."""
+    from omfs4d_torch.core.logging import EventLogger
+    from omfs4d_torch.parallel.mesh import Mesh
+
+    rng = np.random.default_rng(0)
+    T = 3
+    data = {"landmarks": torch.as_tensor(W / 2 + rng.normal(0, W / 6, (T, 68, 2)),
+                                         dtype=torch.float32),
+            "valid": torch.ones(T, dtype=torch.bool), "frames": None}
+    out = []
+    for mesh in (Mesh(np.arange(1), ("data",)), None):
+        tr = tfit.FlameTracker(*tracker_args(models), mesh=mesh, device="cpu")
+        assert tr.mesh is mesh
+        p = tr._run_stage("lmk_init_all", tr.init_params(T), 5, ("expr", "rotation", "jaw_pose"),
+                          1.0, 0.0, data, EventLogger())
+        out.append(p)
+    for k in out[0]:
+        np.testing.assert_allclose(out[0][k].numpy(), out[1][k].numpy(), atol=1e-6, err_msg=k)
 
 
 def test_tracker_has_no_kernel_switch(models):
