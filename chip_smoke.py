@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render, training, tracking, video front-end,
-pipeline, clinical and parallel paths once on one CUDA card.
+pipeline, clinical and parallel paths, and its bench, once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -89,8 +89,8 @@ Phase G: the tracking path at full width (512^2 frames, the 5143-vertex
   as the reference's bench defines it (T = 150, n_shape 100, n_expr 50,
   landmark loss + regularizers, every key an Adam group, 200 steps after a
   warm-up: host clock, CUDA events, and torch.profiler's kernel count and
-  busy time per step); and ms per rgb step (B = 4, splat, 256^2) with
-  StageClock laps.
+  busy time per step; the bench's own `flame_fit`); and ms per rgb step
+  (B = 4, splat, 256^2) with StageClock laps.
 
 Phase H: the video front end at full width (the 5143-vertex asset, 10,282 face
   splats, the nets' default widths, image_size 96, K = 128 in the sampler,
@@ -201,16 +201,27 @@ Phase K: the parallel package, SPMD over torch.distributed, with rank groups
   step's bytes and ms per collective (each call wrapped here, the device
   synchronized around it); peak memory per rank.
 
+Phase L: the port's bench as a user runs it, in a process of its own:
+  `python -m omfs4d_torch.scripts.bench --iters 20` at full shapes (512^2,
+  65,536 alive gaussians, K = 256; the headline's 4 chunks of 50 iterations),
+  under its watchdog budget.  Held: the last line parses, its backend is
+  "cuda", its three rates and its headline are finite and positive, K1 and K2
+  launched, 0 < mfu_f32 < 1, and the exit code is 0.  Printed: its seconds,
+  rates, flops and bytes per step, shares, device work per call and marks
+  (the flops by op family).  Its launches are its own process's: the kernels
+  line does not count them.
+
     python3 chip_smoke.py --only-track
     python3 chip_smoke.py --only-nets
     python3 chip_smoke.py --only-e2e
     python3 chip_smoke.py --only-clinical
     python3 chip_smoke.py --only-parallel
+    python3 chip_smoke.py --only-bench
 
-run the set-up and phase G, H, I, J or K alone (no kernels line, no last
+run the set-up and phase G, H, I, J, K or L alone (no kernels line, no last
 line): for work on the tracker, the front end, the pipeline, the clinical
-engine or the parallel package (J renders its own phase-B reference frames;
-K makes phase A and phase I's stage cache first).
+engine, the parallel package or the bench (J renders its own phase-B
+reference frames; K makes phase A and phase I's stage cache first).
 
     python3 chip_smoke.py --net-gates 200,240,280,320 320,400,480,560,640
 
@@ -248,6 +259,7 @@ from __future__ import annotations
 import contextlib
 import importlib.util
 import json
+import os
 import shutil
 import statistics
 import subprocess
@@ -262,6 +274,12 @@ import torch
 
 # the port is imported from this script's own checkout, wherever it is run from
 sys.path.insert(0, str(Path(__file__).resolve().parent))
+
+# the bench's avatar, its flop and byte counts, the composite kernels' bounds
+# and the FLAME-fit rate: one copy, in the port's bench
+from omfs4d_torch.scripts.bench import (  # noqa: E402
+    ALPHA_OPS, CHAIN_OPS, FIT_EXPR, FIT_SHAPE, STEP_OPS, SUM_OPS, Recorder, bench_avatar,
+    bound_us, composite_bounds, flame_fit, grad_inputs, pair_counts, profiled_kernels)
 
 SIZE = 512
 N_FRAMES = 8
@@ -287,7 +305,7 @@ TRACK_STEPS = dict(steps_lmk_init_rigid=100, steps_lmk_init_all=100,
                    steps_global=20, epochs_global=1)
 RGB_BATCH = 4
 MESH_STEPS = 5
-FIT_FRAMES, FIT_SHAPE, FIT_EXPR, FIT_STEPS, FIT_WARMUP = 150, 100, 50, 200, 20
+FIT_FRAMES, FIT_STEPS, FIT_WARMUP = 150, 200, 20
 RGB_TIMED_STEPS = 10
 # phase H: the nets' training at their default widths, the step counts cut to
 # the smallest that meet the reference's learning gates with room to spare at
@@ -355,55 +373,16 @@ K_E2E_PSNR_TOL = 0.5
 # (70 per million at most, up to 7 x their bound, on an H100 SXM); a
 # wrong transpose moves every element
 K_MOMENT_OUTSIDE = 1e-3
-
-# The bound of a kernel: the larger of its FP32 instructions over the card's
-# issue rate and its bytes over its memory rate.  NVIDIA H100 SXM: 67 TFLOP/s
-# FP32 outside the tensor cores, an FMA counted as 2 (so 33.5 T instructions
-# a second), 3.35 TB/s.  Only the work the function needs is counted, on
-# this run's data (`pair_counts`): the alpha of composite_common.cuh, ~16
-# instructions, at each (pixel, entry) pair whose pixel lies in the entry's
-# reach box (elsewhere a = 0 without evaluating it); the running step, ~6,
-# only at live pairs (a > 0: at a = 0 it is the identity); and at live
-# pairs K2's chain ~35 and its share of the sums ~9.  Bytes: each input read
-# once, each output written once.
-FP32_INSTR_PER_S = 67e12 / 2
-HBM_BYTES_PER_S = 3.35e12
-ALPHA_OPS, STEP_OPS, CHAIN_OPS, SUM_OPS = 16, 6, 35, 9
+# phase L: the port's bench as a user runs it, at full shapes with its timed
+# loops cut to BENCH_ITERS (the headline's 4 chunks of 50 stay), in a process
+# of its own under a watchdog budget
+BENCH_ITERS = 20
+BENCH_BUDGET_S, BENCH_TIMEOUT_S = 420, 600
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
-
-
-def bench_avatar(model, device, capacity=N_GAUSSIANS):
-    """The bench-scale avatar (bench.py's recipe): the per-face textured GT
-    avatar replicated to N_GAUSSIANS alive gaussians with seeded jitter,
-    padded with dead slots to `capacity`."""
-    from omfs4d_torch.convert import gaussians_from_numpy, to_numpy
-    from omfs4d_torch.io.synthetic import textured_gt_avatar
-
-    g0 = to_numpy(textured_gt_avatar(model))
-    F = int(g0["alive"].sum())
-    reps = int(np.ceil(N_GAUSSIANS / F))
-    idx = np.tile(np.arange(F), reps)[:N_GAUSSIANS]
-    rng = np.random.default_rng(0)
-    fields = {
-        "parent_face": g0["parent_face"][idx],
-        "mu_local": g0["mu_local"][idx]
-        + rng.normal(0, 0.3, (N_GAUSSIANS, 3)).astype(np.float32),
-        "quat_local": g0["quat_local"][idx],
-        "log_scale": g0["log_scale"][idx] - np.log(reps ** 0.5),
-        "opacity_logit": g0["opacity_logit"][idx] - 1.5,
-        "color": g0["color"][idx],
-        "sh": g0["sh"][idx],
-        "alive": np.ones(N_GAUSSIANS, bool),
-    }
-    pad = capacity - N_GAUSSIANS
-    fields = {k: np.concatenate([v, np.zeros((pad,) + v.shape[1:], v.dtype)])
-              for k, v in fields.items()}
-    fields["quat_local"][N_GAUSSIANS:, 0] = 1.0
-    return gaussians_from_numpy(fields, device=device)
 
 
 def training_data(model, data_dir, device):
@@ -428,27 +407,6 @@ def training_data(model, data_dir, device):
     if ds.load_mask(0) is not None:
         data["masks"] = np.stack([(ds.load_mask(i) * 255).astype(np.uint8) for i in range(T)])
     return data, params
-
-
-def grad_inputs(trainer, state, data, frame):
-    """The composite's inputs of one training frame (the trainer's render
-    path up to the composite), detached."""
-    from omfs4d_torch.models.gaussians import bind_to_mesh, eval_colors
-    from omfs4d_torch.ops.camera import project_gaussians
-    from omfs4d_torch.render.rasterize import bin_gaussians
-    from omfs4d_torch.train.trainer import _frame_camera
-
-    rc = trainer.render_cfg
-    with torch.no_grad():
-        g = state.gaussians
-        means, rot, scales, opac, _ = bind_to_mesh(g, data["verts"][frame], trainer.faces)
-        cam = _frame_camera(data, frame, trainer.width, trainer.height)
-        cols = eval_colors(g, means, cam.position)
-        proj = project_gaussians(cam, means, rot, scales)
-        binning = bin_gaussians(proj, opac, trainer.width, trainer.height, rc["tile"],
-                                rc["max_per_tile"], rc["max_tiles_per_gaussian"],
-                                large_frac=rc["large_frac"])
-    return (proj["uv"], proj["conic"], cols, opac, binning, trainer.width, trainer.height)
 
 
 def seeded_cotangent(height, width, device, seed=1):
@@ -496,17 +454,6 @@ def frame_inputs(model, gaussians, data_dir, device, max_tiles):
                                 max_per_tile=MAX_PER_TILE,
                                 max_tiles_per_gaussian=max_tiles, large_frac=1.0)
         yield (proj["uv"], proj["conic"], cols, opac, binning, cam.width, cam.height)
-
-
-class Recorder:
-    """Keeps the trainer's per-step `train_step` events."""
-
-    def __init__(self):
-        self.steps = []
-
-    def emit(self, event, **fields):
-        if event == "train_step":
-            self.steps.append(fields)
 
 
 def l2_flusher(device):
@@ -680,63 +627,6 @@ def v_copy_host_parts(packed, dcol, dalpha) -> dict:
     }
 
 
-def pair_counts(packed: torch.Tensor, width: int, height: int, grid_w: int,
-                tile: int = 16) -> tuple[int, int]:
-    """(pixel, slot) pairs of a packed (T, 9, K) table, at pixels inside the
-    image: those whose pixel centre lies in the entry's reach box (K1's
-    `reach_of`: every pixel for a non-finite or ill-conditioned entry, none
-    below the 1/255 opacity; outside the box a = 0), and the live ones
-    (a > 0).  Opacity is 0 past each count, so padding adds none."""
-    from omfs4d_torch.render.rasterize import ALPHA_CAP, ALPHA_CUTOFF
-
-    p = torch.arange(tile * tile, device=packed.device)
-    reached = live = 0
-    for s in range(0, packed.shape[0], 32):
-        rows = packed[s:s + 32]
-        t = torch.arange(s, s + rows.shape[0], device=packed.device)[:, None]
-        px, py = (t % grid_w) * tile + p % tile, (t // grid_w) * tile + p // tile
-        inside = ((px < width) & (py < height))[..., None]
-        ux, uy, ca, cb, cc, *_, o = (rows[:, None, i] for i in range(9))
-        dx = (px.float() + 0.5)[..., None] - ux
-        dy = (py.float() + 0.5)[..., None] - uy
-        power = torch.clamp_max(-0.5 * (ca * dx * dx + cc * dy * dy) - cb * dx * dy, 0.0)
-        a = torch.clamp_max(o * torch.exp(power), ALPHA_CAP)
-        live += int(((a >= ALPHA_CUTOFF) & inside).sum())
-        # K1's reach_of, in its order of tests
-        finite = torch.isfinite(rows.sum(1))[:, None]
-        det = ca * cc - cb * cb
-        wide = ~((ca > 0) & (cc > 0) & (det > 1e-3 * ca * cc))
-        level = 2.04 * torch.log(255.0 * o) + 1e-3
-        in_box = ((dx.abs() <= torch.sqrt(level * cc / det) + 1.0)
-                  & (dy.abs() <= torch.sqrt(level * ca / det) + 1.0))
-        reach = ~finite | ((o >= ALPHA_CUTOFF) & (wide | in_box))
-        reached += int((reach & inside).sum())
-    return reached, live
-
-
-def bound_us(ops: float, nbytes: float) -> tuple[float, str]:
-    """The least time for `ops` FP32 instructions and `nbytes` of traffic."""
-    t_ops, t_bytes = ops / FP32_INSTR_PER_S * 1e6, nbytes / HBM_BYTES_PER_S * 1e6
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
-
-
-def composite_bounds(args, packed, residual: bool = True) -> dict:
-    """K1's and K2's bounds (us, what sets it) on one frame's inputs, from
-    its pairs in reach and its live pairs (`pair_counts`).  `residual`: K1
-    also writes T_tot (as under autograd; not under no_grad)."""
-    uv, _, _, _, binning, width, height = args
-    entries = int(binning.tile_counts.sum())
-    reached, live = pair_counts(packed, width, height, (width + 15) // 16)
-    list_bytes = entries * (9 + 1) * 4 + binning.tile_lists.shape[0] * 4
-    pixels = width * height
-    k1 = bound_us(reached * ALPHA_OPS + live * STEP_OPS,
-                  list_bytes + pixels * (3 + 1 + int(residual)) * 4)
-    k2 = bound_us(reached * ALPHA_OPS + live * (STEP_OPS + CHAIN_OPS + SUM_OPS),
-                  list_bytes + pixels * (3 + 1 + 3 + 1) * 4 + uv.shape[0] * 9 * 4)
-    return {"composite_fwd": k1, "composite_bwd": k2, "in_lists": entries * 256,
-            "reached": reached, "live": live}
-
-
 def variant_bound(mode: str, packed, grid_w: int) -> tuple[float, str]:
     """V's bound on a packed (T, 9, K) table: copy moves the table twice;
     every other mode computes K2's function on it (the same counts as K2's
@@ -850,26 +740,6 @@ def hold_composite(label: str, args) -> tuple[float, float]:
               f"({bad} outside)")
         worst = max(worst, (a - b).abs().max().item())
     return err, worst
-
-
-def profiled_kernels(fn, steps: int) -> tuple[float, float]:
-    """(kernel launches, device busy ms) per call of fn over `steps` calls
-    (torch.profiler: every CUDA kernel and memset/memcpy it records)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            fn()
-        torch.cuda.synchronize()
-    count = busy_us = 0
-    for evt in prof.key_averages():
-        total = getattr(evt, "device_time_total", None)
-        total = evt.cuda_time_total if total is None else total
-        if total > 0:
-            count += evt.count
-            busy_us += total
-    return count / steps, busy_us / steps / 1e3
 
 
 def phase_g(model, device, card: str, work: Path) -> dict:
@@ -1059,39 +929,15 @@ def phase_g(model, device, card: str, work: Path) -> dict:
         del mtracker, p0, p1
     torch.cuda.empty_cache()
 
-    # ── FLAME-fit it/s, as the reference's bench defines it ──
-    fcfg = TrackConfig(n_shape=FIT_SHAPE, n_expr=FIT_EXPR, photometric=False)
-    ftracker = FlameTracker(model, fcfg, cam, (W, H), max_per_tile=MAX_PER_TILE)
-    fp = ftracker.init_params(FIT_FRAMES)
-    fdata = {"landmarks": torch.full((FIT_FRAMES, model.lmk_faces_idx.shape[0], 2), W / 2.0,
-                                     device=device),
-             "valid": torch.ones(FIT_FRAMES, dtype=torch.bool, device=device), "frames": None}
-    fopt = {k: adam_init({k: v}) for k, v in fp.items()}       # every key an Adam group
-
-    def fit_step():
-        return ftracker._stage_step(fp, fopt, fdata, [0], 1.0, 0.0)
-
-    for _ in range(FIT_WARMUP):
-        fit_step()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    start.record()
-    for _ in range(FIT_STEPS):
-        loss = fit_step()
-    end.record()
-    torch.cuda.synchronize()
-    fit_host_s = time.perf_counter() - t0
-    fit_dev_ms = start.elapsed_time(end) / FIT_STEPS
-    check(bool(torch.isfinite(loss)), "finite FLAME-fit loss")
-    n_kernels, busy_ms = profiled_kernels(fit_step, 20)
-    print(f"  FLAME-fit: {FIT_STEPS / fit_host_s:.3f} it/s (T={FIT_FRAMES}, n_shape {FIT_SHAPE}, "
-          f"n_expr {FIT_EXPR}, landmark loss + regularizers, 11 Adam groups; {FIT_STEPS} steps "
-          f"after {FIT_WARMUP}, host clock, synchronized at both ends: "
-          f"{fit_host_s / FIT_STEPS * 1e3:.3f} ms/step); {fit_dev_ms:.3f} ms/step between CUDA "
-          f"events; {n_kernels:.0f} kernels and {busy_ms:.3f} ms of device time a step "
-          f"(torch.profiler, 20 steps) [{card}]")
-    del ftracker, fp, fopt, fdata
+    # ── FLAME-fit it/s, as the reference's bench defines it (the bench's own code) ──
+    fit = flame_fit(model, cam, W, FIT_FRAMES, FIT_STEPS, FIT_WARMUP, device)
+    check(np.isfinite(fit["loss"]), "finite FLAME-fit loss")
+    print(f"  FLAME-fit: {fit['it_s']:.3f} it/s (T={FIT_FRAMES}, n_shape {FIT_SHAPE}, "
+          f"n_expr {FIT_EXPR}, landmark loss + regularizers, {fit['groups']} Adam groups; "
+          f"{FIT_STEPS} steps after {FIT_WARMUP}, host clock, synchronized at both ends: "
+          f"{fit['ms_per_step']:.3f} ms/step); {fit['event_ms_per_step']:.3f} ms/step between "
+          f"CUDA events; {fit['kernels']:.0f} kernels and {fit['busy_ms']:.3f} ms of device "
+          f"time a step (torch.profiler, 20 steps) [{card}]")
 
     # ── ms per rgb step, with its laps ──
     p_rgb = tracker_params(tracker, result, T)
@@ -2943,6 +2789,50 @@ def phase_k(model, device, card: str, work: Path, modified: Path) -> dict:
     return {"fwd": fwd, "bwd": bwd}
 
 
+def phase_l(card: str) -> dict:
+    """The port's bench as a user runs it: `python -m omfs4d_torch.scripts.bench
+    --iters BENCH_ITERS` in a process of its own at full shapes; its last
+    line held."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "omfs4d_torch.scripts.bench", "--iters",
+                          str(BENCH_ITERS)], cwd=Path(__file__).resolve().parent,
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S,
+                         env=dict(os.environ, OMFS4D_BENCH_BUDGET_SECS=str(BENCH_BUDGET_S)))
+    seconds = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    check(bool(lines), f"the bench printed its line (exit {res.returncode}):\n"
+          f"{res.stderr[-3000:]}")
+    out = json.loads(lines[-1])
+    check(res.returncode == 0 and "error" not in out,
+          f"the bench exited 0 with no error: exit {res.returncode}, "
+          f"{out.get('error')}\n{res.stderr[-3000:]}")
+    ex = out["extra"]
+    rates = {"value": out["value"], **{k: ex[k] for k in (
+        "train_ips_per_step_dispatch", "render_fps", "flame_fit_iters_per_sec")}}
+    check(ex["backend"] == "cuda" and all(isinstance(v, float) and np.isfinite(v) and v > 0
+                                          for v in rates.values()),
+          f"the bench ran on the card with finite positive rates: {ex['backend']}, {rates}")
+    check(ex["kernels"]["composite_fwd"] > 0 and ex["kernels"]["composite_bwd"] > 0,
+          f"K1 and K2 launched in the bench: {ex['kernels']}")
+    check(ex["mfu_f32"] is not None and 0 < ex["mfu_f32"] < 1,
+          f"0 < mfu_f32 {ex['mfu_f32']} < 1")
+    for mark in res.stderr.splitlines():
+        if mark.startswith("# bench:"):
+            print(f"  {mark}")
+    print(f"phase L: python -m omfs4d_torch.scripts.bench --iters {BENCH_ITERS} in "
+          f"{seconds:.2f} s, exit {res.returncode}: train() {out['value']:.3f} it/s "
+          f"(vs_baseline {out['vs_baseline']:.3f}), bare steps "
+          f"{ex['train_ips_per_step_dispatch']:.3f} it/s, render {ex['render_fps']:.3f} fps, "
+          f"FLAME-fit {ex['flame_fit_iters_per_sec']:.3f} it/s; flops/step "
+          f"{ex['flops_per_step']:.4e}, bytes/step {ex['bytes_per_step']:.4e}, mfu "
+          f"{ex['mfu']:.3e}, mfu_f32 {ex['mfu_f32']:.3e}, {ex['roofline_bound']}-bound; "
+          f"K1 {ex['kernels']['composite_fwd']}, K2 {ex['kernels']['composite_bwd']} "
+          f"launches [{card}]")
+    print(f"  device per call (torch.profiler): {json.dumps(ex['device_per_call'])}")
+    print(f"  the line: {lines[-1]}")
+    return out
+
+
 def main(only: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2977,6 +2867,9 @@ def main(only: str | None = None) -> int:
           f"{_build.library_path().relative_to(Path(__file__).resolve().parent)}")
     print(_build.build_log().strip())
 
+    if only == "bench":
+        phase_l(card)
+        return 0
     work = Path(tempfile.mkdtemp(prefix="chip_smoke_"))
     modified = None
     try:
@@ -3348,6 +3241,9 @@ def main(only: str | None = None) -> int:
 
         # ── phase K: the parallel package, ranks sharing the card ─
         parallel = phase_k(model, device, card, work, Path(modified))
+
+        # ── phase L: the port's bench, in a process of its own ─
+        phase_l(card)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
@@ -3531,6 +3427,8 @@ if __name__ == "__main__":
                         help="run the set-up and phase J (the clinical engine) alone")
         ap.add_argument("--only-parallel", action="store_true",
                         help="run the set-up and phase K (the parallel package) alone")
+        ap.add_argument("--only-bench", action="store_true",
+                        help="run the set-up and phase L (the port's bench) alone")
         ap.add_argument("--k-rank", nargs=5, help=argparse.SUPPRESS)
         ap.add_argument("--net-gates", nargs=2, metavar=("DETECTOR_STEPS", "SEGNET_STEPS"),
                         help="train each net at each of these step counts (two comma-separated "
@@ -3553,7 +3451,8 @@ if __name__ == "__main__":
                                      for arg in opts.net_gates)))
         only = [name for name, on in (("track", opts.only_track), ("nets", opts.only_nets),
                                       ("e2e", opts.only_e2e), ("clinical", opts.only_clinical),
-                                      ("parallel", opts.only_parallel))
+                                      ("parallel", opts.only_parallel),
+                                      ("bench", opts.only_bench))
                 if on]
         if len(only) > 1:
             ap.error("at most one --only-* option")

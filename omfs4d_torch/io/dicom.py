@@ -1,9 +1,9 @@
 """First-party DICOM series reader/writer (pydicom is not a dependency).
 
 Port of `omfs4d.io.dicom` (host NumPy; verbatim): the series is read on the
-host and handed to the card by the clinical loader.  JPEG Baseline needs
-PIL, imported when a JPEG slice is decoded or written; where PIL is missing
-such a series raises `UnsupportedTransferSyntaxError` with the reason.
+host and handed to the card by the clinical loader.  JPEG Baseline slices
+are decoded by the port's own decoder (`omfs4d_torch.io.jpeg`, libjpeg's
+arithmetic, no PIL); the writer of test slices encodes them with PIL.
 
 Replaces the reference's pydicom usage (ref: dicom_loader.py:34-106,
 compressed decode transparently at dicom_loader.py:97-103): reads a folder
@@ -15,7 +15,7 @@ Supported transfer syntaxes:
   * Explicit VR Little Endian (1.2.840.10008.1.2.1), uncompressed
   * RLE Lossless (1.2.840.10008.1.2.5) — first-party PackBits decoder
     over the DICOM byte-segment composite (PS3.5 annex G)
-  * JPEG Baseline (1.2.840.10008.1.2.4.50) — decoded via PIL when present
+  * JPEG Baseline (1.2.840.10008.1.2.4.50) — `omfs4d_torch.io.jpeg`
 
 Any other syntax raises :class:`UnsupportedTransferSyntaxError` naming the
 UID (real CBCT exports are frequently compressed; a silent skip was the
@@ -28,6 +28,8 @@ import struct
 from pathlib import Path
 
 import numpy as np
+
+from omfs4d_torch.io.jpeg import decode_jpeg
 
 
 class UnsupportedTransferSyntaxError(ValueError):
@@ -182,16 +184,14 @@ def decode_rle_frame(frame: bytes, rows: int, cols: int,
 
 
 def _decode_jpeg_baseline(data: bytes, rows: int, cols: int, dtype) -> np.ndarray:
+    """One JPEG Baseline frame through the port's own decoder
+    (`omfs4d_torch.io.jpeg`), with the reference's rule for colour: an RGB
+    secondary capture becomes the mean of its three channels."""
     try:
-        from io import BytesIO
-
-        from PIL import Image
-    except ImportError as e:
+        arr = decode_jpeg(data)
+    except ValueError as e:
         raise UnsupportedTransferSyntaxError(
-            f"JPEG Baseline ({JPEG_BASELINE}) needs PIL, which is "
-            "unavailable") from e
-    img = Image.open(BytesIO(data))
-    arr = np.asarray(img)
+            f"JPEG Baseline ({JPEG_BASELINE}) frame not decoded: {e}") from e
     if arr.ndim == 3:                    # RGB secondary capture — luminance
         arr = arr.mean(axis=2)
     return arr.astype(dtype)[:rows, :cols]

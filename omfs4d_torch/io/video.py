@@ -8,10 +8,12 @@ That reads what the JAX package wrote with cv2, and cv2 reads what this
 module writes.  Stitching needs an ffmpeg binary (libx264 yuv420p CRF 18,
 the reference's encode contract); there is no cv2 codec ladder.
 
-`probe_video` and `extract_frames` take a directory of PNG frames as the
-capture (sorted by name).  A video file needs a decoder: it goes through an
-ffmpeg binary when `find_ffmpeg` finds one, else the call raises and says why.
-JPEG frames are refused: there is no JPEG decoder here.
+`read_image` also reads baseline JPEG, through the port's own decoder
+(`omfs4d_torch.io.jpeg`), as the reference reads it through cv2.
+`probe_video` and `extract_frames` take a directory of PNG or JPEG frames as
+the capture (`capture_frames`).  A video file needs a decoder: it goes
+through an ffmpeg binary when `find_ffmpeg` finds one, else the call raises
+and says why.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ import zlib
 from pathlib import Path
 
 import numpy as np
+
+from omfs4d_torch.io.jpeg import decode_jpeg
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -119,12 +123,24 @@ def decode_png(data: bytes) -> np.ndarray:
     return out.reshape(H, W, C)
 
 
+def decode_image(data: bytes) -> np.ndarray:
+    """PNG or JPEG bytes, told apart by their first bytes, -> (H, W, C)
+    uint8: C as `decode_png` gives it, 1 or 3 for a JPEG."""
+    if data[:8] == _PNG_SIGNATURE:
+        return decode_png(data)
+    if data[:2] == b"\xff\xd8":
+        img = decode_jpeg(data)
+        return img[..., None] if img.ndim == 2 else img
+    raise ValueError("neither a PNG nor a JPEG file")
+
+
 def read_image(path: str | Path) -> np.ndarray:
-    """Read an image as (H, W, 3) uint8 RGB (gray is repeated, alpha dropped)."""
+    """Read a PNG or JPEG image as (H, W, 3) uint8 RGB (gray is repeated,
+    alpha dropped)."""
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(f"cannot read image: {path}")
-    img = decode_png(p.read_bytes())
+    img = decode_image(p.read_bytes())
     if img.shape[2] <= 2:
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
@@ -160,16 +176,14 @@ def area_resize(img: np.ndarray, height: int, width: int) -> np.ndarray:
 
 
 def capture_frames(path: str | Path) -> list[Path]:
-    """The PNG frames of a directory capture (its `images/` when it has
-    one), sorted by name.  JPEG frames are refused."""
+    """The frames of a directory capture (its `images/` when it has one):
+    its PNG frames sorted by name, then its JPEG frames (`*.jpg`, then
+    `*.jpeg`) sorted by name, as the reference's landmark sources list them."""
     path = Path(path)
     images = path / "images" if (path / "images").is_dir() else path
-    if sorted(images.glob("*.jpg")) + sorted(images.glob("*.jpeg")):
-        raise RuntimeError(f"{images}: JPEG frames need a decoder this package does not "
-                           "have; convert them to PNG")
-    frames = sorted(images.glob("*.png"))
+    frames = [f for ext in ("png", "jpg", "jpeg") for f in sorted(images.glob(f"*.{ext}"))]
     if not frames:
-        raise FileNotFoundError(f"no PNG frames under {images}")
+        raise FileNotFoundError(f"no PNG or JPEG frames under {images}")
     return frames
 
 
@@ -179,7 +193,7 @@ def _decode_with_ffmpeg(video_path: Path, out_dir: Path) -> list[Path]:
     if ffmpeg_bin is None:
         raise RuntimeError(
             f"{video_path}: decoding a video file needs an ffmpeg binary (none on PATH or "
-            "from imageio_ffmpeg); pass a directory of PNG frames instead")
+            "from imageio_ffmpeg); pass a directory of PNG or JPEG frames instead")
     out_dir.mkdir(parents=True, exist_ok=True)
     res = subprocess.run([ffmpeg_bin, "-y", "-i", str(video_path), "-vsync", "0",
                           str(out_dir / "%05d.png")], capture_output=True, text=True)
@@ -189,15 +203,15 @@ def _decode_with_ffmpeg(video_path: Path, out_dir: Path) -> list[Path]:
 
 
 def probe_video(path: str | Path) -> dict:
-    """Width, height, fps and frame count of a capture: a directory of PNG
-    frames (fps is then the 30.0 the reference assumes), or a video file read
-    through ffmpeg."""
+    """Width, height, fps and frame count of a capture: a directory of PNG or
+    JPEG frames (fps is then the 30.0 the reference assumes), or a video file
+    read through ffmpeg."""
     import re
 
     p = Path(path)
     if p.is_dir():
         frames = capture_frames(p)
-        h, w = decode_png(frames[0].read_bytes()).shape[:2]
+        h, w = decode_image(frames[0].read_bytes()).shape[:2]
         return {"width": w, "height": h, "fps": 30.0, "frame_count": len(frames)}
     if not p.is_file():
         raise FileNotFoundError(f"no capture at {path}")
@@ -205,7 +219,7 @@ def probe_video(path: str | Path) -> dict:
     if ffmpeg_bin is None:
         raise RuntimeError(
             f"{path}: probing a video file needs an ffmpeg binary (none on PATH or from "
-            "imageio_ffmpeg); pass a directory of PNG frames instead")
+            "imageio_ffmpeg); pass a directory of PNG or JPEG frames instead")
     # ffmpeg with no output file prints the stream description and exits non-zero
     text = subprocess.run([ffmpeg_bin, "-hide_banner", "-i", str(p)], capture_output=True,
                           text=True).stderr
@@ -228,8 +242,8 @@ def extract_frames(
     max_frames: int = 0,
     stride: int = 1,
 ) -> list[Path]:
-    """Turn a capture (a directory of PNG frames, or a video file when there
-    is an ffmpeg binary) into numbered PNG frames (RGB), every `stride`-th
+    """Turn a capture (a directory of PNG or JPEG frames, or a video file
+    when there is an ffmpeg binary) into numbered PNG frames (RGB), every `stride`-th
     one, at most `max_frames`, shrunk by area averaging so that
     min(H, W) ~ target_size."""
     import tempfile

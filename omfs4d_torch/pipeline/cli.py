@@ -13,8 +13,8 @@
 The subcommands and flags are the reference's.  Dotted `key=value` tokens
 anywhere override the config tree.  Every subcommand that touches a model runs
 on the CUDA card and raises without one; `--device cpu` asks for the CPU.  A
-capture (`--video`) is a directory of PNG frames, or a video file when there
-is an ffmpeg binary; with no ffmpeg the prediction is its PNG frames and no
+capture (`--video`) is a directory of PNG or JPEG frames, or a video file when
+there is an ffmpeg binary; with no ffmpeg the prediction is its PNG frames and no
 MP4.
 
 Under `torchrun` (WORLD_SIZE > 1) each process is one rank: the pipeline's

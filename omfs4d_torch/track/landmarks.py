@@ -78,7 +78,7 @@ def _synthetic(source, model=None, params=None, cameras=None, **kw):
 
 
 def _load_frames(source) -> np.ndarray:
-    """images dir (PNG frames) | (T,H,W,3) array -> uint8 frame stack."""
+    """images dir (PNG, then JPEG frames) | (T,H,W,3) array -> uint8 frame stack."""
     if isinstance(source, np.ndarray):
         return source
     from omfs4d_torch.io.video import capture_frames, read_image

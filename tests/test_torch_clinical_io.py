@@ -2,8 +2,9 @@
 JAX package's (`omfs4d.io.*`) on the CPU: mesh files byte-equal to the
 reference's, each package loading the other's; NIfTI both ways; DICOM series
 raw, RLE and JPEG Baseline read equal to the reference's; an unsupported
-transfer syntax raising the reference's error; and a JPEG series with PIL
-made unimportable raising with the reason (the card's machine has no PIL)."""
+transfer syntax raising the reference's error; and with PIL made
+unimportable (the card's machine has none) a JPEG series still loads through
+the port's own decoder, and a progressive one raises with the reason."""
 
 import sys
 
@@ -174,12 +175,27 @@ def test_dicom_jpeg_baseline_equal_to_reference(tmp_path):
 
 
 def test_jpeg_series_without_pil_raises_with_the_reason(tmp_path, monkeypatch):
-    pytest.importorskip("PIL")
-    smooth = np.full((2, 16, 16), 100, np.uint8)
+    """With PIL made unimportable (the card's machine has none) a JPEG
+    Baseline series loads through the port's own decoder, equal to what the
+    reference reads with PIL; a series of progressive JPEG frames, which the
+    decoder does not read, raises with the reason."""
+    PIL_Image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(4)
+    smooth = np.clip(100 + 50 * np.cos(np.linspace(0, 4, 24))[None, None, :]
+                     + rng.normal(0, 3, (2, 24, 24)), 0, 255).astype(np.uint8)
     root = write_series(tmp_path / "s", tdicom.write_dicom_slice, smooth, jdicom.JPEG_BASELINE)
+    rv, _ = jdicom.load_dicom_series(root)
+    save = PIL_Image.Image.save
+    monkeypatch.setattr(PIL_Image.Image, "save",
+                        lambda self, fp, format=None, **kw: save(self, fp, format,
+                                                                 progressive=True, **kw))
+    prog = write_series(tmp_path / "p", tdicom.write_dicom_slice, smooth, jdicom.JPEG_BASELINE)
     monkeypatch.setitem(sys.modules, "PIL", None)          # import PIL now fails
-    with pytest.raises(tdicom.UnsupportedTransferSyntaxError, match="needs PIL"):
-        tdicom.load_dicom_series(root)
+    monkeypatch.setitem(sys.modules, "PIL.Image", None)
+    tv, _ = tdicom.load_dicom_series(root)
+    np.testing.assert_array_equal(tv, rv)
+    with pytest.raises(tdicom.UnsupportedTransferSyntaxError, match="SOF2"):
+        tdicom.load_dicom_series(prog)
 
 
 def test_unsupported_syntax_raises_as_the_reference(tmp_path):

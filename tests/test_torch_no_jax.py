@@ -1,7 +1,8 @@
 """Package rules of the port, checked on the CPU: it imports neither jax,
-optax, omfs4d nor cv2 (the clinical engine, its IO, the app and the meshkit
-loader included; the streamlit dashboard is read, not imported, since it
-exits without streamlit), and a CUDA tensor never falls back to a plain version:
+optax, omfs4d, cv2 nor PIL (the JPEG decoder, the bench and the soak, the
+clinical engine, its IO, the app and the meshkit loader included; the
+streamlit dashboard is read, not imported, since it exits without
+streamlit), and a CUDA tensor never falls back to a plain version:
 not the composite's, forward (K1) or backward (K2), not under the tracker's
 splat backend, and not the K2 ablation variants' (V)."""
 
@@ -54,6 +55,9 @@ PARALLEL_MODULES = ("omfs4d_torch.parallel", "omfs4d_torch.parallel.mesh",
                     "omfs4d_torch.parallel.collectives", "omfs4d_torch.parallel.shard",
                     "omfs4d_torch.parallel.sharded_trainer",
                     "omfs4d_torch.parallel.distributed")
+# the JPEG decoder, the bench and the soak, and the card's gate script
+MEASUREMENT_MODULES = ("omfs4d_torch.io.jpeg", "omfs4d_torch.scripts.bench",
+                       "omfs4d_torch.scripts.soak", "chip_smoke")
 # a streamlit script: it exits when streamlit is missing, so it is read, not imported
 DASHBOARD = "omfs4d_torch.app.dashboard"
 
@@ -65,13 +69,14 @@ def test_port_imports_no_jax_omfs4d_or_cv2():
     assert set(TRACKING_MODULES) <= set(mods) and set(FRONT_END_MODULES) <= set(mods)
     assert set(BACK_HALF_MODULES) <= set(mods) and set(CLINICAL_MODULES) <= set(mods)
     assert set(PARALLEL_MODULES) <= set(mods)
+    assert set(MEASUREMENT_MODULES[:-1]) <= set(mods)
     assert DASHBOARD in mods
     mods.remove(DASHBOARD)
     code = (
         "import importlib, sys, torch\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'omfs4d', 'cv2'))\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'optax', 'omfs4d', 'cv2', 'PIL'))\n"
         "assert not bad, bad\n"
         "assert not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32\n"
     )
@@ -81,15 +86,19 @@ def test_port_imports_no_jax_omfs4d_or_cv2():
 
 
 @pytest.mark.parametrize("module", TRACKING_MODULES + FRONT_END_MODULES + BACK_HALF_MODULES
-                         + CLINICAL_MODULES + PARALLEL_MODULES + (DASHBOARD,))
+                         + CLINICAL_MODULES + PARALLEL_MODULES + MEASUREMENT_MODULES
+                         + (DASHBOARD,))
 def test_tracking_module_names_no_jax_package(module):
-    """No import statement of a tracking, front-end, pipeline, clinical, app
-    or parallel module names jax, optax or the JAX package, lazy ones inside
-    functions included."""
+    """No import statement of a tracking, front-end, pipeline, clinical, app,
+    parallel or measurement module (or of chip_smoke.py) names jax, optax or
+    the JAX package, lazy ones inside functions included; nor PIL, but in the
+    writer of test DICOM slices."""
     import ast
     import importlib.util
 
-    tree = ast.parse(Path(importlib.util.find_spec(module).origin).read_text())
+    origin = (ROOT / "chip_smoke.py" if module == "chip_smoke"
+              else Path(importlib.util.find_spec(module).origin))
+    tree = ast.parse(origin.read_text())
     roots = set()
     for node in ast.walk(tree):
         if isinstance(node, ast.Import):
@@ -97,6 +106,7 @@ def test_tracking_module_names_no_jax_package(module):
         elif isinstance(node, ast.ImportFrom) and node.module:
             roots.add(node.module.split(".")[0])
     assert not roots & {"jax", "jaxlib", "optax", "omfs4d", "cv2"}, roots
+    assert "PIL" not in roots or module == "omfs4d_torch.io.dicom", roots
 
 
 def small_inputs():

@@ -3,8 +3,9 @@
 `TestPipelineFallback`), the landmark registry's `neural` / `auto` sources,
 frame extraction, and the artifact store against the JAX package's.
 
-The end-to-end case runs at 64^2 on the 700-vertex asset: a directory of PNG
-frames with no landmark file -> `preprocess` -> `track(landmark_method=
+A capture of JPEG frames is probed, preprocessed and tracked.  The end-to-end
+case runs at 64^2 on the 700-vertex asset: a directory of PNG frames with no
+landmark file -> `preprocess` -> `track(landmark_method=
 "neural")` with a detector trained for a few dozen steps -> a dataset that
 `FrameDataset` reads, and the second call answered by the stage cache.
 """
@@ -174,7 +175,11 @@ def test_extract_frames_from_a_directory(tmp_path):
     assert np.array_equal(tvideo.read_image(up[0]), frames[0])
 
 
-def test_a_video_file_needs_ffmpeg_and_jpeg_is_refused(tmp_path, monkeypatch):
+def test_a_video_file_needs_ffmpeg_and_jpeg_is_refused(small_case, tmp_path, monkeypatch):
+    """A video file needs ffmpeg; a capture of JPEG frames does not: it is
+    probed, preprocessed (frames equal to cv2's decode) and tracked."""
+    import shutil
+
     monkeypatch.setattr(tvideo, "find_ffmpeg", lambda: None)
     (tmp_path / "clip.mp4").write_bytes(b"not a video")
     for fn in (tvideo.probe_video, lambda p: tvideo.extract_frames(p, tmp_path / "out")):
@@ -182,13 +187,33 @@ def test_a_video_file_needs_ffmpeg_and_jpeg_is_refused(tmp_path, monkeypatch):
             fn(tmp_path / "clip.mp4")
         with pytest.raises(FileNotFoundError):
             fn(tmp_path / "missing.mp4")
-    (tmp_path / "jpegs").mkdir()
-    (tmp_path / "jpegs" / "0.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(RuntimeError, match="JPEG"):
-        tvideo.probe_video(tmp_path / "jpegs")
     (tmp_path / "empty").mkdir()
     with pytest.raises(FileNotFoundError):
         tvideo.extract_frames(tmp_path / "empty", tmp_path / "out")
+
+    pngs = tmp_path / "frames" / "images"
+    jpegs = tmp_path / "jpegs"
+    jpegs.mkdir()
+    for p in sorted(pngs.glob("*.png")):
+        cv2.imwrite(str(jpegs / f"{p.stem}.jpg"),
+                    cv2.cvtColor(tvideo.read_image(p), cv2.COLOR_RGB2BGR),
+                    [cv2.IMWRITE_JPEG_QUALITY, 90])
+    assert tvideo.probe_video(jpegs) == {"width": 32, "height": 32, "fps": 30.0,
+                                         "frame_count": 4}
+    pipe = small_pipeline(tmp_path / "work")
+    frames_dir = pipe.preprocess(jpegs)
+    extracted = sorted((frames_dir / "images").glob("*.png"))
+    assert len(extracted) == 4
+    for p, src in zip(extracted, sorted(jpegs.glob("*.jpg"))):
+        want = cv2.cvtColor(cv2.imread(str(src)), cv2.COLOR_BGR2RGB)
+        np.testing.assert_array_equal(tvideo.read_image(p), want)
+    shutil.copy(pngs / "landmarks.npz", frames_dir / "images")
+    out = pipe.track(frames_dir, FrameDataset(small_case["path"]).camera(0),
+                     landmark_method="file")
+    ds = FrameDataset(out)
+    assert np.array_equal(ds.load_image(0), tvideo.read_image(extracted[0]))
+    assert ds.flame_params["expr"].shape[0] == 4
+    assert all(np.isfinite(v).all() for v in ds.flame_params.values())
 
 
 # stands in for an ffmpeg binary: with an output pattern it "decodes" the

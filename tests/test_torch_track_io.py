@@ -145,12 +145,20 @@ def test_load_frames_reads_a_directory_in_order(tmp_path):
 
 
 def test_load_frames_refuses_jpeg(tmp_path):
-    """There is no JPEG decoder here: a frame directory with JPEGs is refused
-    with the reason, as `extract_frames` refuses it, not read past."""
-    write_image(tmp_path / "00000.png", np.zeros((8, 10, 3), np.uint8))
-    (tmp_path / "00001.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(RuntimeError, match="JPEG"):
-        tl._load_frames(tmp_path)
+    """A frame directory with JPEG frames is read, as the reference reads it:
+    the PNG frames first, then the JPEG ones, each sorted; a JPEG frame
+    equals PIL's decode of it."""
+    Image = pytest.importorskip("PIL.Image")
+    rng = np.random.default_rng(0)
+    png = rng.integers(0, 256, (8, 10, 3)).astype(np.uint8)
+    jpg = np.clip(128 + 40 * np.sin(np.arange(80) / 6.0).reshape(8, 10, 1)
+                  + rng.normal(0, 9, (8, 10, 3)), 0, 255).astype(np.uint8)
+    write_image(tmp_path / "00001.png", png)
+    Image.fromarray(jpg).save(tmp_path / "00000.jpg", quality=90)
+    frames = tl._load_frames(tmp_path)
+    assert frames.shape == (2, 8, 10, 3)
+    np.testing.assert_array_equal(frames[0], png)
+    np.testing.assert_array_equal(frames[1], np.asarray(Image.open(tmp_path / "00000.jpg")))
 
 
 # ── preflight gates ──────────────────────────────────────────
