@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's render, training, tracking, video front-end,
-pipeline, clinical and parallel paths, and its bench, once on one CUDA card.
+pipeline, clinical and parallel paths, its bench and its video files, once on
+one CUDA card.
 
     python3 chip_smoke.py
 
@@ -13,7 +14,7 @@ Phase A: a full-size case made by the port itself — the synthetic 512^2
 Phase B: a 0 mm render of frame 0 (the reference for the checks, and the
   warm-up of every shape), then the request — create_modified_dataset
   (Le Fort 5 mm, BSSO 3 mm) and render_dataset_frames, as render_prediction
-  runs them (stitching is skipped: it needs an ffmpeg encoder).  The
+  runs them (stitching is phase M's).  The
   composite launch counter is zeroed before and read after (8 frames + the
   0 mm one); per-stage ms/frame of the request and the binning counters are
   printed.
@@ -131,7 +132,8 @@ Phase I: the pipeline end to end at full width through the port's CLI, in
   `--export-frames-dir` and `report` (the selfrecon PSNR), `render-surgery` at
   5/3 mm and `report --baseline-renders` (front psnr and psnr_unchanged).
   Checked: a stage_end event per stage, the model's artifacts, one strict row
-  per exported frame, no video (no ffmpeg), K1 and K2 launches per stage (the
+  per exported frame, each render_surgery's MJPG video (no ffmpeg) with a
+  frame per render, K1 and K2 launches per stage (the
   tracker's rendered frames; the training iterations, to which the trainer's
   metric renders add none; one K1 a rendered frame), the loss falls,
   densification moved the cloud, the 5/3 mm frames differ from the 0 mm ones,
@@ -211,16 +213,32 @@ Phase L: the port's bench as a user runs it, in a process of its own:
   (the flops by op family).  Its launches are its own process's: the kernels
   line does not count them.
 
+Phase M: the reference's user path from a video file to a prediction video,
+  with the video ladder's last rung (MJPG; any ffmpeg binary is taken as
+  absent, as on the card's machine, which has none).  Phase G's 8-frame 512^2
+  clip is stitched by the port's `stitch_video` to clip.avi at 25 fps (its
+  bytes must be `encode_jpeg`'s of each PNG) and probed (512 x 512, 8 frames,
+  25.0 fps); `cli preprocess --video clip.avi` extracts 8 frames, each equal
+  to `decode_jpeg` of its bytes in the container and within VIDEO_PSNR_FLOOR
+  of its source PNG; the clip's landmarks.npz goes beside them, as in phase I;
+  `cli run --video clip.avi --output pred.mp4 --lefort-mm 5 --bsso-mm 3` runs
+  with VIDEO_ITERS iterations and phase I's tracker steps; K1 and K2 are
+  counted per stage as in phase I; pred.mp4 is read back by the port, a frame
+  per render PNG, each within the floor of it.  Printed: host s/frame of
+  `encode_jpeg` and `decode_jpeg` at 512^2 and at 1920 x 1080, the stage
+  seconds, the launches and every PSNR.
+
     python3 chip_smoke.py --only-track
     python3 chip_smoke.py --only-nets
     python3 chip_smoke.py --only-e2e
     python3 chip_smoke.py --only-clinical
     python3 chip_smoke.py --only-parallel
     python3 chip_smoke.py --only-bench
+    python3 chip_smoke.py --only-video
 
-run the set-up and phase G, H, I, J, K or L alone (no kernels line, no last
+run the set-up and phase G, H, I, J, K, L or M alone (no kernels line, no last
 line): for work on the tracker, the front end, the pipeline, the clinical
-engine, the parallel package or the bench (J renders its own phase-B
+engine, the parallel package, the bench or the video files (J renders its own phase-B
 reference frames; K makes phase A and phase I's stage cache first).
 
     python3 chip_smoke.py --net-gates 200,240,280,320 320,400,480,560,640
@@ -244,7 +262,7 @@ and with the L2 flushed before each launch (variant_times).
 
 Any failure raises and exits non-zero.  With no CUDA card the script exits
 non-zero before printing any result.  The line before the card's name holds
-every kernel's launches (the sum over phases B, D, G, H, I, J and K for K1 and K2,
+every kernel's launches (the sum over phases B, D, G, H, I, J, K and M for K1 and K2,
 phase K's summed over its ranks,
 with each path's own under `launches_by_path`, the launches of one tracker rgb step
 under `launches_per_tracker_step` and of one detector step under
@@ -335,6 +353,16 @@ DETECTION_RMS_PX, NEURAL_FIT_PHOTO, NEURAL_FIT_LMK = 45.0, 2.0, 1.5
 # worst one (NVIDIA H100 80GB HBM3, 700 W)
 E2E_ITERS, E2E_DENSIFY_INTERVAL = 1200, 100
 E2E_PSNR_FLOOR = 32.0
+# phase M: the reference's user path from a video file: phase G's clip
+# stitched by the port to an MJPG AVI at VIDEO_FPS, `cli run` on it with
+# VIDEO_ITERS iterations (the tracker's steps cut as phase I's; the phase well
+# under 120 s: 20.01 s on the card), the prediction read back from its MP4.
+# The PSNR floor of a frame read back from either file against its PNG, and of
+# the codec's round trip, sits 3 dB under the lowest measured: 51.59 dB (an
+# extracted frame against its source PNG; pred.mp4's worst 51.92, the 1080p
+# round trip 54.19; NVIDIA H100 80GB HBM3, 700 W)
+VIDEO_FPS, VIDEO_ITERS = 25, 300
+VIDEO_PSNR_FLOOR = 48.5
 # phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
 # the skull phantom's seed and noise, the crop held against the CPU path, the
 # share by which the raw mesh's enclosed volume may differ from the phantom's
@@ -1401,6 +1429,54 @@ def phase_h(model, device, card: str, work: Path, file_fit: dict | None = None) 
             "k1_ms": k1_ms, "plain_ms": plain_ms, "bound_us": b_us, "bound_by": b_by}
 
 
+@contextlib.contextmanager
+def noted_stages():
+    """Pipeline.track / train / render_surgery wrapped so that K1's and K2's
+    launches of each call are noted (the card synchronised after it): yields
+    {stage: [(K1, K2), ...], "predictions": [what render_surgery returned]}."""
+    from omfs4d_torch.pipeline.runner import Pipeline
+    from omfs4d_torch.render.composite import composite
+
+    notes, wrapped = {"predictions": []}, {}
+    for name in ("track", "train", "render_surgery"):
+        wrapped[name] = getattr(Pipeline, name)
+
+        def noted(self, *args, _name=name, **kwargs):
+            before = composite.launches, composite.backward_launches
+            out = wrapped[_name](self, *args, **kwargs)
+            torch.cuda.synchronize()
+            notes.setdefault(_name, []).append(
+                (composite.launches - before[0], composite.backward_launches - before[1]))
+            if _name == "render_surgery":
+                notes["predictions"].append(out)
+            return out
+
+        setattr(Pipeline, name, noted)
+    try:
+        yield notes
+    finally:
+        for name, fn in wrapped.items():
+            setattr(Pipeline, name, fn)
+
+
+def tracked_renders() -> int:
+    """K1's and K2's launches each in the pipeline's track stage on the
+    clip at TRACK_STEPS: one a frame rendered by the rgb steps."""
+    from omfs4d_torch.core.config import TrackConfig
+
+    c = TrackConfig(**TRACK_STEPS)
+    return (min(RGB_BATCH, N_FRAMES) * (c.steps_rgb_init_texture + c.steps_rgb_init_all
+                                        + c.steps_rgb_init_offset
+                                        + c.steps_global * c.epochs_global)
+            + N_FRAMES * c.steps_rgb_sequential)
+
+
+def psnr_u8(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR in dB of two uint8 images (inf where they are equal)."""
+    mse = float(np.mean((a.astype(np.float64) - b.astype(np.float64)) ** 2))
+    return float("inf") if mse == 0 else 10 * np.log10(255.0 ** 2 / mse)
+
+
 def phase_i(model, device, card: str, work: Path) -> dict:
     """The pipeline end to end at full width through the port's CLI, in
     process; returns K1's and K2's launches over the phase and its figures."""
@@ -1409,9 +1485,8 @@ def phase_i(model, device, card: str, work: Path) -> dict:
     from omfs4d_torch.core.config import Config, TrackConfig, apply_override
     from omfs4d_torch.headrecon import (build_canonical_head, fit_shared_shape,
                                         ingest_sequences, register_sequences)
-    from omfs4d_torch.io.video import read_image
+    from omfs4d_torch.io.video import probe_video, read_image
     from omfs4d_torch.pipeline import cli
-    from omfs4d_torch.pipeline.runner import Pipeline
     from omfs4d_torch.predict.surgery import choose_rig_mode
     from omfs4d_torch.render.composite import composite
     from omfs4d_torch.track.fitter import FlameTracker
@@ -1439,29 +1514,13 @@ def phase_i(model, device, card: str, work: Path) -> dict:
                   if tcfg.densify_from <= i <= densify_until_iter(tcfg, E2E_ITERS)]
     check(len(densify_at) >= 2, f"densification fires at {densify_at}")
 
-    # the launches of each stage, and what render_surgery returns, noted as
-    # the stages pass
-    stage_launches, predictions = {}, []
-    wrapped = {}
-    for name in ("track", "train", "render_surgery"):
-        wrapped[name] = getattr(Pipeline, name)
-
-        def noted(self, *args, _name=name, **kwargs):
-            before = composite.launches, composite.backward_launches
-            out = wrapped[_name](self, *args, **kwargs)
-            torch.cuda.synchronize()
-            stage_launches.setdefault(_name, []).append(
-                (composite.launches - before[0], composite.backward_launches - before[1]))
-            if _name == "render_surgery":
-                predictions.append(out)
-            return out
-
-        setattr(Pipeline, name, noted)
     composite.launches = 0
     composite.backward_launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    try:
+    # the launches of each stage, and what render_surgery returns, noted as
+    # the stages pass
+    with noted_stages() as stage_launches:
         # the capture is the clip's PNG frames; its landmark file goes beside
         # the preprocessed frames, where `--landmarks auto` takes it
         check(cli.main(["preprocess", "--video", str(images), *common]) == 0, "cli preprocess")
@@ -1493,11 +1552,9 @@ def phase_i(model, device, card: str, work: Path) -> dict:
         check(cli.main(["report", "--model", str(model_dir), "--frames", str(work / "det_mod"),
                         "--out", str(work / "report"), "--baseline-renders",
                         str(work / "baseline_renders")]) == 0, "cli report --baseline-renders")
-    finally:
-        for name, fn in wrapped.items():
-            setattr(Pipeline, name, fn)
     torch.cuda.synchronize()
     e2e_s = time.perf_counter() - t0
+    predictions = stage_launches["predictions"]
     fwd, bwd = composite.launches, composite.backward_launches
 
     # ── the checks ──
@@ -1518,17 +1575,14 @@ def phase_i(model, device, card: str, work: Path) -> dict:
                            / "deterministic_indices_manifest.json").read_text())["exports"]
     check(len(scores["rows"]) == len(exported) == n_train,
           f"strict_scores.json: {len(scores['rows'])} rows == {len(exported)} exported frames")
-    check(len(predictions) == 3 and all(
-        r["video"] is None and "ffmpeg" in r["video_error"] for r in predictions)
-        and not list(work.glob("*.mp4")),
-        f"no video without an ffmpeg binary, and the reason: {predictions[0]['video_error']}")
+    videos = [work / f"{name}.mp4" for name in ("pred", "det_self", "det_mod")]
+    check([r["video"] for r in predictions] == [str(v) for v in videos]
+          and all(r["video_error"] is None and probe_video(v)["frame_count"] == n_train
+                  for r, v in zip(predictions, videos)),
+          f"each render_surgery wrote its video, {n_train} frames: "
+          f"{[r['video'] for r in predictions]}")
     (track_k,), (train_k,) = stage_launches["track"], stage_launches["train"]
-    B = min(RGB_BATCH, N_FRAMES)
-    track_cfg = TrackConfig(**TRACK_STEPS)
-    rendered = (B * (track_cfg.steps_rgb_init_texture + track_cfg.steps_rgb_init_all
-                     + track_cfg.steps_rgb_init_offset
-                     + track_cfg.steps_global * track_cfg.epochs_global)
-                + N_FRAMES * track_cfg.steps_rgb_sequential)
+    rendered = tracked_renders()
     check(track_k == (rendered, rendered), f"track: K1, K2 {track_k} == {rendered} each")
     # the trainer's own metric renders add no launch: K1 once a step
     check(train_k == (E2E_ITERS, E2E_ITERS),
@@ -1578,8 +1632,8 @@ def phase_i(model, device, card: str, work: Path) -> dict:
     print(f"  selfrecon PSNR {selfrecon:.4f} dB (floor {E2E_PSNR_FLOOR} dB; frames "
           + ", ".join(f"{r['psnr']:.2f}" for r in self_rows) + f"); 5/3 mm front psnr "
           f"{front['psnr']:.4f}, psnr_unchanged {front['psnr_unchanged']:.4f} dB; the 5/3 mm "
-          f"frames differ from the 0 mm ones on {moved:.4f} of pixels; video None: "
-          f"{predictions[0]['video_error']} [{card}]")
+          f"frames differ from the 0 mm ones on {moved:.4f} of pixels; videos "
+          f"{[Path(r['video']).name for r in predictions]} [{card}]")
 
     # ── fit_shared_shape on the clip as two sequences -> canonical head ──
     t0 = time.perf_counter()
@@ -2833,6 +2887,148 @@ def phase_l(card: str) -> dict:
     return out
 
 
+# ── phase M: a video file through the CLI to a prediction video ─────────
+
+def phase_m(model, device, card: str, work: Path) -> dict:
+    """The reference's user path from a video file to a prediction video on
+    the card, through the port's CLI in process, with the video ladder's
+    MJPG rung (no ffmpeg); returns K1's and K2's launches over the phase."""
+    from omfs4d_torch.io import mjpeg
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
+    from omfs4d_torch.pipeline import cli
+    from omfs4d_torch.render.composite import composite
+
+    t_phase = time.perf_counter()
+    work = work / "video"
+    work.mkdir()
+    images, _, _ = tracking_clip(model, device, work)
+    src = [tvideo.read_image(p) for p in sorted(images.glob("*.png"))]
+
+    # the codec's host seconds a frame, at the clip's size and at 1080p
+    t0 = time.perf_counter()
+    jpegs = [encode_jpeg(x, tvideo.MJPEG_QUALITY) for x in src]
+    enc_s = (time.perf_counter() - t0) / len(src)
+    t0 = time.perf_counter()
+    back = [decode_jpeg(j) for j in jpegs]
+    dec_s = (time.perf_counter() - t0) / len(src)
+    hd = tvideo.linear_resize(src[0], 1080, 1920)
+    t0 = time.perf_counter()
+    hd_jpeg = encode_jpeg(hd, tvideo.MJPEG_QUALITY)
+    enc_hd_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hd_back = decode_jpeg(hd_jpeg)
+    dec_hd_s = time.perf_counter() - t0
+    codec_psnr = [psnr_u8(b, x) for b, x in zip(back + [hd_back], src + [hd])]
+    check(min(codec_psnr) >= VIDEO_PSNR_FLOOR,
+          f"encode_jpeg -> decode_jpeg within {VIDEO_PSNR_FLOOR} dB of the source: "
+          f"{min(codec_psnr):.3f} dB at the worst")
+
+    found = tvideo.find_ffmpeg()
+    real_find = tvideo.find_ffmpeg
+    tvideo.find_ffmpeg = lambda: None            # the rung the card's machine takes
+    try:
+        t0 = time.perf_counter()
+        clip = tvideo.stitch_video(images, work / "clip.avi", fps=VIDEO_FPS)
+        stitch_s = time.perf_counter() - t0
+        info = tvideo.probe_video(clip)
+        check(info == {"width": SIZE, "height": SIZE, "fps": float(VIDEO_FPS),
+                       "frame_count": N_FRAMES}, f"probe_video(clip.avi): {info}")
+        in_frames = mjpeg.frames(clip)
+        check(list(in_frames) == jpegs, "clip.avi holds encode_jpeg's bytes, frame for frame")
+
+        wd = work / "wd"
+        common = ["--workdir", str(wd), *[f"track.{k}={v}" for k, v in TRACK_STEPS.items()],
+                  f"pipeline.min_train_frames={N_FRAMES}"]
+        composite.launches = 0
+        composite.backward_launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with noted_stages() as notes:
+            check(cli.main(["preprocess", "--video", str(clip), *common]) == 0,
+                  "cli preprocess --video clip.avi")
+            stage_dirs = list((wd / "stages").glob("preprocess-*"))
+            check(len(stage_dirs) == 1, f"one preprocess stage directory: {stage_dirs}")
+            extracted = sorted((stage_dirs[0] / "images").glob("*.png"))
+            check(len(extracted) == N_FRAMES, f"{len(extracted)} frames extracted")
+            in_psnr = []
+            for i, (p, data, x) in enumerate(zip(extracted, in_frames, src)):
+                got = tvideo.read_image(p)
+                check(np.array_equal(got, decode_jpeg(data)),
+                      f"extracted frame {i} is decode_jpeg of its bytes in clip.avi")
+                in_psnr.append(psnr_u8(got, x))
+            check(min(in_psnr) >= VIDEO_PSNR_FLOOR,
+                  f"extracted frames within {VIDEO_PSNR_FLOOR} dB of the source PNGs: "
+                  f"{min(in_psnr):.3f} dB at the worst")
+            shutil.copy2(images / "landmarks.npz", stage_dirs[0] / "landmarks.npz")
+            pred_path = work / "pred.mp4"
+            check(cli.main(["run", "--video", str(clip), "--landmarks", "auto",
+                            "--iterations", str(VIDEO_ITERS), "--lefort-mm", str(LEFORT_MM),
+                            "--bsso-mm", str(BSSO_MM), "--output", str(pred_path),
+                            *common]) == 0, "cli run --video clip.avi --output pred.mp4")
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        fwd, bwd = composite.launches, composite.backward_launches
+
+        # ── the checks ──
+        rendered, n_train = tracked_renders(), N_FRAMES - N_FRAMES // 10
+        (track_k,), (train_k,), (render_k,) = (notes[k] for k in ("track", "train",
+                                                                  "render_surgery"))
+        check(track_k == (rendered, rendered), f"track: K1, K2 {track_k} == {rendered} each")
+        check(train_k == (VIDEO_ITERS, VIDEO_ITERS),
+              f"train: K1, K2 {train_k} == {VIDEO_ITERS} training iterations each")
+        check(render_k == (n_train, 0), f"render_surgery: K1 {render_k[0]} == {n_train} "
+                                        f"frames, K2 {render_k[1]} == 0")
+        check((fwd, bwd) == (rendered + VIDEO_ITERS + n_train, rendered + VIDEO_ITERS),
+              f"phase M launches K1 {fwd}, K2 {bwd}")
+        (pred,) = notes["predictions"]
+        check(pred["video"] == str(pred_path) and pred["video_error"] is None,
+              f"render_surgery wrote the prediction video: {pred['video']} "
+              f"({pred['video_error']})")
+        renders = sorted(Path(pred["renders_dir"]).glob("*.png"))
+        out_info = tvideo.probe_video(pred_path)
+        out_frames = mjpeg.frames(pred_path)
+        check(out_frames.info["container"] == "mp4" and len(out_frames) == len(renders) == n_train
+              and out_info["frame_count"] == n_train
+              and (out_info["width"], out_info["height"]) == (SIZE, SIZE),
+              f"pred.mp4 reads back: {out_info}, {len(renders)} render PNGs")
+        t0 = time.perf_counter()
+        out_psnr = [psnr_u8(decode_jpeg(d), tvideo.read_image(p))
+                    for d, p in zip(out_frames, renders)]
+        readback_s = time.perf_counter() - t0
+        check(min(out_psnr) >= VIDEO_PSNR_FLOOR,
+              f"pred.mp4's frames within {VIDEO_PSNR_FLOOR} dB of the render PNGs: "
+              f"{min(out_psnr):.3f} dB at the worst")
+    finally:
+        tvideo.find_ffmpeg = real_find
+    evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
+    stage_s = {e["stage"]: e["seconds"] for e in evs if e["event"] == "stage_end"}
+    steps = {e["iter"]: e for e in evs if e["event"] == "train_step"}
+    first, last = steps[min(steps)], steps[VIDEO_ITERS]
+    check(np.isfinite(last["loss"]) and last["loss"] < first["loss"],
+          f"the loss fell: {first['loss']:.5f} at {min(steps)} -> {last['loss']:.5f}")
+    print(f"phase M: {N_FRAMES} frames at {SIZE}^2 stitched by the port to MJPG in clip.avi "
+          f"({VIDEO_FPS} fps, JPEG quality {tvideo.MJPEG_QUALITY}, ffmpeg on PATH: "
+          f"{found is not None}, taken as absent), then cli preprocess and cli run --video "
+          f"clip.avi --output pred.mp4, {VIDEO_ITERS} iterations, Le Fort {LEFORT_MM} / BSSO "
+          f"{BSSO_MM} mm, tracker steps {TRACK_STEPS} [{card}]")
+    print(f"  host s/frame: encode_jpeg {enc_s:.4f} and decode_jpeg {dec_s:.4f} at "
+          f"{SIZE}x{SIZE}, {enc_hd_s:.4f} and {dec_hd_s:.4f} at 1920x1080 (frame 0 resized, "
+          f"{len(hd_jpeg)} bytes); stitch_video {stitch_s / N_FRAMES:.4f} s/frame (PNG read "
+          f"included); pred.mp4 read back and decoded {readback_s / n_train:.4f} s/frame")
+    print("  stage seconds (stage_timer): " + ", ".join(f"{k} {v:.3f}"
+                                                        for k, v in stage_s.items())
+          + f"; the phase's CLI calls {run_s:.3f} s (host clock)")
+    print(f"  launches: track K1/K2 {track_k}, train {train_k}, render_surgery {render_k}; "
+          f"loss {first['loss']:.5f} (iteration {min(steps)}) -> {last['loss']:.5f}")
+    print(f"  PSNR (floor {VIDEO_PSNR_FLOOR} dB): codec round trip min "
+          f"{min(codec_psnr):.3f} dB (1080p {codec_psnr[-1]:.3f}); extracted vs source PNGs "
+          + ", ".join(f"{v:.3f}" for v in in_psnr) + "; pred.mp4 vs render PNGs "
+          + ", ".join(f"{v:.3f}" for v in out_psnr) + f" (fps {out_info['fps']})")
+    print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
+    return {"fwd": fwd, "bwd": bwd}
+
+
 def main(only: str | None = None) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a card",
@@ -2890,7 +3086,8 @@ def main(only: str | None = None) -> int:
             phase_k(model, device, card, work, Path(modified))
             return 0
         if only is not None:
-            {"track": phase_g, "nets": phase_h, "e2e": phase_i}[only](model, device, card, work)
+            {"track": phase_g, "nets": phase_h, "e2e": phase_i,
+             "video": phase_m}[only](model, device, card, work)
             return 0
         model_dir = work / "model"
         write_bench_model(model, device, model_dir)
@@ -2942,7 +3139,7 @@ def main(only: str | None = None) -> int:
             print(f"  stage {name:12s} {totals[name] / N_FRAMES:9.3f} ms/frame")
         for i, c in enumerate(clock.counters()):
             print(f"  frame {i}: binning counters {c}")
-        print("  stitching skipped: no ffmpeg encoder is assumed on this machine")
+        print("  stitching: phase M")
         pngs = sorted(renders.glob("*.png"))
         check(len(pngs) == N_FRAMES, f"{len(pngs)} render PNGs == {N_FRAMES}")
 
@@ -3244,6 +3441,9 @@ def main(only: str | None = None) -> int:
 
         # ── phase L: the port's bench, in a process of its own ─
         phase_l(card)
+
+        # ── phase M: a video file through the CLI to a prediction video ─
+        video = phase_m(model, device, card, work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
         if modified is not None:
@@ -3260,11 +3460,12 @@ def main(only: str | None = None) -> int:
         "source": "omfs4d_torch/csrc/composite_fwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:210",
         "launches": (launches + train_fwd + track["fit_fwd"] + nets["nets_fwd"]
-                     + nets["pipe_fwd"] + e2e["fwd"] + clinical["fwd"] + parallel["fwd"]),
+                     + nets["pipe_fwd"] + e2e["fwd"] + clinical["fwd"] + parallel["fwd"]
+                     + video["fwd"]),
         "launches_by_path": {"render": launches, "train": train_fwd, "track": track["fit_fwd"],
                              "nets": nets["nets_fwd"], "pipeline": nets["pipe_fwd"],
                              "e2e": e2e["fwd"], "clinical": clinical["fwd"],
-                             "parallel": parallel["fwd"]},
+                             "parallel": parallel["fwd"], "video": video["fwd"]},
         "launches_per_tracker_step": track["step_fwd"],
         "launches_per_detector_step": nets["step_fwd"],
         "at_sampler_frame": {k: nets[k] for k in ("k1_ms", "plain_ms")}
@@ -3276,10 +3477,11 @@ def main(only: str | None = None) -> int:
         "source": "omfs4d_torch/csrc/composite_bwd.cu",
         "replaces": "omfs4d/render/pallas_kernels.py:305",
         "launches": (train_bwd + track["fit_bwd"] + nets["pipe_bwd"] + e2e["bwd"]
-                     + clinical["bwd"] + parallel["bwd"]),
+                     + clinical["bwd"] + parallel["bwd"] + video["bwd"]),
         "launches_by_path": {"render": 0, "train": train_bwd, "track": track["fit_bwd"],
                              "nets": 0, "pipeline": nets["pipe_bwd"], "e2e": e2e["bwd"],
-                             "clinical": clinical["bwd"], "parallel": parallel["bwd"]},
+                             "clinical": clinical["bwd"], "parallel": parallel["bwd"],
+                             "video": video["bwd"]},
         "launches_per_tracker_step": track["step_bwd"],
         "launches_per_detector_step": nets["step_bwd"],
         "max_abs_err": max(*bwd_errs, track["err_k2"]),
@@ -3429,6 +3631,8 @@ if __name__ == "__main__":
                         help="run the set-up and phase K (the parallel package) alone")
         ap.add_argument("--only-bench", action="store_true",
                         help="run the set-up and phase L (the port's bench) alone")
+        ap.add_argument("--only-video", action="store_true",
+                        help="run the set-up and phase M (a video file through the CLI) alone")
         ap.add_argument("--k-rank", nargs=5, help=argparse.SUPPRESS)
         ap.add_argument("--net-gates", nargs=2, metavar=("DETECTOR_STEPS", "SEGNET_STEPS"),
                         help="train each net at each of these step counts (two comma-separated "
@@ -3452,7 +3656,8 @@ if __name__ == "__main__":
         only = [name for name, on in (("track", opts.only_track), ("nets", opts.only_nets),
                                       ("e2e", opts.only_e2e), ("clinical", opts.only_clinical),
                                       ("parallel", opts.only_parallel),
-                                      ("bench", opts.only_bench))
+                                      ("bench", opts.only_bench),
+                                      ("video", opts.only_video))
                 if on]
         if len(only) > 1:
             ap.error("at most one --only-* option")

@@ -5,15 +5,22 @@ Port of `omfs4d.io.video` (`probe_video`, `extract_frames`, `read_image`,
 the standard library's `zlib` and `struct` plus numpy: 8-bit grayscale,
 grayscale+alpha, RGB and RGBA, non-interlaced, all five row filters on read.
 That reads what the JAX package wrote with cv2, and cv2 reads what this
-module writes.  Stitching needs an ffmpeg binary (libx264 yuv420p CRF 18,
-the reference's encode contract); there is no cv2 codec ladder.
+module writes.
 
 `read_image` also reads baseline JPEG, through the port's own decoder
 (`omfs4d_torch.io.jpeg`), as the reference reads it through cv2.
 `probe_video` and `extract_frames` take a directory of PNG or JPEG frames as
-the capture (`capture_frames`).  A video file needs a decoder: it goes
-through an ffmpeg binary when `find_ffmpeg` finds one, else the call raises
-and says why.
+the capture (`capture_frames`), or a video file.
+
+Video files follow the reference's ladder as far as the port can climb it.
+With an ffmpeg binary (`find_ffmpeg`) a file is decoded by ffmpeg and
+`stitch_video` encodes H.264 (libx264 yuv420p CRF 18, the reference's encode
+contract).  With none, the ladder's last rung: Motion JPEG in an AVI or MP4
+file is read by `omfs4d_torch.io.mjpeg` and `decode_jpeg`, and
+`stitch_video` writes one (every frame a baseline JPEG of quality 95 from
+`encode_jpeg`, the container by the output's suffix).  The rungs above it,
+cv2's `avc1` (H.264) and `mp4v` (MPEG-4 Part 2), have no encoder or decoder
+in the port: such a file raises `mjpeg.UnsupportedCodecError` naming the codec.
 """
 
 from __future__ import annotations
@@ -26,7 +33,14 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io.jpeg import decode_jpeg
+from omfs4d_torch.core.logging import get_logger
+from omfs4d_torch.io import mjpeg
+from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
+
+log = get_logger("video")
+
+# the JPEG quality of the MJPG rung's frames
+MJPEG_QUALITY = 95
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -35,7 +49,8 @@ _COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
 
 
 class NoFFmpegError(RuntimeError):
-    """No ffmpeg binary was found: the frames cannot be stitched into a video."""
+    """No ffmpeg binary was found and the MJPG rung cannot hold the frames
+    (a side over JPEG's 65,535 pixels): nothing can be written."""
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -175,6 +190,26 @@ def area_resize(img: np.ndarray, height: int, width: int) -> np.ndarray:
     return np.clip(np.rint(x), 0, 255).astype(np.uint8)
 
 
+def linear_resize(img: np.ndarray, height: int, width: int) -> np.ndarray:
+    """Resize (H, W, C) uint8 by bilinear interpolation between pixel centres,
+    the edge pixel repeated outside (OpenCV's INTER_LINEAR, `cv2.resize`'s
+    default), rounded to uint8."""
+    def taps(n_in: int, n_out: int):
+        x = (np.arange(n_out) + 0.5) * (n_in / n_out) - 0.5
+        lo = np.floor(x).astype(np.int64)
+        frac = np.where(lo < 0, 0.0, x - lo)
+        lo = np.clip(lo, 0, n_in - 1)
+        frac = np.where(lo >= n_in - 1, 0.0, frac)
+        return lo, np.minimum(lo + 1, n_in - 1), frac
+
+    y0, y1, fy = taps(img.shape[0], height)
+    x0, x1, fx = taps(img.shape[1], width)
+    a = np.asarray(img, np.float64)
+    rows = a[y0] * (1 - fy)[:, None, None] + a[y1] * fy[:, None, None]
+    out = rows[:, x0] * (1 - fx)[None, :, None] + rows[:, x1] * fx[None, :, None]
+    return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
 def capture_frames(path: str | Path) -> list[Path]:
     """The frames of a directory capture (its `images/` when it has one):
     its PNG frames sorted by name, then its JPEG frames (`*.jpg`, then
@@ -187,13 +222,8 @@ def capture_frames(path: str | Path) -> list[Path]:
     return frames
 
 
-def _decode_with_ffmpeg(video_path: Path, out_dir: Path) -> list[Path]:
+def _decode_with_ffmpeg(video_path: Path, out_dir: Path, ffmpeg_bin: str) -> list[Path]:
     """Every frame of a video file as a PNG under `out_dir`, through ffmpeg."""
-    ffmpeg_bin = find_ffmpeg()
-    if ffmpeg_bin is None:
-        raise RuntimeError(
-            f"{video_path}: decoding a video file needs an ffmpeg binary (none on PATH or "
-            "from imageio_ffmpeg); pass a directory of PNG or JPEG frames instead")
     out_dir.mkdir(parents=True, exist_ok=True)
     res = subprocess.run([ffmpeg_bin, "-y", "-i", str(video_path), "-vsync", "0",
                           str(out_dir / "%05d.png")], capture_output=True, text=True)
@@ -204,8 +234,9 @@ def _decode_with_ffmpeg(video_path: Path, out_dir: Path) -> list[Path]:
 
 def probe_video(path: str | Path) -> dict:
     """Width, height, fps and frame count of a capture: a directory of PNG or
-    JPEG frames (fps is then the 30.0 the reference assumes), or a video file
-    read through ffmpeg."""
+    JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
+    read through ffmpeg when there is a binary and as Motion JPEG in AVI or
+    MP4 when there is none (`mjpeg.UnsupportedCodecError` for another codec)."""
     import re
 
     p = Path(path)
@@ -217,9 +248,7 @@ def probe_video(path: str | Path) -> dict:
         raise FileNotFoundError(f"no capture at {path}")
     ffmpeg_bin = find_ffmpeg()
     if ffmpeg_bin is None:
-        raise RuntimeError(
-            f"{path}: probing a video file needs an ffmpeg binary (none on PATH or from "
-            "imageio_ffmpeg); pass a directory of PNG or JPEG frames instead")
+        return mjpeg.probe(p)
     # ffmpeg with no output file prints the stream description and exits non-zero
     text = subprocess.run([ffmpeg_bin, "-hide_banner", "-i", str(p)], capture_output=True,
                           text=True).stderr
@@ -242,25 +271,33 @@ def extract_frames(
     max_frames: int = 0,
     stride: int = 1,
 ) -> list[Path]:
-    """Turn a capture (a directory of PNG or JPEG frames, or a video file
-    when there is an ffmpeg binary) into numbered PNG frames (RGB), every `stride`-th
-    one, at most `max_frames`, shrunk by area averaging so that
-    min(H, W) ~ target_size."""
+    """Turn a capture (a directory of PNG or JPEG frames, or a video file:
+    through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4)
+    into numbered PNG frames (RGB), every `stride`-th one, at most
+    `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.
+    A Motion JPEG file's frames are decoded only where they are kept."""
     import tempfile
 
     src = Path(video_path)
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="decode_") as tmp:
+        load = read_image
         if src.is_dir():
             frames = capture_frames(src)
-        elif src.is_file():
-            frames = _decode_with_ffmpeg(src, Path(tmp))
-        else:
+        elif not src.is_file():
             raise FileNotFoundError(f"no capture at {video_path}")
+        elif (ffmpeg_bin := find_ffmpeg()) is not None:
+            frames = _decode_with_ffmpeg(src, Path(tmp), ffmpeg_bin)
+        else:
+            frames = mjpeg.frames(src)
+
+            def load(data: bytes) -> np.ndarray:
+                img = decode_jpeg(data)
+                return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img
         paths = []
-        for frame_path in frames[::max(stride, 1)]:
-            frame = read_image(frame_path)
+        for i in range(0, len(frames), max(stride, 1)):
+            frame = load(frames[i])
             if target_size > 0:
                 h, w = frame.shape[:2]
                 scale = target_size / min(h, w)
@@ -303,19 +340,22 @@ def ffmpeg_stitch_cmd(ffmpeg_bin: str, pattern: str, output_path: str,
 
 
 def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30) -> Path:
-    """Stitch sorted PNG frames into an MP4 with ffmpeg.  Raises
-    `NoFFmpegError` (a RuntimeError) when no ffmpeg binary is found, and
-    RuntimeError when ffmpeg fails."""
+    """Stitch sorted PNG frames into a video, down the reference's ladder.
+    With an ffmpeg binary: H.264 (libx264 yuv420p CRF 18); RuntimeError when
+    ffmpeg fails.  With none: the last rung, MJPG (each frame a baseline JPEG
+    of quality `MJPEG_QUALITY`, a frame of another size first resized to the
+    first frame's), in an AVI file for a `.avi` suffix and an MP4 file for
+    any other.  Raises `NoFFmpegError` (a RuntimeError) only where nothing
+    can be written: no ffmpeg and frames too large for JPEG."""
     import tempfile
 
     frames = sorted(Path(frames_dir).glob("*.png"))
     if not frames:
         raise FileNotFoundError(f"No PNG frames in {frames_dir}")
+    out_path = Path(output_path)
     ffmpeg_bin = find_ffmpeg()
     if ffmpeg_bin is None:
-        raise NoFFmpegError("stitch_video: no ffmpeg binary on PATH or from "
-                            "imageio_ffmpeg; the frames are in " + str(frames_dir))
-    out_path = Path(output_path)
+        return _stitch_mjpeg(frames, out_path, fps)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="stitch_") as tmp:
         for i, src in enumerate(frames):
@@ -326,3 +366,26 @@ def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30)
         if res.returncode != 0:
             raise RuntimeError(f"ffmpeg failed:\n{res.stderr[-2000:]}")
     return out_path
+
+
+def _stitch_mjpeg(frames: list[Path], out_path: Path, fps: float) -> Path:
+    """The ladder's last rung: the frames as Motion JPEG, the container by
+    the output's suffix."""
+    h, w = read_image(frames[0]).shape[:2]
+    if max(h, w) > 65535:
+        raise NoFFmpegError(
+            f"stitch_video: no ffmpeg binary on PATH or from imageio_ffmpeg, and the MJPG "
+            f"rung cannot hold {w} x {h} frames (JPEG's sides end at 65,535); the frames "
+            f"are in {frames[0].parent}")
+    log.info(f"stitch_video: no ffmpeg binary, so no H.264; avc1 and mp4v have no encoder "
+             f"in the port: writing MJPG (JPEG quality {MJPEG_QUALITY}) into "
+             f"{mjpeg.container_of(out_path).upper()} {out_path}")
+
+    def jpegs():
+        for p in frames:
+            img = read_image(p)
+            if img.shape[:2] != (h, w):
+                img = linear_resize(img, h, w)
+            yield encode_jpeg(img, MJPEG_QUALITY)
+
+    return mjpeg.write(out_path, jpegs(), fps, w, h)

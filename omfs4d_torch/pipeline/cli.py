@@ -8,14 +8,17 @@
     python -m omfs4d_torch.pipeline.cli render-surgery --model model/ --data data/ \\
         --lefort-mm 5 --bsso-mm 3 --output pred.mp4
     python -m omfs4d_torch.pipeline.cli report --model model/ --frames det/
-    python -m omfs4d_torch.pipeline.cli run --video frames_dir/ --lefort-mm 5 --bsso-mm 3
+    python -m omfs4d_torch.pipeline.cli run --video clip.avi --lefort-mm 5 --bsso-mm 3 \
+        --output pred.mp4
 
 The subcommands and flags are the reference's.  Dotted `key=value` tokens
 anywhere override the config tree.  Every subcommand that touches a model runs
 on the CUDA card and raises without one; `--device cpu` asks for the CPU.  A
-capture (`--video`) is a directory of PNG or JPEG frames, or a video file when
-there is an ffmpeg binary; with no ffmpeg the prediction is its PNG frames and no
-MP4.
+capture (`--video`) is a directory of PNG or JPEG frames or a video file.  With
+an ffmpeg binary any codec it decodes is read and the prediction is H.264; with
+none, a Motion JPEG (MJPG) `.avi` or `.mp4` file is read by the port itself and
+the prediction is Motion JPEG too (AVI for a `.avi` output, else MP4), while
+H.264, HEVC and MPEG-4 Part 2 (`mp4v`) captures raise, naming the codec.
 
 Under `torchrun` (WORLD_SIZE > 1) each process is one rank: the pipeline's
 commands join the process group first (`init_distributed`; the backend is
@@ -37,6 +40,11 @@ from omfs4d_torch.core.config import config_from_args
 from omfs4d_torch.core.logging import get_logger
 
 log = get_logger("cli")
+
+
+VIDEO_HELP = ("the capture: a directory of PNG or JPEG frames, or a video file; "
+              "without an ffmpeg binary only Motion JPEG (MJPG) .avi / .mp4 files are "
+              "read (H.264, HEVC and MPEG-4 Part 2 need ffmpeg)")
 
 
 def _add_device(p: argparse.ArgumentParser):
@@ -98,7 +106,7 @@ def main(argv: list[str] | None = None):
 
     p = sub.add_parser("preprocess", help="capture -> frames")
     _add_common(p)
-    p.add_argument("--video", required=True)
+    p.add_argument("--video", required=True, help=VIDEO_HELP)
 
     p = sub.add_parser("track", help="frames -> tracked dataset")
     _add_common(p)
@@ -132,7 +140,7 @@ def main(argv: list[str] | None = None):
 
     p = sub.add_parser("run", help="full pipeline: capture -> prediction")
     _add_common(p)
-    p.add_argument("--video", required=True)
+    p.add_argument("--video", required=True, help=VIDEO_HELP)
     p.add_argument("--lefort-mm", type=float, default=0.0)
     p.add_argument("--bsso-mm", type=float, default=0.0)
     p.add_argument("--output", default="final_prediction.mp4")

@@ -4,9 +4,9 @@ Port of `omfs4d.predict.render_video`:
 
   * picks the highest `point_cloud/iteration_*` unless pinned;
   * clears stale renders, writes `train/ours_N/renders/*.png` (+ gt/);
-  * optional deterministic frame export; stitches H.264/MP4 with ffmpeg
-    when there is an ffmpeg binary, else the PNG frames are the product and
-    the result says why there is no video.
+  * optional deterministic frame export; stitches the video down the
+    reference's ladder: H.264 with an ffmpeg binary, else Motion JPEG in the
+    container the output's suffix names (`io.video.stitch_video`).
 
 Runs eagerly on the device of the FLAME model: one batched FLAME forward
 for all frames, then one frame at a time through bind -> colours ->
@@ -212,9 +212,11 @@ def render_prediction(
     the CUDA card unless the caller asks for the CPU, and raises when there
     is no card.
 
-    With no ffmpeg binary the rendered PNG frames are the product: the result
-    has `"video": None` and the reason under `"video_error"`.  An ffmpeg that
-    is found and fails raises."""
+    With no ffmpeg binary the video is Motion JPEG (AVI for a `.avi` output,
+    else MP4); `"video"` is its path and `"video_error"` None.  Only where
+    nothing can be written (no ffmpeg and frames too large for JPEG) is
+    `"video"` None, the rendered PNG frames the product and the reason under
+    `"video_error"`.  An ffmpeg that is found and fails raises."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("render_prediction: no CUDA device; pass device='cpu' to "
                            "render on the CPU")

@@ -9,9 +9,11 @@ plus the card's name and power limit.
 
 Quick CPU smoke: --size 64 --frames 4 --iters 120 --cpu
 
-The capture handed to `Pipeline.preprocess` is the synthetic case's `images/`
-directory of PNG frames (a video file would need ffmpeg), with no landmark file
-beside the extracted frames, so the `auto` source trains the landmark net.
+The synthetic case's frames are stitched to `input.mp4` (`stitch_video`: H.264
+with an ffmpeg binary, Motion JPEG with none) and that video is the capture
+handed to `Pipeline.preprocess`, as the reference's script does, with no
+landmark file beside the extracted frames, so the `auto` source trains the
+landmark net.
 The result is written to `--out` (default `<workdir>/E2E_TIMING.json`) and
 printed as the last line.
 """
@@ -82,6 +84,7 @@ def main(argv: list[str] | None = None) -> dict:
     from omfs4d_torch.core.device import resolve_device
     from omfs4d_torch.eval.reporting import find_latest_train_dir
     from omfs4d_torch.io.synthetic import make_synthetic_dataset
+    from omfs4d_torch.io.video import stitch_video
     from omfs4d_torch.pipeline.cli import capture_camera
     from omfs4d_torch.pipeline.runner import Pipeline
 
@@ -108,11 +111,11 @@ def main(argv: list[str] | None = None) -> dict:
             stages[self.name] = round(time.time() - self.t, 1)
             print(f"[e2e] {self.name}: {stages[self.name]}s", flush=True)
 
-    # the synthetic "patient capture": PNG frames, no landmarks beside them
+    # the synthetic "patient capture" -> a video, no landmarks anywhere on disk
     print("[e2e] generating synthetic capture...", flush=True)
     case = make_synthetic_dataset(work / "case", n_frames=args.frames,
                                   width=S, height=S, device=device)
-    capture = Path(case["path"]) / "images"
+    capture = stitch_video(Path(case["path"]) / "images", work / "input.mp4", fps=25)
 
     cfg = Config()
     cfg.pipeline.target_size = S

@@ -275,9 +275,10 @@ def test_cli_run_on_a_frame_directory_with_no_ffmpeg(ran):
     scores = json.loads((model / "eval_strict" / "reports" / "strict_scores.json").read_text())
     assert len(scores["rows"]) == len(manifest["exports"]) == N - N // 10
     assert all(np.isfinite(r["psnr"]) for r in scores["rows"])
-    # no ffmpeg: the product is the PNG frames
-    assert not (ran["root"] / "pred.mp4").exists()
+    # no ffmpeg: the product is a Motion JPEG MP4, a frame per render
     assert len(list((model / "train" / "ours_30" / "renders").glob("*.png"))) == N - N // 10
+    assert tvideo.probe_video(ran["root"] / "pred.mp4") == {
+        "width": S, "height": S, "fps": 30.0, "frame_count": N - N // 10}
 
 
 def test_cli_report_needs_no_device(ran, tmp_path, monkeypatch):

@@ -63,10 +63,24 @@ def test_write_image_float_conversion_matches_jax(tmp_path):
 
 
 def test_stitch_video_without_ffmpeg_raises(tmp_path, monkeypatch):
-    tv.write_image(tmp_path / "00000.png", np.zeros((4, 4, 3), np.uint8))
+    """With no ffmpeg the frames go down the ladder's last rung, Motion JPEG
+    in the container the suffix names; `NoFFmpegError` where nothing can be
+    written: a frame wider than JPEG's 65,535 pixels."""
+    from omfs4d_torch.io import mjpeg
+
+    frames = tmp_path / "frames"
+    tv.write_image(frames / "00000.png", np.zeros((4, 4, 3), np.uint8))
     monkeypatch.setattr(tv, "find_ffmpeg", lambda: None)
-    with pytest.raises(RuntimeError, match="ffmpeg"):
-        tv.stitch_video(tmp_path, tmp_path / "out.mp4")
+    for name in ("out.mp4", "out.avi"):
+        out = tv.stitch_video(frames, tmp_path / name)
+        assert out == tmp_path / name and mjpeg.frames(out).info["container"] == name[-3:]
+        assert tv.probe_video(out) == {"width": 4, "height": 4, "fps": 30.0,
+                                       "frame_count": 1}
+    wide = tmp_path / "wide"
+    tv.write_image(wide / "00000.png", np.zeros((1, 65536, 3), np.uint8))
+    with pytest.raises(tv.NoFFmpegError, match="ffmpeg"):
+        tv.stitch_video(wide, tmp_path / "wide.mp4")
+    assert not (tmp_path / "wide.mp4").exists()
     assert tv.ffmpeg_stitch_cmd("ff", "p_%05d.png", "o.mp4", 30)[-1] == "o.mp4"
 
 

@@ -1,6 +1,6 @@
 """Package rules of the port, checked on the CPU: it imports neither jax,
-optax, omfs4d, cv2 nor PIL (the JPEG decoder, the bench and the soak, the
-clinical engine, its IO, the app and the meshkit loader included; the
+optax, omfs4d, cv2 nor PIL (the JPEG codec, the Motion JPEG containers and
+the video module, the bench and the soak, the clinical engine, its IO, the app and the meshkit loader included; the
 streamlit dashboard is read, not imported, since it exits without
 streamlit), and a CUDA tensor never falls back to a plain version:
 not the composite's, forward (K1) or backward (K2), not under the tracker's
@@ -55,9 +55,11 @@ PARALLEL_MODULES = ("omfs4d_torch.parallel", "omfs4d_torch.parallel.mesh",
                     "omfs4d_torch.parallel.collectives", "omfs4d_torch.parallel.shard",
                     "omfs4d_torch.parallel.sharded_trainer",
                     "omfs4d_torch.parallel.distributed")
-# the JPEG decoder, the bench and the soak, and the card's gate script
-MEASUREMENT_MODULES = ("omfs4d_torch.io.jpeg", "omfs4d_torch.scripts.bench",
-                       "omfs4d_torch.scripts.soak", "chip_smoke")
+# the JPEG codec and the Motion JPEG containers, the bench and the soak, and
+# the card's gate script
+MEASUREMENT_MODULES = ("omfs4d_torch.io.jpeg", "omfs4d_torch.io.mjpeg",
+                       "omfs4d_torch.scripts.bench", "omfs4d_torch.scripts.soak",
+                       "chip_smoke")
 # a streamlit script: it exits when streamlit is missing, so it is read, not imported
 DASHBOARD = "omfs4d_torch.app.dashboard"
 
@@ -107,6 +109,21 @@ def test_tracking_module_names_no_jax_package(module):
             roots.add(node.module.split(".")[0])
     assert not roots & {"jax", "jaxlib", "optax", "omfs4d", "cv2"}, roots
     assert "PIL" not in roots or module == "omfs4d_torch.io.dicom", roots
+
+
+def test_video_io_imports_neither_cv2_nor_pil():
+    """The video module and the Motion JPEG containers, imported alone in a
+    fresh process, bring in neither cv2 nor PIL (nor JAX): the card's
+    machine has none of them."""
+    code = (
+        "import sys\n"
+        "import omfs4d_torch.io.mjpeg, omfs4d_torch.io.video\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('cv2', 'PIL', 'jax', 'omfs4d'))\n"
+        "assert not bad, bad\n"
+    )
+    res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def small_inputs():

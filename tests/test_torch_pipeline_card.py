@@ -13,7 +13,7 @@ import torch
 
 from omfs4d_torch.core.config import Config
 from omfs4d_torch.io.synthetic import make_synthetic_dataset
-from omfs4d_torch.io.video import read_image
+from omfs4d_torch.io.video import probe_video, read_image
 from omfs4d_torch.pipeline import runner as trunner
 from omfs4d_torch.render import composite as tc
 from omfs4d_torch.train import trainer as tt
@@ -73,5 +73,6 @@ def test_train_render_and_report_run_on_the_card(cuda_device, tmp_path, monkeypa
     report = pipe.report(model_dir, tmp_path / "det")
     assert report["summary"]["count"] == n
     assert all(np.isfinite(r["psnr"]) for r in report["rows"])
-    if result["video"] is None:
-        assert "ffmpeg" in result["video_error"]
+    # H.264 where there is an ffmpeg binary, else Motion JPEG: a frame per render
+    assert result["video"] == str(tmp_path / "pred.mp4") and result["video_error"] is None
+    assert probe_video(tmp_path / "pred.mp4")["frame_count"] == n

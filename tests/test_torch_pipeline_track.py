@@ -176,9 +176,15 @@ def test_extract_frames_from_a_directory(tmp_path):
 
 
 def test_a_video_file_needs_ffmpeg_and_jpeg_is_refused(small_case, tmp_path, monkeypatch):
-    """A video file needs ffmpeg; a capture of JPEG frames does not: it is
-    probed, preprocessed (frames equal to cv2's decode) and tracked."""
+    """With no ffmpeg, a file that is no AVI or MP4 needs ffmpeg and says so;
+    a Motion JPEG file does not: the capture stitched to an AVI is probed and
+    extracted, each frame the decode of its JPEG in the file.  A capture of
+    JPEG frames is probed, preprocessed (frames equal to cv2's decode) and
+    tracked."""
     import shutil
+
+    from omfs4d_torch.io import mjpeg
+    from omfs4d_torch.io.jpeg import decode_jpeg
 
     monkeypatch.setattr(tvideo, "find_ffmpeg", lambda: None)
     (tmp_path / "clip.mp4").write_bytes(b"not a video")
@@ -192,6 +198,15 @@ def test_a_video_file_needs_ffmpeg_and_jpeg_is_refused(small_case, tmp_path, mon
         tvideo.extract_frames(tmp_path / "empty", tmp_path / "out")
 
     pngs = tmp_path / "frames" / "images"
+    avi = tvideo.stitch_video(pngs, tmp_path / "clip.avi", fps=25)
+    assert tvideo.probe_video(avi) == {"width": 32, "height": 32, "fps": 25.0,
+                                       "frame_count": 4}
+    extracted = tvideo.extract_frames(avi, tmp_path / "from_avi")
+    jpegs = mjpeg.frames(avi)
+    assert len(extracted) == len(jpegs) == 4
+    for p, data in zip(extracted, jpegs):
+        np.testing.assert_array_equal(tvideo.read_image(p), decode_jpeg(data))
+
     jpegs = tmp_path / "jpegs"
     jpegs.mkdir()
     for p in sorted(pngs.glob("*.png")):
