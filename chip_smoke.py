@@ -214,19 +214,25 @@ Phase L: the port's bench as a user runs it, in a process of its own:
   line does not count them.
 
 Phase M: the reference's user path from a video file to a prediction video,
-  with the video ladder's last rung (MJPG; any ffmpeg binary is taken as
-  absent, as on the card's machine, which has none).  Phase G's 8-frame 512^2
-  clip is stitched by the port's `stitch_video` to clip.avi at 25 fps (its
-  bytes must be `encode_jpeg`'s of each PNG) and probed (512 x 512, 8 frames,
-  25.0 fps); `cli preprocess --video clip.avi` extracts 8 frames, each equal
-  to `decode_jpeg` of its bytes in the container and within VIDEO_PSNR_FLOOR
-  of its source PNG; the clip's landmarks.npz goes beside them, as in phase I;
-  `cli run --video clip.avi --output pred.mp4 --lefort-mm 5 --bsso-mm 3` runs
-  with VIDEO_ITERS iterations and phase I's tracker steps; K1 and K2 are
-  counted per stage as in phase I; pred.mp4 is read back by the port, a frame
-  per render PNG, each within the floor of it.  Printed: host s/frame of
-  `encode_jpeg` and `decode_jpeg` at 512^2 and at 1920 x 1080, the stage
-  seconds, the launches and every PSNR.
+  with the port's own rungs of the video ladder (any ffmpeg binary is taken
+  as absent, as on the card's machine, which has none).  Phase G's 8-frame
+  512^2 clip is stitched by the port's `stitch_video` to clip.avi at 25 fps
+  (an .avi keeps MJPG: its bytes must be `encode_jpeg`'s of each PNG) and
+  probed (512 x 512, 8 frames, 25.0 fps); `cli preprocess --video clip.avi`
+  extracts 8 frames, each equal to `decode_jpeg` of its bytes in the
+  container and within VIDEO_PSNR_FLOOR of its source PNG; the clip's
+  landmarks.npz goes beside them, as in phase I; `cli run --video clip.avi
+  --output pred.mp4 --lefort-mm 5 --bsso-mm 3` runs with VIDEO_ITERS
+  iterations and phase I's tracker steps; K1 and K2 are counted per stage as
+  in phase I.  pred.mp4 is H.264 (the ladder's first rung, the port's
+  encoder): probed, its NAL units those of `encode_h264` of the render PNGs,
+  read back by the port bit-equal to that reconstruction, within
+  H264_PSNR_FLOOR of each PNG, and smaller than the MJPG (quality 95) MP4 of
+  the same frames, which `mjpeg.write` writes and which reads back within
+  VIDEO_PSNR_FLOOR.  Printed: host s/frame of `encode_jpeg` / `decode_jpeg`
+  and of `encode_h264` (IDR and P) and the H.264 reader at 512^2 and at
+  1920 x 1080, the stage seconds, the launches, bytes a frame of both codecs
+  and every PSNR.
 
     python3 chip_smoke.py --only-track
     python3 chip_smoke.py --only-nets
@@ -363,6 +369,10 @@ E2E_PSNR_FLOOR = 32.0
 # round trip 54.19; NVIDIA H100 80GB HBM3, 700 W)
 VIDEO_FPS, VIDEO_ITERS = 25, 300
 VIDEO_PSNR_FLOOR = 48.5
+# pred.mp4 in H.264 (QP 18, no deblocking) against the render PNGs: 3 dB under
+# the lowest measured, 46.338 dB (46.34-47.84 over the 8 frames; NVIDIA H100
+# 80GB HBM3, 700 W)
+H264_PSNR_FLOOR = 43.3
 # phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
 # the skull phantom's seed and noise, the crop held against the CPU path, the
 # share by which the raw mesh's enclosed volume may differ from the phantom's
@@ -2892,8 +2902,9 @@ def phase_l(card: str) -> dict:
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
-    MJPG rung (no ffmpeg); returns K1's and K2's launches over the phase."""
-    from omfs4d_torch.io import mjpeg
+    own rungs (no ffmpeg): MJPG in clip.avi, H.264 in pred.mp4; returns K1's
+    and K2's launches over the phase."""
+    from omfs4d_torch.io import container, h264, mjpeg
     from omfs4d_torch.io import video as tvideo
     from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
     from omfs4d_torch.pipeline import cli
@@ -2923,6 +2934,42 @@ def phase_m(model, device, card: str, work: Path) -> dict:
     check(min(codec_psnr) >= VIDEO_PSNR_FLOOR,
           f"encode_jpeg -> decode_jpeg within {VIDEO_PSNR_FLOOR} dB of the source: "
           f"{min(codec_psnr):.3f} dB at the worst")
+    # the H.264 encoder and reader at 1080p: an IDR of frame 0, a P of frame 1
+    hd_frames = [hd, tvideo.linear_resize(src[1], 1080, 1920)]
+    hd_enc = h264.H264Encoder(1920, 1080, VIDEO_FPS)
+    h264_hd_s, hd_units, hd_recon = [], [], []
+    for x in hd_frames:
+        t0 = time.perf_counter()
+        units, _, recon, _ = hd_enc.encode(x)
+        h264_hd_s.append(time.perf_counter() - t0)
+        hd_units.append(units)
+        hd_recon.append(recon)
+    hd_dec = h264.H264Decoder(hd_enc.sps, hd_enc.pps)
+    h264_hd_dec_s = []
+    for units, recon in zip(hd_units, hd_recon):
+        t0 = time.perf_counter()
+        got = hd_dec.decode(units)
+        h264_hd_dec_s.append(time.perf_counter() - t0)
+        check(all(np.array_equal(a, b) for a, b in zip(got, recon)),
+              "the H.264 reader gives encode_h264's 1080p reconstruction")
+    h264_hd_bytes = [sum(map(len, u)) for u in hd_units]
+
+    def zero_vectors(encode):
+        """(`encode()`, its seconds) with the encoder's motion search replaced
+        by the zero vector: what the search costs and what it saves."""
+        search = h264._search
+        h264._search = lambda cur, ref, rows, cols: np.zeros((rows * cols, 2), np.int64)
+        try:
+            t0 = time.perf_counter()
+            return encode(), time.perf_counter() - t0
+        finally:
+            h264._search = search
+
+    still_enc = h264.H264Encoder(1920, 1080, VIDEO_FPS)
+    still_enc.encode(hd_frames[0])
+    (still_hd_units, *_), still_hd_s = zero_vectors(lambda: still_enc.encode(hd_frames[1]))
+    still_hd_bytes = sum(map(len, still_hd_units))
+    h264_hd_psnr = [psnr_u8(h264.ycbcr_to_rgb(*r), x) for r, x in zip(hd_recon, hd_frames)]
 
     found = tvideo.find_ffmpeg()
     real_find = tvideo.find_ffmpeg
@@ -2987,18 +3034,47 @@ def phase_m(model, device, card: str, work: Path) -> dict:
               f"({pred['video_error']})")
         renders = sorted(Path(pred["renders_dir"]).glob("*.png"))
         out_info = tvideo.probe_video(pred_path)
-        out_frames = mjpeg.frames(pred_path)
-        check(out_frames.info["container"] == "mp4" and len(out_frames) == len(renders) == n_train
-              and out_info["frame_count"] == n_train
+        index = container.index(pred_path)[2]
+        check(index["codec"] == "h264" and index["container"] == "mp4"
+              and len(renders) == n_train and out_info["frame_count"] == n_train
               and (out_info["width"], out_info["height"]) == (SIZE, SIZE),
-              f"pred.mp4 reads back: {out_info}, {len(renders)} render PNGs")
+              f"pred.mp4 is H.264 and probes: {out_info}, {index['codec']}, {len(renders)} "
+              "render PNGs")
+        # the render PNGs through encode_h264: pred.mp4 holds its NAL units and
+        # reads back as its reconstruction, bit for bit
+        render_imgs = [tvideo.read_image(p) for p in renders]
         t0 = time.perf_counter()
-        out_psnr = [psnr_u8(decode_jpeg(d), tvideo.read_image(p))
-                    for d, p in zip(out_frames, renders)]
-        readback_s = time.perf_counter() - t0
-        check(min(out_psnr) >= VIDEO_PSNR_FLOOR,
-              f"pred.mp4's frames within {VIDEO_PSNR_FLOOR} dB of the render PNGs: "
+        stream = h264.encode_h264(render_imgs, out_info["fps"])
+        h264_s = (time.perf_counter() - t0) / n_train
+        still, still_s = zero_vectors(lambda: h264.encode_h264(render_imgs, out_info["fps"]))
+        still_s /= n_train
+        out_frames = h264.frames(pred_path)
+        check([out_frames.units(i) for i in range(n_train)] == stream.access_units,
+              "pred.mp4's samples are encode_h264's NAL units of the render PNGs")
+        t0 = time.perf_counter()
+        out_ycc = [out_frames.ycbcr(i) for i in range(n_train)]
+        readback_s = (time.perf_counter() - t0) / n_train
+        check(all(np.array_equal(a, b) for got, want in zip(out_ycc, stream.recon)
+                  for a, b in zip(got, want)),
+              "pred.mp4 reads back as encode_h264's reconstruction, bit for bit")
+        out_psnr = [psnr_u8(h264.ycbcr_to_rgb(*r), x) for r, x in zip(out_ycc, render_imgs)]
+        check(min(out_psnr) >= H264_PSNR_FLOOR,
+              f"pred.mp4's frames within {H264_PSNR_FLOOR} dB of the render PNGs: "
               f"{min(out_psnr):.3f} dB at the worst")
+        # the same frames as Motion JPEG in MP4, written and read back directly
+        mjpeg_path = mjpeg.write(work / "pred_mjpeg.mp4",
+                                 [encode_jpeg(x, tvideo.MJPEG_QUALITY) for x in render_imgs],
+                                 out_info["fps"], SIZE, SIZE)
+        mj_frames = mjpeg.frames(mjpeg_path)
+        check(mj_frames.info["container"] == "mp4" and len(mj_frames) == n_train,
+              f"pred_mjpeg.mp4 reads back: {len(mj_frames)} frames")
+        mj_psnr = [psnr_u8(decode_jpeg(d), x) for d, x in zip(mj_frames, render_imgs)]
+        check(min(mj_psnr) >= VIDEO_PSNR_FLOOR,
+              f"pred_mjpeg.mp4's frames within {VIDEO_PSNR_FLOOR} dB of the render PNGs: "
+              f"{min(mj_psnr):.3f} dB at the worst")
+        h264_bytes, mj_bytes = pred_path.stat().st_size, mjpeg_path.stat().st_size
+        check(h264_bytes < mj_bytes, f"pred.mp4 (H.264) {h264_bytes} bytes < the MJPG "
+                                     f"quality {tvideo.MJPEG_QUALITY} MP4's {mj_bytes}")
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -3010,12 +3086,33 @@ def phase_m(model, device, card: str, work: Path) -> dict:
     print(f"phase M: {N_FRAMES} frames at {SIZE}^2 stitched by the port to MJPG in clip.avi "
           f"({VIDEO_FPS} fps, JPEG quality {tvideo.MJPEG_QUALITY}, ffmpeg on PATH: "
           f"{found is not None}, taken as absent), then cli preprocess and cli run --video "
-          f"clip.avi --output pred.mp4, {VIDEO_ITERS} iterations, Le Fort {LEFORT_MM} / BSSO "
-          f"{BSSO_MM} mm, tracker steps {TRACK_STEPS} [{card}]")
+          f"clip.avi --output pred.mp4 (H.264), {VIDEO_ITERS} iterations, Le Fort {LEFORT_MM} "
+          f"/ BSSO {BSSO_MM} mm, tracker steps {TRACK_STEPS} [{card}]")
     print(f"  host s/frame: encode_jpeg {enc_s:.4f} and decode_jpeg {dec_s:.4f} at "
           f"{SIZE}x{SIZE}, {enc_hd_s:.4f} and {dec_hd_s:.4f} at 1920x1080 (frame 0 resized, "
           f"{len(hd_jpeg)} bytes); stitch_video {stitch_s / N_FRAMES:.4f} s/frame (PNG read "
-          f"included); pred.mp4 read back and decoded {readback_s / n_train:.4f} s/frame")
+          f"included)")
+    print(f"  H.264 host s/frame: encode_h264 {h264_s:.4f} at {SIZE}x{SIZE} (the {n_train} "
+          f"render PNGs, 1 IDR + {n_train - 1} P), the reader {readback_s:.4f} (pred.mp4); at "
+          f"1920x1080 encode IDR {h264_hd_s[0]:.4f} / P {h264_hd_s[1]:.4f}, read "
+          f"{h264_hd_dec_s[0]:.4f} / {h264_hd_dec_s[1]:.4f} (frames 0 and 1 resized, "
+          f"{h264_hd_bytes[0]} / {h264_hd_bytes[1]} bytes, PSNR "
+          f"{h264_hd_psnr[0]:.3f} / {h264_hd_psnr[1]:.3f} dB)")
+    print(f"  bytes a frame of the render PNGs: H.264 (QP {h264.H264_QP}, the pictures' QPs "
+          f"{sorted(set(stream.qp))}, level {stream.level / 10:.1f}) "
+          f"{h264_bytes / n_train:.1f} (file {h264_bytes}; IDR "
+          f"{sum(map(len, stream.access_units[0]))}, P "
+          + ", ".join(str(sum(map(len, au))) for au in stream.access_units[1:])
+          + f"), MJPG quality {tvideo.MJPEG_QUALITY} {mj_bytes / n_train:.1f} (file "
+          f"{mj_bytes}): {mj_bytes / h264_bytes:.2f}x")
+    p_bytes = [sum(map(len, au)) for au in stream.access_units[1:]]
+    still_p_bytes = [sum(map(len, au)) for au in still.access_units[1:]]
+    print(f"  the motion search against zero vectors (the same frames, encoder otherwise "
+          f"the same): encode_h264 {h264_s:.4f} vs {still_s:.4f} s/frame at {SIZE}x{SIZE}, "
+          f"P bytes {sum(p_bytes)} vs {sum(still_p_bytes)} ("
+          + ", ".join(str(b) for b in still_p_bytes) + f" with zero vectors); a 1080p P "
+          f"{h264_hd_s[1]:.4f} vs {still_hd_s:.4f} s, {h264_hd_bytes[1]} vs {still_hd_bytes} "
+          "bytes")
     print("  stage seconds (stage_timer): " + ", ".join(f"{k} {v:.3f}"
                                                         for k, v in stage_s.items())
           + f"; the phase's CLI calls {run_s:.3f} s (host clock)")
@@ -3023,8 +3120,10 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"loss {first['loss']:.5f} (iteration {min(steps)}) -> {last['loss']:.5f}")
     print(f"  PSNR (floor {VIDEO_PSNR_FLOOR} dB): codec round trip min "
           f"{min(codec_psnr):.3f} dB (1080p {codec_psnr[-1]:.3f}); extracted vs source PNGs "
-          + ", ".join(f"{v:.3f}" for v in in_psnr) + "; pred.mp4 vs render PNGs "
-          + ", ".join(f"{v:.3f}" for v in out_psnr) + f" (fps {out_info['fps']})")
+          + ", ".join(f"{v:.3f}" for v in in_psnr) + f"; pred.mp4 (H.264, floor "
+          f"{H264_PSNR_FLOOR} dB) vs render PNGs " + ", ".join(f"{v:.3f}" for v in out_psnr)
+          + "; pred_mjpeg.mp4 vs render PNGs " + ", ".join(f"{v:.3f}" for v in mj_psnr)
+          + f" (fps {out_info['fps']})")
     print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
     return {"fwd": fwd, "bwd": bwd}
 

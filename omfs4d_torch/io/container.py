@@ -1,0 +1,249 @@
+"""The containers of the port's video files, AVI and MP4, with the standard
+library: which codec a file holds and where its frames lie (`index`), and
+the file writing the port's two codecs share (`write_file`).  The codecs sit
+on top of it as siblings: Motion JPEG (`omfs4d_torch.io.mjpeg`) and H.264
+(`omfs4d_torch.io.h264`); the MP4 boxes are `omfs4d_torch.io.mp4`'s.
+
+- AVI (RIFF): the `hdrl` list's first video `strl` (`strh` of type `vids`,
+  a BITMAPINFOHEADER `strf` naming the codec), and its frames from the
+  `movi` lists, walked chunk by chunk (`idx1` is not trusted, only counted),
+  following the `RIFF AVIX` lists of an OpenDML file past 1 GB and skipping
+  `JUNK` and `ix##` chunks.  AVI is read as Motion JPEG only.
+- MP4 / QuickTime: the first video track (`mp4.read_track`).  Its codec is
+  Motion JPEG for an `mp4v` sample entry whose esds has objectTypeIndication
+  0x6C (as FFmpeg muxes MJPEG into `.mp4`) and for QuickTime's `jpeg` and
+  `mjpa`; H.264 for `avc1` / `avc3` with an `avcC` box.
+
+Any other codec (HEVC, MPEG-4 Part 2 `mp4v` with OTI 0x20, AVI's `H264` /
+`XVID` / `FMP4` / `DIVX`, ...) raises `UnsupportedCodecError` naming it:
+decoding it needs an ffmpeg binary.  So does a file that is neither
+container.  A frame whose bytes end early raises ValueError with its index,
+and a file holding fewer frames than its header declares raises too.
+"""
+
+from __future__ import annotations
+
+import mmap
+import struct
+from collections.abc import Callable
+from fractions import Fraction
+from pathlib import Path
+
+from omfs4d_torch.io import mp4
+
+
+class UnsupportedCodecError(RuntimeError):
+    """The video file holds a codec that the port cannot decode without an
+    ffmpeg binary, or it is no AVI or MP4 file at all."""
+
+
+def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
+    return UnsupportedCodecError(
+        f"{path}: {what}; the port reads only Motion JPEG (MJPG) in AVI or MP4 and its own "
+        "H.264 subset in MP4 by itself, decoding this needs an ffmpeg binary (on PATH or "
+        "from imageio_ffmpeg)")
+
+
+# AVI fourccs of Motion JPEG, and names of those that need another decoder
+_AVI_MJPEG = {b"MJPG", b"mjpg", b"AVRn", b"dmb1", b"jpeg", b"JPEG"}
+_AVI_NAMES = {b"H264": "H.264", b"h264": "H.264", b"X264": "H.264", b"avc1": "H.264",
+              b"XVID": "MPEG-4 Part 2 (Xvid)", b"FMP4": "MPEG-4 Part 2 (FFmpeg)",
+              b"DIVX": "MPEG-4 Part 2 (DivX)", b"DX50": "MPEG-4 Part 2 (DivX 5)",
+              b"MP4V": "MPEG-4 Part 2", b"HEVC": "H.265 / HEVC", b"H265": "H.265 / HEVC"}
+# MP4 sample entries of Motion JPEG and of H.264, and names of those that
+# need another decoder
+_MP4_MJPEG = {b"jpeg", b"mjpa"}
+_MP4_H264 = {b"avc1", b"avc3"}
+_MP4_NAMES = {b"hvc1": "H.265 / HEVC",
+              b"hev1": "H.265 / HEVC", b"av01": "AV1", b"vp09": "VP9", b"vp08": "VP8",
+              b"mjpb": "Motion JPEG format B", b"s263": "H.263", b"apcn": "ProRes"}
+# objectTypeIndication of an `mp4v` entry's esds (ISO/IEC 14496-1, Table 5)
+OTI_JPEG = 0x6C
+_OTI_NAMES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
+              0x61: "MPEG-2 video", 0x62: "MPEG-2 video", 0x63: "MPEG-2 video",
+              0x64: "MPEG-2 video", 0x65: "MPEG-2 video", 0x6A: "MPEG-1 video",
+              0x6E: "JPEG 2000"}
+
+
+# ── AVI ─────────────────────────────────────────────────────────────────
+
+def _avi_chunks(buf, start: int, end: int):
+    """(fourcc, data start, data size, list type or None) of each chunk
+    between start and end; a chunk's size may run past the end of the file."""
+    pos = start
+    while pos + 8 <= end:
+        fcc = bytes(buf[pos:pos + 4])
+        (size,) = struct.unpack_from("<I", buf, pos + 4)
+        if fcc in (b"RIFF", b"LIST"):
+            yield fcc, pos + 12, size - 4, bytes(buf[pos + 8:pos + 12])
+        else:
+            yield fcc, pos + 8, size, None
+        pos += 8 + size + (size & 1)
+
+
+def _read_avi(buf, path: Path):
+    file_end = len(buf)
+    stream, video = 0, None
+    declared = idx1_frames = 0
+    offsets, sizes = [], []
+    ids: tuple[bytes, bytes] = (b"00dc", b"00db")
+
+    def walk_movi(start, end):
+        for fcc, pos, size, kind in _avi_chunks(buf, start, end):
+            if kind is not None:                     # LIST 'rec ' groups
+                walk_movi(pos, min(pos + size, end))
+            elif fcc in ids:
+                if pos + size > file_end:
+                    raise ValueError(f"{path}: frame {len(offsets)} is cut short: "
+                                     f"{max(file_end - pos, 0)} of its {size} bytes are in "
+                                     "the file")
+                offsets.append(pos)
+                sizes.append(size)
+
+    for fcc, pos, size, kind in _avi_chunks(buf, 0, file_end):
+        if fcc != b"RIFF" or kind not in (b"AVI ", b"AVIX"):
+            break
+        for cfcc, cpos, csize, ckind in _avi_chunks(buf, pos, min(pos + size, file_end)):
+            if ckind == b"hdrl":
+                for n, (_, spos, ssize, _) in enumerate(
+                        c for c in _avi_chunks(buf, cpos, cpos + csize) if c[3] == b"strl"):
+                    strl = {f: (p, s) for f, p, s, _ in _avi_chunks(buf, spos, spos + ssize)}
+                    if b"strh" not in strl or b"strf" not in strl:
+                        continue
+                    hp, _ = strl[b"strh"]
+                    if bytes(buf[hp:hp + 4]) != b"vids" or video is not None:
+                        continue
+                    scale, rate = struct.unpack_from("<II", buf, hp + 20)
+                    (declared,) = struct.unpack_from("<I", buf, hp + 32)
+                    fp, _ = strl[b"strf"]
+                    width, height = struct.unpack_from("<ii", buf, fp + 4)
+                    compression = bytes(buf[fp + 16:fp + 20])
+                    stream = n
+                    video = (compression, width, abs(height), rate / scale if scale else 0.0)
+                    ids = (b"%02ddc" % n, b"%02ddb" % n)
+            elif ckind == b"movi":
+                walk_movi(cpos, min(cpos + csize, file_end))
+            elif cfcc == b"idx1":
+                entries = min(csize, file_end - cpos) // 16
+                idx1_frames = sum(bytes(buf[cpos + 16 * k:cpos + 16 * k + 4]) in ids
+                                  for k in range(entries))
+    if video is None:
+        raise ValueError(f"{path}: an AVI file with no video stream")
+    compression, width, height, fps = video
+    if compression not in _AVI_MJPEG:
+        name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
+        raise _needs_ffmpeg(path, f"its video is {name} (AVI fourcc "
+                                  f"{compression.decode('latin-1')!r})")
+    found = len(offsets)
+    if max(declared, idx1_frames) > found:
+        raise ValueError(f"{path}: the file holds {found} frames of stream {stream}, its "
+                         f"header declares {declared} and its index {idx1_frames}: it is "
+                         "cut short")
+    return offsets, sizes, {"width": width, "height": height, "fps": fps,
+                            "frame_count": found, "container": "avi", "codec": "mjpeg"}
+
+
+# ── MP4 ─────────────────────────────────────────────────────────────────
+
+def _descriptor(buf, pos):
+    """(tag, body start, body end) of the MPEG-4 descriptor at pos."""
+    tag, size, pos = buf[pos], 0, pos + 1
+    for _ in range(4):
+        b = buf[pos]
+        pos += 1
+        size = size << 7 | (b & 0x7F)
+        if not b & 0x80:
+            break
+    return tag, pos, pos + size
+
+
+def _esds_oti(buf, body, end) -> int | None:
+    """objectTypeIndication of an esds box's DecoderConfigDescriptor."""
+    tag, pos, _ = _descriptor(buf, body + 4)
+    if tag != 0x03:
+        return None
+    flags = buf[pos + 2]
+    pos += 3 + (2 if flags & 0x80 else 0) + (1 + buf[pos + 3] if flags & 0x40 else 0) \
+        + (2 if flags & 0x20 else 0)
+    tag, pos, _ = _descriptor(buf, pos)
+    return buf[pos] if tag == 0x04 else None
+
+
+def _read_mp4(buf, path: Path):
+    offsets, sizes, info, (kind, ebody, eend) = mp4.read_track(buf, path)
+    children = ebody + mp4.VISUAL_ENTRY_HEAD
+    info["codec"] = "mjpeg"
+    if kind == b"mp4v":
+        esds = mp4.child(buf, children, eend, b"esds")
+        oti = _esds_oti(buf, *esds) if esds else None
+        if oti != OTI_JPEG:
+            name = _OTI_NAMES.get(oti, "an unknown codec")
+            raise _needs_ffmpeg(path, f"its video is {name} (sample entry 'mp4v', "
+                                      f"objectTypeIndication {oti if oti is None else hex(oti)})")
+    elif kind in _MP4_H264:
+        avcc = mp4.child(buf, children, eend, b"avcC")
+        if avcc is None:
+            raise _needs_ffmpeg(path, f"its video is H.264 with no avcC box (sample entry "
+                                      f"{kind.decode('latin-1')!r})")
+        info["codec"], info["avcC"] = "h264", bytes(buf[avcc[0]:avcc[1]])
+    elif kind not in _MP4_MJPEG:
+        name = _MP4_NAMES.get(kind, "an unknown codec")
+        raise _needs_ffmpeg(path, f"its video is {name} (sample entry "
+                                  f"{kind.decode('latin-1')!r})")
+    return offsets, sizes, info
+
+
+# ── the API ─────────────────────────────────────────────────────────────
+
+def index(path) -> tuple[list[int], list[int], dict]:
+    """(sample offsets, sample sizes, info) of the video track of an AVI or
+    MP4 file: info holds width, height (the container's), fps (0.0 where the
+    container gives none), frame_count, container ("avi" or "mp4") and
+    codec: "mjpeg", or "h264" for an MP4 `avc1` / `avc3` track, then with its
+    `avcC` box's body and `sync`, the indices of its sync samples (None:
+    every sample).  Any other codec raises `UnsupportedCodecError` naming
+    it."""
+    p = Path(path)
+    if not p.is_file():
+        raise FileNotFoundError(f"no video file at {path}")
+    with open(p, "rb") as f:
+        head = f.read(12)
+        if len(head) < 12:
+            raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 file (too short)")
+        with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as buf:
+            try:
+                if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
+                    return _read_avi(buf, p)
+                if head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip"):
+                    return _read_mp4(buf, p)
+            except (struct.error, IndexError, TypeError) as e:
+                raise ValueError(f"{p}: a corrupt or cut-short container ({e})") from e
+    raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 / QuickTime file")
+
+
+def write_file(path, fps: float, width: int, height: int,
+               fill: Callable[..., int]) -> Path:
+    """Create a video file at `path` and let `fill(file, rate)` write it, the
+    rate being fps as a Fraction; returns the path.  The file is removed when
+    `fill` raises or writes no frame (it returns their number)."""
+    p = Path(path)
+    rate = Fraction(fps).limit_denominator(1001) if fps > 0 else 0
+    if rate <= 0:
+        raise ValueError(f"write: fps {fps}; expected > 0")
+    if not (0 < width < 65536 and 0 < height < 65536):
+        raise ValueError(f"write: a {width} x {height} frame; sides of 1 to 65,535")
+    p.parent.mkdir(parents=True, exist_ok=True)
+    try:
+        with open(p, "w+b") as f:
+            n = fill(f, rate)
+        if n == 0:
+            raise ValueError(f"write: no frames for {p}")
+    except BaseException:
+        p.unlink(missing_ok=True)
+        raise
+    return p
+
+
+def container_of(path) -> str:
+    """"avi" for a `.avi` suffix, else "mp4": the container a writer picks."""
+    return "avi" if Path(path).suffix.lower() == ".avi" else "mp4"

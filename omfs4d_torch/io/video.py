@@ -15,12 +15,20 @@ the capture (`capture_frames`), or a video file.
 Video files follow the reference's ladder as far as the port can climb it.
 With an ffmpeg binary (`find_ffmpeg`) a file is decoded by ffmpeg and
 `stitch_video` encodes H.264 (libx264 yuv420p CRF 18, the reference's encode
-contract).  With none, the ladder's last rung: Motion JPEG in an AVI or MP4
-file is read by `omfs4d_torch.io.mjpeg` and `decode_jpeg`, and
-`stitch_video` writes one (every frame a baseline JPEG of quality 95 from
-`encode_jpeg`, the container by the output's suffix).  The rungs above it,
-cv2's `avc1` (H.264) and `mp4v` (MPEG-4 Part 2), have no encoder or decoder
-in the port: such a file raises `mjpeg.UnsupportedCodecError` naming the codec.
+contract).  With none, the port's own codecs:
+- `stitch_video` writes the ladder's first rung, H.264 (`avc1`) in MP4, from
+  `omfs4d_torch.io.h264` (Constrained Baseline, QP `h264.H264_QP` = 18, the
+  contract's CRF), for any suffix but `.avi`; an `.avi` gets the last rung,
+  Motion JPEG (every frame a baseline JPEG of quality 95 from `encode_jpeg`),
+  so that the port's own AVI captures stay readable where there is no
+  ffmpeg; so do frames H.264 cannot hold (an odd side, beyond level 5.2).
+- `probe_video` / `extract_frames` index the file once
+  (`omfs4d_torch.io.container`) and read it with its codec's module: Motion
+  JPEG in AVI or MP4 (`mjpeg.MJPEGFrames`, `decode_jpeg`) or the H.264
+  subset the port writes in MP4 (`h264.H264Frames`).  cv2's `mp4v` (MPEG-4
+  Part 2), H.264 outside the subset (High profile, CABAC, ...) and other
+  codecs raise `container.UnsupportedCodecError` naming the codec or
+  feature.
 """
 
 from __future__ import annotations
@@ -34,7 +42,7 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import mjpeg
+from omfs4d_torch.io import container, h264, mjpeg
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
 
 log = get_logger("video")
@@ -49,8 +57,9 @@ _COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
 
 
 class NoFFmpegError(RuntimeError):
-    """No ffmpeg binary was found and the MJPG rung cannot hold the frames
-    (a side over JPEG's 65,535 pixels): nothing can be written."""
+    """No ffmpeg binary was found and neither of the port's rungs can hold the
+    frames (a side over JPEG's 65,535 pixels and beyond H.264's levels):
+    nothing can be written."""
 
 
 def _chunk(tag: bytes, data: bytes) -> bytes:
@@ -235,8 +244,9 @@ def _decode_with_ffmpeg(video_path: Path, out_dir: Path, ffmpeg_bin: str) -> lis
 def probe_video(path: str | Path) -> dict:
     """Width, height, fps and frame count of a capture: a directory of PNG or
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
-    read through ffmpeg when there is a binary and as Motion JPEG in AVI or
-    MP4 when there is none (`mjpeg.UnsupportedCodecError` for another codec)."""
+    read through ffmpeg when there is a binary and, when there is none, as
+    Motion JPEG in AVI or MP4 or the port's H.264 subset in MP4, with no
+    decode (`container.UnsupportedCodecError` for another codec)."""
     import re
 
     p = Path(path)
@@ -248,7 +258,7 @@ def probe_video(path: str | Path) -> dict:
         raise FileNotFoundError(f"no capture at {path}")
     ffmpeg_bin = find_ffmpeg()
     if ffmpeg_bin is None:
-        return mjpeg.probe(p)
+        return _own_reader(p).probe()
     # ffmpeg with no output file prints the stream description and exits non-zero
     text = subprocess.run([ffmpeg_bin, "-hide_banner", "-i", str(p)], capture_output=True,
                           text=True).stderr
@@ -272,17 +282,17 @@ def extract_frames(
     stride: int = 1,
 ) -> list[Path]:
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
-    through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4)
-    into numbered PNG frames (RGB), every `stride`-th one, at most
-    `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.
-    A Motion JPEG file's frames are decoded only where they are kept."""
+    through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4 or
+    the port's H.264 subset in MP4) into numbered PNG frames (RGB), every
+    `stride`-th one, at most `max_frames`, shrunk by area averaging so that
+    min(H, W) ~ target_size.  A Motion JPEG file's frames are decoded only
+    where they are kept; an H.264 file's in order up to the last one kept."""
     import tempfile
 
     src = Path(video_path)
     out = Path(output_dir)
     out.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="decode_") as tmp:
-        load = read_image
         if src.is_dir():
             frames = capture_frames(src)
         elif not src.is_file():
@@ -290,14 +300,11 @@ def extract_frames(
         elif (ffmpeg_bin := find_ffmpeg()) is not None:
             frames = _decode_with_ffmpeg(src, Path(tmp), ffmpeg_bin)
         else:
-            frames = mjpeg.frames(src)
-
-            def load(data: bytes) -> np.ndarray:
-                img = decode_jpeg(data)
-                return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img
+            frames = _own_reader(src)
+        files = isinstance(frames, list)                # of PNG / JPEG paths
         paths = []
         for i in range(0, len(frames), max(stride, 1)):
-            frame = load(frames[i])
+            frame = read_image(frames[i]) if files else frames.rgb(i)
             if target_size > 0:
                 h, w = frame.shape[:2]
                 scale = target_size / min(h, w)
@@ -309,6 +316,14 @@ def extract_frames(
             if max_frames and len(paths) >= max_frames:
                 break
     return paths
+
+
+def _own_reader(path: Path) -> h264.H264Frames | mjpeg.MJPEGFrames:
+    """A video file's frames through the port's own readers, with no ffmpeg:
+    the file is indexed once and read by its codec's module."""
+    offsets, sizes, info = container.index(path)
+    reader = h264.H264Frames if info["codec"] == "h264" else mjpeg.MJPEGFrames
+    return reader(path, offsets, sizes, info)
 
 
 def find_ffmpeg() -> str | None:
@@ -342,11 +357,13 @@ def ffmpeg_stitch_cmd(ffmpeg_bin: str, pattern: str, output_path: str,
 def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30) -> Path:
     """Stitch sorted PNG frames into a video, down the reference's ladder.
     With an ffmpeg binary: H.264 (libx264 yuv420p CRF 18); RuntimeError when
-    ffmpeg fails.  With none: the last rung, MJPG (each frame a baseline JPEG
-    of quality `MJPEG_QUALITY`, a frame of another size first resized to the
-    first frame's), in an AVI file for a `.avi` suffix and an MP4 file for
-    any other.  Raises `NoFFmpegError` (a RuntimeError) only where nothing
-    can be written: no ffmpeg and frames too large for JPEG."""
+    ffmpeg fails.  With none: H.264 (`avc1`) in MP4 from the port's own
+    encoder, the ladder's first rung, for any suffix but `.avi`; MJPG (each
+    frame a baseline JPEG of quality `MJPEG_QUALITY`), the last rung, in an
+    AVI file for a `.avi` suffix, and in an MP4 file where H.264 cannot hold
+    the frames.  A frame of another size is first resized to the first
+    frame's.  Raises `NoFFmpegError` (a RuntimeError) only where nothing can
+    be written: no ffmpeg and frames too large for either rung."""
     import tempfile
 
     frames = sorted(Path(frames_dir).glob("*.png"))
@@ -355,7 +372,7 @@ def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30)
     out_path = Path(output_path)
     ffmpeg_bin = find_ffmpeg()
     if ffmpeg_bin is None:
-        return _stitch_mjpeg(frames, out_path, fps)
+        return _stitch_own(frames, out_path, fps)
     out_path.parent.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(prefix="stitch_") as tmp:
         for i, src in enumerate(frames):
@@ -368,24 +385,33 @@ def stitch_video(frames_dir: str | Path, output_path: str | Path, fps: int = 30)
     return out_path
 
 
-def _stitch_mjpeg(frames: list[Path], out_path: Path, fps: float) -> Path:
-    """The ladder's last rung: the frames as Motion JPEG, the container by
-    the output's suffix."""
+def _stitch_own(frames: list[Path], out_path: Path, fps: float) -> Path:
+    """The frames through the port's own encoders, with no ffmpeg: H.264 in
+    MP4, or MJPG for an `.avi` and where H.264 cannot hold the frames."""
     h, w = read_image(frames[0]).shape[:2]
-    if max(h, w) > 65535:
-        raise NoFFmpegError(
-            f"stitch_video: no ffmpeg binary on PATH or from imageio_ffmpeg, and the MJPG "
-            f"rung cannot hold {w} x {h} frames (JPEG's sides end at 65,535); the frames "
-            f"are in {frames[0].parent}")
-    log.info(f"stitch_video: no ffmpeg binary, so no H.264; avc1 and mp4v have no encoder "
-             f"in the port: writing MJPG (JPEG quality {MJPEG_QUALITY}) into "
-             f"{mjpeg.container_of(out_path).upper()} {out_path}")
 
-    def jpegs():
+    def images():
         for p in frames:
             img = read_image(p)
-            if img.shape[:2] != (h, w):
-                img = linear_resize(img, h, w)
-            yield encode_jpeg(img, MJPEG_QUALITY)
+            yield img if img.shape[:2] == (h, w) else linear_resize(img, h, w)
 
-    return mjpeg.write(out_path, jpegs(), fps, w, h)
+    if container.container_of(out_path) == "avi":
+        why = "the .avi container keeps MJPG, the port's own AVI rung"
+    else:
+        why = h264.unsupported_size(w, h, fps)
+        if why is None:
+            log.info(f"stitch_video: no ffmpeg binary: writing H.264 (avc1, the ladder's first "
+                     f"rung; the port's Constrained Baseline encoder, QP {h264.H264_QP}) into "
+                     f"MP4 {out_path}")
+            return h264.write(out_path, images(), fps, w, h)
+        why = f"H.264 cannot hold the frames: {why}"
+    if max(h, w) > 65535:
+        raise NoFFmpegError(
+            f"stitch_video: no ffmpeg binary on PATH or from imageio_ffmpeg; {why}, and the "
+            f"MJPG rung cannot hold {w} x {h} frames (JPEG's sides end at 65,535); the "
+            f"frames are in {frames[0].parent}")
+    log.info(f"stitch_video: no ffmpeg binary, and {why}: writing MJPG (the ladder's last "
+             f"rung, JPEG quality {MJPEG_QUALITY}) into "
+             f"{container.container_of(out_path).upper()} {out_path}")
+    return mjpeg.write(out_path, (encode_jpeg(img, MJPEG_QUALITY) for img in images()),
+                       fps, w, h)

@@ -5,8 +5,8 @@ Port of `omfs4d.predict.render_video`:
   * picks the highest `point_cloud/iteration_*` unless pinned;
   * clears stale renders, writes `train/ours_N/renders/*.png` (+ gt/);
   * optional deterministic frame export; stitches the video down the
-    reference's ladder: H.264 with an ffmpeg binary, else Motion JPEG in the
-    container the output's suffix names (`io.video.stitch_video`).
+    reference's ladder: H.264 through ffmpeg, else the port's own H.264
+    encoder, Motion JPEG for a `.avi` output (`io.video.stitch_video`).
 
 Runs eagerly on the device of the FLAME model: one batched FLAME forward
 for all frames, then one frame at a time through bind -> colours ->
@@ -212,9 +212,10 @@ def render_prediction(
     the CUDA card unless the caller asks for the CPU, and raises when there
     is no card.
 
-    With no ffmpeg binary the video is Motion JPEG (AVI for a `.avi` output,
-    else MP4); `"video"` is its path and `"video_error"` None.  Only where
-    nothing can be written (no ffmpeg and frames too large for JPEG) is
+    With no ffmpeg binary the video is the port's own H.264 in MP4 (Motion
+    JPEG AVI for a `.avi` output); `"video"` is its path and `"video_error"`
+    None.  Only where nothing can be written (no ffmpeg and frames too large
+    for JPEG and H.264) is
     `"video"` None, the rendered PNG frames the product and the reason under
     `"video_error"`.  An ffmpeg that is found and fails raises."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():

@@ -10,8 +10,8 @@ plus the card's name and power limit.
 Quick CPU smoke: --size 64 --frames 4 --iters 120 --cpu
 
 The synthetic case's frames are stitched to `input.mp4` (`stitch_video`: H.264
-with an ffmpeg binary, Motion JPEG with none) and that video is the capture
-handed to `Pipeline.preprocess`, as the reference's script does, with no
+through ffmpeg, or the port's own H.264 encoder with none) and that video is
+the capture handed to `Pipeline.preprocess`, as the reference's script does, with no
 landmark file beside the extracted frames, so the `auto` source trains the
 landmark net.
 The result is written to `--out` (default `<workdir>/E2E_TIMING.json`) and

@@ -22,6 +22,7 @@ import torch
 
 from omfs4d.core.config import config_from_args as j_config_from_args
 from omfs4d_torch.core.config import Config, config_from_args
+from omfs4d_torch.io import container
 from omfs4d_torch.io import video as tvideo
 from omfs4d_torch.io.synthetic import animated_flame_params, textured_gt_avatar
 from omfs4d_torch.models import assets as tassets
@@ -275,10 +276,11 @@ def test_cli_run_on_a_frame_directory_with_no_ffmpeg(ran):
     scores = json.loads((model / "eval_strict" / "reports" / "strict_scores.json").read_text())
     assert len(scores["rows"]) == len(manifest["exports"]) == N - N // 10
     assert all(np.isfinite(r["psnr"]) for r in scores["rows"])
-    # no ffmpeg: the product is a Motion JPEG MP4, a frame per render
+    # no ffmpeg: the product is an H.264 MP4 (the port's encoder), a frame per render
     assert len(list((model / "train" / "ours_30" / "renders").glob("*.png"))) == N - N // 10
     assert tvideo.probe_video(ran["root"] / "pred.mp4") == {
         "width": S, "height": S, "fps": 30.0, "frame_count": N - N // 10}
+    assert container.index(ran["root"] / "pred.mp4")[2]["codec"] == "h264"
 
 
 def test_cli_report_needs_no_device(ran, tmp_path, monkeypatch):

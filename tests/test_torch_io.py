@@ -63,18 +63,25 @@ def test_write_image_float_conversion_matches_jax(tmp_path):
 
 
 def test_stitch_video_without_ffmpeg_raises(tmp_path, monkeypatch):
-    """With no ffmpeg the frames go down the ladder's last rung, Motion JPEG
-    in the container the suffix names; `NoFFmpegError` where nothing can be
-    written: a frame wider than JPEG's 65,535 pixels."""
-    from omfs4d_torch.io import mjpeg
+    """With no ffmpeg an `.mp4` gets the ladder's first rung, H.264 (`avc1`),
+    and an `.avi` its last, Motion JPEG, as does a frame with an odd side,
+    which H.264 cannot hold; `NoFFmpegError` where nothing can be written: a
+    frame wider than JPEG's 65,535 pixels."""
+    from omfs4d_torch.io import container
 
     frames = tmp_path / "frames"
     tv.write_image(frames / "00000.png", np.zeros((4, 4, 3), np.uint8))
+    odd = tmp_path / "odd"
+    tv.write_image(odd / "00000.png", np.zeros((5, 4, 3), np.uint8))
     monkeypatch.setattr(tv, "find_ffmpeg", lambda: None)
-    for name in ("out.mp4", "out.avi"):
-        out = tv.stitch_video(frames, tmp_path / name)
-        assert out == tmp_path / name and mjpeg.frames(out).info["container"] == name[-3:]
-        assert tv.probe_video(out) == {"width": 4, "height": 4, "fps": 30.0,
+    for src, name, codec, size in ((frames, "out.mp4", "h264", (4, 4)),
+                                   (frames, "out.avi", "mjpeg", (4, 4)),
+                                   (odd, "odd.mp4", "mjpeg", (4, 5))):
+        out = tv.stitch_video(src, tmp_path / name)
+        info = container.index(out)[2]
+        assert out == tmp_path / name and (info["container"], info["codec"]) == (name[-3:],
+                                                                                  codec)
+        assert tv.probe_video(out) == {"width": size[0], "height": size[1], "fps": 30.0,
                                        "frame_count": 1}
     wide = tmp_path / "wide"
     tv.write_image(wide / "00000.png", np.zeros((1, 65536, 3), np.uint8))

@@ -16,7 +16,7 @@ import pytest
 from PIL import Image
 
 from omfs4d.io import video as jvideo
-from omfs4d_torch.io import mjpeg
+from omfs4d_torch.io import container, mjpeg
 from omfs4d_torch.io import video as tvideo
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg, standard_dht
 
@@ -117,13 +117,14 @@ def test_quantization_is_libjpeg_turbos_reciprocal():
 
 @pytest.mark.parametrize("suffix", ["avi", "mp4"])
 def test_port_video_reads_in_the_jax_package(tmp_path, suffix):
-    """The port's stitch of the fixture clip: the JAX package (cv2) probes
-    the same size, fps and frame count and extracts as many frames of the
-    same size, each within a mean of JAX_READ_MEAN_TOL grey levels of the
-    port's own read."""
+    """The port's stitch of the fixture clip (Motion JPEG in the AVI, H.264
+    in the MP4): the JAX package (cv2) probes the same size, fps and frame
+    count and extracts as many frames of the same size, each within a mean of
+    JAX_READ_MEAN_TOL grey levels of the port's own read."""
     fixture_clip(tmp_path / "src")
     out = tvideo.stitch_video(tmp_path / "src", tmp_path / f"clip.{suffix}", fps=10)
-    assert mjpeg.frames(out).info["container"] == suffix
+    info = container.index(out)[2]
+    assert (info["container"], info["codec"]) == (suffix, {"avi": "mjpeg", "mp4": "h264"}[suffix])
     info = tvideo.probe_video(out)
     assert info == jvideo.probe_video(out) == {"width": 128, "height": 96, "fps": 10.0,
                                                "frame_count": 12}
@@ -177,17 +178,24 @@ def patched(data: bytes, old: bytes, new: bytes) -> bytes:
     return data.replace(old, new)
 
 
-@pytest.mark.parametrize("case", ["mp4v", "xvid_avi", "avc1", "no_container"])
+@pytest.mark.parametrize("case", ["mp4v", "xvid_avi", "avc1", "avc1_no_avcc", "no_container"])
 def test_other_codecs_need_ffmpeg(tmp_path, case):
-    """MPEG-4 Part 2 (cv2's mp4v rung, and Xvid in AVI), H.264 and a file
-    that is no container raise a RuntimeError naming the codec and ffmpeg,
-    from probe_video and extract_frames both."""
+    """MPEG-4 Part 2 (cv2's mp4v rung, OTI 0x20, and Xvid in AVI), H.264
+    outside the port's subset (a High-profile track with CABAC; an avc1
+    sample entry with no avcC box) and a file that is no container raise a
+    RuntimeError naming the codec and ffmpeg, from probe_video and
+    extract_frames both."""
+    from tests.test_torch_h264 import avc1_file, cabac_pps, high_profile_sps
+
     img = smooth_image(32, 48, 3)
     if case == "no_container":
         path, name = tmp_path / "clip.mp4", "neither an AVI nor an MP4"
         path.write_bytes(b"\x00" * 64)
+    elif case == "avc1":
+        path, name = tmp_path / "clip.mp4", "H.264 High profile (CABAC)"
+        avc1_file(path, high_profile_sps(), cabac_pps())
     else:
-        fourcc, suffix = {"mp4v": ("mp4v", "mp4"), "avc1": ("mp4v", "mp4"),
+        fourcc, suffix = {"mp4v": ("mp4v", "mp4"), "avc1_no_avcc": ("mp4v", "mp4"),
                           "xvid_avi": ("XVID", "avi")}[case]
         path = tmp_path / f"clip.{suffix}"
         writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 25.0, (48, 32))
@@ -196,13 +204,13 @@ def test_other_codecs_need_ffmpeg(tmp_path, case):
             writer.write(img)
         writer.release()
         name = {"mp4v": "MPEG-4 Part 2", "xvid_avi": "MPEG-4 Part 2",
-                "avc1": "H.264"}[case]
-        if case == "avc1":       # the sample entry of an H.264 track
+                "avc1_no_avcc": "H.264"}[case]
+        if case == "avc1_no_avcc":       # the sample entry of an H.264 track
             path.write_bytes(patched(path.read_bytes(), b"mp4v", b"avc1"))
     for fn in (tvideo.probe_video, lambda p: tvideo.extract_frames(p, tmp_path / "out")):
         with pytest.raises(RuntimeError, match="ffmpeg") as err:
             fn(path)
-        assert name in str(err.value) and isinstance(err.value, mjpeg.UnsupportedCodecError)
+        assert name in str(err.value) and isinstance(err.value, container.UnsupportedCodecError)
 
 
 # ── cut short, OpenDML, frames with no Huffman tables ────────

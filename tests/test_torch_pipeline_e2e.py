@@ -211,11 +211,13 @@ def test_full_pipeline_e2e(trained, tmp_path):
     assert result["iteration"] == ITERS and abs(result["lefort_offset"] - 0.005) < 1e-9
     renders = sorted(Path(result["renders_dir"]).glob("*.png"))
     assert len(renders) == N_FRAMES - N_FRAMES // 10
-    # no ffmpeg: the prediction is a Motion JPEG MP4 that the JAX package
-    # reads through cv2, a frame per render
+    # no ffmpeg: the prediction is an H.264 (avc1) MP4 from the port's own
+    # encoder, which the JAX package reads through cv2, a frame per render
     from omfs4d.io.video import probe_video as j_probe_video
+    from omfs4d_torch.io import container
 
     assert result["video"] == str(tmp_path / "pred.mp4") and result["video_error"] is None
+    assert container.index(result["video"])[2]["codec"] == "h264"
     assert j_probe_video(result["video"]) == {"width": S, "height": S, "fps": 30.0,
                                               "frame_count": len(renders)}
     assert read_image(renders[0]).std() > 0

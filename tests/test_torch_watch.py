@@ -90,7 +90,7 @@ def test_continue_when_track_finishes(tmp_path, monkeypatch):
                                        tmp_path / "pred.mp4", 5.0, 3.0, timeout=5.0,
                                        device="cpu")
     assert out is not None
-    # no ffmpeg: the prediction is a Motion JPEG MP4, a frame per render
+    # no ffmpeg: the prediction is an H.264 MP4 (the port's encoder), a frame per render
     assert out["render"]["video"] == str(tmp_path / "pred.mp4") and out["render"]["iteration"] == 20
     assert out["render"]["video_error"] is None
     assert tvideo.probe_video(tmp_path / "pred.mp4")["frame_count"] == 11
