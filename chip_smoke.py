@@ -229,10 +229,16 @@ Phase M: the reference's user path from a video file to a prediction video,
   read back by the port bit-equal to that reconstruction, within
   H264_PSNR_FLOOR of each PNG, and smaller than the MJPG (quality 95) MP4 of
   the same frames, which `mjpeg.write` writes and which reads back within
-  VIDEO_PSNR_FLOOR.  Printed: host s/frame of `encode_jpeg` / `decode_jpeg`
-  and of `encode_h264` (IDR and P) and the H.264 reader at 512^2 and at
-  1920 x 1080, the stage seconds, the launches, bytes a frame of both codecs
-  and every PSNR.
+  VIDEO_PSNR_FLOOR.  Then the host H.264 decoder (g++-built C++): every
+  stream of tests/data/h264/ decodes to its manifest's SHA-256s, `cli
+  preprocess --video clip.mov` (a phone's portrait capture: 1080p High
+  profile, CABAC, a 90-degree display matrix, a sound track) gives its six
+  frames turned upright at target_size 512, each the port's own read of the
+  file shrunk.  Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
+  `encode_h264` (IDR and P) and the H.264 readers at 512^2 and at 1920 x
+  1080 (the host decoder and the plain Python reader on encode_h264's 1080p
+  IDR and P, the host decoder on clip.mov's), the stage seconds, the
+  launches, bytes a frame of both codecs and every PSNR.
 
     python3 chip_smoke.py --only-track
     python3 chip_smoke.py --only-nets
@@ -281,6 +287,7 @@ copy mode, none for the others).  The last line is
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import importlib.util
 import json
 import os
@@ -373,6 +380,8 @@ VIDEO_PSNR_FLOOR = 48.5
 # the lowest measured, 46.338 dB (46.34-47.84 over the 8 frames; NVIDIA H100
 # 80GB HBM3, 700 W)
 H264_PSNR_FLOOR = 43.3
+# the committed H.264 corpus (tests/make_h264_corpus.py) and its phone clip
+H264_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "h264"
 # phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
 # the skull phantom's seed and noise, the crop held against the CPU path, the
 # share by which the raw mesh's enclosed volume may differ from the phantom's
@@ -2899,6 +2908,72 @@ def phase_l(card: str) -> dict:
 
 # ── phase M: a video file through the CLI to a prediction video ─────────
 
+def h264_corpus(work: Path) -> dict:
+    """The host H.264 decoder on the card's machine (no cv2 there): every
+    stream of the committed corpus decodes to the SHA-256s of its manifest,
+    which cv2's FFmpeg agreed with where the corpus was written; clip.mov's
+    IDR and P pictures are timed; `cli preprocess --video clip.mov` gives its
+    frames turned upright at target_size 512."""
+    from omfs4d_torch.io import h264
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    def sha(planes) -> str:
+        h = hashlib.sha256()
+        for p in planes:
+            h.update(np.ascontiguousarray(p).tobytes())
+        return h.hexdigest()
+
+    manifest = json.loads((H264_CORPUS / "manifest.json").read_text())
+    t0 = time.perf_counter()
+    for name, entry in manifest["streams"].items():
+        path = H264_CORPUS / name
+        if path.suffix == ".mov":
+            frames = h264.frames(path)
+            pics = [frames.ycbcr(i) for i in range(len(frames))]
+        else:
+            pics = h264.decode_annexb(path.read_bytes())
+        check([sha(p) for p in pics] == entry["sha256"],
+              f"{name}: {len(pics)} pictures equal to the manifest")
+    corpus_s = time.perf_counter() - t0
+    clip_path = H264_CORPUS / "clip.mov"
+    clip = h264.frames(clip_path)
+    dec = h264.Decoder()
+    for unit in clip.sps + clip.pps:
+        dec.push(unit)
+    times, sizes = [], []
+    for i in range(len(clip.offsets)):
+        units = clip.units(i)
+        t0 = time.perf_counter()
+        for unit in units:
+            dec.push(unit)
+        dec.end_picture()
+        (pic,) = dec.pictures()
+        times.append(time.perf_counter() - t0)
+        sizes.append(sum(map(len, units)))
+        check(sha(pic) == manifest["streams"]["clip.mov"]["sha256"][i],
+              f"clip.mov picture {i} (timed) equal to the manifest")
+    wd = work / "wd_mov"
+    t0 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(clip_path), "--workdir", str(wd)]) == 0,
+          "cli preprocess --video clip.mov")
+    preprocess_s = time.perf_counter() - t0
+    (stage,) = list((wd / "stages").glob("preprocess-*"))
+    extracted = sorted((stage / "images").glob("*.png"))
+    shapes = {tvideo.read_image(p).shape for p in extracted}
+    check(len(extracted) == 6 and shapes == {(910, 512, 3)},
+          f"clip.mov preprocessed to {len(extracted)} frames of {shapes}: 6 upright 1920 x "
+          "1080 frames at target_size 512")
+    for i in (0, 5):
+        want = tvideo.area_resize(clip.rgb(i), 910, 512)
+        check(np.array_equal(tvideo.read_image(extracted[i]), want),
+              f"preprocessed frame {i} is the port's read of clip.mov, upright and shrunk")
+    return {"idr_s": times[0], "p_s": float(np.mean(times[1:])), "n_p": len(times) - 1,
+            "idr_bytes": sizes[0], "p_bytes": float(np.mean(sizes[1:])),
+            "streams": len(manifest["streams"]), "corpus_s": corpus_s,
+            "preprocess_s": preprocess_s, "frames": len(extracted), "shape": (910, 512)}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -2953,6 +3028,22 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         check(all(np.array_equal(a, b) for a, b in zip(got, recon)),
               "the H.264 reader gives encode_h264's 1080p reconstruction")
     h264_hd_bytes = [sum(map(len, u)) for u in hd_units]
+    t0 = time.perf_counter()
+    h264._library()                                  # g++, at first use
+    build_h264_s = time.perf_counter() - t0
+    host_dec = h264.Decoder()
+    for unit in (hd_enc.sps, hd_enc.pps):
+        host_dec.push(unit)
+    host_hd_s = []
+    for units, recon in zip(hd_units, hd_recon):
+        t0 = time.perf_counter()
+        for unit in units:
+            host_dec.push(unit)
+        host_dec.end_picture()
+        (got,) = host_dec.pictures()
+        host_hd_s.append(time.perf_counter() - t0)
+        check(all(np.array_equal(a, b) for a, b in zip(got, recon)),
+              "the host H.264 decoder gives encode_h264's 1080p reconstruction")
 
     def zero_vectors(encode):
         """(`encode()`, its seconds) with the encoder's motion search replaced
@@ -3075,6 +3166,7 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         h264_bytes, mj_bytes = pred_path.stat().st_size, mjpeg_path.stat().st_size
         check(h264_bytes < mj_bytes, f"pred.mp4 (H.264) {h264_bytes} bytes < the MJPG "
                                      f"quality {tvideo.MJPEG_QUALITY} MP4's {mj_bytes}")
+        corpus = h264_corpus(work)
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -3098,6 +3190,15 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"{h264_hd_dec_s[0]:.4f} / {h264_hd_dec_s[1]:.4f} (frames 0 and 1 resized, "
           f"{h264_hd_bytes[0]} / {h264_hd_bytes[1]} bytes, PSNR "
           f"{h264_hd_psnr[0]:.3f} / {h264_hd_psnr[1]:.3f} dB)")
+    print(f"  H.264 host decoder (h264dec.cpp, built by g++ in {build_h264_s:.2f} s): "
+          f"encode_h264's 1080p IDR {host_hd_s[0]:.4f} / P {host_hd_s[1]:.4f} s (the plain "
+          f"Python reader above: {h264_hd_dec_s[0]:.4f} / {h264_hd_dec_s[1]:.4f}); clip.mov "
+          f"(1920x1080 High, CABAC, 8x8, deblocking, 3 references) IDR {corpus['idr_s']:.4f} "
+          f"s, P {corpus['p_s']:.4f} s/frame (mean of {corpus['n_p']}; "
+          f"{corpus['idr_bytes']} / {corpus['p_bytes']:.0f} bytes); the corpus's "
+          f"{corpus['streams']} streams equal to the manifest in {corpus['corpus_s']:.2f} s; "
+          f"cli preprocess --video clip.mov {corpus['preprocess_s']:.2f} s -> "
+          f"{corpus['frames']} frames {corpus['shape'][1]}x{corpus['shape'][0]} (portrait)")
     print(f"  bytes a frame of the render PNGs: H.264 (QP {h264.H264_QP}, the pictures' QPs "
           f"{sorted(set(stream.qp))}, level {stream.level / 10:.1f}) "
           f"{h264_bytes / n_train:.1f} (file {h264_bytes}; IDR "

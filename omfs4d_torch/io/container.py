@@ -9,10 +9,11 @@ on top of it as siblings: Motion JPEG (`omfs4d_torch.io.mjpeg`) and H.264
   `movi` lists, walked chunk by chunk (`idx1` is not trusted, only counted),
   following the `RIFF AVIX` lists of an OpenDML file past 1 GB and skipping
   `JUNK` and `ix##` chunks.  AVI is read as Motion JPEG only.
-- MP4 / QuickTime: the first video track (`mp4.read_track`).  Its codec is
-  Motion JPEG for an `mp4v` sample entry whose esds has objectTypeIndication
-  0x6C (as FFmpeg muxes MJPEG into `.mp4`) and for QuickTime's `jpeg` and
-  `mjpa`; H.264 for `avc1` / `avc3` with an `avcC` box.
+- MP4 / QuickTime: the first video track (`mp4.read_track`; a sound track
+  beside it is skipped).  Its codec is Motion JPEG for an `mp4v` sample
+  entry whose esds has objectTypeIndication 0x6C (as FFmpeg muxes MJPEG into
+  `.mp4`) and for QuickTime's `jpeg` and `mjpa`; H.264 for `avc1` / `avc3`
+  with an `avcC` box.
 
 Any other codec (HEVC, MPEG-4 Part 2 `mp4v` with OTI 0x20, AVI's `H264` /
 `XVID` / `FMP4` / `DIVX`, ...) raises `UnsupportedCodecError` naming it:
@@ -39,9 +40,9 @@ class UnsupportedCodecError(RuntimeError):
 
 def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
-        f"{path}: {what}; the port reads only Motion JPEG (MJPG) in AVI or MP4 and its own "
-        "H.264 subset in MP4 by itself, decoding this needs an ffmpeg binary (on PATH or "
-        "from imageio_ffmpeg)")
+        f"{path}: {what}; the port reads only Motion JPEG (MJPG) in AVI or MP4 and H.264 "
+        "(Main / High profile I and P pictures) in MP4 or QuickTime by itself, decoding this "
+        "needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
 
 
 # AVI fourccs of Motion JPEG, and names of those that need another decoder

@@ -46,20 +46,30 @@ lowest level of Table A-1 that holds the frame size and macroblock rate:
   (the packing of `encode_jpeg`); Annex B emulation prevention; `frame_num`
   modulo MaxFrameNum (16); `idr_pic_id` alternating.
 
-The reader (`frames`, `H264Frames`) decodes that subset and only that:
-CAVLC, `Intra_16x16` in I slices with the modes the encoder writes (luma
-Horizontal or DC, chroma DC or Horizontal, neighbours available by slice),
-`P_L0_16x16` with whole-sample motion vectors (the predictor of 8.4.1.3) and
-`P_Skip` in P slices, one reference frame, no deblocking.  It equals the
-encoder's reconstruction bit for bit.  Any other stream raises
-`container.UnsupportedCodecError` naming the first feature outside the
-subset ("H.264 High profile (CABAC)", "H.264 I_NxN macroblocks", "H.264
-Intra_16x16 plane prediction", ...): decoding it needs an ffmpeg binary.
+The reader (`frames`, `H264Frames`, `decode_annexb`) is the host C++ decoder
+`h264dec.cpp` (`Decoder`), built by g++ at first use into `omfs4d_torch/_build/`
+(no Python fallback: without g++ reading raises with the reason) and bound with
+ctypes.  It decodes Baseline, Main and High profile I and P pictures at 8-bit
+4:2:0, frames only, as phone cameras write them: CAVLC and CABAC, I_NxN (4x4 and
+8x8), Intra_16x16, I_PCM, every P partition and P_Skip, quarter-sample motion,
+up to 16 reference frames with adaptive marking, long-term references and list
+modification, explicit weighted prediction, scaling matrices, several slices,
+the deblocking filter, output in POC order.  `H264Frames` shows a file's frames
+as cv2 does: the samples its edit list keeps, turned by the track's display
+matrix, converted with the VUI's range and matrix (`ycbcr_to_rgb`).  Anything
+else (B slices, fields, High 10 / 4:2:2 / 4:4:4, FMO, ...) raises
+`container.UnsupportedCodecError` naming it and ffmpeg; a corrupt unit raises
+ValueError.  The Python `H264Decoder` reads the encoder's own subset only
+(Intra_16x16 H / DC, P_L0_16x16 / P_Skip with whole-sample vectors, one
+reference, no deblocking) and refuses the rest by name: it is the plain version
+the tests hold the host decoder to.  The tables are `h264_tables`'.
 """
 
 from __future__ import annotations
 
 import bisect
+import ctypes
+import functools
 import re
 import struct
 from collections.abc import Iterable, Iterator, Sequence
@@ -69,7 +79,7 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import container, mp4
+from omfs4d_torch.io import container, h264_tables, mp4
 
 # the QP of every picture, the reference's CRF; raised for a picture only
 # where Baseline's CAVLC cannot code a level (see `_MAX_LEVEL`)
@@ -114,97 +124,24 @@ def unsupported_size(width: int, height: int, fps: float) -> str | None:
 # ── tables of the standard ──────────────────────────────────────────────
 
 # 4 x 4 zig-zag scan (8.5.6), as raster indices y * 4 + x
-_ZIGZAG = np.array([0, 1, 4, 8, 5, 2, 3, 6, 9, 12, 13, 10, 7, 11, 14, 15])
+_ZIGZAG = h264_tables.ZIGZAG4
 # luma4x4BlkIdx -> raster index of the 4 x 4 block in its macroblock (6.4.3)
 _BLK = np.array([0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15])
 # quantizer multipliers and normAdjust4x4 by QP % 6, for positions (even,
 # even), (odd, odd) and the rest (8.5.9)
 _MF = np.array([[13107, 5243, 8066], [11916, 4660, 7490], [10082, 4194, 6554],
                 [9362, 3647, 5825], [8192, 3355, 5243], [7282, 2893, 4559]], np.int64)
-_NORM = np.array([[10, 16, 13], [11, 18, 14], [13, 20, 16], [14, 23, 18], [16, 25, 20],
-                  [18, 29, 23]], np.int64)
+_NORM = h264_tables.NORM4
 _POS = np.array([[0, 2, 0, 2], [2, 1, 2, 1], [0, 2, 0, 2], [2, 1, 2, 1]])
-# Table 8-15: QPc for qPI 0..51
-_QPC = np.array(list(range(30)) + [29, 30, 31, 32, 32, 33, 34, 34, 35, 35, 36, 36, 37, 37,
-                                    37, 38, 38, 38, 39, 39, 39, 39])
-# Table 9-4 (ChromaArrayType 1): coded_block_pattern of each codeNum, inter
-_INTER_CBP = np.array([0, 16, 1, 2, 4, 8, 32, 3, 5, 10, 12, 15, 47, 7, 11, 13, 14, 6, 9, 31,
-                       35, 37, 42, 44, 33, 34, 36, 40, 39, 43, 45, 46, 17, 18, 20, 24, 19,
-                       21, 26, 28, 23, 27, 29, 30, 22, 25, 38, 41])
+_QPC, _INTER_CBP = h264_tables.QPC, h264_tables.INTER_CBP
 _INTER_CODE = np.argsort(_INTER_CBP)
-
-# Table 9-5, coeff_token: lengths and codes by [table][TotalCoeff][TrailingOnes];
-# tables 0-3 for 0 <= nC < 2, 2 <= nC < 4, 4 <= nC < 8, 8 <= nC; 4 for nC = -1
-_CT_LEN = np.zeros((5, 17, 4), np.int64)
-_CT_CODE = np.zeros((5, 17, 4), np.int64)
-for _t, (_lens, _codes) in enumerate((
-    ([1, 0, 0, 0, 6, 2, 0, 0, 8, 6, 3, 0, 9, 8, 7, 5, 10, 9, 8, 6, 11, 10, 9, 7, 13, 11, 10, 8,
-      13, 13, 11, 9, 13, 13, 13, 10, 14, 14, 13, 11, 14, 14, 14, 13, 15, 15, 14, 14, 15, 15,
-      15, 14, 16, 15, 15, 15, 16, 16, 16, 15, 16, 16, 16, 16, 16, 16, 16, 16],
-     [1, 0, 0, 0, 5, 1, 0, 0, 7, 4, 1, 0, 7, 6, 5, 3, 7, 6, 5, 3, 7, 6, 5, 4, 15, 6, 5, 4,
-      11, 14, 5, 4, 8, 10, 13, 4, 15, 14, 9, 4, 11, 10, 13, 12, 15, 14, 9, 12, 11, 10, 13, 8,
-      15, 1, 9, 12, 11, 14, 13, 8, 7, 10, 9, 12, 4, 6, 5, 8]),
-    ([2, 0, 0, 0, 6, 2, 0, 0, 6, 5, 3, 0, 7, 6, 6, 4, 8, 6, 6, 4, 8, 7, 7, 5, 9, 8, 8, 6,
-      11, 9, 9, 6, 11, 11, 11, 7, 12, 11, 11, 9, 12, 12, 12, 11, 12, 12, 12, 11, 13, 13, 13,
-      12, 13, 13, 13, 13, 13, 14, 13, 13, 14, 14, 14, 13, 14, 14, 14, 14],
-     [3, 0, 0, 0, 11, 2, 0, 0, 7, 7, 3, 0, 7, 10, 9, 5, 7, 6, 5, 4, 4, 6, 5, 6, 7, 6, 5, 8,
-      15, 6, 5, 4, 11, 14, 13, 4, 15, 10, 9, 4, 11, 14, 13, 12, 8, 10, 9, 8, 15, 14, 13, 12,
-      11, 10, 9, 12, 7, 11, 6, 8, 9, 8, 10, 1, 7, 6, 5, 4]),
-    ([4, 0, 0, 0, 6, 4, 0, 0, 6, 5, 4, 0, 6, 5, 5, 4, 7, 5, 5, 4, 7, 5, 5, 4, 7, 6, 6, 4,
-      7, 6, 6, 4, 8, 7, 7, 5, 8, 8, 7, 6, 9, 8, 8, 7, 9, 9, 8, 8, 9, 9, 9, 8, 10, 9, 9, 9,
-      10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10, 10],
-     [15, 0, 0, 0, 15, 14, 0, 0, 11, 15, 13, 0, 8, 12, 14, 12, 15, 10, 11, 11, 11, 8, 9, 10,
-      9, 14, 13, 9, 8, 10, 9, 8, 15, 14, 13, 13, 11, 14, 10, 12, 15, 10, 13, 12, 11, 14, 9,
-      12, 8, 10, 13, 8, 13, 7, 9, 12, 9, 12, 11, 10, 5, 8, 7, 6, 1, 4, 3, 2]),
-)):
-    _CT_LEN[_t] = np.reshape(_lens, (17, 4))
-    _CT_CODE[_t] = np.reshape(_codes, (17, 4))
-# nC >= 8: six bits, (TotalCoeff - 1) << 2 | TrailingOnes, and 000011 for none
-_CT_LEN[3] = np.where(np.arange(4) <= np.minimum(np.arange(17), 3)[:, None], 6, 0)
-_CT_CODE[3] = np.maximum(np.arange(17)[:, None] - 1, 0) << 2 | np.arange(4)
-_CT_CODE[3, 0, 0] = 3
-_CT_LEN[4, :5] = np.reshape([2, 0, 0, 0, 6, 1, 0, 0, 6, 6, 3, 0, 6, 7, 7, 6, 6, 8, 8, 7],
-                            (5, 4))
-_CT_CODE[4, :5] = np.reshape([1, 0, 0, 0, 7, 1, 0, 0, 4, 6, 1, 0, 3, 3, 2, 5, 2, 3, 2, 0],
-                             (5, 4))
-
-# Tables 9-7 and 9-8, total_zeros of 4 x 4 blocks by [TotalCoeff - 1][total_zeros]
-_TZ_LEN = np.zeros((15, 16), np.int64)
-_TZ_CODE = np.zeros((15, 16), np.int64)
-for _i, (_lens, _codes) in enumerate((
-        ([1, 3, 3, 4, 4, 5, 5, 6, 6, 7, 7, 8, 8, 9, 9, 9],
-         [1, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 3, 2, 1]),
-        ([3, 3, 3, 3, 3, 4, 4, 4, 4, 5, 5, 6, 6, 6, 6],
-         [7, 6, 5, 4, 3, 5, 4, 3, 2, 3, 2, 3, 2, 1, 0]),
-        ([4, 3, 3, 3, 4, 4, 3, 3, 4, 5, 5, 6, 5, 6], [5, 7, 6, 5, 4, 3, 4, 3, 2, 3, 2, 1, 1, 0]),
-        ([5, 3, 4, 4, 3, 3, 3, 4, 3, 4, 5, 5, 5], [3, 7, 5, 4, 6, 5, 4, 3, 3, 2, 2, 1, 0]),
-        ([4, 4, 4, 3, 3, 3, 3, 3, 4, 5, 4, 5], [5, 4, 3, 7, 6, 5, 4, 3, 2, 1, 1, 0]),
-        ([6, 5, 3, 3, 3, 3, 3, 3, 4, 3, 6], [1, 1, 7, 6, 5, 4, 3, 2, 1, 1, 0]),
-        ([6, 5, 3, 3, 3, 2, 3, 4, 3, 6], [1, 1, 5, 4, 3, 3, 2, 1, 1, 0]),
-        ([6, 4, 5, 3, 2, 2, 3, 3, 6], [1, 1, 1, 3, 3, 2, 2, 1, 0]),
-        ([6, 6, 4, 2, 2, 3, 2, 5], [1, 0, 1, 3, 2, 1, 1, 1]),
-        ([5, 5, 3, 2, 2, 2, 4], [1, 0, 1, 3, 2, 1, 1]),
-        ([4, 4, 3, 3, 1, 3], [0, 1, 1, 2, 1, 3]),
-        ([4, 4, 2, 1, 3], [0, 1, 1, 1, 1]),
-        ([3, 3, 1, 2], [0, 1, 1, 1]),
-        ([2, 2, 1], [0, 1, 1]),
-        ([1, 1], [0, 1]))):
-    _TZ_LEN[_i, :len(_lens)] = _lens
-    _TZ_CODE[_i, :len(_codes)] = _codes
-# Table 9-9 (a), total_zeros of chroma DC 2 x 2 blocks
-_TZC_LEN = np.array([[1, 2, 3, 3], [1, 2, 2, 0], [1, 1, 0, 0]], np.int64)
-_TZC_CODE = np.array([[1, 1, 1, 0], [1, 1, 0, 0], [1, 0, 0, 0]], np.int64)
-# Table 9-10, run_before by [min(zerosLeft, 7) - 1][run_before]
-_RB_LEN = np.zeros((7, 15), np.int64)
-_RB_CODE = np.zeros((7, 15), np.int64)
-for _i, (_lens, _codes) in enumerate((
-        ([1, 1], [1, 0]), ([1, 2, 2], [1, 1, 0]), ([2, 2, 2, 2], [3, 2, 1, 0]),
-        ([2, 2, 2, 3, 3], [3, 2, 1, 1, 0]), ([2, 2, 3, 3, 3, 3], [3, 2, 3, 2, 1, 0]),
-        ([2, 3, 3, 3, 3, 3, 3], [3, 0, 1, 3, 2, 5, 4]),
-        ([3, 3, 3, 3, 3, 3, 3, 4, 5, 6, 7, 8, 9, 10, 11],
-         [7, 6, 5, 4, 3, 2, 1, 1, 1, 1, 1, 1, 1, 1, 1]))):
-    _RB_LEN[_i, :len(_lens)] = _lens
-    _RB_CODE[_i, :len(_codes)] = _codes
+# CAVLC's tables (9.2): coeff_token by [table][TotalCoeff][TrailingOnes] (tables
+# 0-3 for 0 <= nC < 2, 2 <= nC < 4, 4 <= nC < 8, 8 <= nC; 4 for nC = -1),
+# total_zeros of 4 x 4 and chroma DC blocks, run_before
+_CT_LEN, _CT_CODE = h264_tables.CT_LEN, h264_tables.CT_CODE
+_TZ_LEN, _TZ_CODE = h264_tables.TZ_LEN, h264_tables.TZ_CODE
+_TZC_LEN, _TZC_CODE = h264_tables.TZC_LEN, h264_tables.TZC_CODE
+_RB_LEN, _RB_CODE = h264_tables.RB_LEN, h264_tables.RB_CODE
 
 
 # ── colour ──────────────────────────────────────────────────────────────
@@ -243,16 +180,28 @@ def _upsample2(c: np.ndarray) -> np.ndarray:
     return c
 
 
-def ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
-    """Y' (H, W) and Cb, Cr (H/2, W/2) uint8 in BT.601 limited range ->
-    (H, W, 3) uint8 R'G'B', chroma upsampled by `_upsample2`."""
-    yy = (np.asarray(y, np.float64) - 16) * (255 / 219)
+# (Kr, Kb) by matrix_coefficients as swscale (cv2's conversion) applies them:
+# BT.709 for 1, FCC for 4, SMPTE 240M for 7, BT.601 for the rest
+_MATRICES = {1: (0.2126, 0.0722), 4: (0.30, 0.11), 7: (0.212, 0.087)}
+
+
+def ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, full_range: bool = False,
+                 matrix: int = 6) -> np.ndarray:
+    """Y' (H, W) and Cb, Cr (H/2, W/2) uint8 -> (H, W, 3) uint8 R'G'B', chroma
+    upsampled by `_upsample2`: limited range (16-235, 16-240) unless
+    `full_range` (the VUI's video_full_range_flag), the VUI's
+    matrix_coefficients as cv2 applies it (`_MATRICES`, else BT.601)."""
+    kr, kb = _MATRICES.get(matrix, (0.299, 0.114))
+    kg = 1 - kr - kb
+    if full_range:
+        yy, k = np.asarray(y, np.float64), 1.0
+    else:
+        yy, k = (np.asarray(y, np.float64) - 16) * (255 / 219), 255 / 224
     u = _upsample2(cb)[:y.shape[0], :y.shape[1]] - 128
     v = _upsample2(cr)[:y.shape[0], :y.shape[1]] - 128
-    k = 255 / 224
-    rgb = np.stack([yy + k * 1.402 * v,
-                    yy - k * (0.114 * 1.772 / 0.587) * u - k * (0.299 * 1.402 / 0.587) * v,
-                    yy + k * 1.772 * u], -1)
+    rgb = np.stack([yy + k * 2 * (1 - kr) * v,
+                    yy - k * (2 * kb * (1 - kb) / kg) * u - k * (2 * kr * (1 - kr) / kg) * v,
+                    yy + k * 2 * (1 - kb) * u], -1)
     return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
 
 
@@ -978,10 +927,9 @@ def write(path, frames: Iterable[np.ndarray], fps: float, width: int, height: in
 
 def _unsupported(what: str) -> container.UnsupportedCodecError:
     return container.UnsupportedCodecError(
-        f"{what} needs ffmpeg: the port decodes only its own H.264 subset (Constrained "
-        "Baseline, CAVLC, Intra_16x16 Horizontal / DC, P_L0_16x16 / P_Skip with whole-sample "
-        "vectors, no deblocking); decoding this needs an ffmpeg binary (on PATH or from "
-        "imageio_ffmpeg)")
+        f"{what} needs ffmpeg: the port decodes H.264 Main and High profile I and P pictures "
+        "(8-bit 4:2:0, frames, CAVLC or CABAC) by itself; decoding this needs an ffmpeg binary "
+        "(on PATH or from imageio_ffmpeg)")
 
 
 class _Reader:
@@ -1097,29 +1045,50 @@ def _unescape(data: bytes) -> bytes:
     return re.sub(rb"\x00\x00\x03", b"\x00\x00", data)
 
 
-_PROFILES = {77: "Main", 88: "Extended", 100: "High", 110: "High 10", 122: "High 4:2:2",
-             244: "High 4:4:4 Predictive", 44: "CAVLC 4:4:4 Intra", 118: "Multiview High",
-             128: "Stereo High", 83: "Scalable Baseline", 86: "Scalable High"}
+_PROFILES = {66: "Baseline", 77: "Main", 88: "Extended", 100: "High", 110: "High 10",
+             122: "High 4:2:2", 244: "High 4:4:4 Predictive", 44: "CAVLC 4:4:4 Intra",
+             118: "Multiview High", 128: "Stereo High", 83: "Scalable Baseline",
+             86: "Scalable High"}
+# profile_idc whose SPS carries chroma_format_idc, bit depths and scaling lists
+_HIGH_SPS = {100, 110, 122, 244, 44, 83, 86, 118, 128, 138, 139, 134, 135}
 
 
-def parse_sps(unit: bytes, pps: bytes | None = None) -> dict:
-    """The fields of an SPS NAL unit the reader needs; a profile other than
-    Baseline raises `UnsupportedCodecError` naming it (and CABAC, where the
-    PPS given selects it)."""
+def _skip_scaling_list(r: _Reader, size: int) -> None:
+    last = nxt = 8
+    for _ in range(size):
+        if nxt:
+            nxt = (last + r.se() + 256) % 256
+        last = nxt or last
+
+
+def parse_sps(unit: bytes) -> dict:
+    """The fields of an SPS NAL unit that the readers need: profile, level,
+    the picture's size in macroblocks and after cropping, POC fields, and from
+    the VUI the frame rate (0.0: none), `full_range` and `matrix`
+    (matrix_coefficients, 2 where unspecified).  What the decoder does not
+    read raises `UnsupportedCodecError` naming it: another profile than
+    Baseline, Main or High, 4:0:0 / 4:2:2 / 4:4:4, more than 8 bits, fields."""
     r = _Reader(_unescape(unit[1:]))
     profile = r.u(8)
-    r.u(16)                                      # constraint flags, level_idc
-    if profile != 66:
+    r.u(8)                                       # constraint flags
+    sps = {"profile": profile, "level": r.u(8), "id": r.ue()}
+    if profile not in (66, 77, 100):
         name = _PROFILES.get(profile, f"profile_idc {profile}")
-        cabac = False
-        if pps is not None:
-            p = _Reader(_unescape(pps[1:]))
-            p.ue()
-            p.ue()
-            cabac = bool(p.u(1))
-        raise _unsupported(f"H.264 {name} profile" + (" (CABAC)" if cabac else ""))
-    r.ue()
-    sps = {"log2_max_frame_num": r.ue() + 4}
+        raise _unsupported(f"H.264 {name} profile")
+    if profile in _HIGH_SPS:
+        chroma = r.ue()
+        if chroma != 1:
+            raise _unsupported("H.264 monochrome (4:0:0) coding" if chroma == 0 else
+                               f"H.264 {'High 4:2:2' if chroma == 2 else 'High 4:4:4'} profile")
+        if r.ue() or r.ue():
+            raise _unsupported("H.264 High 10 profile")
+        if r.u(1):
+            raise _unsupported("H.264 High 4:4:4 Predictive profile (transform bypass)")
+        if r.u(1):
+            for i in range(8):
+                if r.u(1):
+                    _skip_scaling_list(r, 16 if i < 6 else 64)
+    sps["log2_max_frame_num"] = r.ue() + 4
     poc = sps["poc_type"] = r.ue()
     if poc == 0:
         sps["log2_max_poc_lsb"] = r.ue() + 4
@@ -1129,7 +1098,7 @@ def parse_sps(unit: bytes, pps: bytes | None = None) -> dict:
         r.se()
         for _ in range(r.ue()):
             r.se()
-    r.ue()                                       # max_num_ref_frames
+    sps["refs"] = r.ue()                         # max_num_ref_frames
     r.u(1)
     mbw, mbh = r.ue() + 1, r.ue() + 1
     if not r.u(1):
@@ -1141,18 +1110,22 @@ def parse_sps(unit: bytes, pps: bytes | None = None) -> dict:
     sps["mbw"], sps["mbh"] = mbw, mbh
     sps["width"] = 16 * mbw - 2 * (crop[0] + crop[1])
     sps["height"] = 16 * mbh - 2 * (crop[2] + crop[3])
+    if sps["width"] <= 0 or sps["height"] <= 0:
+        raise ValueError("H.264: the cropping leaves no picture")
     sps["crop"] = (2 * crop[2], 2 * crop[0])
-    sps["fps"] = 0.0
-    if r.u(1):                                   # VUI: only as far as the frame rate
+    sps["fps"], sps["full_range"], sps["matrix"] = 0.0, False, 2
+    if r.u(1):                                   # VUI: as far as the frame rate
         if r.u(1):
             if r.u(8) == 255:
                 r.u(32)
         if r.u(1):
             r.u(1)
         if r.u(1):
-            r.u(4)
+            r.u(3)
+            sps["full_range"] = bool(r.u(1))
             if r.u(1):
-                r.u(24)
+                r.u(16)
+                sps["matrix"] = r.u(8)
         if r.u(1):
             r.ue()
             r.ue()
@@ -1164,20 +1137,15 @@ def parse_sps(unit: bytes, pps: bytes | None = None) -> dict:
 
 
 def parse_pps(unit: bytes) -> dict:
-    """The fields of a PPS NAL unit the reader needs; CABAC, slice groups,
-    weighted prediction and redundant pictures raise `UnsupportedCodecError`."""
+    """The fields of a PPS NAL unit that the readers need; slice groups and
+    redundant pictures raise `UnsupportedCodecError`."""
     r = _Reader(_unescape(unit[1:]))
-    r.ue()
-    r.ue()
-    if r.u(1):
-        raise _unsupported("H.264 CABAC entropy coding")
-    bottom_poc = r.u(1)
+    pps = {"id": r.ue(), "sps_id": r.ue(), "cabac": bool(r.u(1)), "bottom_poc": r.u(1)}
     if r.ue():
         raise _unsupported("H.264 slice groups (FMO)")
-    pps = {"refs": r.ue() + 1, "bottom_poc": bottom_poc}
+    pps["refs"] = r.ue() + 1
     r.ue()
-    if r.u(1) or r.u(2):
-        raise _unsupported("H.264 weighted prediction")
+    pps["weighted"] = bool(r.u(1)) or bool(r.u(2))
     pps["qp"] = 26 + r.se()
     r.se()
     pps["chroma_qp_offset"] = r.se()
@@ -1185,10 +1153,23 @@ def parse_pps(unit: bytes) -> dict:
     r.u(1)                                       # constrained_intra_pred_flag
     if r.u(1):
         raise _unsupported("H.264 redundant pictures")
-    if r.more():
+    pps["high"] = r.more()                       # 8x8 transform, scaling matrices
+    return pps
+
+
+def _plain_subset(sps: dict, pps: dict) -> None:
+    """Refuse, naming it, a stream that `H264Decoder` (the encoder's own
+    subset) does not read."""
+    if sps["profile"] != 66:
+        raise _unsupported(f"H.264 {_PROFILES[sps['profile']]} profile"
+                           + (" (CABAC)" if pps["cabac"] else ""))
+    if pps["cabac"]:
+        raise _unsupported("H.264 CABAC entropy coding")
+    if pps["weighted"]:
+        raise _unsupported("H.264 weighted prediction")
+    if pps["high"]:
         raise _unsupported("H.264 High-profile picture parameters (8x8 transform, scaling "
                            "matrices)")
-    return pps
 
 
 # the intra modes the encoder never writes, by Intra16x16PredMode and
@@ -1199,10 +1180,13 @@ _CHROMA_REFUSED = {2: "intra chroma vertical", 3: "intra chroma plane"}
 
 class H264Decoder:
     """Decodes access units of the subset the encoder writes, one at a time,
-    keeping the one reference frame."""
+    keeping the one reference frame: the plain version of the host decoder
+    (`Decoder`), which the reading path uses; the tests hold one to the
+    other."""
 
     def __init__(self, sps: bytes, pps: bytes):
-        self.sps, self.pps = parse_sps(sps, pps), parse_pps(pps)
+        self.sps, self.pps = parse_sps(sps), parse_pps(pps)
+        _plain_subset(self.sps, self.pps)
         self.ref: tuple[np.ndarray, ...] | None = None
 
     def decode(self, units: Sequence[bytes]) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
@@ -1212,8 +1196,10 @@ class H264Decoder:
             kind = unit[0] & 0x1F
             if kind == _NAL_SPS:
                 self.sps = parse_sps(unit)
+                _plain_subset(self.sps, self.pps)
             elif kind == _NAL_PPS:
                 self.pps = parse_pps(unit)
+                _plain_subset(self.sps, self.pps)
             elif kind in (_NAL_SLICE, _NAL_IDR):
                 pic = pic or _Picture(self.sps["mbw"] * self.sps["mbh"])
                 ref_idc = unit[0] >> 5
@@ -1538,40 +1524,166 @@ def _intra_pred(plane, y0, x0, size, mode, left, top, luma: bool):
     return out
 
 
-def _avcc_units(avcc: bytes, path) -> tuple[bytes, bytes, int]:
-    """(SPS, PPS, NAL length size) of an avcC box's body."""
+def _avcc_units(avcc: bytes, path) -> tuple[list[bytes], list[bytes], int]:
+    """(SPS units, PPS units, NAL length size) of an avcC box's body; an
+    `avc3` track may hold none, its parameter sets being in band."""
     if len(avcc) < 7 or avcc[0] != 1:
         raise ValueError(f"{path}: an avcC box of version {avcc[:1].hex() or 'none'}")
     pos, sets = 5, []
     for mask in (0x1F, 0xFF):
+        if pos >= len(avcc):
+            raise ValueError(f"{path}: the avcC box is cut short")
         count, pos = avcc[pos] & mask, pos + 1
+        units = []
         for _ in range(count):
-            (size,) = struct.unpack_from(">H", avcc, pos)
-            sets.append(avcc[pos + 2:pos + 2 + size])
+            size = int.from_bytes(avcc[pos:pos + 2], "big")
+            units.append(avcc[pos + 2:pos + 2 + size])
+            if pos + 2 > len(avcc) or len(units[-1]) != size or size == 0:
+                raise ValueError(f"{path}: a parameter set of the avcC box is cut short")
             pos += 2 + size
-        sets.append(count)
-    n_sps, n_pps = sets.pop(avcc[5] & 0x1F), sets.pop()
-    if (n_sps, n_pps) != (1, 1):
-        raise _unsupported(f"H.264 with {n_sps} SPS and {n_pps} PPS in its avcC box")
+        sets.append(units)
     return sets[0], sets[1], (avcc[4] & 3) + 1
 
 
+# ── the host decoder ────────────────────────────────────────────────────
+
+_SOURCE = Path(__file__).resolve().with_name("h264dec.cpp")
+_GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (at first use, with g++, into `omfs4d_torch/_build/`) and load
+    the host decoder; raises RuntimeError with g++'s message when it cannot:
+    no frame is decoded in Python on the reading path."""
+    from omfs4d_torch import native
+
+    path = native.build(_SOURCE, "h264dec", _GXX_FLAGS,
+                        "omfs4d_torch/io/h264dec.cpp (the H.264 decoder)",
+                        headers={"h264_tables.h": h264_tables.cpp_header()})
+    lib = ctypes.CDLL(str(path))
+    lib.h264d_new.restype = ctypes.c_void_p
+    lib.h264d_new.argtypes = []
+    lib.h264d_free.argtypes = [ctypes.c_void_p]
+    lib.h264d_free.restype = None
+    lib.h264d_nal.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
+    for name in ("h264d_end_picture", "h264d_flush", "h264d_ready"):
+        getattr(lib, name).argtypes = [ctypes.c_void_p]
+    lib.h264d_frame_size.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
+                                     ctypes.POINTER(ctypes.c_int32)]
+    lib.h264d_pop.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 3
+    lib.h264d_error.restype = ctypes.c_char_p
+    lib.h264d_error.argtypes = [ctypes.c_void_p]
+    return lib
+
+
+class Decoder:
+    """The host C++ decoder (`h264dec.cpp`): NAL units in (`push`, with the
+    emulation prevention bytes still in), pictures out as cropped (Y', Cb,
+    Cr) uint8 planes in output order (`pictures`).  A corrupt unit raises
+    ValueError and one outside the decoder's subset `UnsupportedCodecError`
+    naming the feature; after either the decoder is spent."""
+
+    def __init__(self):
+        self._lib = _library()
+        self._h = self._lib.h264d_new()
+        if not self._h:
+            raise MemoryError("H.264: the decoder could not be created")
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.h264d_free(self._h)
+            self._h = None
+
+    def _check(self, rc: int) -> None:
+        if rc == 0:
+            return
+        msg = self._lib.h264d_error(self._h).decode("utf-8", "replace")
+        if rc == 2:
+            raise _unsupported(msg)
+        raise ValueError(msg)
+
+    def push(self, unit: bytes) -> None:
+        """One NAL unit (no start code)."""
+        self._check(self._lib.h264d_nal(self._h, bytes(unit), len(unit)))
+
+    def end_picture(self) -> None:
+        """The units pushed so far end an access unit (an MP4 sample)."""
+        self._check(self._lib.h264d_end_picture(self._h))
+
+    def flush(self) -> None:
+        """The end of the stream: every picture still held goes out."""
+        self._check(self._lib.h264d_flush(self._h))
+
+    def pictures(self) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+        """The pictures ready for output, in order."""
+        out = []
+        w, h = ctypes.c_int32(), ctypes.c_int32()
+        while self._lib.h264d_ready(self._h):
+            self._lib.h264d_frame_size(self._h, ctypes.byref(w), ctypes.byref(h))
+            planes = (np.empty((h.value, w.value), np.uint8),
+                      np.empty((h.value // 2, w.value // 2), np.uint8),
+                      np.empty((h.value // 2, w.value // 2), np.uint8))
+            self._lib.h264d_pop(self._h, *(p.ctypes.data for p in planes))
+            out.append(planes)
+        return out
+
+
+def annexb_units(data: bytes) -> list[bytes]:
+    """The NAL units of an Annex B byte stream (start code prefixes 00 00 01
+    and 00 00 00 01; trailing zero bytes dropped)."""
+    starts = [m.end() for m in re.finditer(rb"\x00\x00\x01", data)]
+    units = []
+    for k, s in enumerate(starts):
+        end = starts[k + 1] - 3 if k + 1 < len(starts) else len(data)
+        unit = data[s:end].rstrip(b"\x00")
+        if unit:
+            units.append(unit)
+    return units
+
+
+def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Every picture of an Annex B H.264 stream, through the host decoder,
+    in output order."""
+    dec = Decoder()
+    out = []
+    for unit in annexb_units(data):
+        dec.push(unit)
+        out += dec.pictures()
+    dec.flush()
+    return out + dec.pictures()
+
+
 class H264Frames(Sequence):
-    """The frames of an H.264 MP4 file as (H, W, 3) uint8 RGB, decoded on
-    access (`frames[i]`, `len(frames)`, iteration): a frame is decoded from
-    the sync sample before it, or on from the last one decoded."""
+    """The frames of an H.264 MP4 / QuickTime file as (H, W, 3) uint8 RGB,
+    decoded by the host decoder on access (`frames[i]`, `len(frames)`,
+    iteration), as cv2 shows them: only the samples the edit list keeps, each
+    turned by the track's display rotation, converted with the VUI's range
+    and matrix.  A frame is decoded from the sync sample before it, or on
+    from the last one decoded."""
 
     def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
         self.path, self.offsets, self.sizes, self.info = path, offsets, sizes, info
         self.sps, self.pps, self.length = _avcc_units(info["avcC"], path)
-        # refuse a stream outside the subset now
-        self.params = H264Decoder(self.sps, self.pps).sps
+        if not self.sps:                       # avc3: the parameter sets in band
+            self.sps = [u for u in self.units(0) if u[0] & 0x1F == _NAL_SPS][:1]
+            self.pps = [u for u in self.units(0) if u[0] & 0x1F == _NAL_PPS]
+            if not self.sps:
+                raise ValueError(f"{path}: no sequence parameter set in the avcC box or the "
+                                 "first sample")
+        # refuse a stream outside the decoder's subset now, with no decode
+        self.params = parse_sps(self.sps[0])
+        for unit in self.pps:
+            parse_pps(unit)
         self.sync = info["sync"] if info["sync"] is not None else list(range(len(offsets)))
-        self._decoder: H264Decoder | None = None
-        self._at, self._last = -1, None
+        self.shown = info.get("shown") or list(range(len(offsets)))
+        self.rotation = info.get("rotation", 0)
+        self._decoder: Decoder | None = None
+        self._pushed = self._next = -1      # the last sample pushed, the next frame out
+        self._held: dict[int, tuple[np.ndarray, ...]] = {}
 
     def __len__(self) -> int:
-        return len(self.offsets)
+        return len(self.shown)
 
     def units(self, i: int) -> list[bytes]:
         """The NAL units of sample i."""
@@ -1589,37 +1701,61 @@ class H264Frames(Sequence):
         return out
 
     def ycbcr(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Frame i as decoded: Y', Cb, Cr uint8 planes."""
-        n = len(self)
-        if not -n <= i < n:
-            raise IndexError(f"{self.path}: frame {i} of {n}")
-        i %= n
+        """Frame i as decoded (before the rotation): Y', Cb, Cr uint8 planes."""
+        if not -len(self) <= i < len(self):
+            raise IndexError(f"{self.path}: frame {i} of {len(self)}")
+        return self._picture(self.shown[i % len(self)])
+
+    def _picture(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+        """The picture of sample i (its place in output order)."""
+        n = len(self.offsets)
+        if i in self._held:
+            return self._held[i]
         k = bisect.bisect_right(self.sync, i) - 1
         if k < 0:
             raise ValueError(f"{self.path}: frame {i} follows no sync sample")
         start = self.sync[k]
-        if i == self._at:
-            return self._last
-        if self._decoder is None or not start <= self._at < i:
-            self._decoder = H264Decoder(self.sps, self.pps)
-            self._at = start - 1
-        while self._at < i:
-            self._last = self._decoder.decode(self.units(self._at + 1))
-            self._at += 1
-        return self._last
+        if self._decoder is None or i < self._next or start > self._pushed:
+            self._decoder = Decoder()
+            for unit in self.sps + self.pps:
+                self._decoder.push(unit)
+            self._pushed, self._next = start - 1, start
+        self._held = {j: p for j, p in self._held.items() if j >= i}
+        while i not in self._held:
+            if self._pushed + 1 < n:
+                self._pushed += 1
+                for unit in self.units(self._pushed):
+                    self._decoder.push(unit)
+                self._decoder.end_picture()
+            elif self._pushed + 1 == n:
+                self._pushed += 1
+                self._decoder.flush()
+            else:
+                raise ValueError(f"{self.path}: the stream holds {self._next} pictures, not "
+                                 f"{n}")
+            for planes in self._decoder.pictures():
+                if self._next >= i:
+                    self._held[self._next] = planes
+                self._next += 1
+        return self._held[i]
 
     def __getitem__(self, i: int) -> np.ndarray:
-        return ycbcr_to_rgb(*self.ycbcr(i))
+        rgb = ycbcr_to_rgb(*self.ycbcr(i), full_range=self.params["full_range"],
+                           matrix=self.params["matrix"])
+        return np.ascontiguousarray(np.rot90(rgb, -self.rotation // 90))
 
     rgb = __getitem__
 
     def probe(self) -> dict:
-        """{"width", "height", "fps", "frame_count"} from the boxes and the
-        SPS (the size after cropping; fps from the track, else the VUI, else
-        30.0), with no decode."""
+        """{"width", "height", "fps", "frame_count"} as cv2 reports them, with
+        no decode: the size after cropping and the rotation, fps from the
+        track, else the VUI, else 30.0, and the count of samples (the edit
+        list aside)."""
         sps = self.params
-        return {"width": sps["width"], "height": sps["height"],
-                "fps": self.info["fps"] or sps["fps"] or 30.0,
+        w, h = sps["width"], sps["height"]
+        if self.rotation in (90, 270):
+            w, h = h, w
+        return {"width": w, "height": h, "fps": self.info["fps"] or sps["fps"] or 30.0,
                 "frame_count": self.info["frame_count"]}
 
     def __iter__(self) -> Iterator[np.ndarray]:
@@ -1628,8 +1764,9 @@ class H264Frames(Sequence):
 
 
 def frames(path) -> H264Frames:
-    """The frames of an H.264 (`avc1` / `avc3`) MP4 file of the port's subset,
-    decoded on access; parameter sets outside the subset raise."""
+    """The frames of an H.264 (`avc1` / `avc3`) MP4 or QuickTime file,
+    decoded on access by the host decoder; parameter sets outside its subset
+    raise."""
     offsets, sizes, info = container.index(path)
     if info["codec"] != "h264":
         raise ValueError(f"{path}: its video is not H.264")

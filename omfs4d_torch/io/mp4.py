@@ -5,15 +5,18 @@ standard library: the box code shared by the port's two codecs, Motion JPEG
 Written as FFmpeg's mov muxer lays a file out: `ftyp`, `mdat`, then `moov`
 with one video `trak`, all samples in one chunk, the track's timescale the
 frame rate's numerator doubled until it reaches 10,000, and an `stss` box
-listing the sync samples when not every sample is one.  Read: any `stsc`
-layout, `stco` or `co64` chunk offsets, `moov` before or after `mdat`; fps
-from `mdhd`'s timescale and `stts`, the frame count from `stsz`.  The codec is
-the caller's: the sample entry goes in as bytes and comes back as a range of
-the file.
+listing the sync samples when not every sample is one.  Read: MP4 and
+QuickTime (`qt  ` brand, `wide` atoms, a sound track beside the video, which
+is skipped), any `stsc` layout, `stco` or `co64` chunk offsets, `moov` before
+or after `mdat`; fps from `mdhd`'s timescale and `stts`, the frame count from
+`stsz`; the display rotation of `tkhd`'s matrix and the samples an edit list
+(`elst`) keeps, both as FFmpeg applies them.  The codec is the caller's: the
+sample entry goes in as bytes and comes back as a range of the file.
 """
 
 from __future__ import annotations
 
+import math
 import struct
 from collections.abc import Callable, Iterable
 from fractions import Fraction
@@ -59,15 +62,21 @@ VISUAL_ENTRY_HEAD = 78
 def read_track(buf, path: Path):
     """The first video track of an MP4 file: (sample offsets, sample sizes,
     info, sample entry) where info holds width and height (the sample
-    entry's), fps, frame_count, container "mp4" and `sync`, the 0-based
-    indices of the sync samples (None where `stss` is absent: every sample
-    is one), and the sample entry is (type, body start, body end)."""
+    entry's), fps, frame_count, container "mp4", `sync`, the 0-based indices
+    of the sync samples (None where `stss` is absent: every sample is one),
+    `rotation`, the clockwise display rotation of the track header's matrix
+    (0, 90, 180 or 270), and `shown`, the indices of the samples the edit
+    list keeps, in order (None: every sample); the sample entry is (type,
+    body start, body end)."""
     file_end = len(buf)
     moov = child(buf, 0, file_end, b"moov")
     if moov is None:
         raise ValueError(f"{path}: an MP4 file with no moov box (cut short, or fragmented)")
     if moov[1] > file_end:
         raise ValueError(f"{path}: the moov box is cut short")
+    mvhd = child(buf, *moov, b"mvhd")
+    movie_scale = (full_box(buf, mvhd[0], "QQI") if buf[mvhd[0]] == 1
+                   else full_box(buf, mvhd[0], "III"))[2] if mvhd else 0
     for typ, tbody, tend in boxes(buf, *moov):
         if typ != b"trak":
             continue
@@ -80,10 +89,46 @@ def read_track(buf, path: Path):
         (timescale,) = (full_box(buf, mdhd[0], "QQI") if version == 1
                         else full_box(buf, mdhd[0], "III"))[2:]
         stbl = child(buf, *child(buf, *mdia, b"minf"), b"stbl")
-        return _read_stbl(buf, stbl, timescale, path)
+        offsets, sizes, info, entry = _read_stbl(buf, stbl, timescale, path)
+        info["rotation"] = _rotation(buf, child(buf, tbody, tend, b"tkhd"))
+        edts = child(buf, tbody, tend, b"edts")
+        elst = edts and child(buf, *edts, b"elst")
+        info["shown"] = _edited(buf, elst, info.pop("times"), timescale, movie_scale)
+        return offsets, sizes, info, entry
     raise ValueError(f"{path}: an MP4 file with no video track")
 
 
+def _rotation(buf, tkhd) -> int:
+    """The clockwise rotation of a track header's display matrix (a b u / c
+    d v / x y w) to the nearest quarter turn, as FFmpeg's
+    av_display_rotation_get reads it."""
+    if tkhd is None:
+        return 0
+    # the matrix follows the times, track_ID, duration and 16 more bytes
+    at = tkhd[0] + (52 if buf[tkhd[0]] == 1 else 40)
+    a, b = struct.unpack_from(">ii", buf, at)
+    return int(round(math.degrees(math.atan2(b, a)) / 90)) % 4 * 90
+
+
+def _edited(buf, elst, times: list[int], timescale: int, movie_scale: int):
+    """The samples the edit list shows, in order: for each edit that is not
+    empty, those whose presentation time lies in [media_time, media_time +
+    the edit's duration); None where there is no edit list or it keeps every
+    sample in order."""
+    if elst is None or not movie_scale:
+        return None
+    version = buf[elst[0]]
+    (count,) = full_box(buf, elst[0], "I")
+    fmt, step = (">Qq", 16) if version == 1 else (">Ii", 8)
+    shown = []
+    for k in range(count):
+        duration, media_time = struct.unpack_from(fmt, buf, elst[0] + 8 + k * (step + 4))
+        if media_time < 0:
+            continue                                    # an empty edit
+        end = media_time + duration * timescale / movie_scale
+        shown += [i for i, t in enumerate(times) if media_time <= t < end or
+                  (duration == 0 and t >= media_time)]
+    return None if shown == list(range(len(times))) else shown
 def _read_stbl(buf, stbl, timescale: int, path: Path):
     stsd = child(buf, *stbl, b"stsd")
     entry = next(boxes(buf, stsd[0] + 8, stsd[1]))
@@ -127,6 +172,20 @@ def _read_stbl(buf, stbl, timescale: int, path: Path):
     (nt,) = full_box(buf, stts[0], "I")
     deltas = full_box(buf, stts[0], f"I{2 * nt}I")[1:]
     duration = sum(deltas[2 * k] * deltas[2 * k + 1] for k in range(nt))
+    times, t = [], 0                             # presentation times, n of them
+    for k in range(nt):
+        for _ in range(min(deltas[2 * k], n - len(times))):
+            times.append(t)
+            t += deltas[2 * k + 1]
+    times += [t] * (n - len(times))
+    ctts = child(buf, *stbl, b"ctts")
+    if ctts is not None:                         # composition offsets (signed)
+        (nc,) = full_box(buf, ctts[0], "I")
+        runs = full_box(buf, ctts[0], f"I{2 * nc}i")[1:]
+        shift = []
+        for k in range(nc):
+            shift += [runs[2 * k + 1]] * min(runs[2 * k], n - len(shift))
+        times = [t + (shift[i] if i < len(shift) else 0) for i, t in enumerate(times)]
     fps = float(Fraction(n * timescale, duration)) if duration and n else 0.0
     stss = child(buf, *stbl, b"stss")
     sync = None
@@ -134,7 +193,7 @@ def _read_stbl(buf, stbl, timescale: int, path: Path):
         (nsync,) = full_box(buf, stss[0], "I")
         sync = [s - 1 for s in full_box(buf, stss[0], f"I{nsync}I")[1:]]
     info = {"width": width, "height": height, "fps": fps, "frame_count": n,
-            "container": "mp4", "sync": sync}
+            "container": "mp4", "sync": sync, "times": times}
     return offsets, sizes, info, entry
 
 

@@ -24,11 +24,13 @@ contract).  With none, the port's own codecs:
   ffmpeg; so do frames H.264 cannot hold (an odd side, beyond level 5.2).
 - `probe_video` / `extract_frames` index the file once
   (`omfs4d_torch.io.container`) and read it with its codec's module: Motion
-  JPEG in AVI or MP4 (`mjpeg.MJPEGFrames`, `decode_jpeg`) or the H.264
-  subset the port writes in MP4 (`h264.H264Frames`).  cv2's `mp4v` (MPEG-4
-  Part 2), H.264 outside the subset (High profile, CABAC, ...) and other
-  codecs raise `container.UnsupportedCodecError` naming the codec or
-  feature.
+  JPEG in AVI or MP4 (`mjpeg.MJPEGFrames`, `decode_jpeg`) or H.264 Main /
+  High profile I and P pictures in MP4 or QuickTime, as phones record them
+  (`h264.H264Frames`, the host C++ decoder built by g++ at first use),
+  turned by the track's display matrix and cut by its edit list as cv2
+  reads them.  cv2's `mp4v` (MPEG-4 Part 2), HEVC, H.264 with B slices,
+  fields or more than 8 bits, and other codecs raise
+  `container.UnsupportedCodecError` naming the codec or feature.
 """
 
 from __future__ import annotations
@@ -194,9 +196,11 @@ def area_resize(img: np.ndarray, height: int, width: int) -> np.ndarray:
         return overlap / overlap.sum(axis=1, keepdims=True)
 
     x = np.asarray(img, np.float64)
-    x = np.einsum("oh,hwc->owc", weights(x.shape[0], height), x)
-    x = np.einsum("ow,hwc->hoc", weights(x.shape[1], width), x)
-    return np.clip(np.rint(x), 0, 255).astype(np.uint8)
+    h, w = x.shape[:2]
+    x = (weights(h, height) @ x.reshape(h, -1)).reshape((height, w) + x.shape[2:])
+    x = np.swapaxes(x, 0, 1)                       # (W, height, C): the same product by column
+    x = (weights(w, width) @ x.reshape(w, -1)).reshape((width, height) + x.shape[2:])
+    return np.clip(np.rint(np.swapaxes(x, 0, 1)), 0, 255).astype(np.uint8)
 
 
 def linear_resize(img: np.ndarray, height: int, width: int) -> np.ndarray:
@@ -245,8 +249,10 @@ def probe_video(path: str | Path) -> dict:
     """Width, height, fps and frame count of a capture: a directory of PNG or
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
-    Motion JPEG in AVI or MP4 or the port's H.264 subset in MP4, with no
-    decode (`container.UnsupportedCodecError` for another codec)."""
+    Motion JPEG in AVI or MP4 or H.264 (Main / High, I and P pictures) in MP4
+    or QuickTime, with no decode: the size as displayed (turned by the
+    track's matrix) and the count of samples, as cv2 reports them
+    (`container.UnsupportedCodecError` for another codec)."""
     import re
 
     p = Path(path)
@@ -283,7 +289,8 @@ def extract_frames(
 ) -> list[Path]:
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
     through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4 or
-    the port's H.264 subset in MP4) into numbered PNG frames (RGB), every
+    H.264 Main / High I and P pictures in MP4 or QuickTime, upright and
+    edited as cv2 shows them) into numbered PNG frames (RGB), every
     `stride`-th one, at most `max_frames`, shrunk by area averaging so that
     min(H, W) ~ target_size.  A Motion JPEG file's frames are decoded only
     where they are kept; an H.264 file's in order up to the last one kept."""

@@ -1,5 +1,6 @@
-"""Build native/meshkit.cpp with g++ and load it with ctypes: the QEM
-decimator on the host.
+"""Build host C++ with g++ and load it with ctypes: native/meshkit.cpp, the
+QEM decimator (`qem_decimate`), and the libraries of other modules (the
+H.264 decoder of `omfs4d_torch.io.h264`) through `build`.
 
 The port's counterpart of `omfs4d.native`.  The source is compiled unedited
 with `g++ -O3 -shared -fPIC`, at first use, into `_build/` beside this file
@@ -32,31 +33,52 @@ BUILD_DIR = Path(__file__).resolve().parent / "_build"
 GXX_FLAGS = ("-O3", "-shared", "-fPIC")
 
 
-def library_path() -> Path:
-    """Where the library for the current source and flags lives."""
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode())
-    h.update(SOURCE.read_bytes())
-    return BUILD_DIR / f"libmeshkit_{h.hexdigest()[:16]}.so"
+def built_path(source: Path, name: str, flags: tuple[str, ...],
+               headers: dict[str, str] | None = None) -> Path:
+    """Where the library `name` built from `source` with `flags` (and the
+    generated `headers`, by file name) lives: `BUILD_DIR/lib<name>_<hash>.so`,
+    the hash over the flags, the source and the headers."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    h.update(source.read_bytes())
+    for header, text in sorted((headers or {}).items()):
+        h.update(header.encode() + b"\0" + text.encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
-@functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load meshkit."""
-    lib_path = library_path()
+def build(source: Path, name: str, flags: tuple[str, ...], what: str,
+          headers: dict[str, str] | None = None) -> Path:
+    """Compile `source` with g++ into `built_path(...)` unless it is there,
+    the generated `headers` written beside it for the compile; `what` names
+    the library in the errors.  Raises RuntimeError with no g++ on PATH or
+    with g++'s message when the compile fails."""
+    lib_path = built_path(source, name, flags, headers)
     if not lib_path.exists():
         gxx = shutil.which("g++")
         if gxx is None:
-            raise RuntimeError("no g++ on PATH: native/meshkit.cpp (the QEM decimator) "
-                               "cannot be built")
+            raise RuntimeError(f"no g++ on PATH: {what} cannot be built")
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp_dir:
             tmp = Path(tmp_dir) / lib_path.name
-            cmd = [gxx, *GXX_FLAGS, "-o", str(tmp), str(SOURCE)]
+            for header, text in (headers or {}).items():
+                (Path(tmp_dir) / header).write_text(text)
+            cmd = [gxx, *flags, "-I", tmp_dir, "-o", str(tmp), str(source)]
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:
                 raise RuntimeError(f"g++ failed (exit {res.returncode}):\n{' '.join(cmd)}\n"
                                    f"{res.stderr[-6000:]}")
             os.replace(tmp, lib_path)      # atomic: concurrent builds agree
+    return lib_path
+
+
+def library_path() -> Path:
+    """Where meshkit for the current source and flags lives."""
+    return built_path(SOURCE, "meshkit", GXX_FLAGS)
+
+
+@functools.cache
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load meshkit."""
+    lib_path = build(SOURCE, "meshkit", GXX_FLAGS, "native/meshkit.cpp (the QEM decimator)")
     lib = ctypes.CDLL(str(lib_path))
     lib.qem_decimate.restype = ctypes.c_int64
     lib.qem_decimate.argtypes = [

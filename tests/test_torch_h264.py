@@ -14,8 +14,11 @@ reconstruction bit for bit.
   is within what it shows on that I_PCM stream.
 - FFmpeg's stderr holds no `[h264 @` line for any stream the port writes.
 - The JAX package's `probe_video` / `extract_frames` (cv2) read the port's
-  `stitch_video` output; the port's own reader of its subset round-trips
-  exactly and refuses what lies outside it by name."""
+  `stitch_video` output; the port's reader (the host decoder) round-trips it
+  exactly, and reads Main / High CABAC files and every macroblock feature the
+  plain Python decoder refuses by name, as cv2 reads them (the random
+  legal-syntax writer's streams; the whole of that decoder is held in
+  `tests/test_torch_h264_high.py`)."""
 
 from fractions import Fraction
 
@@ -24,8 +27,9 @@ import numpy as np
 import pytest
 
 from omfs4d.io import video as jvideo
-from omfs4d_torch.io import container, h264, mp4
+from omfs4d_torch.io import container, h264
 from omfs4d_torch.io import video as tvideo
+from tests import torch_h264_syntax as syn
 
 # FFmpeg's YUV -> BGR (cv2) against the port's `ycbcr_to_rgb`, mean grey
 # levels: chroma is upsampled by other filters.  The worst pixel is
@@ -342,69 +346,73 @@ def test_reader_round_trip_and_random_access(tmp_path, monkeypatch):
         np.testing.assert_array_equal(tvideo.read_image(p), h264.ycbcr_to_rgb(*stream.recon[i]))
 
 
-def avc1_file(path, sps: bytes, pps: bytes) -> None:
-    """An MP4 whose avc1 track holds the given parameter sets."""
-    entry = mp4.visual_entry(b"avc1", 48, 32, mp4.box(b"avcC", h264._avcc(sps, pps)))
-    samples = [(b"\x00\x00\x00\x02\x65\x88", True)] * 2
-    container.write_file(path, 25.0, 48, 32, lambda f, rate: mp4.write_track(
-        f, samples, rate, 48, 32, lambda sizes: entry))
+def cabac_clip(path, profile: int) -> list[list[bytes]]:
+    """An MP4 file (avc1) of a random CABAC stream, 48 x 32, 3 frames at 25
+    fps: High profile, or a Baseline SPS whose PPS selects CABAC; returns its
+    access units."""
+    aus = syn.write_stream(0, profile=profile, cabac=True, t8x8=profile == 100, frames=3,
+                           refs=2, num_ref_idx=2)
+    syn.write_mov(path, aus, 48, 32, fps=25, quicktime=False, audio=False)
+    return aus
 
 
-def cabac_pps() -> bytes:
-    """A PPS like the encoder's but with entropy_coding_mode_flag 1 (CABAC)."""
-    b = h264._Bits().ue(0).ue(0).u(1, 1).u(1, 0).ue(0).ue(0).ue(0).u(1, 0).u(2, 0)
-    return h264.nal(3, 8, b.se(0).se(0).se(0).u(1, 1).u(1, 0).u(1, 0).rbsp())
-
-
-def high_profile_sps() -> bytes:
-    """A High-profile SPS (profile_idc 100, 4:2:0, 8-bit, no scaling
-    matrices) of a 48 x 32 picture."""
-    b = h264._Bits().u(8, 100).u(8, 0).u(8, 30).ue(0).ue(1).ue(0).ue(0).u(1, 0).u(1, 0)
-    b.ue(0).ue(0).ue(4).ue(1).u(1, 0).ue(2).ue(1).u(1, 1).u(1, 1).u(1, 0).u(1, 0)
-    return h264.nal(3, 7, b.rbsp())
+def held_to_cv2(tmp_path, capfd, aus) -> list:
+    """The host decoder's pictures of a stream, after checking that cv2's
+    decode of it equals cv2's decode of an I_PCM stream of them."""
+    data = syn.annexb(aus)
+    ours = h264.decode_annexb(data)
+    (tmp_path / "coded.h264").write_bytes(data)
+    (tmp_path / "pcm.h264").write_bytes(syn.pcm_stream(ours))
+    coded, pcm = cv2_read(tmp_path / "coded.h264", capfd), cv2_read(tmp_path / "pcm.h264", capfd)
+    assert len(coded) == len(pcm) == len(ours)
+    for a, b in zip(coded, pcm):
+        np.testing.assert_array_equal(a, b)
+    return ours
 
 
 @pytest.mark.parametrize("case", ["high_cabac", "baseline_cabac"])
-def test_reader_refuses_other_streams_by_name(tmp_path, case):
+def test_reader_refuses_other_streams_by_name(tmp_path, capfd, case):
     """A High-profile stream with CABAC, and a Baseline SPS whose PPS selects
-    CABAC, raise UnsupportedCodecError naming the feature and ffmpeg, from
-    probe_video and extract_frames both."""
-    rate = Fraction(25)
-    if case == "high_cabac":
-        sps, name = high_profile_sps(), "H.264 High profile (CABAC)"
-    else:
-        sps, name = h264.nal(3, 7, h264.sps_rbsp(48, 32, rate, 10)), "H.264 CABAC"
-    avc1_file(tmp_path / "clip.mp4", sps, cabac_pps())
-    for fn in (tvideo.probe_video, lambda p: tvideo.extract_frames(p, tmp_path / "out"),
-               h264.frames):
-        with pytest.raises(container.UnsupportedCodecError, match="ffmpeg") as err:
-            fn(tmp_path / "clip.mp4")
-        assert name in str(err.value)
+    CABAC, which the port refused before its host decoder, now read through
+    probe_video, extract_frames and h264.frames: the probe is the JAX
+    package's, the frames those cv2 decodes (its decode of the file equals its
+    decode of an I_PCM stream of the port's pictures), converted by the port."""
+    path = tmp_path / "clip.mp4"
+    aus = cabac_clip(path, 100 if case == "high_cabac" else 66)
+    pictures = held_to_cv2(tmp_path, capfd, aus)
+    want = {"width": 48, "height": 32, "fps": 25.0, "frame_count": 3}
+    assert tvideo.probe_video(path) == jvideo.probe_video(path) == want
+    paths = tvideo.extract_frames(path, tmp_path / "out")
+    got = h264.frames(path)
+    assert len(paths) == len(got) == 3
+    for p, i in zip(paths, (0, 1, 2)):
+        np.testing.assert_array_equal(tvideo.read_image(p), h264.ycbcr_to_rgb(*pictures[i]))
+        for a, b in zip(got.ycbcr(i), pictures[i]):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(container.UnsupportedCodecError, match="ffmpeg") as err:
+        h264.H264Decoder(*(u for u in aus[0] if u[0] & 0x1F in (7, 8)))
+    assert ("H.264 High profile (CABAC)" if case == "high_cabac" else "H.264 CABAC") \
+        in str(err.value)
 
 
-def slice_units(kind: str) -> list[bytes]:
-    """A slice whose first macroblock (or header) lies outside the subset."""
-    # Intra_16x16 mb_type and intra_chroma_pred_mode: luma V 0, plane 3;
-    # chroma V 2, plane 3 (DC is luma 2, chroma 0)
-    intra = {"luma_v": (1, 0), "luma_plane": (4, 0), "chroma_v": (3, 2),
-             "chroma_plane": (3, 3)}
-    if kind in ("deblocking", "inxn", "pcm", *intra):    # an IDR slice
-        b = h264._Bits().ue(0).ue(7).ue(0).u(4, 0).ue(0).u(2, 0).se(0)
-        if kind == "deblocking":
-            b.ue(0).se(0).se(0)                           # the filter on, offsets 0
-        else:
-            b.ue(1)
-        if kind in intra:
-            b.ue(intra[kind][0]).ue(intra[kind][1])
-        else:
-            b.ue({"deblocking": 1, "inxn": 0, "pcm": 25}[kind])
-        return [h264.nal(3, 5, b.rbsp())]
-    b = h264._Bits().ue(0).ue(5).ue(0).u(4, 1)            # a P slice after the IDR
-    b.u(1, 0).u(1, 0).u(1, 0).se(0).ue(1).ue(0)           # ..., mb_skip_run 0
-    b.ue({"partition": 1, "intra_in_p": 5, "subsample": 0}[kind])
-    if kind == "subsample":
-        b.se(1).se(0).ue(0)
-    return [h264.nal(3, 1, b.rbsp())]
+# the plain decoder's own subset, which `encode_h264` writes: Constrained
+# Baseline CAVLC, Intra_16x16 luma H / DC and chroma DC / H, P_L0_16x16 with
+# whole-sample vectors and P_Skip, one reference, no deblocking
+PLAIN_SUBSET = dict(profile=66, cabac=False, t8x8=False, kinds=("I16", "P16x16"),
+                    i16_modes=(1, 2), chroma_modes=(0, 1), pcm=0.0, intra_in_p=0.0,
+                    whole_mv=True, deblock=(1,), refs=1, num_ref_idx=1, frames=3, width=96,
+                    height=64)
+# each case: the one feature outside it, and what the writer must have used
+OUTSIDE = {"deblocking": (dict(deblock=(0,)), "deblock0"),
+           "inxn": (dict(kinds=("I16", "I4x4", "P16x16")), "I4x4"),
+           "pcm": (dict(pcm=0.3), "IPCM"),
+           "partition": (dict(kinds=("I16", "P16x16", "P16x8", "P8x16", "P8x8")), "P8x8"),
+           "intra_in_p": (dict(intra_in_p=0.5), "I16"),
+           "subsample": (dict(whole_mv=False), "fractional_mv"),
+           "luma_v": (dict(i16_modes=(0, 1, 2)), "i16_mode0"),
+           "luma_plane": (dict(i16_modes=(1, 2, 3)), "i16_mode3"),
+           "chroma_v": (dict(chroma_modes=(0, 1, 2)), "chroma_mode2"),
+           "chroma_plane": (dict(chroma_modes=(0, 1, 3)), "chroma_mode3")}
 
 
 @pytest.mark.parametrize("kind, name", [
@@ -416,17 +424,23 @@ def slice_units(kind: str) -> list[bytes]:
     ("luma_plane", "Intra_16x16 plane prediction"),
     ("chroma_v", "intra chroma vertical prediction"),
     ("chroma_plane", "intra chroma plane prediction")])
-def test_decoder_refuses_macroblocks_outside_the_subset(kind, name):
-    """Slices the port's encoder never writes raise UnsupportedCodecError
-    naming the first feature outside the subset."""
-    stream = h264.encode_h264([np.full((32, 48, 3), 99, np.uint8)], 25.0)
-    dec = h264.H264Decoder(stream.sps, stream.pps)
-    dec.decode(stream.access_units[0])
+def test_decoder_refuses_macroblocks_outside_the_subset(tmp_path, capfd, kind, name):
+    """A stream inside the plain decoder's subset but for one feature, which
+    the port's reader refused before its host decoder: the host decoder now
+    decodes it as cv2 does (its decode of the stream equals its decode of an
+    I_PCM stream of the port's pictures); the plain `H264Decoder` still
+    raises UnsupportedCodecError naming the feature."""
+    extra, used = OUTSIDE[kind]
+    writer = syn.Writer(3, **dict(PLAIN_SUBSET, **extra))
+    aus = writer.stream()
+    assert writer.stats[used], dict(writer.stats)
+    held_to_cv2(tmp_path, capfd, aus)
+    units = [u for au in aus for u in au]
+    dec = h264.H264Decoder(*(u for u in units if u[0] & 0x1F in (7, 8)))
     with pytest.raises(container.UnsupportedCodecError, match="ffmpeg") as err:
-        dec.decode(slice_units(kind))
+        for au in aus:
+            dec.decode([u for u in au if u[0] & 0x1F not in (7, 8)])
     assert f"H.264 {name}" in str(err.value)
-
-
 @pytest.mark.parametrize("seed", [0, 1, 2])
 def test_reader_decodes_intra_modes_with_every_neighbour(tmp_path, capfd, seed):
     """One-slice IDR pictures (the upper neighbour available too, unlike the

@@ -1,0 +1,481 @@
+"""The port's host H.264 decoder (`omfs4d_torch/io/h264dec.cpp`, Main and
+High profile I and P pictures) on the CPU, held to an independent decoder:
+cv2's FFmpeg.
+
+- Random legal-syntax streams (`tests/torch_h264_syntax.py`) in twelve
+  feature sets over seeds: cv2's decode of the coded stream equals its decode
+  of an I_PCM stream of the port's planes (the same VUI, so the colour
+  conversion is the same), frame for frame, with no `[h264 @` line; each set
+  shows that it exercised its features.
+- On every stream the port's own encoder writes, the host decoder equals the
+  plain Python `H264Decoder` bit for bit.
+- The CABAC tables are libavcodec's, by their bytes (where opencv-python
+  bundles one).
+- Truncated and bit-flipped NAL units raise ValueError (in a child process,
+  so that a crash would fail the test, not the worker).
+- A phone-like QuickTime file (a silent sound track, a 90-degree display
+  matrix, an edit list) reads in the port as in the JAX package; the VUI's
+  range and matrix convert as cv2 converts them.
+- What stays outside the decoder is refused by name, and with no g++ there
+  is no decode at all.
+- The committed corpus (`tests/data/h264/`) decodes to its manifest."""
+
+import hashlib
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import cv2
+import numpy as np
+import pytest
+
+from omfs4d.io import video as jvideo
+from omfs4d_torch import native
+from omfs4d_torch.io import container, h264, h264_tables, mjpeg
+from omfs4d_torch.io import video as tvideo
+from tests import torch_h264_syntax as syn
+from tests.test_torch_h264 import annex_b, cv2_read, grey_clip, moving_patch
+
+CORPUS = Path(__file__).resolve().parent / "data" / "h264"
+REPO = Path(__file__).resolve().parent.parent
+
+# the feature sets of the random writer, and what each must exercise
+FEATURES = {
+    "main_cavlc_intra": dict(profile=77, cabac=False, t8x8=False, frames=2, idr_every=1,
+                             pcm=0.05, slices=3, width=64, height=48),
+    "main_cavlc_p": dict(profile=77, cabac=False, t8x8=False, frames=6, refs=2, num_ref_idx=2,
+                         intra_in_p=0.2, deblock=(0, 2)),
+    "main_cabac_intra": dict(profile=77, cabac=True, t8x8=False, frames=2, idr_every=1, pcm=0.05,
+                             width=64, height=48),
+    "main_cabac_p": dict(profile=77, cabac=True, t8x8=False, frames=6, refs=2, num_ref_idx=2),
+    "high_8x8_cavlc": dict(profile=100, cabac=False, t8x8=True, frames=4, width=64, height=48),
+    "high_8x8_cabac": dict(profile=100, cabac=True, t8x8=True, frames=4, width=64, height=48),
+    "scaling_lists": dict(profile=100, t8x8=True, scaling="sps+pps", frames=4),
+    "references": dict(frames=12, refs=4, num_ref_idx=4, list_mod=True, mmco=True,
+                       long_term=True, mmco5=True, idr_every=7),
+    "weighted": dict(frames=6, refs=3, num_ref_idx=3, weighted=True),
+    "slices_deblocking": dict(frames=5, slices=6, deblock=(0, 1, 2), constrained_intra=True,
+                              i_slices_in_p=0.3, intra_in_p=0.3, width=64, height=48),
+    "poc_and_params": dict(frames=8, non_ref=True, param_sets=3, width=56, height=40,
+                           chroma_offsets=(-4, 6), restriction=True, refs=2, num_ref_idx=2),
+    "levels_and_qp": dict(profile=100, cabac=False, big=0.8, qp=(0, 51), qp_delta=26, pcm=0.1,
+                          frames=3, scaling="sps", scaling_range=(4, 7)),
+}
+EXPECT = {
+    "main_cavlc_intra": ["I4x4", "I16", "IPCM", "i4_mode4", "chroma_mode3"],
+    "main_cavlc_p": ["P8x8REF0", "sub3", "PSKIP", "fractional_mv", "outside_mv", "ref1"],
+    "main_cabac_intra": ["I4x4", "I16", "IPCM", "i16_mode3", "i4_mode8"],
+    "main_cabac_p": ["P16x8", "P8x16", "sub2", "PSKIP", "ref1"],
+    "high_8x8_cavlc": ["I8x8", "inter_8x8"],
+    "high_8x8_cabac": ["I8x8", "inter_8x8"],
+    "scaling_lists": ["I8x8", "inter_8x8"],
+    "references": ["list_mod", "long_term", "mmco4", "ref1"],
+    "weighted": ["weighted", "ref2"],
+    "slices_deblocking": ["deblock0", "deblock1", "deblock2"],
+    "poc_and_params": ["non_ref"],
+    "levels_and_qp": ["level_prefix15"],
+}
+CASES = [(name, seed, poc) for name in FEATURES for seed, poc in ((0, 0), (1, 1 + len(name) % 2))]
+
+
+@pytest.fixture(autouse=True)
+def no_ffmpeg(monkeypatch):
+    monkeypatch.setattr(tvideo, "find_ffmpeg", lambda: None)
+
+
+def held_to_ffmpeg(tmp_path, capfd, aus, colour=None) -> list:
+    """The port's pictures of a stream, after checking that cv2's decode of
+    it equals cv2's decode of an I_PCM stream of them."""
+    data = syn.annexb(aus)
+    ours = h264.decode_annexb(data)
+    (tmp_path / "coded.h264").write_bytes(data)
+    (tmp_path / "pcm.h264").write_bytes(syn.pcm_stream(ours, colour))
+    coded = cv2_read(tmp_path / "coded.h264", capfd)
+    pcm = cv2_read(tmp_path / "pcm.h264", capfd)
+    assert len(coded) == len(pcm) == len(ours)
+    for i, (a, b) in enumerate(zip(coded, pcm)):
+        np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
+    return ours
+
+
+@pytest.mark.parametrize("name, seed, poc", CASES, ids=[f"{n}-{s}" for n, s, _ in CASES])
+def test_random_streams_decode_as_ffmpeg_does(tmp_path, capfd, name, seed, poc):
+    """Each feature set over two seeds (and POC types 0 to 2): cv2 decodes
+    the stream to exactly the port's pictures, with no FFmpeg warning, and
+    the stream held what the set is about."""
+    features = dict(FEATURES[name])
+    features.setdefault("poc_type", poc)
+    writer = syn.Writer(seed, **features)
+    aus = writer.stream()
+    ours = held_to_ffmpeg(tmp_path, capfd, aus)
+    assert len(ours) == features["frames"]
+    assert ours[0][0].shape == (features.get("height", 32), features.get("width", 48))
+    missing = [k for k in EXPECT[name] if not writer.stats[k]]
+    assert not missing, (missing, dict(writer.stats))
+
+
+def test_the_feature_sets_cover_the_subset():
+    """Over the feature sets every macroblock kind, every intra mode of each
+    block size, every sub-partition, every MMCO and both entropy coders
+    occur."""
+    total = syn.Counter()
+    for name, seed, poc in CASES:
+        writer = syn.Writer(seed, **dict(FEATURES[name], poc_type=poc))
+        writer.stream()
+        total.update(writer.stats)
+    wanted = (["I4x4", "I8x8", "I16", "IPCM", "P16x16", "P16x8", "P8x16", "P8x8", "P8x8REF0",
+               "PSKIP"] + [f"i4_mode{m}" for m in range(9)] + [f"i8_mode{m}" for m in range(9)]
+              + [f"i16_mode{m}" for m in range(4)] + [f"chroma_mode{m}" for m in range(4)]
+              + [f"sub{s}" for s in range(4)] + [f"mmco{k}" for k in range(1, 7)]
+              + [f"cabac_init_idc{k}" for k in range(3)] + ["level_prefix16", "weighted",
+                                                            "list_mod", "non_ref"])
+    assert not [k for k in wanted if not total[k]], dict(total)
+
+
+# ── the plain version ───────────────────────────────────────
+
+PLAIN = [((16, 16), 10, "noise"), ((32, 48), 30, "flat"), ((62, 100), 18, "gradient"),
+         ((48, 64), 40, "noise"), ((64, 80), 18, "colour"), ((512, 512), 18, "noise")]
+
+
+@pytest.mark.parametrize("size, qp, kind", PLAIN,
+                         ids=[f"{s[1]}x{s[0]}-qp{q}-{k}" for s, q, k in PLAIN])
+def test_host_decoder_equals_the_plain_one(size, qp, kind):
+    """On `encode_h264`'s streams (Intra_16x16 IDR pictures one slice a row,
+    P_L0_16x16 / P_Skip with whole-sample vectors) the host decoder gives the
+    plain `H264Decoder`'s pictures, which are the encoder's reconstruction."""
+    h, w = size
+    n = 3 if h >= 512 else 12
+    frames = moving_patch(h, w, n) if kind == "colour" else grey_clip(h, w, kind, n=n)
+    stream = h264.encode_h264(frames, 25.0, qp=qp)
+    plain = h264.H264Decoder(stream.sps, stream.pps)
+    ours = h264.decode_annexb(annex_b(stream))
+    assert len(ours) == n
+    for au, got, recon in zip(stream.access_units, ours, stream.recon):
+        for a, b, r in zip(got, plain.decode(au), recon):
+            np.testing.assert_array_equal(a, b)
+            np.testing.assert_array_equal(a, r)
+
+
+# ── the tables ──────────────────────────────────────────────
+
+def libavcodec() -> bytes:
+    libs = Path(cv2.__file__).resolve().parent.parent / "opencv_python.libs"
+    found = sorted(libs.glob("libavcodec*.so*")) if libs.is_dir() else []
+    if not found:
+        pytest.skip("no libavcodec bundled with cv2")
+    return found[0].read_bytes()
+
+
+def test_cabac_tables_are_libavcodecs():
+    """The (m, n) of ctxIdx 0-459 for I slices and each cabac_init_idc, as
+    int8 pairs, and rangeTabLPS (each entry twice, a column of qCodIRangeIdx
+    at a time, as FFmpeg lays it out) and transIdxLPS (in FFmpeg's combined
+    state table) are byte strings of the libavcodec that cv2 bundles."""
+    lib = libavcodec()
+    at = []
+    for table in h264_tables.CABAC_INIT:
+        raw = table.astype(np.int8).tobytes()
+        assert lib.count(raw) == 1
+        at.append(lib.index(raw))
+    # FFmpeg's cabac_context_init_PB[3][1024][2] then _I[1024][2]: 2048 bytes a table
+    assert [a - at[1] for a in at] == [6144, 0, 2048, 4096]
+    for q in range(4):
+        assert np.repeat(h264_tables.RANGE_TAB_LPS[:, q], 2).astype(np.uint8).tobytes() in lib
+    lps = h264_tables.TRANS_IDX_LPS
+    states = [v for i in range(63, 0, -1) for v in (2 * lps[i] + 1, 2 * lps[i])] + [0, 1]
+    assert bytes(states) in lib
+    assert h264_tables.SIG8_CTX.astype(np.uint8).tobytes() in lib
+    assert h264_tables.LAST8_CTX.astype(np.uint8).tobytes() in lib
+
+
+def test_generated_header_holds_every_table():
+    """The C++ header is generated from the one copy of the tables."""
+    text = h264_tables.cpp_header()
+    for name in ("CABAC_INIT[4][460][2]", "RANGE_TAB_LPS[64][4]", "TRANS_IDX_LPS[64]",
+                 "ALPHA[52]", "BETA[52]", "TC0[52][3]", "DEFAULT_8X8[2][64]", "CT_LEN[5][17][4]"):
+        assert f" {name} = " in text
+    assert text.count("static const") == 25
+
+
+# ── corrupt input ───────────────────────────────────────────
+
+FUZZ = r"""
+import json, sys
+import numpy as np
+sys.path[:0] = [sys.argv[1], sys.argv[1] + "/tests"]
+import torch_h264_syntax as syn
+from omfs4d_torch.io import container, h264
+rng = np.random.default_rng(0)
+out = {"truncated": [], "flipped": []}
+for cabac in (False, True):
+    aus = syn.write_stream(4, cabac=cabac, frames=3, refs=2, num_ref_idx=2, width=48, height=32)
+    units = [u for au in aus for u in au]
+    for trial in range(60):
+        kind = "truncated" if trial % 2 else "flipped"
+        k = int(rng.integers(2, len(units)))
+        u = bytearray(units[k])
+        if kind == "truncated":
+            u = u[:int(rng.integers(1, len(u)))]
+        else:
+            for _ in range(int(rng.integers(1, 4))):
+                bit = int(rng.integers(8, 8 * len(u)))
+                u[bit // 8] ^= 1 << (7 - bit % 8)
+        dec = h264.Decoder()
+        try:
+            for i, x in enumerate(units):
+                dec.push(bytes(u) if i == k else x)
+            dec.flush()
+            out[kind].append("decoded")
+        except ValueError:
+            out[kind].append("ValueError")
+        except container.UnsupportedCodecError:
+            out[kind].append("unsupported")
+print(json.dumps(out))
+"""
+
+
+def test_corrupt_nal_units_raise_and_never_crash():
+    """Truncated NAL units raise ValueError; bit-flipped ones raise ValueError
+    (or name an unsupported feature, or happen to decode): never a crash of
+    the interpreter.  Run in a child process so that a crash fails this test."""
+    res = subprocess.run([sys.executable, "-c", FUZZ, str(REPO)], capture_output=True,
+                         text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert set(out["truncated"]) == {"ValueError"}, out
+    assert set(out["flipped"]) <= {"ValueError", "unsupported", "decoded"}
+    assert out["flipped"].count("ValueError") >= 20, out
+
+
+def test_empty_and_junk_units_raise_value_error():
+    dec = h264.Decoder()
+    for unit in (b"", b"\x80", b"\x67", b"\x68\x00", b"\x65"):
+        with pytest.raises(ValueError, match="H.264"):
+            h264.Decoder().push(unit)
+    with pytest.raises(ValueError, match="parameter set"):
+        dec.push(bytes([0x41, 0x9A, 0x00, 0x80]))
+
+
+# ── the phone's file ────────────────────────────────────────
+
+def rgb_tolerance(ours_planes, colour, tmp_path, capfd) -> int:
+    """The largest difference between the port's conversion of the planes
+    and cv2's decode of an I_PCM stream of them: the conversions' own."""
+    (tmp_path / "tol.h264").write_bytes(syn.pcm_stream(ours_planes, colour))
+    theirs = cv2_read(tmp_path / "tol.h264", capfd)
+    worst = 0
+    for planes, bgr in zip(ours_planes, theirs):
+        ours = h264.ycbcr_to_rgb(*planes, full_range=bool(colour[0]), matrix=colour[1])
+        worst = max(worst, int(np.abs(ours.astype(int) - bgr[..., ::-1]).max()))
+    return worst
+
+
+@pytest.mark.parametrize("rotation, media_time, entry",
+                         [(90, 0, b"avc1"), (270, 601, b"avc3"), (180, 600, b"avc1")])
+def test_phone_quicktime_reads_as_in_the_jax_package(tmp_path, capfd, rotation, media_time,
+                                                     entry):
+    """A QuickTime file as a phone writes one (`qt  ` brand, `wide`, a silent
+    `sowt` sound track, BT.709, a display matrix, an edit list; parameter
+    sets in avcC or in band): the port's probe_video and extract_frames give
+    the JAX package's size (turned), fps, count and frames (turned, those the
+    edit list keeps), the pixels within the conversion tolerance the I_PCM
+    stream shows."""
+    colour = (0, 1)
+    aus = syn.write_stream(2, width=64, height=48, frames=6, refs=2, num_ref_idx=2,
+                           colour=colour, param_sets=2)
+    path = tmp_path / "clip.mov"
+    syn.write_mov(path, aus, 64, 48, fps=30, rotation=rotation, media_time=media_time,
+                  sample_entry=entry)
+    info = container.index(path)[2]
+    assert (info["codec"], info["rotation"]) == ("h264", rotation)
+    assert tvideo.probe_video(path) == jvideo.probe_video(path)
+    ours = tvideo.extract_frames(path, tmp_path / "ours")
+    theirs = jvideo.extract_frames(path, tmp_path / "theirs")
+    capfd.readouterr()
+    kept = 6 - (media_time + 599) // 600
+    assert len(ours) == len(theirs) == kept
+    planes = h264.decode_annexb(syn.annexb(aus))[6 - kept:]
+    tol = rgb_tolerance(planes, colour, tmp_path, capfd)
+    for a, b in zip(ours, theirs):
+        x, y = tvideo.read_image(a).astype(int), tvideo.read_image(b).astype(int)
+        assert x.shape == y.shape == ((64, 48, 3) if rotation in (90, 270) else (48, 64, 3))
+        assert np.abs(x - y).max() <= tol
+
+
+COLOURS = [(False, 6), (True, 6), (False, 1), (True, 1), (False, 4), (False, 7), (False, 2)]
+
+
+@pytest.mark.parametrize("full, matrix", COLOURS, ids=[f"{'full' if f else 'limited'}-m{m}"
+                                                       for f, m in COLOURS])
+def test_colour_follows_the_vui_as_cv2_does(tmp_path, capfd, full, matrix):
+    """Flat 16 x 16 blocks of random Y'CbCr in an I_PCM stream whose VUI says
+    the range (Android's yuvj420p is full) and matrix_coefficients (1,
+    BT.709, usual at 1080p): `ycbcr_to_rgb` with the SPS's `full_range` and
+    `matrix` is within 3 of cv2 at every block's centre; the other matrix
+    or range is far off."""
+    rng = np.random.default_rng(matrix + 10 * full)
+    n = 48
+    vals = rng.integers(0, 256, (n, 3)).astype(np.uint8)
+    y = np.repeat(np.repeat(vals[None, :, 0], 16, 0), 16, 1)
+    cb = np.repeat(np.repeat(vals[None, :, 1], 8, 0), 8, 1)
+    cr = np.repeat(np.repeat(vals[None, :, 2], 8, 0), 8, 1)
+    (tmp_path / "c.h264").write_bytes(syn.pcm_stream([(y, cb, cr)], (int(full), matrix)))
+    (bgr,) = cv2_read(tmp_path / "c.h264", capfd)
+    sps = h264.parse_sps(h264.annexb_units((tmp_path / "c.h264").read_bytes())[0])
+    assert (sps["full_range"], sps["matrix"]) == (full, matrix)
+    ours = h264.ycbcr_to_rgb(y, cb, cr, full_range=sps["full_range"], matrix=sps["matrix"])
+    centre = (slice(8, 9), slice(8, None, 16))
+    assert np.abs(ours[centre].astype(int) - bgr[..., ::-1][centre]).max() <= 3
+    other = h264.ycbcr_to_rgb(y, cb, cr, full_range=not full, matrix=matrix)
+    assert np.abs(other[centre].astype(int) - bgr[..., ::-1][centre]).max() > 10
+    if matrix in (1, 6):
+        swapped = h264.ycbcr_to_rgb(y, cb, cr, full_range=full, matrix=6 if matrix == 1 else 1)
+        assert np.abs(swapped[centre].astype(int) - bgr[..., ::-1][centre]).max() > 10
+
+
+# ── what stays outside ──────────────────────────────────────
+
+def sps_unit(profile: int, frame_mbs_only: int = 1) -> bytes:
+    bw = syn.BitWriter()
+    for v in (profile, 0, 40):
+        bw.u(8, v)
+    bw.ue(0)
+    if profile in (100, 110, 122, 244):
+        bw.ue(2 if profile == 122 else 1)
+        bw.ue(2 if profile == 110 else 0)
+        bw.ue(2 if profile == 110 else 0)
+        bw.u(2, 0)
+    for v in (0, 2, 1):
+        bw.ue(v)
+    bw.u(1, 0)
+    bw.ue(2)
+    bw.ue(1)
+    bw.u(1, frame_mbs_only)
+    if not frame_mbs_only:
+        bw.u(1, 0)
+    bw.u(3, 4)                                 # direct_8x8_inference, no cropping, no VUI
+    bw.trailing()
+    return syn.nal(3, 7, bw.data())
+
+
+REFUSED = {"b_slices": "H.264 B slices", "field": "H.264 interlaced (field) coding",
+           "high10": "H.264 High 10 profile", "high422": "H.264 High 4:2:2 profile",
+           "high444": "H.264 High 4:4:4 Predictive profile",
+           "hevc": "H.265 / HEVC", "h264_in_avi": "H.264"}
+
+
+@pytest.mark.parametrize("case", list(REFUSED))
+def test_what_stays_outside_is_refused_by_name(tmp_path, case):
+    """B slices, field coding, High 10, High 4:2:2 and High 4:4:4, HEVC and
+    H.264 in AVI raise UnsupportedCodecError naming the feature and ffmpeg, from
+    probe_video or at the latest extract_frames."""
+    path = tmp_path / "clip.mov"
+    aus = syn.write_stream(0, frames=2, width=48, height=32)
+    if case == "b_slices":
+        pps_id = h264.parse_pps([u for u in aus[0] if u[0] & 0x1F == 8][-1])["id"]
+        bw = syn.BitWriter()
+        for v in (0, 1, pps_id):
+            bw.ue(v)
+        bw.u(8, 1)
+        bw.trailing()
+        aus[1] = [syn.nal(2, 1, bw.data())]
+    elif case in ("field", "high10", "high422", "high444"):
+        sps = sps_unit({"field": 77, "high10": 110, "high422": 122, "high444": 244}[case],
+                       frame_mbs_only=0 if case == "field" else 1)
+        aus[0] = [sps] + [u for u in aus[0] if u[0] & 0x1F != 7]
+    syn.write_mov(path, aus, 48, 32, sample_entry=b"hvc1" if case == "hevc" else b"avc1")
+    if case == "h264_in_avi":
+        path = tmp_path / "clip.avi"
+        mjpeg.write(path, [b"\xff\xd8\xff\xd9"] * 2, 25.0, 48, 32)
+        path.write_bytes(path.read_bytes().replace(b"MJPG", b"H264"))
+    with pytest.raises(container.UnsupportedCodecError, match="ffmpeg") as err:
+        tvideo.probe_video(path)
+        tvideo.extract_frames(path, tmp_path / "out")
+    assert REFUSED[case] in str(err.value)
+
+
+# ── the build ───────────────────────────────────────────────
+
+def test_no_gxx_means_no_decode(tmp_path, monkeypatch):
+    """With no g++ the library cannot be built and reading raises with the
+    reason: there is no decoding in Python on the reading path."""
+    path = tmp_path / "clip.mp4"
+    syn.write_mov(path, syn.write_stream(0, frames=2, width=48, height=32), 48, 32,
+                  quicktime=False, audio=False)
+    monkeypatch.setattr(native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(native.shutil, "which", lambda name: None)
+    h264._library.cache_clear()
+    try:
+        assert tvideo.probe_video(path)["frame_count"] == 2       # no decode
+        for fn in (lambda: h264.frames(path)[0], lambda: tvideo.extract_frames(path, tmp_path)):
+            with pytest.raises(RuntimeError, match="no g\\+\\+") as err:
+                fn()
+            assert "h264dec.cpp" in str(err.value)
+    finally:
+        h264._library.cache_clear()
+    assert not (tmp_path / "build").exists()
+
+
+def test_importing_builds_nothing():
+    """Importing the reader builds no library (the package walk needs no
+    g++); the first decode builds it, under a name hashed from the source,
+    the flags and the generated header."""
+    code = ("import omfs4d_torch.io.h264 as h; print(h._library.cache_info().currsize)")
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         cwd=REPO, timeout=120)
+    assert res.stdout.strip() == "0", res.stderr[-2000:]
+    path = Path(h264._library()._name)
+    assert path.parent == native.BUILD_DIR and path.name.startswith("libh264dec_")
+    assert path == native.built_path(h264._SOURCE, "h264dec", h264._GXX_FLAGS,
+                                     {"h264_tables.h": h264_tables.cpp_header()})
+
+
+# ── the committed corpus ────────────────────────────────────
+
+def planes_sha(planes) -> str:
+    h = hashlib.sha256()
+    for p in planes:
+        h.update(np.ascontiguousarray(p).tobytes())
+    return h.hexdigest()
+
+
+def test_corpus_decodes_to_its_manifest():
+    """Every stream of `tests/data/h264/` decodes to the SHA-256 of its
+    planes in the manifest (written once cv2 agreed with them), and the
+    phone clip reads as a 1080 x 1920 portrait."""
+    manifest = json.loads((CORPUS / "manifest.json").read_text())
+    assert sum(p.stat().st_size for p in CORPUS.iterdir()) <= 2 * 1024 * 1024
+    for name, entry in manifest["streams"].items():
+        path = CORPUS / name
+        if path.suffix == ".mov":
+            frames = h264.frames(path)
+            pics = [frames.ycbcr(i) for i in range(len(frames))]
+        else:
+            pics = h264.decode_annexb(path.read_bytes())
+        assert [planes_sha(p) for p in pics] == entry["sha256"], name
+    clip = CORPUS / "clip.mov"
+    assert tvideo.probe_video(clip) == {"width": 1080, "height": 1920, "fps": 30.0,
+                                        "frame_count": 6}
+
+
+def test_committed_clip_reads_as_in_the_jax_package(tmp_path, capfd):
+    """clip.mov, the corpus's phone capture (1080p High, CABAC, a 90-degree
+    matrix, a sound track): the port's probe_video equals the JAX package's
+    (size turned, fps, count), and extract_frames gives as many upright
+    frames, each within the conversion tolerance the I_PCM stream of its
+    pictures shows."""
+    clip = CORPUS / "clip.mov"
+    assert tvideo.probe_video(clip) == jvideo.probe_video(clip)
+    ours = tvideo.extract_frames(clip, tmp_path / "ours")
+    theirs = jvideo.extract_frames(clip, tmp_path / "theirs")
+    capfd.readouterr()
+    assert len(ours) == len(theirs) == 6
+    frames = h264.frames(clip)
+    planes = [frames.ycbcr(i) for i in range(6)]
+    tol = rgb_tolerance(planes, (0, 1), tmp_path, capfd)
+    for a, b in zip(ours, theirs):
+        x, y = tvideo.read_image(a).astype(int), tvideo.read_image(b).astype(int)
+        assert x.shape == y.shape == (1920, 1080, 3)
+        assert np.abs(x - y).max() <= tol

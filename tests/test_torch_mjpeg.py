@@ -180,20 +180,27 @@ def patched(data: bytes, old: bytes, new: bytes) -> bytes:
 
 @pytest.mark.parametrize("case", ["mp4v", "xvid_avi", "avc1", "avc1_no_avcc", "no_container"])
 def test_other_codecs_need_ffmpeg(tmp_path, case):
-    """MPEG-4 Part 2 (cv2's mp4v rung, OTI 0x20, and Xvid in AVI), H.264
-    outside the port's subset (a High-profile track with CABAC; an avc1
-    sample entry with no avcC box) and a file that is no container raise a
+    """MPEG-4 Part 2 (cv2's mp4v rung, OTI 0x20, and Xvid in AVI), an avc1
+    sample entry with no avcC box and a file that is no container raise a
     RuntimeError naming the codec and ffmpeg, from probe_video and
-    extract_frames both."""
-    from tests.test_torch_h264 import avc1_file, cabac_pps, high_profile_sps
+    extract_frames both.  A High-profile CABAC track, which raised before the
+    host H.264 decoder, now reads as the JAX package reads it."""
+    from tests.test_torch_h264 import cabac_clip
 
     img = smooth_image(32, 48, 3)
     if case == "no_container":
         path, name = tmp_path / "clip.mp4", "neither an AVI nor an MP4"
         path.write_bytes(b"\x00" * 64)
     elif case == "avc1":
-        path, name = tmp_path / "clip.mp4", "H.264 High profile (CABAC)"
-        avc1_file(path, high_profile_sps(), cabac_pps())
+        path = tmp_path / "clip.mp4"
+        cabac_clip(path, 100)
+        assert tvideo.probe_video(path) == jvideo.probe_video(path)
+        ours = tvideo.extract_frames(path, tmp_path / "ours")
+        theirs = jvideo.extract_frames(path, tmp_path / "theirs")
+        assert len(ours) == len(theirs) == 3
+        assert ([tvideo.read_image(p).shape for p in ours]
+                == [tvideo.read_image(p).shape for p in theirs] == [(32, 48, 3)] * 3)
+        return
     else:
         fourcc, suffix = {"mp4v": ("mp4v", "mp4"), "avc1_no_avcc": ("mp4v", "mp4"),
                           "xvid_avi": ("XVID", "avi")}[case]
