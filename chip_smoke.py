@@ -2912,8 +2912,10 @@ def h264_corpus(work: Path) -> dict:
     """The host H.264 decoder on the card's machine (no cv2 there): every
     stream of the committed corpus decodes to the SHA-256s of its manifest,
     which cv2's FFmpeg agreed with where the corpus was written; clip.mov's
-    IDR and P pictures are timed; `cli preprocess --video clip.mov` gives its
-    frames turned upright at target_size 512."""
+    IDR and P pictures and clip_b.mp4's IDR, P and B pictures (x264's layout:
+    a B-pyramid, reordered by `ctts`) are timed; `cli preprocess --video`
+    gives clip.mov's frames turned upright and clip_b.mp4's in display order
+    at target_size 512."""
     from omfs4d_torch.io import h264
     from omfs4d_torch.io import video as tvideo
     from omfs4d_torch.pipeline import cli
@@ -2928,7 +2930,7 @@ def h264_corpus(work: Path) -> dict:
     t0 = time.perf_counter()
     for name, entry in manifest["streams"].items():
         path = H264_CORPUS / name
-        if path.suffix == ".mov":
+        if path.suffix in (".mov", ".mp4"):
             frames = h264.frames(path)
             pics = [frames.ycbcr(i) for i in range(len(frames))]
         else:
@@ -2968,10 +2970,58 @@ def h264_corpus(work: Path) -> dict:
         want = tvideo.area_resize(clip.rgb(i), 910, 512)
         check(np.array_equal(tvideo.read_image(extracted[i]), want),
               f"preprocessed frame {i} is the port's read of clip.mov, upright and shrunk")
+    # clip_b.mp4: each sample's decode timed by its slice type; the pictures
+    # come out reordered, equal to the manifest
+    clip_b_path = H264_CORPUS / "clip_b.mp4"
+    clip_b = h264.frames(clip_b_path)
+    dec = h264.Decoder()
+    for unit in clip_b.sps + clip_b.pps:
+        dec.push(unit)
+    by_type, out = {"I": [], "P": [], "B": []}, []
+    for i in range(len(clip_b.offsets)):
+        units = clip_b.units(i)
+        slice_unit = next(u for u in units if u[0] & 0x1F in (1, 5))
+        r = h264._Reader(h264._unescape(slice_unit[1:]))
+        r.ue()
+        kind = "PBI"[r.ue() % 5]
+        t0 = time.perf_counter()
+        for unit in units:
+            dec.push(unit)
+        dec.end_picture()
+        by_type[kind].append(time.perf_counter() - t0)
+        out += dec.pictures()
+    dec.flush()
+    out += dec.pictures()
+    check([sha(p) for p in out] == manifest["streams"]["clip_b.mp4"]["sha256"],
+          f"clip_b.mp4: {len(out)} pictures (timed) out in display order, equal to the manifest")
+    check({k: len(v) for k, v in by_type.items()} == {"I": 1, "P": 2, "B": 6},
+          f"clip_b.mp4 holds 1 IDR, 2 P and 6 B pictures: "
+          f"{ {k: len(v) for k, v in by_type.items()} }")
+    wd_b = work / "wd_mp4_b"
+    t0 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(clip_b_path), "--workdir", str(wd_b)]) == 0,
+          "cli preprocess --video clip_b.mp4")
+    preprocess_b_s = time.perf_counter() - t0
+    (stage,) = list((wd_b / "stages").glob("preprocess-*"))
+    extracted_b = sorted((stage / "images").glob("*.png"))
+    shapes_b = {tvideo.read_image(p).shape for p in extracted_b}
+    check(len(extracted_b) == 9 and shapes_b == {(512, 910, 3)},
+          f"clip_b.mp4 preprocessed to {len(extracted_b)} frames of {shapes_b}: 9 1920 x 1080 "
+          "frames at target_size 512")
+    for i in (0, 1, 8):
+        want = tvideo.area_resize(clip_b.rgb(i), 512, 910)
+        check(np.array_equal(tvideo.read_image(extracted_b[i]), want),
+              f"preprocessed frame {i} is the port's read of clip_b.mp4 in display order")
+    b_sizes = manifest["streams"]["clip_b.mp4"]["frame_bytes"]
     return {"idr_s": times[0], "p_s": float(np.mean(times[1:])), "n_p": len(times) - 1,
             "idr_bytes": sizes[0], "p_bytes": float(np.mean(sizes[1:])),
             "streams": len(manifest["streams"]), "corpus_s": corpus_s,
-            "preprocess_s": preprocess_s, "frames": len(extracted), "shape": (910, 512)}
+            "preprocess_s": preprocess_s, "frames": len(extracted), "shape": (910, 512),
+            "b_idr_s": by_type["I"][0], "b_p_s": float(np.mean(by_type["P"])),
+            "b_s": float(np.mean(by_type["B"])), "n_b": len(by_type["B"]),
+            "b_bytes": float(np.mean([b for b, d in zip(b_sizes, manifest["streams"][
+                "clip_b.mp4"]["display"]) if d % 4])),
+            "preprocess_b_s": preprocess_b_s, "frames_b": len(extracted_b)}
 
 
 def phase_m(model, device, card: str, work: Path) -> dict:
@@ -3199,6 +3249,12 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"{corpus['streams']} streams equal to the manifest in {corpus['corpus_s']:.2f} s; "
           f"cli preprocess --video clip.mov {corpus['preprocess_s']:.2f} s -> "
           f"{corpus['frames']} frames {corpus['shape'][1]}x{corpus['shape'][0]} (portrait)")
+    print(f"  H.264 B pictures (h264dec.cpp): clip_b.mp4 (1920x1080 High, CABAC, 8x8, "
+          f"deblocking, B-pyramid of 3, spatial direct, implicit weights, ctts) IDR "
+          f"{corpus['b_idr_s']:.4f} s, P {corpus['b_p_s']:.4f} s/frame, B {corpus['b_s']:.4f} "
+          f"s/frame (mean of {corpus['n_b']}; {corpus['b_bytes']:.0f} bytes a B); cli "
+          f"preprocess --video clip_b.mp4 {corpus['preprocess_b_s']:.2f} s -> "
+          f"{corpus['frames_b']} frames in display order")
     print(f"  bytes a frame of the render PNGs: H.264 (QP {h264.H264_QP}, the pictures' QPs "
           f"{sorted(set(stream.qp))}, level {stream.level / 10:.1f}) "
           f"{h264_bytes / n_train:.1f} (file {h264_bytes}; IDR "

@@ -49,17 +49,19 @@ lowest level of Table A-1 that holds the frame size and macroblock rate:
 The reader (`frames`, `H264Frames`, `decode_annexb`) is the host C++ decoder
 `h264dec.cpp` (`Decoder`), built by g++ at first use into `omfs4d_torch/_build/`
 (no Python fallback: without g++ reading raises with the reason) and bound with
-ctypes.  It decodes Baseline, Main and High profile I and P pictures at 8-bit
-4:2:0, frames only, as phone cameras write them: CAVLC and CABAC, I_NxN (4x4 and
-8x8), Intra_16x16, I_PCM, every P partition and P_Skip, quarter-sample motion,
-up to 16 reference frames with adaptive marking, long-term references and list
-modification, explicit weighted prediction, scaling matrices, several slices,
-the deblocking filter, output in POC order.  `H264Frames` shows a file's frames
-as cv2 does: the samples its edit list keeps, turned by the track's display
-matrix, converted with the VUI's range and matrix (`ycbcr_to_rgb`).  Anything
-else (B slices, fields, High 10 / 4:2:2 / 4:4:4, FMO, ...) raises
-`container.UnsupportedCodecError` naming it and ffmpeg; a corrupt unit raises
-ValueError.  The Python `H264Decoder` reads the encoder's own subset only
+ctypes.  It decodes Baseline, Main and High profile I, P and B pictures at 8-bit
+4:2:0, frames only, as phone cameras and x264 write them: CAVLC and CABAC,
+I_NxN (4x4 and 8x8), Intra_16x16, I_PCM, every P and B partition, P_Skip,
+B_Skip and the direct modes (spatial and temporal), quarter-sample motion,
+bi-prediction, explicit and implicit weighted prediction, up to 16 reference
+frames with adaptive marking, long-term references and list modification,
+reference B pictures (B-pyramid), scaling matrices, several slices, the
+deblocking filter, output in POC order.  `H264Frames` shows a file's frames as
+cv2 does: in presentation order (`ctts`), those its edit list keeps, turned by
+the track's display matrix, converted with the VUI's range and matrix
+(`ycbcr_to_rgb`).  Anything else (fields, MBAFF, High 10 / 4:2:2 / 4:4:4,
+FMO, SP/SI slices, ...) raises `container.UnsupportedCodecError` naming it and
+ffmpeg; a corrupt unit raises ValueError.  The Python `H264Decoder` reads the encoder's own subset only
 (Intra_16x16 H / DC, P_L0_16x16 / P_Skip with whole-sample vectors, one
 reference, no deblocking) and refuses the rest by name: it is the plain version
 the tests hold the host decoder to.  The tables are `h264_tables`'.
@@ -1067,7 +1069,8 @@ def parse_sps(unit: bytes) -> dict:
     the VUI the frame rate (0.0: none), `full_range` and `matrix`
     (matrix_coefficients, 2 where unspecified).  What the decoder does not
     read raises `UnsupportedCodecError` naming it: another profile than
-    Baseline, Main or High, 4:0:0 / 4:2:2 / 4:4:4, more than 8 bits, fields."""
+    Baseline, Main or High, 4:0:0 / 4:2:2 / 4:4:4, more than 8 bits, fields,
+    MBAFF."""
     r = _Reader(_unescape(unit[1:]))
     profile = r.u(8)
     r.u(8)                                       # constraint flags
@@ -1102,7 +1105,8 @@ def parse_sps(unit: bytes) -> dict:
     r.u(1)
     mbw, mbh = r.ue() + 1, r.ue() + 1
     if not r.u(1):
-        raise _unsupported("H.264 interlaced (field) coding")
+        raise _unsupported("H.264 MBAFF (macroblock-adaptive frame / field coding)" if r.u(1)
+                           else "H.264 interlaced (field) coding")
     r.u(1)
     crop = (0, 0, 0, 0)
     if r.u(1):
@@ -1145,7 +1149,8 @@ def parse_pps(unit: bytes) -> dict:
         raise _unsupported("H.264 slice groups (FMO)")
     pps["refs"] = r.ue() + 1
     r.ue()
-    pps["weighted"] = bool(r.u(1)) or bool(r.u(2))
+    weighted_pred, weighted_bipred = r.u(1), r.u(2)
+    pps["weighted"] = bool(weighted_pred or weighted_bipred)
     pps["qp"] = 26 + r.se()
     r.se()
     pps["chroma_qp_offset"] = r.se()
@@ -1657,10 +1662,13 @@ def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]
 class H264Frames(Sequence):
     """The frames of an H.264 MP4 / QuickTime file as (H, W, 3) uint8 RGB,
     decoded by the host decoder on access (`frames[i]`, `len(frames)`,
-    iteration), as cv2 shows them: only the samples the edit list keeps, each
-    turned by the track's display rotation, converted with the VUI's range
-    and matrix.  A frame is decoded from the sync sample before it, or on
-    from the last one decoded."""
+    iteration), as cv2 shows them: in output order (presentation order,
+    which `ctts` gives where B pictures reorder them), only those the edit
+    list keeps, each turned by the track's display rotation, converted with
+    the VUI's range and matrix.  A frame is decoded from the last sync sample
+    that starts its output order cleanly (every sample before it shown
+    before it, every one from it on after it: no leading picture needs a
+    reference decoded before it), or on from the last one decoded."""
 
     def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
         self.path, self.offsets, self.sizes, self.info = path, offsets, sizes, info
@@ -1675,8 +1683,21 @@ class H264Frames(Sequence):
         self.params = parse_sps(self.sps[0])
         for unit in self.pps:
             parse_pps(unit)
-        self.sync = info["sync"] if info["sync"] is not None else list(range(len(offsets)))
-        self.shown = info.get("shown") or list(range(len(offsets)))
+        n = len(offsets)
+        self.sync = info["sync"] if info["sync"] is not None else list(range(n))
+        # a sample's output position is the rank of its presentation time; a
+        # restart at sample s outputs positions s, s + 1, ... where the
+        # samples before s are exactly the first s positions
+        position = [0] * n
+        for k, s in enumerate(mp4.output_order(info.get("times") or list(range(n)))):
+            position[s] = k
+        sync, prefix_max = set(self.sync), -1
+        self.starts = []                       # the sync samples a decode may start at
+        for s in range(n):
+            if s in sync and prefix_max < s and position[s] == s:
+                self.starts.append(s)
+            prefix_max = max(prefix_max, position[s])
+        self.shown = info.get("shown") or list(range(n))
         self.rotation = info.get("rotation", 0)
         self._decoder: Decoder | None = None
         self._pushed = self._next = -1      # the last sample pushed, the next frame out
@@ -1707,14 +1728,15 @@ class H264Frames(Sequence):
         return self._picture(self.shown[i % len(self)])
 
     def _picture(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """The picture of sample i (its place in output order)."""
+        """The i-th picture the decoder outputs: the sample with the i-th
+        smallest presentation time."""
         n = len(self.offsets)
         if i in self._held:
             return self._held[i]
-        k = bisect.bisect_right(self.sync, i) - 1
+        k = bisect.bisect_right(self.starts, i) - 1
         if k < 0:
             raise ValueError(f"{self.path}: frame {i} follows no sync sample")
-        start = self.sync[k]
+        start = self.starts[k]
         if self._decoder is None or i < self._next or start > self._pushed:
             self._decoder = Decoder()
             for unit in self.sps + self.pps:

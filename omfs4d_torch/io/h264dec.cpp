@@ -1,18 +1,22 @@
 // H.264 (ITU-T H.264 | ISO/IEC 14496-10) decoding on the host: the Main and
-// High profile I and P pictures that phone cameras write, for a machine with
-// no ffmpeg.  Built by g++ at first use (omfs4d_torch/native.py) and bound with
-// ctypes by omfs4d_torch/io/h264.py; the tables come from h264_tables.py as the
-// generated header h264_tables.h.
+// High profile I, P and B pictures that phone cameras and x264 write, for a
+// machine with no ffmpeg.  Built by g++ at first use (omfs4d_torch/native.py)
+// and bound with ctypes by omfs4d_torch/io/h264.py; the tables come from
+// h264_tables.py as the generated header h264_tables.h.
 //
 // Covered, for profile_idc 66, 77 and 100 at 8-bit 4:2:0, frames only:
 //   SPS / PPS (several ids, POC types 0-2, cropping, scaling matrices with the
 //   fall-back rules A and B, transform_8x8_mode_flag, both chroma QP offsets);
-//   CAVLC and CABAC; every I and P mb_type (I_NxN 4x4 / 8x8, Intra_16x16,
-//   I_PCM, P partitions down to 4x4, P_Skip); quarter-sample luma and
-//   eighth-sample chroma motion compensation with explicit weighted
-//   prediction; up to 16 reference frames with sliding-window and adaptive
-//   marking, long-term references and list modification; several slices a
-//   picture; the deblocking filter (8.7); output in POC order.
+//   CAVLC and CABAC; every I, P and B mb_type (I_NxN 4x4 / 8x8, Intra_16x16,
+//   I_PCM, P and B partitions down to 4x4, P_Skip, B_Skip, B_Direct_16x16
+//   and B_8x8 with direct sub-macroblocks); direct prediction, spatial and
+//   temporal, with direct_8x8_inference_flag 0 or 1; quarter-sample luma and
+//   eighth-sample chroma motion compensation with bi-prediction and explicit
+//   and implicit weighted prediction; up to 16 reference frames with
+//   sliding-window and adaptive marking, long-term references and list
+//   modification of both lists, reference B pictures; several slices a
+//   picture; the deblocking filter (8.7); output in POC order, bumped by the
+//   VUI's max_num_reorder_frames or else the DPB size.
 // Anything else throws Unsupported naming the feature; a read past a NAL's end
 // or a syntax value out of range throws Corrupt.  Neither crosses the C API:
 // each entry point returns 0, 1 (corrupt) or 2 (unsupported) and keeps the
@@ -196,6 +200,7 @@ struct SPS {
   int max_num_ref_frames = 0;
   bool gaps_allowed = false;
   int mbw = 0, mbh = 0;
+  bool direct_8x8_inference = true;
   int crop[4] = {0, 0, 0, 0};          // left, right, top, bottom in chroma units of 2
   int num_reorder = -1;                // max_num_reorder_frames of the VUI, -1 absent
 };
@@ -204,8 +209,9 @@ struct PPS {
   bool valid = false;
   int sps_id = 0;
   bool cabac = false, bottom_poc = false;
-  int num_ref_idx_default = 1;
+  int num_ref_idx_default[2] = {1, 1};
   bool weighted_pred = false;
+  int weighted_bipred_idc = 0;
   int init_qp = 26;
   int cqp_offset[2] = {0, 0};
   bool deblock_control = false, constrained_intra = false;
@@ -317,8 +323,9 @@ SPS parse_sps(Bits& b, int* id_out) {
   s.gaps_allowed = b.u(1);
   s.mbw = b.ue_max(1023, "pic_width_in_mbs_minus1") + 1;
   s.mbh = b.ue_max(1023, "pic_height_in_map_units_minus1") + 1;
-  if (!b.u(1)) unsupported("interlaced (field) coding");
-  b.u(1);                                                   // direct_8x8_inference_flag
+  if (!b.u(1))
+    unsupported(b.u(1) ? "MBAFF (macroblock-adaptive frame / field coding)" : "interlaced (field) coding");
+  s.direct_8x8_inference = b.u(1);
   if (b.u(1)) {
     for (int k = 0; k < 4; ++k) s.crop[k] = b.ue_max(8 * 1024, "frame_crop_offset");
     if (2 * (s.crop[0] + s.crop[1]) >= 16 * s.mbw || 2 * (s.crop[2] + s.crop[3]) >= 16 * s.mbh)
@@ -368,10 +375,11 @@ PPS parse_pps(Bits& b, int* id_out) {
   p.cabac = b.u(1);
   p.bottom_poc = b.u(1);
   if (b.ue_max(7, "num_slice_groups_minus1")) unsupported("slice groups (FMO)");
-  p.num_ref_idx_default = b.ue_max(31, "num_ref_idx_l0_default_active_minus1") + 1;
-  b.ue_max(31, "num_ref_idx_l1_default_active_minus1");
+  p.num_ref_idx_default[0] = b.ue_max(31, "num_ref_idx_l0_default_active_minus1") + 1;
+  p.num_ref_idx_default[1] = b.ue_max(31, "num_ref_idx_l1_default_active_minus1") + 1;
   p.weighted_pred = b.u(1);
-  b.u(2);                                                   // weighted_bipred_idc (B slices)
+  p.weighted_bipred_idc = b.u(2);
+  if (p.weighted_bipred_idc == 3) corrupt("weighted_bipred_idc 3");
   p.init_qp = 26 + b.se_range(-26, 25, "pic_init_qp_minus26");
   b.se_range(-26, 25, "pic_init_qs_minus26");
   p.cqp_offset[0] = p.cqp_offset[1] = b.se_range(-12, 12, "chroma_qp_index_offset");
@@ -397,50 +405,54 @@ PPS parse_pps(Bits& b, int* id_out) {
 
 // ── pictures ────────────────────────────────────────────────────────────
 
+// P16x16 / P16x8 / P8x16 also stand for the B partitions of those shapes;
+// SKIP is P_Skip or B_Skip, BDIRECT B_Direct_16x16
+enum MbKind : uint8_t { P16x16, P16x8, P8x16, P8x8, P8x8REF0, I4x4, I8x8, I16, IPCM, SKIP, BDIRECT, B8x8 };
+
+struct MB {
+  int slice = -1;
+  uint8_t kind = SKIP;
+  bool intra = false, t8x8 = false;
+  int qp = 0, qp_delta = 0;
+  int cbp = 0;                  // luma bits 0-3, chroma << 4
+  int chroma_mode = 0, i16mode = 0;
+  int8_t ipred[16];             // Intra4x4PredMode by raster 4x4 (8x8 modes repeated)
+  int8_t ref[2][4];             // refIdxL0 / L1 by 8x8, -1 where the list is not used
+  int16_t mv[2][16][2];         // by list and raster 4x4 (0 where the list is not used)
+  uint8_t mvd[2][16][2];        // |mvd| by list and raster 4x4, capped (CABAC contexts)
+  bool direct[4];               // the 8x8 is predicted in direct mode (CABAC contexts)
+  uint8_t nz[16];               // luma coefficients by raster 4x4 (CAVLC nC, CABAC cbf)
+  uint8_t nzc[2][4];            // chroma AC coefficients
+  bool nzd[16];                 // non-zero coefficients of the 4x4 / 8x8 holding the block
+  bool cbf_dc[3];               // coded_block_flag of the luma DC, Cb DC, Cr DC
+  uint64_t refpic[2][4];        // the picture ref[list][8x8] names, 0 for none
+};
+
 struct Pic {
   std::vector<uint8_t> y, cb, cr;
   int poc = 0, frame_num = 0, frame_num_wrap = 0, long_idx = -1;
   bool short_ref = false, long_ref = false;
   uint64_t id = 0;
   int mbw = 0, mbh = 0, crop[4] = {0, 0, 0, 0};
+  std::vector<MB> mbs;          // its motion, for the direct modes of later pictures
 };
 using PicP = std::shared_ptr<Pic>;
 
-enum MbKind : uint8_t { P16x16, P16x8, P8x16, P8x8, P8x8REF0, I4x4, I8x8, I16, IPCM, PSKIP };
-
-struct MB {
-  int slice = -1;
-  uint8_t kind = PSKIP;
-  bool intra = false, t8x8 = false;
-  int qp = 0, qp_delta = 0;
-  int cbp = 0;                  // luma bits 0-3, chroma << 4
-  int chroma_mode = 0, i16mode = 0;
-  int8_t ipred[16];             // Intra4x4PredMode by raster 4x4 (8x8 modes repeated)
-  int8_t ref[4];                // refIdxL0 by 8x8, -1 intra
-  int16_t mv[16][2];            // by raster 4x4
-  uint8_t mvd[16][2];           // |mvd| by raster 4x4, capped (CABAC contexts)
-  uint8_t nz[16];               // luma coefficients by raster 4x4 (CAVLC nC, CABAC cbf)
-  uint8_t nzc[2][4];            // chroma AC coefficients
-  bool nzd[16];                 // non-zero coefficients of the 4x4 / 8x8 holding the block
-  bool cbf_dc[3];               // coded_block_flag of the luma DC, Cb DC, Cr DC
-  uint64_t refpic[4];           // the reference picture of each 8x8 (deblocking)
-};
-
 struct SliceHdr {
-  int first_mb = 0, type = 0;                // 0 P, 2 I
+  int first_mb = 0, type = 0;                // 0 P, 1 B, 2 I
   int pps_id = 0, frame_num = 0, idr_pic_id = 0;
   int poc_lsb = 0, delta_poc_bottom = 0, delta_poc[2] = {0, 0};
-  int num_ref_idx = 1;
+  bool direct_spatial = false;
+  int num_ref_idx[2] = {1, 1};
   int cabac_init_idc = 0, qp = 26;
   int deblock_idc = 0, alpha_off = 0, beta_off = 0;
   bool idr = false;
   int nal_ref_idc = 0;
   bool no_output_of_prior_pics = false, long_term_reference = false, adaptive = false;
   std::vector<std::array<int, 3>> mmco;      // (op, a, b)
-  // explicit weighted prediction
+  // explicit weighted prediction, by list and reference index
   int luma_log2 = 0, chroma_log2 = 0;
-  int lw[32] = {}, lo[32] = {}, cw[32][2] = {}, co[32][2] = {};
-  bool lflag[32] = {}, cflag[32] = {};
+  int lw[2][32] = {}, lo[2][32] = {}, cw[2][32][2] = {}, co[2][32][2] = {};
 };
 
 struct SliceParams {                         // what the deblocking reads of a slice
@@ -472,6 +484,9 @@ const int BLK_RASTER[16] = {0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15
 
 struct Partition {
   int x, y, w, h;   // luma samples in the macroblock
+  int flags;        // 1 list 0, 2 list 1, 3 both
+  int ref[2];
+  int mv[2][2];
 };
 
 class Decoder {
@@ -513,7 +528,8 @@ class Decoder {
   // the slice being decoded
   SliceHdr sh;
   Bits bs;
-  std::vector<PicP> list0;
+  std::vector<PicP> list[2];  // RefPicList0 / 1
+  int implicit_w[32][32];     // w0 of implicit bi-prediction by (refIdxL0, refIdxL1)
   int slice_num = 0;
   int qp = 26;
   int ls4[6][6][16];
@@ -537,7 +553,8 @@ class Decoder {
   void setup_scaling();
   void start_picture(const SliceHdr& h);
   void parse_slice_header(int nal_type, int ref_idc);
-  void ref_list_init_and_modify(const std::vector<std::array<int, 2>>& mods);
+  void ref_lists(const std::vector<std::array<int, 2>> mods[2]);
+  void implicit_weights();
   void slice_data();
   void finish_picture();
   void mark_references();
@@ -557,12 +574,19 @@ class Decoder {
   void macroblock(bool skip);
   void skip_mb();
   int read_mb_type();
+  int read_b_sub_type();
   void intra_pred_modes(MB& m, bool t8);
-  void inter_pred(MB& m, int kind, std::vector<Partition>& parts, std::vector<int>& refs,
-                  std::vector<std::array<int, 2>>& mvs);
+  void inter_pred(MB& m, int kind, std::vector<Partition>& parts);
+  void b_pred(MB& m, int btype, std::vector<Partition>& parts);
+  int read_ref(MB& m, int list, int x, int y);
+  int read_mvd(int list, int x, int y, int comp);
   void residual(MB& m);
-  void mvp(int x, int y, int w, int ref, int shape, int* px, int* py);
-  void neighbour_motion(int xN, int yN, int* ref, int* mx, int* my, bool* available);
+  void mvp(int list, int x, int y, int w, int ref, int shape, int* px, int* py);
+  void neighbour_motion(int list, int xN, int yN, int* ref, int* mx, int* my, bool* available);
+  // direct prediction (8.4.1.2) of the 8x8 blocks b8 (-1: all four)
+  void spatial_refs(int ref[2], int mv[2][2]);
+  void direct(MB& m, int b8, std::vector<Partition>& parts);
+  void set_refpics(MB& m);
 
   // CAVLC
   int cavlc_block(int nc, int maxnum, int* levels);
@@ -583,8 +607,7 @@ class Decoder {
   // reconstruction
   void recon_pcm();
   void recon_intra(MB& m);
-  void recon_inter(MB& m, const std::vector<Partition>& parts, const std::vector<int>& refs,
-                   const std::vector<std::array<int, 2>>& mvs);
+  void recon_inter(MB& m, const std::vector<Partition>& parts);
   void recon_chroma(MB& m, bool intra, int pred[2][64]);
   void luma_residual_4x4(MB& m, int raster, int list, int* out16);
   bool intra_avail(int xN, int yN) const;
@@ -688,10 +711,9 @@ void Decoder::parse_slice_header(int nal_type, int ref_idc) {
   h.first_mb = bs.ue();
   int st = bs.ue_max(9, "slice_type");
   st %= 5;
-  if (st == 1) unsupported("B slices");
   if (st == 3 || st == 4) unsupported("SP/SI slices");
   h.type = st;
-  if (h.idr && st != 2) corrupt("an IDR picture with a P slice");
+  if (h.idr && st != 2) corrupt("an IDR picture with a P or B slice");
   h.pps_id = bs.ue_max(255, "pic_parameter_set_id");
   if (!pps_[h.pps_id].valid) corrupt("a slice refers to a picture parameter set it was not given");
   const PPS& p = pps_[h.pps_id];
@@ -706,42 +728,46 @@ void Decoder::parse_slice_header(int nal_type, int ref_idc) {
     h.delta_poc[0] = bs.se();
     if (p.bottom_poc) h.delta_poc[1] = bs.se();
   }
-  std::vector<std::array<int, 2>> mods;
-  h.num_ref_idx = p.num_ref_idx_default;
-  if (st == 0) {
-    if (bs.u(1)) h.num_ref_idx = bs.ue_max(15, "num_ref_idx_l0_active_minus1") + 1;
-    if (h.num_ref_idx > 16) corrupt("num_ref_idx_l0_active beyond 16 for frames");
-    if (bs.u(1)) {
-      for (int k = 0;; ++k) {
-        if (k > h.num_ref_idx) corrupt("too many ref_pic_list_modification operations");
-        int idc = bs.ue_max(3, "modification_of_pic_nums_idc");
-        if (idc == 3) break;
-        int v = bs.ue_max(idc == 2 ? 31 : 131071, "abs_diff_pic_num_minus1 / long_term_pic_num");
-        mods.push_back({idc, v});
-      }
+  std::vector<std::array<int, 2>> mods[2];
+  int n_lists = st == 1 ? 2 : st == 0 ? 1 : 0;
+  if (st == 1) h.direct_spatial = bs.u(1);
+  for (int x = 0; x < 2; ++x) h.num_ref_idx[x] = p.num_ref_idx_default[x];
+  if (n_lists && bs.u(1)) {
+    for (int x = 0; x < n_lists; ++x)
+      h.num_ref_idx[x] = bs.ue_max(15, "num_ref_idx_active_minus1") + 1;
+  }
+  for (int x = 0; x < n_lists; ++x) {
+    if (h.num_ref_idx[x] > 16) corrupt("num_ref_idx_active beyond 16 for frames");
+    if (!bs.u(1)) continue;
+    for (int k = 0;; ++k) {
+      if (k > h.num_ref_idx[x]) corrupt("too many ref_pic_list_modification operations");
+      int idc = bs.ue_max(3, "modification_of_pic_nums_idc");
+      if (idc == 3) break;
+      int v = bs.ue_max(idc == 2 ? 31 : 131071, "abs_diff_pic_num_minus1 / long_term_pic_num");
+      mods[x].push_back({idc, v});
     }
   }
-  if (p.weighted_pred && st == 0) {
+  if ((p.weighted_pred && st == 0) || (p.weighted_bipred_idc == 1 && st == 1)) {
     h.luma_log2 = bs.ue_max(7, "luma_log2_weight_denom");
     h.chroma_log2 = bs.ue_max(7, "chroma_log2_weight_denom");
-    for (int i = 0; i < h.num_ref_idx; ++i) {
-      h.lflag[i] = bs.u(1);
-      h.lw[i] = 1 << h.luma_log2;
-      h.lo[i] = 0;
-      if (h.lflag[i]) {
-        h.lw[i] = bs.se_range(-128, 127, "luma_weight_l0");
-        h.lo[i] = bs.se_range(-128, 127, "luma_offset_l0");
-      }
-      h.cflag[i] = bs.u(1);
-      for (int j = 0; j < 2; ++j) {
-        h.cw[i][j] = 1 << h.chroma_log2;
-        h.co[i][j] = 0;
-        if (h.cflag[i]) {
-          h.cw[i][j] = bs.se_range(-128, 127, "chroma_weight_l0");
-          h.co[i][j] = bs.se_range(-128, 127, "chroma_offset_l0");
+    for (int x = 0; x < n_lists; ++x)
+      for (int i = 0; i < h.num_ref_idx[x]; ++i) {
+        h.lw[x][i] = 1 << h.luma_log2;
+        h.lo[x][i] = 0;
+        if (bs.u(1)) {
+          h.lw[x][i] = bs.se_range(-128, 127, "luma_weight");
+          h.lo[x][i] = bs.se_range(-128, 127, "luma_offset");
+        }
+        bool cflag = bs.u(1);
+        for (int j = 0; j < 2; ++j) {
+          h.cw[x][i][j] = 1 << h.chroma_log2;
+          h.co[x][i][j] = 0;
+          if (cflag) {
+            h.cw[x][i][j] = bs.se_range(-128, 127, "chroma_weight");
+            h.co[x][i][j] = bs.se_range(-128, 127, "chroma_offset");
+          }
         }
       }
-    }
   }
   if (ref_idc) {
     if (h.idr) {
@@ -787,8 +813,10 @@ void Decoder::parse_slice_header(int nal_type, int ref_idc) {
   activate(h, new_picture);
   if (h.first_mb >= mbw * mbh) corrupt("first_mb_in_slice beyond the picture");
   if (new_picture) start_picture(h);
-  if (st == 0) ref_list_init_and_modify(mods);
-  if (!h.idr && st == 2) list0.clear();
+  list[0].clear();
+  list[1].clear();
+  if (st != 2) ref_lists(mods);
+  if (st == 1 && pps->weighted_bipred_idc == 2) implicit_weights();
 }
 
 void Decoder::activate(const SliceHdr& h, bool new_picture) {
@@ -884,7 +912,12 @@ void Decoder::start_picture(const SliceHdr& h) {
   cur->poc = std::min(cur_top, cur_bottom);
 }
 
-void Decoder::ref_list_init_and_modify(const std::vector<std::array<int, 2>>& mods) {
+// 8.2.4: the initial lists (P: short-term by descending PicNum; B: list 0
+// short-term before the current POC descending, then after it ascending,
+// list 1 the other way round; then long-term by LongTermPicNum), list 1's
+// first two entries swapped where it equals list 0 and has more than one,
+// then each list cut to num_ref_idx_active and modified
+void Decoder::ref_lists(const std::vector<std::array<int, 2>> mods[2]) {
   const SPS& s = *sps;
   int max_frame_num = 1 << s.log2_max_frame_num;
   std::vector<PicP> shorts, longs;
@@ -896,49 +929,90 @@ void Decoder::ref_list_init_and_modify(const std::vector<std::array<int, 2>>& mo
       longs.push_back(p);
     }
   }
-  std::sort(shorts.begin(), shorts.end(), [](const PicP& a, const PicP& b) { return a->frame_num_wrap > b->frame_num_wrap; });
   std::sort(longs.begin(), longs.end(), [](const PicP& a, const PicP& b) { return a->long_idx < b->long_idx; });
-  list0 = shorts;
-  list0.insert(list0.end(), longs.begin(), longs.end());
-  int n = sh.num_ref_idx;
-  list0.resize(n + 1);                          // nullptr: no reference picture
-  int pred = sh.frame_num, ref_idx = 0;
-  for (auto& m : mods) {
-    PicP pic;
-    if (m[0] < 2) {
-      int diff = m[1] + 1;
-      int no_wrap;
-      if (m[0] == 0) {
-        no_wrap = pred - diff;
-        if (no_wrap < 0) no_wrap += max_frame_num;
-      } else {
-        no_wrap = pred + diff;
-        if (no_wrap >= max_frame_num) no_wrap -= max_frame_num;
-      }
-      if (no_wrap < 0 || no_wrap >= max_frame_num) corrupt("abs_diff_pic_num_minus1 out of range");
-      pred = no_wrap;
-      int pic_num = no_wrap > sh.frame_num ? no_wrap - max_frame_num : no_wrap;
-      for (auto& p : shorts)
-        if (p->frame_num_wrap == pic_num) pic = p;
-      if (!pic) corrupt("a list modification names no short-term reference");
-      for (int c = n; c > ref_idx; --c) list0[c] = list0[c - 1];
-      list0[ref_idx++] = pic;
-      int k = ref_idx;
-      for (int c = ref_idx; c <= n; ++c)
-        if (!(list0[c] && list0[c]->short_ref && list0[c]->frame_num_wrap == pic_num)) list0[k++] = list0[c];
-    } else {
-      for (auto& p : longs)
-        if (p->long_idx == m[1]) pic = p;
-      if (!pic) corrupt("a list modification names no long-term reference");
-      for (int c = n; c > ref_idx; --c) list0[c] = list0[c - 1];
-      list0[ref_idx++] = pic;
-      int k = ref_idx;
-      for (int c = ref_idx; c <= n; ++c)
-        if (!(list0[c] && list0[c]->long_ref && list0[c]->long_idx == m[1])) list0[k++] = list0[c];
-    }
-    if (ref_idx > n) corrupt("too many list modifications");
+  std::vector<PicP> init[2];
+  if (sh.type == 0) {
+    std::sort(shorts.begin(), shorts.end(),
+              [](const PicP& a, const PicP& b) { return a->frame_num_wrap > b->frame_num_wrap; });
+    init[0] = shorts;
+  } else {
+    int poc = cur->poc;
+    std::vector<PicP> before, after;
+    for (auto& p : shorts) (p->poc < poc ? before : after).push_back(p);
+    std::sort(before.begin(), before.end(), [](const PicP& a, const PicP& b) { return a->poc > b->poc; });
+    std::sort(after.begin(), after.end(), [](const PicP& a, const PicP& b) { return a->poc < b->poc; });
+    init[0] = before;
+    init[0].insert(init[0].end(), after.begin(), after.end());
+    init[1] = after;
+    init[1].insert(init[1].end(), before.begin(), before.end());
+    init[1].insert(init[1].end(), longs.begin(), longs.end());
+    if (init[1].size() == 0) corrupt("a B slice with no reference picture");
   }
-  list0.resize(n);
+  init[0].insert(init[0].end(), longs.begin(), longs.end());
+  if (sh.type == 1 && init[1].size() > 1 && init[1] == init[0]) std::swap(init[1][0], init[1][1]);
+  for (int x = 0; x < (sh.type == 1 ? 2 : 1); ++x) {
+    std::vector<PicP>& l = list[x];
+    int n = sh.num_ref_idx[x];
+    l = init[x];
+    l.resize(n + 1);                            // nullptr: no reference picture
+    int pred = sh.frame_num, ref_idx = 0;
+    for (auto& m : mods[x]) {
+      PicP pic;
+      bool is_long = m[0] == 2;
+      int pic_num = m[1];
+      if (!is_long) {
+        int diff = m[1] + 1;
+        int no_wrap;
+        if (m[0] == 0) {
+          no_wrap = pred - diff;
+          if (no_wrap < 0) no_wrap += max_frame_num;
+        } else {
+          no_wrap = pred + diff;
+          if (no_wrap >= max_frame_num) no_wrap -= max_frame_num;
+        }
+        if (no_wrap < 0 || no_wrap >= max_frame_num) corrupt("abs_diff_pic_num_minus1 out of range");
+        pred = no_wrap;
+        pic_num = no_wrap > sh.frame_num ? no_wrap - max_frame_num : no_wrap;
+        for (auto& p : shorts)
+          if (p->frame_num_wrap == pic_num) pic = p;
+        if (!pic) corrupt("a list modification names no short-term reference");
+      } else {
+        for (auto& p : longs)
+          if (p->long_idx == pic_num) pic = p;
+        if (!pic) corrupt("a list modification names no long-term reference");
+      }
+      for (int c = n; c > ref_idx; --c) l[c] = l[c - 1];
+      l[ref_idx++] = pic;
+      int k = ref_idx;
+      for (int c = ref_idx; c <= n; ++c) {
+        bool same = l[c] && (is_long ? l[c]->long_ref && l[c]->long_idx == pic_num
+                                     : l[c]->short_ref && l[c]->frame_num_wrap == pic_num);
+        if (!same) l[k++] = l[c];
+      }
+      if (ref_idx > n) corrupt("too many list modifications");
+    }
+    l.resize(n);
+  }
+}
+
+// 8.4.2.3.1: the implicit weights w0 of each (refIdxL0, refIdxL1); w1 = 64 - w0
+void Decoder::implicit_weights() {
+  for (int i = 0; i < sh.num_ref_idx[0]; ++i)
+    for (int j = 0; j < sh.num_ref_idx[1]; ++j) {
+      const Pic* p0 = list[0][i].get();
+      const Pic* p1 = list[1][j].get();
+      int w = 32;
+      if (p0 && p1 && !p0->long_ref && !p1->long_ref) {
+        int td = clip3(-128, 127, p1->poc - p0->poc);
+        if (td) {
+          int tb = clip3(-128, 127, cur->poc - p0->poc);
+          int tx = (16384 + std::abs(td / 2)) / td;
+          int dsf = clip3(-1024, 1023, (tb * tx + 32) >> 6);
+          if ((dsf >> 2) >= -64 && (dsf >> 2) <= 128) w = 64 - (dsf >> 2);
+        }
+      }
+      implicit_w[i][j] = w;
+    }
 }
 
 // ── slice data ──────────────────────────────────────────────────────────
@@ -1025,10 +1099,10 @@ void Decoder::slice_data() {
       mbx = mb_addr % mbw;
       mby = mb_addr / mbw;
       bool skip = false;
-      if (sh.type == 0) {
+      if (sh.type != 2) {
         int a = addr_a(), b = addr_b();
-        int inc = (avail(a) && mbs[a].kind != PSKIP) + (avail(b) && mbs[b].kind != PSKIP);
-        skip = dec(11 + inc);
+        int inc = (avail(a) && mbs[a].kind != SKIP) + (avail(b) && mbs[b].kind != SKIP);
+        skip = dec((sh.type == 0 ? 11 : 24) + inc);
       }
       macroblock(skip);
       last_mb = mb_addr;
@@ -1038,7 +1112,7 @@ void Decoder::slice_data() {
   } else {
     for (;;) {
       bool more = true;
-      if (sh.type == 0) {
+      if (sh.type != 2) {
         uint32_t run = bs.ue();
         if (run > (uint32_t)(n - mb_addr)) corrupt("mb_skip_run beyond the picture");
         for (uint32_t i = 0; i < run; ++i) {
@@ -1067,10 +1141,12 @@ void Decoder::slice_data() {
 // ── macroblock layer ────────────────────────────────────────────────────
 
 int Decoder::read_mb_type() {
-  // 0-4 P types (4 P_8x8ref0), 5 I_NxN, 6-29 Intra_16x16, 30 I_PCM
-  bool p = sh.type == 0;
+  // 0-4 P types (4 P_8x8ref0), 5 I_NxN, 6-29 Intra_16x16, 30 I_PCM, 31-53 B
+  // types 0-22
+  bool p = sh.type == 0, b = sh.type == 1;
   if (!pps->cabac) {
-    int t = bs.ue_max(p ? 30 : 25, "mb_type");
+    int t = bs.ue_max(p ? 30 : b ? 48 : 25, "mb_type");
+    if (b) return t < 23 ? 31 + t : t - 18;
     return p ? t : t + 5;
   }
   int base, inc0 = 0;
@@ -1080,46 +1156,100 @@ int Decoder::read_mb_type() {
       return dec(17) ? 1 : 2;
     }
     base = 17;
+  } else if (b) {
+    // Table 9-37 (b) with the bins' contexts of 9.3.3.1.2, as FFmpeg reads them
+    int a = addr_a(), bb = addr_b();
+    int inc = (avail(a) && mbs[a].kind != SKIP && mbs[a].kind != BDIRECT) +
+              (avail(bb) && mbs[bb].kind != SKIP && mbs[bb].kind != BDIRECT);
+    if (!dec(27 + inc)) return 31;
+    if (!dec(27 + 3)) return 31 + 1 + dec(27 + 5);
+    int bits = dec(27 + 4) << 3;
+    bits |= dec(27 + 5) << 2;
+    bits |= dec(27 + 5) << 1;
+    bits |= dec(27 + 5);
+    if (bits < 8) return 31 + bits + 3;
+    if (bits == 14) return 31 + 11;
+    if (bits == 15) return 31 + 22;
+    if (bits != 13) return 31 + ((bits << 1) | dec(27 + 5)) - 4;
+    base = 32;                                       // an intra prefix: the I suffix
   } else {
     base = 3;
-    int a = addr_a(), b = addr_b();
+    int a = addr_a(), bb = addr_b();
     inc0 = (avail(a) && mbs[a].kind != I4x4 && mbs[a].kind != I8x8) +
-           (avail(b) && mbs[b].kind != I4x4 && mbs[b].kind != I8x8);
+           (avail(bb) && mbs[bb].kind != I4x4 && mbs[bb].kind != I8x8);
   }
   if (!dec(base + inc0)) return 5;
   if (terminate()) return 30;
   int luma, cnz, c2 = 0, hi, lo;
-  if (!p) {
+  if (base == 3) {
     luma = dec(3 + 3);
     cnz = dec(3 + 4);
     if (cnz) c2 = dec(3 + 5);
     hi = dec(3 + 6);
     lo = dec(3 + 7);
   } else {
-    luma = dec(17 + 1);
-    cnz = dec(17 + 2);
-    if (cnz) c2 = dec(17 + 2);
-    hi = dec(17 + 3);
-    lo = dec(17 + 3);
+    luma = dec(base + 1);
+    cnz = dec(base + 2);
+    if (cnz) c2 = dec(base + 2);
+    hi = dec(base + 3);
+    lo = dec(base + 3);
   }
   return 5 + 1 + (hi * 2 + lo) + 4 * (cnz ? (c2 ? 2 : 1) : 0) + 12 * luma;
+}
+
+int Decoder::read_b_sub_type() {
+  if (!pps->cabac) return bs.ue_max(12, "sub_mb_type");
+  if (!dec(36)) return 0;
+  if (!dec(37)) return 1 + dec(39);
+  int t = 3;
+  if (dec(38)) {
+    if (dec(39)) return 11 + dec(39);
+    t += 4;
+  }
+  t += 2 * dec(39);
+  t += dec(39);
+  return t;
+}
+
+// a fresh inter macroblock: no list used, no motion
+void clear_motion(MB& m) {
+  memset(m.ref, -1, sizeof m.ref);
+  memset(m.mv, 0, sizeof m.mv);
+  memset(m.mvd, 0, sizeof m.mvd);
+  memset(m.refpic, 0, sizeof m.refpic);
+  memset(m.direct, 0, sizeof m.direct);
+}
+
+void Decoder::set_refpics(MB& m) {
+  for (int x = 0; x < 2; ++x)
+    for (int i = 0; i < 4; ++i) {
+      int r = m.ref[x][i];
+      if (r < 0) continue;
+      if (r >= (int)list[x].size() || !list[x][r]) corrupt("a reference index names no reference picture");
+      m.refpic[x][i] = list[x][r]->id;
+    }
 }
 
 void Decoder::skip_mb() {
   MB& m = mbs[mb_addr];
   m = MB();
   m.slice = slice_num;
-  m.kind = PSKIP;
+  m.kind = SKIP;
   m.qp = qp;
   memset(m.nz, 0, sizeof m.nz);
   memset(m.nzc, 0, sizeof m.nzc);
   memset(m.nzd, 0, sizeof m.nzd);
-  memset(m.mvd, 0, sizeof m.mvd);
   memset(m.cbf_dc, 0, sizeof m.cbf_dc);
-  for (int i = 0; i < 4; ++i) m.ref[i] = 0;
   memset(m.ipred, 2, sizeof m.ipred);
-  if (!list0.size() || !list0[0]) corrupt("a P_Skip macroblock with no reference picture");
-  for (int i = 0; i < 4; ++i) m.refpic[i] = list0[0]->id;
+  clear_motion(m);
+  std::vector<Partition> parts;
+  if (sh.type == 1) {                               // B_Skip: direct prediction
+    direct(m, -1, parts);
+    set_refpics(m);
+    recon_inter(m, parts);
+    return;
+  }
+  if (!list[0].size() || !list[0][0]) corrupt("a P_Skip macroblock with no reference picture");
   // 8.4.1.1
   int mx = 0, my = 0;
   int xw, yw;
@@ -1128,23 +1258,22 @@ void Decoder::skip_mb() {
   if (!zero) {
     int ra, ax, ay, rb, bx, by;
     bool av;
-    neighbour_motion(-1, 0, &ra, &ax, &ay, &av);
-    neighbour_motion(0, -1, &rb, &bx, &by, &av);
+    neighbour_motion(0, -1, 0, &ra, &ax, &ay, &av);
+    neighbour_motion(0, 0, -1, &rb, &bx, &by, &av);
     zero = (ra == 0 && ax == 0 && ay == 0) || (rb == 0 && bx == 0 && by == 0);
   }
-  for (int i = 0; i < 16; ++i) m.mv[i][0] = m.mv[i][1] = 0;
-  if (!zero) mvp(0, 0, 16, 0, 0, &mx, &my);
+  if (!zero) mvp(0, 0, 0, 16, 0, 0, &mx, &my);
+  for (int i = 0; i < 4; ++i) m.ref[0][i] = 0;
   for (int i = 0; i < 16; ++i) {
-    m.mv[i][0] = (int16_t)mx;
-    m.mv[i][1] = (int16_t)my;
+    m.mv[0][i][0] = (int16_t)mx;
+    m.mv[0][i][1] = (int16_t)my;
   }
-  std::vector<Partition> parts{{0, 0, 16, 16}};
-  std::vector<int> refs{0};
-  std::vector<std::array<int, 2>> mvs{{mx, my}};
-  recon_inter(m, parts, refs, mvs);
+  set_refpics(m);
+  parts.push_back({0, 0, 16, 16, 1, {0, -1}, {{mx, my}, {0, 0}}});
+  recon_inter(m, parts);
 }
 
-void Decoder::neighbour_motion(int xN, int yN, int* ref, int* mx, int* my, bool* available) {
+void Decoder::neighbour_motion(int list_x, int xN, int yN, int* ref, int* mx, int* my, bool* available) {
   int xw, yw;
   int addr = locate(xN, yN, &xw, &yw);
   *ref = -1;
@@ -1156,20 +1285,22 @@ void Decoder::neighbour_motion(int xN, int yN, int* ref, int* mx, int* my, bool*
   *available = true;
   const MB& n = mbs[addr];
   if (n.intra) return;
-  *ref = n.ref[(yw >> 3) * 2 + (xw >> 3)];
-  *mx = n.mv[r4][0];
-  *my = n.mv[r4][1];
+  *ref = n.ref[list_x][(yw >> 3) * 2 + (xw >> 3)];
+  if (*ref < 0) return;
+  *mx = n.mv[list_x][r4][0];
+  *my = n.mv[list_x][r4][1];
 }
 
-// 8.4.1.3: the predictor of the partition at (x, y), w wide, with reference
-// index ref; shape 1: 16x8, 2: 8x16 (the directional rules), else 0
-void Decoder::mvp(int x, int y, int w, int ref, int shape, int* px, int* py) {
+// 8.4.1.3: the predictor of list list_x for the partition at (x, y), w wide,
+// with reference index ref; shape 1: 16x8, 2: 8x16 (the directional rules),
+// else 0
+void Decoder::mvp(int list_x, int x, int y, int w, int ref, int shape, int* px, int* py) {
   int ra, ax, ay, rb, bx, by, rc, cx, cy;
   bool aa, ab, ac;
-  neighbour_motion(x - 1, y, &ra, &ax, &ay, &aa);
-  neighbour_motion(x, y - 1, &rb, &bx, &by, &ab);
-  neighbour_motion(x + w, y - 1, &rc, &cx, &cy, &ac);
-  if (!ac) neighbour_motion(x - 1, y - 1, &rc, &cx, &cy, &ac);
+  neighbour_motion(list_x, x - 1, y, &ra, &ax, &ay, &aa);
+  neighbour_motion(list_x, x, y - 1, &rb, &bx, &by, &ab);
+  neighbour_motion(list_x, x + w, y - 1, &rc, &cx, &cy, &ac);
+  if (!ac) neighbour_motion(list_x, x - 1, y - 1, &rc, &cx, &cy, &ac);
   if (shape == 1) {
     if (y == 0 && rb == ref) { *px = bx; *py = by; return; }
     if (y != 0 && ra == ref) { *px = ax; *py = ay; return; }
@@ -1193,6 +1324,115 @@ void Decoder::mvp(int x, int y, int w, int ref, int shape, int* px, int* py) {
   *py = median3(ay, by, cy);
 }
 
+// 8.4.1.2.2: the reference indices of spatial direct prediction and the
+// predictor of each list used (refIdx -1: the list is not used)
+void Decoder::spatial_refs(int ref[2], int mv[2][2]) {
+  for (int x = 0; x < 2; ++x) {
+    int r[3], vx, vy;
+    bool av;
+    neighbour_motion(x, -1, 0, &r[0], &vx, &vy, &av);
+    neighbour_motion(x, 0, -1, &r[1], &vx, &vy, &av);
+    neighbour_motion(x, 16, -1, &r[2], &vx, &vy, &av);
+    if (!av) neighbour_motion(x, -1, -1, &r[2], &vx, &vy, &av);
+    auto min_positive = [](int a, int b) { return a >= 0 && b >= 0 ? std::min(a, b) : std::max(a, b); };
+    ref[x] = min_positive(r[0], min_positive(r[1], r[2]));
+  }
+  if (ref[0] < 0 && ref[1] < 0) {                   // directZeroPrediction
+    ref[0] = ref[1] = 0;
+    memset(mv, 0, 4 * sizeof(int));
+    return;
+  }
+  for (int x = 0; x < 2; ++x) {
+    mv[x][0] = mv[x][1] = 0;
+    if (ref[x] >= 0) mvp(x, 0, 0, 16, ref[x], 0, &mv[x][0], &mv[x][1]);
+  }
+}
+
+// 8.4.1.2: direct prediction of the 8x8 block b8 (-1: the whole macroblock),
+// in 8x8 parts where direct_8x8_inference_flag is 1 (each reading the
+// co-located picture's corner 4x4 block), else in 4x4 parts
+void Decoder::direct(MB& m, int b8, std::vector<Partition>& parts) {
+  if (list[1].empty() || !list[1][0]) corrupt("direct prediction with no RefPicList1[0]");
+  const Pic& col = *list[1][0];
+  if (col.mbs.size() != mbs.size()) corrupt("direct prediction from a picture of another size");
+  const MB& cm = col.mbs[mb_addr];
+  bool inference = sps->direct_8x8_inference;
+  int sref[2], smv[2][2];
+  if (sh.direct_spatial) spatial_refs(sref, smv);
+  for (int i = b8 < 0 ? 0 : b8; i < (b8 < 0 ? 4 : b8 + 1); ++i) {
+    m.direct[i] = true;
+    int x8 = (i & 1) * 8, y8 = (i >> 1) * 8;
+    int step = inference ? 8 : 4;
+    for (int y = y8; y < y8 + 8; y += step)
+      for (int x = x8; x < x8 + 8; x += step) {
+        // the co-located 4x4 block: the corner of the 8x8 under inference
+        int cx = inference ? (x8 ? 12 : 0) : x, cy = inference ? (y8 ? 12 : 0) : y;
+        int c4 = (cy >> 2) * 4 + (cx >> 2), c8 = (cy >> 3) * 2 + (cx >> 3);
+        int ref_col = -1, mv_col[2] = {0, 0};
+        uint64_t pic_col = 0;
+        if (!cm.intra) {
+          int cl = cm.ref[0][c8] >= 0 ? 0 : 1;
+          ref_col = cm.ref[cl][c8];
+          mv_col[0] = cm.mv[cl][c4][0];
+          mv_col[1] = cm.mv[cl][c4][1];
+          pic_col = cm.refpic[cl][c8];
+        }
+        Partition q{x, y, step, step, 0, {-1, -1}, {{0, 0}, {0, 0}}};
+        if (sh.direct_spatial) {
+          bool col_zero =
+              col.short_ref && ref_col == 0 && std::abs(mv_col[0]) <= 1 && std::abs(mv_col[1]) <= 1;
+          for (int l = 0; l < 2; ++l) {
+            q.ref[l] = sref[l];
+            if (sref[l] < 0) continue;
+            q.flags |= 1 << l;
+            if (!(sref[l] == 0 && col_zero)) {
+              q.mv[l][0] = smv[l][0];
+              q.mv[l][1] = smv[l][1];
+            }
+          }
+        } else {
+          int r0 = 0;
+          if (ref_col >= 0) {
+            r0 = -1;
+            for (int k = 0; k < (int)list[0].size() && r0 < 0; ++k)
+              if (list[0][k] && list[0][k]->id == pic_col) r0 = k;
+            if (r0 < 0) corrupt("temporal direct: the co-located block's reference is not in list 0");
+          }
+          if (r0 >= (int)list[0].size() || !list[0][r0]) corrupt("temporal direct with no RefPicList0[0]");
+          const Pic& p0 = *list[0][r0];
+          int td = clip3(-128, 127, col.poc - p0.poc);
+          q.flags = 3;
+          q.ref[0] = r0;
+          q.ref[1] = 0;
+          for (int c = 0; c < 2; ++c) {
+            int v0 = mv_col[c];
+            if (!p0.long_ref && td != 0) {
+              int tb = clip3(-128, 127, cur->poc - p0.poc);
+              int tx = (16384 + std::abs(td / 2)) / td;
+              int dsf = clip3(-1024, 1023, (tb * tx + 32) >> 6);
+              v0 = (dsf * mv_col[c] + 128) >> 8;
+            }
+            q.mv[0][c] = v0;
+            q.mv[1][c] = v0 - mv_col[c];
+          }
+        }
+        for (int l = 0; l < 2; ++l)
+          for (int c = 0; c < 2; ++c)
+            if (q.mv[l][c] < -32768 || q.mv[l][c] > 32767) corrupt("a direct motion vector out of range");
+        for (int l = 0; l < 2; ++l) {
+          m.ref[l][i] = (int8_t)q.ref[l];
+          for (int yy = y; yy < y + step; yy += 4)
+            for (int xx = x; xx < x + step; xx += 4) {
+              int r = (yy >> 2) * 4 + (xx >> 2);
+              m.mv[l][r][0] = (int16_t)q.mv[l][0];
+              m.mv[l][r][1] = (int16_t)q.mv[l][1];
+            }
+        }
+        parts.push_back(q);
+      }
+  }
+}
+
 int Decoder::cabac_mvd(int base, int sum) {
   int inc = sum < 3 ? 0 : (sum > 32 ? 2 : 1);
   if (!dec(base + inc)) return 0;
@@ -1209,69 +1449,64 @@ int Decoder::cabac_mvd(int base, int sum) {
   return bypass() ? -v : v;
 }
 
-void Decoder::inter_pred(MB& m, int kind, std::vector<Partition>& parts, std::vector<int>& refs,
-                         std::vector<std::array<int, 2>>& mvs) {
-  int nref = sh.num_ref_idx;
-  bool cabac = pps->cabac;
-  auto read_ref = [&](int x, int y) -> int {
-    if (kind == P8x8REF0 || nref == 1) return 0;
-    if (!cabac) {
-      if (nref == 2) return !bs.u(1);
-      return (int)bs.ue_max(nref - 1, "ref_idx_l0");
-    }
-    int cond[2];
-    for (int k = 0; k < 2; ++k) {
-      int xw, yw;
-      int addr = locate(k == 0 ? x - 1 : x, k == 0 ? y : y - 1, &xw, &yw);
-      cond[k] = 0;
-      if (addr < 0) continue;
-      const MB& n = mbs[addr];
-      if (addr != mb_addr && (n.kind == PSKIP || n.intra)) continue;
-      cond[k] = n.ref[(yw >> 3) * 2 + (xw >> 3)] > 0;
-    }
-    int v = 0, c = 54 + cond[0] + 2 * cond[1];
-    while (dec(c)) {
-      if (++v >= nref) corrupt("ref_idx_l0 beyond the list");
-      c = 54 + (v == 1 ? 4 : 5);
-    }
-    return v;
-  };
-  auto read_mvd = [&](int x, int y, int comp) -> int {
-    if (!cabac) return bs.se_range(-32768, 32767, "mvd_l0");
-    int sum = 0;
-    for (int k = 0; k < 2; ++k) {
-      int xw, yw;
-      int addr = locate(k == 0 ? x - 1 : x, k == 0 ? y : y - 1, &xw, &yw);
-      if (addr < 0) continue;
-      const MB& n = mbs[addr];
-      if (addr != mb_addr && (n.kind == PSKIP || n.intra)) continue;
-      sum += n.mvd[(yw >> 2) * 4 + (xw >> 2)][comp];
-    }
-    int v = cabac_mvd(comp == 0 ? 40 : 47, sum);
-    if (v < -32768 || v > 32767) corrupt("mvd_l0 out of range");
-    return v;
-  };
-  auto set_ref = [&](const Partition& p, int r) {
-    for (int y = p.y; y < p.y + p.h; y += 8)
-      for (int x = p.x; x < p.x + p.w; x += 8) m.ref[(y >> 3) * 2 + (x >> 3)] = (int8_t)r;
-  };
-  auto set_motion = [&](const Partition& p, int mx, int my, int dx, int dy) {
-    for (int y = p.y; y < p.y + p.h; y += 4)
-      for (int x = p.x; x < p.x + p.w; x += 4) {
-        int r = (y >> 2) * 4 + (x >> 2);
-        m.mv[r][0] = (int16_t)mx;
-        m.mv[r][1] = (int16_t)my;
-        m.mvd[r][0] = (uint8_t)std::min(std::abs(dx), 255);
-        m.mvd[r][1] = (uint8_t)std::min(std::abs(dy), 255);
-        done4[r] = true;
-      }
-  };
-  for (int i = 0; i < 4; ++i) m.ref[i] = 0;
-  memset(m.mvd, 0, sizeof m.mvd);
+// ref_idx_lX of the partition at (x, y); the CABAC context counts a
+// neighbour that is skipped, intra, direct or not using the list as 0
+int Decoder::read_ref(MB& m, int lx, int x, int y) {
+  int nref = sh.num_ref_idx[lx];
+  if (nref == 1) return 0;
+  if (!pps->cabac) {
+    if (nref == 2) return !bs.u(1);
+    return (int)bs.ue_max(nref - 1, "ref_idx");
+  }
+  int cond[2];
+  for (int k = 0; k < 2; ++k) {
+    int xw, yw;
+    int addr = locate(k == 0 ? x - 1 : x, k == 0 ? y : y - 1, &xw, &yw);
+    cond[k] = 0;
+    if (addr < 0) continue;
+    const MB& n = addr == mb_addr ? m : mbs[addr];
+    int b8 = (yw >> 3) * 2 + (xw >> 3);
+    if (n.kind == SKIP || n.intra || n.direct[b8]) continue;
+    cond[k] = n.ref[lx][b8] > 0;
+  }
+  int v = 0, c = 54 + cond[0] + 2 * cond[1];
+  while (dec(c)) {
+    if (++v >= nref) corrupt("ref_idx beyond the list");
+    c = 54 + (v == 1 ? 4 : 5);
+  }
+  return v;
+}
+
+int Decoder::read_mvd(int lx, int x, int y, int comp) {
+  if (!pps->cabac) return bs.se_range(-32768, 32767, "mvd");
+  int sum = 0;
+  for (int k = 0; k < 2; ++k) {
+    int xw, yw;
+    int addr = locate(k == 0 ? x - 1 : x, k == 0 ? y : y - 1, &xw, &yw);
+    if (addr < 0) continue;
+    const MB& n = mbs[addr];
+    if (addr != mb_addr && (n.kind == SKIP || n.intra)) continue;
+    sum += n.mvd[lx][(yw >> 2) * 4 + (xw >> 2)][comp];
+  }
+  int v = cabac_mvd(comp == 0 ? 40 : 47, sum);
+  if (v < -32768 || v > 32767) corrupt("mvd out of range");
+  return v;
+}
+
+// the motion vectors of list lx of the partitions in order: each one using
+// the list reads its mvd and adds the predictor; done4 marks the partitions
+// decoded so far for this list (a direct one counts when its turn comes)
+static void set_done(bool* done4, const Partition& p) {
+  for (int y = p.y; y < p.y + p.h; y += 4)
+    for (int x = p.x; x < p.x + p.w; x += 4) done4[(y >> 2) * 4 + (x >> 2)] = true;
+}
+
+void Decoder::inter_pred(MB& m, int kind, std::vector<Partition>& parts) {
+  // P macroblocks: list 0 only
   if (kind == P8x8 || kind == P8x8REF0) {
     int sub[4];
     for (int i = 0; i < 4; ++i) {
-      if (cabac) {
+      if (pps->cabac) {
         if (dec(21)) sub[i] = 0;
         else if (!dec(22)) sub[i] = 1;
         else sub[i] = dec(23) ? 2 : 3;
@@ -1279,52 +1514,120 @@ void Decoder::inter_pred(MB& m, int kind, std::vector<Partition>& parts, std::ve
         sub[i] = bs.ue_max(3, "sub_mb_type");
       }
     }
-    int r8[4];
     for (int i = 0; i < 4; ++i) {
-      Partition q{(i & 1) * 8, (i >> 1) * 8, 8, 8};
-      r8[i] = read_ref(q.x, q.y);
-      set_ref(q, r8[i]);
+      int r = kind == P8x8REF0 ? 0 : read_ref(m, 0, (i & 1) * 8, (i >> 1) * 8);
+      m.ref[0][i] = (int8_t)r;
     }
     for (int i = 0; i < 4; ++i) {
       int x0 = (i & 1) * 8, y0 = (i >> 1) * 8;
       int sw = sub[i] == 0 || sub[i] == 1 ? 8 : 4, shh = sub[i] == 0 || sub[i] == 2 ? 8 : 4;
       for (int y = y0; y < y0 + 8; y += shh)
-        for (int x = x0; x < x0 + 8; x += sw) {
-          Partition q{x, y, sw, shh};
-          int dx = read_mvd(x, y, 0), dy = read_mvd(x, y, 1);
-          int px, py;
-          mvp(x, y, sw, r8[i], 0, &px, &py);
-          int mx = px + dx, my = py + dy;
-          if (mx < -32768 || mx > 32767 || my < -32768 || my > 32767) corrupt("a motion vector out of range");
-          set_motion(q, mx, my, dx, dy);
-          parts.push_back(q);
-          refs.push_back(r8[i]);
-          mvs.push_back({mx, my});
-        }
+        for (int x = x0; x < x0 + 8; x += sw)
+          parts.push_back({x, y, sw, shh, 1, {m.ref[0][i], -1}, {{0, 0}, {0, 0}}});
     }
-    return;
-  }
-  std::vector<Partition> ps;
-  if (kind == P16x16) ps = {{0, 0, 16, 16}};
-  else if (kind == P16x8) ps = {{0, 0, 16, 8}, {0, 8, 16, 8}};
-  else ps = {{0, 0, 8, 16}, {8, 0, 8, 16}};
-  std::vector<int> r(ps.size());
-  for (size_t i = 0; i < ps.size(); ++i) {
-    r[i] = read_ref(ps[i].x, ps[i].y);
-    set_ref(ps[i], r[i]);
+  } else {
+    if (kind == P16x16) parts = {{0, 0, 16, 16, 1, {0, -1}, {}}};
+    else if (kind == P16x8) parts = {{0, 0, 16, 8, 1, {0, -1}, {}}, {0, 8, 16, 8, 1, {0, -1}, {}}};
+    else parts = {{0, 0, 8, 16, 1, {0, -1}, {}}, {8, 0, 8, 16, 1, {0, -1}, {}}};
+    for (auto& p : parts) {
+      p.ref[0] = read_ref(m, 0, p.x, p.y);
+      for (int y = p.y; y < p.y + p.h; y += 8)
+        for (int x = p.x; x < p.x + p.w; x += 8) m.ref[0][(y >> 3) * 2 + (x >> 3)] = (int8_t)p.ref[0];
+    }
   }
   int shape = kind == P16x8 ? 1 : kind == P8x16 ? 2 : 0;
-  for (size_t i = 0; i < ps.size(); ++i) {
-    int dx = read_mvd(ps[i].x, ps[i].y, 0), dy = read_mvd(ps[i].x, ps[i].y, 1);
+  for (auto& p : parts) {
+    int dx = read_mvd(0, p.x, p.y, 0), dy = read_mvd(0, p.x, p.y, 1);
     int px, py;
-    mvp(ps[i].x, ps[i].y, ps[i].w, r[i], shape, &px, &py);
+    mvp(0, p.x, p.y, p.w, p.ref[0], shape, &px, &py);
     int mx = px + dx, my = py + dy;
     if (mx < -32768 || mx > 32767 || my < -32768 || my > 32767) corrupt("a motion vector out of range");
-    set_motion(ps[i], mx, my, dx, dy);
-    parts.push_back(ps[i]);
-    refs.push_back(r[i]);
-    mvs.push_back({mx, my});
+    p.mv[0][0] = mx;
+    p.mv[0][1] = my;
+    for (int y = p.y; y < p.y + p.h; y += 4)
+      for (int x = p.x; x < p.x + p.w; x += 4) {
+        int r = (y >> 2) * 4 + (x >> 2);
+        m.mv[0][r][0] = (int16_t)mx;
+        m.mv[0][r][1] = (int16_t)my;
+        m.mvd[0][r][0] = (uint8_t)std::min(std::abs(dx), 255);
+        m.mvd[0][r][1] = (uint8_t)std::min(std::abs(dy), 255);
+      }
+    set_done(done4, p);
   }
+}
+
+// mb_pred / sub_mb_pred of a B macroblock (btype 1-22; 0 is B_Direct_16x16)
+void Decoder::b_pred(MB& m, int btype, std::vector<Partition>& parts) {
+  int shape = B_MB_TYPE[btype][0];
+  // the partitions in decoding order; flags 0: a direct 8x8 (filled below)
+  std::vector<Partition> ps;
+  int sub[4] = {0, 0, 0, 0};
+  if (shape == 4) {
+    for (int i = 0; i < 4; ++i) sub[i] = read_b_sub_type();
+    for (int i = 0; i < 4; ++i) {
+      int w = B_SUB_MB_TYPE[sub[i]][0], h = B_SUB_MB_TYPE[sub[i]][1], f = B_SUB_MB_TYPE[sub[i]][2];
+      if (f == 0) {
+        m.direct[i] = true;
+        ps.push_back({(i & 1) * 8, (i >> 1) * 8, 8, 8, 0, {-1, -1}, {}});
+        continue;
+      }
+      for (int y = (i >> 1) * 8; y < (i >> 1) * 8 + 8; y += h)
+        for (int x = (i & 1) * 8; x < (i & 1) * 8 + 8; x += w) ps.push_back({x, y, w, h, f, {-1, -1}, {}});
+    }
+  } else {                                          // 16x16, 16x8 or 8x16
+    int w = shape == 3 ? 8 : 16, h = shape == 2 ? 8 : 16;
+    for (int i = 0; i < (shape == 1 ? 1 : 2); ++i)
+      ps.push_back({shape == 3 ? 8 * i : 0, shape == 2 ? 8 * i : 0, w, h, B_MB_TYPE[btype][1 + i], {-1, -1}, {}});
+  }
+  // ref_idx_l0 of each partition (8x8 for B_8x8), then ref_idx_l1
+  for (int lx = 0; lx < 2; ++lx) {
+    for (auto& p : ps) {
+      if (!(p.flags >> lx & 1)) continue;
+      int b8 = (p.y >> 3) * 2 + (p.x >> 3);
+      if (shape == 4 && (p.x & 7 || p.y & 7)) {       // the sub-partitions share their 8x8's
+        p.ref[lx] = m.ref[lx][b8];
+        continue;
+      }
+      p.ref[lx] = read_ref(m, lx, p.x, p.y);
+      for (int y = p.y; y < p.y + std::max(p.h, 8); y += 8)
+        for (int x = p.x; x < p.x + std::max(p.w, 8); x += 8)
+          m.ref[lx][(y >> 3) * 2 + (x >> 3)] = (int8_t)p.ref[lx];
+    }
+  }
+  // mvd_l0 of each partition, then mvd_l1; a direct 8x8 is predicted when
+  // list 0 reaches it
+  int pshape = shape == 2 ? 1 : shape == 3 ? 2 : 0;
+  for (int lx = 0; lx < 2; ++lx) {
+    memset(done4, 0, sizeof done4);
+    for (auto& p : ps) {
+      if (p.flags == 0) {
+        int b8 = (p.y >> 3) * 2 + (p.x >> 3);
+        if (lx == 0) direct(m, b8, parts);
+        set_done(done4, p);
+        continue;
+      }
+      if (p.flags >> lx & 1) {
+        int dx = read_mvd(lx, p.x, p.y, 0), dy = read_mvd(lx, p.x, p.y, 1);
+        int px, py;
+        mvp(lx, p.x, p.y, p.w, p.ref[lx], pshape, &px, &py);
+        int mx = px + dx, my = py + dy;
+        if (mx < -32768 || mx > 32767 || my < -32768 || my > 32767) corrupt("a motion vector out of range");
+        p.mv[lx][0] = mx;
+        p.mv[lx][1] = my;
+        for (int y = p.y; y < p.y + p.h; y += 4)
+          for (int x = p.x; x < p.x + p.w; x += 4) {
+            int r = (y >> 2) * 4 + (x >> 2);
+            m.mv[lx][r][0] = (int16_t)mx;
+            m.mv[lx][r][1] = (int16_t)my;
+            m.mvd[lx][r][0] = (uint8_t)std::min(std::abs(dx), 255);
+            m.mvd[lx][r][1] = (uint8_t)std::min(std::abs(dy), 255);
+          }
+      }
+      set_done(done4, p);
+    }
+  }
+  for (auto& p : ps)
+    if (p.flags) parts.push_back(p);
 }
 
 void Decoder::intra_pred_modes(MB& m, bool t8) {
@@ -1408,14 +1711,9 @@ void Decoder::macroblock(bool skip) {
   memset(m.nz, 0, sizeof m.nz);
   memset(m.nzc, 0, sizeof m.nzc);
   memset(m.nzd, 0, sizeof m.nzd);
-  memset(m.mvd, 0, sizeof m.mvd);
   memset(m.cbf_dc, 0, sizeof m.cbf_dc);
-  memset(m.mv, 0, sizeof m.mv);
   memset(m.ipred, 2, sizeof m.ipred);
-  for (int i = 0; i < 4; ++i) {
-    m.ref[i] = -1;
-    m.refpic[i] = 0;
-  }
+  clear_motion(m);
   bool cabac = pps->cabac;
   if (t == 30) {                                    // I_PCM
     m.kind = IPCM;
@@ -1436,10 +1734,8 @@ void Decoder::macroblock(bool skip) {
     return;
   }
   std::vector<Partition> parts;
-  std::vector<int> refs;
-  std::vector<std::array<int, 2>> mvs;
   int cbp = 0;
-  if (t >= 5) {
+  if (t >= 5 && t <= 30) {
     m.intra = true;
     bool t8 = false;
     if (t == 5) {
@@ -1467,13 +1763,18 @@ void Decoder::macroblock(bool skip) {
     } else {
       m.chroma_mode = bs.ue_max(3, "intra_chroma_pred_mode");
     }
-  } else {
+  } else if (t < 5) {
     m.kind = (uint8_t)t;
-    if (!list0.size()) corrupt("an inter macroblock in a slice with no reference list");
-    inter_pred(m, t, parts, refs, mvs);
-    for (size_t i = 0; i < refs.size(); ++i)
-      if (!list0[refs[i]]) corrupt("ref_idx_l0 names no reference picture");
-    for (int i = 0; i < 4; ++i) m.refpic[i] = list0[m.ref[i]]->id;
+    if (!list[0].size()) corrupt("an inter macroblock in a slice with no reference list");
+    inter_pred(m, t, parts);
+    set_refpics(m);
+  } else {
+    int bt = t - 31;
+    int shape = B_MB_TYPE[bt][0];
+    m.kind = shape == 0 ? BDIRECT : shape == 1 ? P16x16 : shape == 2 ? P16x8 : shape == 3 ? P8x16 : B8x8;
+    if (bt == 0) direct(m, -1, parts);
+    else b_pred(m, bt, parts);
+    set_refpics(m);
   }
   if (m.kind != I16) {
     if (cabac) {
@@ -1482,11 +1783,11 @@ void Decoder::macroblock(bool skip) {
         int bitA, bitB;
         if (b8 & 1) bitA = (cbp >> (b8 - 1)) & 1;
         else if (!avail(a) || mbs[a].kind == IPCM) bitA = 1;
-        else if (mbs[a].kind == PSKIP) bitA = 0;
+        else if (mbs[a].kind == SKIP) bitA = 0;
         else bitA = (mbs[a].cbp >> (b8 + 1)) & 1;
         if (b8 & 2) bitB = (cbp >> (b8 - 2)) & 1;
         else if (!avail(b) || mbs[b].kind == IPCM) bitB = 1;
-        else if (mbs[b].kind == PSKIP) bitB = 0;
+        else if (mbs[b].kind == SKIP) bitB = 0;
         else bitB = (mbs[b].cbp >> (b8 + 2)) & 1;
         cbp |= dec(73 + (!bitA) + 2 * (!bitB)) << b8;
       }
@@ -1498,7 +1799,7 @@ void Decoder::macroblock(bool skip) {
         const MB& nm = mbs[n];
         if (nm.kind == IPCM) {
           c[0] = c[1] = 1;
-        } else if (nm.kind != PSKIP) {
+        } else if (nm.kind != SKIP) {
           c[0] = (nm.cbp >> 4) != 0;
           c[1] = (nm.cbp >> 4) == 2;
         }
@@ -1510,10 +1811,11 @@ void Decoder::macroblock(bool skip) {
     }
     m.cbp = cbp;
     if (!m.intra && (cbp & 15) && pps->t8x8) {
+      // no partition under 8x8: a direct one is 8x8 only under
+      // direct_8x8_inference_flag
       bool small = false;
-      if (m.kind == P8x8 || m.kind == P8x8REF0)
-        for (auto& p : parts)
-          if (p.w < 8 || p.h < 8) small = true;
+      for (auto& p : parts)
+        if (p.w < 8 || p.h < 8) small = true;
       if (!small) {
         if (cabac) {
           int a = addr_a(), b = addr_b();
@@ -1531,7 +1833,7 @@ void Decoder::macroblock(bool skip) {
       int inc = 0;
       if (prev_mb_in_slice >= 0) {
         const MB& p = mbs[prev_mb_in_slice];
-        inc = !(p.kind == PSKIP || p.kind == IPCM || (p.kind != I16 && (p.cbp & 0x3F) == 0) || p.qp_delta == 0);
+        inc = !(p.kind == SKIP || p.kind == IPCM || (p.kind != I16 && (p.cbp & 0x3F) == 0) || p.qp_delta == 0);
       }
       if (!dec(60 + inc)) {
         delta = 0;
@@ -1560,7 +1862,7 @@ void Decoder::macroblock(bool skip) {
   if (m.intra) {
     recon_intra(m);
   } else {
-    recon_inter(m, parts, refs, mvs);
+    recon_inter(m, parts);
   }
   prev_mb_in_slice = mb_addr;
 }
@@ -1670,7 +1972,7 @@ int Decoder::cbf_luma_inc(int raster, bool dc) {
     const MB& n = mbs[addr];
     if (n.kind == IPCM) cond[k] = 1;
     else if (dc) cond[k] = n.kind == I16 ? n.cbf_dc[0] : 0;
-    else if (n.kind == PSKIP) cond[k] = 0;
+    else if (n.kind == SKIP) cond[k] = 0;
     else if (!((n.cbp >> ((yw >> 3) * 2 + (xw >> 3))) & 1)) cond[k] = 0;
     else cond[k] = n.nz[(yw >> 2) * 4 + (xw >> 2)] != 0;
   }
@@ -1698,7 +2000,7 @@ int Decoder::cbf_chroma_inc(int c, int blk, bool dc) {
     }
     const MB& n = mbs[addr];
     if (n.kind == IPCM) cond[k] = 1;
-    else if (n.kind == PSKIP) cond[k] = 0;
+    else if (n.kind == SKIP) cond[k] = 0;
     else if (dc) cond[k] = (n.cbp >> 4) != 0 ? n.cbf_dc[1 + c] : 0;
     else cond[k] = (n.cbp >> 4) == 2 ? n.nzc[c][nb] != 0 : 0;
   }
@@ -2271,30 +2573,67 @@ inline int weighted(int v, int w, int o, int lg) {
   return clip1(lg >= 1 ? ((v * w + (1 << (lg - 1))) >> lg) + o : v * w + o);
 }
 
-void Decoder::recon_inter(MB& m, const std::vector<Partition>& parts, const std::vector<int>& refs,
-                          const std::vector<std::array<int, 2>>& mvs) {
+// 8.4.2.3: the prediction of one sample from its list 0 and list 1 values
+// (flags: the lists used) in mode 0 default, 1 explicit, 2 implicit
+inline int combine(int mode, int flags, int a, int b, const int* w, const int* o, int lg) {
+  if (flags != 3) {
+    int v = flags == 1 ? a : b, x = flags == 1 ? 0 : 1;
+    return mode == 1 ? weighted(v, w[x], o[x], lg) : v;
+  }
+  if (mode == 0) return (a + b + 1) >> 1;
+  return clip1(((a * w[0] + b * w[1] + (1 << lg)) >> (lg + 1)) + ((o[0] + o[1] + 1) >> 1));
+}
+
+void Decoder::recon_inter(MB& m, const std::vector<Partition>& parts) {
   int predY[256], predC[2][64];
-  int blk[256];
-  for (size_t i = 0; i < parts.size(); ++i) {
-    const Partition& p = parts[i];
-    const Pic& ref = *list0[refs[i]];
-    int mx = mvs[i][0], my = mvs[i][1];
-    mc_luma(ref, mbx * 16 + p.x + (mx >> 2), mby * 16 + p.y + (my >> 2), mx & 3, my & 3, p.w, p.h, blk);
-    bool wp = pps->weighted_pred;
-    int r = refs[i];
-    for (int y = 0; y < p.h; ++y)
-      for (int x = 0; x < p.w; ++x) {
-        int v = blk[y * 16 + x];
-        predY[(p.y + y) * 16 + p.x + x] = wp ? weighted(v, sh.lw[r], sh.lo[r], sh.luma_log2) : v;
-      }
-    for (int c = 0; c < 2; ++c) {
-      mc_chroma(c == 0 ? ref.cb : ref.cr, ref.mbw * 8, ref.mbh * 8, mbx * 8 + p.x / 2 + (mx >> 3),
-                mby * 8 + p.y / 2 + (my >> 3), mx & 7, my & 7, p.w / 2, p.h / 2, blk);
-      for (int y = 0; y < p.h / 2; ++y)
-        for (int x = 0; x < p.w / 2; ++x) {
-          int v = blk[y * 8 + x];
-          predC[c][(p.y / 2 + y) * 8 + p.x / 2 + x] = wp ? weighted(v, sh.cw[r][c], sh.co[r][c], sh.chroma_log2) : v;
+  int blk[2][256];
+  int mode = sh.type == 0 ? (pps->weighted_pred ? 1 : 0) : pps->weighted_bipred_idc;
+  for (const Partition& p : parts) {
+    for (int x = 0; x < 2; ++x) {
+      if (!(p.flags >> x & 1)) continue;
+      if (p.ref[x] < 0 || p.ref[x] >= (int)list[x].size() || !list[x][p.ref[x]])
+        corrupt("a reference index names no reference picture");
+    }
+    // the weights and offsets of each list (implicit: logWD 5, offsets 0)
+    int lw[2] = {1, 1}, lo[2] = {0, 0}, cw[2][2] = {{1, 1}, {1, 1}}, co[2][2] = {{0, 0}, {0, 0}};
+    int llg = sh.luma_log2, clg = sh.chroma_log2;
+    if (mode == 1) {
+      for (int x = 0; x < 2; ++x) {
+        if (!(p.flags >> x & 1)) continue;
+        lw[x] = sh.lw[x][p.ref[x]];
+        lo[x] = sh.lo[x][p.ref[x]];
+        for (int c = 0; c < 2; ++c) {
+          cw[c][x] = sh.cw[x][p.ref[x]][c];
+          co[c][x] = sh.co[x][p.ref[x]][c];
         }
+      }
+    } else if (mode == 2 && p.flags == 3) {
+      int w0 = implicit_w[p.ref[0]][p.ref[1]];
+      lw[0] = cw[0][0] = cw[1][0] = w0;
+      lw[1] = cw[0][1] = cw[1][1] = 64 - w0;
+      llg = clg = 5;
+    }
+    for (int x = 0; x < 2; ++x) {
+      if (!(p.flags >> x & 1)) continue;
+      const Pic& ref = *list[x][p.ref[x]];
+      int mx = p.mv[x][0], my = p.mv[x][1];
+      mc_luma(ref, mbx * 16 + p.x + (mx >> 2), mby * 16 + p.y + (my >> 2), mx & 3, my & 3, p.w, p.h, blk[x]);
+    }
+    for (int y = 0; y < p.h; ++y)
+      for (int x = 0; x < p.w; ++x)
+        predY[(p.y + y) * 16 + p.x + x] = combine(mode, p.flags, blk[0][y * 16 + x], blk[1][y * 16 + x], lw, lo, llg);
+    for (int c = 0; c < 2; ++c) {
+      for (int x = 0; x < 2; ++x) {
+        if (!(p.flags >> x & 1)) continue;
+        const Pic& ref = *list[x][p.ref[x]];
+        int mx = p.mv[x][0], my = p.mv[x][1];
+        mc_chroma(c == 0 ? ref.cb : ref.cr, ref.mbw * 8, ref.mbh * 8, mbx * 8 + p.x / 2 + (mx >> 3),
+                  mby * 8 + p.y / 2 + (my >> 3), mx & 7, my & 7, p.w / 2, p.h / 2, blk[x]);
+      }
+      for (int y = 0; y < p.h / 2; ++y)
+        for (int x = 0; x < p.w / 2; ++x)
+          predC[c][(p.y / 2 + y) * 8 + p.x / 2 + x] =
+              combine(mode, p.flags, blk[0][y * 8 + x], blk[1][y * 8 + x], cw[c], co[c], clg);
     }
   }
   int ys = mbw * 16;
@@ -2329,13 +2668,24 @@ void Decoder::recon_inter(MB& m, const std::vector<Partition>& parts, const std:
 
 // ── end of a picture: deblocking, marking, output ───────────────────────
 
+// 8.7.2.1 for frames: bS of the edge between the 4x4 blocks rp of p and rq of
+// q.  The motion differs where the two use different reference pictures (by
+// picture, whichever list names it) or a different number of vectors, or
+// where a vector of one differs by 4 or more in a component from the
+// vector of the other for the same picture (both pairings where both
+// vectors of each name one picture)
 int boundary_strength(const MB& p, int rp, const MB& q, int rq, bool mb_edge) {
   if (p.intra || q.intra) return mb_edge ? 4 : 3;
   if (p.nzd[rp] || q.nzd[rq]) return 2;
   int p8 = ((rp >> 2) >> 1) * 2 + ((rp & 3) >> 1), q8 = ((rq >> 2) >> 1) * 2 + ((rq & 3) >> 1);
-  if (p.refpic[p8] != q.refpic[q8]) return 1;
-  if (std::abs(p.mv[rp][0] - q.mv[rq][0]) >= 4 || std::abs(p.mv[rp][1] - q.mv[rq][1]) >= 4) return 1;
-  return 0;
+  auto far = [&](int lp, int lq) {
+    return std::abs(p.mv[lp][rp][0] - q.mv[lq][rq][0]) >= 4 || std::abs(p.mv[lp][rp][1] - q.mv[lq][rq][1]) >= 4;
+  };
+  uint64_t a0 = p.refpic[0][p8], a1 = p.refpic[1][p8], b0 = q.refpic[0][q8], b1 = q.refpic[1][q8];
+  bool v = a0 != b0 || a1 != b1 || (a0 && far(0, 0)) || (a1 && far(1, 1));
+  if (!v) return 0;
+  if (a0 != b1 || a1 != b0) return 1;
+  return (a0 && far(0, 1)) || (a1 && far(1, 0));
 }
 
 // filter n lines across an edge: pix points at q0 of the first line, `step`
@@ -2545,6 +2895,7 @@ void Decoder::end_picture() {
   if (covered != n) corrupt("the slices cover " + std::to_string(covered) + " of " + std::to_string(n) + " macroblocks");
   deblock();
   bool ref = first_hdr.nal_ref_idc != 0;
+  if (ref) cur->mbs = std::move(mbs);               // a later picture's co-located motion
   if (ref) mark_references();
   if (cur_mmco5) {
     int temp = std::min(cur_top, cur_bottom);

@@ -9,8 +9,9 @@ listing the sync samples when not every sample is one.  Read: MP4 and
 QuickTime (`qt  ` brand, `wide` atoms, a sound track beside the video, which
 is skipped), any `stsc` layout, `stco` or `co64` chunk offsets, `moov` before
 or after `mdat`; fps from `mdhd`'s timescale and `stts`, the frame count from
-`stsz`; the display rotation of `tkhd`'s matrix and the samples an edit list
-(`elst`) keeps, both as FFmpeg applies them.  The codec is the caller's: the
+`stsz`; the samples' presentation times (`stts` and the signed `ctts`
+offsets); the display rotation of `tkhd`'s matrix and the pictures an edit
+list (`elst`) keeps, both as FFmpeg applies them.  The codec is the caller's: the
 sample entry goes in as bytes and comes back as a range of the file.
 """
 
@@ -65,9 +66,11 @@ def read_track(buf, path: Path):
     entry's), fps, frame_count, container "mp4", `sync`, the 0-based indices
     of the sync samples (None where `stss` is absent: every sample is one),
     `rotation`, the clockwise display rotation of the track header's matrix
-    (0, 90, 180 or 270), and `shown`, the indices of the samples the edit
-    list keeps, in order (None: every sample); the sample entry is (type,
-    body start, body end)."""
+    (0, 90, 180 or 270), `times`, each sample's presentation time in track
+    ticks, and `shown`, the output positions the edit list keeps, in order
+    (None: every one), where the k-th picture out is the sample with the
+    k-th smallest presentation time (decoding order where there is no
+    `ctts`); the sample entry is (type, body start, body end)."""
     file_end = len(buf)
     moov = child(buf, 0, file_end, b"moov")
     if moov is None:
@@ -93,7 +96,7 @@ def read_track(buf, path: Path):
         info["rotation"] = _rotation(buf, child(buf, tbody, tend, b"tkhd"))
         edts = child(buf, tbody, tend, b"edts")
         elst = edts and child(buf, *edts, b"elst")
-        info["shown"] = _edited(buf, elst, info.pop("times"), timescale, movie_scale)
+        info["shown"] = _edited(buf, elst, info["times"], timescale, movie_scale)
         return offsets, sizes, info, entry
     raise ValueError(f"{path}: an MP4 file with no video track")
 
@@ -110,11 +113,17 @@ def _rotation(buf, tkhd) -> int:
     return int(round(math.degrees(math.atan2(b, a)) / 90)) % 4 * 90
 
 
+def output_order(times: list[int]) -> list[int]:
+    """The samples in output order: by presentation time, then decoding
+    order."""
+    return sorted(range(len(times)), key=lambda i: (times[i], i))
+
+
 def _edited(buf, elst, times: list[int], timescale: int, movie_scale: int):
-    """The samples the edit list shows, in order: for each edit that is not
-    empty, those whose presentation time lies in [media_time, media_time +
-    the edit's duration); None where there is no edit list or it keeps every
-    sample in order."""
+    """The output positions the edit list shows, in order: for each edit
+    that is not empty, those of the samples whose presentation time lies in
+    [media_time, media_time + the edit's duration); None where there is no
+    edit list or it keeps every position in order."""
     if elst is None or not movie_scale:
         return None
     version = buf[elst[0]]
@@ -126,8 +135,8 @@ def _edited(buf, elst, times: list[int], timescale: int, movie_scale: int):
         if media_time < 0:
             continue                                    # an empty edit
         end = media_time + duration * timescale / movie_scale
-        shown += [i for i, t in enumerate(times) if media_time <= t < end or
-                  (duration == 0 and t >= media_time)]
+        shown += [k for k, i in enumerate(output_order(times)) if media_time <= times[i] < end
+                  or (duration == 0 and times[i] >= media_time)]
     return None if shown == list(range(len(times))) else shown
 def _read_stbl(buf, stbl, timescale: int, path: Path):
     stsd = child(buf, *stbl, b"stsd")

@@ -194,9 +194,10 @@ def test_generated_header_holds_every_table():
     """The C++ header is generated from the one copy of the tables."""
     text = h264_tables.cpp_header()
     for name in ("CABAC_INIT[4][460][2]", "RANGE_TAB_LPS[64][4]", "TRANS_IDX_LPS[64]",
-                 "ALPHA[52]", "BETA[52]", "TC0[52][3]", "DEFAULT_8X8[2][64]", "CT_LEN[5][17][4]"):
+                 "ALPHA[52]", "BETA[52]", "TC0[52][3]", "DEFAULT_8X8[2][64]", "CT_LEN[5][17][4]",
+                 "B_MB_TYPE[23][3]", "B_SUB_MB_TYPE[13][3]"):
         assert f" {name} = " in text
-    assert text.count("static const") == 25
+    assert text.count("static const") == 27
 
 
 # ── corrupt input ───────────────────────────────────────────
@@ -337,7 +338,7 @@ def test_colour_follows_the_vui_as_cv2_does(tmp_path, capfd, full, matrix):
 
 # ── what stays outside ──────────────────────────────────────
 
-def sps_unit(profile: int, frame_mbs_only: int = 1) -> bytes:
+def sps_unit(profile: int, frame_mbs_only: int = 1, mbaff: int = 0) -> bytes:
     bw = syn.BitWriter()
     for v in (profile, 0, 40):
         bw.u(8, v)
@@ -354,36 +355,57 @@ def sps_unit(profile: int, frame_mbs_only: int = 1) -> bytes:
     bw.ue(1)
     bw.u(1, frame_mbs_only)
     if not frame_mbs_only:
-        bw.u(1, 0)
+        bw.u(1, mbaff)
     bw.u(3, 4)                                 # direct_8x8_inference, no cropping, no VUI
     bw.trailing()
     return syn.nal(3, 7, bw.data())
 
 
-REFUSED = {"b_slices": "H.264 B slices", "field": "H.264 interlaced (field) coding",
+REFUSED = {"b_slices": None, "sp_slices": "H.264 SP/SI slices",
+           "field": "H.264 interlaced (field) coding", "mbaff": "H.264 MBAFF",
            "high10": "H.264 High 10 profile", "high422": "H.264 High 4:2:2 profile",
            "high444": "H.264 High 4:4:4 Predictive profile",
            "hevc": "H.265 / HEVC", "h264_in_avi": "H.264"}
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
-def test_what_stays_outside_is_refused_by_name(tmp_path, case):
-    """B slices, field coding, High 10, High 4:2:2 and High 4:4:4, HEVC and
-    H.264 in AVI raise UnsupportedCodecError naming the feature and ffmpeg, from
-    probe_video or at the latest extract_frames."""
+def test_what_stays_outside_is_refused_by_name(tmp_path, capfd, case):
+    """SP slices, field coding, MBAFF, High 10, High 4:2:2 and High 4:4:4,
+    HEVC and H.264 in AVI raise UnsupportedCodecError naming the feature and
+    ffmpeg, from probe_video or at the latest extract_frames.  B slices, which
+    raised before the decoder read them, now read as the JAX package reads
+    them: a B-pyramid clip with `ctts` and FFmpeg's edit list."""
     path = tmp_path / "clip.mov"
     aus = syn.write_stream(0, frames=2, width=48, height=32)
     if case == "b_slices":
+        writer = syn.Writer(0, frames=6, width=48, height=32, bframes=3, pyramid=True, refs=3,
+                            num_ref_idx=2, restriction=True)
+        aus = writer.stream()
+        syn.write_mov(path, aus, 48, 32, media_time="ctts", display=writer.display)
+        assert tvideo.probe_video(path) == jvideo.probe_video(path)
+        ours = tvideo.extract_frames(path, tmp_path / "ours")
+        theirs = jvideo.extract_frames(path, tmp_path / "theirs")
+        capfd.readouterr()
+        assert len(ours) == len(theirs) == 6
+        planes = h264.decode_annexb(syn.annexb(aus))
+        tol = rgb_tolerance(planes, (0, 2), tmp_path, capfd)
+        for a, b in zip(ours, theirs):
+            x, y = tvideo.read_image(a).astype(int), tvideo.read_image(b).astype(int)
+            assert x.shape == y.shape == (32, 48, 3)
+            assert np.abs(x - y).max() <= tol
+        return
+    if case == "sp_slices":
         pps_id = h264.parse_pps([u for u in aus[0] if u[0] & 0x1F == 8][-1])["id"]
         bw = syn.BitWriter()
-        for v in (0, 1, pps_id):
+        for v in (0, 3, pps_id):
             bw.ue(v)
         bw.u(8, 1)
         bw.trailing()
         aus[1] = [syn.nal(2, 1, bw.data())]
-    elif case in ("field", "high10", "high422", "high444"):
-        sps = sps_unit({"field": 77, "high10": 110, "high422": 122, "high444": 244}[case],
-                       frame_mbs_only=0 if case == "field" else 1)
+    elif case in ("field", "mbaff", "high10", "high422", "high444"):
+        sps = sps_unit({"field": 77, "mbaff": 77, "high10": 110, "high422": 122,
+                        "high444": 244}[case], frame_mbs_only=0 if case in ("field", "mbaff")
+                       else 1, mbaff=int(case == "mbaff"))
         aus[0] = [sps] + [u for u in aus[0] if u[0] & 0x1F != 7]
     syn.write_mov(path, aus, 48, 32, sample_entry=b"hvc1" if case == "hevc" else b"avc1")
     if case == "h264_in_avi":
@@ -449,7 +471,7 @@ def test_corpus_decodes_to_its_manifest():
     assert sum(p.stat().st_size for p in CORPUS.iterdir()) <= 2 * 1024 * 1024
     for name, entry in manifest["streams"].items():
         path = CORPUS / name
-        if path.suffix == ".mov":
+        if path.suffix in (".mov", ".mp4"):
             frames = h264.frames(path)
             pics = [frames.ycbcr(i) for i in range(len(frames))]
         else:

@@ -2,17 +2,23 @@
 an independent one (cv2's FFmpeg) with no H.264 encoder at hand.
 
 `write_stream(seed, **features)` draws every syntax element of Main and High
-profile I and P pictures at random, within what the standard allows and
+profile I, P and B pictures at random, within what the standard allows and
 what the neighbours make available, and returns the NAL units of each
 access unit.  It needs no reconstruction and no rate control:
 
 - macroblocks: I_NxN (4x4 and 8x8, every mode its neighbours allow, coded
   through the predicted mode), Intra_16x16 and chroma in every allowed mode,
   I_PCM, P_L0_16x16 / 16x8 / 8x16, P_8x8 and P_8x8ref0 with every
-  sub-partition, P_Skip, intra macroblocks in P slices;
-- motion: reference indices over the list, vectors drawn as targets (whole,
+  sub-partition, P_Skip, every B mb_type (B_Direct_16x16, the 16x16, 16x8
+  and 8x16 ones over L0, L1 and Bi, B_8x8 with every sub_mb_type), B_Skip,
+  intra macroblocks in P and B slices;
+- motion: reference indices over each list, vectors drawn as targets (whole,
   half and quarter samples, some pointing outside the picture) and written
-  as differences from the predictor of 8.4.1.3 (P_Skip's of 8.4.1.1);
+  as differences from the predictor of 8.4.1.3 (P_Skip's of 8.4.1.1); the
+  direct modes derived as the decoder derives them (8.4.1.2: spatial, and
+  temporal from the co-located picture's motion, at 8x8 or 4x4 granularity),
+  temporal direct only where the co-located block's reference is in list 0
+  and the scaled vectors stay inside MV_LIMIT;
 - residual: sparse levels in every block kind (CAVLC's escapes and
   level_prefix > 15 in High profile), kept where 8.5.12.1's scaled values and
   the inverse transforms stay inside 16 bits, as a conforming stream does; a
@@ -22,13 +28,20 @@ access unit.  It needs no reconstruction and no rate control:
 - entropy coding: CAVLC, or CABAC through its own arithmetic encoder
   (9.3.4) with the context selection of 9.3.3.1;
 - slices: random splits, slice QP and mb_qp_delta, deblocking idc 0 / 1 / 2
-  with offsets, constrained intra prediction, I slices in P pictures;
+  with offsets, constrained intra prediction, I slices in P and B pictures;
 - parameter sets: several SPS / PPS ids, POC types 0-2, cropping, chroma QP
   offsets, transform_8x8_mode_flag, SPS and PPS scaling lists with the
-  fall-back rules and the defaults;
-- references: up to `refs` frames, list modification, explicit weighted
-  prediction, sliding-window and adaptive marking (MMCO 1-6), long-term
-  references, non-reference P pictures.
+  fall-back rules and the defaults, direct_8x8_inference_flag,
+  weighted_bipred_idc, the VUI's max_num_reorder_frames;
+- references: up to `refs` frames, list modification of both lists, explicit
+  weighted prediction (P and B) and implicit (B), sliding-window and adaptive
+  marking (MMCO 1-6), long-term references, non-reference P pictures;
+- B pictures: GOPs of up to `bframes` B pictures shown before the anchor
+  that follows them (B-pyramid: the middle one a reference), B pictures of
+  past references only (output order = decoding order, for POC type 2),
+  POC type 1 through delta_pic_order_cnt; every P and B slice of a picture
+  has the same lists, and none starts with an I slice.  `Writer.display` is each picture's place in output order
+  (`write_mov`'s `display` for `ctts`).
 
 The tables come from `omfs4d_torch.io.h264_tables`, the port's only copy;
 cv2's decoder is the check that they and the context rules are right.
@@ -51,6 +64,7 @@ BLK_RASTER = [0, 1, 4, 5, 2, 3, 6, 7, 8, 9, 12, 13, 10, 11, 14, 15]
 INTRA_CODE = {int(c): k for k, c in enumerate(T.INTRA_CBP)}
 INTER_CODE = {int(c): k for k, c in enumerate(T.INTER_CBP)}
 INTRA_KINDS = ("I4x4", "I8x8", "I16", "IPCM")
+SKIP_KINDS = ("PSKIP", "BSKIP")
 # how far outside the picture a vector may point, in samples
 MV_OUTSIDE = 24
 
@@ -179,8 +193,11 @@ class Cabac:
 # ── macroblock state (what the context rules read) ─────────────────────
 
 class MB:
+    """ref, refpic (the picture's uid, None for none), direct by list and 8x8;
+    mv, mvd by list and raster 4x4 (a list a partition does not use: ref -1,
+    vector 0)."""
     __slots__ = ("slice", "kind", "intra", "t8x8", "qp", "qp_delta", "cbp", "chroma_mode",
-                 "ipred", "ref", "mv", "mvd", "nz", "nzc", "cbf_dc")
+                 "ipred", "ref", "mv", "mvd", "nz", "nzc", "cbf_dc", "direct", "refpic")
 
     def __init__(self, slice_id: int, kind: str):
         self.slice, self.kind = slice_id, kind
@@ -188,9 +205,11 @@ class MB:
         self.t8x8 = False
         self.qp = self.qp_delta = self.cbp = self.chroma_mode = 0
         self.ipred = [2] * 16
-        self.ref = [-1 if self.intra else 0] * 4
-        self.mv = [(0, 0)] * 16
-        self.mvd = [(0, 0)] * 16
+        self.ref = [[-1 if self.intra else 0] * 4, [-1] * 4]
+        self.mv = [[(0, 0)] * 16, [(0, 0)] * 16]
+        self.mvd = [[(0, 0)] * 16, [(0, 0)] * 16]
+        self.direct = [False] * 4
+        self.refpic = [[None] * 4, [None] * 4]
         self.nz = [16 if kind == "IPCM" else 0] * 16
         self.nzc = [[16 if kind == "IPCM" else 0] * 4 for _ in range(2)]
         self.cbf_dc = [kind == "IPCM"] * 3
@@ -279,7 +298,20 @@ DEFAULTS = dict(
     non_ref=False, param_sets=1, chroma_offsets=(0, 0), i_slices_in_p=0.0, fps=25,
     mmco5=False, colour=None, restriction=False,
     kinds=("I4x4", "I8x8", "I16", "P16x16", "P16x8", "P8x16", "P8x8", "P8x8REF0"),
-    i16_modes=(0, 1, 2, 3), chroma_modes=(0, 1, 2, 3), scaling_range=(6, 40), whole_mv=False)
+    i16_modes=(0, 1, 2, 3), chroma_modes=(0, 1, 2, 3), scaling_range=(6, 40), whole_mv=False,
+    # B pictures: up to `bframes` between two anchors (their middle one a
+    # reference under `pyramid`, any other one with probability `b_ref`), an
+    # anchor a B picture of past references only with probability `past_b`;
+    # each B slice picks its direct mode from `direct`; the SPS's
+    # direct_8x8_inference_flag, the PPS's weighted_bipred_idc
+    bframes=0, pyramid=False, b_ref=0.0, past_b=0.0, direct=("spatial", "temporal"),
+    direct8x8=1, bipred=0, b_subs=tuple(range(13)), level=None)
+# mb_type values of each B macroblock kind (Table 7-14)
+B_TYPES = {"BDIRECT": [0], "B16x16": [1, 2, 3], "B16x8": list(range(4, 22, 2)),
+           "B8x16": list(range(5, 22, 2)), "B8x8": [22]}
+# the largest |vector| component a direct prediction may give, in quarter
+# samples: +-2048 samples across, +-256 down (levels 2.1 to 3)
+MV_LIMIT = (8191, 1023)
 
 
 class Writer:
@@ -300,6 +332,9 @@ class Writer:
         self.log2_poc = 4 + int(self.rng.integers(1, 4))
         self.poc_cycle = [int(v) for v in self.rng.integers(2, 5, int(self.rng.integers(1, 4)))]
         self.stats = Counter()          # what the stream exercised, by name
+        self.b_mode = bool(f["bframes"] or f["past_b"])
+        self.level = f["level"] or (22 if self.b_mode else 40)
+        self.uid = 0                    # the pictures' identities
 
     # ── parameter sets ──
     def _lists(self, present_p: float):
@@ -355,7 +390,7 @@ class Writer:
             constraint = 0x40 if f["profile"] == 77 else (0xC0 if f["profile"] == 66 else 0)
             bw.u(8, f["profile"])
             bw.u(8, constraint)
-            bw.u(8, 40)
+            bw.u(8, self.level)
             bw.ue(sid)
             if f["profile"] == 100:
                 bw.ue(1)
@@ -370,7 +405,7 @@ class Writer:
             if f["poc_type"] == 0:
                 bw.ue(self.log2_poc - 4)
             elif f["poc_type"] == 1:
-                bw.u(1, 1)                                 # delta_pic_order_always_zero
+                bw.u(1, 0 if self.b_mode else 1)           # delta_pic_order_always_zero
                 bw.se(1)                                   # offset_for_non_ref_pic
                 bw.se(0)
                 bw.ue(len(self.poc_cycle))
@@ -381,7 +416,7 @@ class Writer:
             bw.ue(self.mbw - 1)
             bw.ue(self.mbh - 1)
             bw.u(1, 1)
-            bw.u(1, 1)
+            bw.u(1, f["direct8x8"])
             crop_r, crop_b = (16 * self.mbw - self.w) // 2, (16 * self.mbh - self.h) // 2
             bw.u(1, crop_r > 0 or crop_b > 0)
             if crop_r or crop_b:
@@ -408,7 +443,9 @@ class Writer:
             bw.u(1, f["restriction"])
             if f["restriction"]:
                 bw.u(1, 1)
-                for v in (0, 0, 15, 15, 0, max(f["refs"], 1)):   # no reordering
+                # max_num_reorder_frames: the B pictures between two anchors
+                # bound it; max_dec_frame_buffering as x264 writes it
+                for v in (0, 0, 15, 15, f["bframes"], max(f["refs"], 1, f["bframes"])):
                     bw.ue(v)
             bw.trailing()
             units.append(nal(3, 7, bw.data()))
@@ -422,7 +459,7 @@ class Writer:
             bw.ue(max(f["num_ref_idx"], 1) - 1)
             bw.ue(0)
             bw.u(1, f["weighted"])
-            bw.u(2, 0)
+            bw.u(2, f["bipred"])
             self.pic_init_qp = int(rng.integers(f["qp"][0], f["qp"][1] + 1))
             bw.se(self.pic_init_qp - 26)
             bw.se(0)
@@ -493,33 +530,83 @@ class Writer:
         self.poc = 0
         self.idr_id = 0
         self.prev_nonref = False
-        for k in range(f["frames"]):
-            idr = k == 0 or (f["idr_every"] and k % f["idr_every"] == 0)
-            units = self.picture(idr)
+        self.prev_fn = self.prev_fno = 0
+        plan = self.plan() if self.b_mode else [(None, None, None)] * f["frames"]
+        self.display = []               # each picture's place in output order
+        for k, (shown, kind, ref) in enumerate(plan):
+            idr = k == 0 or (f["idr_every"] and k % f["idr_every"] == 0) if shown is None \
+                else kind == "IDR"
+            units = self.picture(idr, shown, kind, ref)
+            self.display.append(k if shown is None else shown)
             aus[-1] += units if k == 0 else []
             if k:
                 aus.append(units)
         return aus
 
-    def picture(self, idr: bool) -> list[bytes]:
+    def plan(self) -> list[tuple[int, str, bool]]:
+        """B pictures: (place in output order, "IDR" / "P" / "B", reference)
+        of each picture in decoding order.  Between two anchors up to
+        `bframes` B pictures shown before the later one and decoded after it,
+        the middle one first as a reference under `pyramid`."""
+        f, rng = self.f, self.rng
+        n, every = f["frames"], f["idr_every"]
+        out, k = [], 0
+
+        def between(lo, hi):
+            if hi <= lo:
+                return []
+            if f["pyramid"] and hi - lo >= 2:
+                mid = (lo + hi - 1) // 2
+                return [(mid, "B", True)] + between(lo, mid) + between(mid + 1, hi)
+            return [(d, "B", bool(rng.random() < f["b_ref"])) for d in range(lo, hi)]
+
+        prev_nonref = False
+        while k < n:
+            if k == 0 or (every and k % every == 0):
+                out.append((k, "IDR", True))
+                k += 1
+                continue
+            end = min(n, (k // every + 1) * every) if every else n
+            nb = int(rng.integers(0, min(f["bframes"], end - k - 1) + 1))
+            kind = "B" if rng.random() < f["past_b"] else "P"
+            # a non-reference anchor only where no picture comes between
+            ref = not (nb == 0 and f["non_ref"] and not prev_nonref and rng.random() < 0.3)
+            prev_nonref = not ref
+            out.append((k + nb, kind, ref))
+            out += between(k, k + nb)
+            k += nb + 1
+        return out
+
+    def picture(self, idr: bool, shown=None, kind=None, plan_ref=None) -> list[bytes]:
         f, rng = self.f, self.rng
         max_fn = 1 << self.log2_fn
         ref = True
-        if not idr and f["non_ref"] and not self.prev_nonref and rng.random() < 0.3:
+        if shown is not None:
+            ref = plan_ref
+        elif not idr and f["non_ref"] and not self.prev_nonref and rng.random() < 0.3:
             ref = False
         self.prev_nonref = not ref
+        self.kind = kind
         if idr:
             self.dpb, self.max_long, frame_num, self.poc = [], -1, 0, 0
             self.idr_id ^= 1
+            self.idr_shown = shown
         else:
             frame_num = (self.prev_ref_fn + 1) % max_fn
             self.poc += 2
         self.frame_num = frame_num
+        if self.b_mode:
+            self.poc, self.delta_poc = self.picture_order(idr, ref, frame_num,
+                                                          2 * (shown - self.idr_shown))
+            self.stats["b_pic"] += kind == "B"
+            self.stats["ref_b"] += kind == "B" and ref
+            self.stats["reordered"] += shown != len(self.display)
         # picNum of each short-term reference (FrameNumWrap)
         for p in self.dpb:
             p["wrap"] = p["fn"] - max_fn if p["fn"] > frame_num else p["fn"]
         marking = self.marking(idr, ref)
         self.pic = [None] * self.n
+        self.pic_lists = (None, None)           # the lists of its P or B slices
         n_slices = int(rng.integers(1, f["slices"] + 1))
         cuts = sorted(rng.choice(np.arange(1, self.n), min(n_slices - 1, self.n - 1),
                                  replace=False).tolist()) if self.n > 1 else []
@@ -537,6 +624,31 @@ class Writer:
         if any(op[0] == 5 for op in marking[2]):
             self.poc = 0
         return units
+
+    def picture_order(self, idr: bool, ref: bool, frame_num: int, want: int):
+        """(the POC the decoder derives, delta_pic_order_cnt[0]) of a picture
+        meant to have POC `want` (8.2.1): POC type 0 writes it, type 1 gives
+        the difference from the expected count, type 2 has no say (display
+        order is decoding order)."""
+        f = self.f
+        max_fn = 1 << self.log2_fn
+        fno = 0 if idr else self.prev_fno + (max_fn if self.prev_fn > frame_num else 0)
+        self.prev_fno, self.prev_fn = fno, frame_num
+        if f["poc_type"] == 0:
+            return want, 0
+        if f["poc_type"] == 2:
+            return (0 if idr else 2 * (fno + frame_num) - (0 if ref else 1)), 0
+        n = len(self.poc_cycle)
+        count = fno + frame_num if n else 0
+        if not ref and count > 0:
+            count -= 1
+        expected = 0
+        if count > 0:
+            cycles, within = divmod(count - 1, n)
+            expected = cycles * sum(self.poc_cycle) + sum(self.poc_cycle[:within + 1])
+        if not ref:
+            expected += 1                                  # offset_for_non_ref_pic
+        return want, want - expected
 
     def marking(self, idr: bool, ref: bool):
         """(no_output_of_prior_pics, long_term_reference) for an IDR, else
@@ -617,7 +729,9 @@ class Writer:
         f = self.f
         if not ref:
             return
-        cur = {"fn": self.frame_num, "long": None}
+        self.uid += 1
+        cur = {"fn": self.frame_num, "long": None, "poc": self.poc, "mbs": self.pic,
+               "uid": self.uid}
         if idr:
             if marking[1]:
                 cur["long"], self.max_long = 0, 0
@@ -661,52 +775,44 @@ class Writer:
     # ── a slice ──
     def slice(self, sid: int, first: int, end: int, idr: bool, ref: bool, marking) -> bytes:
         f, rng = self.f, self.rng
-        p_slice = not idr and bool(self.dpb) and rng.random() >= f["i_slices_in_p"]
+        # with B pictures a picture's first slice is never an I slice: FFmpeg's
+        # frame threads may start the next picture after that slice alone,
+        # before any slice has given the lists its temporal direct reads
+        inter = not idr and bool(self.dpb) and (rng.random() >= f["i_slices_in_p"]
+                                                or (self.b_mode and sid == 0))
+        b_slice = inter and self.kind == "B"
+        p_slice = inter and not b_slice
         bw = BitWriter()
         bw.ue(first)
-        bw.ue((0 if p_slice else 2) + 5 * (rng.random() < 0.3 and not p_slice and idr))
+        bw.ue((1 if b_slice else 0 if p_slice else 2) + 5 * (rng.random() < 0.3 and not inter
+                                                             and idr))
         bw.ue(self.pps_id)
         bw.u(self.log2_fn, self.frame_num)
         if idr:
             bw.ue(self.idr_id)
         if f["poc_type"] == 0:
             bw.u(self.log2_poc, self.poc % (1 << self.log2_poc))
+        elif f["poc_type"] == 1 and self.b_mode:
+            bw.se(self.delta_poc)
         self.list0 = []
+        self.lists = [[], []]
         if p_slice:
-            full = self.ref_list()
-            n_ref = int(rng.integers(1, min(len(full), max(f["num_ref_idx"], 1)) + 1))
+            if (self.b_mode and sid) and self.pic_lists[0] == "P":    # the picture's lists again
+                n_ref, mods, self.list0 = self.pic_lists[1][0]
+            else:
+                full = self.ref_list()
+                n_ref = int(rng.integers(1, min(len(full), max(f["num_ref_idx"], 1)) + 1))
+                mods, self.list0 = self.modifications(full, n_ref)
+                self.pic_lists = ("P", [(n_ref, mods, self.list0)])
             bw.u(1, 1)
             bw.ue(n_ref - 1)
-            lst = list(full)
-            mods = []
-            if f["list_mod"] and rng.random() < 0.6:
-                pred = self.frame_num
-                max_fn = 1 << self.log2_fn
-                for idx in range(int(rng.integers(1, n_ref + 1))):
-                    pic = full[int(rng.integers(len(full)))]
-                    if pic["long"] is not None:
-                        mods.append((2, pic["long"]))
-                    else:
-                        diff = pic["wrap"] - pred
-                        if diff < 0:
-                            mods.append((0, -diff - 1))
-                        elif diff > 0:
-                            mods.append((1, diff - 1))
-                        else:                             # the same picNum again
-                            mods.append((0, max_fn - 1))
-                        pred = pic["wrap"]
-                    lst = lst[:idx] + [pic] + [q for q in lst[idx:] if q is not pic]
-            bw.u(1, bool(mods))
-            self.stats["list_mod"] += len(mods)
-            for idc, v in mods:
-                bw.ue(idc)
-                bw.ue(v)
-            if mods:
-                bw.ue(3)
-            self.list0 = lst[:n_ref]
+            self.write_modifications(bw, mods, "list_mod")
+            self.lists = [self.list0, []]
             if f["weighted"]:
                 self.weight_table(bw, n_ref)
                 self.stats["weighted"] += 1
+        elif b_slice:
+            self.b_header(bw)
         if ref:
             if idr:
                 bw.u(1, marking[0])
@@ -726,7 +832,7 @@ class Writer:
                             bw.ue(a)
                     bw.ue(0)
         cabac_idc = int(rng.integers(0, 3))
-        if f["cabac"] and p_slice:
+        if f["cabac"] and inter:
             bw.ue(cabac_idc)
             self.stats[f"cabac_init_idc{cabac_idc}"] += 1
         qp = int(rng.integers(f["qp"][0], f["qp"][1] + 1))
@@ -739,22 +845,29 @@ class Writer:
             bw.se(int(rng.integers(-6, 7)))
             bw.se(int(rng.integers(-6, 7)))
         self.p_slice, self.sid, self.qp, self.prev_mb = p_slice, sid, qp, None
+        self.b_slice = b_slice
         if f["cabac"]:
             while bw.nacc:
                 bw.u(1, 1)
-            self.cabac = Cabac(bw, not p_slice, cabac_idc, qp)
+            self.cabac = Cabac(bw, not inter, cabac_idc, qp)
         else:
             self.cabac = None
         self.bw = bw
         skip_run = 0
         for addr in range(first, end):
             self.addr, self.mbx, self.mby = addr, addr % self.mbw, addr // self.mbw
-            skip = p_slice and rng.random() < f["skip"]
+            if b_slice:
+                # the direct prediction of the macroblock (None: temporal direct
+                # cannot serve here), which B_Skip and B_Direct_16x16 take
+                self.dblocks = self.direct_blocks(range(4))
+                skip = self.dblocks is not None and rng.random() < f["skip"]
+            else:
+                skip = p_slice and rng.random() < f["skip"]
             if self.cabac:
-                if p_slice:
+                if inter:
                     a, b = self.nb_a(), self.nb_b()
-                    inc = sum(n is not None and n.kind != "PSKIP" for n in (a, b))
-                    self.cabac.bin(11 + inc, int(skip))
+                    inc = sum(n is not None and n.kind not in SKIP_KINDS for n in (a, b))
+                    self.cabac.bin((11 if p_slice else 24) + inc, int(skip))
                 if skip:
                     self.skip_mb()
                 else:
@@ -765,7 +878,7 @@ class Writer:
                     skip_run += 1
                     self.skip_mb()
                     continue
-                if p_slice:
+                if inter:
                     bw.ue(skip_run)
                     skip_run = 0
                 self.macroblock()
@@ -777,18 +890,101 @@ class Writer:
             bw.align_zero()
         return nal(3 if ref else 0, 5 if idr else 1, bw.data())
 
-    def weight_table(self, bw: BitWriter, n_ref: int) -> None:
-        """pred_weight_table: weights about 2^denom, offsets within +-20."""
+    def modifications(self, full: list, n_ref: int):
+        """ref_pic_list_modification of one list: random pictures of the
+        initial list `full` moved to the front; (operations, final list)."""
+        f, rng = self.f, self.rng
+        lst = list(full)
+        mods = []
+        if f["list_mod"] and rng.random() < 0.6:
+            pred = self.frame_num
+            max_fn = 1 << self.log2_fn
+            for idx in range(int(rng.integers(1, n_ref + 1))):
+                pic = full[int(rng.integers(len(full)))]
+                if pic["long"] is not None:
+                    mods.append((2, pic["long"]))
+                else:
+                    diff = pic["wrap"] - pred
+                    if diff < 0:
+                        mods.append((0, -diff - 1))
+                    elif diff > 0:
+                        mods.append((1, diff - 1))
+                    else:                             # the same picNum again
+                        mods.append((0, max_fn - 1))
+                    pred = pic["wrap"]
+                lst = lst[:idx] + [pic] + [q for q in lst[idx:] if q is not pic]
+        return mods, lst[:n_ref]
+
+    def write_modifications(self, bw: BitWriter, mods, stat: str) -> None:
+        bw.u(1, bool(mods))
+        self.stats[stat] += len(mods)
+        for idc, v in mods:
+            bw.ue(idc)
+            bw.ue(v)
+        if mods:
+            bw.ue(3)
+
+    def b_lists(self):
+        """8.2.4.2.3: the initial lists of a B slice, list 1's first two
+        entries swapped where it equals list 0 and has more than one."""
+        shorts = [p for p in self.dpb if p["long"] is None]
+        longs = sorted((p for p in self.dpb if p["long"] is not None), key=lambda p: p["long"])
+        before = sorted((p for p in shorts if p["poc"] < self.poc), key=lambda p: -p["poc"])
+        after = sorted((p for p in shorts if p["poc"] > self.poc), key=lambda p: p["poc"])
+        l0, l1 = before + after + longs, after + before + longs
+        swap = len(l1) > 1 and all(a is b for a, b in zip(l0, l1))
+        if swap:
+            l1[0], l1[1] = l1[1], l1[0]
+        return l0, l1, swap
+
+    def b_header(self, bw: BitWriter) -> None:
+        """A B slice's header from direct_spatial_mv_pred_flag to
+        pred_weight_table: both lists, their lengths and modifications."""
+        f, rng = self.f, self.rng
+        self.spatial = f["direct"][int(rng.integers(len(f["direct"])))] == "spatial"
+        bw.u(1, self.spatial)
+        # every slice of a picture has the same lists, as encoders write
+        # them: FFmpeg's frame threads may read the lists of a co-located
+        # picture's first slice where the block lies in a later one
+        if self.pic_lists[0] != "B":
+            full0, full1, swap = self.b_lists()
+            self.stats["list_swap"] += swap
+            cap = max(f["num_ref_idx"], 1)
+            self.pic_lists = ("B", [(n, *self.modifications(full, n)) for full in (full0, full1)
+                                    for n in [int(rng.integers(1, min(len(full), cap) + 1))]])
+        (n0, mods0, l0), (n1, mods1, l1) = self.pic_lists[1]
+        bw.u(1, 1)
+        bw.ue(n0 - 1)
+        bw.ue(n1 - 1)
+        self.write_modifications(bw, mods0, "list_mod")
+        self.write_modifications(bw, mods1, "list1_mod")
+        self.lists = [l0, l1]
+        self.list0 = l0
+        self.stats["long_term_l1"] += any(p["long"] is not None for p in self.lists[1])
+        self.stats["b_slices"] += 1
+        self.stats[f"weighted_bipred{f['bipred']}"] += 1
+        if f["bipred"] == 1:
+            self.weight_table(bw, n0, n1)
+
+    def weight_table(self, bw: BitWriter, n_ref: int, n_ref1: int | None = None) -> None:
+        """pred_weight_table: weights about 2^denom, offsets within +-20; in a
+        B slice (`n_ref1` entries of list 1 too) each weight within -64..63,
+        so that the two of a bi-predicted partition sum to -128..127."""
         rng = self.rng
 
         def weight(denom: int) -> int:
             one = 1 << denom
-            return int(np.clip(one + rng.integers(-one // 2 - 2, one // 2 + 3), -128, 127))
+            w = int(np.clip(one + rng.integers(-one // 2 - 2, one // 2 + 3), -128, 127))
+            return w if n_ref1 is None else min(max(w, -64), 63)
 
-        ld, cd = int(rng.integers(0, 8)), int(rng.integers(0, 8))
+        # a B slice's denominators stay below 7: FFmpeg's SSSE3 bi-prediction
+        # sums in saturating 16 bits, which at logWD 7 (a shift by 8) can
+        # leave 8.4.2.3's result
+        top = 8 if n_ref1 is None else 7
+        ld, cd = int(rng.integers(0, top)), int(rng.integers(0, top))
         bw.ue(ld)
         bw.ue(cd)
-        for _ in range(n_ref):
+        for _ in range(n_ref + (n_ref1 or 0)):
             lflag = rng.random() < 0.7
             bw.u(1, lflag)
             if lflag:
@@ -842,8 +1038,8 @@ class Writer:
             return self.done[(yw >> 2) * 4 + (xw >> 2)]
         return m.intra or not self.f["constrained_intra"]
 
-    def motion(self, x, y):
-        """(available, ref, mv) of the 4x4 block holding (x, y)."""
+    def motion(self, x, y, lx=0):
+        """(available, ref, mv) of list lx of the 4x4 block holding (x, y)."""
         loc = self.locate(x, y)
         if loc is None:
             return False, -1, (0, 0)
@@ -853,14 +1049,15 @@ class Writer:
             return False, -1, (0, 0)
         if m.intra:
             return True, -1, (0, 0)
-        return True, m.ref[(yw >> 3) * 2 + (xw >> 3)], m.mv[r]
+        ref = m.ref[lx][(yw >> 3) * 2 + (xw >> 3)]
+        return True, ref, m.mv[lx][r] if ref >= 0 else (0, 0)
 
-    def mvp(self, x, y, w, h, ref, shape):
-        aa, ra, ma = self.motion(x - 1, y)
-        ab, rb, mb = self.motion(x, y - 1)
-        ac, rc, mc = self.motion(x + w, y - 1)
+    def mvp(self, x, y, w, h, ref, shape, lx=0):
+        aa, ra, ma = self.motion(x - 1, y, lx)
+        ab, rb, mb = self.motion(x, y - 1, lx)
+        ac, rc, mc = self.motion(x + w, y - 1, lx)
         if not ac:
-            ac, rc, mc = self.motion(x - 1, y - 1)
+            ac, rc, mc = self.motion(x - 1, y - 1, lx)
         if shape == 1:
             if y == 0 and rb == ref:
                 return mb
@@ -888,6 +1085,13 @@ class Writer:
         return m
 
     def skip_mb(self):
+        if self.b_slice:                          # B_Skip: the direct prediction
+            m = self.start_mb("BSKIP")
+            self.stats["BSKIP"] += 1
+            m.qp = self.qp
+            self.apply_direct(m, self.dblocks)
+            self.prev_mb = m
+            return
         m = self.start_mb("PSKIP")
         self.stats["PSKIP"] += 1
         m.qp = self.qp
@@ -898,7 +1102,8 @@ class Writer:
             _, rb, mb = self.motion(0, -1)
             if not ((ra == 0 and ma == (0, 0)) or (rb == 0 and mb == (0, 0))):
                 mv = self.mvp(0, 0, 16, 16, 0, 0)
-        m.mv = [mv] * 16
+        m.mv[0] = [mv] * 16
+        m.refpic[0] = [self.list0[0]["uid"]] * 4
         self.prev_mb = m
 
     def macroblock(self):
@@ -907,6 +1112,14 @@ class Writer:
             kinds = [k for k in ("P16x16", "P16x8", "P8x16", "P8x8", "P8x8REF0")
                      if k in f["kinds"] and not (k == "P8x8REF0" and f["cabac"])]
             kind = kinds[int(rng.integers(len(kinds)))]
+        elif self.b_slice and rng.random() >= f["intra_in_p"]:
+            kinds = [k for k in B_TYPES if k != "BDIRECT" or self.dblocks is not None]
+            kind = kinds[int(rng.integers(len(kinds)))]
+            types = B_TYPES[kind]
+            m = self.start_mb(kind)
+            self.b_inter_mb(m, types[int(rng.integers(len(types)))])
+            self.prev_mb = m
+            return
         else:
             r = rng.random()
             if r < f["pcm"]:
@@ -917,6 +1130,7 @@ class Writer:
                 kind = kinds[int(rng.integers(len(kinds)))]
         m = self.start_mb(kind)
         self.stats[kind] += 1
+        self.stats["intra_in_b"] += self.b_slice
         if kind == "IPCM":
             self.mb_type(30)
             self.bw.align_zero()
@@ -934,9 +1148,10 @@ class Writer:
         self.prev_mb = m
 
     def mb_type(self, t: int):
-        """t: 0-4 P types, 5 I_NxN, 6-29 Intra_16x16, 30 I_PCM."""
+        """t: 0-4 P types, 5 I_NxN, 6-29 Intra_16x16, 30 I_PCM (in a B slice
+        the intra ones)."""
         if not self.cabac:
-            self.bw.ue(t if self.p_slice else t - 5)
+            self.bw.ue(t if self.p_slice else t + 18 if self.b_slice else t - 5)
             return
         c = self.cabac
         if self.p_slice:
@@ -948,6 +1163,9 @@ class Writer:
                 return
             c.bin(14, 1)
             base, inc0 = 17, 0
+        elif self.b_slice:
+            self.b_mb_type(None)                  # the intra prefix 111101
+            base, inc0 = 32, 0
         else:
             base = 3
             a, b = self.nb_a(), self.nb_b()
@@ -962,7 +1180,7 @@ class Writer:
         c.terminate(0)
         k = t - 6
         luma, chroma, mode = k >= 12, (k // 4) % 3, k % 4
-        if not self.p_slice:
+        if base == 3:
             c.bin(6, luma)
             c.bin(7, chroma != 0)
             if chroma:
@@ -970,12 +1188,64 @@ class Writer:
             c.bin(9, mode >> 1)
             c.bin(10, mode & 1)
         else:
-            c.bin(18, luma)
-            c.bin(19, chroma != 0)
+            c.bin(base + 1, luma)
+            c.bin(base + 2, chroma != 0)
             if chroma:
-                c.bin(19, chroma == 2)
-            c.bin(20, mode >> 1)
-            c.bin(20, mode & 1)
+                c.bin(base + 2, chroma == 2)
+            c.bin(base + 3, mode >> 1)
+            c.bin(base + 3, mode & 1)
+
+    def b_mb_type(self, bt):
+        """A B slice's mb_type 0-22 (bt), or with bt None the prefix of an
+        intra one: Table 9-37 (b), the contexts as FFmpeg reads them."""
+        if not self.cabac:
+            self.bw.ue(bt)
+            return
+        c = self.cabac
+        inc = sum(n is not None and n.kind not in ("BSKIP", "BDIRECT")
+                  for n in (self.nb_a(), self.nb_b()))
+        c.bin(27 + inc, int(bt != 0))
+        if bt == 0:
+            return
+        c.bin(30, int(bt not in (1, 2)))
+        if bt in (1, 2):
+            c.bin(32, bt - 1)
+            return
+        if bt is None or bt in (11, 22):          # four bins: 1101, 1110, 1111
+            bits, last = {None: 13, 11: 14, 22: 15}[bt], None
+        elif bt <= 10:
+            bits, last = bt - 3, None
+        else:                                     # five bins
+            bits, last = (bt + 4) >> 1, (bt + 4) & 1
+        c.bin(31, bits >> 3)
+        for k in (2, 1, 0):
+            c.bin(32, (bits >> k) & 1)
+        if last is not None:
+            c.bin(32, last)
+
+    def b_sub_type(self, t: int) -> None:
+        """A B sub_mb_type 0-12 (Table 9-38, ctxIdx 36-39)."""
+        if not self.cabac:
+            self.bw.ue(t)
+            return
+        c = self.cabac
+        c.bin(36, int(t != 0))
+        if t == 0:
+            return
+        c.bin(37, int(t > 2))
+        if t <= 2:
+            c.bin(39, t - 1)
+            return
+        c.bin(38, int(t >= 7))
+        if t >= 11:
+            c.bin(39, 1)
+            c.bin(39, t - 11)
+            return
+        k = t - 7 if t >= 7 else t - 3
+        if t >= 7:
+            c.bin(39, 0)
+        c.bin(39, k >> 1)
+        c.bin(39, k & 1)
 
     def intra_mb(self, m):
         f, rng = self.f, self.rng
@@ -1076,7 +1346,7 @@ class Writer:
                 bit_a = (cbp >> (b8 - 1)) & 1
             elif a is None or a.kind == "IPCM":
                 bit_a = 1
-            elif a.kind == "PSKIP":
+            elif a.kind in SKIP_KINDS:
                 bit_a = 0
             else:
                 bit_a = (a.cbp >> (b8 + 1)) & 1
@@ -1084,7 +1354,7 @@ class Writer:
                 bit_b = (cbp >> (b8 - 2)) & 1
             elif b is None or b.kind == "IPCM":
                 bit_b = 1
-            elif b.kind == "PSKIP":
+            elif b.kind in SKIP_KINDS:
                 bit_b = 0
             else:
                 bit_b = (b.cbp >> (b8 + 2)) & 1
@@ -1095,7 +1365,7 @@ class Writer:
                 cond.append((0, 0))
             elif n.kind == "IPCM":
                 cond.append((1, 1))
-            elif n.kind == "PSKIP":
+            elif n.kind in SKIP_KINDS:
                 cond.append((0, 0))
             else:
                 cond.append((int((n.cbp >> 4) != 0), int((n.cbp >> 4) == 2)))
@@ -1158,9 +1428,10 @@ class Writer:
             for yy in range(y, y + h, 4):
                 for xx in range(x, x + w, 4):
                     k = (yy >> 2) * 4 + (xx >> 2)
-                    m.mv[k] = (tx, ty)
-                    m.mvd[k] = (min(abs(dx), 255), min(abs(dy), 255))
+                    m.mv[0][k] = (tx, ty)
+                    m.mvd[0][k] = (min(abs(dx), 255), min(abs(dy), 255))
                     self.done[k] = True
+        m.refpic[0] = [self.list0[r]["uid"] for r in m.ref[0]]
         m.cbp = int(rng.integers(0, 16)) | (int(rng.integers(0, 3)) << 4)
         self.write_cbp(m)
         small = any(p[2] < 8 or p[3] < 8 for p in parts)
@@ -1173,6 +1444,210 @@ class Writer:
             else:
                 self.bw.u(1, int(m.t8x8))
         self.qp_and_residual(m)
+
+    # ── B macroblocks ──
+    def b_inter_mb(self, m, bt: int) -> None:
+        """An inter macroblock of a B slice of mb_type bt (0-22): its
+        partitions' lists, reference indices (list 0, then list 1) and
+        vectors (list 0, then list 1), a direct 8x8 taking its prediction
+        when list 0 reaches it, then cbp, transform size and residual."""
+        f, rng = self.f, self.rng
+        self.stats[f"b_mb{bt}"] += 1
+        self.b_mb_type(bt)
+        m.ref = [[-1] * 4, [-1] * 4]
+        shape, f0, f1 = (int(v) for v in T.B_MB_TYPE[bt])
+        small = False
+        if shape == 0:
+            self.apply_direct(m, self.dblocks)
+            small = not f["direct8x8"]
+        else:
+            ps = []                                   # [x, y, w, h, flags, refs]
+            if shape == 4:
+                subs = []
+                for i in range(4):
+                    allowed = [t for t in f["b_subs"] if t or self.direct_blocks([i]) is not None]
+                    subs.append(allowed[int(rng.integers(len(allowed)))])
+                for t in subs:
+                    self.stats[f"b_sub{t}"] += 1
+                    self.b_sub_type(t)
+                for i, t in enumerate(subs):
+                    w, h, fl = (int(v) for v in T.B_SUB_MB_TYPE[t])
+                    x8, y8 = (i & 1) * 8, (i >> 1) * 8
+                    if fl == 0:
+                        m.direct[i] = True
+                        ps.append([x8, y8, 8, 8, 0, [-1, -1]])
+                        small = small or not f["direct8x8"]
+                        continue
+                    small = small or w < 8 or h < 8
+                    for y in range(y8, y8 + 8, h):
+                        for x in range(x8, x8 + 8, w):
+                            ps.append([x, y, w, h, fl, [-1, -1]])
+            else:
+                w, h = (16, 16) if shape == 1 else (16, 8) if shape == 2 else (8, 16)
+                ps = [[0, 0, w, h, f0, [-1, -1]]]
+                if shape != 1:
+                    ps.append([0 if shape == 3 else 0, 8 if shape == 2 else 0, w, h, f1, [-1, -1]])
+                    if shape == 3:
+                        ps[1][0] = 8
+            for lx in range(2):
+                for p in ps:
+                    x, y, w, h, fl, refs = p
+                    if not fl >> lx & 1:
+                        continue
+                    if shape == 4 and (x & 7 or y & 7):   # the 8x8's index, read once
+                        refs[lx] = m.ref[lx][(y >> 3) * 2 + (x >> 3)]
+                        continue
+                    refs[lx] = int(rng.integers(len(self.lists[lx])))
+                    self.stats[f"l{lx}ref{refs[lx]}"] += 1
+                    self.write_ref(m, x, y, refs[lx], w, h, False, lx)
+            pshape = {2: 1, 3: 2}.get(shape, 0)
+            for lx in range(2):
+                self.done = [False] * 16
+                for x, y, w, h, fl, refs in ps:
+                    if fl == 0 and lx == 0:
+                        self.apply_direct(m, self.direct_blocks([(y >> 3) * 2 + (x >> 3)]))
+                    elif fl >> lx & 1:
+                        px, py = self.mvp(x, y, w, h, refs[lx], pshape, lx)
+                        tx, ty = self.target_mv(x, y, w, h, (px, py))
+                        dx, dy = tx - px, ty - py
+                        for comp, d in ((0, dx), (1, dy)):
+                            if self.cabac:
+                                self.write_mvd(x, y, comp, d, lx)
+                            else:
+                                self.bw.se(d)
+                        for yy in range(y, y + h, 4):
+                            for xx in range(x, x + w, 4):
+                                k = (yy >> 2) * 4 + (xx >> 2)
+                                m.mv[lx][k] = (tx, ty)
+                                m.mvd[lx][k] = (min(abs(dx), 255), min(abs(dy), 255))
+                    for yy in range(y, y + h, 4):
+                        for xx in range(x, x + w, 4):
+                            self.done[(yy >> 2) * 4 + (xx >> 2)] = True
+            for x, y, w, h, fl, refs in ps:
+                if fl:
+                    self.weight_stats(fl, refs)
+                    for lx in range(2):
+                        if fl >> lx & 1:
+                            m.refpic[lx][(y >> 3) * 2 + (x >> 3)] = self.lists[lx][refs[lx]]["uid"]
+        m.cbp = int(rng.integers(0, 16)) | (int(rng.integers(0, 3)) << 4)
+        self.write_cbp(m)
+        if (m.cbp & 15) and f["t8x8"] and not small:
+            m.t8x8 = bool(rng.random() < 0.5)
+            self.stats["inter_8x8"] += m.t8x8
+            if self.cabac:
+                a, b = self.nb_a(), self.nb_b()
+                self.cabac.bin(399 + sum(n is not None and n.t8x8 for n in (a, b)), int(m.t8x8))
+            else:
+                self.bw.u(1, int(m.t8x8))
+        self.qp_and_residual(m)
+
+    def spatial_refs(self):
+        """8.4.1.2.2: each list's reference index (MinPositive over the
+        macroblock's neighbours A, B and C, D standing in for C) and
+        predictor; both lists at index 0 with zero vectors where neither is
+        used."""
+        refs = []
+        for lx in range(2):
+            got = [self.motion(-1, 0, lx)[1], self.motion(0, -1, lx)[1]]
+            ac, rc, _ = self.motion(16, -1, lx)
+            got.append(rc if ac else self.motion(-1, -1, lx)[1])
+            pos = [r for r in got if r >= 0]
+            refs.append(min(pos) if pos else -1)
+        if refs == [-1, -1]:
+            return [0, 0], [(0, 0), (0, 0)]
+        return refs, [self.mvp(0, 0, 16, 16, r, 0, lx) if r >= 0 else (0, 0)
+                      for lx, r in enumerate(refs)]
+
+    def direct_blocks(self, b8s):
+        """The direct prediction (8.4.1.2) of the 8x8 blocks b8s as (x, y,
+        size, flags, refs, vectors) blocks: 8x8 ones reading the co-located
+        corner 4x4 block under direct_8x8_inference_flag, else 4x4 ones;
+        None where temporal direct cannot serve (the co-located block's
+        reference is not in list 0, or a scaled vector leaves MV_LIMIT)."""
+        inference = bool(self.f["direct8x8"])
+        step = 8 if inference else 4
+        col = self.lists[1][0]
+        cm = col["mbs"][self.addr]
+        if self.spatial:
+            sref, smv = self.spatial_refs()
+        out = []
+        for i in b8s:
+            x8, y8 = (i & 1) * 8, (i >> 1) * 8
+            for y in range(y8, y8 + 8, step):
+                for x in range(x8, x8 + 8, step):
+                    cx, cy = ((12 if x8 else 0), (12 if y8 else 0)) if inference else (x, y)
+                    ref_col, mv_col, pic_col = -1, (0, 0), None
+                    if not cm.intra:
+                        c8, c4 = (cy >> 3) * 2 + (cx >> 3), (cy >> 2) * 4 + (cx >> 2)
+                        cl = 0 if cm.ref[0][c8] >= 0 else 1
+                        ref_col, mv_col, pic_col = cm.ref[cl][c8], cm.mv[cl][c4], cm.refpic[cl][c8]
+                    if self.spatial:
+                        zero = (col["long"] is None and ref_col == 0 and abs(mv_col[0]) <= 1
+                                and abs(mv_col[1]) <= 1)
+                        flags = sum(1 << lx for lx in range(2) if sref[lx] >= 0)
+                        mvs = [(0, 0) if sref[lx] < 0 or (sref[lx] == 0 and zero) else smv[lx]
+                               for lx in range(2)]
+                        self.stats["col_zero"] += zero
+                        out.append((x, y, step, flags, list(sref), mvs))
+                        continue
+                    r0 = 0
+                    if ref_col >= 0:
+                        hits = [k for k, p in enumerate(self.list0) if p["uid"] == pic_col]
+                        if not hits:
+                            return None
+                        r0 = hits[0]
+                        # FFmpeg finds the co-located block's reference in
+                        # list 0 by frame_num: keep that one to a picture
+                        if any(p["fn"] == self.list0[r0]["fn"] for p in self.list0[:r0]):
+                            return None
+                    p0 = self.list0[r0]
+                    td = min(max(col["poc"] - p0["poc"], -128), 127)
+                    v0 = mv_col
+                    if p0["long"] is None and td != 0:
+                        tb = min(max(self.poc - p0["poc"], -128), 127)
+                        tx = int((16384 + abs(int(td / 2))) / td)
+                        dsf = min(max((tb * tx + 32) >> 6, -1024), 1023)
+                        v0 = tuple((dsf * c + 128) >> 8 for c in mv_col)
+                    v1 = (v0[0] - mv_col[0], v0[1] - mv_col[1])
+                    if any(abs(v[0]) > MV_LIMIT[0] or abs(v[1]) > MV_LIMIT[1] for v in (v0, v1)):
+                        return None
+                    out.append((x, y, step, 3, [r0, 0], [v0, v1]))
+        return out
+
+    def apply_direct(self, m, blocks) -> None:
+        mode = "spatial" if self.spatial else "temporal"
+        for x, y, size, flags, refs, mvs in blocks:
+            b8 = (y >> 3) * 2 + (x >> 3)
+            m.direct[b8] = True
+            self.stats[f"direct_{mode}{self.f['direct8x8']}"] += 1
+            self.weight_stats(flags, refs)
+            for lx in range(2):
+                m.ref[lx][b8] = refs[lx]
+                m.refpic[lx][b8] = self.lists[lx][refs[lx]]["uid"] if refs[lx] >= 0 else None
+                for yy in range(y, y + size, 4):
+                    for xx in range(x, x + size, 4):
+                        m.mv[lx][(yy >> 2) * 4 + (xx >> 2)] = mvs[lx]
+
+    def weight_stats(self, flags: int, refs) -> None:
+        """Count what the weighted prediction of a partition exercises: in
+        implicit mode (8.4.2.3.1) a single list (default prediction), a pair
+        of weights, or the fall-back to 32 / 32."""
+        bipred = self.f["bipred"]
+        if bipred == 1:
+            self.stats["explicit_bi" if flags == 3 else f"explicit_l{flags - 1}"] += 1
+        if bipred != 2:
+            return
+        if flags != 3:
+            self.stats["implicit_single"] += 1
+            return
+        p0, p1 = self.lists[0][refs[0]], self.lists[1][refs[1]]
+        td = min(max(p1["poc"] - p0["poc"], -128), 127)
+        fallback = p0["long"] is not None or p1["long"] is not None or td == 0
+        if not fallback:
+            tb = min(max(self.poc - p0["poc"], -128), 127)
+            dsf = min(max((tb * int((16384 + abs(int(td / 2))) / td) + 32) >> 6, -1024), 1023)
+            fallback = not -64 <= dsf >> 2 <= 128
+        self.stats["implicit_fallback" if fallback else "implicit_bi"] += 1
 
     def target_mv(self, x, y, w, h, pred):
         """A vector for the partition: the predictor nudged, or a fresh one
@@ -1189,8 +1664,10 @@ class Writer:
             tx, ty = tx & ~3, ty & ~3
         return min(max(tx, lo_x), hi_x), min(max(ty, lo_y), hi_y)
 
-    def write_ref(self, m, x, y, r, w, h, ref0):
-        n_ref = len(self.list0)
+    def write_ref(self, m, x, y, r, w, h, ref0, lx=0):
+        """ref_idx_lX of a partition; the CABAC context counts a neighbour
+        that is skipped, intra, direct or not using the list as 0."""
+        n_ref = len(self.lists[lx]) if lx else len(self.list0)
         if not (ref0 or n_ref == 1):
             if self.cabac:
                 cond = []
@@ -1200,10 +1677,11 @@ class Writer:
                         cond.append(0)
                         continue
                     n, xw, yw = loc
-                    if n is not self.cur and (n.kind == "PSKIP" or n.intra):
+                    b8 = (yw >> 3) * 2 + (xw >> 3)
+                    if (n is not self.cur and (n.kind in SKIP_KINDS or n.intra)) or n.direct[b8]:
                         cond.append(0)
                         continue
-                    cond.append(int(n.ref[(yw >> 3) * 2 + (xw >> 3)] > 0))
+                    cond.append(int(n.ref[lx][b8] > 0))
                 c = self.cabac
                 ctx = 54 + cond[0] + 2 * cond[1]
                 for k in range(r):
@@ -1214,20 +1692,20 @@ class Writer:
                 self.bw.u(1, 1 - r)
             else:
                 self.bw.ue(r)
-        for yy in range(y, y + h, 8):
-            for xx in range(x, x + w, 8):
-                m.ref[(yy >> 3) * 2 + (xx >> 3)] = r
+        for yy in range(y, y + max(h, 8), 8):
+            for xx in range(x, x + max(w, 8), 8):
+                m.ref[lx][(yy >> 3) * 2 + (xx >> 3)] = r
 
-    def write_mvd(self, x, y, comp, d):
+    def write_mvd(self, x, y, comp, d, lx=0):
         s = 0
         for xn, yn in ((x - 1, y), (x, y - 1)):
             loc = self.locate(xn, yn)
             if loc is None:
                 continue
             n, xw, yw = loc
-            if n is not self.cur and (n.kind == "PSKIP" or n.intra):
+            if n is not self.cur and (n.kind in SKIP_KINDS or n.intra):
                 continue
-            s += n.mvd[(yw >> 2) * 4 + (xw >> 2)][comp]
+            s += n.mvd[lx][(yw >> 2) * 4 + (xw >> 2)][comp]
         base = 40 if comp == 0 else 47
         c = self.cabac
         inc = 0 if s < 3 else (2 if s > 32 else 1)
@@ -1268,7 +1746,7 @@ class Writer:
                 p = self.prev_mb
                 inc = 0
                 if p is not None:
-                    inc = int(not (p.kind in ("PSKIP", "IPCM") or p.qp_delta == 0
+                    inc = int(not (p.kind in ("PSKIP", "BSKIP", "IPCM") or p.qp_delta == 0
                                    or (p.kind != "I16" and (p.cbp & 0x3F) == 0)))
                 k = 2 * delta - 1 if delta > 0 else -2 * delta
                 c = self.cabac
@@ -1402,7 +1880,7 @@ class Writer:
                 cond.append(1)
             elif dc:
                 cond.append(int(n.cbf_dc[0]) if n.kind == "I16" else 0)
-            elif n.kind == "PSKIP":
+            elif n.kind in SKIP_KINDS:
                 cond.append(0)
             elif not (n.cbp >> ((yw >> 3) * 2 + (xw >> 3))) & 1:
                 cond.append(0)
@@ -1426,7 +1904,7 @@ class Writer:
                 cond.append(int(self.cur.intra))
             elif n.kind == "IPCM":
                 cond.append(1)
-            elif n.kind == "PSKIP":
+            elif n.kind in SKIP_KINDS:
                 cond.append(0)
             elif dc:
                 cond.append(int(n.cbf_dc[1 + c]) if (n.cbp >> 4) else 0)
@@ -1582,13 +2060,25 @@ def display_matrix(rotation: int, width: int, height: int) -> bytes:
 
 def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 30,
               rotation: int = 0, audio: bool = True, quicktime: bool = True,
-              media_time: int = 0, sample_entry: bytes = b"avc1") -> None:
+              media_time: int | None = 0, sample_entry: bytes = b"avc1",
+              display: list[int] | None = None) -> None:
     """A phone-like file of the access units: QuickTime (`qt  ` brand, a
     `wide` atom) or MP4, the video track with an edit list starting at
-    `media_time` (track ticks) and tkhd's display matrix for `rotation`, and a
-    silent 16-bit stereo `sowt` sound track beside it.  Parameter sets go to
-    the avcC box (`avc1`) or stay in band (`avc3`)."""
+    `media_time` (track ticks; None: no edit list) and tkhd's display matrix
+    for `rotation`, and a silent 16-bit stereo `sowt` sound track beside it.
+    Parameter sets go to the avcC box (`avc1`) or stay in band (`avc3`).
+    `display`, each access unit's place in output order, adds `ctts` as
+    FFmpeg's mov muxer lays out a stream with B pictures: decoding times a
+    frame apart from 0, composition offsets (version 0) that shift the
+    earliest picture shown by the reorder delay; its edit list then starts at
+    that delay (`media_time` "ctts": the first sample's offset)."""
     timescale, delta = 600 * fps, 600
+    offsets_ct = None
+    if display is not None:
+        delay = max(k - d for k, d in enumerate(display))
+        offsets_ct = [(d + delay - k) * delta for k, d in enumerate(display)]
+    if media_time == "ctts":
+        media_time = offsets_ct[0]
     sps = [u for au in aus for u in au if u[0] & 0x1F == 7]
     pps = [u for au in aus for u in au if u[0] & 0x1F == 8]
     in_band = sample_entry == b"avc3"
@@ -1621,8 +2111,10 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
     for s in samples:
         offsets.append(pos)
         pos += len(s)
+    ctts = b"" if offsets_ct is None else _full(
+        b"ctts", 0, 0, struct.pack(f">I{2 * n}I", n, *[v for o in offsets_ct for v in (1, o)]))
     vstbl = _box(b"stbl", _full(b"stsd", 0, 0, struct.pack(">I", 1), entry),
-                 _full(b"stts", 0, 0, struct.pack(">III", 1, n, delta)),
+                 _full(b"stts", 0, 0, struct.pack(">III", 1, n, delta)), ctts,
                  _full(b"stss", 0, 0, struct.pack(f">I{len(sync)}I", len(sync), *sync)),
                  _full(b"stsc", 0, 0, struct.pack(">IIII", 1, 1, 1, 1)),
                  _full(b"stsz", 0, 0, struct.pack(f">II{n}I", 0, n, *[len(s) for s in samples])),
@@ -1630,8 +2122,8 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
     dinf = _box(b"dinf", _full(b"dref", 0, 0, struct.pack(">I", 1), _full(b"url ", 0, 1)))
     duration_ms = n * 1000 // fps
     movie_scale = 1000
-    elst = _box(b"edts", _full(b"elst", 0, 0, struct.pack(">IIiI", 1, duration_ms, media_time,
-                                                           0x10000)))
+    elst = b"" if media_time is None else _box(b"edts", _full(
+        b"elst", 0, 0, struct.pack(">IIiI", 1, duration_ms, media_time, 0x10000)))
     vtrak = _box(b"trak",
                  _full(b"tkhd", 0, 3, struct.pack(">IIIII8xhhhH", 0, 0, 1, 0, duration_ms, 0, 0,
                                                    0, 0), display_matrix(rotation, width, height),
