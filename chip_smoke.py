@@ -234,7 +234,13 @@ Phase M: the reference's user path from a video file to a prediction video,
   preprocess --video clip.mov` (a phone's portrait capture: 1080p High
   profile, CABAC, a 90-degree display matrix, a sound track) gives its six
   frames turned upright at target_size 512, each the port's own read of the
-  file shrunk.  Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
+  file shrunk.  Then the host MPEG-4 Part 2 decoder (g++-built C++): every
+  file of tests/data/mpeg4/ (the random writer's streams, cv2's mp4v MP4 and
+  XVID AVI of a 1080p scene, the JAX package's stitch_video output) has its
+  manifest's SHA-256 and decodes to its frames' SHA-256s, clip_mp4v.mp4's
+  I- and P-VOPs are timed, and `cli preprocess --video` runs on
+  clip_mp4v.mp4 and stitched.mp4, each frame the port's read shrunk.
+  Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
   `encode_h264` (IDR and P) and the H.264 readers at 512^2 and at 1920 x
   1080 (the host decoder and the plain Python reader on encode_h264's 1080p
   IDR and P, the host decoder on clip.mov's), the stage seconds, the
@@ -382,6 +388,7 @@ VIDEO_PSNR_FLOOR = 48.5
 H264_PSNR_FLOOR = 43.3
 # the committed H.264 corpus (tests/make_h264_corpus.py) and its phone clip
 H264_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "h264"
+MPEG4_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpeg4"
 # phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
 # the skull phantom's seed and noise, the crop held against the CPU path, the
 # share by which the raw mesh's enclosed volume may differ from the phantom's
@@ -3024,6 +3031,84 @@ def h264_corpus(work: Path) -> dict:
             "preprocess_b_s": preprocess_b_s, "frames_b": len(extracted_b)}
 
 
+def mpeg4_corpus(work: Path) -> dict:
+    """The host MPEG-4 Part 2 decoder on the card's machine (no cv2 there):
+    every file of the committed corpus has its manifest's SHA-256 and decodes
+    to the SHA-256s of its planes there, which cv2's FFmpeg agreed with where
+    the corpus was written; clip_mp4v.mp4's (cv2's mp4v writer, 1080p, 30
+    frames) I- and P-VOPs are timed; `cli preprocess --video` runs on it and
+    on stitched.mp4 (the JAX package's own `stitch_video` output, 512^2),
+    each extracted frame the port's read shrunk to target_size 512."""
+    from omfs4d_torch.io import mpeg4
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    def sha(planes) -> str:
+        h = hashlib.sha256()
+        for p in planes:
+            h.update(np.ascontiguousarray(p).tobytes())
+        return h.hexdigest()
+
+    t0 = time.perf_counter()
+    mpeg4._library()                                 # g++, at first use
+    build_s = time.perf_counter() - t0
+    manifest = json.loads((MPEG4_CORPUS / "manifest.json").read_text())
+    t0 = time.perf_counter()
+    for name, entry in manifest["files"].items():
+        path = MPEG4_CORPUS / name
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the file's SHA-256 is the manifest's")
+        if path.suffix == ".m4v":
+            pics = mpeg4.decode_stream(path.read_bytes())
+        else:
+            frames = mpeg4.frames(path)
+            pics = [frames.ycbcr(i) for i in range(len(frames))]
+        check([sha(p) for p in pics] == entry["sha256"],
+              f"{name}: {len(pics)} frames equal to the manifest")
+    corpus_s = time.perf_counter() - t0
+    clip_path = MPEG4_CORPUS / "clip_mp4v.mp4"
+    clip = mpeg4.frames(clip_path)
+    kinds = manifest["files"]["clip_mp4v.mp4"]["kinds"]
+    dec = mpeg4.Decoder()
+    dec.push(clip.headers)
+    by_type, out, sizes = {"I": [], "P": []}, [], {"I": [], "P": []}
+    for i in range(len(clip.offsets)):
+        data = clip.sample(i)
+        t0 = time.perf_counter()
+        dec.push(data)
+        out += dec.pictures()
+        by_type[kinds[i]].append(time.perf_counter() - t0)
+        sizes[kinds[i]].append(len(data))
+    check([sha(p) for p in out] == manifest["files"]["clip_mp4v.mp4"]["sha256"],
+          f"clip_mp4v.mp4: {len(out)} frames (timed) equal to the manifest")
+    runs = {}
+    for name, n, shape in (("clip_mp4v.mp4", 30, (512, 910, 3)),
+                           ("stitched.mp4", 8, (512, 512, 3))):
+        path = MPEG4_CORPUS / name
+        wd = work / f"wd_{path.stem}"
+        t0 = time.perf_counter()
+        check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd)]) == 0,
+              f"cli preprocess --video {name}")
+        runs[name] = time.perf_counter() - t0
+        (stage,) = list((wd / "stages").glob("preprocess-*"))
+        extracted = sorted((stage / "images").glob("*.png"))
+        shapes = {tvideo.read_image(p).shape for p in extracted}
+        check(len(extracted) == n and shapes == {shape},
+              f"{name} preprocessed to {len(extracted)} frames of {shapes}: {n} of {shape}")
+        frames = mpeg4.frames(path)
+        for i in (0, n - 1):
+            rgb = frames.rgb(i)
+            want = rgb if rgb.shape == shape else tvideo.area_resize(rgb, *shape[:2])
+            check(np.array_equal(tvideo.read_image(extracted[i]), want),
+                  f"preprocessed frame {i} of {name} is the port's read, shrunk")
+    return {"build_s": build_s, "files": len(manifest["files"]), "corpus_s": corpus_s,
+            "i_s": float(np.mean(by_type["I"])), "p_s": float(np.mean(by_type["P"])),
+            "n_i": len(by_type["I"]), "n_p": len(by_type["P"]),
+            "i_bytes": float(np.mean(sizes["I"])), "p_bytes": float(np.mean(sizes["P"])),
+            "preprocess_clip_s": runs["clip_mp4v.mp4"],
+            "preprocess_stitched_s": runs["stitched.mp4"]}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -3217,6 +3302,7 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         check(h264_bytes < mj_bytes, f"pred.mp4 (H.264) {h264_bytes} bytes < the MJPG "
                                      f"quality {tvideo.MJPEG_QUALITY} MP4's {mj_bytes}")
         corpus = h264_corpus(work)
+        m4v = mpeg4_corpus(work)
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -3255,6 +3341,14 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"s/frame (mean of {corpus['n_b']}; {corpus['b_bytes']:.0f} bytes a B); cli "
           f"preprocess --video clip_b.mp4 {corpus['preprocess_b_s']:.2f} s -> "
           f"{corpus['frames_b']} frames in display order")
+    print(f"  MPEG-4 Part 2 host decoder (mpeg4dec.cpp, built by g++ in {m4v['build_s']:.2f} "
+          f"s): clip_mp4v.mp4 (cv2's mp4v, 1920x1080, 30 frames) I-VOP {m4v['i_s']:.4f} s, "
+          f"P-VOP {m4v['p_s']:.4f} s/frame (means of {m4v['n_i']} / {m4v['n_p']}; "
+          f"{m4v['i_bytes']:.0f} / {m4v['p_bytes']:.0f} bytes); the corpus's {m4v['files']} "
+          f"files equal to the manifest in {m4v['corpus_s']:.2f} s; cli preprocess --video "
+          f"clip_mp4v.mp4 {m4v['preprocess_clip_s']:.2f} s -> 30 frames 910x512, --video "
+          f"stitched.mp4 (the JAX package's stitch_video, 512^2) "
+          f"{m4v['preprocess_stitched_s']:.2f} s -> 8 frames")
     print(f"  bytes a frame of the render PNGs: H.264 (QP {h264.H264_QP}, the pictures' QPs "
           f"{sorted(set(stream.qp))}, level {stream.level / 10:.1f}) "
           f"{h264_bytes / n_train:.1f} (file {h264_bytes}; IDR "

@@ -1,25 +1,31 @@
 """The containers of the port's video files, AVI and MP4, with the standard
 library: which codec a file holds and where its frames lie (`index`), and
-the file writing the port's two codecs share (`write_file`).  The codecs sit
-on top of it as siblings: Motion JPEG (`omfs4d_torch.io.mjpeg`) and H.264
-(`omfs4d_torch.io.h264`); the MP4 boxes are `omfs4d_torch.io.mp4`'s.
+the file writing the port's two written codecs share (`write_file`).  The
+codecs sit on top of it as siblings: Motion JPEG (`omfs4d_torch.io.mjpeg`),
+H.264 (`omfs4d_torch.io.h264`) and MPEG-4 Part 2 (`omfs4d_torch.io.mpeg4`,
+read only); the MP4 boxes are `omfs4d_torch.io.mp4`'s.
 
 - AVI (RIFF): the `hdrl` list's first video `strl` (`strh` of type `vids`,
   a BITMAPINFOHEADER `strf` naming the codec), and its frames from the
   `movi` lists, walked chunk by chunk (`idx1` is not trusted, only counted),
   following the `RIFF AVIX` lists of an OpenDML file past 1 GB and skipping
-  `JUNK` and `ix##` chunks.  AVI is read as Motion JPEG only.
+  `JUNK` and `ix##` chunks.  AVI holds Motion JPEG (`MJPG`, ...) or MPEG-4
+  Part 2 (`XVID`, `FMP4`, `DIVX`, `DX50`, `MP4V`, upper or lower case), the
+  latter with whatever follows the BITMAPINFOHEADER in `strf` as its
+  extradata (`dsi`, maybe empty).  A zero-byte chunk is a frame the writer
+  dropped: it has no sample, but counts in `frame_count` (cv2 counts it and
+  shows no frame for it).
 - MP4 / QuickTime: the first video track (`mp4.read_track`; a sound track
   beside it is skipped).  Its codec is Motion JPEG for an `mp4v` sample
   entry whose esds has objectTypeIndication 0x6C (as FFmpeg muxes MJPEG into
-  `.mp4`) and for QuickTime's `jpeg` and `mjpa`; H.264 for `avc1` / `avc3`
-  with an `avcC` box.
+  `.mp4`) and for QuickTime's `jpeg` and `mjpa`; MPEG-4 Part 2 for an `mp4v`
+  entry of objectTypeIndication 0x20, its DecoderSpecificInfo (the VOS / VOL
+  headers) as `dsi`; H.264 for `avc1` / `avc3` with an `avcC` box.
 
-Any other codec (HEVC, MPEG-4 Part 2 `mp4v` with OTI 0x20, AVI's `H264` /
-`XVID` / `FMP4` / `DIVX`, ...) raises `UnsupportedCodecError` naming it:
-decoding it needs an ffmpeg binary.  So does a file that is neither
-container.  A frame whose bytes end early raises ValueError with its index,
-and a file holding fewer frames than its header declares raises too.
+Any other codec (HEVC, AVI's `H264`, ...) raises `UnsupportedCodecError`
+naming it: decoding it needs an ffmpeg binary.  So does a file that is
+neither container.  A frame whose bytes end early raises ValueError with its
+index, and a file holding fewer frames than its header declares raises too.
 """
 
 from __future__ import annotations
@@ -40,17 +46,20 @@ class UnsupportedCodecError(RuntimeError):
 
 def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
-        f"{path}: {what}; the port reads only Motion JPEG (MJPG) in AVI or MP4 and H.264 "
-        "(Main / High profile I and P pictures) in MP4 or QuickTime by itself, decoding this "
-        "needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
+        f"{path}: {what}; the port reads only Motion JPEG (MJPG) in AVI or MP4, H.264 "
+        "(Main / High profile I, P and B pictures) in MP4 or QuickTime and MPEG-4 Part 2 "
+        "(Simple profile) in MP4 or AVI by itself, decoding this needs an ffmpeg binary (on "
+        "PATH or from imageio_ffmpeg)")
 
 
 # AVI fourccs of Motion JPEG, and names of those that need another decoder
 _AVI_MJPEG = {b"MJPG", b"mjpg", b"AVRn", b"dmb1", b"jpeg", b"JPEG"}
+# AVI fourccs of MPEG-4 Part 2 (Xvid, FFmpeg, DivX 4 and 5, generic)
+_AVI_MPEG4 = {b"XVID", b"xvid", b"FMP4", b"fmp4", b"DIVX", b"divx", b"DX50", b"MP4V",
+              b"mp4v"}
 _AVI_NAMES = {b"H264": "H.264", b"h264": "H.264", b"X264": "H.264", b"avc1": "H.264",
-              b"XVID": "MPEG-4 Part 2 (Xvid)", b"FMP4": "MPEG-4 Part 2 (FFmpeg)",
-              b"DIVX": "MPEG-4 Part 2 (DivX)", b"DX50": "MPEG-4 Part 2 (DivX 5)",
-              b"MP4V": "MPEG-4 Part 2", b"HEVC": "H.265 / HEVC", b"H265": "H.265 / HEVC"}
+              b"DIV3": "MS MPEG-4 v3 (DivX 3)", b"MP43": "MS MPEG-4 v3",
+              b"HEVC": "H.265 / HEVC", b"H265": "H.265 / HEVC"}
 # MP4 sample entries of Motion JPEG and of H.264, and names of those that
 # need another decoder
 _MP4_MJPEG = {b"jpeg", b"mjpa"}
@@ -60,7 +69,8 @@ _MP4_NAMES = {b"hvc1": "H.265 / HEVC",
               b"mjpb": "Motion JPEG format B", b"s263": "H.263", b"apcn": "ProRes"}
 # objectTypeIndication of an `mp4v` entry's esds (ISO/IEC 14496-1, Table 5)
 OTI_JPEG = 0x6C
-_OTI_NAMES = {0x20: "MPEG-4 Part 2", 0x21: "H.264", 0x60: "MPEG-2 video",
+OTI_MPEG4 = 0x20
+_OTI_NAMES = {0x21: "H.264", 0x60: "MPEG-2 video",
               0x61: "MPEG-2 video", 0x62: "MPEG-2 video", 0x63: "MPEG-2 video",
               0x64: "MPEG-2 video", 0x65: "MPEG-2 video", 0x6A: "MPEG-1 video",
               0x6E: "JPEG 2000"}
@@ -88,12 +98,17 @@ def _read_avi(buf, path: Path):
     declared = idx1_frames = 0
     offsets, sizes = [], []
     ids: tuple[bytes, bytes] = (b"00dc", b"00db")
+    dropped = [0]
+    extradata = b""
 
     def walk_movi(start, end):
         for fcc, pos, size, kind in _avi_chunks(buf, start, end):
             if kind is not None:                     # LIST 'rec ' groups
                 walk_movi(pos, min(pos + size, end))
             elif fcc in ids:
+                if size == 0:                    # a dropped frame
+                    dropped[0] += 1
+                    continue
                 if pos + size > file_end:
                     raise ValueError(f"{path}: frame {len(offsets)} is cut short: "
                                      f"{max(file_end - pos, 0)} of its {size} bytes are in "
@@ -116,7 +131,8 @@ def _read_avi(buf, path: Path):
                         continue
                     scale, rate = struct.unpack_from("<II", buf, hp + 20)
                     (declared,) = struct.unpack_from("<I", buf, hp + 32)
-                    fp, _ = strl[b"strf"]
+                    fp, fsize = strl[b"strf"]
+                    extradata = bytes(buf[fp + 40:fp + max(fsize, 40)])
                     width, height = struct.unpack_from("<ii", buf, fp + 4)
                     compression = bytes(buf[fp + 16:fp + 20])
                     stream = n
@@ -131,17 +147,20 @@ def _read_avi(buf, path: Path):
     if video is None:
         raise ValueError(f"{path}: an AVI file with no video stream")
     compression, width, height, fps = video
-    if compression not in _AVI_MJPEG:
+    codec = {"codec": "mjpeg"}
+    if compression in _AVI_MPEG4:
+        codec = {"codec": "mpeg4", "dsi": extradata}
+    elif compression not in _AVI_MJPEG:
         name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
         raise _needs_ffmpeg(path, f"its video is {name} (AVI fourcc "
                                   f"{compression.decode('latin-1')!r})")
     found = len(offsets)
-    if max(declared, idx1_frames) > found:
+    if max(declared, idx1_frames) > found + dropped[0]:
         raise ValueError(f"{path}: the file holds {found} frames of stream {stream}, its "
                          f"header declares {declared} and its index {idx1_frames}: it is "
                          "cut short")
     return offsets, sizes, {"width": width, "height": height, "fps": fps,
-                            "frame_count": found, "container": "avi", "codec": "mjpeg"}
+                            "frame_count": found + dropped[0], "container": "avi", **codec}
 
 
 # ── MP4 ─────────────────────────────────────────────────────────────────
@@ -158,16 +177,24 @@ def _descriptor(buf, pos):
     return tag, pos, pos + size
 
 
-def _esds_oti(buf, body, end) -> int | None:
-    """objectTypeIndication of an esds box's DecoderConfigDescriptor."""
+def _esds_oti(buf, body, end) -> tuple[int | None, bytes]:
+    """objectTypeIndication of an esds box's DecoderConfigDescriptor, and
+    the body of its DecoderSpecificInfo (tag 0x05; b"" where it has none)."""
     tag, pos, _ = _descriptor(buf, body + 4)
     if tag != 0x03:
-        return None
+        return None, b""
     flags = buf[pos + 2]
     pos += 3 + (2 if flags & 0x80 else 0) + (1 + buf[pos + 3] if flags & 0x40 else 0) \
         + (2 if flags & 0x20 else 0)
-    tag, pos, _ = _descriptor(buf, pos)
-    return buf[pos] if tag == 0x04 else None
+    tag, pos, config_end = _descriptor(buf, pos)
+    if tag != 0x04:
+        return None, b""
+    oti, dsi = buf[pos], b""
+    if pos + 13 < min(config_end, end):
+        tag, start, stop = _descriptor(buf, pos + 13)
+        if tag == 0x05:
+            dsi = bytes(buf[start:min(stop, end)])
+    return oti, dsi
 
 
 def _read_mp4(buf, path: Path):
@@ -176,8 +203,10 @@ def _read_mp4(buf, path: Path):
     info["codec"] = "mjpeg"
     if kind == b"mp4v":
         esds = mp4.child(buf, children, eend, b"esds")
-        oti = _esds_oti(buf, *esds) if esds else None
-        if oti != OTI_JPEG:
+        oti, dsi = _esds_oti(buf, *esds) if esds else (None, b"")
+        if oti == OTI_MPEG4:
+            info["codec"], info["dsi"] = "mpeg4", dsi
+        elif oti != OTI_JPEG:
             name = _OTI_NAMES.get(oti, "an unknown codec")
             raise _needs_ffmpeg(path, f"its video is {name} (sample entry 'mp4v', "
                                       f"objectTypeIndication {oti if oti is None else hex(oti)})")
@@ -200,9 +229,11 @@ def index(path) -> tuple[list[int], list[int], dict]:
     """(sample offsets, sample sizes, info) of the video track of an AVI or
     MP4 file: info holds width, height (the container's), fps (0.0 where the
     container gives none), frame_count, container ("avi" or "mp4") and
-    codec: "mjpeg", or "h264" for an MP4 `avc1` / `avc3` track, then with its
+    codec: "mjpeg"; "h264" for an MP4 `avc1` / `avc3` track, then with its
     `avcC` box's body and `sync`, the indices of its sync samples (None:
-    every sample).  Any other codec raises `UnsupportedCodecError` naming
+    every sample); "mpeg4" for MPEG-4 Part 2 in MP4 (`mp4v`, OTI 0x20) or
+    AVI, then with `dsi`, the headers the esds or the AVI extradata holds
+    (maybe b"").  Any other codec raises `UnsupportedCodecError` naming
     it."""
     p = Path(path)
     if not p.is_file():

@@ -929,7 +929,7 @@ def write(path, frames: Iterable[np.ndarray], fps: float, width: int, height: in
 
 def _unsupported(what: str) -> container.UnsupportedCodecError:
     return container.UnsupportedCodecError(
-        f"{what} needs ffmpeg: the port decodes H.264 Main and High profile I and P pictures "
+        f"{what} needs ffmpeg: the port decodes H.264 Main and High profile I, P and B pictures "
         "(8-bit 4:2:0, frames, CAVLC or CABAC) by itself; decoding this needs an ffmpeg binary "
         "(on PATH or from imageio_ffmpeg)")
 

@@ -24,12 +24,15 @@ contract).  With none, the port's own codecs:
   ffmpeg; so do frames H.264 cannot hold (an odd side, beyond level 5.2).
 - `probe_video` / `extract_frames` index the file once
   (`omfs4d_torch.io.container`) and read it with its codec's module: Motion
-  JPEG in AVI or MP4 (`mjpeg.MJPEGFrames`, `decode_jpeg`) or H.264 Main /
-  High profile I and P pictures in MP4 or QuickTime, as phones record them
-  (`h264.H264Frames`, the host C++ decoder built by g++ at first use),
+  JPEG in AVI or MP4 (`mjpeg.MJPEGFrames`, `decode_jpeg`); H.264 Main /
+  High profile I, P and B pictures in MP4 or QuickTime, as phones record
+  them (`h264.H264Frames`, the host C++ decoder built by g++ at first use),
   turned by the track's display matrix and cut by its edit list as cv2
-  reads them.  cv2's `mp4v` (MPEG-4 Part 2), HEVC, H.264 with B slices,
-  fields or more than 8 bits, and other codecs raise
+  reads them; MPEG-4 Part 2 Simple profile in MP4 or AVI, as cv2's `mp4v`,
+  `XVID`, `DIVX` and `FMP4` writers (and so the JAX package's
+  `stitch_video` without an H.264 encoder) write it (`mpeg4.MPEG4Frames`,
+  the host C++ decoder `mpeg4dec.cpp`).  HEVC, H.264 with fields or more
+  than 8 bits, MPEG-4 Part 2 beyond Simple profile and other codecs raise
   `container.UnsupportedCodecError` naming the codec or feature.
 """
 
@@ -44,7 +47,7 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import container, h264, mjpeg
+from omfs4d_torch.io import container, h264, mjpeg, mpeg4
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
 
 log = get_logger("video")
@@ -249,10 +252,11 @@ def probe_video(path: str | Path) -> dict:
     """Width, height, fps and frame count of a capture: a directory of PNG or
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
-    Motion JPEG in AVI or MP4 or H.264 (Main / High, I and P pictures) in MP4
-    or QuickTime, with no decode: the size as displayed (turned by the
-    track's matrix) and the count of samples, as cv2 reports them
-    (`container.UnsupportedCodecError` for another codec)."""
+    Motion JPEG in AVI or MP4, H.264 (Main / High, I, P and B pictures) in
+    MP4 or QuickTime or MPEG-4 Part 2 (Simple) in MP4 or AVI, with no
+    decode: the size as displayed (turned by the track's matrix) and the
+    count of samples, as cv2 reports them (`container.UnsupportedCodecError`
+    for another codec)."""
     import re
 
     p = Path(path)
@@ -288,12 +292,13 @@ def extract_frames(
     stride: int = 1,
 ) -> list[Path]:
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
-    through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4 or
-    H.264 Main / High I and P pictures in MP4 or QuickTime, upright and
-    edited as cv2 shows them) into numbered PNG frames (RGB), every
-    `stride`-th one, at most `max_frames`, shrunk by area averaging so that
-    min(H, W) ~ target_size.  A Motion JPEG file's frames are decoded only
-    where they are kept; an H.264 file's in order up to the last one kept."""
+    through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4,
+    H.264 Main / High I, P and B pictures in MP4 or QuickTime, upright and
+    edited as cv2 shows them, or MPEG-4 Part 2 Simple in MP4 or AVI) into
+    numbered PNG frames (RGB), every `stride`-th one, at most `max_frames`,
+    shrunk by area averaging so that min(H, W) ~ target_size.  A Motion JPEG
+    file's frames are decoded only where they are kept; an H.264 or MPEG-4
+    file's in order up to the last one kept."""
     import tempfile
 
     src = Path(video_path)
@@ -325,12 +330,14 @@ def extract_frames(
     return paths
 
 
-def _own_reader(path: Path) -> h264.H264Frames | mjpeg.MJPEGFrames:
+_READERS = {"h264": h264.H264Frames, "mpeg4": mpeg4.MPEG4Frames, "mjpeg": mjpeg.MJPEGFrames}
+
+
+def _own_reader(path: Path) -> h264.H264Frames | mpeg4.MPEG4Frames | mjpeg.MJPEGFrames:
     """A video file's frames through the port's own readers, with no ffmpeg:
     the file is indexed once and read by its codec's module."""
     offsets, sizes, info = container.index(path)
-    reader = h264.H264Frames if info["codec"] == "h264" else mjpeg.MJPEGFrames
-    return reader(path, offsets, sizes, info)
+    return _READERS[info["codec"]](path, offsets, sizes, info)
 
 
 def find_ffmpeg() -> str | None:

@@ -16,12 +16,13 @@ anywhere override the config tree.  Every subcommand that touches a model runs
 on the CUDA card and raises without one; `--device cpu` asks for the CPU.  A
 capture (`--video`) is a directory of PNG or JPEG frames or a video file.  With
 an ffmpeg binary any codec it decodes is read and the prediction is H.264
-through libx264; with none, the port reads a Motion JPEG (MJPG) `.avi` or
-`.mp4` file and H.264 Main / High profile I and P pictures in `.mp4` / `.mov`
-(a phone's capture, turned upright) by itself, and writes the prediction with
-its own H.264 encoder (Motion JPEG AVI for a `.avi` output), while H.264 with B
-slices or fields, HEVC and MPEG-4 Part 2 (`mp4v`) captures raise, naming the
-codec or feature.
+through libx264; with none, the port reads by itself Motion JPEG (MJPG) in
+`.avi` / `.mp4`, H.264 Main / High profile I, P and B pictures in `.mp4` /
+`.mov` (a phone's capture, turned upright) and MPEG-4 Part 2 Simple profile in
+`.mp4` / `.avi` (cv2's `mp4v` / `XVID` / `DIVX` / `FMP4`, as the JAX package
+writes it), and writes the prediction with its own H.264 encoder (Motion JPEG
+AVI for a `.avi` output), while H.264 with fields, HEVC and other codecs raise,
+naming the codec or feature.
 
 Under `torchrun` (WORLD_SIZE > 1) each process is one rank: the pipeline's
 commands join the process group first (`init_distributed`; the backend is
@@ -46,9 +47,10 @@ log = get_logger("cli")
 
 
 VIDEO_HELP = ("the capture: a directory of PNG or JPEG frames, or a video file; "
-              "without an ffmpeg binary only Motion JPEG (MJPG) .avi / .mp4 files and "
-              "H.264 Main / High I and P pictures in .mp4 / .mov (a phone's capture) "
-              "are read (H.264 B slices, HEVC and MPEG-4 Part 2 need ffmpeg)")
+              "without an ffmpeg binary only Motion JPEG (MJPG) in .avi / .mp4, H.264 "
+              "Main / High I, P and B pictures in .mp4 / .mov (a phone's capture) and "
+              "MPEG-4 Part 2 Simple in .mp4 / .avi (cv2's mp4v / XVID / DIVX / FMP4) "
+              "are read (HEVC and other codecs need ffmpeg)")
 
 
 def _add_device(p: argparse.ArgumentParser):

@@ -1,8 +1,9 @@
 """The port's Motion JPEG rung on the CPU, with no ffmpeg: `encode_jpeg`
 against `cv2.imencode` byte for byte; the port's AVI and MP4 files read by the
 JAX package's `probe_video` / `extract_frames` (cv2, FFmpeg's decoder); the
-MJPG files of the reference's cv2 ladder read by the port; the codecs that
-need ffmpeg refused by name; files cut short refused with the frame's index;
+MJPG files of the reference's cv2 ladder read by the port, and its mp4v rung
+(MPEG-4 Part 2, also as Xvid in AVI); the codecs that need ffmpeg refused by
+name; files cut short refused with the frame's index;
 OpenDML continuation lists and frames without Huffman tables; the reference's
 fixture clip through both packages' `Pipeline.preprocess`."""
 
@@ -179,15 +180,25 @@ def patched(data: bytes, old: bytes, new: bytes) -> bytes:
 
 
 @pytest.mark.parametrize("case", ["mp4v", "xvid_avi", "avc1", "avc1_no_avcc", "no_container"])
-def test_other_codecs_need_ffmpeg(tmp_path, case):
-    """MPEG-4 Part 2 (cv2's mp4v rung, OTI 0x20, and Xvid in AVI), an avc1
-    sample entry with no avcC box and a file that is no container raise a
-    RuntimeError naming the codec and ffmpeg, from probe_video and
+def test_other_codecs_need_ffmpeg(tmp_path, capfd, case):
+    """An avc1 sample entry with no avcC box and a file that is no container
+    raise a RuntimeError naming the codec and ffmpeg, from probe_video and
     extract_frames both.  A High-profile CABAC track, which raised before the
-    host H.264 decoder, now reads as the JAX package reads it."""
+    host H.264 decoder, and MPEG-4 Part 2 (cv2's mp4v rung, OTI 0x20, and
+    Xvid in AVI), which raised before the host MPEG-4 decoder, now read as
+    the JAX package reads them: the same probe, as many frames, each within
+    the conversion tolerance the I_PCM stream of the port's pictures shows."""
     from tests.test_torch_h264 import cabac_clip
+    from tests.test_torch_mpeg4 import cv2_write, moving_clip, same_as_jax
 
     img = smooth_image(32, 48, 3)
+    if case in ("mp4v", "xvid_avi"):
+        fourcc, suffix = {"mp4v": ("mp4v", "mp4"), "xvid_avi": ("XVID", "avi")}[case]
+        path = tmp_path / f"clip.{suffix}"
+        cv2_write(path, fourcc, moving_clip(3, 32, 48), fps=25.0)
+        assert container.index(path)[2]["codec"] == "mpeg4"
+        same_as_jax(path, tmp_path, capfd, 3)
+        return
     if case == "no_container":
         path, name = tmp_path / "clip.mp4", "neither an AVI nor an MP4"
         path.write_bytes(b"\x00" * 64)
@@ -201,19 +212,15 @@ def test_other_codecs_need_ffmpeg(tmp_path, case):
         assert ([tvideo.read_image(p).shape for p in ours]
                 == [tvideo.read_image(p).shape for p in theirs] == [(32, 48, 3)] * 3)
         return
-    else:
-        fourcc, suffix = {"mp4v": ("mp4v", "mp4"), "avc1_no_avcc": ("mp4v", "mp4"),
-                          "xvid_avi": ("XVID", "avi")}[case]
-        path = tmp_path / f"clip.{suffix}"
-        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*fourcc), 25.0, (48, 32))
+    else:                                # avc1_no_avcc: cv2's mp4v as an H.264 entry
+        path = tmp_path / "clip.mp4"
+        writer = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"mp4v"), 25.0, (48, 32))
         assert writer.isOpened()
         for _ in range(2):
             writer.write(img)
         writer.release()
-        name = {"mp4v": "MPEG-4 Part 2", "xvid_avi": "MPEG-4 Part 2",
-                "avc1_no_avcc": "H.264"}[case]
-        if case == "avc1_no_avcc":       # the sample entry of an H.264 track
-            path.write_bytes(patched(path.read_bytes(), b"mp4v", b"avc1"))
+        name = "H.264"
+        path.write_bytes(patched(path.read_bytes(), b"mp4v", b"avc1"))
     for fn in (tvideo.probe_video, lambda p: tvideo.extract_frames(p, tmp_path / "out")):
         with pytest.raises(RuntimeError, match="ffmpeg") as err:
             fn(path)
