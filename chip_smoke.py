@@ -389,6 +389,7 @@ H264_PSNR_FLOOR = 43.3
 # the committed H.264 corpus (tests/make_h264_corpus.py) and its phone clip
 H264_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "h264"
 MPEG4_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpeg4"
+HEVC_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "hevc"
 # phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
 # the skull phantom's seed and noise, the crop held against the CPU path, the
 # share by which the raw mesh's enclosed volume may differ from the phantom's
@@ -3109,6 +3110,92 @@ def mpeg4_corpus(work: Path) -> dict:
             "preprocess_stitched_s": runs["stitched.mp4"]}
 
 
+def hevc_corpus(work: Path) -> dict:
+    """The host HEVC decoder on the card's machine (no cv2 there): built by
+    g++ (timed); every file of the committed corpus has its manifest's
+    SHA-256 and decodes to the SHA-256s of its pictures there, which cv2's
+    FFmpeg agreed with where the corpus was written; clip_hevc.mp4's (x265's
+    layout at 1080p: WPP, SAO, TMVP, a B-pyramid, a CRA with RASL pictures)
+    I, P and B pictures are timed; `cli preprocess --video` gives its 9
+    frames in display order at target_size 512, and portrait.mov's (`hev1`,
+    a 90-degree matrix) 6 frames upright."""
+    from omfs4d_torch.io import hevc
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    def sha(planes) -> str:
+        h = hashlib.sha256()
+        for p in planes:
+            h.update(np.ascontiguousarray(p).tobytes())
+        return h.hexdigest()
+
+    t0 = time.perf_counter()
+    hevc._library()                                  # g++, at first use
+    build_s = time.perf_counter() - t0
+    manifest = json.loads((HEVC_CORPUS / "manifest.json").read_text())
+    t0 = time.perf_counter()
+    for name, entry in manifest["streams"].items():
+        path = HEVC_CORPUS / name
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the file's SHA-256 is the manifest's")
+        if path.suffix in (".mov", ".mp4"):
+            frames = hevc.frames(path)
+            pics = [frames.ycbcr(i) for i in range(len(frames))]
+        else:
+            pics = hevc.decode_annexb(path.read_bytes())
+        check([sha(p) for p in pics] == entry["sha256"],
+              f"{name}: {len(pics)} pictures equal to the manifest")
+    corpus_s = time.perf_counter() - t0
+    entry = manifest["streams"]["clip_hevc.mp4"]
+    clip = hevc.frames(HEVC_CORPUS / "clip_hevc.mp4")
+    dec = hevc.Decoder()
+    for unit in clip.header_units():
+        dec.push(unit)
+    by_kind, sizes, out = {"I": [], "P": [], "B": []}, {"I": [], "P": [], "B": []}, []
+    for i in range(len(clip.offsets)):
+        units = clip.units(i)
+        t0 = time.perf_counter()
+        for unit in units:
+            dec.push(unit)
+        dec.end_picture()
+        by_kind[entry["kinds"][i]].append(time.perf_counter() - t0)
+        sizes[entry["kinds"][i]].append(sum(map(len, units)))
+        out += dec.pictures()
+    dec.flush()
+    out += dec.pictures()
+    check([sha(p) for p in out] == entry["sha256"],
+          f"clip_hevc.mp4: {len(out)} pictures (timed) equal to the manifest")
+    runs, shapes_out = {}, {}
+    for name, n, shape in (("clip_hevc.mp4", 9, (512, 910, 3)), ("portrait.mov", 6, (320, 176, 3))):
+        path = HEVC_CORPUS / name
+        wd = work / f"wd_{path.stem}"
+        t0 = time.perf_counter()
+        check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd)]) == 0,
+              f"cli preprocess --video {name}")
+        runs[name] = time.perf_counter() - t0
+        (stage,) = list((wd / "stages").glob("preprocess-*"))
+        extracted = sorted((stage / "images").glob("*.png"))
+        shapes = {tvideo.read_image(p).shape for p in extracted}
+        check(len(extracted) == n and shapes == {shape},
+              f"{name} preprocessed to {len(extracted)} frames of {shapes}: {n} of {shape}")
+        shapes_out[name] = shape
+        frames = hevc.frames(path)
+        for i in (0, n - 1):
+            rgb = frames.rgb(i)
+            want = rgb if rgb.shape == shape else tvideo.area_resize(rgb, *shape[:2])
+            check(np.array_equal(tvideo.read_image(extracted[i]), want),
+                  f"preprocessed frame {i} of {name} is the port's read, shrunk")
+    check(shapes_out["portrait.mov"][0] > shapes_out["portrait.mov"][1],
+          "portrait.mov reads upright (a portrait)")
+    mean = {k: float(np.mean(v)) for k, v in by_kind.items()}
+    return {"build_s": build_s, "files": len(manifest["streams"]), "corpus_s": corpus_s,
+            "i_s": mean["I"], "p_s": mean["P"], "b_s": mean["B"], "n_i": len(by_kind["I"]),
+            "n_p": len(by_kind["P"]), "n_b": len(by_kind["B"]),
+            "bytes": {k: float(np.mean(v)) for k, v in sizes.items()},
+            "preprocess_clip_s": runs["clip_hevc.mp4"],
+            "preprocess_portrait_s": runs["portrait.mov"]}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -3303,6 +3390,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
                                      f"quality {tvideo.MJPEG_QUALITY} MP4's {mj_bytes}")
         corpus = h264_corpus(work)
         m4v = mpeg4_corpus(work)
+        t_hevc = time.perf_counter()
+        hev = hevc_corpus(work)
+        hevc_s = time.perf_counter() - t_hevc
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -3349,6 +3439,15 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"clip_mp4v.mp4 {m4v['preprocess_clip_s']:.2f} s -> 30 frames 910x512, --video "
           f"stitched.mp4 (the JAX package's stitch_video, 512^2) "
           f"{m4v['preprocess_stitched_s']:.2f} s -> 8 frames")
+    print(f"  HEVC host decoder (hevcdec.cpp, built by g++ in {hev['build_s']:.2f} s): "
+          f"clip_hevc.mp4 (x265's layout, 1920x1080, WPP, SAO, TMVP) I {hev['i_s']:.4f} s, "
+          f"P {hev['p_s']:.4f} s, B {hev['b_s']:.4f} s/picture (means of {hev['n_i']} / "
+          f"{hev['n_p']} / {hev['n_b']}; "
+          + " / ".join(f"{hev['bytes'][k]:.0f}" for k in "IPB") + " bytes); the corpus's "
+          f"{hev['files']} files equal to the manifest in {hev['corpus_s']:.2f} s; cli "
+          f"preprocess --video clip_hevc.mp4 {hev['preprocess_clip_s']:.2f} s -> 9 frames "
+          f"910x512, --video portrait.mov {hev['preprocess_portrait_s']:.2f} s -> 6 frames "
+          f"176x320 (portrait); the HEVC part {hevc_s:.2f} s [{card}]")
     print(f"  bytes a frame of the render PNGs: H.264 (QP {h264.H264_QP}, the pictures' QPs "
           f"{sorted(set(stream.qp))}, level {stream.level / 10:.1f}) "
           f"{h264_bytes / n_train:.1f} (file {h264_bytes}; IDR "

@@ -2,8 +2,9 @@
 library: which codec a file holds and where its frames lie (`index`), and
 the file writing the port's two written codecs share (`write_file`).  The
 codecs sit on top of it as siblings: Motion JPEG (`omfs4d_torch.io.mjpeg`),
-H.264 (`omfs4d_torch.io.h264`) and MPEG-4 Part 2 (`omfs4d_torch.io.mpeg4`,
-read only); the MP4 boxes are `omfs4d_torch.io.mp4`'s.
+H.264 (`omfs4d_torch.io.h264`), HEVC (`omfs4d_torch.io.hevc`, read only) and
+MPEG-4 Part 2 (`omfs4d_torch.io.mpeg4`, read only); the MP4 boxes are
+`omfs4d_torch.io.mp4`'s.
 
 - AVI (RIFF): the `hdrl` list's first video `strl` (`strh` of type `vids`,
   a BITMAPINFOHEADER `strf` naming the codec), and its frames from the
@@ -20,10 +21,11 @@ read only); the MP4 boxes are `omfs4d_torch.io.mp4`'s.
   entry whose esds has objectTypeIndication 0x6C (as FFmpeg muxes MJPEG into
   `.mp4`) and for QuickTime's `jpeg` and `mjpa`; MPEG-4 Part 2 for an `mp4v`
   entry of objectTypeIndication 0x20, its DecoderSpecificInfo (the VOS / VOL
-  headers) as `dsi`; H.264 for `avc1` / `avc3` with an `avcC` box.
+  headers) as `dsi`; H.264 for `avc1` / `avc3` with an `avcC` box; HEVC for
+  `hvc1` / `hev1` with an `hvcC` box.
 
-Any other codec (HEVC, AVI's `H264`, ...) raises `UnsupportedCodecError`
-naming it: decoding it needs an ffmpeg binary.  So does a file that is
+Any other codec (AVI's `H264` or `HEVC`, AV1, VP9, ...) raises
+`UnsupportedCodecError` naming it: decoding it needs an ffmpeg binary.  So does a file that is
 neither container.  A frame whose bytes end early raises ValueError with its
 index, and a file holding fewer frames than its header declares raises too.
 """
@@ -47,9 +49,9 @@ class UnsupportedCodecError(RuntimeError):
 def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
         f"{path}: {what}; the port reads only Motion JPEG (MJPG) in AVI or MP4, H.264 "
-        "(Main / High profile I, P and B pictures) in MP4 or QuickTime and MPEG-4 Part 2 "
-        "(Simple profile) in MP4 or AVI by itself, decoding this needs an ffmpeg binary (on "
-        "PATH or from imageio_ffmpeg)")
+        "(Main / High profile I, P and B pictures) and HEVC (Main profile, 8-bit) in MP4 or "
+        "QuickTime and MPEG-4 Part 2 (Simple profile) in MP4 or AVI by itself, decoding this "
+        "needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
 
 
 # AVI fourccs of Motion JPEG, and names of those that need another decoder
@@ -64,8 +66,8 @@ _AVI_NAMES = {b"H264": "H.264", b"h264": "H.264", b"X264": "H.264", b"avc1": "H.
 # need another decoder
 _MP4_MJPEG = {b"jpeg", b"mjpa"}
 _MP4_H264 = {b"avc1", b"avc3"}
-_MP4_NAMES = {b"hvc1": "H.265 / HEVC",
-              b"hev1": "H.265 / HEVC", b"av01": "AV1", b"vp09": "VP9", b"vp08": "VP8",
+_MP4_HEVC = {b"hvc1", b"hev1"}
+_MP4_NAMES = {b"av01": "AV1", b"vp09": "VP9", b"vp08": "VP8",
               b"mjpb": "Motion JPEG format B", b"s263": "H.263", b"apcn": "ProRes"}
 # objectTypeIndication of an `mp4v` entry's esds (ISO/IEC 14496-1, Table 5)
 OTI_JPEG = 0x6C
@@ -216,6 +218,12 @@ def _read_mp4(buf, path: Path):
             raise _needs_ffmpeg(path, f"its video is H.264 with no avcC box (sample entry "
                                       f"{kind.decode('latin-1')!r})")
         info["codec"], info["avcC"] = "h264", bytes(buf[avcc[0]:avcc[1]])
+    elif kind in _MP4_HEVC:
+        hvcc = mp4.child(buf, children, eend, b"hvcC")
+        if hvcc is None:
+            raise _needs_ffmpeg(path, f"its video is H.265 / HEVC with no hvcC box (sample "
+                                      f"entry {kind.decode('latin-1')!r})")
+        info["codec"], info["hvcC"] = "hevc", bytes(buf[hvcc[0]:hvcc[1]])
     elif kind not in _MP4_MJPEG:
         name = _MP4_NAMES.get(kind, "an unknown codec")
         raise _needs_ffmpeg(path, f"its video is {name} (sample entry "
@@ -231,7 +239,8 @@ def index(path) -> tuple[list[int], list[int], dict]:
     container gives none), frame_count, container ("avi" or "mp4") and
     codec: "mjpeg"; "h264" for an MP4 `avc1` / `avc3` track, then with its
     `avcC` box's body and `sync`, the indices of its sync samples (None:
-    every sample); "mpeg4" for MPEG-4 Part 2 in MP4 (`mp4v`, OTI 0x20) or
+    every sample); "hevc" for `hvc1` / `hev1`, then with its `hvcC` box's
+    body and `sync`; "mpeg4" for MPEG-4 Part 2 in MP4 (`mp4v`, OTI 0x20) or
     AVI, then with `dsi`, the headers the esds or the AVI extradata holds
     (maybe b"").  Any other codec raises `UnsupportedCodecError` naming
     it."""

@@ -69,12 +69,11 @@ the tests hold the host decoder to.  The tables are `h264_tables`'.
 
 from __future__ import annotations
 
-import bisect
 import ctypes
 import functools
 import re
 import struct
-from collections.abc import Iterable, Iterator, Sequence
+from collections.abc import Iterable, Sequence
 from dataclasses import dataclass
 from fractions import Fraction
 from pathlib import Path
@@ -82,6 +81,7 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.io import container, h264_tables, mp4
+from omfs4d_torch.io import frames as frames_base
 
 # the QP of every picture, the reference's CRF; raised for a picture only
 # where Baseline's CAVLC cannot code a level (see `_MAX_LEVEL`)
@@ -1566,72 +1566,20 @@ def _library() -> ctypes.CDLL:
     path = native.build(_SOURCE, "h264dec", _GXX_FLAGS,
                         "omfs4d_torch/io/h264dec.cpp (the H.264 decoder)",
                         headers={"h264_tables.h": h264_tables.cpp_header()})
-    lib = ctypes.CDLL(str(path))
-    lib.h264d_new.restype = ctypes.c_void_p
-    lib.h264d_new.argtypes = []
-    lib.h264d_free.argtypes = [ctypes.c_void_p]
-    lib.h264d_free.restype = None
-    lib.h264d_nal.argtypes = [ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int64]
-    for name in ("h264d_end_picture", "h264d_flush", "h264d_ready"):
-        getattr(lib, name).argtypes = [ctypes.c_void_p]
-    lib.h264d_frame_size.argtypes = [ctypes.c_void_p, ctypes.POINTER(ctypes.c_int32),
-                                     ctypes.POINTER(ctypes.c_int32)]
-    lib.h264d_pop.argtypes = [ctypes.c_void_p] + [ctypes.c_void_p] * 3
-    lib.h264d_error.restype = ctypes.c_char_p
-    lib.h264d_error.argtypes = [ctypes.c_void_p]
-    return lib
+    return frames_base.bind_decoder(ctypes.CDLL(str(path)), "h264d")
 
 
-class Decoder:
-    """The host C++ decoder (`h264dec.cpp`): NAL units in (`push`, with the
-    emulation prevention bytes still in), pictures out as cropped (Y', Cb,
-    Cr) uint8 planes in output order (`pictures`).  A corrupt unit raises
-    ValueError and one outside the decoder's subset `UnsupportedCodecError`
-    naming the feature; after either the decoder is spent."""
+class Decoder(frames_base.HostDecoder):
+    """The host C++ decoder (`h264dec.cpp`), as `frames.HostDecoder` sets
+    out."""
 
-    def __init__(self):
-        self._lib = _library()
-        self._h = self._lib.h264d_new()
-        if not self._h:
-            raise MemoryError("H.264: the decoder could not be created")
+    prefix, codec = "h264d", "H.264"
 
-    def __del__(self):
-        if getattr(self, "_h", None):
-            self._lib.h264d_free(self._h)
-            self._h = None
+    def library(self) -> ctypes.CDLL:
+        return _library()
 
-    def _check(self, rc: int) -> None:
-        if rc == 0:
-            return
-        msg = self._lib.h264d_error(self._h).decode("utf-8", "replace")
-        if rc == 2:
-            raise _unsupported(msg)
-        raise ValueError(msg)
-
-    def push(self, unit: bytes) -> None:
-        """One NAL unit (no start code)."""
-        self._check(self._lib.h264d_nal(self._h, bytes(unit), len(unit)))
-
-    def end_picture(self) -> None:
-        """The units pushed so far end an access unit (an MP4 sample)."""
-        self._check(self._lib.h264d_end_picture(self._h))
-
-    def flush(self) -> None:
-        """The end of the stream: every picture still held goes out."""
-        self._check(self._lib.h264d_flush(self._h))
-
-    def pictures(self) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
-        """The pictures ready for output, in order."""
-        out = []
-        w, h = ctypes.c_int32(), ctypes.c_int32()
-        while self._lib.h264d_ready(self._h):
-            self._lib.h264d_frame_size(self._h, ctypes.byref(w), ctypes.byref(h))
-            planes = (np.empty((h.value, w.value), np.uint8),
-                      np.empty((h.value // 2, w.value // 2), np.uint8),
-                      np.empty((h.value // 2, w.value // 2), np.uint8))
-            self._lib.h264d_pop(self._h, *(p.ctypes.data for p in planes))
-            out.append(planes)
-        return out
+    def unsupported(self, msg: str) -> container.UnsupportedCodecError:
+        return _unsupported(msg)
 
 
 def annexb_units(data: bytes) -> list[bytes]:
@@ -1659,19 +1607,14 @@ def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]
     return out + dec.pictures()
 
 
-class H264Frames(Sequence):
+class H264Frames(frames_base.SampleFrames):
     """The frames of an H.264 MP4 / QuickTime file as (H, W, 3) uint8 RGB,
-    decoded by the host decoder on access (`frames[i]`, `len(frames)`,
-    iteration), as cv2 shows them: in output order (presentation order,
-    which `ctts` gives where B pictures reorder them), only those the edit
-    list keeps, each turned by the track's display rotation, converted with
-    the VUI's range and matrix.  A frame is decoded from the last sync sample
-    that starts its output order cleanly (every sample before it shown
-    before it, every one from it on after it: no leading picture needs a
-    reference decoded before it), or on from the last one decoded."""
+    decoded by the host decoder on access, as cv2 shows them (see
+    `frames.SampleFrames`), converted with the VUI's range and matrix.  The
+    parameter sets are the avcC box's, or for `avc3` the first sample's."""
 
     def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
-        self.path, self.offsets, self.sizes, self.info = path, offsets, sizes, info
+        super().__init__(path, offsets, sizes, info)
         self.sps, self.pps, self.length = _avcc_units(info["avcC"], path)
         if not self.sps:                       # avc3: the parameter sets in band
             self.sps = [u for u in self.units(0) if u[0] & 0x1F == _NAL_SPS][:1]
@@ -1683,106 +1626,16 @@ class H264Frames(Sequence):
         self.params = parse_sps(self.sps[0])
         for unit in self.pps:
             parse_pps(unit)
-        n = len(offsets)
-        self.sync = info["sync"] if info["sync"] is not None else list(range(n))
-        # a sample's output position is the rank of its presentation time; a
-        # restart at sample s outputs positions s, s + 1, ... where the
-        # samples before s are exactly the first s positions
-        position = [0] * n
-        for k, s in enumerate(mp4.output_order(info.get("times") or list(range(n)))):
-            position[s] = k
-        sync, prefix_max = set(self.sync), -1
-        self.starts = []                       # the sync samples a decode may start at
-        for s in range(n):
-            if s in sync and prefix_max < s and position[s] == s:
-                self.starts.append(s)
-            prefix_max = max(prefix_max, position[s])
-        self.shown = info.get("shown") or list(range(n))
-        self.rotation = info.get("rotation", 0)
-        self._decoder: Decoder | None = None
-        self._pushed = self._next = -1      # the last sample pushed, the next frame out
-        self._held: dict[int, tuple[np.ndarray, ...]] = {}
 
-    def __len__(self) -> int:
-        return len(self.shown)
+    def header_units(self) -> list[bytes]:
+        return self.sps + self.pps
 
-    def units(self, i: int) -> list[bytes]:
-        """The NAL units of sample i."""
-        with open(self.path, "rb") as f:
-            f.seek(self.offsets[i])
-            data = f.read(self.sizes[i])
-        out, pos = [], 0
-        while pos < len(data):
-            size = int.from_bytes(data[pos:pos + self.length], "big")
-            pos += self.length
-            if size == 0 or pos + size > len(data):
-                raise ValueError(f"{self.path}: frame {i} is cut short")
-            out.append(data[pos:pos + size])
-            pos += size
-        return out
+    def new_decoder(self) -> Decoder:
+        return Decoder()
 
-    def ycbcr(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Frame i as decoded (before the rotation): Y', Cb, Cr uint8 planes."""
-        if not -len(self) <= i < len(self):
-            raise IndexError(f"{self.path}: frame {i} of {len(self)}")
-        return self._picture(self.shown[i % len(self)])
-
-    def _picture(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """The i-th picture the decoder outputs: the sample with the i-th
-        smallest presentation time."""
-        n = len(self.offsets)
-        if i in self._held:
-            return self._held[i]
-        k = bisect.bisect_right(self.starts, i) - 1
-        if k < 0:
-            raise ValueError(f"{self.path}: frame {i} follows no sync sample")
-        start = self.starts[k]
-        if self._decoder is None or i < self._next or start > self._pushed:
-            self._decoder = Decoder()
-            for unit in self.sps + self.pps:
-                self._decoder.push(unit)
-            self._pushed, self._next = start - 1, start
-        self._held = {j: p for j, p in self._held.items() if j >= i}
-        while i not in self._held:
-            if self._pushed + 1 < n:
-                self._pushed += 1
-                for unit in self.units(self._pushed):
-                    self._decoder.push(unit)
-                self._decoder.end_picture()
-            elif self._pushed + 1 == n:
-                self._pushed += 1
-                self._decoder.flush()
-            else:
-                raise ValueError(f"{self.path}: the stream holds {self._next} pictures, not "
-                                 f"{n}")
-            for planes in self._decoder.pictures():
-                if self._next >= i:
-                    self._held[self._next] = planes
-                self._next += 1
-        return self._held[i]
-
-    def __getitem__(self, i: int) -> np.ndarray:
-        rgb = ycbcr_to_rgb(*self.ycbcr(i), full_range=self.params["full_range"],
-                           matrix=self.params["matrix"])
-        return np.ascontiguousarray(np.rot90(rgb, -self.rotation // 90))
-
-    rgb = __getitem__
-
-    def probe(self) -> dict:
-        """{"width", "height", "fps", "frame_count"} as cv2 reports them, with
-        no decode: the size after cropping and the rotation, fps from the
-        track, else the VUI, else 30.0, and the count of samples (the edit
-        list aside)."""
-        sps = self.params
-        w, h = sps["width"], sps["height"]
-        if self.rotation in (90, 270):
-            w, h = h, w
-        return {"width": w, "height": h, "fps": self.info["fps"] or sps["fps"] or 30.0,
-                "frame_count": self.info["frame_count"]}
-
-    def __iter__(self) -> Iterator[np.ndarray]:
-        for i in range(len(self)):
-            yield self[i]
+    def rgb_of(self, planes) -> np.ndarray:
+        return ycbcr_to_rgb(*planes, full_range=self.params["full_range"],
+                            matrix=self.params["matrix"])
 
 
 def frames(path) -> H264Frames:

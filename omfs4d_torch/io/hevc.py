@@ -1,0 +1,386 @@
+"""HEVC (ITU-T H.265 | ISO/IEC 23008-2) in MP4 and QuickTime, read on the host
+with no ffmpeg: the video that phones record by default (an iPhone's "High
+Efficiency" format, many Android camera apps) and that `ffmpeg -c:v libx265`
+writes.
+
+The reader (`frames`, `HEVCFrames`, `decode_annexb`) is the host C++ decoder
+`hevcdec.cpp` (`Decoder`), built by g++ at first use into
+`omfs4d_torch/_build/` (no Python fallback: without g++ reading raises with
+the reason) and bound with ctypes.  It decodes the Main and Main Still
+Picture profiles at 8-bit 4:2:0: I, P and B slices, CABAC with wavefront
+parallel processing, SAO and deblocking, several and dependent slice
+segments, TMVP, weighted prediction, temporal sub-layers, CRA with RASL and
+RADL pictures, output in POC order cropped by the conformance window (not by
+the VUI's default display window, which FFmpeg does not apply either).
+`HEVCFrames` shows a file's frames as cv2 does (`frames.SampleFrames`): in
+presentation order (`ctts`), those its edit list keeps, turned by the
+track's display matrix, converted with the VUI's range and matrix
+(`h264.ycbcr_to_rgb`).  An `hvc1` track's parameter sets are its hvcC box's;
+an `hev1` track may carry them in band.
+
+Refused by name, with no decode, where the parameter sets show it (here, in
+`parse_sps` / `parse_pps`, and again in the decoder): tiles, long-term
+reference pictures, scaling lists, PCM, transquant bypass, bit depths above 8
+(Main 10, the range extension profiles), chroma formats other than 4:2:0 and
+the SPS / PPS range, multilayer, 3D and screen content extensions: each
+raises `container.UnsupportedCodecError` naming it and ffmpeg.  NAL units of
+a layer above the base (`nuh_layer_id` > 0) are skipped, as FFmpeg skips
+them.  A corrupt unit raises ValueError.  The tables are `hevc_tables`'.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from pathlib import Path
+
+import numpy as np
+
+from omfs4d_torch.io import container, h264, hevc_tables
+from omfs4d_torch.io import frames as frames_base
+
+NAL_SPS, NAL_PPS = 33, 34
+
+
+def nal_type(unit: bytes) -> int:
+    return (unit[0] >> 1) & 63
+
+
+def nuh_layer_id(unit: bytes) -> int:
+    return (unit[0] & 1) << 5 | unit[1] >> 3
+
+
+def _unsupported(what: str) -> container.UnsupportedCodecError:
+    return container.UnsupportedCodecError(
+        f"HEVC {what} is outside the port's HEVC decoder (Main profile, 8-bit 4:2:0); decoding "
+        "it needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
+
+
+# ── parameter sets, with no decode ──────────────────────────────────────
+
+class _Reader:
+    """Bits of an rbsp (emulation prevention removed)."""
+
+    def __init__(self, rbsp: bytes):
+        self.data, self.pos = rbsp, 0
+
+    def u(self, n: int) -> int:
+        v = 0
+        for _ in range(n):
+            if self.pos >= 8 * len(self.data):
+                raise ValueError("HEVC: a parameter set is cut short")
+            v = v << 1 | (self.data[self.pos >> 3] >> (7 - (self.pos & 7))) & 1
+            self.pos += 1
+        return v
+
+    def ue(self) -> int:
+        z = 0
+        while not self.u(1):
+            z += 1
+            if z > 31:
+                raise ValueError("HEVC: an Exp-Golomb code longer than 63 bits")
+        return (1 << z) - 1 + self.u(z)
+
+    def se(self) -> int:
+        k = self.ue()
+        return (k + 1) // 2 if k & 1 else -(k // 2)
+
+
+def _rbsp(unit: bytes) -> bytes:
+    """The rbsp of a NAL unit: its 2-byte header dropped, 00 00 03 -> 00 00."""
+    return h264._unescape(unit[2:])
+
+
+def _profile_tier_level(r: _Reader, max_sub_layers_minus1: int) -> int:
+    r.u(2 + 1)
+    profile = r.u(5)
+    r.u(32 + 4 + 43 + 1 + 8)
+    flags = [(r.u(1), r.u(1)) for _ in range(max_sub_layers_minus1)]
+    if max_sub_layers_minus1:
+        r.u(2 * (8 - max_sub_layers_minus1))
+    for prof, lev in flags:
+        r.u(88 * prof + 8 * lev)
+    return profile
+
+
+def _st_ref_pic_set(r: _Reader, idx: int, num: int, sets: list[list[int]]) -> list[int]:
+    """The delta POCs of short-term RPS idx (7.3.7, 7.4.8)."""
+    if idx and r.u(1):
+        delta_idx = r.ue() + 1 if idx == num else 1
+        if not 0 <= idx - delta_idx < len(sets):
+            raise ValueError("HEVC: an RPS predicted from no RPS")
+        ref = sets[idx - delta_idx]
+        delta = (1 - 2 * r.u(1)) * (r.ue() + 1)
+        out = []
+        for d in ref + [0]:
+            used = r.u(1)
+            if used or r.u(1):
+                if d + delta != 0:
+                    out.append(d + delta)
+        return out
+    neg, pos = r.ue(), r.ue()
+    if neg > 16 or pos > 16 - neg:
+        raise ValueError("HEVC: an RPS of more than 16 pictures")
+    out, poc = [], 0
+    for _ in range(neg):
+        poc -= r.ue() + 1
+        r.u(1)
+        out.append(poc)
+    poc = 0
+    for _ in range(pos):
+        poc += r.ue() + 1
+        r.u(1)
+        out.append(poc)
+    return out
+
+
+def _extensions(r: _Reader, what: str) -> None:
+    if r.u(1):
+        names = ("range extension", "multilayer extension (a multi-layer stream)",
+                 "3D extension", "screen content coding extension")
+        for name in names:
+            if r.u(1):
+                raise _unsupported(f"{what} {name}")
+        if r.u(4):
+            raise _unsupported(f"{what} extension (extension_4bits)")
+
+
+def parse_sps(unit: bytes) -> dict:
+    """What `probe` and the refusal need of an SPS NAL unit: id, the cropped
+    width and height, fps from the VUI's timing (0.0 where it has none),
+    full_range and matrix (matrix_coeffs; 2, unspecified, where the VUI has
+    none).  Raises `container.UnsupportedCodecError` for what the decoder
+    refuses."""
+    r = _Reader(_rbsp(unit))
+    r.u(4)
+    msl = r.u(3)
+    r.u(1)
+    profile = _profile_tier_level(r, msl)
+    sps = {"id": r.ue(), "profile": profile, "fps": 0.0, "full_range": False, "matrix": 2}
+    chroma = r.ue()
+    if chroma != 1:
+        names = {0: "4:0:0 (monochrome)", 2: "4:2:2", 3: "4:4:4"}
+        raise _unsupported(f"chroma format {names.get(chroma, chroma)} (a range extension "
+                           "profile)")
+    width, height = r.ue(), r.ue()
+    crop = [0, 0, 0, 0]
+    if r.u(1):
+        crop = [2 * r.ue() for _ in range(4)]
+    sps["width"], sps["height"] = width - crop[0] - crop[1], height - crop[2] - crop[3]
+    depth, depth_c = r.ue() + 8, r.ue() + 8
+    if depth != 8 or depth_c != 8:
+        raise _unsupported(f"bit depth above 8 ({depth}-bit luma, {depth_c}-bit chroma: "
+                           "Main 10 or a range extension profile)")
+    r.ue()                                             # log2_max_pic_order_cnt_lsb_minus4
+    ordering = r.u(1)
+    for _ in range(msl + 1 if ordering else 1):
+        r.ue(), r.ue(), r.ue()
+    for _ in range(6):
+        r.ue()
+    if r.u(1):
+        raise _unsupported("scaling lists (scaling_list_enabled_flag)")
+    r.u(2)                                             # amp, sample_adaptive_offset
+    if r.u(1):
+        raise _unsupported("PCM (pcm_enabled_flag)")
+    num = r.ue()
+    if num > 64:
+        raise ValueError("HEVC: num_short_term_ref_pic_sets above 64")
+    sets: list[list[int]] = []
+    for i in range(num):
+        sets.append(_st_ref_pic_set(r, i, num, sets))
+    if r.u(1):
+        raise _unsupported("long-term reference pictures (long_term_ref_pics_present_flag)")
+    r.u(2)                                             # temporal MVP, strong intra smoothing
+    if r.u(1):                                         # vui_parameters
+        if r.u(1) and r.u(8) == 255:
+            r.u(32)
+        if r.u(1):
+            r.u(1)
+        if r.u(1):
+            r.u(3)
+            sps["full_range"] = bool(r.u(1))
+            if r.u(1):
+                r.u(16)
+                sps["matrix"] = r.u(8)
+        if r.u(1):
+            r.ue(), r.ue()
+        r.u(3)
+        if r.u(1):                                     # the default display window: not applied
+            for _ in range(4):
+                r.ue()
+        if r.u(1):
+            tick, scale = r.u(32), r.u(32)
+            if tick:
+                sps["fps"] = scale / tick
+            if r.u(1):
+                r.ue()
+            if r.u(1):
+                _hrd(r, msl)
+        if r.u(1):
+            r.u(3)
+            for _ in range(5):
+                r.ue()
+    _extensions(r, "SPS")
+    return sps
+
+
+def _hrd(r: _Reader, max_sub_layers_minus1: int) -> None:
+    """Skip hrd_parameters(1, max_sub_layers_minus1) (E.2.2)."""
+    nal, vcl, sub_pic = r.u(1), r.u(1), 0
+    if nal or vcl:
+        sub_pic = r.u(1)
+        r.u(19 * sub_pic + 8 + 4 * sub_pic + 15)
+    for _ in range(max_sub_layers_minus1 + 1):
+        within = 1 if r.u(1) else r.u(1)
+        low_delay = 0
+        if within:
+            r.ue()
+        else:
+            low_delay = r.u(1)
+        cpb = 1 if low_delay else r.ue() + 1
+        for _ in range((nal + vcl) * cpb):
+            for _ in range(4 if sub_pic else 2):
+                r.ue()
+            r.u(1)
+
+
+def parse_pps(unit: bytes) -> dict:
+    """A PPS NAL unit's id and SPS id; raises `container.UnsupportedCodecError`
+    for what the decoder refuses."""
+    r = _Reader(_rbsp(unit))
+    pps = {"id": r.ue(), "sps_id": r.ue()}
+    r.u(1 + 1 + 3 + 1 + 1)
+    r.ue(), r.ue(), r.se()
+    r.u(2)
+    if r.u(1):
+        r.ue()
+    r.se(), r.se()
+    r.u(3)
+    if r.u(1):
+        raise _unsupported("transquant bypass (transquant_bypass_enabled_flag)")
+    if r.u(1):
+        raise _unsupported("tiles (tiles_enabled_flag)")
+    r.u(2)
+    if r.u(1):
+        r.u(1)
+        if not r.u(1):
+            r.se(), r.se()
+    if r.u(1):
+        raise _unsupported("scaling lists (pps_scaling_list_data_present_flag)")
+    r.u(1)
+    r.ue()
+    r.u(1)
+    _extensions(r, "PPS")
+    return pps
+
+
+def hvcc_units(hvcc: bytes, path) -> tuple[list[bytes], int]:
+    """(the parameter set NAL units, NAL length size) of an hvcC box's body;
+    an `hev1` track may hold none, its parameter sets being in band."""
+    if len(hvcc) < 23 or hvcc[0] != 1:
+        raise ValueError(f"{path}: an hvcC box of version {hvcc[:1].hex() or 'none'}")
+    length = (hvcc[21] & 3) + 1
+    pos, units = 23, []
+    for _ in range(hvcc[22]):
+        if pos + 3 > len(hvcc):
+            raise ValueError(f"{path}: the hvcC box is cut short")
+        count = int.from_bytes(hvcc[pos + 1:pos + 3], "big")
+        pos += 3
+        for _ in range(count):
+            size = int.from_bytes(hvcc[pos:pos + 2], "big")
+            unit = hvcc[pos + 2:pos + 2 + size]
+            if pos + 2 > len(hvcc) or len(unit) != size or size < 2:
+                raise ValueError(f"{path}: a parameter set of the hvcC box is cut short")
+            units.append(unit)
+            pos += 2 + size
+    return units, length
+
+
+# ── the host decoder ────────────────────────────────────────────────────
+
+_SOURCE = Path(__file__).resolve().with_name("hevcdec.cpp")
+_GXX_FLAGS = ("-std=c++17", "-O2", "-shared", "-fPIC")
+
+
+@functools.cache
+def _library() -> ctypes.CDLL:
+    """Build (at first use, with g++, into `omfs4d_torch/_build/`) and load
+    the host decoder; raises RuntimeError with g++'s message when it cannot:
+    no frame is decoded in Python on the reading path."""
+    from omfs4d_torch import native
+
+    path = native.build(_SOURCE, "hevcdec", _GXX_FLAGS,
+                        "omfs4d_torch/io/hevcdec.cpp (the HEVC decoder)",
+                        headers={"hevc_tables.h": hevc_tables.cpp_header()})
+    return frames_base.bind_decoder(ctypes.CDLL(str(path)), "hevcd")
+
+
+class Decoder(frames_base.HostDecoder):
+    """The host C++ decoder (`hevcdec.cpp`), as `frames.HostDecoder` sets
+    out."""
+
+    prefix, codec = "hevcd", "HEVC"
+
+    def library(self) -> ctypes.CDLL:
+        return _library()
+
+    def unsupported(self, msg: str) -> container.UnsupportedCodecError:
+        return _unsupported(msg.removeprefix("HEVC "))
+
+
+# an Annex B stream's NAL units: the same start codes as H.264's
+annexb_units = h264.annexb_units
+
+
+def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    """Every picture of an Annex B HEVC stream, through the host decoder, in
+    output order."""
+    dec = Decoder()
+    out = []
+    for unit in annexb_units(data):
+        dec.push(unit)
+        out += dec.pictures()
+    dec.flush()
+    return out + dec.pictures()
+
+
+class HEVCFrames(frames_base.SampleFrames):
+    """The frames of an HEVC MP4 / QuickTime file as (H, W, 3) uint8 RGB,
+    decoded by the host decoder on access, as cv2 shows them (see
+    `frames.SampleFrames`), converted with the VUI's range and matrix.  The
+    parameter sets are the hvcC box's and, for `hev1`, the first sample's."""
+
+    def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
+        super().__init__(path, offsets, sizes, info)
+        self.headers, self.length = hvcc_units(info["hvcC"], path)
+        # refuse a stream outside the decoder's subset now, with no decode
+        base = [u for u in self.headers + (self.units(0) if offsets else [])
+                if nuh_layer_id(u) == 0]
+        sps = [parse_sps(u) for u in base if nal_type(u) == NAL_SPS]
+        for unit in base:
+            if nal_type(unit) == NAL_PPS:
+                parse_pps(unit)
+        if not sps:
+            raise ValueError(f"{path}: no sequence parameter set in the hvcC box or the first "
+                             "sample")
+        self.params = sps[0]
+
+    def header_units(self) -> list[bytes]:
+        return self.headers
+
+    def new_decoder(self) -> Decoder:
+        return Decoder()
+
+    def rgb_of(self, planes) -> np.ndarray:
+        return h264.ycbcr_to_rgb(*planes, full_range=self.params["full_range"],
+                                 matrix=self.params["matrix"])
+
+
+def frames(path) -> HEVCFrames:
+    """The frames of an HEVC (`hvc1` / `hev1`) MP4 or QuickTime file, decoded
+    on access by the host decoder; parameter sets outside its subset
+    raise."""
+    offsets, sizes, info = container.index(path)
+    if info["codec"] != "hevc":
+        raise ValueError(f"{path}: its video is not HEVC")
+    return HEVCFrames(Path(path), offsets, sizes, info)

@@ -28,11 +28,15 @@ contract).  With none, the port's own codecs:
   High profile I, P and B pictures in MP4 or QuickTime, as phones record
   them (`h264.H264Frames`, the host C++ decoder built by g++ at first use),
   turned by the track's display matrix and cut by its edit list as cv2
-  reads them; MPEG-4 Part 2 Simple profile in MP4 or AVI, as cv2's `mp4v`,
+  reads them; HEVC Main profile (8-bit) in MP4 or QuickTime (`hvc1` /
+  `hev1`), as iPhones record by default and x265 writes, read alike
+  (`hevc.HEVCFrames`, the host C++ decoder `hevcdec.cpp`); MPEG-4 Part 2
+  Simple profile in MP4 or AVI, as cv2's `mp4v`,
   `XVID`, `DIVX` and `FMP4` writers (and so the JAX package's
   `stitch_video` without an H.264 encoder) write it (`mpeg4.MPEG4Frames`,
-  the host C++ decoder `mpeg4dec.cpp`).  HEVC, H.264 with fields or more
-  than 8 bits, MPEG-4 Part 2 beyond Simple profile and other codecs raise
+  the host C++ decoder `mpeg4dec.cpp`).  HEVC beyond Main 8-bit (Main 10,
+  tiles, long-term references, ...), H.264 with fields or more than 8 bits,
+  MPEG-4 Part 2 beyond Simple profile and other codecs raise
   `container.UnsupportedCodecError` naming the codec or feature.
 """
 
@@ -47,7 +51,7 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import container, h264, mjpeg, mpeg4
+from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg4
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
 
 log = get_logger("video")
@@ -252,9 +256,9 @@ def probe_video(path: str | Path) -> dict:
     """Width, height, fps and frame count of a capture: a directory of PNG or
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
-    Motion JPEG in AVI or MP4, H.264 (Main / High, I, P and B pictures) in
-    MP4 or QuickTime or MPEG-4 Part 2 (Simple) in MP4 or AVI, with no
-    decode: the size as displayed (turned by the track's matrix) and the
+    Motion JPEG in AVI or MP4, H.264 (Main / High, I, P and B pictures) or
+    HEVC (Main, 8-bit) in MP4 or QuickTime or MPEG-4 Part 2 (Simple) in MP4
+    or AVI, with no decode: the size as displayed (turned by the track's matrix) and the
     count of samples, as cv2 reports them (`container.UnsupportedCodecError`
     for another codec)."""
     import re
@@ -293,12 +297,12 @@ def extract_frames(
 ) -> list[Path]:
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
     through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4,
-    H.264 Main / High I, P and B pictures in MP4 or QuickTime, upright and
-    edited as cv2 shows them, or MPEG-4 Part 2 Simple in MP4 or AVI) into
-    numbered PNG frames (RGB), every `stride`-th one, at most `max_frames`,
-    shrunk by area averaging so that min(H, W) ~ target_size.  A Motion JPEG
-    file's frames are decoded only where they are kept; an H.264 or MPEG-4
-    file's in order up to the last one kept."""
+    H.264 Main / High I, P and B pictures or HEVC Main in MP4 or QuickTime,
+    upright and edited as cv2 shows them, or MPEG-4 Part 2 Simple in MP4 or
+    AVI) into numbered PNG frames (RGB), every `stride`-th one, at most
+    `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.
+    A Motion JPEG file's frames are decoded only where they are kept; an
+    H.264, HEVC or MPEG-4 file's in order up to the last one kept."""
     import tempfile
 
     src = Path(video_path)
@@ -330,10 +334,12 @@ def extract_frames(
     return paths
 
 
-_READERS = {"h264": h264.H264Frames, "mpeg4": mpeg4.MPEG4Frames, "mjpeg": mjpeg.MJPEGFrames}
+_READERS = {"h264": h264.H264Frames, "hevc": hevc.HEVCFrames, "mpeg4": mpeg4.MPEG4Frames,
+            "mjpeg": mjpeg.MJPEGFrames}
 
 
-def _own_reader(path: Path) -> h264.H264Frames | mpeg4.MPEG4Frames | mjpeg.MJPEGFrames:
+def _own_reader(path: Path) -> (h264.H264Frames | hevc.HEVCFrames | mpeg4.MPEG4Frames
+                                | mjpeg.MJPEGFrames):
     """A video file's frames through the port's own readers, with no ffmpeg:
     the file is indexed once and read by its codec's module."""
     offsets, sizes, info = container.index(path)

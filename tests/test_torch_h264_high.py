@@ -365,16 +365,19 @@ REFUSED = {"b_slices": None, "sp_slices": "H.264 SP/SI slices",
            "field": "H.264 interlaced (field) coding", "mbaff": "H.264 MBAFF",
            "high10": "H.264 High 10 profile", "high422": "H.264 High 4:2:2 profile",
            "high444": "H.264 High 4:4:4 Predictive profile",
-           "hevc": "H.265 / HEVC", "h264_in_avi": "H.264"}
+           "hevc": None, "h264_in_avi": "H.264"}
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_what_stays_outside_is_refused_by_name(tmp_path, capfd, case):
-    """SP slices, field coding, MBAFF, High 10, High 4:2:2 and High 4:4:4,
-    HEVC and H.264 in AVI raise UnsupportedCodecError naming the feature and
-    ffmpeg, from probe_video or at the latest extract_frames.  B slices, which
-    raised before the decoder read them, now read as the JAX package reads
-    them: a B-pyramid clip with `ctts` and FFmpeg's edit list."""
+    """SP slices, field coding, MBAFF, High 10, High 4:2:2 and High 4:4:4
+    and H.264 in AVI raise UnsupportedCodecError naming the feature and
+    ffmpeg, from probe_video or at the latest extract_frames.  B slices and
+    HEVC, which raised before their decoders read them, now read as the JAX
+    package reads them: a B-pyramid clip with `ctts` and FFmpeg's edit list,
+    and an `hvc1` B-pyramid from the HEVC writer with a CRA and its RASL
+    pictures (an `hvc1` entry with no hvcC box stays refused:
+    `test_torch_mjpeg.py::test_other_codecs_need_ffmpeg`)."""
     path = tmp_path / "clip.mov"
     aus = syn.write_stream(0, frames=2, width=48, height=32)
     if case == "b_slices":
@@ -394,6 +397,27 @@ def test_what_stays_outside_is_refused_by_name(tmp_path, capfd, case):
             assert x.shape == y.shape == (32, 48, 3)
             assert np.abs(x - y).max() <= tol
         return
+    if case == "hevc":
+        from omfs4d_torch.io import hevc
+        from tests import torch_hevc_syntax as hevc_syn
+
+        writer = hevc_syn.Writer(0, gop="pyramid", frames=9, cra=True, width=48, height=32,
+                                 colour=(0, 2))
+        aus = writer.stream()
+        hevc_syn.write_mov(path, aus, 48, 32, media_time="ctts", display=writer.display)
+        assert container.index(path)[2]["codec"] == "hevc"
+        assert tvideo.probe_video(path) == jvideo.probe_video(path)
+        ours = tvideo.extract_frames(path, tmp_path / "ours")
+        theirs = jvideo.extract_frames(path, tmp_path / "theirs")
+        capfd.readouterr()
+        assert len(ours) == len(theirs) == 9
+        planes = hevc.decode_annexb(hevc_syn.annexb(aus))
+        tol = rgb_tolerance(planes, (0, 2), tmp_path, capfd)
+        for a, b in zip(ours, theirs):
+            x, y = tvideo.read_image(a).astype(int), tvideo.read_image(b).astype(int)
+            assert x.shape == y.shape == (32, 48, 3)
+            assert np.abs(x - y).max() <= tol
+        return
     if case == "sp_slices":
         pps_id = h264.parse_pps([u for u in aus[0] if u[0] & 0x1F == 8][-1])["id"]
         bw = syn.BitWriter()
@@ -407,7 +431,7 @@ def test_what_stays_outside_is_refused_by_name(tmp_path, capfd, case):
                         "high444": 244}[case], frame_mbs_only=0 if case in ("field", "mbaff")
                        else 1, mbaff=int(case == "mbaff"))
         aus[0] = [sps] + [u for u in aus[0] if u[0] & 0x1F != 7]
-    syn.write_mov(path, aus, 48, 32, sample_entry=b"hvc1" if case == "hevc" else b"avc1")
+    syn.write_mov(path, aus, 48, 32)
     if case == "h264_in_avi":
         path = tmp_path / "clip.avi"
         mjpeg.write(path, [b"\xff\xd8\xff\xd9"] * 2, 25.0, 48, 32)

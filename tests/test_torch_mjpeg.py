@@ -179,11 +179,12 @@ def patched(data: bytes, old: bytes, new: bytes) -> bytes:
     return data.replace(old, new)
 
 
-@pytest.mark.parametrize("case", ["mp4v", "xvid_avi", "avc1", "avc1_no_avcc", "no_container"])
+@pytest.mark.parametrize("case", ["mp4v", "xvid_avi", "avc1", "avc1_no_avcc", "hvc1_no_hvcc",
+                                  "no_container"])
 def test_other_codecs_need_ffmpeg(tmp_path, capfd, case):
-    """An avc1 sample entry with no avcC box and a file that is no container
-    raise a RuntimeError naming the codec and ffmpeg, from probe_video and
-    extract_frames both.  A High-profile CABAC track, which raised before the
+    """An avc1 sample entry with no avcC box, an hvc1 entry with no hvcC box
+    and a file that is no container raise a RuntimeError naming the codec and
+    ffmpeg, from probe_video and extract_frames both.  A High-profile CABAC track, which raised before the
     host H.264 decoder, and MPEG-4 Part 2 (cv2's mp4v rung, OTI 0x20, and
     Xvid in AVI), which raised before the host MPEG-4 decoder, now read as
     the JAX package reads them: the same probe, as many frames, each within
@@ -202,6 +203,12 @@ def test_other_codecs_need_ffmpeg(tmp_path, capfd, case):
     if case == "no_container":
         path, name = tmp_path / "clip.mp4", "neither an AVI nor an MP4"
         path.write_bytes(b"\x00" * 64)
+    elif case == "hvc1_no_hvcc":
+        from tests import torch_hevc_syntax as hevc_syn
+
+        path, name = tmp_path / "clip.mp4", "H.265 / HEVC with no hvcC box"
+        hevc_syn.write_mov(path, hevc_syn.write_stream(0, frames=2), 64, 48, quicktime=False,
+                           config=False)
     elif case == "avc1":
         path = tmp_path / "clip.mp4"
         cabac_clip(path, 100)

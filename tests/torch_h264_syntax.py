@@ -2072,13 +2072,6 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
     frame apart from 0, composition offsets (version 0) that shift the
     earliest picture shown by the reorder delay; its edit list then starts at
     that delay (`media_time` "ctts": the first sample's offset)."""
-    timescale, delta = 600 * fps, 600
-    offsets_ct = None
-    if display is not None:
-        delay = max(k - d for k, d in enumerate(display))
-        offsets_ct = [(d + delay - k) * delta for k, d in enumerate(display)]
-    if media_time == "ctts":
-        media_time = offsets_ct[0]
     sps = [u for au in aus for u in au if u[0] & 0x1F == 7]
     pps = [u for au in aus for u in au if u[0] & 0x1F == 8]
     in_band = sample_entry == b"avc3"
@@ -2088,6 +2081,30 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
         samples.append(b"".join(struct.pack(">I", len(u)) + u for u in units))
         if any(u[0] & 0x1F == 5 for u in au):
             sync.append(i + 1)
+    avcc = bytes([1, sps[0][1], sps[0][2], sps[0][3], 0xFF, 0xE0 | (0 if in_band else len(sps))])
+    if not in_band:
+        avcc += b"".join(struct.pack(">H", len(u)) + u for u in sps)
+    avcc += bytes([0 if in_band else len(pps)])
+    if not in_band:
+        avcc += b"".join(struct.pack(">H", len(u)) + u for u in pps)
+    write_track_file(path, samples, sync, sample_entry, _box(b"avcC", avcc), width, height, fps,
+                     rotation, audio, quicktime, media_time, display)
+
+
+def write_track_file(path, samples: list[bytes], sync: list[int], sample_entry: bytes,
+                     config: bytes, width: int, height: int, fps: int = 30, rotation: int = 0,
+                     audio: bool = True, quicktime: bool = True, media_time: int | None = 0,
+                     display: list[int] | None = None) -> None:
+    """The file `write_mov` describes, of length-prefixed samples (`sync`:
+    the 1-based numbers of the sync samples), the sample entry's codec
+    configuration box `config` (avcC, hvcC) given whole."""
+    timescale, delta = 600 * fps, 600
+    offsets_ct = None
+    if display is not None:
+        delay = max(k - d for k, d in enumerate(display))
+        offsets_ct = [(d + delay - k) * delta for k, d in enumerate(display)]
+    if media_time == "ctts":
+        media_time = offsets_ct[0]
     n = len(samples)
     rate, channels = 48000, 2
     audio_bytes = bytes(rate * channels * 2 * n // fps) if audio else b""
@@ -2098,15 +2115,9 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
     video_at = mdat_start + 8
     audio_at = video_at + sum(len(s) for s in samples)
     mdat = _box(b"mdat", *samples, audio_bytes)
-    avcc = bytes([1, sps[0][1], sps[0][2], sps[0][3], 0xFF, 0xE0 | (0 if in_band else len(sps))])
-    if not in_band:
-        avcc += b"".join(struct.pack(">H", len(u)) + u for u in sps)
-    avcc += bytes([0 if in_band else len(pps)])
-    if not in_band:
-        avcc += b"".join(struct.pack(">H", len(u)) + u for u in pps)
     entry = _box(sample_entry, bytes(6), struct.pack(">H", 1), bytes(16),
                  struct.pack(">HHIIIH", width, height, 0x480000, 0x480000, 0, 1), bytes(32),
-                 struct.pack(">Hh", 0x18, -1), _box(b"avcC", avcc))
+                 struct.pack(">Hh", 0x18, -1), config)
     offsets, pos = [], video_at
     for s in samples:
         offsets.append(pos)
