@@ -3114,11 +3114,13 @@ def hevc_corpus(work: Path) -> dict:
     """The host HEVC decoder on the card's machine (no cv2 there): built by
     g++ (timed); every file of the committed corpus has its manifest's
     SHA-256 and decodes to the SHA-256s of its pictures there, which cv2's
-    FFmpeg agreed with where the corpus was written; clip_hevc.mp4's (x265's
-    layout at 1080p: WPP, SAO, TMVP, a B-pyramid, a CRA with RASL pictures)
-    I, P and B pictures are timed; `cli preprocess --video` gives its 9
-    frames in display order at target_size 512, and portrait.mov's (`hev1`,
-    a 90-degree matrix) 6 frames upright."""
+    FFmpeg agreed with where the corpus was written (10-bit planes hashed as
+    little-endian uint16); clip_hevc.mp4's (x265's layout at 1080p: WPP, SAO,
+    TMVP, a B-pyramid, a CRA with RASL pictures) and clip_hevc10.mov's (the
+    same layout in Main 10, an iPhone HDR capture's HLG tags) I, P and B
+    pictures are timed; `cli preprocess --video` gives clip_hevc.mp4's 9
+    frames in display order at target_size 512, portrait.mov's (`hev1`, a
+    90-degree matrix) 6 frames upright and clip_hevc10.mov's 5."""
     from omfs4d_torch.io import hevc
     from omfs4d_torch.io import video as tvideo
     from omfs4d_torch.pipeline import cli
@@ -3126,8 +3128,33 @@ def hevc_corpus(work: Path) -> dict:
     def sha(planes) -> str:
         h = hashlib.sha256()
         for p in planes:
-            h.update(np.ascontiguousarray(p).tobytes())
+            p = np.asarray(p)
+            h.update(np.ascontiguousarray(p if p.dtype == np.uint8 else p.astype("<u2")).tobytes())
         return h.hexdigest()
+
+    def timed(name: str) -> tuple[dict, dict]:
+        """Each picture of a clip decoded and timed apart: seconds and bytes
+        by slice type; its pictures checked against the manifest."""
+        entry = manifest["streams"][name]
+        clip = hevc.frames(HEVC_CORPUS / name)
+        dec = hevc.Decoder()
+        for unit in clip.header_units():
+            dec.push(unit)
+        by_kind, sizes, out = {"I": [], "P": [], "B": []}, {"I": [], "P": [], "B": []}, []
+        for i in range(len(clip.offsets)):
+            units = clip.units(i)
+            t0 = time.perf_counter()
+            for unit in units:
+                dec.push(unit)
+            dec.end_picture()
+            by_kind[entry["kinds"][i]].append(time.perf_counter() - t0)
+            sizes[entry["kinds"][i]].append(sum(map(len, units)))
+            out += dec.pictures()
+        dec.flush()
+        out += dec.pictures()
+        check([sha(p) for p in out] == entry["sha256"],
+              f"{name}: {len(out)} pictures (timed) equal to the manifest")
+        return by_kind, sizes
 
     t0 = time.perf_counter()
     hevc._library()                                  # g++, at first use
@@ -3146,27 +3173,13 @@ def hevc_corpus(work: Path) -> dict:
         check([sha(p) for p in pics] == entry["sha256"],
               f"{name}: {len(pics)} pictures equal to the manifest")
     corpus_s = time.perf_counter() - t0
-    entry = manifest["streams"]["clip_hevc.mp4"]
-    clip = hevc.frames(HEVC_CORPUS / "clip_hevc.mp4")
-    dec = hevc.Decoder()
-    for unit in clip.header_units():
-        dec.push(unit)
-    by_kind, sizes, out = {"I": [], "P": [], "B": []}, {"I": [], "P": [], "B": []}, []
-    for i in range(len(clip.offsets)):
-        units = clip.units(i)
-        t0 = time.perf_counter()
-        for unit in units:
-            dec.push(unit)
-        dec.end_picture()
-        by_kind[entry["kinds"][i]].append(time.perf_counter() - t0)
-        sizes[entry["kinds"][i]].append(sum(map(len, units)))
-        out += dec.pictures()
-    dec.flush()
-    out += dec.pictures()
-    check([sha(p) for p in out] == entry["sha256"],
-          f"clip_hevc.mp4: {len(out)} pictures (timed) equal to the manifest")
+    by_kind, sizes = timed("clip_hevc.mp4")
+    by_kind10, sizes10 = timed("clip_hevc10.mov")
+    check(hevc.frames(HEVC_CORPUS / "clip_hevc10.mov").params["bit_depth"] == 10,
+          "clip_hevc10.mov is Main 10")
     runs, shapes_out = {}, {}
-    for name, n, shape in (("clip_hevc.mp4", 9, (512, 910, 3)), ("portrait.mov", 6, (320, 176, 3))):
+    for name, n, shape in (("clip_hevc.mp4", 9, (512, 910, 3)), ("portrait.mov", 6, (320, 176, 3)),
+                           ("clip_hevc10.mov", 5, (512, 910, 3))):
         path = HEVC_CORPUS / name
         wd = work / f"wd_{path.stem}"
         t0 = time.perf_counter()
@@ -3188,12 +3201,17 @@ def hevc_corpus(work: Path) -> dict:
     check(shapes_out["portrait.mov"][0] > shapes_out["portrait.mov"][1],
           "portrait.mov reads upright (a portrait)")
     mean = {k: float(np.mean(v)) for k, v in by_kind.items()}
+    mean10 = {k: float(np.mean(v)) for k, v in by_kind10.items()}
     return {"build_s": build_s, "files": len(manifest["streams"]), "corpus_s": corpus_s,
             "i_s": mean["I"], "p_s": mean["P"], "b_s": mean["B"], "n_i": len(by_kind["I"]),
             "n_p": len(by_kind["P"]), "n_b": len(by_kind["B"]),
             "bytes": {k: float(np.mean(v)) for k, v in sizes.items()},
+            "i10_s": mean10["I"], "p10_s": mean10["P"], "b10_s": mean10["B"],
+            "n10": {k: len(v) for k, v in by_kind10.items()},
+            "bytes10": {k: float(np.mean(v)) for k, v in sizes10.items()},
             "preprocess_clip_s": runs["clip_hevc.mp4"],
-            "preprocess_portrait_s": runs["portrait.mov"]}
+            "preprocess_portrait_s": runs["portrait.mov"],
+            "preprocess_hdr_s": runs["clip_hevc10.mov"]}
 
 
 def phase_m(model, device, card: str, work: Path) -> dict:
@@ -3448,6 +3466,12 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"preprocess --video clip_hevc.mp4 {hev['preprocess_clip_s']:.2f} s -> 9 frames "
           f"910x512, --video portrait.mov {hev['preprocess_portrait_s']:.2f} s -> 6 frames "
           f"176x320 (portrait); the HEVC part {hevc_s:.2f} s [{card}]")
+    print(f"  HEVC Main 10 (hevcdec.cpp, 16-bit samples): clip_hevc10.mov (an iPhone HDR "
+          f"capture's layout, 1920x1080, HLG tags, WPP, SAO, TMVP) I {hev['i10_s']:.4f} s, "
+          f"P {hev['p10_s']:.4f} s, B {hev['b10_s']:.4f} s/picture (means of "
+          + " / ".join(str(hev["n10"][k]) for k in "IPB") + "; "
+          + " / ".join(f"{hev['bytes10'][k]:.0f}" for k in "IPB") + " bytes); cli preprocess "
+          f"--video clip_hevc10.mov {hev['preprocess_hdr_s']:.2f} s -> 5 frames 910x512 [{card}]")
     print(f"  bytes a frame of the render PNGs: H.264 (QP {h264.H264_QP}, the pictures' QPs "
           f"{sorted(set(stream.qp))}, level {stream.level / 10:.1f}) "
           f"{h264_bytes / n_train:.1f} (file {h264_bytes}; IDR "

@@ -34,6 +34,10 @@ _API = (("new", [], ctypes.c_void_p), ("free", [ctypes.c_void_p], None),
                         ctypes.POINTER(ctypes.c_int32)], ctypes.c_int),
         ("pop", [ctypes.c_void_p] + [ctypes.c_void_p] * 3, ctypes.c_int),
         ("error", [ctypes.c_void_p], ctypes.c_char_p))
+# what a decoder of samples deeper than 8 bits exports besides: the bit depth
+# of the next picture out, and a pop into uint16 planes
+_API_DEEP = (("bit_depth", [ctypes.c_void_p], ctypes.c_int),
+             ("pop16", [ctypes.c_void_p] + [ctypes.c_void_p] * 3, ctypes.c_int))
 
 
 def bind_decoder(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
@@ -42,15 +46,21 @@ def bind_decoder(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
     for name, argtypes, restype in _API:
         fn = getattr(lib, f"{prefix}_{name}")
         fn.argtypes, fn.restype = argtypes, restype
+    for name, argtypes, restype in _API_DEEP:
+        fn = getattr(lib, f"{prefix}_{name}", None)
+        if fn is not None:
+            fn.argtypes, fn.restype = argtypes, restype
     return lib
 
 
 class HostDecoder:
     """A host C++ decoder: NAL units in (`push`, with the emulation
-    prevention bytes still in), pictures out as cropped (Y', Cb, Cr) uint8
-    planes in output order (`pictures`).  A corrupt unit raises ValueError
-    and one outside the decoder's subset `UnsupportedCodecError` naming the
-    feature; after either the decoder is spent.  A subclass gives `prefix`,
+    prevention bytes still in), pictures out as cropped (Y', Cb, Cr) planes
+    in output order (`pictures`): uint8 at 8 bits, uint16 holding the
+    samples themselves at 9 or 10 (where the library exports
+    `<prefix>_bit_depth`).  A corrupt unit raises ValueError and one outside
+    the decoder's subset `UnsupportedCodecError` naming the feature; after
+    either the decoder is spent.  A subclass gives `prefix`,
     `library` (the bound library, built at first use) and `unsupported` (the
     exception for a message of code 2)."""
 
@@ -65,6 +75,7 @@ class HostDecoder:
 
     def __init__(self):
         self._lib = self.library()
+        self._deep = hasattr(self._lib, f"{self.prefix}_bit_depth")
         self._h = self._fn("new")()
         if not self._h:
             raise MemoryError(f"{self.codec}: the decoder could not be created")
@@ -103,10 +114,13 @@ class HostDecoder:
         w, h = ctypes.c_int32(), ctypes.c_int32()
         while self._fn("ready")(self._h):
             self._fn("frame_size")(self._h, ctypes.byref(w), ctypes.byref(h))
-            planes = (np.empty((h.value, w.value), np.uint8),
-                      np.empty((h.value // 2, w.value // 2), np.uint8),
-                      np.empty((h.value // 2, w.value // 2), np.uint8))
-            self._fn("pop")(self._h, *(p.ctypes.data for p in planes))
+            deep = self._deep and self._fn("bit_depth")(self._h) > 8
+            dtype = np.uint16 if deep else np.uint8
+            planes = (np.empty((h.value, w.value), dtype),
+                      np.empty((h.value // 2, w.value // 2), dtype),
+                      np.empty((h.value // 2, w.value // 2), dtype))
+            if self._fn("pop16" if deep else "pop")(self._h, *(p.ctypes.data for p in planes)):
+                raise ValueError(f"{self.codec}: a picture could not be copied out")
             out.append(planes)
         return out
 
@@ -177,7 +191,8 @@ class SampleFrames(Sequence):
         return out
 
     def ycbcr(self, i: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-        """Frame i as decoded (before the rotation): Y', Cb, Cr uint8 planes."""
+        """Frame i as decoded (before the rotation): Y', Cb, Cr planes (uint8,
+        or uint16 above 8 bits)."""
         if not -len(self) <= i < len(self):
             raise IndexError(f"{self.path}: frame {i} of {len(self)}")
         return self._picture(self.shown[i % len(self)])

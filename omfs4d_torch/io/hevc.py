@@ -1,13 +1,14 @@
 """HEVC (ITU-T H.265 | ISO/IEC 23008-2) in MP4 and QuickTime, read on the host
 with no ffmpeg: the video that phones record by default (an iPhone's "High
-Efficiency" format, many Android camera apps) and that `ffmpeg -c:v libx265`
-writes.
+Efficiency" format and its "HDR Video", which is Main 10; many Android camera
+apps) and that `ffmpeg -c:v libx265` writes.
 
 The reader (`frames`, `HEVCFrames`, `decode_annexb`) is the host C++ decoder
 `hevcdec.cpp` (`Decoder`), built by g++ at first use into
 `omfs4d_torch/_build/` (no Python fallback: without g++ reading raises with
-the reason) and bound with ctypes.  It decodes the Main and Main Still
-Picture profiles at 8-bit 4:2:0: I, P and B slices, CABAC with wavefront
+the reason) and bound with ctypes.  It decodes the Main, Main 10 and Main
+Still Picture profiles, 4:2:0 at 8, 9 or 10 bits (deeper pictures come out as
+uint16 planes of the samples themselves): I, P and B slices, CABAC with wavefront
 parallel processing, SAO and deblocking, several and dependent slice
 segments, TMVP, weighted prediction, temporal sub-layers, CRA with RASL and
 RADL pictures, output in POC order cropped by the conformance window (not by
@@ -15,17 +16,23 @@ the VUI's default display window, which FFmpeg does not apply either).
 `HEVCFrames` shows a file's frames as cv2 does (`frames.SampleFrames`): in
 presentation order (`ctts`), those its edit list keeps, turned by the
 track's display matrix, converted with the VUI's range and matrix
-(`h264.ycbcr_to_rgb`).  An `hvc1` track's parameter sets are its hvcC box's;
-an `hev1` track may carry them in band.
+(`h264.ycbcr_to_rgb`, which takes 10-bit planes on a path of their own, as
+cv2 does).  A stream tagged with BT.2020 primaries or a PQ / HLG transfer (an
+iPhone's HDR capture) is read exactly and converted the same way: cv2's
+colour management of such a stream (gamut and tone mapping) is not applied,
+and the reader logs that once a file.  An `hvc1` track's parameter sets are
+its hvcC box's; an `hev1` track may carry them in band.
 
 Refused by name, with no decode, where the parameter sets show it (here, in
 `parse_sps` / `parse_pps`, and again in the decoder): tiles, long-term
-reference pictures, scaling lists, PCM, transquant bypass, bit depths above 8
-(Main 10, the range extension profiles), chroma formats other than 4:2:0 and
-the SPS / PPS range, multilayer, 3D and screen content extensions: each
-raises `container.UnsupportedCodecError` naming it and ffmpeg.  NAL units of
-a layer above the base (`nuh_layer_id` > 0) are skipped, as FFmpeg skips
-them.  A corrupt unit raises ValueError.  The tables are `hevc_tables`'.
+reference pictures, scaling lists, PCM, transquant bypass, bit depths above 10
+and luma and chroma depths that differ (the range extension profiles), chroma
+formats other than 4:2:0 and the SPS / PPS range, multilayer, 3D and screen
+content extensions: each raises `container.UnsupportedCodecError` naming it
+and ffmpeg.  NAL units of a layer above the base (`nuh_layer_id` > 0) are
+skipped, as FFmpeg skips them, and so are those of the unspecified types
+48-63 (a Dolby Vision stream's RPUs).  A corrupt unit raises ValueError.  The
+tables are `hevc_tables`'.
 """
 
 from __future__ import annotations
@@ -36,10 +43,16 @@ from pathlib import Path
 
 import numpy as np
 
+from omfs4d_torch.core.logging import get_logger
 from omfs4d_torch.io import container, h264, hevc_tables
 from omfs4d_torch.io import frames as frames_base
 
 NAL_SPS, NAL_PPS = 33, 34
+# colour_primaries BT.2020 and transfer_characteristics PQ / HLG: what cv2
+# colour-manages (HEVCFrames logs that the port does not)
+MANAGED_PRIMARIES, MANAGED_TRANSFERS = {9}, {16, 18}
+
+log = get_logger("hevc")
 
 
 def nal_type(unit: bytes) -> int:
@@ -52,7 +65,8 @@ def nuh_layer_id(unit: bytes) -> int:
 
 def _unsupported(what: str) -> container.UnsupportedCodecError:
     return container.UnsupportedCodecError(
-        f"HEVC {what} is outside the port's HEVC decoder (Main profile, 8-bit 4:2:0); decoding "
+        f"HEVC {what} is outside the port's HEVC decoder (Main and Main 10 profiles, 4:2:0 "
+        "at 8 to 10 bits); decoding "
         "it needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
 
 
@@ -146,17 +160,19 @@ def _extensions(r: _Reader, what: str) -> None:
 
 
 def parse_sps(unit: bytes) -> dict:
-    """What `probe` and the refusal need of an SPS NAL unit: id, the cropped
-    width and height, fps from the VUI's timing (0.0 where it has none),
-    full_range and matrix (matrix_coeffs; 2, unspecified, where the VUI has
-    none).  Raises `container.UnsupportedCodecError` for what the decoder
-    refuses."""
+    """What `probe`, the colour conversion and the refusal need of an SPS NAL
+    unit: id, the cropped width and height, bit_depth (luma = chroma), fps
+    from the VUI's timing (0.0 where it has none), full_range, and primaries,
+    transfer and matrix (colour_primaries, transfer_characteristics,
+    matrix_coeffs; 2, unspecified, where the VUI has none).  Raises
+    `container.UnsupportedCodecError` for what the decoder refuses."""
     r = _Reader(_rbsp(unit))
     r.u(4)
     msl = r.u(3)
     r.u(1)
     profile = _profile_tier_level(r, msl)
-    sps = {"id": r.ue(), "profile": profile, "fps": 0.0, "full_range": False, "matrix": 2}
+    sps = {"id": r.ue(), "profile": profile, "fps": 0.0, "full_range": False, "primaries": 2,
+           "transfer": 2, "matrix": 2}
     chroma = r.ue()
     if chroma != 1:
         names = {0: "4:0:0 (monochrome)", 2: "4:2:2", 3: "4:4:4"}
@@ -168,9 +184,12 @@ def parse_sps(unit: bytes) -> dict:
         crop = [2 * r.ue() for _ in range(4)]
     sps["width"], sps["height"] = width - crop[0] - crop[1], height - crop[2] - crop[3]
     depth, depth_c = r.ue() + 8, r.ue() + 8
-    if depth != 8 or depth_c != 8:
-        raise _unsupported(f"bit depth above 8 ({depth}-bit luma, {depth_c}-bit chroma: "
-                           "Main 10 or a range extension profile)")
+    depths = f"{depth}-bit luma, {depth_c}-bit chroma: a range extension profile"
+    if depth > 10 or depth_c > 10:
+        raise _unsupported(f"bit depth above 10 ({depths})")
+    if depth != depth_c:
+        raise _unsupported(f"luma and chroma bit depths that differ ({depths})")
+    sps["bit_depth"] = depth
     r.ue()                                             # log2_max_pic_order_cnt_lsb_minus4
     ordering = r.u(1)
     for _ in range(msl + 1 if ordering else 1):
@@ -200,8 +219,7 @@ def parse_sps(unit: bytes) -> dict:
             r.u(3)
             sps["full_range"] = bool(r.u(1))
             if r.u(1):
-                r.u(16)
-                sps["matrix"] = r.u(8)
+                sps["primaries"], sps["transfer"], sps["matrix"] = r.u(8), r.u(8), r.u(8)
         if r.u(1):
             r.ue(), r.ue()
         r.u(3)
@@ -364,6 +382,7 @@ class HEVCFrames(frames_base.SampleFrames):
             raise ValueError(f"{path}: no sequence parameter set in the hvcC box or the first "
                              "sample")
         self.params = sps[0]
+        self._managed_logged = False
 
     def header_units(self) -> list[bytes]:
         return self.headers
@@ -372,8 +391,16 @@ class HEVCFrames(frames_base.SampleFrames):
         return Decoder()
 
     def rgb_of(self, planes) -> np.ndarray:
-        return h264.ycbcr_to_rgb(*planes, full_range=self.params["full_range"],
-                                 matrix=self.params["matrix"])
+        p = self.params
+        if not self._managed_logged and (p["primaries"] in MANAGED_PRIMARIES
+                                         or p["transfer"] in MANAGED_TRANSFERS):
+            self._managed_logged = True
+            log.warning("%s: colour_primaries %d, transfer_characteristics %d: converted with "
+                        "the VUI's matrix (%d) and range alone; cv2's colour management (gamut "
+                        "and tone mapping) is not applied", self.path, p["primaries"],
+                        p["transfer"], p["matrix"])
+        return h264.ycbcr_to_rgb(*planes, full_range=p["full_range"], matrix=p["matrix"],
+                                 bit_depth=p["bit_depth"])
 
 
 def frames(path) -> HEVCFrames:

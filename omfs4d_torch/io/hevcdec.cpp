@@ -1,11 +1,15 @@
-// HEVC (ITU-T H.265 | ISO/IEC 23008-2) decoding on the host: the Main and Main
-// Still Picture profile streams that phone cameras and x265 write, for a machine
-// with no ffmpeg.  Built by g++ at first use (omfs4d_torch/native.py) and bound
-// with ctypes by omfs4d_torch/io/hevc.py; the tables come from hevc_tables.py as
-// the generated header hevc_tables.h.
+// HEVC (ITU-T H.265 | ISO/IEC 23008-2) decoding on the host: the Main, Main 10
+// and Main Still Picture profile streams that phone cameras and x265 write (an
+// iPhone's "HDR Video" is Main 10), for a machine with no ffmpeg.  Built by g++
+// at first use (omfs4d_torch/native.py) and bound with ctypes by
+// omfs4d_torch/io/hevc.py; the tables come from hevc_tables.py as the generated
+// header hevc_tables.h.
 //
-// Covered, at 4:2:0 with 8-bit samples (the bit depth is kept a variable of the
-// arithmetic: shifts, clips, the SAO shift and the deblocking tC scale):
+// Covered, at 4:2:0 with 8-, 9- or 10-bit samples (luma and chroma alike): 8-bit
+// pictures are stored in uint8_t, deeper ones in uint16_t, and every function
+// that reads or writes samples is a template on that type (the bit depth is a
+// variable of the arithmetic: shifts, clips, SAO's offsets and band shift,
+// deblocking's beta and tC, weighted prediction's offsets, QpBdOffset):
 //   VPS / SPS / PPS (several ids, profile_tier_level with sub-layers, short-term
 //   RPS with inter-RPS prediction, the conformance window, VUI with HRD);
 //   slice segment headers (several slices a picture, dependent slice segments,
@@ -26,8 +30,10 @@
 //   CRA that starts the decode dropped, the conformance window cropped (the
 //   default display window is not: FFmpeg does not apply it by default).
 // Refused by name: tiles, long-term references, scaling lists, PCM,
-// transquant bypass, bit depths above 8, chroma formats other than 4:2:0 and
-// the SPS / PPS extensions.  NAL units of nuh_layer_id > 0 are skipped.
+// transquant bypass, bit depths above 10, luma and chroma bit depths that
+// differ, chroma formats other than 4:2:0 and the SPS / PPS extensions.  NAL
+// units of nuh_layer_id > 0 are skipped, and so are the unspecified types
+// 48-63 (a Dolby Vision stream's RPUs are type 62) and the reserved 41-47.
 // A read past a NAL's end or a syntax value out of range throws Corrupt;
 // neither crosses the C API: each entry point returns 0, 1 (corrupt) or 2
 // (unsupported) and keeps the message for hevcd_error.
@@ -314,10 +320,11 @@ std::shared_ptr<SPS> parse_sps(Bits& b) {
   }
   s->bit_depth = (int)b.ue_max(8, "bit_depth_luma_minus8") + 8;
   s->bit_depth_c = (int)b.ue_max(8, "bit_depth_chroma_minus8") + 8;
-  if (s->bit_depth != 8 || s->bit_depth_c != 8)
-    unsupported("bit depth above 8 (" + std::to_string(s->bit_depth) + "-bit luma, " +
-                std::to_string(s->bit_depth_c) + "-bit chroma: Main 10 or a range extension "
-                "profile)");
+  std::string depths = std::to_string(s->bit_depth) + "-bit luma, " +
+                       std::to_string(s->bit_depth_c) + "-bit chroma: a range extension profile)";
+  if (s->bit_depth > 10 || s->bit_depth_c > 10) unsupported("bit depth above 10 (" + depths);
+  if (s->bit_depth != s->bit_depth_c)
+    unsupported("luma and chroma bit depths that differ (" + depths);
   s->log2_max_poc_lsb = (int)b.ue_max(12, "log2_max_pic_order_cnt_lsb_minus4") + 4;
   bool ordering = b.flag();
   for (int i = ordering ? 0 : msl; i <= msl; ++i) {
@@ -410,7 +417,9 @@ std::shared_ptr<PPS> parse_pps(Bits& b) {
   p->cabac_init_present = b.flag();
   p->num_ref_idx[0] = (int)b.ue_max(14, "num_ref_idx_l0_default_active_minus1") + 1;
   p->num_ref_idx[1] = (int)b.ue_max(14, "num_ref_idx_l1_default_active_minus1") + 1;
-  p->init_qp = 26 + b.se_range(-26, 25, "init_qp_minus26");
+  // -(26 + QpBdOffsetY) at the deepest samples read; SliceQpY is held to its
+  // SPS's range
+  p->init_qp = 26 + b.se_range(-26 - 12, 25, "init_qp_minus26");
   p->constrained_intra = b.flag();
   p->transform_skip = b.flag();
   p->cu_qp_delta = b.flag();
@@ -459,24 +468,33 @@ struct MvField {
 
 struct Pic {
   int w = 0, h = 0, crop[4] = {0, 0, 0, 0};
-  std::vector<uint8_t> y, cb, cr;
+  int bd = 8;                          // the samples are p8's at 8 bits, else p16's
+  std::vector<uint8_t> p8[3];          // Y', Cb, Cr
+  std::vector<uint16_t> p16[3];
   std::vector<MvField> mvf;           // by 4x4, for TMVP
   int poc = 0;
   bool ref = false, output = false;
   int w4 = 0, h4 = 0;
 
-  void alloc(int W, int H) {
+  // a picture of grey samples (1 << (depth - 1)): what a missing reference
+  // shows; decoding overwrites every sample of the others
+  void alloc(int W, int H, int depth) {
     w = W;
     h = H;
     w4 = W >> 2;
     h4 = H >> 2;
-    y.assign((size_t)W * H, 0);
-    cb.assign((size_t)W * H / 4, 0);
-    cr.assign((size_t)W * H / 4, 0);
+    bd = depth;
+    for (int c = 0; c < 3; ++c) {
+      size_t n = c ? (size_t)W * H / 4 : (size_t)W * H;
+      if (bd > 8) p16[c].assign(n, (uint16_t)(1 << (bd - 1)));
+      else p8[c].assign(n, (uint8_t)(1 << (bd - 1)));
+    }
     mvf.assign((size_t)w4 * h4, MvField{});
   }
-  uint8_t* plane(int c) { return c == 0 ? y.data() : c == 1 ? cb.data() : cr.data(); }
+  template <class T> T* plane(int c);
 };
+template <> uint8_t* Pic::plane<uint8_t>(int c) { return p8[c].data(); }
+template <> uint16_t* Pic::plane<uint16_t>(int c) { return p16[c].data(); }
 using PicP = std::shared_ptr<Pic>;
 
 // what deblocking and SAO read of each slice segment
@@ -546,12 +564,14 @@ struct Decoder {
   PicP ref_list[2][16];
   int ref_poc[2][16];
 
-  // the bit depth (luma = chroma), as the arithmetic reads it: the samples
-  // are stored in 8 bits while the SPS allows no more
+  // the bit depth (luma = chroma), as the arithmetic reads it; wide: the
+  // samples are uint16_t (bd above 8)
   int bd = 8, maxv = 255, qpbd = 0;
+  bool wide = false;
   // per picture, by 4x4 unit
   int W = 0, H = 0, w4 = 0, h4 = 0;
-  std::vector<uint8_t> ct_depth, skip_flag, intra, ipm, qp_map, cbf_map, edge_v, edge_h;
+  std::vector<uint8_t> ct_depth, skip_flag, intra, ipm, cbf_map, edge_v, edge_h;
+  std::vector<int8_t> qp_map;            // QpY: -QpBdOffsetY to 51
   std::vector<int32_t> zs;               // z-scan order address of each 4x4 unit
   std::vector<int16_t> ctb_slice;        // slice segment index of each CTB (-1: not decoded)
   std::vector<SliceInfo> slices;
@@ -626,7 +646,12 @@ struct Decoder {
   bool avail_z(int xc, int yc, int xn, int yn) const;
 
   // ── prediction ──
-  void intra_pred(int c, int x0, int y0, int log2, int mode);
+  // the functions that touch samples: a template on their type, called
+  // through the untemplated name, which picks the type of the picture
+  void intra_pred(int c, int x0, int y0, int log2, int mode) {
+    wide ? intra_pred_t<uint16_t>(c, x0, y0, log2, mode) : intra_pred_t<uint8_t>(c, x0, y0, log2, mode);
+  }
+  template <class T> void intra_pred_t(int c, int x0, int y0, int log2, int mode);
   void derive_merge(int xc, int yc, int ncb, int xp, int yp, int w, int h, int part_idx, int idx,
                     MvField& out);
   void derive_amvp(int xc, int yc, int ncb, int xp, int yp, int w, int h, int part_idx, int lx,
@@ -634,15 +659,23 @@ struct Decoder {
   bool temporal_mv(int xp, int yp, int w, int h, int lx, int ref_idx, int16_t mv[2]);
   bool col_mv(int x, int y, int lx, int ref_idx, int16_t mv[2]);
   bool pb_avail(int xc, int yc, int ncb, int xp, int yp, int w, int h, int part_idx, int xn, int yn) const;
-  void motion_compensate(int xp, int yp, int w, int h, const MvField& m);
+  void motion_compensate(int xp, int yp, int w, int h, const MvField& m) {
+    wide ? motion_compensate_t<uint16_t>(xp, yp, w, h, m) : motion_compensate_t<uint8_t>(xp, yp, w, h, m);
+  }
+  template <class T> void motion_compensate_t(int xp, int yp, int w, int h, const MvField& m);
+  template <class T> void add_residual(int c, int x0, int y0, int n, const int32_t* r);
   void store_pu(int xp, int yp, int w, int h, const MvField& m);
 
   // ── loop filters ──
-  void deblock();
+  void deblock() { wide ? deblock_t<uint16_t>() : deblock_t<uint8_t>(); }
+  template <class T> void deblock_t();
+  template <class T>
   void deblock_edge_luma(bool vertical, int x, int y, int strength, int qp, const SliceInfo& si);
+  template <class T>
   void deblock_edge_chroma(bool vertical, int c, int x, int y, int qp, const SliceInfo& si);
   int bs_of(int xp, int yp, int xq, int yq, bool tu_edge) const;
-  void apply_sao();
+  void apply_sao() { wide ? apply_sao_t<uint16_t>() : apply_sao_t<uint8_t>(); }
+  template <class T> void apply_sao_t();
 };
 
 // ── NAL units ────────────────────────────────────────────────────────────
@@ -865,10 +898,7 @@ void Decoder::slice_header(Bits& b, int type) {
 
 PicP Decoder::missing_ref(int poc) {
   auto p = std::make_shared<Pic>();
-  p->alloc(W, H);
-  std::fill(p->y.begin(), p->y.end(), (uint8_t)(1 << (bd - 1)));
-  std::fill(p->cb.begin(), p->cb.end(), (uint8_t)(1 << (bd - 1)));
-  std::fill(p->cr.begin(), p->cr.end(), (uint8_t)(1 << (bd - 1)));
+  p->alloc(W, H, bd);                    // grey: 1 << (bd - 1)
   p->poc = poc;
   p->ref = true;
   p->output = false;
@@ -920,6 +950,7 @@ void Decoder::start_picture() {
   bd = s->bit_depth;
   maxv = (1 << bd) - 1;
   qpbd = 6 * (bd - 8);
+  wide = bd > 8;
   // picture size and the maps
   if (W != s->width || H != s->height) {
     W = s->width;
@@ -939,8 +970,9 @@ void Decoder::start_picture() {
       }
   }
   size_t n4 = (size_t)w4 * h4;
-  for (auto* v : {&ct_depth, &skip_flag, &intra, &ipm, &qp_map, &cbf_map, &edge_v, &edge_h})
+  for (auto* v : {&ct_depth, &skip_flag, &intra, &ipm, &cbf_map, &edge_v, &edge_h})
     v->assign(n4, 0);
+  qp_map.assign(n4, 0);
   ctb_slice.assign((size_t)s->ctb_w * s->ctb_h, -1);
   sao.assign((size_t)s->ctb_w * s->ctb_h, SaoParams{});
   slices.clear();
@@ -993,7 +1025,7 @@ void Decoder::start_picture() {
   dpb.erase(std::remove_if(dpb.begin(), dpb.end(), [](const PicP& p) { return !p->ref && !p->output; }),
             dpb.end());
   cur = std::make_shared<Pic>();
-  cur->alloc(W, H);
+  cur->alloc(W, H, bd);
   for (int i = 0; i < 4; ++i) cur->crop[i] = s->crop[i];
   cur->poc = poc;
   cur->output = sh.pic_output;
@@ -1126,7 +1158,8 @@ void Decoder::slice_data() {
       for (int i = 0; i < sh.num_ref_idx[l]; ++i) {
         ref_list[l][i] = temp[sh.list_mod[l] ? sh.list_entry[l][i] : i];
         ref_poc[l][i] = ref_list[l][i]->poc;
-        if (ref_list[l][i]->w != W || ref_list[l][i]->h != H) corrupt("a reference picture of another size");
+        if (ref_list[l][i]->w != W || ref_list[l][i]->h != H || ref_list[l][i]->bd != bd)
+          corrupt("a reference picture of another size or bit depth");
       }
     }
   }
@@ -1288,8 +1321,10 @@ void Decoder::coding_quadtree(int x0, int y0, int log2, int depth) {
   }
 }
 
-static inline void fill4(std::vector<uint8_t>& m, int w4, int x0, int y0, int w, int h, uint8_t v) {
-  for (int j = 0; j < (h >> 2); ++j) memset(&m[(size_t)((y0 >> 2) + j) * w4 + (x0 >> 2)], v, w >> 2);
+template <class E, class V>
+static inline void fill4(std::vector<E>& m, int w4, int x0, int y0, int w, int h, V v) {
+  static_assert(sizeof(E) == 1, "a map of bytes");
+  for (int j = 0; j < (h >> 2); ++j) memset(&m[(size_t)((y0 >> 2) + j) * w4 + (x0 >> 2)], (E)v, w >> 2);
 }
 
 void Decoder::coding_unit(int x0, int y0, int log2) {
@@ -1443,7 +1478,7 @@ void Decoder::coding_unit(int x0, int y0, int log2) {
     MvField none{};
     store_pu(x0, y0, size, size, none);
   }
-  fill4(qp_map, w4, x0, y0, size, size, (uint8_t)qp_y);
+  fill4(qp_map, w4, x0, y0, size, size, (int8_t)qp_y);
   last_qp_y = qp_y;
 }
 
@@ -1840,7 +1875,8 @@ void Decoder::derive_amvp(int xc, int yc, int ncb, int xp, int yp, int w, int h,
 
 // ── motion compensation (8.5.3.3) ────────────────────────────────────────
 
-static void mc_block(const uint8_t* plane, int pw, int ph, int x0, int y0, int w, int h, int fx,
+template <class T>
+static void mc_block(const T* plane, int pw, int ph, int x0, int y0, int w, int h, int fx,
                      int fy, bool luma, int bd, int16_t* dst) {
   // 14-bit prediction samples of a w x h block whose integer position is
   // (x0, y0) and fraction (fx, fy), reference samples clamped to the plane
@@ -1848,17 +1884,21 @@ static void mc_block(const uint8_t* plane, int pw, int ph, int x0, int y0, int w
   const int8_t* fh = luma ? LUMA_FILTER[fx] : CHROMA_FILTER[fx];
   const int8_t* fv = luma ? LUMA_FILTER[fy] : CHROMA_FILTER[fy];
   const int sw = w + taps - 1, shh = h + taps - 1;
-  static thread_local std::vector<uint8_t> src;
-  static thread_local std::vector<int16_t> tmp;
-  src.resize((size_t)sw * shh);
-  tmp.resize((size_t)w * shh);
+  static thread_local std::vector<T> src_buf;
+  static thread_local std::vector<int16_t> tmp_buf;
+  src_buf.resize((size_t)sw * shh);
+  tmp_buf.resize((size_t)w * shh);
+  // plain pointers in the loops: a thread_local of a template is reached
+  // through its TLS wrapper, which the compiler does not hoist
+  T* const src = src_buf.data();
+  int16_t* const tmp = tmp_buf.data();
   int xs = x0 - half, ys = y0 - half;
   bool inside = xs >= 0 && ys >= 0 && xs + sw <= pw && ys + shh <= ph;
   for (int j = 0; j < shh; ++j) {
     if (inside) {
-      memcpy(&src[(size_t)j * sw], plane + (size_t)(ys + j) * pw + xs, sw);
+      memcpy(&src[(size_t)j * sw], plane + (size_t)(ys + j) * pw + xs, sizeof(T) * sw);
     } else {
-      const uint8_t* row = plane + (size_t)clip3(0, ph - 1, ys + j) * pw;
+      const T* row = plane + (size_t)clip3(0, ph - 1, ys + j) * pw;
       for (int i = 0; i < sw; ++i) src[(size_t)j * sw + i] = row[clip3(0, pw - 1, xs + i)];
     }
   }
@@ -1870,7 +1910,7 @@ static void mc_block(const uint8_t* plane, int pw, int ph, int x0, int y0, int w
   }
   if (fy == 0) {
     for (int j = 0; j < h; ++j) {
-      const uint8_t* s = &src[(size_t)(j + half) * sw];
+      const T* s = &src[(size_t)(j + half) * sw];
       for (int i = 0; i < w; ++i) {
         int v = 0;
         for (int k = 0; k < taps; ++k) v += fh[k] * s[i + k];
@@ -1889,7 +1929,7 @@ static void mc_block(const uint8_t* plane, int pw, int ph, int x0, int y0, int w
     return;
   }
   for (int j = 0; j < shh; ++j) {
-    const uint8_t* s = &src[(size_t)j * sw];
+    const T* s = &src[(size_t)j * sw];
     for (int i = 0; i < w; ++i) {
       int v = 0;
       for (int k = 0; k < taps; ++k) v += fh[k] * s[i + k];
@@ -1904,42 +1944,45 @@ static void mc_block(const uint8_t* plane, int pw, int ph, int x0, int y0, int w
     }
 }
 
-void Decoder::motion_compensate(int xp, int yp, int w, int h, const MvField& m) {
-  static thread_local std::vector<int16_t> pa, pb;
+template <class T>
+void Decoder::motion_compensate_t(int xp, int yp, int w, int h, const MvField& m) {
+  static thread_local std::vector<int16_t> pa_buf, pb_buf;
   bool weighted = (sh.type == 1 && pps->weighted_pred) || (sh.type == 0 && pps->weighted_bipred);
   for (int c = 0; c < 3; ++c) {
     int cw = c ? w >> 1 : w, chh = c ? h >> 1 : h;
     int cx = c ? xp >> 1 : xp, cy = c ? yp >> 1 : yp;
     int pw = c ? W >> 1 : W, ph = c ? H >> 1 : H;
-    pa.resize((size_t)cw * chh);
-    pb.resize((size_t)cw * chh);
-    int16_t* preds[2] = {pa.data(), pb.data()};
+    pa_buf.resize((size_t)cw * chh);
+    pb_buf.resize((size_t)cw * chh);
+    int16_t* const pa = pa_buf.data();
+    int16_t* const pb = pb_buf.data();
+    int16_t* preds[2] = {pa, pb};
     int lists[2], nl = 0;
     for (int l = 0; l < 2; ++l) {
       if (!(m.pred & (1 << l))) continue;
-      const Pic& ref = *ref_list[l][m.ref_idx[l]];
+      Pic& ref = *ref_list[l][m.ref_idx[l]];
       int mx = m.mv[l][0], my = m.mv[l][1];
       if (c == 0)
-        mc_block(ref.y.data(), pw, ph, cx + (mx >> 2), cy + (my >> 2), cw, chh, mx & 3, my & 3, true, bd,
+        mc_block(ref.plane<T>(0), pw, ph, cx + (mx >> 2), cy + (my >> 2), cw, chh, mx & 3, my & 3, true, bd,
                  preds[nl]);
       else
-        mc_block(c == 1 ? ref.cb.data() : ref.cr.data(), pw, ph, cx + (mx >> 3), cy + (my >> 3), cw, chh,
-                 mx & 7, my & 7, false, bd, preds[nl]);
+        mc_block(ref.plane<T>(c), pw, ph, cx + (mx >> 3), cy + (my >> 3), cw, chh, mx & 7, my & 7, false,
+                 bd, preds[nl]);
       lists[nl++] = l;
     }
     if (nl == 0) return;
-    uint8_t* dst = cur->plane(c) + (size_t)cy * pw + cx;
+    T* dst = cur->plane<T>(c) + (size_t)cy * pw + cx;
     const int shift1 = 14 - bd, shift2 = 15 - bd;
     if (!weighted) {
       if (nl == 1) {
         for (int j = 0; j < chh; ++j)
           for (int i = 0; i < cw; ++i)
-            dst[(size_t)j * pw + i] = (uint8_t)clip3(0, maxv, (pa[j * cw + i] + (1 << (shift1 - 1))) >> shift1);
+            dst[(size_t)j * pw + i] = (T)clip3(0, maxv, (pa[j * cw + i] + (1 << (shift1 - 1))) >> shift1);
       } else {
         for (int j = 0; j < chh; ++j)
           for (int i = 0; i < cw; ++i)
             dst[(size_t)j * pw + i] =
-                (uint8_t)clip3(0, maxv, (pa[j * cw + i] + pb[j * cw + i] + (1 << (shift2 - 1))) >> shift2);
+                (T)clip3(0, maxv, (pa[j * cw + i] + pb[j * cw + i] + (1 << (shift2 - 1))) >> shift2);
       }
     } else {
       int log2wd = (c == 0 ? sh.luma_log2_wd : sh.chroma_log2_wd) + shift1;
@@ -1954,14 +1997,14 @@ void Decoder::motion_compensate(int xp, int yp, int w, int h, const MvField& m) 
           for (int i = 0; i < cw; ++i) {
             int v = log2wd >= 1 ? ((pa[j * cw + i] * wt[0] + (1 << (log2wd - 1))) >> log2wd) + of[0]
                                 : pa[j * cw + i] * wt[0] + of[0];
-            dst[(size_t)j * pw + i] = (uint8_t)clip3(0, maxv, v);
+            dst[(size_t)j * pw + i] = (T)clip3(0, maxv, v);
           }
       } else {
         for (int j = 0; j < chh; ++j)
           for (int i = 0; i < cw; ++i) {
             int v = (pa[j * cw + i] * wt[0] + pb[j * cw + i] * wt[1] + (of[0] + of[1] + 1) * (1 << log2wd)) >>
                     (log2wd + 1);
-            dst[(size_t)j * pw + i] = (uint8_t)clip3(0, maxv, v);
+            dst[(size_t)j * pw + i] = (T)clip3(0, maxv, v);
           }
       }
     }
@@ -2243,19 +2286,25 @@ void Decoder::residual(int x0, int y0, int log2, int c) {
     for (int y = 0; y < n; ++y) inverse_1d(m, stride_k, n, e + y * n, 1, r + y * n, 1);
     for (int k = 0; k < n * n; ++k) r[k] = (r[k] + (1 << (19 - bd))) >> (20 - bd);
   }
+  wide ? add_residual<uint16_t>(c, x0, y0, n, r) : add_residual<uint8_t>(c, x0, y0, n, r);
+}
+
+template <class T>
+void Decoder::add_residual(int c, int x0, int y0, int n, const int32_t* r) {
   int pw = c ? W >> 1 : W;
-  uint8_t* dst = cur->plane(c) + (size_t)y0 * pw + x0;
+  T* dst = cur->plane<T>(c) + (size_t)y0 * pw + x0;
   for (int y = 0; y < n; ++y)
-    for (int x = 0; x < n; ++x) dst[(size_t)y * pw + x] = (uint8_t)clip3(0, maxv, dst[(size_t)y * pw + x] + r[y * n + x]);
+    for (int x = 0; x < n; ++x) dst[(size_t)y * pw + x] = (T)clip3(0, maxv, dst[(size_t)y * pw + x] + r[y * n + x]);
 }
 
 // ── intra prediction (8.4.4.2) ───────────────────────────────────────────
 
-void Decoder::intra_pred(int c, int x0, int y0, int log2, int mode) {
+template <class T>
+void Decoder::intra_pred_t(int c, int x0, int y0, int log2, int mode) {
   const int n = 1 << log2;
   const int sh_ = c ? 1 : 0;              // component to luma coordinates
   const int pw = c ? W >> 1 : W, ph = c ? H >> 1 : H;
-  uint8_t* plane = cur->plane(c);
+  T* plane = cur->plane<T>(c);
   const int xl = x0 << sh_, yl = y0 << sh_;
   const int unit = c ? 2 : 4;             // component samples a 4x4 luma unit covers
   // p: left[0] = p[-1][-1], left[1 + y] = p[-1][y]; top[1 + x] = p[x][-1]
@@ -2335,22 +2384,22 @@ void Decoder::intra_pred(int c, int x0, int y0, int log2, int mode) {
       memcpy(top, ft, sizeof(int) * (2 * n + 1));
     }
   }
-  uint8_t* dst = plane + (size_t)y0 * pw + x0;
+  T* dst = plane + (size_t)y0 * pw + x0;
   if (mode == 0) {                       // planar
     for (int y = 0; y < n; ++y)
       for (int x = 0; x < n; ++x)
-        dst[(size_t)y * pw + x] = (uint8_t)(((n - 1 - x) * left[1 + y] + (x + 1) * top[1 + n] +
+        dst[(size_t)y * pw + x] = (T)(((n - 1 - x) * left[1 + y] + (x + 1) * top[1 + n] +
                                              (n - 1 - y) * top[1 + x] + (y + 1) * left[1 + n] + n) >> (log2 + 1));
   } else if (mode == 1) {                // DC
     int sum = n;
     for (int k = 0; k < n; ++k) sum += top[1 + k] + left[1 + k];
     int dc = sum >> (log2 + 1);
     for (int y = 0; y < n; ++y)
-      for (int x = 0; x < n; ++x) dst[(size_t)y * pw + x] = (uint8_t)dc;
+      for (int x = 0; x < n; ++x) dst[(size_t)y * pw + x] = (T)dc;
     if (c == 0 && n < 32) {
-      dst[0] = (uint8_t)((left[1] + 2 * dc + top[1] + 2) >> 2);
-      for (int x = 1; x < n; ++x) dst[x] = (uint8_t)((top[1 + x] + 3 * dc + 2) >> 2);
-      for (int y = 1; y < n; ++y) dst[(size_t)y * pw] = (uint8_t)((left[1 + y] + 3 * dc + 2) >> 2);
+      dst[0] = (T)((left[1] + 2 * dc + top[1] + 2) >> 2);
+      for (int x = 1; x < n; ++x) dst[x] = (T)((top[1 + x] + 3 * dc + 2) >> 2);
+      for (int y = 1; y < n; ++y) dst[(size_t)y * pw] = (T)((left[1 + y] + 3 * dc + 2) >> 2);
     }
   } else {                               // angular
     int angle = INTRA_ANGLE[mode];
@@ -2371,15 +2420,15 @@ void Decoder::intra_pred(int c, int x0, int y0, int log2, int mode) {
       int idx = ((y + 1) * angle) >> 5, fact = ((y + 1) * angle) & 31;
       for (int x = 0; x < n; ++x) {
         int v = fact ? ((32 - fact) * ref[x + idx + 1] + fact * ref[x + idx + 2] + 16) >> 5 : ref[x + idx + 1];
-        if (vertical) dst[(size_t)y * pw + x] = (uint8_t)v;
-        else dst[(size_t)x * pw + y] = (uint8_t)v;
+        if (vertical) dst[(size_t)y * pw + x] = (T)v;
+        else dst[(size_t)x * pw + y] = (T)v;
       }
     }
     if (c == 0 && n < 32) {
       if (mode == 26)
-        for (int y = 0; y < n; ++y) dst[(size_t)y * pw] = (uint8_t)clip3(0, maxv, top[1] + ((left[1 + y] - left[0]) >> 1));
+        for (int y = 0; y < n; ++y) dst[(size_t)y * pw] = (T)clip3(0, maxv, top[1] + ((left[1 + y] - left[0]) >> 1));
       if (mode == 10)
-        for (int x = 0; x < n; ++x) dst[x] = (uint8_t)clip3(0, maxv, left[1] + ((top[1 + x] - top[0]) >> 1));
+        for (int x = 0; x < n; ++x) dst[x] = (T)clip3(0, maxv, left[1] + ((top[1 + x] - top[0]) >> 1));
     }
   }
 }
@@ -2409,16 +2458,17 @@ int Decoder::bs_of(int xp, int yp, int xq, int yq, bool tu_edge) const {
   return (far(p.mv[0], q.mv[0]) || far(p.mv[1], q.mv[1])) && (far(p.mv[0], q.mv[1]) || far(p.mv[1], q.mv[0]));
 }
 
+template <class T>
 void Decoder::deblock_edge_luma(bool vertical, int x, int y, int strength, int qp, const SliceInfo& si) {
-  uint8_t* pl = cur->y.data();
+  T* pl = cur->plane<T>(0);
   int step = vertical ? 1 : W, along = vertical ? W : 1;
-  uint8_t* base = pl + (size_t)y * W + x;
+  T* base = pl + (size_t)y * W + x;
   int qb = clip3(0, 51, qp + si.beta_offset);
   int beta = BETA[qb] * (1 << (bd - 8));
   int qt = clip3(0, 53, qp + 2 * (strength - 1) + si.tc_offset);
   int tc = TC[qt] * (1 << (bd - 8));
-  auto P = [&](int line, int i) -> uint8_t& { return base[line * along - (i + 1) * step]; };
-  auto Q = [&](int line, int i) -> uint8_t& { return base[line * along + i * step]; };
+  auto P = [&](int line, int i) -> T& { return base[line * along - (i + 1) * step]; };
+  auto Q = [&](int line, int i) -> T& { return base[line * along + i * step]; };
   int dp0 = std::abs(P(0, 2) - 2 * P(0, 1) + P(0, 0)), dp3 = std::abs(P(3, 2) - 2 * P(3, 1) + P(3, 0));
   int dq0 = std::abs(Q(0, 2) - 2 * Q(0, 1) + Q(0, 0)), dq3 = std::abs(Q(3, 2) - 2 * Q(3, 1) + Q(3, 0));
   int dpq0 = dp0 + dq0, dpq3 = dp3 + dq3, dp = dp0 + dp3, dq = dq0 + dq3, d = dpq0 + dpq3;
@@ -2433,49 +2483,51 @@ void Decoder::deblock_edge_luma(bool vertical, int x, int y, int strength, int q
     int p0 = P(k, 0), p1 = P(k, 1), p2 = P(k, 2), p3 = P(k, 3);
     int q0 = Q(k, 0), q1 = Q(k, 1), q2 = Q(k, 2), q3 = Q(k, 3);
     if (strong) {
-      P(k, 0) = (uint8_t)clip3(p0 - 2 * tc, p0 + 2 * tc, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
-      P(k, 1) = (uint8_t)clip3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + q0 + 2) >> 2);
-      P(k, 2) = (uint8_t)clip3(p2 - 2 * tc, p2 + 2 * tc, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
-      Q(k, 0) = (uint8_t)clip3(q0 - 2 * tc, q0 + 2 * tc, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
-      Q(k, 1) = (uint8_t)clip3(q1 - 2 * tc, q1 + 2 * tc, (p0 + q0 + q1 + q2 + 2) >> 2);
-      Q(k, 2) = (uint8_t)clip3(q2 - 2 * tc, q2 + 2 * tc, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
+      P(k, 0) = (T)clip3(p0 - 2 * tc, p0 + 2 * tc, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
+      P(k, 1) = (T)clip3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + q0 + 2) >> 2);
+      P(k, 2) = (T)clip3(p2 - 2 * tc, p2 + 2 * tc, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
+      Q(k, 0) = (T)clip3(q0 - 2 * tc, q0 + 2 * tc, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
+      Q(k, 1) = (T)clip3(q1 - 2 * tc, q1 + 2 * tc, (p0 + q0 + q1 + q2 + 2) >> 2);
+      Q(k, 2) = (T)clip3(q2 - 2 * tc, q2 + 2 * tc, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
     } else {
       int delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4;
       if (std::abs(delta) >= tc * 10) continue;
       delta = clip3(-tc, tc, delta);
-      P(k, 0) = (uint8_t)clip3(0, maxv, p0 + delta);
-      Q(k, 0) = (uint8_t)clip3(0, maxv, q0 - delta);
+      P(k, 0) = (T)clip3(0, maxv, p0 + delta);
+      Q(k, 0) = (T)clip3(0, maxv, q0 - delta);
       if (dep) {
         int dpv = clip3(-(tc >> 1), tc >> 1, (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1);
-        P(k, 1) = (uint8_t)clip3(0, maxv, p1 + dpv);
+        P(k, 1) = (T)clip3(0, maxv, p1 + dpv);
       }
       if (deq) {
         int dqv = clip3(-(tc >> 1), tc >> 1, (((q2 + q0 + 1) >> 1) - q1 - delta) >> 1);
-        Q(k, 1) = (uint8_t)clip3(0, maxv, q1 + dqv);
+        Q(k, 1) = (T)clip3(0, maxv, q1 + dqv);
       }
     }
   }
 }
 
+template <class T>
 void Decoder::deblock_edge_chroma(bool vertical, int c, int x, int y, int qp, const SliceInfo& si) {
   // chroma edges are filtered at bS 2 alone
   int cw = W >> 1;
-  uint8_t* pl = cur->plane(c);
+  T* pl = cur->plane<T>(c);
   int step = vertical ? 1 : cw, along = vertical ? cw : 1;
-  uint8_t* base = pl + (size_t)y * cw + x;
+  T* base = pl + (size_t)y * cw + x;
   int qpi = qp + (c == 1 ? pps->cb_qp_offset : pps->cr_qp_offset);
   int qpc = qpi < 0 ? qpi : QPC[std::min(qpi, 57)];
   int tc = TC[clip3(0, 53, qpc + 2 + si.tc_offset)] * (1 << (bd - 8));
   for (int k = 0; k < 2; ++k) {
-    uint8_t* s = base + k * along;
+    T* s = base + k * along;
     int p0 = s[-step], p1 = s[-2 * step], q0 = s[0], q1 = s[step];
     int delta = clip3(-tc, tc, ((((q0 - p0) * 4) + p1 - q1 + 4) >> 3));
-    s[-step] = (uint8_t)clip3(0, maxv, p0 + delta);
-    s[0] = (uint8_t)clip3(0, maxv, q0 - delta);
+    s[-step] = (T)clip3(0, maxv, p0 + delta);
+    s[0] = (T)clip3(0, maxv, q0 - delta);
   }
 }
 
-void Decoder::deblock() {
+template <class T>
+void Decoder::deblock_t() {
   for (int dir = 0; dir < 2; ++dir) {
     bool vertical = dir == 0;
     std::vector<uint8_t> bsv((size_t)w4 * h4, 0);
@@ -2498,24 +2550,25 @@ void Decoder::deblock() {
         int xp = vertical ? x - 1 : x, yp = vertical ? y : y - 1;
         int qp = (qp_map[u4(x, y)] + qp_map[u4(xp, yp)] + 1) >> 1;
         const SliceInfo& sq = slices[ctb_slice[ctb_of(x, y)]];
-        deblock_edge_luma(vertical, x, y, strength, qp, sq);
+        deblock_edge_luma<T>(vertical, x, y, strength, qp, sq);
         if (strength == 2 && !(vertical ? (x & 15) : (y & 15)))
-          for (int c = 1; c < 3; ++c) deblock_edge_chroma(vertical, c, x >> 1, y >> 1, qp, sq);
+          for (int c = 1; c < 3; ++c) deblock_edge_chroma<T>(vertical, c, x >> 1, y >> 1, qp, sq);
       }
   }
 }
 
 // ── SAO (8.7.3) ──────────────────────────────────────────────────────────
 
-void Decoder::apply_sao() {
+template <class T>
+void Decoder::apply_sao_t() {
   const SPS* s = sps;
   static const int hpos[4][2] = {{-1, 1}, {0, 0}, {-1, 1}, {1, -1}};
   static const int vpos[4][2] = {{0, 0}, {-1, 1}, {-1, 1}, {-1, 1}};
   const int scale = 1 << (bd - std::min(bd, 10));      // SaoOffsetVal's log2OffsetScale
   for (int c = 0; c < 3; ++c) {
     int pw = c ? W >> 1 : W, ph = c ? H >> 1 : H;
-    std::vector<uint8_t> src(cur->plane(c), cur->plane(c) + (size_t)pw * ph);
-    uint8_t* dst = cur->plane(c);
+    std::vector<T> src(cur->plane<T>(c), cur->plane<T>(c) + (size_t)pw * ph);
+    T* dst = cur->plane<T>(c);
     int ctb = c ? s->ctb_size >> 1 : s->ctb_size;
     int sh_ = c ? 1 : 0;
     for (int ry = 0; ry < s->ctb_h; ++ry)
@@ -2533,7 +2586,7 @@ void Decoder::apply_sao() {
             for (int x = x0; x < x1; ++x) {
               int v = src[(size_t)y * pw + x];
               int b = table[v >> (bd - 5)];
-              if (b) dst[(size_t)y * pw + x] = (uint8_t)clip3(0, maxv, v + p.offset[c][b] * scale);
+              if (b) dst[(size_t)y * pw + x] = (T)clip3(0, maxv, v + p.offset[c][b] * scale);
             }
           continue;
         }
@@ -2566,7 +2619,7 @@ void Decoder::apply_sao() {
             if (skip) continue;
             int e = 2 + sum;
             if (e <= 2) e = e == 2 ? 0 : e + 1;
-            if (e) dst[(size_t)y * pw + x] = (uint8_t)clip3(0, maxv, v + p.offset[c][e] * scale);
+            if (e) dst[(size_t)y * pw + x] = (T)clip3(0, maxv, v + p.offset[c][e] * scale);
           }
       }
   }
@@ -2589,6 +2642,21 @@ int guard(Decoder* d, F f) {
   } catch (const std::exception& e) {
     d->error = std::string("HEVC: ") + e.what();
     return 1;
+  }
+}
+
+template <class T>
+void pop_planes(Decoder* d, T* y, T* cb, T* cr) {
+  PicP p = d->ready.front();
+  d->ready.erase(d->ready.begin());
+  int w = p->w - p->crop[0] - p->crop[1], hh = p->h - p->crop[2] - p->crop[3];
+  int x0 = p->crop[0], y0 = p->crop[2];
+  for (int r = 0; r < hh; ++r)
+    memcpy(y + (size_t)r * w, p->plane<T>(0) + (size_t)(y0 + r) * p->w + x0, sizeof(T) * w);
+  int cw = w / 2, ch = hh / 2, CW = p->w / 2;
+  for (int r = 0; r < ch; ++r) {
+    memcpy(cb + (size_t)r * cw, p->plane<T>(1) + (size_t)(y0 / 2 + r) * CW + x0 / 2, sizeof(T) * cw);
+    memcpy(cr + (size_t)r * cw, p->plane<T>(2) + (size_t)(y0 / 2 + r) * CW + x0 / 2, sizeof(T) * cw);
   }
 }
 
@@ -2636,20 +2704,26 @@ int hevcd_frame_size(void* h, int32_t* w, int32_t* hh) {
   return 0;
 }
 
-// copy the next picture out (cropped Y', Cb, Cr) and drop it
+// the bit depth of the next picture out (0: none ready)
+int hevcd_bit_depth(void* h) {
+  Decoder* d = static_cast<Decoder*>(h);
+  return d->ready.empty() ? 0 : d->ready.front()->bd;
+}
+
+// copy the next picture out (cropped Y', Cb, Cr) and drop it: uint8_t
+// planes at 8 bits (hevcd_pop), uint16_t above (hevcd_pop16); 1 where none
+// is ready or the planes' type is not the picture's
 int hevcd_pop(void* h, uint8_t* y, uint8_t* cb, uint8_t* cr) {
   Decoder* d = static_cast<Decoder*>(h);
-  if (d->ready.empty()) return 1;
-  PicP p = d->ready.front();
-  d->ready.erase(d->ready.begin());
-  int w = p->w - p->crop[0] - p->crop[1], hh = p->h - p->crop[2] - p->crop[3];
-  int x0 = p->crop[0], y0 = p->crop[2];
-  for (int r = 0; r < hh; ++r) memcpy(y + (size_t)r * w, p->y.data() + (size_t)(y0 + r) * p->w + x0, w);
-  int cw = w / 2, ch = hh / 2, CW = p->w / 2;
-  for (int r = 0; r < ch; ++r) {
-    memcpy(cb + (size_t)r * cw, p->cb.data() + (size_t)(y0 / 2 + r) * CW + x0 / 2, cw);
-    memcpy(cr + (size_t)r * cw, p->cr.data() + (size_t)(y0 / 2 + r) * CW + x0 / 2, cw);
-  }
+  if (d->ready.empty() || d->ready.front()->bd > 8) return 1;
+  pop_planes(d, y, cb, cr);
+  return 0;
+}
+
+int hevcd_pop16(void* h, uint16_t* y, uint16_t* cb, uint16_t* cr) {
+  Decoder* d = static_cast<Decoder*>(h);
+  if (d->ready.empty() || d->ready.front()->bd <= 8) return 1;
+  pop_planes(d, y, cb, cr);
   return 0;
 }
 

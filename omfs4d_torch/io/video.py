@@ -28,14 +28,16 @@ contract).  With none, the port's own codecs:
   High profile I, P and B pictures in MP4 or QuickTime, as phones record
   them (`h264.H264Frames`, the host C++ decoder built by g++ at first use),
   turned by the track's display matrix and cut by its edit list as cv2
-  reads them; HEVC Main profile (8-bit) in MP4 or QuickTime (`hvc1` /
-  `hev1`), as iPhones record by default and x265 writes, read alike
-  (`hevc.HEVCFrames`, the host C++ decoder `hevcdec.cpp`); MPEG-4 Part 2
+  reads them; HEVC Main and Main 10 profiles in MP4 or QuickTime (`hvc1` /
+  `hev1`), as iPhones record by default (Main 10 with "HDR Video") and x265
+  writes, read alike (`hevc.HEVCFrames`, the host C++ decoder `hevcdec.cpp`;
+  10-bit pictures converted to 8-bit RGB as cv2 converts them, without cv2's
+  gamut and tone mapping of BT.2020 / PQ / HLG tagged streams); MPEG-4 Part 2
   Simple profile in MP4 or AVI, as cv2's `mp4v`,
   `XVID`, `DIVX` and `FMP4` writers (and so the JAX package's
   `stitch_video` without an H.264 encoder) write it (`mpeg4.MPEG4Frames`,
-  the host C++ decoder `mpeg4dec.cpp`).  HEVC beyond Main 8-bit (Main 10,
-  tiles, long-term references, ...), H.264 with fields or more than 8 bits,
+  the host C++ decoder `mpeg4dec.cpp`).  HEVC beyond Main 10 (more than 10
+  bits, tiles, long-term references, ...), H.264 with fields or more than 8 bits,
   MPEG-4 Part 2 beyond Simple profile and other codecs raise
   `container.UnsupportedCodecError` naming the codec or feature.
 """

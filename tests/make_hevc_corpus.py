@@ -19,13 +19,23 @@ It writes, from fixed seeds of the random legal-syntax writer
 - `portrait.mov`, a phone's portrait capture: 320 x 176 coded, a 90-degree
   display matrix, `hev1` with the parameter sets in band, QuickTime with a
   silent sound track, IDR and P pictures;
+- `clip_hevc10.mp4`, Main 10 in `clip_hevc.mp4`'s layout (BT.709 tags), an
+  IDR, a P and three B pictures;
+- `clip_hevc10.mov`, laid out as an iPhone's HDR capture: QuickTime, `hvc1`
+  with an hvcC box of profile 2 (Main 10), 1920 x 1080 coded as 1088, HLG
+  tags (BT.2020 primaries, ARIB STD-B67 transfer, BT.2020 matrix) in the VUI
+  and in a `colr` nclx box, a silent sound track, an IDR, a P and three B
+  pictures (no Dolby Vision RPUs: the stream is what such a capture's base
+  layer is);
 
 then decodes each with the port and writes `manifest.json`: each file's
 SHA-256 and the SHA-256 of every picture's Y', Cb and Cr planes (in output
-order, before any rotation), only after cv2's FFmpeg decoded the stream to
-the same pictures (its decode equals its decode of an I_PCM stream of the
-port's pictures, with no FFmpeg message) and read each file as its stream
--- it raises otherwise and writes nothing.
+order, before any rotation; 10-bit planes as little-endian uint16), only
+after cv2's FFmpeg decoded the stream to the same pictures (its decode
+equals its decode of an I_PCM stream of the port's pictures, High 10 for
+Main 10, with no FFmpeg message; at 10 bits its raw luma equals the port's,
+or the I_PCM stream's where the VUI describes the colour) and read each file
+as its stream -- it raises otherwise and writes nothing.
 """
 
 from __future__ import annotations
@@ -45,6 +55,7 @@ sys.path[:0] = [str(ROOT)]
 from omfs4d_torch.io import hevc  # noqa: E402
 from tests import torch_h264_syntax as h264syn  # noqa: E402
 from tests import torch_hevc_syntax as syn  # noqa: E402
+from tests.test_torch_h264_high import planes_sha  # noqa: E402
 from tests.test_torch_hevc import FEATURES  # noqa: E402
 
 OUT = ROOT / "tests" / "data" / "hevc"
@@ -57,17 +68,18 @@ CLIP_SEED = 1                  # its anchor after the IDR is a P picture
 PORTRAIT = dict(gop="p", frames=6, refs=2, num_ref_idx=2, width=320, height=176, ctb=32,
                 colour=(0, 1), sao=True, density=0.05, fps=30)
 PORTRAIT_SEED = 1
+# Main 10 at 1080p: clip_hevc.mp4's layout, five pictures; and the iPhone
+# HDR capture's tags
+CLIP10 = dict(CLIP, frames=5, cra=False, bit_depth=10)
+CLIP10_SEED = 1
+HDR = dict(CLIP10, colour=(0, 9, 18, 9))
+HDR_SEED = 3                   # its anchor after the IDR is a P picture
 
 
-def planes_sha(planes) -> str:
-    h = hashlib.sha256()
-    for p in planes:
-        h.update(np.ascontiguousarray(p).tobytes())
-    return h.hexdigest()
-
-
-def cv2_frames(path) -> tuple[list[np.ndarray], str]:
-    """cv2's frames of a file and what FFmpeg wrote to stderr meanwhile."""
+def cv2_frames(path, raw: bool = False) -> tuple[list[np.ndarray], str]:
+    """cv2's frames of a file and what FFmpeg wrote to stderr meanwhile;
+    `raw`: with CAP_PROP_CONVERT_RGB 0, each 10-bit frame's luma as
+    `tests/test_torch_hevc.py::cv2_raw_luma` reads it."""
     import cv2
 
     with tempfile.TemporaryFile() as err:
@@ -75,12 +87,14 @@ def cv2_frames(path) -> tuple[list[np.ndarray], str]:
         os.dup2(err.fileno(), 2)
         try:
             cap = cv2.VideoCapture(str(path))
+            if raw:
+                cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
             frames = []
             while True:
                 ok, frame = cap.read()
                 if not ok:
                     break
-                frames.append(frame)
+                frames.append(np.ascontiguousarray(frame).view("<u2") if raw else frame)
             cap.release()
         finally:
             os.dup2(saved, 2)
@@ -89,11 +103,12 @@ def cv2_frames(path) -> tuple[list[np.ndarray], str]:
         return frames, err.read().decode("utf-8", "replace")
 
 
-def held_to_cv2(data: bytes, pictures, colour, work: Path) -> list[np.ndarray]:
+def held_to_cv2(data: bytes, pictures, colour, work: Path, bit_depth: int = 8
+                ) -> list[np.ndarray]:
     """cv2's frames of the I_PCM stream of the pictures, once cv2's decode of
-    the coded stream equals them."""
+    the coded stream equals them (and, above 8 bits, its raw luma too)."""
     (work / "coded.hevc").write_bytes(data)
-    (work / "pcm.h264").write_bytes(h264syn.pcm_stream(pictures, colour))
+    (work / "pcm.h264").write_bytes(h264syn.pcm_stream(pictures, colour, bit_depth=bit_depth))
     coded, err1 = cv2_frames(work / "coded.hevc")
     pcm, err2 = cv2_frames(work / "pcm.h264")
     if "[hevc @" in err1 + err2 or "[h264 @" in err1 + err2:
@@ -103,6 +118,12 @@ def held_to_cv2(data: bytes, pictures, colour, work: Path) -> list[np.ndarray]:
     for i, (a, b) in enumerate(zip(coded, pcm)):
         if not np.array_equal(a, b):
             raise RuntimeError(f"frame {i}: cv2's decode differs from the port's")
+    if bit_depth > 8:
+        raw = cv2_frames(work / "coded.hevc", raw=True)[0]
+        want = ([p[0][:, :p[0].shape[1] // 2] for p in pictures] if colour is None else
+                cv2_frames(work / "pcm.h264", raw=True)[0])
+        if len(raw) != len(pictures) or any(not np.array_equal(a, b) for a, b in zip(raw, want)):
+            raise RuntimeError("cv2's raw luma differs from the port's")
     return pcm
 
 
@@ -117,23 +138,28 @@ def main() -> int:
         for name, features in FEATURES.items():
             data = syn.annexb(syn.write_stream(0, **features))
             pictures = hevc.decode_annexb(data)
-            held_to_cv2(data, pictures, features.get("colour"), work)
+            held_to_cv2(data, pictures, features.get("colour"), work,
+                        features.get("bit_depth", 8))
             files[f"{name}.hevc"] = data
             streams[f"{name}.hevc"] = {"features": features_json(features), "seed": 0,
                                        "sha256": [planes_sha(p) for p in pictures]}
         for name, features, seed, kind in (("clip_hevc.mp4", CLIP, CLIP_SEED, "mp4"),
-                                           ("portrait.mov", PORTRAIT, PORTRAIT_SEED, "mov")):
+                                           ("portrait.mov", PORTRAIT, PORTRAIT_SEED, "mov"),
+                                           ("clip_hevc10.mp4", CLIP10, CLIP10_SEED, "mp4"),
+                                           ("clip_hevc10.mov", HDR, HDR_SEED, "hdr")):
             writer = syn.Writer(seed, **features)
             aus = writer.stream()
             data = syn.annexb(aus)
             pictures = hevc.decode_annexb(data)
-            pcm = held_to_cv2(data, pictures, features["colour"], work)
+            depth = features.get("bit_depth", 8)
+            pcm = held_to_cv2(data, pictures, features["colour"], work, depth)
             path = work / name
             rotation = 90 if kind == "mov" else 0
             syn.write_mov(path, aus, features["width"], features["height"], fps=30,
-                          rotation=rotation, quicktime=kind == "mov", audio=kind == "mov",
+                          rotation=rotation, quicktime=kind != "mp4", audio=kind != "mp4",
                           media_time="ctts", sample_entry=b"hev1" if kind == "mov" else b"hvc1",
-                          display=writer.display)
+                          display=writer.display, bit_depth=depth,
+                          colour=features["colour"] if kind == "hdr" else None)
             shown, err = cv2_frames(path)
             if "[hevc @" in err or len(shown) != len(pcm) or any(
                     not np.array_equal(a, np.rot90(b, -rotation // 90)) for a, b in zip(shown, pcm)):

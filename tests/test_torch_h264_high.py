@@ -261,14 +261,16 @@ def test_empty_and_junk_units_raise_value_error():
 
 # ── the phone's file ────────────────────────────────────────
 
-def rgb_tolerance(ours_planes, colour, tmp_path, capfd) -> int:
+def rgb_tolerance(ours_planes, colour, tmp_path, capfd, bit_depth: int = 8) -> int:
     """The largest difference between the port's conversion of the planes
-    and cv2's decode of an I_PCM stream of them: the conversions' own."""
-    (tmp_path / "tol.h264").write_bytes(syn.pcm_stream(ours_planes, colour))
+    and cv2's decode of an I_PCM stream of them (`bit_depth` bits a sample,
+    `colour` as `syn.vui_colour` reads it): the conversions' own."""
+    (tmp_path / "tol.h264").write_bytes(syn.pcm_stream(ours_planes, colour, bit_depth=bit_depth))
     theirs = cv2_read(tmp_path / "tol.h264", capfd)
+    full, _, _, matrix = syn.vui_colour(colour)
     worst = 0
     for planes, bgr in zip(ours_planes, theirs):
-        ours = h264.ycbcr_to_rgb(*planes, full_range=bool(colour[0]), matrix=colour[1])
+        ours = h264.ycbcr_to_rgb(*planes, full_range=bool(full), matrix=matrix, bit_depth=bit_depth)
         worst = max(worst, int(np.abs(ours.astype(int) - bgr[..., ::-1]).max()))
     return worst
 
@@ -305,7 +307,46 @@ def test_phone_quicktime_reads_as_in_the_jax_package(tmp_path, capfd, rotation, 
         assert np.abs(x - y).max() <= tol
 
 
-COLOURS = [(False, 6), (True, 6), (False, 1), (True, 1), (False, 4), (False, 7), (False, 2)]
+COLOURS = [(False, 6), (True, 6), (False, 1), (True, 1), (False, 4), (False, 7), (False, 2),
+           (False, 9), (True, 9)]
+# the matrix each is held apart from: another one in use
+WRONG = {1: 6, 6: 1, 9: 6}
+
+
+def flat_blocks(seed: int, bit_depth: int, n: int = 48):
+    """One picture of n flat 16 x 16 blocks of random Y'CbCr, `bit_depth` bits
+    a sample."""
+    vals = np.random.default_rng(seed).integers(0, 1 << bit_depth, (n, 3))
+    vals = vals.astype(np.uint8 if bit_depth == 8 else np.uint16)
+    y = np.repeat(np.repeat(vals[None, :, 0], 16, 0), 16, 1)
+    cb = np.repeat(np.repeat(vals[None, :, 1], 8, 0), 8, 1)
+    cr = np.repeat(np.repeat(vals[None, :, 2], 8, 0), 8, 1)
+    return y, cb, cr
+
+
+def held_at_block_centres(tmp_path, capfd, planes, full, matrix, bit_depth):
+    """cv2's conversion of an I_PCM stream of flat-block planes whose VUI
+    says the range and matrix (BT.2020's with the primaries and transfer
+    unspecified, which cv2 would colour-manage) against `ycbcr_to_rgb` with
+    the SPS's: within 3 at every block's centre; the other range, and the
+    matrix in `WRONG`, more than 10 off."""
+    colour = (int(full), matrix) if matrix != 9 else (int(full), 2, 2, 9)
+    (tmp_path / "c.h264").write_bytes(syn.pcm_stream([planes], colour, bit_depth=bit_depth))
+    (bgr,) = cv2_read(tmp_path / "c.h264", capfd)
+    sps = {"full_range": full, "matrix": matrix}
+    if bit_depth == 8:                 # the port's H.264 reader parses no High 10 SPS
+        sps = h264.parse_sps(h264.annexb_units((tmp_path / "c.h264").read_bytes())[0])
+        assert (sps["full_range"], sps["matrix"]) == (full, matrix)
+    centre = (slice(8, 9), slice(8, None, 16))
+
+    def off(**kw) -> int:
+        ours = h264.ycbcr_to_rgb(*planes, bit_depth=bit_depth, **kw)
+        return int(np.abs(ours[centre].astype(int) - bgr[..., ::-1][centre]).max())
+
+    assert off(full_range=sps["full_range"], matrix=sps["matrix"]) <= 3
+    assert off(full_range=not full, matrix=matrix) > 10
+    if matrix in WRONG:
+        assert off(full_range=full, matrix=WRONG[matrix]) > 10
 
 
 @pytest.mark.parametrize("full, matrix", COLOURS, ids=[f"{'full' if f else 'limited'}-m{m}"
@@ -313,27 +354,89 @@ COLOURS = [(False, 6), (True, 6), (False, 1), (True, 1), (False, 4), (False, 7),
 def test_colour_follows_the_vui_as_cv2_does(tmp_path, capfd, full, matrix):
     """Flat 16 x 16 blocks of random Y'CbCr in an I_PCM stream whose VUI says
     the range (Android's yuvj420p is full) and matrix_coefficients (1,
-    BT.709, usual at 1080p): `ycbcr_to_rgb` with the SPS's `full_range` and
-    `matrix` is within 3 of cv2 at every block's centre; the other matrix
-    or range is far off."""
-    rng = np.random.default_rng(matrix + 10 * full)
-    n = 48
-    vals = rng.integers(0, 256, (n, 3)).astype(np.uint8)
-    y = np.repeat(np.repeat(vals[None, :, 0], 16, 0), 16, 1)
-    cb = np.repeat(np.repeat(vals[None, :, 1], 8, 0), 8, 1)
-    cr = np.repeat(np.repeat(vals[None, :, 2], 8, 0), 8, 1)
-    (tmp_path / "c.h264").write_bytes(syn.pcm_stream([(y, cb, cr)], (int(full), matrix)))
-    (bgr,) = cv2_read(tmp_path / "c.h264", capfd)
-    sps = h264.parse_sps(h264.annexb_units((tmp_path / "c.h264").read_bytes())[0])
-    assert (sps["full_range"], sps["matrix"]) == (full, matrix)
-    ours = h264.ycbcr_to_rgb(y, cb, cr, full_range=sps["full_range"], matrix=sps["matrix"])
+    BT.709, usual at 1080p; 9, BT.2020, an HDR capture's): `ycbcr_to_rgb`
+    with the SPS's `full_range` and `matrix` is within 3 of cv2 at every
+    block's centre; the other matrix or range is far off."""
+    held_at_block_centres(tmp_path, capfd, flat_blocks(matrix + 10 * full, 8), full, matrix, 8)
+
+
+DEEP_COLOURS = [(full, matrix) for matrix in (1, 6, 9) for full in (False, True)]
+
+
+@pytest.mark.parametrize("full, matrix", DEEP_COLOURS,
+                         ids=[f"{'full' if f else 'limited'}-m{m}" for f, m in DEEP_COLOURS])
+def test_ten_bit_colour_follows_the_vui_as_cv2_does(tmp_path, capfd, full, matrix):
+    """The same at 10 bits (a High 10 I_PCM stream, the samples themselves):
+    cv2 converts them on a path of their own (swscale's bicubic scaler), and
+    `ycbcr_to_rgb(..., bit_depth=10)` is within 3 of it at every block's
+    centre."""
+    held_at_block_centres(tmp_path, capfd, flat_blocks(matrix + 10 * full + 100, 10), full,
+                          matrix, 10)
+
+
+def test_ten_bit_conversion_is_cv2s_on_smooth_pictures(tmp_path, capfd):
+    """On smooth 10-bit pictures (chroma edges included) the port's
+    conversion is within 4 levels of cv2's everywhere and equal at most
+    pixels (measured: 4 at worst, about 70% equal): its chroma goes through
+    swscale's bicubic kernel as cv2's does (rows doubled at the centred
+    sites, columns a quarter of a sample ahead and each shown for two
+    pixels), where the 8-bit path's bilinear upsampling is up to ~20 off on
+    such pictures."""
+    rng = np.random.default_rng(7)
+
+    def smooth(h, w, lo, hi):
+        z = rng.normal(size=(h // 8 + 2, w // 8 + 2))
+        ys, xs = np.linspace(0, z.shape[0] - 1, h), np.linspace(0, z.shape[1] - 1, w)
+        z = np.array([np.interp(xs, np.arange(z.shape[1]), row) for row in z])
+        z = np.array([np.interp(ys, np.arange(z.shape[0]), col) for col in z.T]).T
+        return np.rint(lo + (hi - lo) * (z - z.min()) / np.ptp(z)).astype(np.uint16)
+
+    pictures = [(smooth(64, 96, 64, 940), smooth(32, 48, 160, 860), smooth(32, 48, 160, 860))
+                for _ in range(3)]
+    for colour in ((0, 2, 2, 6), (1, 2, 2, 1), (0, 2, 2, 9)):
+        (tmp_path / "s.h264").write_bytes(syn.pcm_stream(pictures, colour, bit_depth=10))
+        theirs = cv2_read(tmp_path / "s.h264", capfd)
+        equal = 0.0
+        for planes, bgr in zip(pictures, theirs):
+            ours = h264.ycbcr_to_rgb(*planes, full_range=bool(colour[0]), matrix=colour[3],
+                                     bit_depth=10).astype(int)
+            diff = np.abs(ours - bgr[..., ::-1])
+            assert diff.max() <= 4, (colour, diff.max())
+            equal += (diff == 0).mean() / len(pictures)
+        assert equal > 0.6, (colour, equal)
+
+
+# cv2's colour management of streams tagged with BT.2020 primaries or an HDR
+# transfer, against the port's conversion with the matrix and range alone, at
+# the centres of `flat_blocks(200, 10)`: (largest, mean) difference, measured
+MANAGED_GAPS = {(0, 9, 18, 9): (114, 27.43), (0, 9, 16, 9): (154, 37.22),
+                (0, 9, 1, 9): (112, 21.28), (0, 1, 18, 1): (141, 29.47)}
+
+
+@pytest.mark.parametrize("colour", list(MANAGED_GAPS), ids=["hlg", "pq", "bt2020-sdr",
+                                                            "bt709-hlg"])
+def test_colour_managed_streams_keep_their_measured_gap(tmp_path, capfd, colour):
+    """A 10-bit stream tagged with BT.2020 primaries (9) or a PQ (16) / HLG
+    (18) transfer: cv2 maps its gamut and tone (FFmpeg 8's swscale), the
+    port converts with the VUI's matrix and range alone.  The gap at flat
+    blocks' centres is the number measured (`MANAGED_GAPS`), a known fault
+    held here so that a change to either side shows."""
+    planes = flat_blocks(200, 10)
+    (tmp_path / "m.h264").write_bytes(syn.pcm_stream([planes], colour, bit_depth=10))
+    (bgr,) = cv2_read(tmp_path / "m.h264", capfd)
     centre = (slice(8, 9), slice(8, None, 16))
-    assert np.abs(ours[centre].astype(int) - bgr[..., ::-1][centre]).max() <= 3
-    other = h264.ycbcr_to_rgb(y, cb, cr, full_range=not full, matrix=matrix)
-    assert np.abs(other[centre].astype(int) - bgr[..., ::-1][centre]).max() > 10
-    if matrix in (1, 6):
-        swapped = h264.ycbcr_to_rgb(y, cb, cr, full_range=full, matrix=6 if matrix == 1 else 1)
-        assert np.abs(swapped[centre].astype(int) - bgr[..., ::-1][centre]).max() > 10
+    ours = h264.ycbcr_to_rgb(*planes, full_range=False, matrix=colour[3], bit_depth=10)
+    gap = np.abs(ours[centre].astype(int) - bgr[..., ::-1][centre])
+    assert (int(gap.max()), round(float(gap.mean()), 2)) == MANAGED_GAPS[colour]
+
+
+def test_bt2020_constant_luminance_is_refused_as_swscale_refuses_it():
+    """matrix_coefficients 10 (BT.2020 constant luminance): swscale refuses
+    it and cv2 hands back a buffer it never converted; the port raises,
+    naming it."""
+    y, cb, cr = flat_blocks(0, 8, 4)
+    with pytest.raises(container.UnsupportedCodecError, match="constant luminance"):
+        h264.ycbcr_to_rgb(y, cb, cr, matrix=10)
 
 
 # ── what stays outside ──────────────────────────────────────
@@ -481,9 +584,12 @@ def test_importing_builds_nothing():
 # ── the committed corpus ────────────────────────────────────
 
 def planes_sha(planes) -> str:
+    """SHA-256 of a picture's planes: their bytes, 8-bit samples as bytes,
+    deeper ones as little-endian uint16."""
     h = hashlib.sha256()
     for p in planes:
-        h.update(np.ascontiguousarray(p).tobytes())
+        p = np.asarray(p)
+        h.update(np.ascontiguousarray(p if p.dtype == np.uint8 else p.astype("<u2")).tobytes())
     return h.hexdigest()
 
 

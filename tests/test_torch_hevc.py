@@ -1,19 +1,23 @@
-"""The port's host HEVC decoder (`omfs4d_torch/io/hevcdec.cpp`, Main profile I,
-P and B pictures) on the CPU, held to an independent decoder: cv2's FFmpeg.
+"""The port's host HEVC decoder (`omfs4d_torch/io/hevcdec.cpp`, Main and Main 10
+profile I, P and B pictures) on the CPU, held to an independent decoder: cv2's
+FFmpeg.
 
-- Random legal-syntax streams (`tests/torch_hevc_syntax.py`) in thirteen
-  feature sets over two seeds: cv2's decode of the coded stream equals its
-  decode of an H.264 I_PCM stream of the port's planes (the same VUI, so the
-  colour conversion is the same), frame for frame and in number, with no
-  `[hevc @` line; each set shows that it exercised its features, and over the
+- Random legal-syntax streams (`tests/torch_hevc_syntax.py`) in eighteen
+  feature sets over two seeds (five of them Main 10, one at 9 bits): cv2's decode of the
+  coded stream equals its decode of an H.264 I_PCM stream of the port's
+  planes (the same VUI, so the colour conversion is the same; High 10 with
+  10-bit PCM samples for Main 10), frame for frame and in number, with no
+  `[hevc @` line; at 10 bits cv2's raw luma (`cv2_raw_luma`) equals the
+  port's too; each set shows that it exercised its features, and over the
   sets the subset is covered.
+- A Dolby Vision stream's RPUs (NAL unit type 62) change no picture.
 - The CABAC tables are libavcodec's, by their bytes (where opencv-python
   bundles one), and the generated header holds every table.
 - What stays outside the decoder is refused by name, each tool from
   probe_video; with no g++ there is no decode at all; importing builds
   nothing.
 - Truncated and bit-flipped NAL units raise ValueError (in a child process,
-  so that a crash would fail the test, not the worker).
+  so that a crash would fail the test, not the worker), at 8 and at 10 bits.
 
 The files (MP4, QuickTime, the committed corpus) are
 `tests/test_torch_hevc_files.py`'s."""
@@ -58,6 +62,20 @@ FEATURES = {
     "window": dict(gop="p", frames=3, width=60, height=44, display_window=True, colour=(0, 1),
                    param_sets=2),
     "output": dict(gop="pyramid", frames=9, output_flag=True, no_output_prior=True),
+    # Main 10: QPs down to -QpBdOffsetY (-12), SAO offsets up to 31
+    "main10_intra": dict(gop="intra", frames=3, ctb=32, width=96, height=64, depth_intra=3,
+                         sao=True, bit_depth=10, qp=(-12, 30)),
+    "main10_pb": dict(gop="pyramid", frames=6, weighted=True, refs=3, num_ref_idx=3, width=96,
+                      height=64, bit_depth=10, qp=(-12, 20), chroma_offsets=(-8, 6),
+                      slice_chroma=True),
+    "main10_wpp": dict(gop="pyramid", frames=5, wpp=True, slices=3, ctb=16, width=96, height=80,
+                       deblock=("offsets",), bit_depth=10, qp=(-6, 40)),
+    # Main 10 allows 9 bits too: QpBdOffsetY 6, SAO offsets up to 15
+    "main9": dict(gop="pyramid", frames=4, width=64, height=48, bit_depth=9, qp=(-6, 10),
+                  sao=True, ctb=32),
+    # an iPhone HDR capture's tags: BT.2020 primaries, HLG, BT.2020 matrix
+    "main10_hlg": dict(gop="p", frames=4, colour=(0, 9, 18, 9), sao=True, bit_depth=10,
+                       qp=(-12, 40)),
 }
 EXPECT = {
     "intra": ["sao_band", "sao_edge", "sao_merge_left", "transform_skip", "sign_hidden"],
@@ -73,6 +91,13 @@ EXPECT = {
     "sublayers": ["hrd", "nal2", "nal4"],
     "window": ["conformance_window", "default_display_window"],
     "output": ["pic_output_flag0", "no_output_of_prior_pics"],
+    "main10_intra": ["bd10", "qp_negative", "sao_band", "sao_edge", "sao_offset_gt7",
+                     "transform_skip"],
+    "main10_pb": ["bd10", "qp_negative", "weighted_l0", "weighted_l1", "B", "cu_qp_delta"],
+    "main10_wpp": ["bd10", "wpp_row", "wpp_sync", "deblock_offsets", "transform_skip",
+                   "cu_qp_delta_extreme"],
+    "main9": ["bd9", "qp_negative", "sao_offset_gt7", "B"],
+    "main10_hlg": ["bd10", "P", "sao_offset_gt7"],
 }
 CASES = [(name, seed) for name in FEATURES for seed in (0, 1)]
 
@@ -98,18 +123,51 @@ def cv2_read(path, capfd) -> list[np.ndarray]:
     return frames
 
 
-def held_to_ffmpeg(tmp_path, capfd, aus, colour=None) -> list:
+def cv2_raw_luma(path, capfd) -> list[np.ndarray]:
+    """cv2's raw Y' of each frame of a 10-bit stream, the left half of each
+    row: with CAP_PROP_CONVERT_RGB 0 cv2 treats yuv420p10le as 8UC1 and
+    hands back H x W bytes, row by row at the frame's stride, which are the
+    first W / 2 samples of each row as little-endian uint16.  They are the
+    decoded samples themselves only where the VUI has no colour description
+    (with one FFmpeg converts them first: clamps a limited range, maps
+    HLG)."""
+    cap = cv2.VideoCapture(str(path))
+    cap.set(cv2.CAP_PROP_CONVERT_RGB, 0)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(np.ascontiguousarray(frame).view("<u2"))
+    cap.release()
+    err = capfd.readouterr().err
+    assert "[hevc @" not in err and "[h264 @" not in err, err[-2000:]
+    return frames
+
+
+def held_to_ffmpeg(tmp_path, capfd, aus, colour=None, bit_depth: int = 8) -> list:
     """The port's pictures of a stream, after checking that cv2's decode of
-    it equals cv2's decode of an I_PCM stream of them."""
+    it equals cv2's decode of an I_PCM stream of them (High 10, 10-bit PCM
+    samples, above 8 bits), and, above 8 bits, that cv2's raw luma of it
+    equals the port's (where the VUI describes no colour) or cv2's raw luma
+    of the I_PCM stream (where it does)."""
     data = syn.annexb(aus)
     ours = hevc.decode_annexb(data)
+    assert ours[0][0].dtype == (np.uint8 if bit_depth == 8 else np.uint16)
     (tmp_path / "coded.hevc").write_bytes(data)
-    (tmp_path / "pcm.h264").write_bytes(h264syn.pcm_stream(ours, colour))
+    (tmp_path / "pcm.h264").write_bytes(h264syn.pcm_stream(ours, colour, bit_depth=bit_depth))
     coded = cv2_read(tmp_path / "coded.hevc", capfd)
     pcm = cv2_read(tmp_path / "pcm.h264", capfd)
     assert len(coded) == len(pcm) == len(ours)
     for i, (a, b) in enumerate(zip(coded, pcm)):
         np.testing.assert_array_equal(a, b, err_msg=f"frame {i}")
+    if bit_depth > 8:
+        raw = cv2_raw_luma(tmp_path / "coded.hevc", capfd)
+        want = ([p[0][:, :p[0].shape[1] // 2] for p in ours] if colour is None else
+                cv2_raw_luma(tmp_path / "pcm.h264", capfd))
+        assert len(raw) == len(want) == len(ours)
+        for i, (a, b) in enumerate(zip(raw, want)):
+            np.testing.assert_array_equal(a, b, err_msg=f"raw luma of frame {i}")
     return ours
 
 
@@ -122,7 +180,8 @@ def test_random_streams_decode_as_ffmpeg_does(tmp_path, capfd, name, seed):
     features = FEATURES[name]
     writer = syn.Writer(seed, **features)
     aus = writer.stream()
-    ours = held_to_ffmpeg(tmp_path, capfd, aus, features.get("colour"))
+    ours = held_to_ffmpeg(tmp_path, capfd, aus, features.get("colour"),
+                          features.get("bit_depth", 8))
     assert ours[0][0].shape == (features.get("height", 48), features.get("width", 64))
     if not features.get("no_output_prior"):          # a BLA's RASL pictures are not output
         assert len(ours) == sum(p.output for p in writer.pics)
@@ -137,7 +196,9 @@ def test_the_feature_sets_cover_the_subset():
     non-reference),
     both collocated lists, cabac_init_flag, inter-predicted RPSs in the SPS
     and the slice header, SAO's band, edge and merges, the deblocking
-    overrides, WPP, dependent and mid-row slices occur."""
+    overrides, WPP, dependent and mid-row slices occur; at 10 bits, negative
+    slice QPs, SAO offsets above 8-bit's 7 and cu_qp_delta at the ends of its
+    widened range too."""
     total = syn.Counter()
     for name, seed in CASES:
         writer = syn.Writer(seed, **FEATURES[name])
@@ -153,8 +214,29 @@ def test_the_feature_sets_cover_the_subset():
                  "dependent", "mid_row_slice", "transform_skip", "sign_hidden", "escape",
                  "cu_qp_delta", "intra_in_inter", "skip", "merge_8x4", "mvd_l1_zero",
                  "intra_nxn", "weighted_l1", "list_mod", "hrd", "pic_output_flag0",
-                 "no_output_of_prior_pics", "conformance_window", "default_display_window"])
+                 "no_output_of_prior_pics", "conformance_window", "default_display_window",
+                 "bd10", "qp_negative", "sao_offset_gt7", "cu_qp_delta_extreme"])
     assert not [k for k in wanted if not total[k]], dict(total)
+
+
+def test_dolby_vision_units_change_no_picture(tmp_path, capfd):
+    """A Main 10 stream with an RPU (NAL unit type 62, unspecified: what a
+    Dolby Vision iPhone capture carries) after each picture's slices decodes
+    to the pictures of the same stream without them, in the port (which
+    skips the type, as it does 41-63); the stream without them is held to
+    cv2."""
+    features = dict(FEATURES["main10_pb"], frames=4)
+    aus = syn.Writer(3, **features).stream()
+    plain = held_to_ffmpeg(tmp_path, capfd, aus, None, 10)
+    rng = np.random.default_rng(0)
+    with_rpus = [au + [bytes([62 << 1, 1, 0x19]) + rng.integers(1, 256, 30, np.uint8).tobytes()
+                       + b"\x80"] for au in aus]
+    assert sum((u[0] >> 1) & 63 == 62 for au in with_rpus for u in au) == len(aus)
+    ours = hevc.decode_annexb(syn.annexb(with_rpus))
+    assert len(ours) == len(plain)
+    for a, b in zip(ours, plain):
+        for x, y in zip(a, b):
+            np.testing.assert_array_equal(x, y)
 
 
 # ── tables ──────────────────────────────────────────────────
@@ -199,9 +281,10 @@ def test_generated_header_holds_every_table():
 @pytest.mark.parametrize("tool", list(syn.REFUSE))
 def test_what_stays_outside_is_refused_by_name(tmp_path, tool):
     """Tiles, long-term references, scaling lists, PCM, transquant bypass,
-    bit depths above 8, 4:2:2 and the SPS's range and multilayer extensions
-    raise UnsupportedCodecError naming the tool and ffmpeg from probe_video,
-    with no decode, and again from the host decoder."""
+    bit depths above 10 (Main 12), luma and chroma depths that differ, 4:2:2
+    and the SPS's range and multilayer extensions raise UnsupportedCodecError
+    naming the tool and ffmpeg from probe_video, with no decode, and again
+    from the host decoder."""
     params = syn.Writer(0, gop="intra", frames=1, refuse=tool).parameter_sets()
     good = syn.write_stream(0, gop="p", frames=2)
     aus = [params + good[0][3:]] + good[1:]
@@ -275,9 +358,7 @@ from tests import torch_hevc_syntax as syn
 from omfs4d_torch.io import container, hevc
 rng = np.random.default_rng(2)
 out = {"truncated": [], "flipped": []}
-for name, features in (("p", dict(gop="p", frames=4, width=64, height=48)),
-                       ("b", dict(gop="pyramid", frames=5, width=64, height=48, wpp=True,
-                                  slices=2, sao=True, ctb=16))):
+for name, features in json.loads(sys.argv[2]):
     units = [u for au in syn.write_stream(5, **features) for u in au]
     slices = [k for k, u in enumerate(units) if (u[0] >> 1) & 63 < 32]
     for trial in range(50):
@@ -304,18 +385,41 @@ print(json.dumps(out))
 """
 
 
+FUZZ_8BIT = [("p", dict(gop="p", frames=4, width=64, height=48)),
+             ("b", dict(gop="pyramid", frames=5, width=64, height=48, wpp=True, slices=2,
+                        sao=True, ctb=16))]
+FUZZ_10BIT = [("p10", dict(gop="p", frames=4, width=64, height=48, bit_depth=10, qp=(-12, 40),
+                           weighted=True)),
+              ("b10", dict(gop="pyramid", frames=5, width=64, height=48, wpp=True, slices=2,
+                           sao=True, ctb=32, bit_depth=10, qp=(-12, 30)))]
+
+
+def fuzz(streams) -> dict:
+    """50 truncated and bit-flipped slice segments of each stream, decoded
+    in a child process: what each gave."""
+    res = subprocess.run([sys.executable, "-c", FUZZ, str(REPO), json.dumps(streams)],
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
 def test_corrupt_streams_raise_and_never_crash():
     """Truncated slice segments raise ValueError (or, where the cut falls
     in the trailing bits, decode); bit-flipped ones raise ValueError, name
     an unsupported feature or happen to decode: never a crash of the
     interpreter.  Run in a child process so that a crash fails this test."""
-    res = subprocess.run([sys.executable, "-c", FUZZ, str(REPO)], capture_output=True,
-                         text=True, timeout=120)
-    assert res.returncode == 0, res.stderr[-3000:]
-    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out = fuzz(FUZZ_8BIT)
     assert set(out["truncated"]) <= {"ValueError", "decoded"}, out
     assert out["truncated"].count("ValueError") >= 40, out
     assert set(out["flipped"]) <= {"ValueError", "unsupported", "decoded"}
     assert out["flipped"].count("ValueError") >= 15, out
 
 
+def test_corrupt_ten_bit_streams_raise_and_never_crash():
+    """The same over Main 10 streams (16-bit samples, negative QPs,
+    weighted prediction, SAO's wider offsets)."""
+    out = fuzz(FUZZ_10BIT)
+    assert set(out["truncated"]) <= {"ValueError", "decoded"}, out
+    assert out["truncated"].count("ValueError") >= 40, out
+    assert set(out["flipped"]) <= {"ValueError", "unsupported", "decoded"}
+    assert out["flipped"].count("ValueError") >= 15, out

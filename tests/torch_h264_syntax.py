@@ -427,13 +427,13 @@ class Writer:
             bw.u(1, 1)                                     # VUI
             bw.u(2, 0)                                     # no aspect ratio, overscan
             bw.u(1, f["colour"] is not None)
-            if f["colour"] is not None:                    # (full range, matrix)
+            if f["colour"] is not None:                    # see vui_colour
+                colour = vui_colour(f["colour"])
                 bw.u(3, 5)
-                bw.u(1, f["colour"][0])
+                bw.u(1, colour[0])
                 bw.u(1, 1)
-                bw.u(8, f["colour"][1])
-                bw.u(8, f["colour"][1])
-                bw.u(8, f["colour"][1])
+                for v in colour[1:]:
+                    bw.u(8, v)
             bw.u(1, 0)                                     # chroma location
             bw.u(1, 1)
             bw.u(32, 1)
@@ -2171,17 +2171,34 @@ def write_track_file(path, samples: list[bytes], sync: list[int], sample_entry: 
         f.write(head + wide + mdat + _box(b"moov", mvhd, *traks))
 
 
-def pcm_stream(planes, colour=None, fps: int = 25) -> bytes:
+def vui_colour(colour) -> tuple[int, int, int, int] | None:
+    """`colour` as (full range, colour_primaries, transfer_characteristics,
+    matrix_coefficients); (full range, m) is shorthand for (full range, m, m,
+    m)."""
+    if colour is None:
+        return None
+    return tuple(colour) if len(colour) == 4 else (colour[0], colour[1], colour[1], colour[1])
+
+
+def pcm_stream(planes, colour=None, fps: int = 25, bit_depth: int = 8) -> bytes:
     """An Annex B stream of (Y', Cb, Cr) pictures, each an IDR of one slice of
     I_PCM macroblocks (the samples themselves), cropped to their size, its
-    VUI giving `colour` = (full range, matrix_coefficients) as a coded stream's
-    does: cv2 then converts both alike, and its decodes compare bit for bit."""
+    VUI giving `colour` (`vui_colour`) as a coded stream's does: cv2 then
+    converts both alike, and its decodes compare bit for bit.  At
+    `bit_depth` 9 or 10 the stream is High 10 (profile_idc 110) and its PCM
+    samples have that many bits."""
     h, w = planes[0][0].shape
     mbw, mbh = -(-w // 16), -(-h // 16)
+    colour = vui_colour(colour)
     bw = BitWriter()
-    for v in (66, 0xC0, 40):
+    for v in ((66, 0xC0, 40) if bit_depth == 8 else (110, 0, 40)):
         bw.u(8, v)
-    for v in (0, 0, 2, 1):                     # sps id, frame_num, POC type 2, 1 ref
+    bw.ue(0)                                   # sps id
+    if bit_depth != 8:
+        for v in (1, bit_depth - 8, bit_depth - 8):     # 4:2:0, the depths
+            bw.ue(v)
+        bw.u(2, 0)                             # no transform bypass, no scaling matrix
+    for v in (0, 2, 1):                        # frame_num, POC type 2, 1 ref
         bw.ue(v)
     bw.u(1, 0)
     bw.ue(mbw - 1)
@@ -2199,8 +2216,8 @@ def pcm_stream(planes, colour=None, fps: int = 25) -> bytes:
         bw.u(3, 5)
         bw.u(1, colour[0])
         bw.u(1, 1)
-        for _ in range(3):
-            bw.u(8, colour[1])
+        for v in colour[1:]:
+            bw.u(8, v)
     bw.u(1, 0)
     bw.u(1, 1)
     bw.u(32, 1)
@@ -2237,10 +2254,14 @@ def pcm_stream(planes, colour=None, fps: int = 25) -> bytes:
             r, c = divmod(m, mbw)
             bw.ue(25)
             bw.align_zero()
-            bw.buf += np.concatenate([y[16 * r:16 * r + 16, 16 * c:16 * c + 16].ravel(),
+            samples = np.concatenate([y[16 * r:16 * r + 16, 16 * c:16 * c + 16].ravel(),
                                       cb[8 * r:8 * r + 8, 8 * c:8 * c + 8].ravel(),
-                                      cr[8 * r:8 * r + 8, 8 * c:8 * c + 8].ravel()]
-                                     ).astype(np.uint8).tobytes()
+                                      cr[8 * r:8 * r + 8, 8 * c:8 * c + 8].ravel()])
+            if bit_depth == 8:
+                bw.buf += samples.astype(np.uint8).tobytes()
+            else:                                # 384 samples of bit_depth bits: whole bytes
+                bits = (samples.astype(np.int64)[:, None] >> np.arange(bit_depth - 1, -1, -1)) & 1
+                bw.buf += np.packbits(bits.astype(np.uint8).ravel()).tobytes()
         bw.trailing()
         units.append(nal(3, 5, bw.data()))
     return b"".join(b"\x00\x00\x00\x01" + u for u in units)

@@ -3,7 +3,7 @@
 HEVC encoder at hand.
 
 `Writer(seed, **features).stream()` draws every syntax element of Main
-profile I, P and B pictures at random, within what the standard allows and
+(or, with `bit_depth` 9 or 10, Main 10) profile I, P and B pictures at random, within what the standard allows and
 what the neighbours make available, and returns the NAL units of each access
 unit in decoding order.  It needs no reconstruction: it keeps only what the
 syntax itself depends on, as the decoder derives it (the depth, skip flag,
@@ -36,9 +36,12 @@ through its own CABAC encoder (9.3.4, the context selection of 9.3.4.2):
 - loop filters: SAO (band and edge, merge left and up), the deblocking
   filter's PPS and slice overrides, slice_loop_filter_across_slices;
 - parameter sets: VPS, several SPS / PPS ids, sub-layer ordering info, a
-  conformance window, the VUI's colour, timing, default display window and
-  HRD, explicit weighted prediction, list modification, TMVP's collocated
-  picture.
+  conformance window, the VUI's colour (`torch_h264_syntax.vui_colour`),
+  timing, default display window and HRD, explicit weighted prediction,
+  list modification, TMVP's collocated picture;
+- Main 10 (`bit_depth`): the depths in the SPS, SAO offsets up to 31, slice
+  QPs, init_qp and cu_qp_delta over the range QpBdOffsetY widens (down to
+  -12).
 
 `annexb` writes the access units as a byte stream, `write_mov` as MP4 /
 QuickTime (`hvc1` / `hev1`, with `ctts`, an edit list and a display
@@ -53,7 +56,7 @@ import struct
 from collections import Counter
 
 from omfs4d_torch.io import hevc_tables as T
-from tests.torch_h264_syntax import BitWriter, _box, write_track_file
+from tests.torch_h264_syntax import BitWriter, _box, vui_colour, write_track_file
 
 C = T.CTX
 # NAL unit types
@@ -194,14 +197,16 @@ DEFAULTS = dict(
     slice_chroma=False, output_flag=False, no_output_prior=False, sublayers=False, cra=False,
     colour=None, display_window=False, extra_bits=0, header_ext=False, sps_rps=0.6,
     inter_rps=0.5, non_ref=0.0, mvd_l1_zero=0.5, fps=25, hrd=False, level=93, big=0.05,
-    param_sets=1, max_merge=(1, 5), idr_every=0, root_cbf=0.7, mvd_max=24, refuse=None)
+    param_sets=1, max_merge=(1, 5), idr_every=0, root_cbf=0.7, mvd_max=24, refuse=None,
+    bit_depth=8)
 
 # a tool outside the decoder's subset that `refuse` sets in the parameter
 # sets (the set ends there: the decoder stops at the flag), and the name
 # its refusal gives
 REFUSE = {"tiles": "tiles", "long_term": "long-term reference pictures",
           "scaling_lists": "scaling lists", "pcm": "PCM",
-          "transquant_bypass": "transquant bypass", "main10": "bit depth above 8",
+          "transquant_bypass": "transquant bypass", "main12": "bit depth above 10",
+          "unequal_depths": "luma and chroma bit depths that differ",
           "chroma_422": "chroma format 4:2:2", "range_extension": "range extension",
           "multilayer": "multilayer extension"}
 
@@ -237,6 +242,10 @@ class Writer:
         self.ctb_h = -(-self.H // f["ctb"])
         self.w4, self.h4 = self.W // 4, self.H // 4
         self.display: list[int] = []
+        self.bd = f["bit_depth"]
+        self.qpbd = 6 * (self.bd - 8)
+        if self.bd > 8:
+            self.stats[f"bd{self.bd}"] += 1
 
     # ── the plan of pictures ──
     def plan(self) -> list[Pic]:
@@ -349,10 +358,11 @@ class Writer:
 
     # ── parameter sets ──
     def ptl(self, bw: BitWriter, sub_layers_minus1: int) -> None:
+        profile, compat = (1, 0x60000000) if self.bd == 8 else (2, 0x20000000)   # Main, Main 10
         bw.u(2, 0)
         bw.u(1, 0)
-        bw.u(5, 1)                          # Main
-        bw.u(32, 0x60000000)
+        bw.u(5, profile)
+        bw.u(32, compat)
         bw.u(4, 0b1001)                     # progressive, frame only
         bw.u(43, 0)
         bw.u(1, 0)
@@ -369,8 +379,8 @@ class Writer:
             if p:
                 bw.u(2, 0)
                 bw.u(1, 0)
-                bw.u(5, 1)
-                bw.u(32, 0x60000000)
+                bw.u(5, profile)
+                bw.u(32, compat)
                 bw.u(4, 0b1001)
                 bw.u(43, 0)
                 bw.u(1, 0)
@@ -476,8 +486,9 @@ class Writer:
             for v in (0, crop[0] // 2, 0, crop[1] // 2):
                 bw.ue(v)
             self.stats["conformance_window"] += 1
-        bw.ue(2 if refuse == "main10" else 0)
-        bw.ue(2 if refuse == "main10" else 0)
+        depth = 12 if refuse == "main12" else self.bd
+        bw.ue(depth - 8)
+        bw.ue(depth - 8 + 2 * (refuse == "unequal_depths"))
         bw.ue(self.log2_max_poc_lsb - 4)
         ordering = self.msl > 0 and rng.random() < 0.5
         bw.u(1, ordering)
@@ -523,11 +534,12 @@ class Writer:
             bw.u(1, 0)
             bw.u(1, f["colour"] is not None)
             if f["colour"] is not None:
+                colour = vui_colour(f["colour"])
                 bw.u(3, 5)
-                bw.u(1, f["colour"][0])
+                bw.u(1, colour[0])
                 bw.u(1, 1)
-                for _ in range(3):
-                    bw.u(8, f["colour"][1])
+                for v in colour[1:]:
+                    bw.u(8, v)
             bw.u(1, 0)
             bw.u(3, 0)
             bw.u(1, f["display_window"])
@@ -761,6 +773,9 @@ class Writer:
             self.slice_addr = first
             sh = {"type": pic.kind}
             sh["qp"] = rng.randint(*f["qp"])
+            assert -self.qpbd <= sh["qp"] <= 51, "SliceQpY out of range"
+            if sh["qp"] < 0:
+                self.stats["qp_negative"] += 1
             sh["sao_luma"] = f["sao"] and rng.random() < 0.8
             sh["sao_chroma"] = f["sao"] and rng.random() < 0.7
             # the deblocking override: one a picture, as encoders write it
@@ -1036,11 +1051,16 @@ class Writer:
                     cab.bypass(kind == 2)
             if not kind:
                 continue
-            offsets = [rng.choice((0, 1, 2, 3, 7)) if rng.random() < 0.7 else 0 for _ in range(4)]
+            cmax = (1 << (min(self.bd, 10) - 5)) - 1
+            choices = (0, 1, 2, 3, 7) if cmax == 7 else tuple(
+                v for v in (0, 1, 3, 7, 8, 15, 31) if v <= cmax)
+            offsets = [rng.choice(choices) if rng.random() < 0.7 else 0 for _ in range(4)]
+            if max(offsets) > 7:
+                self.stats["sao_offset_gt7"] += 1
             for v in offsets:
                 for _ in range(v):
                     cab.bypass(1)
-                if v < 7:
+                if v < cmax:
                     cab.bypass(0)
             if kind == 1:
                 for v in offsets:
@@ -1303,7 +1323,8 @@ class Writer:
         if (cbf_l or cbf_cb or cbf_cr) and pps["cu_qp_delta"] and not self.qp_coded:
             d = 0 if rng.random() < 0.3 else rng.randint(-f["qp_delta"], f["qp_delta"])
             if rng.random() < 0.03:
-                d = rng.choice((-26, 25))
+                d = rng.choice((-26 - self.qpbd // 2, 25 + self.qpbd // 2))
+                self.stats["cu_qp_delta_extreme"] += 1
             a = abs(d)
             cab.bin(C["CU_QP_DELTA"], a > 0)
             for j in range(1, min(a, 5) + 1):
@@ -1500,10 +1521,13 @@ def annexb(aus: list[list[bytes]]) -> bytes:
 
 # ── MP4 / QuickTime files of the streams ────────────────────────────────
 
-def hvcc(units: list[bytes], in_band: bool) -> bytes:
-    """An hvcC box of the parameter sets (none for an in-band `hev1`)."""
-    body = bytes([1, 0x01, 0x60, 0, 0, 0, 0x90, 0, 0, 0, 0, 0, 93, 0xF0, 0x00, 0xFC, 0xFD, 0xF8,
-                  0xF8, 0, 0, 0x0F])
+def hvcc(units: list[bytes], in_band: bool, bit_depth: int = 8) -> bytes:
+    """An hvcC box of the parameter sets (none for an in-band `hev1`), its
+    profile Main, or Main 10 above 8 bits."""
+    profile, compat = (0x01, 0x60) if bit_depth == 8 else (0x02, 0x20)
+    depth = 0xF8 | (bit_depth - 8)
+    body = bytes([1, profile, compat, 0, 0, 0, 0x90, 0, 0, 0, 0, 0, 93, 0xF0, 0x00, 0xFC, 0xFD,
+                  depth, depth, 0, 0, 0x0F])
     arrays = [] if in_band else [
         [u for u in units if (u[0] >> 1) & 63 == t] for t in (VPS, SPS, PPS)]
     arrays = [a for a in arrays if a]
@@ -1514,14 +1538,23 @@ def hvcc(units: list[bytes], in_band: bool) -> bytes:
     return _box(b"hvcC", body)
 
 
+def colr(colour) -> bytes:
+    """A `colr` box of type nclx: `colour` as `torch_h264_syntax.vui_colour`
+    reads it."""
+    full, primaries, transfer, matrix = vui_colour(colour)
+    return _box(b"colr", b"nclx" + struct.pack(">HHHB", primaries, transfer, matrix, full << 7))
+
+
 def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 30,
               rotation: int = 0, audio: bool = True, quicktime: bool = True,
               media_time: int | None = 0, sample_entry: bytes = b"hvc1",
-              display: list[int] | None = None, config: bool = True) -> None:
+              display: list[int] | None = None, config: bool = True, bit_depth: int = 8,
+              colour=None) -> None:
     """A phone-like file of the access units, laid out as
     `torch_h264_syntax.write_mov` lays out H.264's: parameter sets in the
     hvcC box (`hvc1`) or in band (`hev1`); `config` False leaves the hvcC
-    box out."""
+    box out; `bit_depth` above 8 makes its profile Main 10, and `colour` adds
+    a `colr` box after it, as an iPhone's HDR capture has."""
     params = [u for au in aus for u in au if (u[0] >> 1) & 63 in (VPS, SPS, PPS)]
     in_band = sample_entry == b"hev1"
     samples, sync = [], []
@@ -1530,5 +1563,7 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
         samples.append(b"".join(struct.pack(">I", len(u)) + u for u in units))
         if any(16 <= (u[0] >> 1) & 63 <= 23 for u in au):
             sync.append(i + 1)
-    write_track_file(path, samples, sync, sample_entry, hvcc(params, in_band) if config else b"",
-                     width, height, fps, rotation, audio, quicktime, media_time, display)
+    boxes = (hvcc(params, in_band, bit_depth) if config else b"") + (
+        colr(colour) if colour is not None else b"")
+    write_track_file(path, samples, sync, sample_entry, boxes, width, height, fps, rotation,
+                     audio, quicktime, media_time, display)
