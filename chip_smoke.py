@@ -3214,6 +3214,78 @@ def hevc_corpus(work: Path) -> dict:
             "preprocess_hdr_s": runs["clip_hevc10.mov"]}
 
 
+def colour_against_cv2(work: Path) -> dict:
+    """The port's colour management (`omfs4d_torch.io.colour`) held to cv2's
+    output committed in `tests/data/hevc/cv2_colour.npz` (cv2 is not on the
+    card's machine; `tests/make_colour_samples.py` wrote it): clip_hevc10.mov's
+    five frames (BT.2020 / HLG, every 16th row and column) within a mean of
+    1.0 levels and a 99.9th percentile of 10, the largest difference
+    reported; and two 8-bit H.264 I_PCM relays read through the port's
+    reader (BT.2020 with HLG, with PQ; `tests/colour_relays.py`) within a
+    mean of 0.3 and 8 at worst at their 2048 block centres in the R'G'B'
+    cube, 0.5 and 16 at their 1024 over the whole code range.  Times the
+    host's conversion of a 1080p frame, the colour table's build, and the
+    conversion with the matrix and range alone that the mapping replaced."""
+    from omfs4d_torch.io import colour, h264, hevc
+
+    def test_module(name: str):
+        """A module of this checkout's tests/ by path (a `tests` package
+        installed elsewhere would win an import by name)."""
+        spec = importlib.util.spec_from_file_location(
+            name, Path(__file__).resolve().parent / "tests" / f"{name}.py")
+        module = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(module)
+        return module
+
+    colour_relays, syn = test_module("colour_relays"), test_module("torch_h264_syntax")
+
+    manifest = json.loads((HEVC_CORPUS / "manifest.json").read_text())
+    entry = manifest["samples"]["cv2_colour.npz"]
+    raw = (HEVC_CORPUS / "cv2_colour.npz").read_bytes()
+    check(hashlib.sha256(raw).hexdigest() == entry["sha256"],
+          "cv2_colour.npz's SHA-256 is the manifest's")
+    cv2_out = np.load(HEVC_CORPUS / "cv2_colour.npz")
+    step = entry["step"]
+    frames = hevc.frames(HEVC_CORPUS / "clip_hevc10.mov")
+    tags = frames.colour
+    p = frames.params
+    colour.table.cache_clear()                      # the preprocess above built it
+    t0 = time.perf_counter()
+    colour.table(p["primaries"], p["transfer"], tags["mastering"])
+    table_s = time.perf_counter() - t0
+    diffs, map_s, plain_s = [], [], []
+    for i in range(len(frames)):
+        planes = frames.ycbcr(i)
+        t0 = time.perf_counter()
+        rgb = h264.ycbcr_to_rgb(*planes, **tags)
+        map_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        h264.ycbcr_to_rgb(*planes, full_range=p["full_range"], matrix=p["matrix"],
+                          bit_depth=p["bit_depth"])
+        plain_s.append(time.perf_counter() - t0)
+        if i == 0:
+            check(np.array_equal(rgb, frames.rgb(i)), "clip_hevc10.mov: the reader's frame")
+        diffs.append(np.abs(rgb[:1080:step, ::step].astype(int) - cv2_out["clip"][i]).ravel())
+    d = np.concatenate(diffs)
+    clip = {"mean": float(d.mean()), "p999": float(np.percentile(d, 99.9)), "max": int(d.max())}
+    check(clip["mean"] <= 1.0 and clip["p999"] <= 10,
+          f"clip_hevc10.mov against cv2's frames: mean {clip['mean']:.4f}, p99.9 "
+          f"{clip['p999']:.1f} (bounds 1.0, 10)")
+    relays = {}
+    for name in colour_relays.RELAYS:
+        relay_tags, codes, planes = colour_relays.relay(name)
+        units = h264.annexb_units(syn.pcm_stream([planes], relay_tags))
+        path = work / f"relay_{name}.mov"
+        syn.write_mov(path, [units], planes[0].shape[1], planes[0].shape[0])
+        ours = colour_relays.centres(h264.frames(path).rgb(0), len(codes))
+        g = colour_relays.gaps(ours, cv2_out[f"relay_{name}"])
+        check(g["cube_mean"] <= 0.3 and g["cube_max"] <= 8 and g["whole_mean"] <= 0.5
+              and g["whole_max"] <= 16, f"relay {name} {relay_tags} against cv2's: {g}")
+        relays[name] = g
+    return {"clip": clip, "relays": relays, "map_s": float(np.mean(map_s)),
+            "plain_s": float(np.mean(plain_s)), "table_s": table_s}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -3411,6 +3483,7 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         t_hevc = time.perf_counter()
         hev = hevc_corpus(work)
         hevc_s = time.perf_counter() - t_hevc
+        col = colour_against_cv2(work)
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -3472,6 +3545,13 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           + " / ".join(str(hev["n10"][k]) for k in "IPB") + "; "
           + " / ".join(f"{hev['bytes10'][k]:.0f}" for k in "IPB") + " bytes); cli preprocess "
           f"--video clip_hevc10.mov {hev['preprocess_hdr_s']:.2f} s -> 5 frames 910x512 [{card}]")
+    rel = "; ".join(f"{k} cube mean {g['cube_mean']:.4f} max {g['cube_max']}, whole mean "
+                    f"{g['whole_mean']:.4f} max {g['whole_max']}" for k, g in col["relays"].items())
+    print(f"  colour management (colour.py, the host's numpy; table by colourlut.cpp in "
+          f"{col['table_s']:.3f} s): clip_hevc10.mov (BT.2020 / HLG) against cv2's frames "
+          f"mean {col['clip']['mean']:.4f}, p99.9 {col['clip']['p999']:.1f}, max "
+          f"{col['clip']['max']} levels; a 1080p frame mapped in {col['map_s']:.3f} s (the "
+          f"matrix and range alone {col['plain_s']:.3f} s); relays: {rel} [{card}]")
     print(f"  bytes a frame of the render PNGs: H.264 (QP {h264.H264_QP}, the pictures' QPs "
           f"{sorted(set(stream.qp))}, level {stream.level / 10:.1f}) "
           f"{h264_bytes / n_train:.1f} (file {h264_bytes}; IDR "

@@ -199,9 +199,28 @@ def _esds_oti(buf, body, end) -> tuple[int | None, bytes]:
     return oti, dsi
 
 
+def _colour_boxes(buf, children: int, end: int, info: dict) -> None:
+    """A sample entry's `colr` (nclx / nclc: info["colr"], (primaries,
+    transfer, matrix, full range)) and `mdcv` (info["mdcv"], the mastering
+    display's (min, max) luminance in cd/m^2) boxes, as FFmpeg's mov demuxer
+    reads them."""
+    colr = mp4.child(buf, children, end, b"colr")
+    if colr is not None and colr[1] - colr[0] >= 10 and bytes(buf[colr[0]:colr[0] + 4]) in (
+            b"nclx", b"nclc"):
+        tags = struct.unpack_from(">HHH", buf, colr[0] + 4)
+        full = bytes(buf[colr[0]:colr[0] + 4]) == b"nclx" and colr[1] - colr[0] >= 11 \
+            and bool(buf[colr[0] + 10] & 0x80)
+        info["colr"] = (*tags, full)
+    mdcv = mp4.child(buf, children, end, b"mdcv")
+    if mdcv is not None and mdcv[1] - mdcv[0] >= 24:
+        most, least = struct.unpack_from(">II", buf, mdcv[0] + 16)
+        info["mdcv"] = (least / 10000, most / 10000)
+
+
 def _read_mp4(buf, path: Path):
     offsets, sizes, info, (kind, ebody, eend) = mp4.read_track(buf, path)
     children = ebody + mp4.VISUAL_ENTRY_HEAD
+    _colour_boxes(buf, children, eend, info)
     info["codec"] = "mjpeg"
     if kind == b"mp4v":
         esds = mp4.child(buf, children, eend, b"esds")

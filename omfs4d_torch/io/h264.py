@@ -58,8 +58,11 @@ frames with adaptive marking, long-term references and list modification,
 reference B pictures (B-pyramid), scaling matrices, several slices, the
 deblocking filter, output in POC order.  `H264Frames` shows a file's frames as
 cv2 does: in presentation order (`ctts`), those its edit list keeps, turned by
-the track's display matrix, converted with the VUI's range and matrix
-(`ycbcr_to_rgb`).  Anything else (fields, MBAFF, High 10 / 4:2:2 / 4:4:4,
+the track's display matrix, converted with the VUI's range, matrix,
+primaries and transfer, or a `colr` box's where the VUI has no colour
+description, as FFmpeg takes them (`ycbcr_to_rgb`: tags cv2 colour-manages
+go to `colour`, with the mastering display's luminance of an SEI 137 in the
+first sample, else of the `mdcv` box).  Anything else (fields, MBAFF, High 10 / 4:2:2 / 4:4:4,
 FMO, SP/SI slices, ...) raises `container.UnsupportedCodecError` naming it and
 ffmpeg; a corrupt unit raises ValueError.  The Python `H264Decoder` reads the encoder's own subset only
 (Intra_16x16 H / DC, P_L0_16x16 / P_Skip with whole-sample vectors, one
@@ -80,7 +83,7 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import container, h264_tables, mp4
+from omfs4d_torch.io import colour, container, h264_tables, mp4
 from omfs4d_torch.io import frames as frames_base
 
 # the QP of every picture, the reference's CRF; raised for a picture only
@@ -202,19 +205,28 @@ def _rgb_of(yy: np.ndarray, u: np.ndarray, v: np.ndarray, k: float, matrix: int)
 
 
 def ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, full_range: bool = False,
-                 matrix: int = 6, bit_depth: int = 8) -> np.ndarray:
-    """Y' (H, W) and Cb, Cr (H/2, W/2) -> (H, W, 3) uint8 R'G'B': limited
-    range (16-235, 16-240 at 8 bits) unless `full_range` (the VUI's
-    video_full_range_flag), the VUI's matrix_coefficients as cv2 applies it
-    (`_MATRICES`, else BT.601; `_REFUSED_MATRICES` raise
-    `container.UnsupportedCodecError`).  8-bit planes (uint8) have their chroma
-    upsampled by `_upsample2`; deeper ones (`bit_depth` 9 or 10, the samples
-    themselves in any integer type) go through `_deep_to_rgb`, cv2's path for
-    them."""
+                 matrix: int = 6, bit_depth: int = 8, primaries: int = 2, transfer: int = 2,
+                 mastering: colour.Mastering | None = None) -> np.ndarray:
+    """Y' (H, W) and Cb, Cr (H/2, W/2) -> (H, W, 3) uint8 R'G'B' as cv2
+    converts them, for the stream's range (limited: 16-235, 16-240 at 8
+    bits, unless `full_range`), matrix_coefficients (`_MATRICES`, else
+    BT.601; `_REFUSED_MATRICES` raise `container.UnsupportedCodecError`),
+    colour_primaries and transfer_characteristics.  Tags that cv2
+    colour-manages (`colour.managed`: BT.2020, P3 and other wide primaries,
+    PQ, HLG) go to `colour.to_rgb`, with the mastering display's luminance;
+    a transfer swscale refuses raises (`colour.check`).  The rest is
+    converted with the range and matrix alone: 8-bit planes (uint8) have
+    their chroma upsampled by `_upsample2`; deeper ones (`bit_depth` 9 or
+    10, the samples themselves in any integer type) go through
+    `_deep_to_rgb`, cv2's path for them."""
     if matrix in _REFUSED_MATRICES:
         raise container.UnsupportedCodecError(
             f"{_REFUSED_MATRICES[matrix]} has no conversion to RGB here, nor in cv2's swscale; "
             "converting it needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
+    colour.check(colour.normalise(primaries, transfer)[1])
+    if colour.managed(primaries, transfer):
+        return colour.to_rgb(y, cb, cr, bit_depth=bit_depth, full_range=full_range, matrix=matrix,
+                             primaries=primaries, transfer=transfer, mastering=mastering)
     if bit_depth > 8:
         return _deep_to_rgb(y, cb, cr, full_range, matrix, bit_depth)
     if full_range:
@@ -578,7 +590,7 @@ def _pack(keys, codes, lens) -> bytes:
 # ── the encoder ─────────────────────────────────────────────────────────
 
 _SLICE_P, _SLICE_I = 5, 7            # slice_type: every slice of the picture P / I
-_NAL_SLICE, _NAL_IDR, _NAL_SPS, _NAL_PPS = 1, 5, 7, 8
+_NAL_SLICE, _NAL_IDR, _NAL_SEI, _NAL_SPS, _NAL_PPS = 1, 5, 6, 7, 8
 
 
 def sps_rbsp(width: int, height: int, rate: Fraction, level: int) -> bytes:
@@ -1138,8 +1150,11 @@ def _skip_scaling_list(r: _Reader, size: int) -> None:
 def parse_sps(unit: bytes) -> dict:
     """The fields of an SPS NAL unit that the readers need: profile, level,
     the picture's size in macroblocks and after cropping, POC fields, and from
-    the VUI the frame rate (0.0: none), `full_range` and `matrix`
-    (matrix_coefficients, 2 where unspecified).  What the decoder does not
+    the VUI the frame rate (0.0: none), `full_range`, `primaries`, `transfer`
+    and `matrix` (colour_primaries, transfer_characteristics,
+    matrix_coefficients, 2 where unspecified), and whether it has a
+    video_signal_type (`signal_type`) and a colour description
+    (`colour_description`).  What the decoder does not
     read raises `UnsupportedCodecError` naming it: another profile than
     Baseline, Main or High, 4:0:0 / 4:2:2 / 4:4:4, more than 8 bits, fields,
     MBAFF."""
@@ -1189,7 +1204,8 @@ def parse_sps(unit: bytes) -> dict:
     if sps["width"] <= 0 or sps["height"] <= 0:
         raise ValueError("H.264: the cropping leaves no picture")
     sps["crop"] = (2 * crop[2], 2 * crop[0])
-    sps["fps"], sps["full_range"], sps["matrix"] = 0.0, False, 2
+    sps.update(fps=0.0, full_range=False, primaries=2, transfer=2, matrix=2, signal_type=False,
+               colour_description=False)
     if r.u(1):                                   # VUI: as far as the frame rate
         if r.u(1):
             if r.u(8) == 255:
@@ -1198,10 +1214,10 @@ def parse_sps(unit: bytes) -> dict:
             r.u(1)
         if r.u(1):
             r.u(3)
-            sps["full_range"] = bool(r.u(1))
+            sps["full_range"], sps["signal_type"] = bool(r.u(1)), True
             if r.u(1):
-                r.u(16)
-                sps["matrix"] = r.u(8)
+                sps["primaries"], sps["transfer"], sps["matrix"] = r.u(8), r.u(8), r.u(8)
+                sps["colour_description"] = True
         if r.u(1):
             r.ue()
             r.ue()
@@ -1698,6 +1714,10 @@ class H264Frames(frames_base.SampleFrames):
         self.params = parse_sps(self.sps[0])
         for unit in self.pps:
             parse_pps(unit)
+        mastering = colour.mastering_of((_unescape(u[1:]) for u in (
+            self.units(0) if offsets else []) if u[0] & 0x1F == _NAL_SEI), info)
+        self.colour = colour.stream(colour.from_container(self.params, info.get("colr")),
+                                    mastering=mastering)
 
     def header_units(self) -> list[bytes]:
         return self.sps + self.pps
@@ -1706,8 +1726,7 @@ class H264Frames(frames_base.SampleFrames):
         return Decoder()
 
     def rgb_of(self, planes) -> np.ndarray:
-        return ycbcr_to_rgb(*planes, full_range=self.params["full_range"],
-                            matrix=self.params["matrix"])
+        return ycbcr_to_rgb(*planes, **self.colour)
 
 
 def frames(path) -> H264Frames:

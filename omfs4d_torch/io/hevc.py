@@ -15,13 +15,15 @@ RADL pictures, output in POC order cropped by the conformance window (not by
 the VUI's default display window, which FFmpeg does not apply either).
 `HEVCFrames` shows a file's frames as cv2 does (`frames.SampleFrames`): in
 presentation order (`ctts`), those its edit list keeps, turned by the
-track's display matrix, converted with the VUI's range and matrix
-(`h264.ycbcr_to_rgb`, which takes 10-bit planes on a path of their own, as
-cv2 does).  A stream tagged with BT.2020 primaries or a PQ / HLG transfer (an
-iPhone's HDR capture) is read exactly and converted the same way: cv2's
-colour management of such a stream (gamut and tone mapping) is not applied,
-and the reader logs that once a file.  An `hvc1` track's parameter sets are
-its hvcC box's; an `hev1` track may carry them in band.
+track's display matrix, converted with the VUI's range, matrix, primaries
+and transfer (`h264.ycbcr_to_rgb`, which takes 10-bit planes on a path of
+their own, as cv2 does).  A stream whose tags cv2 colour-manages (an
+iPhone's HDR capture, BT.2020 / HLG; HDR10, BT.2020 / PQ) is mapped as cv2
+maps it (`colour`), with the mastering display's luminance of an SEI 137 in
+the hvcC box or the first sample, else of the `mdcv` box; FFmpeg takes the
+tags from the VUI alone, and so does the reader (a `colr` box changes
+nothing).  An `hvc1` track's parameter sets are its hvcC box's; an `hev1`
+track may carry them in band.
 
 Refused by name, with no decode, where the parameter sets show it (here, in
 `parse_sps` / `parse_pps`, and again in the decoder): tiles, long-term
@@ -43,16 +45,10 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import container, h264, hevc_tables
+from omfs4d_torch.io import colour, container, h264, hevc_tables
 from omfs4d_torch.io import frames as frames_base
 
-NAL_SPS, NAL_PPS = 33, 34
-# colour_primaries BT.2020 and transfer_characteristics PQ / HLG: what cv2
-# colour-manages (HEVCFrames logs that the port does not)
-MANAGED_PRIMARIES, MANAGED_TRANSFERS = {9}, {16, 18}
-
-log = get_logger("hevc")
+NAL_SPS, NAL_PPS, NAL_SEI_PREFIX = 33, 34, 39
 
 
 def nal_type(unit: bytes) -> int:
@@ -382,7 +378,11 @@ class HEVCFrames(frames_base.SampleFrames):
             raise ValueError(f"{path}: no sequence parameter set in the hvcC box or the first "
                              "sample")
         self.params = sps[0]
-        self._managed_logged = False
+        mastering = colour.mastering_of(
+            (_rbsp(u) for u in base if nal_type(u) == NAL_SEI_PREFIX), info)
+        # FFmpeg's HEVC decoder takes the VUI's tags alone: a `colr` box changes nothing
+        self.colour = colour.stream(colour.from_container(self.params, None),
+                                    self.params["bit_depth"], mastering)
 
     def header_units(self) -> list[bytes]:
         return self.headers
@@ -391,16 +391,7 @@ class HEVCFrames(frames_base.SampleFrames):
         return Decoder()
 
     def rgb_of(self, planes) -> np.ndarray:
-        p = self.params
-        if not self._managed_logged and (p["primaries"] in MANAGED_PRIMARIES
-                                         or p["transfer"] in MANAGED_TRANSFERS):
-            self._managed_logged = True
-            log.warning("%s: colour_primaries %d, transfer_characteristics %d: converted with "
-                        "the VUI's matrix (%d) and range alone; cv2's colour management (gamut "
-                        "and tone mapping) is not applied", self.path, p["primaries"],
-                        p["transfer"], p["matrix"])
-        return h264.ycbcr_to_rgb(*planes, full_range=p["full_range"], matrix=p["matrix"],
-                                 bit_depth=p["bit_depth"])
+        return h264.ycbcr_to_rgb(*planes, **self.colour)
 
 
 def frames(path) -> HEVCFrames:

@@ -27,9 +27,10 @@ short-header H.263 and DivX packed bitstreams (two VOPs in a sample);
 the picture size there.
 
 `MPEG4Frames` shows a file's frames as cv2 does: one a sample, in order
-(`low_delay`: no reordering), converted with the VO's range and matrix
-through `h264.ycbcr_to_rgb`, a frame decoded from the last I-VOP at or
-before it or on from the last one decoded.
+(`low_delay`: no reordering), converted with the VO's range, matrix,
+primaries and transfer (where the VO has no colour description, a `colr`
+box's, as FFmpeg takes them) through `h264.ycbcr_to_rgb`, a frame decoded
+from the last I-VOP at or before it or on from the last one decoded.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import container, mpeg4_tables
+from omfs4d_torch.io import colour, container, mpeg4_tables
 from omfs4d_torch.io.h264 import ycbcr_to_rgb
 
 _SOURCE = Path(__file__).resolve().with_name("mpeg4dec.cpp")
@@ -246,14 +247,16 @@ def _vol(r: _Reader, out: dict) -> None:
 def parse_headers(data: bytes) -> dict:
     """The VOS / VO / VOL headers before the first VOP of `data` (an esds's
     DecoderSpecificInfo, AVI extradata or the stream's start): profile, VOL
-    size, time resolution and bits, `full_range` and `matrix` (the VO's
-    video_signal_type; limited range and 2, unspecified, by default) and the
-    encoder's stamp (user data).  Raises
+    size, time resolution and bits, `full_range`, `primaries`, `transfer` and
+    `matrix` (the VO's video_signal_type; limited range and 2, unspecified,
+    by default; `signal_type` and `colour_description` say which it has) and
+    the encoder's stamp (user data).  Raises
     `UnsupportedCodecError` for a tool outside the decoder, ValueError for a
     stream with no VOL header."""
     if len(data) >= 3 and data[:2] == b"\x00\x00" and data[2] & 0xFC == 0x80:
         raise _unsupported("H.263 short-header video (a short_video_start_marker stream)")
-    out = {"profile": None, "full_range": False, "matrix": 2, "stamp": ""}
+    out = {"profile": None, "full_range": False, "primaries": 2, "transfer": 2, "matrix": 2,
+           "signal_type": False, "colour_description": False, "stamp": ""}
     for code, body in start_codes(data):
         if code == 0xB0 and body:
             out["profile"] = body[0]
@@ -263,10 +266,10 @@ def parse_headers(data: bytes) -> dict:
                 r.u(7)
             if r.u(4) in (1, 2) and r.u(1):          # video_signal_type
                 r.u(3)
-                out["full_range"] = bool(r.u(1))
+                out["full_range"], out["signal_type"] = bool(r.u(1)), True
                 if r.u(1):
-                    r.u(16)
-                    out["matrix"] = r.u(8)
+                    out["primaries"], out["transfer"], out["matrix"] = r.u(8), r.u(8), r.u(8)
+                    out["colour_description"] = True
         elif 0x20 <= code <= 0x2F and "width" not in out:
             _vol(_Reader(body, "VOL header"), out)
         elif code == 0xB2:
@@ -354,6 +357,7 @@ class MPEG4Frames(Sequence):
                 coded.append(is_coded)
         if not offsets:
             raise ValueError(f"{path}: no frames")
+        self.colour = colour.stream(colour.from_container(self.params, info.get("colr")))
         self.shown = shown(coded)                # the sample each frame comes from
         self.starts = [i for i, (k, c) in enumerate(zip(kinds, coded)) if k == "I" and c]
         self._decoder: Decoder | None = None
@@ -406,8 +410,7 @@ class MPEG4Frames(Sequence):
         return self._decoder.pictures()
 
     def __getitem__(self, i: int) -> np.ndarray:
-        return ycbcr_to_rgb(*self.ycbcr(i), full_range=self.params["full_range"],
-                            matrix=self.params["matrix"])
+        return ycbcr_to_rgb(*self.ycbcr(i), **self.colour)
 
     rgb = __getitem__
 

@@ -174,11 +174,17 @@ def main() -> int:
         streams[name]["bytes"] = len(data)
         streams[name]["file_sha256"] = hashlib.sha256(data).hexdigest()
     OUT.mkdir(parents=True, exist_ok=True)
+    old_manifest = OUT / "manifest.json"
+    samples = json.loads(old_manifest.read_text()).get("samples") if old_manifest.exists() \
+        else None
     for old in OUT.iterdir():
-        old.unlink()
+        if old.name not in (samples or {}):      # tests/make_colour_samples.py's
+            old.unlink()
     for name, data in files.items():
         (OUT / name).write_bytes(data)
     manifest = {"tool": "tests/make_hevc_corpus.py", "streams": streams}
+    if samples:
+        manifest["samples"] = samples
     (OUT / "manifest.json").write_text(json.dumps(manifest, indent=1) + "\n")
     total = sum(p.stat().st_size for p in OUT.iterdir())
     print(f"wrote {len(files)} files, {total} bytes, to {OUT}")

@@ -406,28 +406,38 @@ def test_ten_bit_conversion_is_cv2s_on_smooth_pictures(tmp_path, capfd):
         assert equal > 0.6, (colour, equal)
 
 
-# cv2's colour management of streams tagged with BT.2020 primaries or an HDR
-# transfer, against the port's conversion with the matrix and range alone, at
-# the centres of `flat_blocks(200, 10)`: (largest, mean) difference, measured
-MANAGED_GAPS = {(0, 9, 18, 9): (114, 27.43), (0, 9, 16, 9): (154, 37.22),
-                (0, 9, 1, 9): (112, 21.28), (0, 1, 18, 1): (141, 29.47)}
+# tag sets cv2 colour-manages (full range, primaries, transfer, matrix), each
+# at 8 and 10 bits and in both ranges; the port maps them (`colour`)
+MANAGED = [(full, p, t, m, bd) for p, t, m in ((9, 18, 9), (9, 16, 9), (9, 1, 9), (1, 18, 1),
+                                               (1, 16, 1), (12, 1, 1))
+           for bd in (8, 10) for full in (0, 1)]
 
 
-@pytest.mark.parametrize("colour", list(MANAGED_GAPS), ids=["hlg", "pq", "bt2020-sdr",
-                                                            "bt709-hlg"])
-def test_colour_managed_streams_keep_their_measured_gap(tmp_path, capfd, colour):
-    """A 10-bit stream tagged with BT.2020 primaries (9) or a PQ (16) / HLG
-    (18) transfer: cv2 maps its gamut and tone (FFmpeg 8's swscale), the
-    port converts with the VUI's matrix and range alone.  The gap at flat
-    blocks' centres is the number measured (`MANAGED_GAPS`), a known fault
-    held here so that a change to either side shows."""
-    planes = flat_blocks(200, 10)
-    (tmp_path / "m.h264").write_bytes(syn.pcm_stream([planes], colour, bit_depth=10))
+@pytest.mark.parametrize("full, primaries, transfer, matrix, bit_depth", MANAGED,
+                         ids=[f"{p}-{t}-{m}-{bd}bit-{'full' if f else 'limited'}"
+                              for f, p, t, m, bd in MANAGED])
+def test_colour_managed_streams_are_held_to_cv2(tmp_path, capfd, full, primaries, transfer,
+                                                matrix, bit_depth):
+    """A stream tagged with BT.2020 primaries (9), Display P3 (12) or a PQ
+    (16) / HLG (18) transfer: cv2 maps its gamut and tone (FFmpeg 8's
+    swscale), and so does `ycbcr_to_rgb` given the tags: at the centres of
+    `flat_blocks` (random codes over the whole range) within a mean of 0.5
+    levels and 16 at worst (`test_torch_colour_bounds.py` holds 3072 colours
+    a tag set); with the matrix and range alone it would be far off."""
+    planes = flat_blocks(200 + bit_depth + full, bit_depth)
+    colour = (full, primaries, transfer, matrix)
+    (tmp_path / "m.h264").write_bytes(syn.pcm_stream([planes], colour, bit_depth=bit_depth))
     (bgr,) = cv2_read(tmp_path / "m.h264", capfd)
     centre = (slice(8, 9), slice(8, None, 16))
-    ours = h264.ycbcr_to_rgb(*planes, full_range=False, matrix=colour[3], bit_depth=10)
-    gap = np.abs(ours[centre].astype(int) - bgr[..., ::-1][centre])
-    assert (int(gap.max()), round(float(gap.mean()), 2)) == MANAGED_GAPS[colour]
+
+    def gap(**tags) -> np.ndarray:
+        ours = h264.ycbcr_to_rgb(*planes, full_range=bool(full), matrix=matrix,
+                                 bit_depth=bit_depth, **tags)
+        return np.abs(ours[centre].astype(int) - bgr[..., ::-1][centre])
+
+    held = gap(primaries=primaries, transfer=transfer)
+    assert held.mean() <= 0.5 and held.max() <= 16, (held.mean(), held.max())
+    assert gap().max() > 30
 
 
 def test_bt2020_constant_luminance_is_refused_as_swscale_refuses_it():

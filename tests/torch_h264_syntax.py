@@ -2061,7 +2061,7 @@ def display_matrix(rotation: int, width: int, height: int) -> bytes:
 def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 30,
               rotation: int = 0, audio: bool = True, quicktime: bool = True,
               media_time: int | None = 0, sample_entry: bytes = b"avc1",
-              display: list[int] | None = None) -> None:
+              display: list[int] | None = None, boxes: bytes = b"") -> None:
     """A phone-like file of the access units: QuickTime (`qt  ` brand, a
     `wide` atom) or MP4, the video track with an edit list starting at
     `media_time` (track ticks; None: no edit list) and tkhd's display matrix
@@ -2071,7 +2071,8 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
     FFmpeg's mov muxer lays out a stream with B pictures: decoding times a
     frame apart from 0, composition offsets (version 0) that shift the
     earliest picture shown by the reorder delay; its edit list then starts at
-    that delay (`media_time` "ctts": the first sample's offset)."""
+    that delay (`media_time` "ctts": the first sample's offset).  `boxes`
+    follow the avcC box in the sample entry (`colr`, `mdcv`, `clli`)."""
     sps = [u for au in aus for u in au if u[0] & 0x1F == 7]
     pps = [u for au in aus for u in au if u[0] & 0x1F == 8]
     in_band = sample_entry == b"avc3"
@@ -2087,8 +2088,8 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
     avcc += bytes([0 if in_band else len(pps)])
     if not in_band:
         avcc += b"".join(struct.pack(">H", len(u)) + u for u in pps)
-    write_track_file(path, samples, sync, sample_entry, _box(b"avcC", avcc), width, height, fps,
-                     rotation, audio, quicktime, media_time, display)
+    write_track_file(path, samples, sync, sample_entry, _box(b"avcC", avcc) + boxes, width,
+                     height, fps, rotation, audio, quicktime, media_time, display)
 
 
 def write_track_file(path, samples: list[bytes], sync: list[int], sample_entry: bytes,
@@ -2180,13 +2181,41 @@ def vui_colour(colour) -> tuple[int, int, int, int] | None:
     return tuple(colour) if len(colour) == 4 else (colour[0], colour[1], colour[1], colour[1])
 
 
-def pcm_stream(planes, colour=None, fps: int = 25, bit_depth: int = 8) -> bytes:
+def sei_rbsp(messages) -> bytes:
+    """An SEI RBSP (H.264's and HEVC's alike) of (payloadType, payload
+    bytes) messages."""
+    out = bytearray()
+    for kind, payload in messages:
+        for value in (kind, len(payload)):
+            out += b"\xff" * (value // 255) + bytes([value % 255])
+        out += payload
+    return bytes(out) + b"\x80"
+
+
+def mastering_payload(max_nits: float, min_nits: float,
+                      primaries=((0.170, 0.797), (0.131, 0.046), (0.708, 0.292)),
+                      white=(0.3127, 0.3290)) -> bytes:
+    """A mastering display colour volume (SEI payloadType 137 and the
+    body of an `mdcv` box): G, B, R primaries and white in units of
+    0.00002, luminance in units of 0.0001 cd/m^2."""
+    xy = [round(v / 0.00002) for pair in (*primaries, white) for v in pair]
+    return struct.pack(">8H2I", *xy, round(max_nits * 10000), round(min_nits * 10000))
+
+
+def light_level_payload(max_cll: int, max_fall: int) -> bytes:
+    """Content light level information (SEI payloadType 144, a `clli` box's
+    body), cd/m^2."""
+    return struct.pack(">HH", max_cll, max_fall)
+
+
+def pcm_stream(planes, colour=None, fps: int = 25, bit_depth: int = 8, sei=()) -> bytes:
     """An Annex B stream of (Y', Cb, Cr) pictures, each an IDR of one slice of
     I_PCM macroblocks (the samples themselves), cropped to their size, its
     VUI giving `colour` (`vui_colour`) as a coded stream's does: cv2 then
     converts both alike, and its decodes compare bit for bit.  At
     `bit_depth` 9 or 10 the stream is High 10 (profile_idc 110) and its PCM
-    samples have that many bits."""
+    samples have that many bits.  `sei`, (payloadType, payload) messages,
+    go in an SEI unit before the first picture."""
     h, w = planes[0][0].shape
     mbw, mbh = -(-w // 16), -(-h // 16)
     colour = vui_colour(colour)
@@ -2238,6 +2267,8 @@ def pcm_stream(planes, colour=None, fps: int = 25, bit_depth: int = 8) -> bytes:
     bw.u(3, 0)
     bw.trailing()
     units.append(nal(3, 8, bw.data()))
+    if sei:
+        units.append(nal(0, 6, sei_rbsp(sei)))
     for k, (y, cb, cr) in enumerate(planes):
         y = np.pad(y, ((0, 16 * mbh - h), (0, 16 * mbw - w)), mode="edge")
         cb, cr = (np.pad(c, ((0, 8 * mbh - h // 2), (0, 8 * mbw - w // 2)), mode="edge")

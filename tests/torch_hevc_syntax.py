@@ -56,14 +56,14 @@ import struct
 from collections import Counter
 
 from omfs4d_torch.io import hevc_tables as T
-from tests.torch_h264_syntax import BitWriter, _box, vui_colour, write_track_file
+from tests.torch_h264_syntax import BitWriter, _box, sei_rbsp, vui_colour, write_track_file
 
 C = T.CTX
 # NAL unit types
 TRAIL_N, TRAIL_R, TSA_N, TSA_R, STSA_N, STSA_R = 0, 1, 2, 3, 4, 5
 RADL_N, RADL_R, RASL_N, RASL_R = 6, 7, 8, 9
 BLA_W_LP, IDR_W_RADL, IDR_N_LP, CRA = 16, 19, 20, 21
-VPS, SPS, PPS = 32, 33, 34
+VPS, SPS, PPS, SEI_PREFIX = 32, 33, 34, 39
 PART_2Nx2N, PART_2NxN, PART_Nx2N, PART_NxN = 0, 1, 2, 3
 PART_2NxnU, PART_2NxnD, PART_nLx2N, PART_nRx2N = 4, 5, 6, 7
 
@@ -198,7 +198,7 @@ DEFAULTS = dict(
     colour=None, display_window=False, extra_bits=0, header_ext=False, sps_rps=0.6,
     inter_rps=0.5, non_ref=0.0, mvd_l1_zero=0.5, fps=25, hrd=False, level=93, big=0.05,
     param_sets=1, max_merge=(1, 5), idr_every=0, root_cbf=0.7, mvd_max=24, refuse=None,
-    bit_depth=8)
+    bit_depth=8, sei=())
 
 # a tool outside the decoder's subset that `refuse` sets in the parameter
 # sets (the set ends there: the decoder stops at the flag), and the name
@@ -671,6 +671,8 @@ class Writer:
             self.stats[f"nal{p.nal}"] += 1
             self.stats[p.kind] += 1
             units = self.picture(p)
+            if k == 0 and self.f["sei"]:
+                units = [nal(SEI_PREFIX, sei_rbsp(self.f["sei"]))] + units
             aus.append(first + units if k == 0 else units)
         return aus
 
@@ -1549,12 +1551,13 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
               rotation: int = 0, audio: bool = True, quicktime: bool = True,
               media_time: int | None = 0, sample_entry: bytes = b"hvc1",
               display: list[int] | None = None, config: bool = True, bit_depth: int = 8,
-              colour=None) -> None:
+              colour=None, boxes: bytes = b"") -> None:
     """A phone-like file of the access units, laid out as
     `torch_h264_syntax.write_mov` lays out H.264's: parameter sets in the
     hvcC box (`hvc1`) or in band (`hev1`); `config` False leaves the hvcC
     box out; `bit_depth` above 8 makes its profile Main 10, and `colour` adds
-    a `colr` box after it, as an iPhone's HDR capture has."""
+    a `colr` box after it, as an iPhone's HDR capture has; `boxes` follow
+    (`mdcv`, `clli`, as an Android HDR10 file has)."""
     params = [u for au in aus for u in au if (u[0] >> 1) & 63 in (VPS, SPS, PPS)]
     in_band = sample_entry == b"hev1"
     samples, sync = [], []
@@ -1564,6 +1567,6 @@ def write_mov(path, aus: list[list[bytes]], width: int, height: int, fps: int = 
         if any(16 <= (u[0] >> 1) & 63 <= 23 for u in au):
             sync.append(i + 1)
     boxes = (hvcc(params, in_band, bit_depth) if config else b"") + (
-        colr(colour) if colour is not None else b"")
+        colr(colour) if colour is not None else b"") + boxes
     write_track_file(path, samples, sync, sample_entry, boxes, width, height, fps, rotation,
                      audio, quicktime, media_time, display)

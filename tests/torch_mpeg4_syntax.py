@@ -102,7 +102,8 @@ class Writer:
     drawn over its whole range); packets (the chance a video packet starts
     at an MB); hec (the chance a packet has a header extension); stuffing
     (the chance of MCBPC stuffing before an MB); gov; stamp (user data, None
-    for none); colour ((full range, matrix) in the VO header, or None);
+    for none); colour ((full range, matrix), or (full range, primaries,
+    transfer, matrix), in the VO header, or None);
     verid (1 or 2); vbv; par; fixed_rate; vop_not_coded (the chance a P-VOP
     is not coded); refuse (one of REFUSALS: the stream then uses that tool).
     """
@@ -165,7 +166,7 @@ class Writer:
             bw.u(3, 5)
             bw.u(1, int(self.colour[0]))
             bw.u(1, 1)
-            for v in (1, 1, self.colour[1]):
+            for v in (self.colour[1:] if len(self.colour) == 4 else (1, 1, self.colour[1])):
                 bw.u(8, v)
         bw.stuffing()
         out += start(0xB5) + bw.data() + start(0x00)
@@ -683,10 +684,11 @@ def write_avi(path, chunks: list[bytes], width: int, height: int, fourcc: bytes 
 
 
 def write_mp4(path, headers: bytes, vops: list[bytes], width: int, height: int,
-              fps: int = 30) -> None:
+              fps: int = 30, boxes: bytes = b"") -> None:
     """An MP4 of `mp4v` (objectTypeIndication 0x20, visual stream), the
     headers as the esds's DecoderSpecificInfo, one VOP a sample, I-VOPs the
-    sync samples, as FFmpeg's mov muxer writes cv2's `mp4v`."""
+    sync samples, as FFmpeg's mov muxer writes cv2's `mp4v`; `boxes` follow
+    the esds in the sample entry (a `colr` box)."""
     def descriptor(tag, body):
         return bytes([tag, 0x80, 0x80, 0x80, len(body)]) + body
 
@@ -695,7 +697,7 @@ def write_mp4(path, headers: bytes, vops: list[bytes], width: int, height: int,
                             + struct.pack(">II", 0, 0) + descriptor(5, headers))
         esds = mp4.full(b"esds", 0, 0, descriptor(3, struct.pack(">HB", 1, 0) + config
                                                   + descriptor(6, b"\x02")))
-        return mp4.visual_entry(b"mp4v", width, height, esds)
+        return mp4.visual_entry(b"mp4v", width, height, esds, boxes)
 
     samples = [(v, v.find(b"\x00\x00\x01\xb6") >= 0 and
                 v[v.find(b"\x00\x00\x01\xb6") + 4] >> 6 == 0) for v in vops]
