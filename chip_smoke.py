@@ -3116,9 +3116,11 @@ def hevc_corpus(work: Path) -> dict:
     SHA-256 and decodes to the SHA-256s of its pictures there, which cv2's
     FFmpeg agreed with where the corpus was written (10-bit planes hashed as
     little-endian uint16); clip_hevc.mp4's (x265's layout at 1080p: WPP, SAO,
-    TMVP, a B-pyramid, a CRA with RASL pictures) and clip_hevc10.mov's (the
-    same layout in Main 10, an iPhone HDR capture's HLG tags) I, P and B
-    pictures are timed; `cli preprocess --video` gives clip_hevc.mp4's 9
+    TMVP, a B-pyramid, a CRA with RASL pictures), clip_hevc10.mov's (the
+    same layout in Main 10, an iPhone HDR capture's HLG tags) and
+    clip_hevc_tools.mp4's (the layout with a 3 x 3 tile grid, scaling lists,
+    a long-term reference, PCM and bypass CUs) I, P and B pictures are
+    timed; `cli preprocess --video` gives clip_hevc.mp4's 9
     frames in display order at target_size 512, portrait.mov's (`hev1`, a
     90-degree matrix) 6 frames upright and clip_hevc10.mov's 5."""
     from omfs4d_torch.io import hevc
@@ -3175,6 +3177,7 @@ def hevc_corpus(work: Path) -> dict:
     corpus_s = time.perf_counter() - t0
     by_kind, sizes = timed("clip_hevc.mp4")
     by_kind10, sizes10 = timed("clip_hevc10.mov")
+    by_kind_t, sizes_t = timed("clip_hevc_tools.mp4")
     check(hevc.frames(HEVC_CORPUS / "clip_hevc10.mov").params["bit_depth"] == 10,
           "clip_hevc10.mov is Main 10")
     runs, shapes_out = {}, {}
@@ -3202,6 +3205,7 @@ def hevc_corpus(work: Path) -> dict:
           "portrait.mov reads upright (a portrait)")
     mean = {k: float(np.mean(v)) for k, v in by_kind.items()}
     mean10 = {k: float(np.mean(v)) for k, v in by_kind10.items()}
+    mean_t = {k: float(np.mean(v)) for k, v in by_kind_t.items()}
     return {"build_s": build_s, "files": len(manifest["streams"]), "corpus_s": corpus_s,
             "i_s": mean["I"], "p_s": mean["P"], "b_s": mean["B"], "n_i": len(by_kind["I"]),
             "n_p": len(by_kind["P"]), "n_b": len(by_kind["B"]),
@@ -3209,6 +3213,8 @@ def hevc_corpus(work: Path) -> dict:
             "i10_s": mean10["I"], "p10_s": mean10["P"], "b10_s": mean10["B"],
             "n10": {k: len(v) for k, v in by_kind10.items()},
             "bytes10": {k: float(np.mean(v)) for k, v in sizes10.items()},
+            "tools_s": mean_t, "n_tools": {k: len(v) for k, v in by_kind_t.items()},
+            "bytes_tools": {k: float(np.mean(v)) for k, v in sizes_t.items()},
             "preprocess_clip_s": runs["clip_hevc.mp4"],
             "preprocess_portrait_s": runs["portrait.mov"],
             "preprocess_hdr_s": runs["clip_hevc10.mov"]}
@@ -3545,6 +3551,13 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           + " / ".join(str(hev["n10"][k]) for k in "IPB") + "; "
           + " / ".join(f"{hev['bytes10'][k]:.0f}" for k in "IPB") + " bytes); cli preprocess "
           f"--video clip_hevc10.mov {hev['preprocess_hdr_s']:.2f} s -> 5 frames 910x512 [{card}]")
+    print(f"  HEVC tools (hevcdec.cpp): clip_hevc_tools.mp4 (clip_hevc.mp4's layout, 3x3 tiles, "
+          f"SPS + PPS scaling lists, a long-term reference, PCM and bypass CUs) "
+          + ", ".join(f"{k} {hev['tools_s'][k]:.4f} s" for k in "IPB") + "/picture (means of "
+          + " / ".join(str(hev["n_tools"][k]) for k in "IPB") + "; "
+          + " / ".join(f"{hev['bytes_tools'][k]:.0f}" for k in "IPB") + " bytes), beside "
+          f"clip_hevc.mp4's I {hev['i_s']:.4f} / P {hev['p_s']:.4f} / B {hev['b_s']:.4f} s "
+          f"[{card}]")
     rel = "; ".join(f"{k} cube mean {g['cube_mean']:.4f} max {g['cube_max']}, whole mean "
                     f"{g['whole_mean']:.4f} max {g['whole_max']}" for k, g in col["relays"].items())
     print(f"  colour management (colour.py, the host's numpy; table by colourlut.cpp in "

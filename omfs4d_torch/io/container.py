@@ -49,9 +49,9 @@ class UnsupportedCodecError(RuntimeError):
 def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
         f"{path}: {what}; the port reads only Motion JPEG (MJPG) in AVI or MP4, H.264 "
-        "(Main / High profile I, P and B pictures) and HEVC (Main profile, 8-bit) in MP4 or "
-        "QuickTime and MPEG-4 Part 2 (Simple profile) in MP4 or AVI by itself, decoding this "
-        "needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
+        "(Main / High profile I, P and B pictures) and HEVC (Main and Main 10 profiles, "
+        "whole) in MP4 or QuickTime and MPEG-4 Part 2 (Simple profile) in MP4 or AVI by "
+        "itself, decoding this needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
 
 
 # AVI fourccs of Motion JPEG, and names of those that need another decoder

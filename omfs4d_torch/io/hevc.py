@@ -7,12 +7,14 @@ The reader (`frames`, `HEVCFrames`, `decode_annexb`) is the host C++ decoder
 `hevcdec.cpp` (`Decoder`), built by g++ at first use into
 `omfs4d_torch/_build/` (no Python fallback: without g++ reading raises with
 the reason) and bound with ctypes.  It decodes the Main, Main 10 and Main
-Still Picture profiles, 4:2:0 at 8, 9 or 10 bits (deeper pictures come out as
-uint16 planes of the samples themselves): I, P and B slices, CABAC with wavefront
-parallel processing, SAO and deblocking, several and dependent slice
-segments, TMVP, weighted prediction, temporal sub-layers, CRA with RASL and
-RADL pictures, output in POC order cropped by the conformance window (not by
-the VUI's default display window, which FFmpeg does not apply either).
+Still Picture profiles whole, 4:2:0 at 8, 9 or 10 bits (deeper pictures come
+out as uint16 planes of the samples themselves): I, P and B slices, CABAC with
+wavefront parallel processing, tiles, SAO and deblocking, several and
+dependent slice segments, TMVP, weighted prediction, long-term reference
+pictures, scaling lists, PCM, transquant bypass, temporal sub-layers, CRA with
+RASL and RADL pictures, output in POC order cropped by the conformance window
+(not by the VUI's default display window, which FFmpeg does not apply
+either).
 `HEVCFrames` shows a file's frames as cv2 does (`frames.SampleFrames`): in
 presentation order (`ctts`), those its edit list keeps, turned by the
 track's display matrix, converted with the VUI's range, matrix, primaries
@@ -26,12 +28,13 @@ nothing).  An `hvc1` track's parameter sets are its hvcC box's; an `hev1`
 track may carry them in band.
 
 Refused by name, with no decode, where the parameter sets show it (here, in
-`parse_sps` / `parse_pps`, and again in the decoder): tiles, long-term
-reference pictures, scaling lists, PCM, transquant bypass, bit depths above 10
-and luma and chroma depths that differ (the range extension profiles), chroma
-formats other than 4:2:0 and the SPS / PPS range, multilayer, 3D and screen
-content extensions: each raises `container.UnsupportedCodecError` naming it
-and ffmpeg.  NAL units of a layer above the base (`nuh_layer_id` > 0) are
+`parse_sps` / `parse_pps`, and again in the decoder): bit depths above 10 and
+luma and chroma depths that differ (the range extension profiles), chroma
+formats other than 4:2:0, the SPS / PPS range, multilayer, 3D and screen
+content extensions, and tiles with wavefront parallel processing together
+(which later editions allow in Main, and cv2's FFmpeg decodes otherwise than
+the standard): each raises `container.UnsupportedCodecError` naming it and
+ffmpeg.  NAL units of a layer above the base (`nuh_layer_id` > 0) are
 skipped, as FFmpeg skips them, and so are those of the unspecified types
 48-63 (a Dolby Vision stream's RPUs).  A corrupt unit raises ValueError.  The
 tables are `hevc_tables`'.
@@ -61,9 +64,9 @@ def nuh_layer_id(unit: bytes) -> int:
 
 def _unsupported(what: str) -> container.UnsupportedCodecError:
     return container.UnsupportedCodecError(
-        f"HEVC {what} is outside the port's HEVC decoder (Main and Main 10 profiles, 4:2:0 "
-        "at 8 to 10 bits); decoding "
-        "it needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
+        f"HEVC {what} is outside the port's HEVC decoder (the Main and Main 10 profiles, "
+        "4:2:0 at 8 to 10 bits, with no range, multilayer, 3D or screen content coding "
+        "extension); decoding it needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
 
 
 # ── parameter sets, with no decode ──────────────────────────────────────
@@ -146,13 +149,27 @@ def _st_ref_pic_set(r: _Reader, idx: int, num: int, sets: list[list[int]]) -> li
 
 def _extensions(r: _Reader, what: str) -> None:
     if r.u(1):
-        names = ("range extension", "multilayer extension (a multi-layer stream)",
-                 "3D extension", "screen content coding extension")
-        for name in names:
+        names = (("range extension", "range"), ("multilayer extension", "multilayer"),
+                 ("3D extension", "3d"), ("screen content coding extension", "scc"))
+        for name, flag in names:
             if r.u(1):
-                raise _unsupported(f"{what} {name}")
+                raise _unsupported(f"{what} {name} ({what.lower()}_{flag}_extension_flag)")
         if r.u(4):
-            raise _unsupported(f"{what} extension (extension_4bits)")
+            raise _unsupported(f"{what} extension ({what.lower()}_extension_4bits)")
+
+
+def _scaling_list_data(r: _Reader) -> None:
+    """Skip scaling_list_data() (7.3.4)."""
+    for size_id in range(4):
+        for matrix_id in range(0, 6, 3 if size_id == 3 else 1):
+            if not r.u(1):
+                if r.ue() > matrix_id // (3 if size_id == 3 else 1):
+                    raise ValueError("HEVC: scaling_list_pred_matrix_id_delta out of range")
+                continue
+            if size_id > 1:
+                r.se()
+            for _ in range(16 if size_id == 0 else 64):
+                r.se()
 
 
 def parse_sps(unit: bytes) -> dict:
@@ -186,25 +203,28 @@ def parse_sps(unit: bytes) -> dict:
     if depth != depth_c:
         raise _unsupported(f"luma and chroma bit depths that differ ({depths})")
     sps["bit_depth"] = depth
-    r.ue()                                             # log2_max_pic_order_cnt_lsb_minus4
+    log2_max_poc_lsb = r.ue() + 4
     ordering = r.u(1)
     for _ in range(msl + 1 if ordering else 1):
         r.ue(), r.ue(), r.ue()
     for _ in range(6):
         r.ue()
-    if r.u(1):
-        raise _unsupported("scaling lists (scaling_list_enabled_flag)")
+    if r.u(1) and r.u(1):                              # scaling lists, coded in the SPS
+        _scaling_list_data(r)
     r.u(2)                                             # amp, sample_adaptive_offset
-    if r.u(1):
-        raise _unsupported("PCM (pcm_enabled_flag)")
+    if r.u(1):                                         # PCM: depths, sizes, loop filter
+        r.u(8)
+        r.ue(), r.ue()
+        r.u(1)
     num = r.ue()
     if num > 64:
         raise ValueError("HEVC: num_short_term_ref_pic_sets above 64")
     sets: list[list[int]] = []
     for i in range(num):
         sets.append(_st_ref_pic_set(r, i, num, sets))
-    if r.u(1):
-        raise _unsupported("long-term reference pictures (long_term_ref_pics_present_flag)")
+    if r.u(1):                                         # long-term reference pictures
+        for _ in range(r.ue()):
+            r.u(log2_max_poc_lsb + 1)
     r.u(2)                                             # temporal MVP, strong intra smoothing
     if r.u(1):                                         # vui_parameters
         if r.u(1) and r.u(8) == 255:
@@ -269,18 +289,24 @@ def parse_pps(unit: bytes) -> dict:
     if r.u(1):
         r.ue()
     r.se(), r.se()
-    r.u(3)
-    if r.u(1):
-        raise _unsupported("transquant bypass (transquant_bypass_enabled_flag)")
-    if r.u(1):
-        raise _unsupported("tiles (tiles_enabled_flag)")
-    r.u(2)
+    r.u(4)                                             # ..., transquant bypass
+    tiles, wpp = r.u(1), r.u(1)
+    if tiles:
+        cols, rows = r.ue() + 1, r.ue() + 1
+        if not r.u(1):                                 # explicit widths and heights
+            for _ in range(cols + rows - 2):
+                r.ue()
+        r.u(1)
+        if wpp:
+            raise _unsupported("tiles with wavefront parallel processing (tiles_enabled_flag and "
+                               "entropy_coding_sync_enabled_flag both 1)")
+    r.u(1)
     if r.u(1):
         r.u(1)
         if not r.u(1):
             r.se(), r.se()
     if r.u(1):
-        raise _unsupported("scaling lists (pps_scaling_list_data_present_flag)")
+        _scaling_list_data(r)
     r.u(1)
     r.ue()
     r.u(1)

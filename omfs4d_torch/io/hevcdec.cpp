@@ -13,8 +13,11 @@
 //   VPS / SPS / PPS (several ids, profile_tier_level with sub-layers, short-term
 //   RPS with inter-RPS prediction, the conformance window, VUI with HRD);
 //   slice segment headers (several slices a picture, dependent slice segments,
-//   extra header bits, pic_output_flag, list modification, TMVP's collocated
-//   picture, the pred weight table, entry points, the header extension);
+//   extra header bits, pic_output_flag, long-term reference pictures, list
+//   modification, TMVP's collocated picture, the pred weight table, entry
+//   points, the header extension); tiles (uniform and explicit spacing, the
+//   tile scan, loop filtering across tiles or not); scaling lists (SPS, PPS,
+//   the defaults); PCM; transquant bypass;
 //   IDR, CRA, BLA, RASL, RADL, TSA, STSA and trailing pictures with temporal
 //   sub-layers; CABAC with wavefront parallel processing
 //   (entropy_coding_sync_enabled_flag); CTBs of 16 to 64, every part_mode (AMP
@@ -29,9 +32,11 @@
 //   sps_max_dec_pic_buffering of the highest sub-layer), RASL pictures of a
 //   CRA that starts the decode dropped, the conformance window cropped (the
 //   default display window is not: FFmpeg does not apply it by default).
-// Refused by name: tiles, long-term references, scaling lists, PCM,
-// transquant bypass, bit depths above 10, luma and chroma bit depths that
-// differ, chroma formats other than 4:2:0 and the SPS / PPS extensions.  NAL
+// Refused by name: bit depths above 10, luma and chroma bit depths that
+// differ, chroma formats other than 4:2:0, the SPS / PPS extensions, and tiles
+// with WPP together (cv2's FFmpeg decodes that pair otherwise than the
+// standard).  Where FFmpeg departs from the standard in streams that real
+// encoders write, the decoder follows FFmpeg and says so where it does.  NAL
 // units of nuh_layer_id > 0 are skipped, and so are the unspecified types
 // 48-63 (a Dolby Vision stream's RPUs are type 62) and the reserved 41-47.
 // A read past a NAL's end or a syntax value out of range throws Corrupt;
@@ -248,6 +253,65 @@ void st_ref_pic_set(Bits& b, int idx, int num_sets, const std::vector<RPS>& sets
   }
 }
 
+// ScalingFactor (7.4.5) by sizeId (4x4 to 32x32) and matrixId (intra Y, Cb,
+// Cr, inter Y, Cb, Cr), each n x n in raster order
+struct ScalingFactors {
+  std::vector<uint8_t> m[4][6];
+};
+
+// scaling_list_data() (7.3.4), or the default lists (Table 7-6) where
+// `b` is null, as ScalingFactor
+std::shared_ptr<const ScalingFactors> scaling_list_data(Bits* b) {
+  uint8_t list[4][6][64], dc[4][6];
+  for (int size_id = 0; size_id < 4; ++size_id)
+    for (int matrix_id = 0; matrix_id < 6; matrix_id += size_id == 3 ? 3 : 1) {
+      int n = size_id == 0 ? 16 : 64;
+      uint8_t* out = list[size_id][matrix_id];
+      if (!b || !b->flag()) {
+        // scaling_list_pred_matrix_id_delta: 0, the default; else a copy
+        int step = size_id == 3 ? 3 : 1;
+        int delta = b ? (int)b->ue_max(matrix_id / step, "scaling_list_pred_matrix_id_delta") : 0;
+        if (delta == 0) {
+          for (int i = 0; i < n; ++i)
+            out[i] = size_id == 0 ? 16 : matrix_id < 3 ? DEFAULT_INTRA_8X8[i] : DEFAULT_INTER_8X8[i];
+          dc[size_id][matrix_id] = 16;
+        } else {
+          int ref = matrix_id - delta * step;
+          memcpy(out, list[size_id][ref], n);
+          dc[size_id][matrix_id] = dc[size_id][ref];
+        }
+        continue;
+      }
+      int next = 8;
+      if (size_id > 1) {
+        next = b->se_range(-7, 247, "scaling_list_dc_coef_minus8") + 8;
+        dc[size_id][matrix_id] = (uint8_t)next;
+      }
+      for (int i = 0; i < n; ++i) {
+        next = (next + b->se_range(-128, 127, "scaling_list_delta_coef") + 256) % 256;
+        if (next == 0) corrupt("a scaling list value of 0");
+        out[i] = (uint8_t)next;
+      }
+    }
+  auto f = std::make_shared<ScalingFactors>();
+  for (int size_id = 0; size_id < 4; ++size_id)
+    for (int matrix_id = 0; matrix_id < 6; ++matrix_id) {
+      // 32x32 chroma (4:4:4 alone) is not coded: the 16x16's stands in
+      int from = size_id == 3 && matrix_id % 3 ? matrix_id - matrix_id % 3 : matrix_id;
+      int n = 4 << size_id, up = size_id < 2 ? 1 : 1 << (size_id - 1);
+      std::vector<uint8_t>& m = f->m[size_id][matrix_id];
+      m.assign((size_t)n * n, 0);
+      for (int i = 0; i < (size_id == 0 ? 16 : 64); ++i) {
+        int x = size_id == 0 ? SCAN_4[0][i][0] : SCAN_8[0][i][0];
+        int y = size_id == 0 ? SCAN_4[0][i][1] : SCAN_8[0][i][1];
+        for (int j = 0; j < up; ++j)
+          for (int k = 0; k < up; ++k) m[(size_t)(y * up + j) * n + x * up + k] = list[size_id][from][i];
+      }
+      if (size_id > 1) m[0] = dc[size_id][from];
+    }
+  return f;
+}
+
 struct SPS {
   int id = 0, max_sub_layers = 1;
   int width = 0, height = 0, crop[4] = {0, 0, 0, 0};   // luma: left, right, top, bottom
@@ -259,6 +323,15 @@ struct SPS {
   bool amp = false, sao = false, temporal_mvp = false, strong_intra = false;
   std::vector<RPS> rps;
   int ctb_w = 0, ctb_h = 0, ctb_size = 16;
+  // scaling lists: the SPS's, or the defaults where it codes none
+  std::shared_ptr<const ScalingFactors> scaling;
+  // PCM (pcm_enabled_flag: pcm_bd > 0)
+  int pcm_bd = 0, pcm_bd_c = 0, log2_min_pcm = 0, log2_max_pcm = 0;
+  bool pcm_lf_disabled = false;
+  // long-term reference pictures (long_term_ref_pics_present_flag)
+  bool long_term = false;
+  int num_lt_sps = 0, lt_lsb_sps[32];
+  bool lt_used_sps[32];
 };
 
 void vui_hrd(Bits& b, bool common, int max_sub_layers_minus1) {
@@ -341,14 +414,30 @@ std::shared_ptr<SPS> parse_sps(Bits& b) {
     corrupt("transform block sizes out of range");
   s->max_th_depth_inter = (int)b.ue_max(s->log2_ctb - s->log2_min_tb, "max_transform_hierarchy_depth_inter");
   s->max_th_depth_intra = (int)b.ue_max(s->log2_ctb - s->log2_min_tb, "max_transform_hierarchy_depth_intra");
-  if (b.flag()) unsupported("scaling lists (scaling_list_enabled_flag)");
+  if (b.flag()) s->scaling = scaling_list_data(b.flag() ? &b : nullptr);
   s->amp = b.flag();
   s->sao = b.flag();
-  if (b.flag()) unsupported("PCM (pcm_enabled_flag)");
+  if (b.flag()) {                                       // pcm_enabled_flag
+    s->pcm_bd = (int)b.u(4) + 1;
+    s->pcm_bd_c = (int)b.u(4) + 1;
+    s->log2_min_pcm = (int)b.ue_max(2, "log2_min_pcm_luma_coding_block_size_minus3") + 3;
+    s->log2_max_pcm = s->log2_min_pcm + (int)b.ue_max(2, "log2_diff_max_min_pcm_luma_coding_block_size");
+    if (s->pcm_bd > s->bit_depth || s->pcm_bd_c > s->bit_depth_c) corrupt("a PCM bit depth above the picture's");
+    if (s->log2_min_pcm < std::min(s->log2_min_cb, 5) || s->log2_max_pcm > std::min(s->log2_ctb, 5))
+      corrupt("PCM coding block sizes out of range");
+    s->pcm_lf_disabled = b.flag();
+  }
   int nsets = (int)b.ue_max(64, "num_short_term_ref_pic_sets");
   s->rps.resize(nsets);
   for (int i = 0; i < nsets; ++i) st_ref_pic_set(b, i, nsets, s->rps, s->rps[i]);
-  if (b.flag()) unsupported("long-term reference pictures (long_term_ref_pics_present_flag)");
+  s->long_term = b.flag();
+  if (s->long_term) {
+    s->num_lt_sps = (int)b.ue_max(32, "num_long_term_ref_pics_sps");
+    for (int i = 0; i < s->num_lt_sps; ++i) {
+      s->lt_lsb_sps[i] = (int)b.u(s->log2_max_poc_lsb);
+      s->lt_used_sps[i] = b.flag();
+    }
+  }
   s->temporal_mvp = b.flag();
   s->strong_intra = b.flag();
   if (b.flag()) {                                       // vui_parameters
@@ -400,10 +489,18 @@ struct PPS {
   bool cu_qp_delta = false, slice_chroma_qp_offsets = false, weighted_pred = false;
   bool weighted_bipred = false, entropy_sync = false, lf_across_slices = false;
   bool deblock_override = false, deblock_disabled = false, lists_modification = false;
-  bool header_extension = false;
+  bool header_extension = false, transquant_bypass = false;
   int num_extra_bits = 0, num_ref_idx[2] = {1, 1}, init_qp = 26, diff_cu_qp_delta_depth = 0;
   int cb_qp_offset = 0, cr_qp_offset = 0, beta_offset = 0, tc_offset = 0;
   int log2_parallel_merge = 2;
+  // tiles: 1 x 1 where tiles_enabled_flag is 0; the widths and heights in
+  // CTBs where they are explicit (empty: uniform spacing), the last one
+  // derived at activation from the SPS
+  bool tiles = false, lf_across_tiles = true;
+  int tile_cols = 1, tile_rows = 1;
+  std::vector<int> col_w, row_h;
+  // pps_scaling_list_data_present_flag: these replace the SPS's
+  std::shared_ptr<const ScalingFactors> scaling;
 };
 
 std::shared_ptr<PPS> parse_pps(Bits& b) {
@@ -429,9 +526,25 @@ std::shared_ptr<PPS> parse_pps(Bits& b) {
   p->slice_chroma_qp_offsets = b.flag();
   p->weighted_pred = b.flag();
   p->weighted_bipred = b.flag();
-  if (b.flag()) unsupported("transquant bypass (transquant_bypass_enabled_flag)");
-  if (b.flag()) unsupported("tiles (tiles_enabled_flag)");
+  p->transquant_bypass = b.flag();
+  p->tiles = b.flag();
   p->entropy_sync = b.flag();
+  if (p->tiles) {
+    // the bounds that need the SPS are checked at activation
+    p->tile_cols = (int)b.ue_max(1023, "num_tile_columns_minus1") + 1;
+    p->tile_rows = (int)b.ue_max(1023, "num_tile_rows_minus1") + 1;
+    if (!b.flag()) {                                    // uniform_spacing_flag
+      for (int i = 0; i + 1 < p->tile_cols; ++i) p->col_w.push_back((int)b.ue_max(1023, "column_width_minus1") + 1);
+      for (int i = 0; i + 1 < p->tile_rows; ++i) p->row_h.push_back((int)b.ue_max(1023, "row_height_minus1") + 1);
+    }
+    p->lf_across_tiles = b.flag();
+    // cv2's FFmpeg decodes this pair otherwise than the standard (it loads
+    // WPP's stored contexts at a tile's first CTB, and takes a tile's CTB
+    // rows for the picture's)
+    if (p->entropy_sync)
+      unsupported("tiles with wavefront parallel processing (tiles_enabled_flag and "
+                  "entropy_coding_sync_enabled_flag both 1)");
+  }
   p->lf_across_slices = b.flag();
   if (b.flag()) {
     p->deblock_override = b.flag();
@@ -441,7 +554,7 @@ std::shared_ptr<PPS> parse_pps(Bits& b) {
       p->tc_offset = 2 * b.se_range(-6, 6, "pps_tc_offset_div2");
     }
   }
-  if (b.flag()) unsupported("scaling lists (pps_scaling_list_data_present_flag)");
+  if (b.flag()) p->scaling = scaling_list_data(&b);
   p->lists_modification = b.flag();
   p->log2_parallel_merge = (int)b.ue_max(4, "log2_parallel_merge_level_minus2") + 2;
   p->header_extension = b.flag();
@@ -463,6 +576,7 @@ struct MvField {
   int16_t mv[2][2];
   int8_t ref_idx[2];
   uint8_t pred;        // bit 0: list 0, bit 1: list 1; 0: intra (or none)
+  uint8_t lt;          // bit l: list l's reference was long-term when this was decoded
   int32_t ref_poc[2];
 };
 
@@ -474,6 +588,7 @@ struct Pic {
   std::vector<MvField> mvf;           // by 4x4, for TMVP
   int poc = 0;
   bool ref = false, output = false;
+  bool lt = false;                     // marked "used for long-term reference"
   int w4 = 0, h4 = 0;
 
   // a picture of grey samples (1 << (depth - 1)): what a missing reference
@@ -517,6 +632,11 @@ struct SliceHeader {
   bool pic_output = true;
   int poc_lsb = 0;
   RPS rps;
+  // the long-term entries (7.3.6.1): PocLsbLt, used_by_curr_pic_lt_flag, and
+  // DeltaPocMsbCycleLt where delta_poc_msb_present_flag is 1 (else -1)
+  int n_lt = 0, lt_lsb[32];
+  bool lt_used[32];
+  int64_t lt_msb_cycle[32];
   bool tmvp = false, sao_luma = false, sao_chroma = false;
   int num_ref_idx[2] = {0, 0};
   bool list_mod[2] = {false, false};
@@ -560,9 +680,10 @@ struct Decoder {
   int nal_type = 0, temporal_id = 0;
 
   // the picture's reference sets
-  std::vector<PicP> st_before, st_after;
+  std::vector<PicP> st_before, st_after, lt_curr;
   PicP ref_list[2][16];
   int ref_poc[2][16];
+  bool ref_lt[2][16];
 
   // the bit depth (luma = chroma), as the arithmetic reads it; wide: the
   // samples are uint16_t (bd above 8)
@@ -572,8 +693,13 @@ struct Decoder {
   int W = 0, H = 0, w4 = 0, h4 = 0;
   std::vector<uint8_t> ct_depth, skip_flag, intra, ipm, cbf_map, edge_v, edge_h;
   std::vector<int8_t> qp_map;            // QpY: -QpBdOffsetY to 51
-  std::vector<int32_t> zs;               // z-scan order address of each 4x4 unit
+  std::vector<int32_t> zs;               // MinTbAddrZs of each 4x4 unit (over the tile scan)
   std::vector<int16_t> ctb_slice;        // slice segment index of each CTB (-1: not decoded)
+  // the tiles (6.5.1): CtbAddrRsToTs, CtbAddrTsToRs and TileId by raster
+  // address; `layout` is what they were derived from
+  std::vector<int32_t> rs2ts, ts2rs, tile_id, layout;
+  std::vector<uint8_t> no_filter;        // PCM (loop filter disabled) and bypass CUs' 4x4 units
+  const ScalingFactors* scaling = nullptr;   // the active lists (null: flat, 16)
   std::vector<SliceInfo> slices;
   std::vector<SaoParams> sao;            // by CTB
 
@@ -581,6 +707,7 @@ struct Decoder {
   SliceHeader sh;
   Bits bs;
   std::vector<uint8_t> rbsp;
+  size_t nal_size = 0;                   // the slice segment's NAL unit, escaped
   int ctb_addr = 0, slice_idx = 0;
   uint8_t ctx[N_CTX], wpp_ctx[N_CTX], ds_ctx[N_CTX];
   bool wpp_saved = false;
@@ -592,7 +719,7 @@ struct Decoder {
   bool first_qg_in_slice = true;
   // coding unit
   int cu_x = 0, cu_y = 0, cu_log2 = 3;
-  bool cu_intra = false, cu_skip = false;
+  bool cu_intra = false, cu_skip = false, cu_bypass = false;
   int part_mode = 0;
   int chroma_mode = 0;
   bool merge_flag_cu = false;
@@ -635,6 +762,9 @@ struct Decoder {
                       bool cbf_cb, bool cbf_cr);
   void residual(int x0, int y0, int log2, int c);
   void set_qp_group(int x0, int y0);
+  template <class T> void pcm_sample_t(int x0, int y0, int log2);
+  void layout_tiles();
+  bool first_in_tile(int ts) const { return ts == 0 || tile_id[ts2rs[ts]] != tile_id[ts2rs[ts - 1]]; }
   int luma_qp() const {
     return ((qp_y_pred + cu_qp_delta_val + 52 + 2 * qpbd) % (52 + qpbd)) - qpbd;
   }
@@ -691,6 +821,7 @@ void Decoder::nal(const uint8_t* data, size_t size) {
   if (type > 21 && type != 33 && type != 34 && type != 36 && type != 37) return;
   if ((type >= 10 && type <= 15)) return;      // reserved VCL types
   rbsp = unescape(data + 2, size - 2);
+  nal_size = size;
   Bits b;
   if (type == 33) {
     b.init(rbsp);
@@ -781,14 +912,42 @@ void Decoder::slice_header(Bits& b, int type) {
         if (idx >= (int)s->rps.size()) corrupt("short_term_ref_pic_set_idx out of range");
         h.rps = s->rps[idx];
       }
+      if (s->long_term) {
+        int n_sps = s->num_lt_sps > 0 ? (int)b.ue_max(s->num_lt_sps, "num_long_term_sps") : 0;
+        int n_pics = (int)b.ue_max(32, "num_long_term_pics");
+        h.n_lt = n_sps + n_pics;
+        if (h.n_lt > 32 || h.n_lt + h.rps.total() > 32) corrupt("more than 32 reference pictures in the RPS");
+        int bits = 0;
+        while ((1 << bits) < s->num_lt_sps) ++bits;
+        int64_t prev = 0;
+        for (int i = 0; i < h.n_lt; ++i) {
+          if (i < n_sps) {
+            int idx = (int)b.u(bits);
+            if (idx >= s->num_lt_sps) corrupt("lt_idx_sps out of range");
+            h.lt_lsb[i] = s->lt_lsb_sps[idx];
+            h.lt_used[i] = s->lt_used_sps[idx];
+          } else {
+            h.lt_lsb[i] = (int)b.u(s->log2_max_poc_lsb);
+            h.lt_used[i] = b.flag();
+          }
+          h.lt_msb_cycle[i] = -1;
+          if (b.flag()) {                               // delta_poc_msb_present_flag
+            // DeltaPocMsbCycleLt: a running sum within each of the two groups
+            int64_t d = b.ue();
+            if (i != 0 && i != n_sps) d += prev;
+            h.lt_msb_cycle[i] = prev = d;
+          }
+        }
+      }
       if (s->temporal_mvp) h.tmvp = b.flag();
     }
     if (s->sao) {
       h.sao_luma = b.flag();
       h.sao_chroma = b.flag();
     }
-    int total_curr = 0;
+    int total_curr = 0;                             // NumPicTotalCurr
     for (int i = 0; i < h.rps.total(); ++i) total_curr += h.rps.used[i];
+    for (int i = 0; i < h.n_lt; ++i) total_curr += h.lt_used[i];
     if (h.type != 2) {
       h.num_ref_idx[0] = p->num_ref_idx[0];
       h.num_ref_idx[1] = h.type == 0 ? p->num_ref_idx[1] : 0;
@@ -876,11 +1035,16 @@ void Decoder::slice_header(Bits& b, int type) {
     if (p->lf_across_slices && (h.sao_luma || h.sao_chroma || !h.deblock_disabled))
       h.lf_across = b.flag();
   }
-  if (p->entropy_sync) {
-    int n = (int)b.ue_max(s->ctb_h - 1, "num_entry_point_offsets");
+  if (p->tiles || p->entropy_sync) {
+    int most = p->tiles ? p->tile_cols * p->tile_rows - 1 : s->ctb_h - 1;
+    int n = (int)b.ue_max(most, "num_entry_point_offsets");
     if (n > 0) {
+      // the substreams are found by the realignment that ends each one; the
+      // offsets are only held to the NAL unit's size
       int len = (int)b.ue_max(31, "offset_len_minus1") + 1;
-      for (int i = 0; i < n; ++i) b.skip(len);
+      uint64_t total = 0;
+      for (int i = 0; i < n; ++i) total += (uint64_t)b.u(len) + 1;
+      if (total >= nal_size) corrupt("entry points past the slice segment's data");
     }
   }
   if (p->header_extension) {
@@ -951,26 +1115,14 @@ void Decoder::start_picture() {
   maxv = (1 << bd) - 1;
   qpbd = 6 * (bd - 8);
   wide = bd > 8;
-  // picture size and the maps
-  if (W != s->width || H != s->height) {
-    W = s->width;
-    H = s->height;
-    w4 = W >> 2;
-    h4 = H >> 2;
-    // z-scan order of 4x4 units: the CTB's raster address, then the
-    // interleaved bits of the position inside it
-    zs.assign((size_t)w4 * h4, 0);
-    int lc = s->log2_ctb - 2;
-    for (int y = 0; y < h4; ++y)
-      for (int x = 0; x < w4; ++x) {
-        int ctb = (y >> lc) * s->ctb_w + (x >> lc);
-        int xi = x & ((1 << lc) - 1), yi = y & ((1 << lc) - 1), z = 0;
-        for (int k = 0; k < lc; ++k) z |= ((xi >> k) & 1) << (2 * k) | ((yi >> k) & 1) << (2 * k + 1);
-        zs[(size_t)y * w4 + x] = (ctb << (2 * lc)) + z;
-      }
-  }
+  W = s->width;
+  H = s->height;
+  w4 = W >> 2;
+  h4 = H >> 2;
+  layout_tiles();
+  scaling = !s->scaling ? nullptr : pps->scaling ? pps->scaling.get() : s->scaling.get();
   size_t n4 = (size_t)w4 * h4;
-  for (auto* v : {&ct_depth, &skip_flag, &intra, &ipm, &cbf_map, &edge_v, &edge_h})
+  for (auto* v : {&ct_depth, &skip_flag, &intra, &ipm, &cbf_map, &edge_v, &edge_h, &no_filter})
     v->assign(n4, 0);
   qp_map.assign(n4, 0);
   ctb_slice.assign((size_t)s->ctb_w * s->ctb_h, -1);
@@ -997,19 +1149,36 @@ void Decoder::start_picture() {
     bump(true, discard);
     dpb.clear();
   }
-  // RPS marking (8.3.2)
+  // RPS marking (8.3.2): the long-term entries first, by their POC's LSBs
+  // or, with delta_poc_msb_present_flag, by the whole POC
   st_before.clear();
   st_after.clear();
+  lt_curr.clear();
   if (idr) {
     for (auto& p : dpb) p->ref = false;
   } else {
     std::vector<PicP> keep;
+    for (int i = 0; i < sh.n_lt; ++i) {
+      bool msb = sh.lt_msb_cycle[i] >= 0;
+      int64_t want = msb ? poc - sh.lt_msb_cycle[i] * max_lsb - (lsb - sh.lt_lsb[i]) : sh.lt_lsb[i];
+      if (want < INT32_MIN || want > INT32_MAX) corrupt("a long-term reference's POC out of range");
+      PicP found;
+      for (auto& p : dpb)
+        if (p->ref && (msb ? p->poc == want : (p->poc & (max_lsb - 1)) == want)) found = p;
+      // a missing one: grey, with the POC (or the LSBs) named, as FFmpeg makes it
+      if (!found && sh.lt_used[i]) found = missing_ref((int)want);
+      if (found) {
+        found->lt = true;
+        keep.push_back(found);
+        if (sh.lt_used[i]) lt_curr.push_back(found);
+      }
+    }
     const RPS& r = sh.rps;
     for (int i = 0; i < r.total(); ++i) {
       int want = poc + r.dpoc[i];
       PicP found;
       for (auto& p : dpb)
-        if (p->ref && p->poc == want) found = p;
+        if (p->ref && !p->lt && p->poc == want) found = p;
       if (!found && r.used[i]) found = missing_ref(want);
       if (found) {
         keep.push_back(found);
@@ -1031,6 +1200,61 @@ void Decoder::start_picture() {
   cur->output = sh.pic_output;
   first_pic = false;
   after_eos = false;
+}
+
+void Decoder::layout_tiles() {
+  // the column widths and row heights (6.5.1), then the scans and
+  // MinTbAddrZs (6.5.2), rederived only where they change
+  const SPS* s = sps;
+  std::vector<int> cols, rows;
+  auto spacing = [](int n, int total, const std::vector<int>& given, std::vector<int>& out, const char* what) {
+    if (n > total) corrupt(std::string("more tile ") + what + " than CTB " + what);
+    if (given.empty()) {
+      for (int i = 0; i < n; ++i) out.push_back((i + 1) * total / n - i * total / n);
+      return;
+    }
+    int sum = 0;
+    for (int v : given) {
+      sum += v;
+      out.push_back(v);
+    }
+    if (sum >= total) corrupt(std::string("tile ") + what + " past the picture");
+    out.push_back(total - sum);
+  };
+  spacing(pps->tile_cols, s->ctb_w, pps->col_w, cols, "columns");
+  spacing(pps->tile_rows, s->ctb_h, pps->row_h, rows, "rows");
+  std::vector<int32_t> key = {W, H, s->log2_ctb};
+  key.insert(key.end(), cols.begin(), cols.end());
+  key.push_back(-1);
+  key.insert(key.end(), rows.begin(), rows.end());
+  if (key == layout) return;
+  layout = key;
+  int n = s->ctb_w * s->ctb_h;
+  rs2ts.assign(n, 0);
+  ts2rs.assign(n, 0);
+  tile_id.assign(n, 0);
+  int ts = 0, tile = 0;
+  for (int j = 0, y0 = 0; j < (int)rows.size(); y0 += rows[j++])
+    for (int i = 0, x0 = 0; i < (int)cols.size(); x0 += cols[i++], ++tile) {
+      for (int y = y0; y < y0 + rows[j]; ++y)
+        for (int x = x0; x < x0 + cols[i]; ++x) {
+          int rs = y * s->ctb_w + x;
+          rs2ts[rs] = ts;
+          ts2rs[ts++] = rs;
+          tile_id[rs] = tile;
+        }
+    }
+  // MinTbAddrZs of the 4x4 units: the CTB's tile-scan address, then the
+  // interleaved bits of the position inside it
+  zs.assign((size_t)w4 * h4, 0);
+  int lc = s->log2_ctb - 2;
+  for (int y = 0; y < h4; ++y)
+    for (int x = 0; x < w4; ++x) {
+      int ctb = rs2ts[(y >> lc) * s->ctb_w + (x >> lc)];
+      int xi = x & ((1 << lc) - 1), yi = y & ((1 << lc) - 1), z = 0;
+      for (int k = 0; k < lc; ++k) z |= ((xi >> k) & 1) << (2 * k) | ((yi >> k) & 1) << (2 * k + 1);
+      zs[(size_t)y * w4 + x] = (ctb << (2 * lc)) + z;
+    }
 }
 
 void Decoder::end_picture() {
@@ -1135,28 +1359,37 @@ void Decoder::slice_data() {
   slices.push_back(si);
   slice_idx = (int)slices.size() - 1;
   if (slices.size() > 32000) corrupt("too many slice segments");
+  int ts = rs2ts[sh.address];
   if (sh.dependent) {
-    int prev = sh.address - 1;
+    // it continues the slice of the CTB before it in tile scan
+    int prev = ts2rs[ts - 1];
     if (ctb_slice[prev] < 0 || slices[ctb_slice[prev]].addr != sh.slice_addr)
       corrupt("a dependent slice segment that does not continue its slice");
   }
-  // the reference picture lists (8.3.4)
+  // the reference picture lists (8.3.4): short-term before, after, then
+  // long-term, repeated to the longer of num_ref_idx and NumPicTotalCurr
   if (sh.type != 2) {
-    int total = (int)(st_before.size() + st_after.size());
+    int total = (int)(st_before.size() + st_after.size() + lt_curr.size());
     if (total == 0) corrupt("a P or B slice with no reference picture");
     for (int l = 0; l < (sh.type == 0 ? 2 : 1); ++l) {
       std::vector<PicP> temp;
+      std::vector<bool> temp_lt;
       int n = std::max(sh.num_ref_idx[l], total);
       while ((int)temp.size() < n) {
         const auto& a = l == 0 ? st_before : st_after;
         const auto& c = l == 0 ? st_after : st_before;
-        for (auto& p : a)
-          if ((int)temp.size() < n) temp.push_back(p);
-        for (auto& p : c)
-          if ((int)temp.size() < n) temp.push_back(p);
+        const std::vector<PicP>* sets[3] = {&a, &c, &lt_curr};
+        for (const auto* set : sets)
+          for (auto& p : *set)
+            if ((int)temp.size() < n) {
+              temp.push_back(p);
+              temp_lt.push_back(set == &lt_curr);
+            }
       }
       for (int i = 0; i < sh.num_ref_idx[l]; ++i) {
-        ref_list[l][i] = temp[sh.list_mod[l] ? sh.list_entry[l][i] : i];
+        int k = sh.list_mod[l] ? sh.list_entry[l][i] : i;
+        ref_list[l][i] = temp[k];
+        ref_lt[l][i] = temp_lt[k];
         ref_poc[l][i] = ref_list[l][i]->poc;
         if (ref_list[l][i]->w != W || ref_list[l][i]->h != H || ref_list[l][i]->bd != bd)
           corrupt("a reference picture of another size or bit depth");
@@ -1166,9 +1399,10 @@ void Decoder::slice_data() {
   init_engine();
   int W_ctb = s->ctb_w;
   ctb_addr = sh.address;
-  // context initialisation (9.3.1)
+  // context initialisation (9.3.1): at a tile's first CTB, else at a CTB
+  // row's first with WPP (never with tiles) from the CTB above and to the
+  // right, if it is in the slice
   auto wpp_sync = [&](int addr) {
-    // the CTB above and to the right, if it is in the slice
     int up_right = addr - W_ctb + 1;
     if (W_ctb > 1 && addr >= W_ctb && ctb_slice[up_right] >= 0 &&
         slices[ctb_slice[up_right]].addr == sh.slice_addr && wpp_saved)
@@ -1176,7 +1410,7 @@ void Decoder::slice_data() {
     else
       init_contexts();
   };
-  if (!sh.dependent) {
+  if (!sh.dependent || first_in_tile(ts)) {
     init_contexts();
   } else if (pps->entropy_sync && ctb_addr % W_ctb == 0) {
     wpp_sync(ctb_addr);
@@ -1189,12 +1423,13 @@ void Decoder::slice_data() {
   }
   qp_y = sh.qp;
   for (;;) {
-    if (ctb_addr >= n_ctb) corrupt("CTBs beyond the picture");
+    if (ts >= n_ctb) corrupt("CTBs beyond the picture");
+    ctb_addr = ts2rs[ts];
     int rx = ctb_addr % W_ctb, ry = ctb_addr / W_ctb;
     if (ctb_slice[ctb_addr] >= 0) corrupt("a CTB decoded twice");
     ctb_slice[ctb_addr] = (int16_t)slice_idx;
-    if (pps->entropy_sync && rx == 0) {
-      last_qp_y = sh.qp;               // the first QG of a CTB row takes SliceQpY
+    if (first_in_tile(ts) || (pps->entropy_sync && rx == 0)) {
+      last_qp_y = sh.qp;               // the first QG of a tile or a CTB row takes SliceQpY
       first_qg_in_slice = true;
     }
     if (sh.sao_luma || sh.sao_chroma) sao_syntax(rx, ry);
@@ -1204,13 +1439,17 @@ void Decoder::slice_data() {
       memcpy(wpp_ctx, ctx, N_CTX);
       wpp_saved = true;
     }
-    ++ctb_addr;
+    ++ts;
     if (end) break;
-    if (pps->entropy_sync && ctb_addr % W_ctb == 0) {
+    if (ts >= n_ctb) corrupt("CTBs beyond the picture");
+    int next = ts2rs[ts];
+    bool tile_start = first_in_tile(ts);
+    if (tile_start || (pps->entropy_sync && next % W_ctb == 0)) {
       if (!terminate()) corrupt("end_of_subset_one_bit is 0");
       bs.pos = (bs.pos + 7) & ~(size_t)7;
       init_engine();
-      wpp_sync(ctb_addr);
+      if (tile_start) init_contexts();
+      else wpp_sync(next);
     }
   }
   if (pps->dependent_slices) memcpy(ds_ctx, ctx, N_CTX);
@@ -1221,11 +1460,15 @@ void Decoder::slice_data() {
 void Decoder::sao_syntax(int rx, int ry) {
   int W_ctb = sps->ctb_w;
   SaoParams& p = sao[ctb_addr];
-  if (rx > 0 && ctb_addr - 1 >= sh.slice_addr && dec(C_SAO_MERGE)) {
+  // the candidate in the slice segment's slice (by raster address, as
+  // 7.3.8.3 writes it) and in the tile
+  if (rx > 0 && ctb_addr - 1 >= sh.slice_addr && tile_id[ctb_addr - 1] == tile_id[ctb_addr] &&
+      dec(C_SAO_MERGE)) {
     p = sao[ctb_addr - 1];
     return;
   }
-  if (ry > 0 && ctb_addr - W_ctb >= sh.slice_addr && dec(C_SAO_MERGE)) {
+  if (ry > 0 && ctb_addr - W_ctb >= sh.slice_addr && tile_id[ctb_addr - W_ctb] == tile_id[ctb_addr] &&
+      dec(C_SAO_MERGE)) {
     p = sao[ctb_addr - W_ctb];
     return;
   }
@@ -1272,9 +1515,10 @@ void Decoder::sao_syntax(int rx, int ry) {
 bool Decoder::avail_z(int xc, int yc, int xn, int yn) const {
   if (!in_pic(xn, yn)) return false;
   if (zs[u4(xn, yn)] > zs[u4(xc, yc)]) return false;
-  int cn = ctb_slice[ctb_of(xn, yn)], cc = ctb_slice[ctb_of(xc, yc)];
+  int an = ctb_of(xn, yn), ac = ctb_of(xc, yc);
+  int cn = ctb_slice[an], cc = ctb_slice[ac];
   if (cn < 0) return false;
-  return slices[cn].addr == slices[cc].addr;
+  return slices[cn].addr == slices[cc].addr && tile_id[an] == tile_id[ac];
 }
 
 // ── coding quadtree and unit (7.3.8.4, 7.3.8.5) ──────────────────────────
@@ -1338,6 +1582,9 @@ void Decoder::coding_unit(int x0, int y0, int log2) {
   part_mode = PART_2Nx2N;
   merge_flag_cu = false;
   qp_y = pps->cu_qp_delta ? luma_qp() : sh.qp;
+  cu_bypass = pps->transquant_bypass && dec(C_TRANSQUANT_BYPASS);
+  // deblocking and SAO leave a bypass CU's samples as they are
+  if (cu_bypass) fill4(no_filter, w4, x0, y0, size, size, 1);
   if (sh.type != 2) {
     int inc = 0;
     if (avail_z(x0, y0, x0 - 1, y0) && skip_flag[u4(x0 - 1, y0)]) ++inc;
@@ -1375,7 +1622,18 @@ void Decoder::coding_unit(int x0, int y0, int log2) {
         part_mode = dec(C_PART_MODE + 3) ? PART_Nx2N : (bypass() ? PART_nRx2N : PART_nLx2N);
       }
     }
-    if (cu_intra) {
+    bool pcm = false;
+    if (cu_intra && part_mode == PART_2Nx2N && s->pcm_bd && log2 >= s->log2_min_pcm && log2 <= s->log2_max_pcm)
+      pcm = terminate();                                  // pcm_flag
+    if (pcm) {
+      // the samples themselves (7.3.8.7), after the arithmetic code's flush
+      // and pcm_alignment_zero_bits; then the engine starts again (9.3.2.5)
+      bs.pos = (bs.pos + 7) & ~(size_t)7;
+      wide ? pcm_sample_t<uint16_t>(x0, y0, log2) : pcm_sample_t<uint8_t>(x0, y0, log2);
+      init_engine();
+      fill4(ipm, w4, x0, y0, size, size, 1);               // INTRA_DC to its neighbours' MPMs
+      if (s->pcm_lf_disabled) fill4(no_filter, w4, x0, y0, size, size, 1);
+    } else if (cu_intra) {
       int nparts = part_mode == PART_NxN ? 4 : 1, pb = part_mode == PART_NxN ? size / 2 : size;
       int prev_flag[4], mode[4];
       for (int i = 0; i < nparts; ++i) prev_flag[i] = dec(C_PREV_INTRA_LUMA);
@@ -1464,13 +1722,13 @@ void Decoder::coding_unit(int x0, int y0, int log2) {
           prediction_unit(x0 + h, y0 + h, h, h, 3);
       }
     }
-    bool root_cbf = true;
+    bool root_cbf = !pcm;
     if (!cu_intra && !(part_mode == PART_2Nx2N && merge_flag_cu)) root_cbf = dec(C_RQT_ROOT_CBF);
     if (root_cbf) {
       bool intra_split = cu_intra && part_mode == PART_NxN;
       int max_depth = cu_intra ? s->max_th_depth_intra + intra_split : s->max_th_depth_inter;
       transform_tree(x0, y0, x0, y0, log2, 0, 0, false, false, max_depth, intra_split);
-    } else if (cu_intra) {
+    } else if (cu_intra && !pcm) {
       corrupt("an intra CU with no transform tree");
     }
   }
@@ -1480,6 +1738,18 @@ void Decoder::coding_unit(int x0, int y0, int log2) {
   }
   fill4(qp_map, w4, x0, y0, size, size, (int8_t)qp_y);
   last_qp_y = qp_y;
+}
+
+template <class T>
+void Decoder::pcm_sample_t(int x0, int y0, int log2) {
+  const SPS* s = sps;
+  for (int c = 0; c < 3; ++c) {
+    int n = c ? 1 << (log2 - 1) : 1 << log2, pw = c ? W >> 1 : W;
+    int depth = c ? s->pcm_bd_c : s->pcm_bd, up = (c ? s->bit_depth_c : s->bit_depth) - depth;
+    T* dst = cur->plane<T>(c) + (size_t)(c ? y0 >> 1 : y0) * pw + (c ? x0 >> 1 : x0);
+    for (int y = 0; y < n; ++y)
+      for (int x = 0; x < n; ++x) dst[(size_t)y * pw + x] = (T)(bs.u(depth) << up);
+  }
 }
 
 // ── inter prediction units (7.3.8.6, 8.5.3) ──────────────────────────────
@@ -1560,6 +1830,7 @@ void Decoder::prediction_unit(int x0, int y0, int w, int h, int part_idx) {
       int16_t mvp[2];
       derive_amvp(cu_x, cu_y, size, x0, y0, w, h, part_idx, l, ref[l], mvp, mvp_flag[l]);
       m.pred |= 1 << l;
+      m.lt |= ref_lt[l][ref[l]] << l;
       m.ref_idx[l] = (int8_t)ref[l];
       m.mv[l][0] = (int16_t)(uint16_t)(mvp[0] + mvd[l][0]);
       m.mv[l][1] = (int16_t)(uint16_t)(mvp[1] + mvd[l][1]);
@@ -1627,10 +1898,13 @@ bool Decoder::col_mv(int x, int y, int lx, int ref_idx, int16_t mv[2]) {
         if (ref_poc[l][i] > cur->poc) no_backward = false;
     list_col = no_backward ? lx : (sh.col_from_l0 ? 1 : 0);
   }
+  // a long-term reference on one side alone: no candidate; on both: no scaling
+  bool cur_lt = ref_lt[lx][ref_idx];
+  if (cur_lt != (bool)((c.lt >> list_col) & 1)) return false;
   int col_poc_diff = col->poc - c.ref_poc[list_col];
   int cur_poc_diff = cur->poc - ref_poc[lx][ref_idx];
   int mx = c.mv[list_col][0], my = c.mv[list_col][1];
-  if (col_poc_diff == cur_poc_diff || col_poc_diff == 0) {
+  if (cur_lt || col_poc_diff == cur_poc_diff || col_poc_diff == 0) {
     mv[0] = (int16_t)mx;
     mv[1] = (int16_t)my;
   } else {
@@ -1700,6 +1974,7 @@ void Decoder::derive_merge(int xc, int yc, int ncb, int xp, int yp, int w, int h
       int16_t mv[2];
       if (temporal_mv(xp, yp, w, h, 0, 0, mv)) {
         t.pred |= 1;
+        t.lt |= ref_lt[0][0];
         t.ref_idx[0] = 0;
         t.mv[0][0] = mv[0];
         t.mv[0][1] = mv[1];
@@ -1707,6 +1982,7 @@ void Decoder::derive_merge(int xc, int yc, int ncb, int xp, int yp, int w, int h
       }
       if (sh.type == 0 && temporal_mv(xp, yp, w, h, 1, 0, mv)) {
         t.pred |= 2;
+        t.lt |= ref_lt[1][0] << 1;
         t.ref_idx[1] = 0;
         t.mv[1][0] = mv[0];
         t.mv[1][1] = mv[1];
@@ -1726,6 +2002,7 @@ void Decoder::derive_merge(int xc, int yc, int ncb, int xp, int yp, int w, int h
             (c0.ref_poc[0] != c1.ref_poc[1] || c0.mv[0][0] != c1.mv[1][0] || c0.mv[0][1] != c1.mv[1][1])) {
           MvField c{};
           c.pred = 3;
+          c.lt = (c0.lt & 1) | (c1.lt & 2);
           c.ref_idx[0] = c0.ref_idx[0];
           c.ref_idx[1] = c1.ref_idx[1];
           c.mv[0][0] = c0.mv[0][0];
@@ -1745,6 +2022,7 @@ void Decoder::derive_merge(int xc, int yc, int ncb, int xp, int yp, int w, int h
       MvField z{};
       int r = zero < num_ref ? zero : 0;
       z.pred = sh.type == 1 ? 1 : 3;
+      z.lt = ref_lt[0][r] | (sh.type == 1 ? 0 : ref_lt[1][r] << 1);
       z.ref_idx[0] = (int8_t)r;
       z.ref_poc[0] = ref_poc[0][r];
       z.ref_idx[1] = sh.type == 1 ? -1 : (int8_t)r;
@@ -1756,9 +2034,11 @@ void Decoder::derive_merge(int xc, int yc, int ncb, int xp, int yp, int w, int h
   }
   if (out.pred == 3 && ow + oh == 12) {
     out.pred = 1;
+    out.lt &= 1;
     out.ref_idx[1] = -1;
     out.mv[1][0] = out.mv[1][1] = 0;
   }
+  out.lt &= out.pred;
   if (!(out.pred & 1)) {
     out.ref_idx[0] = -1;
     out.mv[0][0] = out.mv[0][1] = 0;
@@ -1773,6 +2053,13 @@ void Decoder::derive_amvp(int xc, int yc, int ncb, int xp, int yp, int w, int h,
                           int lx, int ref_idx, int16_t mvp[2], int flag) {
   int ly = 1 - lx;
   int target = ref_poc[lx][ref_idx];
+  int target_lt = ref_lt[lx][ref_idx];
+  // the scaled passes take a neighbour's vector whose reference is long-term
+  // as the target is, scaled only between short-term ones (8.5.3.2.7)
+  auto scaled_list = [&](const MvField& m) {
+    return (m.pred & (1 << lx)) && ((m.lt >> lx) & 1) == target_lt ? lx
+           : (m.pred & (1 << ly)) && ((m.lt >> ly) & 1) == target_lt ? ly : -1;
+  };
   int cur_poc = cur->poc;
   int16_t mva[2] = {0, 0}, mvb[2] = {0, 0};
   bool fa = false, fb = false;
@@ -1798,13 +2085,13 @@ void Decoder::derive_amvp(int xc, int yc, int ncb, int xp, int yp, int w, int h,
   for (int k = 0; k < 2 && !fa; ++k) {
     if (!av_a[k]) continue;
     const MvField& m = cur->mvf[u4(xa[k], ya[k])];
-    int l = (m.pred & (1 << lx)) ? lx : (m.pred & (1 << ly)) ? ly : -1;
+    int l = scaled_list(m);
     if (l < 0) continue;
     fa = true;
     int rp = m.ref_poc[l];
     mva[0] = m.mv[l][0];
     mva[1] = m.mv[l][1];
-    if (rp != target) {
+    if (!target_lt && rp != target) {
       mva[0] = scale_mv(mva[0], cur_poc - rp, cur_poc - target);
       mva[1] = scale_mv(mva[1], cur_poc - rp, cur_poc - target);
     }
@@ -1836,13 +2123,13 @@ void Decoder::derive_amvp(int xc, int yc, int ncb, int xp, int yp, int w, int h,
     for (int k = 0; k < 3 && !fb; ++k) {
       if (!av_b[k]) continue;
       const MvField& m = cur->mvf[u4(xbn[k], ybn[k])];
-      int l = (m.pred & (1 << lx)) ? lx : (m.pred & (1 << ly)) ? ly : -1;
+      int l = scaled_list(m);
       if (l < 0) continue;
       fb = true;
       int rp = m.ref_poc[l];
       mvb[0] = m.mv[l][0];
       mvb[1] = m.mv[l][1];
-      if (rp != target) {
+      if (!target_lt && rp != target) {
         mvb[0] = scale_mv(mvb[0], cur_poc - rp, cur_poc - target);
         mvb[1] = scale_mv(mvb[1], cur_poc - rp, cur_poc - target);
       }
@@ -2106,7 +2393,7 @@ void Decoder::residual(int x0, int y0, int log2, int c) {
   int16_t* coef = coeffs;
   memset(coef, 0, sizeof(int16_t) * n * n);
   bool ts = false;
-  if (pps->transform_skip && log2 == 2) ts = dec(C_TRANSFORM_SKIP + (c ? 1 : 0));
+  if (pps->transform_skip && log2 == 2 && !cu_bypass) ts = dec(C_TRANSFORM_SKIP + (c ? 1 : 0));
   // last significant position
   int cmax = (log2 << 1) - 1;
   int off, shift;
@@ -2223,7 +2510,7 @@ void Decoder::residual(int x0, int y0, int log2, int c) {
       }
     }
     if (first_g1 >= 0) g2[first_g1] = dec(C_GREATER2 + ctx_set + (c ? 4 : 0));
-    bool hidden = pps->sign_hiding && (pos[0] - pos[np - 1] > 3);
+    bool hidden = pps->sign_hiding && !cu_bypass && (pos[0] - pos[np - 1] > 3);
     int signs[16];
     for (int m = 0; m < np; ++m)
       signs[m] = (hidden && m == np - 1) ? 0 : bypass();
@@ -2256,7 +2543,15 @@ void Decoder::residual(int x0, int y0, int log2, int c) {
       coef[yc * n + xc] = (int16_t)clip3(-32768, 32767, v);
     }
   }
-  // scaling (8.6.2 - 8.6.3)
+  int32_t r[32 * 32];
+  if (cu_bypass) {
+    // the levels are the residual (8.6.2): no scaling, no transform
+    for (int k = 0; k < n * n; ++k) r[k] = coef[k];
+    wide ? add_residual<uint16_t>(c, x0, y0, n, r) : add_residual<uint8_t>(c, x0, y0, n, r);
+    return;
+  }
+  // scaling (8.6.2 - 8.6.4.2): m from the scaling lists where they are on
+  // (a 4x4 transform-skip block included), else 16
   int qp;                                // qP': QpBdOffset added
   if (c == 0) {
     qp = qp_y + qpbd;
@@ -2265,13 +2560,13 @@ void Decoder::residual(int x0, int y0, int log2, int c) {
     qp = (qpi < 30 ? qpi : QPC[qpi]) + qpbd;
   }
   int bd_shift = bd + log2 - 5;
-  int scale = 16 * LEVEL_SCALE[qp % 6] << (qp / 6);
+  int64_t scale = (int64_t)LEVEL_SCALE[qp % 6] << (qp / 6);
+  const uint8_t* m = scaling ? scaling->m[log2 - 2][(cu_intra ? 0 : 3) + c].data() : nullptr;
   int32_t* d = tmp32;
   for (int k = 0; k < n * n; ++k) {
-    int64_t v = ((int64_t)coef[k] * scale + (1LL << (bd_shift - 1))) >> bd_shift;
-    d[k] = (int32_t)clip3(-32768, 32767, (int)std::max<int64_t>(-40000, std::min<int64_t>(40000, v)));
+    int64_t v = ((int64_t)coef[k] * scale * (m ? m[k] : 16) + (1LL << (bd_shift - 1))) >> bd_shift;
+    d[k] = (int32_t)std::max<int64_t>(-32768, std::min<int64_t>(32767, v));
   }
-  int32_t r[32 * 32];
   if (ts) {
     for (int k = 0; k < n * n; ++k) r[k] = d[k] * 128;      // tsShift 5 + Log2(nTbS) at 4x4
     for (int k = 0; k < n * n; ++k) r[k] = (r[k] + (1 << (19 - bd))) >> (20 - bd);
@@ -2469,6 +2764,8 @@ void Decoder::deblock_edge_luma(bool vertical, int x, int y, int strength, int q
   int tc = TC[qt] * (1 << (bd - 8));
   auto P = [&](int line, int i) -> T& { return base[line * along - (i + 1) * step]; };
   auto Q = [&](int line, int i) -> T& { return base[line * along + i * step]; };
+  // nDp / nDq 0 (8.7.2.5.7): a PCM or bypass side keeps its samples
+  bool keep_p = no_filter[vertical ? u4(x - 1, y) : u4(x, y - 1)], keep_q = no_filter[u4(x, y)];
   int dp0 = std::abs(P(0, 2) - 2 * P(0, 1) + P(0, 0)), dp3 = std::abs(P(3, 2) - 2 * P(3, 1) + P(3, 0));
   int dq0 = std::abs(Q(0, 2) - 2 * Q(0, 1) + Q(0, 0)), dq3 = std::abs(Q(3, 2) - 2 * Q(3, 1) + Q(3, 0));
   int dpq0 = dp0 + dq0, dpq3 = dp3 + dq3, dp = dp0 + dp3, dq = dq0 + dq3, d = dpq0 + dpq3;
@@ -2483,23 +2780,27 @@ void Decoder::deblock_edge_luma(bool vertical, int x, int y, int strength, int q
     int p0 = P(k, 0), p1 = P(k, 1), p2 = P(k, 2), p3 = P(k, 3);
     int q0 = Q(k, 0), q1 = Q(k, 1), q2 = Q(k, 2), q3 = Q(k, 3);
     if (strong) {
-      P(k, 0) = (T)clip3(p0 - 2 * tc, p0 + 2 * tc, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
-      P(k, 1) = (T)clip3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + q0 + 2) >> 2);
-      P(k, 2) = (T)clip3(p2 - 2 * tc, p2 + 2 * tc, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
-      Q(k, 0) = (T)clip3(q0 - 2 * tc, q0 + 2 * tc, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
-      Q(k, 1) = (T)clip3(q1 - 2 * tc, q1 + 2 * tc, (p0 + q0 + q1 + q2 + 2) >> 2);
-      Q(k, 2) = (T)clip3(q2 - 2 * tc, q2 + 2 * tc, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
+      if (!keep_p) {
+        P(k, 0) = (T)clip3(p0 - 2 * tc, p0 + 2 * tc, (p2 + 2 * p1 + 2 * p0 + 2 * q0 + q1 + 4) >> 3);
+        P(k, 1) = (T)clip3(p1 - 2 * tc, p1 + 2 * tc, (p2 + p1 + p0 + q0 + 2) >> 2);
+        P(k, 2) = (T)clip3(p2 - 2 * tc, p2 + 2 * tc, (2 * p3 + 3 * p2 + p1 + p0 + q0 + 4) >> 3);
+      }
+      if (!keep_q) {
+        Q(k, 0) = (T)clip3(q0 - 2 * tc, q0 + 2 * tc, (p1 + 2 * p0 + 2 * q0 + 2 * q1 + q2 + 4) >> 3);
+        Q(k, 1) = (T)clip3(q1 - 2 * tc, q1 + 2 * tc, (p0 + q0 + q1 + q2 + 2) >> 2);
+        Q(k, 2) = (T)clip3(q2 - 2 * tc, q2 + 2 * tc, (p0 + q0 + q1 + 3 * q2 + 2 * q3 + 4) >> 3);
+      }
     } else {
       int delta = (9 * (q0 - p0) - 3 * (q1 - p1) + 8) >> 4;
       if (std::abs(delta) >= tc * 10) continue;
       delta = clip3(-tc, tc, delta);
-      P(k, 0) = (T)clip3(0, maxv, p0 + delta);
-      Q(k, 0) = (T)clip3(0, maxv, q0 - delta);
-      if (dep) {
+      if (!keep_p) P(k, 0) = (T)clip3(0, maxv, p0 + delta);
+      if (!keep_q) Q(k, 0) = (T)clip3(0, maxv, q0 - delta);
+      if (dep && !keep_p) {
         int dpv = clip3(-(tc >> 1), tc >> 1, (((p2 + p0 + 1) >> 1) - p1 + delta) >> 1);
         P(k, 1) = (T)clip3(0, maxv, p1 + dpv);
       }
-      if (deq) {
+      if (deq && !keep_q) {
         int dqv = clip3(-(tc >> 1), tc >> 1, (((q2 + q0 + 1) >> 1) - q1 - delta) >> 1);
         Q(k, 1) = (T)clip3(0, maxv, q1 + dqv);
       }
@@ -2517,12 +2818,14 @@ void Decoder::deblock_edge_chroma(bool vertical, int c, int x, int y, int qp, co
   int qpi = qp + (c == 1 ? pps->cb_qp_offset : pps->cr_qp_offset);
   int qpc = qpi < 0 ? qpi : QPC[std::min(qpi, 57)];
   int tc = TC[clip3(0, 53, qpc + 2 + si.tc_offset)] * (1 << (bd - 8));
+  int xl = x << 1, yl = y << 1;                       // luma
+  bool keep_p = no_filter[vertical ? u4(xl - 1, yl) : u4(xl, yl - 1)], keep_q = no_filter[u4(xl, yl)];
   for (int k = 0; k < 2; ++k) {
     T* s = base + k * along;
     int p0 = s[-step], p1 = s[-2 * step], q0 = s[0], q1 = s[step];
     int delta = clip3(-tc, tc, ((((q0 - p0) * 4) + p1 - q1 + 4) >> 3));
-    s[-step] = (T)clip3(0, maxv, p0 + delta);
-    s[0] = (T)clip3(0, maxv, q0 - delta);
+    if (!keep_p) s[-step] = (T)clip3(0, maxv, p0 + delta);
+    if (!keep_q) s[0] = (T)clip3(0, maxv, q0 - delta);
   }
 }
 
@@ -2539,8 +2842,10 @@ void Decoder::deblock_t() {
         int xp = vertical ? x - 1 : x, yp = vertical ? y : y - 1;
         const SliceInfo& sq = slices[ctb_slice[ctb_of(x, y)]];
         if (sq.deblock_disabled) continue;
-        const SliceInfo& sp = slices[ctb_slice[ctb_of(xp, yp)]];
+        int cp = ctb_of(xp, yp);
+        const SliceInfo& sp = slices[ctb_slice[cp]];
         if (sp.addr != sq.addr && !sq.lf_across) continue;
+        if (!pps->lf_across_tiles && tile_id[cp] != tile_id[ctb_of(x, y)]) continue;
         bsv[u4(x, y)] = (uint8_t)bs_of(xp, yp, x, y, e & 1);
       }
     for (int y = 0; y < H; y += 4)
@@ -2579,6 +2884,17 @@ void Decoder::apply_sao_t() {
         if ((c == 0 && !si.sao_luma) || (c > 0 && !si.sao_chroma)) continue;
         if (p.type[c] == 0) continue;
         int x0 = rx * ctb, y0 = ry * ctb, x1 = std::min(x0 + ctb, pw), y1 = std::min(y0 + ctb, ph);
+        // PCM (loop filter disabled) and bypass samples are kept (8.7.3); in
+        // chroma, as FFmpeg keeps them, only those of the units whose luma
+        // lies within the CTB's chroma extent from its corner (its
+        // restore_tqb_pixels takes the chroma width and height for luma's)
+        int lim_x = (rx * s->ctb_size + (x1 - x0)) >> (s->log2_min_cb - 1);
+        int lim_y = (ry * s->ctb_size + (y1 - y0)) >> (s->log2_min_cb - 1);
+        auto keep = [&](int x, int y) {
+          int xl = x << sh_, yl = y << sh_;
+          return no_filter[u4(xl, yl)] &&
+                 (!c || ((xl >> (s->log2_min_cb - 1)) < lim_x && (yl >> (s->log2_min_cb - 1)) < lim_y));
+        };
         if (p.type[c] == 1) {
           int table[32] = {};
           for (int k = 0; k < 4; ++k) table[(k + p.band_pos[c]) & 31] = k + 1;
@@ -2586,7 +2902,7 @@ void Decoder::apply_sao_t() {
             for (int x = x0; x < x1; ++x) {
               int v = src[(size_t)y * pw + x];
               int b = table[v >> (bd - 5)];
-              if (b) dst[(size_t)y * pw + x] = (T)clip3(0, maxv, v + p.offset[c][b] * scale);
+              if (b && !keep(x, y)) dst[(size_t)y * pw + x] = (T)clip3(0, maxv, v + p.offset[c][b] * scale);
             }
           continue;
         }
@@ -2595,8 +2911,8 @@ void Decoder::apply_sao_t() {
           for (int x = x0; x < x1; ++x) {
             int v = src[(size_t)y * pw + x];
             int sum = 0;
-            bool skip = false;
-            for (int k = 0; k < 2; ++k) {
+            bool skip = keep(x, y);
+            for (int k = 0; k < 2 && !skip; ++k) {
               int xn = x + hpos[cls][k], yn = y + vpos[cls][k];
               if (xn < 0 || yn < 0 || xn >= pw || yn >= ph) {
                 skip = true;
@@ -2604,10 +2920,14 @@ void Decoder::apply_sao_t() {
               }
               int an = ctb_of(xn << sh_, yn << sh_);
               if (an != addr) {
+                if (!pps->lf_across_tiles && tile_id[an] != tile_id[addr]) {
+                  skip = true;
+                  break;
+                }
                 const SliceInfo& sn = slices[ctb_slice[an]];
                 if (sn.addr != si.addr) {
-                  // the earlier slice's boundary obeys the later one's flag
-                  bool later = an > addr;
+                  // the earlier slice's boundary (in tile scan) obeys the later one's flag
+                  bool later = rs2ts[an] > rs2ts[addr];
                   if ((later && !sn.lf_across) || (!later && !si.lf_across)) {
                     skip = true;
                     break;

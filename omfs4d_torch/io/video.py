@@ -259,7 +259,7 @@ def probe_video(path: str | Path) -> dict:
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
     Motion JPEG in AVI or MP4, H.264 (Main / High, I, P and B pictures) or
-    HEVC (Main, 8-bit) in MP4 or QuickTime or MPEG-4 Part 2 (Simple) in MP4
+    HEVC (Main and Main 10) in MP4 or QuickTime or MPEG-4 Part 2 (Simple) in MP4
     or AVI, with no decode: the size as displayed (turned by the track's matrix) and the
     count of samples, as cv2 reports them (`container.UnsupportedCodecError`
     for another codec)."""
@@ -299,7 +299,7 @@ def extract_frames(
 ) -> list[Path]:
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
     through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4,
-    H.264 Main / High I, P and B pictures or HEVC Main in MP4 or QuickTime,
+    H.264 Main / High I, P and B pictures or HEVC Main / Main 10 in MP4 or QuickTime,
     upright and edited as cv2 shows them, or MPEG-4 Part 2 Simple in MP4 or
     AVI) into numbered PNG frames (RGB), every `stride`-th one, at most
     `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.

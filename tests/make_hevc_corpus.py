@@ -9,7 +9,8 @@ It writes, from fixed seeds of the random legal-syntax writer
 (`tests/torch_hevc_syntax.py`):
 
 - one Annex B stream (`<name>.hevc`) for each feature set of
-  `tests/test_torch_hevc.py::FEATURES`;
+  `tests/test_torch_hevc.py::FEATURES` and `tests/test_torch_hevc_tools.py::FEATURES`
+  (but the pair the decoder refuses, tiles with WPP);
 - `clip_hevc.mp4`, laid out as x265 and FFmpeg's mov muxer write one: 1920 x
   1080 coded as 1088 and cropped, CTB 64, WPP, SAO, TMVP, AMP, sign data
   hiding, strong intra smoothing, an IDR, a B-pyramid of a P and three B
@@ -27,6 +28,13 @@ It writes, from fixed seeds of the random legal-syntax writer
   and in a `colr` nclx box, a silent sound track, an IDR, a P and three B
   pictures (no Dolby Vision RPUs: the stream is what such a capture's base
   layer is);
+- `clip_hevc_tools.mp4`, `clip_hevc.mp4`'s layout (IDR, B-pyramid, CRA with
+  RASL pictures, 1088 coded, cropped to 1080) with the five tools at once: a
+  3 x 3 uniform tile grid (WPP off: the decoder refuses the pair), scaling
+  lists in the SPS and the PPS, the IDR a long-term reference from the next
+  picture to the end, PCM CUs (6-bit luma, 5-bit chroma, the loop filter off
+  over them) and bypass CUs; sparser than `clip_hevc.mp4` (about 70 KB), to
+  keep the corpus within its 1 MiB;
 
 then decodes each with the port and writes `manifest.json`: each file's
 SHA-256 and the SHA-256 of every picture's Y', Cb and Cr planes (in output
@@ -57,6 +65,7 @@ from tests import torch_h264_syntax as h264syn  # noqa: E402
 from tests import torch_hevc_syntax as syn  # noqa: E402
 from tests.test_torch_h264_high import planes_sha  # noqa: E402
 from tests.test_torch_hevc import FEATURES  # noqa: E402
+from tests.test_torch_hevc_tools import FEATURES as TOOLS, REFUSED  # noqa: E402
 
 OUT = ROOT / "tests" / "data" / "hevc"
 # x265's layout at 1080p: the writer's features and seed
@@ -74,6 +83,12 @@ CLIP10 = dict(CLIP, frames=5, cra=False, bit_depth=10)
 CLIP10_SEED = 1
 HDR = dict(CLIP10, colour=(0, 9, 18, 9))
 HDR_SEED = 3                   # its anchor after the IDR is a P picture
+# the five tools in clip_hevc.mp4's layout, its CUs larger and its residuals
+# sparser
+CLIP_TOOLS = dict(CLIP, wpp=False, tiles=(3, 3), scaling="both", long_term=1, lt_early=True,
+                  pcm=0.012, pcm_depths=(6, 5), pcm_lf=(1,), bypass=0.025, split=0.22, skip=0.8,
+                  density=0.012, cbf=0.3, merge=0.75, intra_in_inter=0.03)
+CLIP_TOOLS_SEED = 1
 
 
 def cv2_frames(path, raw: bool = False) -> tuple[list[np.ndarray], str]:
@@ -135,7 +150,8 @@ def main() -> int:
     streams, files = {}, {}
     with tempfile.TemporaryDirectory() as tmp:
         work = Path(tmp)
-        for name, features in FEATURES.items():
+        sets = {**FEATURES, **{k: v for k, v in TOOLS.items() if k not in REFUSED}}
+        for name, features in sets.items():
             data = syn.annexb(syn.write_stream(0, **features))
             pictures = hevc.decode_annexb(data)
             held_to_cv2(data, pictures, features.get("colour"), work,
@@ -146,7 +162,9 @@ def main() -> int:
         for name, features, seed, kind in (("clip_hevc.mp4", CLIP, CLIP_SEED, "mp4"),
                                            ("portrait.mov", PORTRAIT, PORTRAIT_SEED, "mov"),
                                            ("clip_hevc10.mp4", CLIP10, CLIP10_SEED, "mp4"),
-                                           ("clip_hevc10.mov", HDR, HDR_SEED, "hdr")):
+                                           ("clip_hevc10.mov", HDR, HDR_SEED, "hdr"),
+                                           ("clip_hevc_tools.mp4", CLIP_TOOLS, CLIP_TOOLS_SEED,
+                                            "mp4")):
             writer = syn.Writer(seed, **features)
             aus = writer.stream()
             data = syn.annexb(aus)

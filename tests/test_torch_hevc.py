@@ -13,9 +13,11 @@ FFmpeg.
 - A Dolby Vision stream's RPUs (NAL unit type 62) change no picture.
 - The CABAC tables are libavcodec's, by their bytes (where opencv-python
   bundles one), and the generated header holds every table.
-- What stays outside the decoder is refused by name, each tool from
-  probe_video; with no g++ there is no decode at all; importing builds
-  nothing.
+- What stays outside the decoder (the range extension profiles' depths and
+  chroma formats, the extensions) is refused by name, each from probe_video;
+  with no g++ there is no decode at all; importing builds nothing.  The tools
+  of Main that other sets leave off (tiles, long-term references, scaling
+  lists, PCM, transquant bypass) are `tests/test_torch_hevc_tools.py`'s.
 - Truncated and bit-flipped NAL units raise ValueError (in a child process,
   so that a crash would fail the test, not the worker), at 8 and at 10 bits.
 
@@ -280,11 +282,11 @@ def test_generated_header_holds_every_table():
 
 @pytest.mark.parametrize("tool", list(syn.REFUSE))
 def test_what_stays_outside_is_refused_by_name(tmp_path, tool):
-    """Tiles, long-term references, scaling lists, PCM, transquant bypass,
-    bit depths above 10 (Main 12), luma and chroma depths that differ, 4:2:2
-    and the SPS's range and multilayer extensions raise UnsupportedCodecError
-    naming the tool and ffmpeg from probe_video, with no decode, and again
-    from the host decoder."""
+    """Bit depths above 10 (Main 12), luma and chroma depths that differ,
+    4:0:0, 4:2:2 and 4:4:4, the SPS's range, multilayer and screen content
+    coding extensions and the PPS's range and 3D extensions raise
+    UnsupportedCodecError naming the tool and ffmpeg from probe_video, with
+    no decode, and again from the host decoder."""
     params = syn.Writer(0, gop="intra", frames=1, refuse=tool).parameter_sets()
     good = syn.write_stream(0, gop="p", frames=2)
     aus = [params + good[0][3:]] + good[1:]
@@ -359,6 +361,7 @@ from omfs4d_torch.io import container, hevc
 rng = np.random.default_rng(2)
 out = {"truncated": [], "flipped": []}
 for name, features in json.loads(sys.argv[2]):
+    features = {k: tuple(v) if isinstance(v, list) else v for k, v in features.items()}
     units = [u for au in syn.write_stream(5, **features) for u in au]
     slices = [k for k, u in enumerate(units) if (u[0] >> 1) & 63 < 32]
     for trial in range(50):

@@ -41,7 +41,24 @@ through its own CABAC encoder (9.3.4, the context selection of 9.3.4.2):
   list modification, TMVP's collocated picture;
 - Main 10 (`bit_depth`): the depths in the SPS, SAO offsets up to 31, slice
   QPs, init_qp and cu_qp_delta over the range QpBdOffsetY widens (down to
-  -12).
+  -12);
+- tiles (`tiles=(columns, rows)`): uniform or explicit spacing, loop filtering
+  across tiles or not, the tile scan, slices of several whole tiles and tiles
+  of several slices, dependent segments at and inside a tile, the contexts
+  initialised and the substream realigned at each tile, the entry points;
+  with `wpp`, the WPP rows of each tile (a pair the decoder refuses);
+- long-term reference pictures (`long_term`): the SPS's candidates and the
+  slice header's entries, with and without delta_poc_msb_cycle_lt (its
+  running sum in each group), used and not, in the lists (modification
+  included) and as TMVP's collocated picture, held to the CVS's end;
+- scaling lists (`scaling`): in the SPS, in the PPS over the SPS's, or the
+  defaults with no data; each list coded (with its DC at 16 x 16 and
+  32 x 32), copied from an earlier one or the default;
+- PCM (`pcm`): CUs of the SPS's PCM sizes at its PCM depths, the loop filter
+  over them on or off;
+- transquant bypass (`bypass`): cu_transquant_bypass_flag, the residual with
+  no transform skip flag and no hidden sign.
+`corrupt` writes one value of these out of its range (`CORRUPT`).
 
 `annexb` writes the access units as a byte stream, `write_mov` as MP4 /
 QuickTime (`hvc1` / `hev1`, with `ctts`, an edit list and a display
@@ -198,26 +215,37 @@ DEFAULTS = dict(
     colour=None, display_window=False, extra_bits=0, header_ext=False, sps_rps=0.6,
     inter_rps=0.5, non_ref=0.0, mvd_l1_zero=0.5, fps=25, hrd=False, level=93, big=0.05,
     param_sets=1, max_merge=(1, 5), idr_every=0, root_cbf=0.7, mvd_max=24, refuse=None,
-    bit_depth=8, sei=())
+    bit_depth=8, sei=(),
+    # the tools of 7.3.2.2 / 7.3.2.3 that the sets above leave off
+    tiles=None, tile_uniform=True, lf_tiles=(0, 1), multi_tile=0.3, split_tile=0.3,
+    long_term=0, lt_early=False, poc_lsb_bits=None, scaling=None, pcm=0.0, pcm_sizes=None,
+    pcm_depths=None, pcm_lf=(0, 1), bypass=0.0, corrupt=None)
+
+# what `corrupt` breaks in a stream that uses the tools: each a value out of
+# its range that the decoder must refuse (`lt_missing`, a long-term reference
+# that is not in the DPB, it shows grey, as FFmpeg does a missing one)
+CORRUPT = ("tile_sizes", "entry_points", "lt_idx_sps", "lt_missing", "scaling_delta",
+           "pcm_sizes", "pcm_depth")
 
 # a tool outside the decoder's subset that `refuse` sets in the parameter
 # sets (the set ends there: the decoder stops at the flag), and the name
 # its refusal gives
-REFUSE = {"tiles": "tiles", "long_term": "long-term reference pictures",
-          "scaling_lists": "scaling lists", "pcm": "PCM",
-          "transquant_bypass": "transquant bypass", "main12": "bit depth above 10",
+REFUSE = {"main12": "bit depth above 10",
           "unequal_depths": "luma and chroma bit depths that differ",
-          "chroma_422": "chroma format 4:2:2", "range_extension": "range extension",
-          "multilayer": "multilayer extension"}
+          "chroma_400": "chroma format 4:0:0", "chroma_422": "chroma format 4:2:2",
+          "chroma_444": "chroma format 4:4:4", "range_extension": "range extension",
+          "multilayer": "multilayer extension", "scc": "screen content coding extension",
+          "pps_range_extension": "pps_range_extension_flag", "pps_3d": "pps_3d_extension_flag"}
 
 
 class Pic:
     __slots__ = ("poc", "kind", "nal", "tid", "ref", "l0", "l1", "output", "rps", "idr",
-                 "no_output_prior", "cvs")
+                 "no_output_prior", "cvs", "lt")
 
     def __init__(self, poc, kind, nal_type, tid=0, ref=True, l0=(), l1=(), cvs=0):
         self.poc, self.kind, self.nal, self.tid, self.ref = poc, kind, nal_type, tid, ref
         self.l0, self.l1, self.output, self.rps, self.cvs = list(l0), list(l1), True, [], cvs
+        self.lt: list[tuple[int, bool]] = []        # long-term entries: (POC, used)
         self.idr = nal_type in (IDR_W_RADL, IDR_N_LP)
         self.no_output_prior = False
 
@@ -321,6 +349,9 @@ class Writer:
         if f["output_flag"]:
             for p in pics[1:]:
                 p.output = p.output and rng.random() < 0.7
+        # long-term pictures: POC -> (its index, the index from which it is
+        # long-term); held to the end of the first CVS
+        long_term = self.plan_long_term(pics) if f["long_term"] else {}
         # RPS: the reference pictures held are those the picture or a later
         # one of its CVS references (8.3.2)
         held: list[Pic] = []
@@ -334,10 +365,13 @@ class Writer:
                     if q.cvs != p.cvs or q.idr and q is not p:
                         break
                     later.update(q.l0 + q.l1)
+                later.update(poc for poc, (kx, _) in long_term.items() if kx < k)
                 used = set(p.l0 + p.l1)
                 held = [q for q in held if q.poc in later]
-                p.rps = sorted(((q.poc - p.poc, q.poc in used) for q in held),
+                lt = {q.poc for q in held if q.poc in long_term and k >= long_term[q.poc][1]}
+                p.rps = sorted(((q.poc - p.poc, q.poc in used) for q in held if q.poc not in lt),
                                key=lambda e: (e[0] > 0, -e[0] if e[0] < 0 else e[0]))
+                p.lt = [(poc, poc in used) for poc in sorted(lt)]
             if p.ref:
                 held.append(p)
         self.pics = pics
@@ -353,8 +387,40 @@ class Writer:
                 reorder = max(reorder, sum(1 for q in pics[:k] if q.cvs == p.cvs and q.output
                                            and q.poc > p.poc))
         self.reorder = reorder
-        self.max_rps = max(len(p.rps) for p in pics)
+        self.max_rps = max(len(p.rps) + len(p.lt) for p in pics)
+        self.long_term = long_term
         return pics
+
+    def plan_long_term(self, pics: list[Pic]) -> dict:
+        """Choose `long_term` reference pictures of the first CVS to become
+        long-term (from a picture on which every later one of the CVS has a
+        greater POC, so that DeltaPocMsbCycleLt is never negative), held to
+        the CVS's end, and add them to the lists of some later pictures that
+        may reference them (not an IRAP's, a RADL's or a trailing picture's
+        past an IRAP)."""
+        f, rng = self.f, self.rng
+        cvs0 = [k for k, p in enumerate(pics) if p.cvs == 0 and not (p.idr and k)]
+        cands = [k for k in cvs0 if pics[k].ref]
+        if not f["lt_early"]:                          # else the first, long-term at once
+            rng.shuffle(cands)
+        chosen = {}
+        for kx in cands:
+            x = pics[kx]
+            starts = [k for k in cvs0
+                      if k > kx and all(pics[j].poc > x.poc for j in cvs0 if j >= k)]
+            if starts:
+                chosen[x.poc] = (kx, starts[0] if f["lt_early"] else rng.choice(starts[:4]))
+            if len(chosen) == f["long_term"]:
+                break
+        for poc, (kx, k0) in chosen.items():
+            for k in cvs0:
+                p = pics[k]
+                irap = [j for j in range(kx + 1, k + 1) if 16 <= pics[j].nal <= 23]
+                may = p.kind != "I" and p.nal not in (RADL_N, RADL_R) and (
+                    not irap or p.nal in (RASL_N, RASL_R) and irap == [max(irap)])
+                if k >= k0 and may and poc not in p.l0 + p.l1 and rng.random() < 0.6:
+                    p.l0.append(poc)
+        return chosen
 
     # ── parameter sets ──
     def ptl(self, bw: BitWriter, sub_layers_minus1: int) -> None:
@@ -473,8 +539,8 @@ class Writer:
         self.ptl(bw, self.msl)
         bw.ue(sps_id)
         refuse = f["refuse"]
-        if refuse == "chroma_422":
-            bw.ue(2)
+        if refuse in ("chroma_400", "chroma_422", "chroma_444"):
+            bw.ue({"chroma_400": 0, "chroma_422": 2, "chroma_444": 3}[refuse])
             bw.trailing()
             return nal(SPS, bw.data())
         bw.ue(1)                               # 4:2:0
@@ -502,24 +568,31 @@ class Writer:
         bw.ue(self.log2_max_tb - self.log2_min_tb)
         bw.ue(f["depth_inter"])
         bw.ue(f["depth_intra"])
-        if refuse in ("scaling_lists", "pcm"):
-            bw.u(1, refuse == "scaling_lists")
-            if refuse == "pcm":
-                bw.u(2, 0)
-                bw.u(1, 1)
-            bw.trailing()
-            return nal(SPS, bw.data())
-        bw.u(1, 0)                             # scaling lists
+        bw.u(1, self.scaling_where is not None)         # scaling lists
+        if self.scaling_where is not None:
+            coded = self.scaling_where in ("sps", "both")
+            bw.u(1, coded)
+            if coded:
+                self.scaling_list_data(bw)
+                self.stats["scaling_sps"] += 1
         bw.u(1, f["amp"])
         bw.u(1, f["sao"])
-        bw.u(1, 0)                             # PCM
+        bw.u(1, bool(f["pcm"]))                # PCM
+        if f["pcm"]:
+            bw.u(4, self.pcm_depths[0] - 1 + (f["corrupt"] == "pcm_depth"))
+            bw.u(4, self.pcm_depths[1] - 1)
+            bw.ue(self.pcm_sizes[0] - 3 + 3 * (f["corrupt"] == "pcm_sizes"))
+            bw.ue(self.pcm_sizes[1] - self.pcm_sizes[0])
+            bw.u(1, self.pcm_lf_disabled)
         bw.ue(len(self.sps_sets))
         for i, rps in enumerate(self.sps_sets):
             self.rps_code(bw, i, len(self.sps_sets), rps, self.sps_sets)
-        bw.u(1, refuse == "long_term")         # long-term
-        if refuse == "long_term":
-            bw.trailing()
-            return nal(SPS, bw.data())
+        bw.u(1, bool(f["long_term"]))          # long-term reference pictures
+        if f["long_term"]:
+            bw.ue(len(self.lt_sps))
+            for lsb, used in self.lt_sps:
+                bw.u(self.log2_max_poc_lsb, lsb)
+                bw.u(1, used)
         bw.u(1, f["tmvp"])
         bw.u(1, f["strong"])
         vui = f["colour"] is not None or f["display_window"] or f["hrd"] or rng.random() < 0.5
@@ -576,12 +649,14 @@ class Writer:
                 bw.u(3, 0b010)
                 for v in (0, 2, 1, 15, 15):
                     bw.ue(v)
-        ext = refuse in ("range_extension", "multilayer")
+        ext = refuse in ("range_extension", "multilayer", "scc")
         bw.u(1, ext)                           # sps_extension_present_flag
         if ext:
             bw.u(1, refuse == "range_extension")
             bw.u(1, refuse == "multilayer")
-            bw.u(6, 0)
+            bw.u(1, 0)
+            bw.u(1, refuse == "scc")
+            bw.u(4, 0)
         bw.trailing()
         return nal(SPS, bw.data())
 
@@ -597,7 +672,7 @@ class Writer:
         bw.u(1, p["output_flag"])
         p["extra_bits"] = f["extra_bits"]
         bw.u(3, p["extra_bits"])
-        p["sign_hiding"] = f["sign_hiding"] and rng.random() < 0.8
+        p["sign_hiding"] = f["sign_hiding"] == "always" or (f["sign_hiding"] and rng.random() < 0.8)
         bw.u(1, p["sign_hiding"])
         p["cabac_init_present"] = f["cabac_init"] and rng.random() < 0.7
         bw.u(1, p["cabac_init_present"])
@@ -625,16 +700,22 @@ class Writer:
         p["weighted_bipred"] = f["weighted"] and rng.random() < 0.8
         bw.u(1, p["weighted_pred"])
         bw.u(1, p["weighted_bipred"])
-        if f["refuse"] in ("transquant_bypass", "tiles"):
-            bw.u(1, f["refuse"] == "transquant_bypass")
-            bw.u(1, 1)
-            bw.trailing()
-            self.pps_list.append(p)
-            return nal(PPS, bw.data())
-        bw.u(1, 0)                             # transquant bypass
-        bw.u(1, 0)                             # tiles
+        p["bypass"] = bool(f["bypass"])
+        bw.u(1, p["bypass"])                   # transquant bypass
+        p["tiles"] = bool(f["tiles"])
+        bw.u(1, p["tiles"])
         p["wpp"] = f["wpp"]
         bw.u(1, p["wpp"])
+        p["lf_tiles"] = True
+        if p["tiles"]:
+            bw.ue(len(self.col_w) - 1)
+            bw.ue(len(self.row_h) - 1)
+            bw.u(1, f["tile_uniform"])
+            if not f["tile_uniform"]:
+                for k, v in enumerate(self.col_w[:-1] + self.row_h[:-1]):
+                    bw.ue(v - 1 + self.ctb_w * (f["corrupt"] == "tile_sizes" and k == 0))
+            p["lf_tiles"] = bool(rng.choice(f["lf_tiles"]))
+            bw.u(1, p["lf_tiles"])
         p["lf_across"] = rng.choice(f["lf_across"]) if isinstance(f["lf_across"], tuple) \
             else f["lf_across"]
         bw.u(1, p["lf_across"])
@@ -650,7 +731,13 @@ class Writer:
                 p["beta"], p["tc"] = rng.randint(-6, 6), rng.randint(-6, 6)
                 bw.se(p["beta"])
                 bw.se(p["tc"])
-        bw.u(1, 0)                             # scaling list data
+        # "both": the first PPS (of two) replaces the SPS's lists, the second not
+        p["scaling"] = pps_lists = self.scaling_where == "pps" or (
+            self.scaling_where == "both" and len(self.pps_list) % 2 == 0)
+        bw.u(1, pps_lists)                     # scaling list data
+        if pps_lists:
+            self.scaling_list_data(bw)
+            self.stats["scaling_pps"] += 1
         p["list_mod"] = f["list_mod"]
         bw.u(1, p["list_mod"])
         ml = f["merge_level"]
@@ -658,7 +745,13 @@ class Writer:
         bw.ue(p["merge_level"] - 2)
         p["header_ext"] = f["header_ext"]
         bw.u(1, p["header_ext"])
-        bw.u(1, 0)
+        ext = f["refuse"] in ("pps_range_extension", "pps_3d")
+        bw.u(1, ext)                           # pps_extension_present_flag
+        if ext:
+            bw.u(1, f["refuse"] == "pps_range_extension")
+            bw.u(1, 0)
+            bw.u(1, f["refuse"] == "pps_3d")
+            bw.u(5, 0)
         bw.trailing()
         self.pps_list.append(p)
         return nal(PPS, bw.data())
@@ -682,7 +775,8 @@ class Writer:
         self.plan()
         self.msl = 2 if f["sublayers"] else 0
         self.max_dec = min(16, self.max_rps + self.reorder + 2)
-        self.log2_max_poc_lsb = rng.randint(5, 8)
+        self.log2_max_poc_lsb = f["poc_lsb_bits"] or rng.randint(5, 8)
+        self.tool_parameters()
         # the RPSs the SPS holds
         distinct = []
         for p in self.pics:
@@ -700,6 +794,79 @@ class Writer:
             first.append(self.pps(pps_ids[k], sps_ids[k]))
         return first
 
+    def tool_parameters(self) -> None:
+        """The tools' choices that every SPS / PPS of the stream shares: the
+        tile grid, where the scaling lists are coded, the PCM sizes and
+        depths, the SPS's long-term candidates."""
+        f, rng = self.f, self.rng
+        self.col_w = self.row_h = None
+        if f["tiles"]:
+            cols, rows = f["tiles"]
+            if f["tile_uniform"]:
+                self.col_w = [(i + 1) * self.ctb_w // cols - i * self.ctb_w // cols
+                              for i in range(cols)]
+                self.row_h = [(i + 1) * self.ctb_h // rows - i * self.ctb_h // rows
+                              for i in range(rows)]
+            else:
+                def split(total, n):
+                    cuts = sorted(rng.sample(range(1, total), n - 1))
+                    return [b - a for a, b in zip([0] + cuts, cuts + [total])]
+                self.col_w, self.row_h = split(self.ctb_w, cols), split(self.ctb_h, rows)
+                self.stats["tiles_explicit"] += 1
+        self.scaling_where = rng.choice(f["scaling"]) if isinstance(f["scaling"], tuple) \
+            else f["scaling"]
+        if f["pcm"]:
+            top = min(self.log2_ctb, 5)
+            sizes = range(min(self.log2_min_cb, 5), top + 1)
+            lo, hi = f["pcm_sizes"] or sorted((rng.choice(sizes), rng.choice(sizes)))
+            self.pcm_sizes = (lo, hi)
+            self.pcm_depths = f["pcm_depths"] or (rng.randint(5, self.bd), rng.randint(5, self.bd))
+            self.pcm_lf_disabled = rng.choice(f["pcm_lf"])
+            if min(self.pcm_depths) < self.bd:
+                self.stats["pcm_depth_below"] += 1
+            self.stats[f"pcm_lf_disabled{int(self.pcm_lf_disabled)}"] += 1
+        self.lt_sps: list[tuple[int, bool]] = []
+        if f["long_term"]:
+            mask = (1 << self.log2_max_poc_lsb) - 1
+            for poc in self.long_term:
+                self.lt_sps += [(poc & mask, used) for used in (False, True)
+                                if rng.random() < 0.6] or [(poc & mask, True)]
+            self.lt_sps.append((rng.randrange(mask + 1), rng.random() < 0.5))   # one unused
+            while f["corrupt"] == "lt_idx_sps" and len(self.lt_sps) != 3:
+                self.lt_sps = self.lt_sps[:3] if len(self.lt_sps) > 3 else \
+                    self.lt_sps + [(0, False)]
+            rng.shuffle(self.lt_sps)
+
+    def scaling_list_data(self, bw: BitWriter) -> None:
+        """scaling_list_data() (7.3.4): each list at random the default, a
+        copy of an earlier one of its size, or coded (with its DC at 16 x 16
+        and 32 x 32)."""
+        rng = self.rng
+        for size_id in range(4):
+            step = 3 if size_id == 3 else 1
+            for matrix_id in range(0, 6, step):
+                how = rng.choice(("coded", "coded", "copy", "default"))
+                if how == "copy" and matrix_id == 0:
+                    how = "default"
+                if how != "coded":
+                    bw.u(1, 0)
+                    bw.ue(rng.randint(1, matrix_id // step) if how == "copy" else
+                          matrix_id // step + 1 if self.f["corrupt"] == "scaling_delta" else 0)
+                    self.stats[f"scaling_pred_{how}"] += 1
+                    continue
+                bw.u(1, 1)
+                last = 8
+                if size_id > 1:
+                    dc = rng.choice((rng.randint(1, 255), rng.randint(8, 40)))
+                    bw.se(dc - 8)
+                    last = dc
+                    self.stats["scaling_dc"] += 1
+                for _ in range(16 if size_id == 0 else 64):
+                    v = rng.randint(4, 64) if rng.random() < 0.9 else rng.randint(1, 255)
+                    bw.se((v - last + 128) % 256 - 128)
+                    last = v
+                self.stats["scaling_coded"] += 1
+
     # ── a picture ──
     def picture(self, pic: Pic) -> list[bytes]:
         f, rng = self.f, self.rng
@@ -714,12 +881,20 @@ class Writer:
         self.intram = [0] * n4
         self.ipm = [1] * n4
         self.ctb_slice = [-1] * (self.ctb_w * self.ctb_h)
+        self.layout_tiles(pps)
+        if pps["tiles"]:
+            self.stats[f"lf_tiles{int(pps['lf_tiles'])}"] += 1
+        if self.scaling_where:
+            self.stats["scaling_in_pps" if pps["scaling"] else "scaling_in_sps"
+                        if self.scaling_where in ("sps", "both") else "scaling_defaults"] += 1
         # per picture: the lists and TMVP's collocated picture
         n_ctb = self.ctb_w * self.ctb_h
-        total = sum(u for _, u in pic.rps)
+        total = sum(u for _, u in pic.rps) + sum(u for _, u in pic.lt)
         self.pic_params = {"num_ref_idx": [0, 0], "mods": [None, None], "col_l0": True,
                            "col_idx": 0, "tmvp": f["tmvp"]}
         pp = self.pic_params
+        if pic.lt:
+            self.lt_coding(pic)
         if pic.kind != "I":
             for l in range(2 if pic.kind == "B" else 1):
                 pp["num_ref_idx"][l] = rng.randint(1, f["num_ref_idx"])
@@ -730,9 +905,19 @@ class Writer:
                 pp["col_l0"] = rng.random() < 0.5
             pp["col_idx"] = rng.randrange(pp["num_ref_idx"][0 if pp["col_l0"] else 1])
             pp["cabac_init"] = pps["cabac_init_present"] and rng.random() < 0.5
+            if pic.lt:
+                self.collocated_long_term(pic)
             self.stats[f"collocated_l{0 if pp['col_l0'] else 1}"] += 1
             if pp["cabac_init"]:
                 self.stats["cabac_init_flag"] += 1
+        units = []
+        self.slice_addr = 0
+        self.ds_state = None
+        self.wpp_state = None
+        if pps["tiles"]:
+            for s, end, dep in self.tile_segments(pps):
+                units.append(self.segment(s, end, dep, s == 0))
+            return units
         # the slice segments: (first CTB, independent?)
         starts = [0]
         if f["slices"] > 1:
@@ -760,19 +945,131 @@ class Writer:
             if not dep:
                 mid_row_slice = s % self.ctb_w != 0
             segs.append((s, end, dep))
-        units = []
-        self.slice_addr = 0
-        self.ds_state = None
-        self.wpp_state = None
         for s, end, dep in segs:
             units.append(self.segment(s, end, dep, s == 0))
         return units
 
+    def layout_tiles(self, pps: dict) -> None:
+        """CtbAddrRsToTs, CtbAddrTsToRs, TileId (by raster address), each CTB
+        column's tile's first column and each tile's tile-scan span (6.5.1)."""
+        cols = self.col_w if pps["tiles"] else [self.ctb_w]
+        rows = self.row_h if pps["tiles"] else [self.ctb_h]
+        n = self.ctb_w * self.ctb_h
+        self.ts2rs, self.rs2ts, self.tile_id = [0] * n, [0] * n, [0] * n
+        self.tile_x0, self.tile_spans = [0] * self.ctb_w, []
+        ts = y0 = 0
+        for h in rows:
+            x0 = 0
+            for w in cols:
+                self.tile_spans.append((ts, ts + w * h))
+                for x in range(x0, x0 + w):
+                    self.tile_x0[x] = x0
+                for y in range(y0, y0 + h):
+                    for x in range(x0, x0 + w):
+                        rs = y * self.ctb_w + x
+                        self.ts2rs[ts], self.rs2ts[rs] = rs, ts
+                        self.tile_id[rs] = len(self.tile_spans) - 1
+                        ts += 1
+                x0 += w
+            y0 += h
+
+    def tile_segments(self, pps: dict) -> list[tuple[int, int, bool]]:
+        """(first CTB, end, dependent?) in tile scan of each slice segment of a
+        picture with tiles, as 6.3.1 allows: slices of several whole tiles
+        (split into dependent segments at tile starts), and tiles of several
+        slices and dependent segments starting inside the tile (with WPP, at
+        a CTB row of the tile alone)."""
+        f, rng = self.f, self.rng
+        spans, segs, t = self.tile_spans, [], 0
+        while t < len(spans):
+            if rng.random() < f["multi_tile"] and t + 1 < len(spans):
+                k = rng.randint(2, len(spans) - t)
+                for j in range(t, t + k):
+                    if j == t or pps["dependent"] and rng.random() < 0.5:
+                        segs.append((spans[j][0], spans[j][1], j > t))
+                    else:
+                        segs[-1] = (segs[-1][0], spans[j][1], segs[-1][2])
+                self.stats["multi_tile_slice"] += 1
+                t += k
+                continue
+            a, b = spans[t]
+            cuts: list[int] = []
+            if b - a > 1 and rng.random() < f["split_tile"]:
+                places = range(a + 1, b)
+                if pps["wpp"]:
+                    places = [c for c in places if self.ts2rs[c] % self.ctb_w
+                              == self.tile_x0[self.ts2rs[c] % self.ctb_w]]
+                cuts = sorted(rng.sample(list(places), min(len(places), rng.randint(1, 3))))
+            for i, s0 in enumerate([a] + cuts):
+                e0 = cuts[i] if i < len(cuts) else b
+                dep = i > 0 and pps["dependent"] and rng.random() < 0.5
+                segs.append((s0, e0, dep))
+                if i:
+                    self.stats["mid_tile_segment"] += 1
+            t += 1
+        return segs
+
+    def ref_lists(self, pic: Pic) -> list[list[tuple[int, bool]]]:
+        """RefPicList0 / 1 (8.3.4) as (POC, long-term?) pairs."""
+        pp = self.pic_params
+        before = [pic.poc + d for d, u in pic.rps if d < 0 and u]
+        after = [pic.poc + d for d, u in pic.rps if d > 0 and u]
+        lt = [poc for poc, u in pp.get("lt_order", ()) if u]
+        out = []
+        for l in range(2 if pic.kind == "B" else 1):
+            seq = [(q, False) for q in (before + after if l == 0 else after + before)]
+            seq += [(q, True) for q in lt]
+            n = max(pp["num_ref_idx"][l], len(seq))
+            temp = [seq[i % len(seq)] for i in range(n)]
+            mods = pp["mods"][l]
+            out.append([temp[mods[i] if mods else i] for i in range(pp["num_ref_idx"][l])])
+        return out
+
+    def lt_coding(self, pic: Pic) -> None:
+        """How the picture's long-term entries are coded: from the SPS's
+        candidates or in the slice header, with delta_poc_msb_present_flag
+        where the LSBs alone would name more than one picture (or at
+        random); the SPS group, then the slice's, each in increasing
+        DeltaPocMsbCycleLt, so that its running sum never goes down; the
+        first of a group has the MSBs where a later one has (FFmpeg carries
+        the sum over from the SPS group otherwise)."""
+        rng, pp = self.rng, self.pic_params
+        mask = (1 << self.log2_max_poc_lsb) - 1
+        k = self.pics.index(pic)
+        entries = []
+        for poc, used in pic.lt:
+            sps = (poc & mask, used) in self.lt_sps and rng.random() < 0.7
+            others = {q.poc & mask for q in self.pics[:k] if q.cvs == pic.cvs and q.poc != poc}
+            msb = (poc & mask) in others or (pic.poc & mask) == (poc & mask) or rng.random() < 0.5
+            cycle = ((pic.poc - (pic.poc & mask)) - (poc - (poc & mask))) >> self.log2_max_poc_lsb
+            entries.append((not sps, cycle, poc, used, msb))
+        entries.sort()
+        for slice_coded in (False, True):
+            g = [i for i, e in enumerate(entries) if e[0] == slice_coded]
+            if any(entries[i][4] for i in g[1:]):
+                e = entries[g[0]]
+                entries[g[0]] = e[:4] + (True,)
+        pp["lt_entries"] = entries
+        pp["lt_order"] = [(e[2], e[3]) for e in entries]
+
+    def collocated_long_term(self, pic: Pic) -> None:
+        """With TMVP, now and then the collocated picture a long-term one."""
+        rng, pp = self.rng, self.pic_params
+        if not pp["tmvp"]:
+            return
+        lists = self.ref_lists(pic)
+        at = [(l, i) for l, refs in enumerate(lists) for i, (_, lt) in enumerate(refs) if lt]
+        if at and rng.random() < 0.6:
+            l, i = rng.choice(at)
+            pp["col_l0"], pp["col_idx"] = l == 0, i
+            self.stats["lt_collocated"] += 1
+
     def segment(self, first: int, end: int, dependent: bool, first_in_pic: bool) -> bytes:
+        """A slice segment over CTBs first to end - 1 in tile scan."""
         f, rng, pic, pps = self.f, self.rng, self.pic, self.cur_pps
         pp = self.pic_params
         if not dependent:
-            self.slice_addr = first
+            self.slice_addr = self.ts2rs[first]
             sh = {"type": pic.kind}
             sh["qp"] = rng.randint(*f["qp"])
             assert -self.qpbd <= sh["qp"] <= 51, "SliceQpY out of range"
@@ -822,40 +1119,59 @@ class Writer:
         if pic.kind != "I" and pp.get("cabac_init"):
             init_type = 3 - init_type
         self.init_type = init_type
-        if not dependent:
+        def tile_start(ts):
+            return ts == 0 or self.tile_id[self.ts2rs[ts]] != self.tile_id[self.ts2rs[ts - 1]]
+
+        def row_start(rs):
+            return rs % self.ctb_w == self.tile_x0[rs % self.ctb_w]
+
+        if not dependent or tile_start(first):
             cab.init(init_type, sh["qp"])
-        elif pps["wpp"] and first % self.ctb_w == 0:
-            self.wpp_sync(first)
+        elif pps["wpp"] and row_start(self.ts2rs[first]):
+            self.wpp_sync(self.ts2rs[first])
         else:
             cab.load(self.ds_state)
         substreams = []
-        ctb = first
-        while ctb < end:
+        ts = first
+        while ts < end:
+            ctb = self.ts2rs[ts]
             rx, ry = ctb % self.ctb_w, ctb // self.ctb_w
             self.ctb_slice[ctb] = self.slice_addr
             self.ctb_addr = ctb
             if sh["sao_luma"] or sh["sao_chroma"]:
                 self.sao(rx, ry)
             self.quadtree(rx << self.log2_ctb, ry << self.log2_ctb, self.log2_ctb, 0)
-            last = ctb + 1 == end
-            if pps["wpp"] and rx == 1:
+            last = ts + 1 == end
+            if pps["wpp"] and rx == self.tile_x0[rx] + 1:
                 self.wpp_state = cab.save()
             cab.terminate(int(last))
-            ctb += 1
-            if not last and pps["wpp"] and ctb % self.ctb_w == 0:
+            ts += 1
+            if last:
+                break
+            new_tile = tile_start(ts)
+            if new_tile or pps["wpp"] and row_start(self.ts2rs[ts]):
                 cab.terminate(1)
                 substreams.append(bw.data())
                 bw = BitWriter()
                 cab.bw = bw
                 cab.start()
-                self.wpp_sync(ctb)
-                self.stats["wpp_row"] += 1
+                if new_tile:
+                    cab.init(init_type, sh["qp"])
+                    self.stats["tile_boundary_sync"] += 1
+                    if pps["wpp"]:
+                        self.stats["tile_wpp"] += 1
+                else:
+                    self.wpp_sync(self.ts2rs[ts])
+                    self.stats["wpp_row"] += 1
         substreams.append(bw.data())
         if pps["dependent"]:
             self.ds_state = cab.save()
         if dependent:
             self.stats["dependent"] += 1
-        if first % self.ctb_w and not first_in_pic:
+            if pps["tiles"] and tile_start(first):
+                self.stats["dependent_at_tile"] += 1
+        rs = self.ts2rs[first]
+        if not row_start(rs) and not first_in_pic:
             self.stats["mid_row_slice"] += 1
         # the header, its entry points counted over the escaped bytes
         sizes = [len(s) for s in substreams]
@@ -877,8 +1193,9 @@ class Writer:
 
     def wpp_sync(self, ctb: int) -> None:
         up_right = ctb - self.ctb_w + 1
-        if self.ctb_w > 1 and ctb >= self.ctb_w and self.ctb_slice[up_right] == self.slice_addr \
-                and self.wpp_state is not None:
+        if ctb % self.ctb_w + 1 < self.ctb_w and ctb >= self.ctb_w \
+                and self.tile_id[up_right] == self.tile_id[ctb] \
+                and self.ctb_slice[up_right] == self.slice_addr and self.wpp_state is not None:
             self.cab.load(self.wpp_state)
             self.stats["wpp_sync"] += 1
         else:
@@ -900,7 +1217,7 @@ class Writer:
             if pps["dependent"]:
                 bw.u(1, dependent)
             n = self.ctb_w * self.ctb_h
-            bw.u((n - 1).bit_length(), first)
+            bw.u((n - 1).bit_length(), self.ts2rs[first])
         if not dependent:
             for _ in range(pps["extra_bits"]):
                 bw.u(1, r.random() < 0.5)
@@ -923,6 +1240,8 @@ class Writer:
                     self.rps_code(bw, len(self.sps_sets), len(self.sps_sets), pic.rps,
                                   self.sps_sets)
                     self.rng = saved
+                if f["long_term"]:
+                    self.lt_header(bw)
                 if f["tmvp"]:
                     bw.u(1, pp["tmvp"])
             if f["sao"]:
@@ -936,7 +1255,7 @@ class Writer:
                     bw.ue(pp["num_ref_idx"][0] - 1)
                     if pic.kind == "B":
                         bw.ue(pp["num_ref_idx"][1] - 1)
-                total = sum(u for _, u in pic.rps)
+                total = sum(u for _, u in pic.rps) + sum(u for _, u in pic.lt)
                 if pps["list_mod"] and total > 1:
                     for l in range(2 if pic.kind == "B" else 1):
                         bw.u(1, pp["mods"][l] is not None)
@@ -970,13 +1289,14 @@ class Writer:
             if pps["lf_across"] and (sh["sao_luma"] or sh["sao_chroma"]
                                      or not sh["deblock_disabled"]):
                 bw.u(1, sh["lf_across"])
-        if pps["wpp"]:
+        if pps["wpp"] or pps["tiles"]:
             bw.ue(len(entries))
             if entries:
-                bits = max(max(e - 1 for e in entries).bit_length(), 1)
+                past = 1 << 16 if f["corrupt"] == "entry_points" else 0
+                bits = max(max(e - 1 + past for e in entries).bit_length(), 1)
                 bw.ue(bits - 1)
                 for e in entries:
-                    bw.u(bits, e - 1)
+                    bw.u(bits, e - 1 + past)
         if pps["header_ext"]:
             n = r.randint(0, 3)
             bw.ue(n)
@@ -985,6 +1305,39 @@ class Writer:
         bw.u(1, 1)
         bw.align_zero()
         return bw.data()
+
+    def lt_header(self, bw: BitWriter) -> None:
+        """The slice header's long-term entries (7.3.6.1), as `lt_coding`
+        chose them."""
+        entries = self.pic_params.get("lt_entries", [])
+        mask = (1 << self.log2_max_poc_lsb) - 1
+        n_sps = sum(1 for e in entries if not e[0])
+        if self.lt_sps:
+            bw.ue(n_sps)
+        bw.ue(len(entries) - n_sps)
+        running = 0
+        for i, (slice_coded, cycle, poc, used, msb) in enumerate(entries):
+            if i in (0, n_sps):
+                running = 0
+            corrupt = self.f["corrupt"]
+            if not slice_coded:
+                idx = self.lt_sps.index((poc & mask, used))
+                if len(self.lt_sps) > 1:
+                    bw.u((len(self.lt_sps) - 1).bit_length(),
+                         len(self.lt_sps) if corrupt == "lt_idx_sps" else idx)
+                self.stats["lt_sps"] += 1
+            else:
+                bw.u(self.log2_max_poc_lsb, poc & mask)
+                bw.u(1, used)
+                self.stats["lt_slice"] += 1
+            bw.u(1, msb)
+            if msb:
+                bw.ue(cycle - running + 4 * (corrupt == "lt_missing"))
+                running = cycle
+            self.stats["lt_msb_present" if msb else "lt_msb_absent"] += 1
+            self.stats["lt_used" if used else "lt_unused"] += 1
+            if msb and cycle:
+                self.stats["lt_msb_cycle"] += 1
 
     def weights(self, bw: BitWriter, r: random.Random) -> None:
         pic, pp = self.pic, self.pic_params
@@ -1012,11 +1365,13 @@ class Writer:
 
     # ── CTU syntax ──
     def avail(self, xn: int, yn: int) -> bool:
-        """The left / above neighbour (xn, yn) is in the picture and the slice."""
+        """The left / above neighbour (xn, yn) is in the picture, the slice and
+        the tile."""
         if xn < 0 or yn < 0 or xn >= self.W or yn >= self.H:
             return False
         ctb = (yn >> self.log2_ctb) * self.ctb_w + (xn >> self.log2_ctb)
-        return self.ctb_slice[ctb] == self.slice_addr
+        return self.ctb_slice[ctb] == self.slice_addr and \
+            self.tile_id[ctb] == self.tile_id[self.ctb_addr]
 
     def u4(self, x: int, y: int) -> int:
         return (y >> 2) * self.w4 + (x >> 2)
@@ -1029,14 +1384,15 @@ class Writer:
 
     def sao(self, rx: int, ry: int) -> None:
         cab, rng, sh = self.cab, self.rng, self.sh
-        addr = self.ctb_addr
-        if rx > 0 and addr - 1 >= self.slice_addr:
+        addr, tile = self.ctb_addr, self.tile_id
+        if rx > 0 and addr - 1 >= self.slice_addr and tile[addr - 1] == tile[addr]:
             merge = rng.random() < 0.3
             cab.bin(C["SAO_MERGE"], merge)
             if merge:
                 self.stats["sao_merge_left"] += 1
                 return
-        if ry > 0 and addr - self.ctb_w >= self.slice_addr:
+        up = addr - self.ctb_w
+        if ry > 0 and up >= self.slice_addr and tile[up] == tile[addr]:
             merge = rng.random() < 0.3
             cab.bin(C["SAO_MERGE"], merge)
             if merge:
@@ -1101,6 +1457,12 @@ class Writer:
         f, cab, rng, pic = self.f, self.cab, self.rng, self.pic
         size = 1 << log2
         self.cu = (x0, y0, log2)
+        self.cu_bypass = False
+        if self.cur_pps["bypass"]:
+            self.cu_bypass = rng.random() < f["bypass"]
+            cab.bin(C["TRANSQUANT_BYPASS"], self.cu_bypass)
+            if self.cu_bypass:
+                self.stats["bypass_cu"] += 1
         skip = False
         if pic.kind != "I":
             skip = rng.random() < f["skip"]
@@ -1154,6 +1516,13 @@ class Writer:
                         cab.bypass(part in (PART_2NxnD, PART_nRx2N))
             self.stats[f"part{part}"] += 1
         self.part = part
+        if intra and part == PART_2Nx2N and f["pcm"] and \
+                self.pcm_sizes[0] <= log2 <= self.pcm_sizes[1]:
+            pcm = rng.random() < f["pcm"]
+            cab.terminate(int(pcm))                  # pcm_flag
+            if pcm:
+                self.pcm_sample(x0, y0, log2)
+                return
         if intra:
             self.intra_modes(x0, y0, size, part)
         else:
@@ -1177,6 +1546,24 @@ class Writer:
             split = intra and part == PART_NxN
             max_depth = f["depth_intra"] + split if intra else f["depth_inter"]
             self.transform_tree(x0, y0, x0, y0, log2, 0, 0, False, False, max_depth, split)
+
+    def pcm_sample(self, x0: int, y0: int, log2: int) -> None:
+        """pcm_sample() (7.3.8.7) of a CU: after pcm_flag's flush and the
+        pcm_alignment_zero_bits, random samples of the PCM depths, then the
+        arithmetic coder starts again (9.3.2.5)."""
+        cab, rng = self.cab, self.rng
+        n = 1 << log2
+        for c, count in ((0, n * n), (1, n * n // 2)):
+            depth = self.pcm_depths[c]
+            for _ in range(count):
+                cab.bw.u(depth, rng.getrandbits(depth))
+        cab.start()
+        self.fill(self.ipm, x0, y0, n, n, 1)             # INTRA_DC to the neighbours' MPMs
+        self.stats[f"pcm{n}"] += 1
+        if self.pcm_lf_disabled:
+            self.stats["pcm_lf_disabled"] += 1
+        if self.cu_bypass:
+            self.stats["pcm_bypass"] += 1
 
     def intra_modes(self, x0: int, y0: int, size: int, part: int) -> None:
         cab, rng = self.cab, self.rng
@@ -1355,7 +1742,9 @@ class Writer:
         f, cab, rng = self.f, self.cab, self.rng
         n = 1 << log2
         pps = self.cur_pps
-        if pps["transform_skip"] and log2 == 2:
+        if self.cu_bypass:
+            self.stats["bypass_residual"] += 1
+        if pps["transform_skip"] and log2 == 2 and not self.cu_bypass:
             ts = rng.random() < 0.3
             cab.bin(C["TRANSFORM_SKIP"] + (1 if c else 0), ts)
             if ts:
@@ -1426,7 +1815,8 @@ class Writer:
             prev = csbf.get((xs + 1, ys), 0) | (csbf.get((xs, ys + 1), 0) << 1)
             # sign data hiding: the first coefficient's sign follows the parity
             sig_pos = [k for k in range(15, -1, -1) if sub[k]]
-            hidden = pps["sign_hiding"] and bool(sig_pos) and sig_pos[0] - sig_pos[-1] > 3
+            hidden = pps["sign_hiding"] and not self.cu_bypass and bool(sig_pos) and \
+                sig_pos[0] - sig_pos[-1] > 3
             if hidden:
                 first = sig_pos[-1]
                 odd = sum(abs(v) for v in sub) & 1
