@@ -18,8 +18,8 @@ swscale refuses them: so does `check`.
 How (`to_rgb`), in swscale's three passes:
 
 1. Y'CbCr to 16-bit R'G'B' (its legacy scaler, in float here within a 16-bit
-   step): the matrix's `SWS_COEFFS` and the range, the 8-bit scale times
-   256.  Chroma reaches the luma grid as the pass's stale chroma siting
+   step): the matrix's `swscale.coefficients` and the range, the 8-bit scale
+   times 256.  Chroma reaches the luma grid as the pass's stale chroma siting
    brings it: each chroma column shown for two pixels, rows 2k at chroma row
    k and 2k + 1 halfway to k + 1 (swscale's bicubic, B = 0, C = 0.6).
 2. A 65^3 table on the source R'G'B' (`table`, built by the host C++ of
@@ -42,7 +42,8 @@ there.
 
 The table is built once a process for each set of tags, on every core; the
 passes run in numpy (times: PERF.md).  Untagged and unmanaged streams never
-come here (`h264.ycbcr_to_rgb`).
+come here: `h264.ycbcr_to_rgb` sends them to `swscale.to_rgb`, swscale's own
+conversion bit for bit, whose fixed-point coefficients pass 3 shares.
 """
 
 from __future__ import annotations
@@ -55,7 +56,7 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import container
+from omfs4d_torch.io import container, swscale
 
 # libavutil's primaries (av_csp_primaries_desc): rx ry gx gy bx by wx wy
 _D65, _C, _DCI, _E = (0.3127, 0.3290), (0.3100, 0.3160), (0.3140, 0.3510), (1 / 3, 1 / 3)
@@ -80,13 +81,6 @@ REFUSED_TRANSFERS = {9: "logarithmic (100:1)", 10: "logarithmic (316:1)"}
 UNSPECIFIED = 2
 # the table's nodes a side (swscale's INPUT_LUT_SIZE)
 SIZE = 65
-
-# ff_yuv2rgb_coeffs by matrix_coefficients (crv, cbu, cgu, cgv, x 65536, for
-# limited range); swscale's default (BT.601) for the rest
-SWS_COEFFS = {0: (117489, 138438, 13975, 34925), 1: (117489, 138438, 13975, 34925),
-              4: (104448, 132798, 24759, 53109), 7: (117579, 136230, 16907, 35559),
-              9: (110013, 140363, 12277, 42626), 10: (110013, 140363, 12277, 42626)}
-_BT601 = (104597, 132201, 25675, 53279)
 
 
 @dataclass(frozen=True)
@@ -265,7 +259,7 @@ def _to_rgb16(y, cb, cr, bit_depth: int, full_range: bool, matrix: int) -> np.nd
     yy = np.asarray(y, np.float64) / scale
     u = _chroma(cb, yy.shape) / scale - 128
     v = _chroma(cr, yy.shape) / scale - 128
-    crv, cbu, cgu, cgv = (x / 65536 for x in SWS_COEFFS.get(matrix, _BT601))
+    crv, cbu, cgu, cgv = (x / 65536 for x in swscale.coefficients(matrix))
     if full_range:
         crv, cbu, cgu, cgv = (x * 224 / 255 for x in (crv, cbu, cgu, cgv))
     else:
@@ -302,40 +296,21 @@ def lookup(lut: np.ndarray, rgb16: np.ndarray) -> np.ndarray:
 
 # ── pass 3: 16-bit R'G'B' to 8 bits, swscale's fixed point ─────────────
 
-def _rounded_div(a: int, b: int) -> int:
-    return (a + (b >> 1)) // b if a >= 0 else -((-a + (b >> 1)) // b)
-
-
 @functools.cache
-def _rgb2yuv(coeffs=_BT601) -> tuple[int, ...]:
+def _rgb2yuv(coeffs=swscale.BT601) -> tuple[int, ...]:
     """swscale's fill_rgb2yuv_table (always limited range), RGB2YUV_SHIFT 15:
     ry gy by ru gu bu rv gv bv."""
     vr, ub, ug, vg = coeffs[0], coeffs[1], -coeffs[2], -coeffs[3]
-    one = 65536
+    one, d = 65536, swscale.rounded_div
     cy = one * 255 // 219
-    w = _rounded_div(one * one * ug, ub)
-    v = _rounded_div(one * one * vg, vr)
+    w = d(one * one * ug, ub)
+    v = d(one * one * vg, vr)
     z = one * one - w - v
-    ky, ku, kv = _rounded_div(cy * z, one), _rounded_div(ub * z, one), _rounded_div(vr * z, one)
-    s, d = 1 << 15, _rounded_div
+    ky, ku, kv = d(cy * z, one), d(ub * z, one), d(vr * z, one)
+    s = 1 << 15
     return (-d(s * v, ky), d(s * one * one, ky), -d(s * w, ky),
             d(s * v, ku), -d(s * one * one, ku), d(s * (z + w), ku),
             d(s * (v + z), kv), -d(s * one * one, kv), d(s * w, kv))
-
-
-def _round16(f: int) -> int:
-    r = (f + (1 << 15)) >> 16
-    return max(-0x8000, min(0x7FFF, r))
-
-
-@functools.cache
-def _yuv2rgb(matrix: int) -> tuple[int, ...]:
-    """swscale's ff_yuv2rgb_c_init_tables in limited range: y_coeff,
-    y_offset, v2r, v2g, u2g, u2b."""
-    crv, cbu, cgu, cgv = SWS_COEFFS.get(matrix, _BT601)
-    cy = (1 << 16) * 255 // 219
-    return (_round16(cy << 13), _round16((16 << 16) << 9), _round16(crv << 13),
-            _round16(-cgv << 13), _round16(-cgu << 13), _round16(cbu << 13))
 
 
 def _to_rgb8(rgb16: np.ndarray, matrix: int) -> np.ndarray:
@@ -350,10 +325,7 @@ def _to_rgb8(rgb16: np.ndarray, matrix: int) -> np.ndarray:
     taps = np.array([-307, 2355, 2355, -307], np.int64)
     u = (np.tensordot(u[idx], taps, axes=([1], [0])) + 512 - (128 << 19)) >> 10
     v = (np.tensordot(v[idx], taps, axes=([1], [0])) + 512 - (128 << 19)) >> 10
-    yc, yo, v2r, v2g, u2g, u2b = _yuv2rgb(matrix)
-    y = (y * 4 - yo) * yc + (1 << 21)
-    out = np.stack([y + v * v2r, y + v * v2g + u * u2g, y + u * u2b], -1)
-    return (np.clip(out, 0, (1 << 30) - 1) >> 22).astype(np.uint8)
+    return swscale.write_full(y * 4, u, v, matrix, False)
 
 
 def to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, *, bit_depth: int = 8,

@@ -60,9 +60,10 @@ deblocking filter, output in POC order.  `H264Frames` shows a file's frames as
 cv2 does: in presentation order (`ctts`), those its edit list keeps, turned by
 the track's display matrix, converted with the VUI's range, matrix,
 primaries and transfer, or a `colr` box's where the VUI has no colour
-description, as FFmpeg takes them (`ycbcr_to_rgb`: tags cv2 colour-manages
-go to `colour`, with the mastering display's luminance of an SEI 137 in the
-first sample, else of the `mdcv` box).  Anything else (fields, MBAFF, High 10 / 4:2:2 / 4:4:4,
+description, as FFmpeg takes them (`ycbcr_to_rgb`: swscale's unscaled
+conversion, bit for bit, `swscale`; tags cv2 colour-manages go to `colour`,
+with the mastering display's luminance of an SEI 137 in the first sample,
+else of the `mdcv` box).  Anything else (fields, MBAFF, High 10 / 4:2:2 / 4:4:4,
 FMO, SP/SI slices, ...) raises `container.UnsupportedCodecError` naming it and
 ffmpeg; a corrupt unit raises ValueError.  The Python `H264Decoder` reads the encoder's own subset only
 (Intra_16x16 H / DC, P_L0_16x16 / P_Skip with whole-sample vectors, one
@@ -83,7 +84,7 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import colour, container, h264_tables, mp4
+from omfs4d_torch.io import colour, container, h264_tables, mp4, swscale
 from omfs4d_torch.io import frames as frames_base
 
 # the QP of every picture, the reference's CRF; raised for a picture only
@@ -170,125 +171,30 @@ def rgb_to_ycbcr(rgb: np.ndarray):
     return tuple(planes)
 
 
-def _upsample2(c: np.ndarray) -> np.ndarray:
-    """A chroma plane doubled in each direction, each output sample 3/4 of
-    the nearest input and 1/4 of the next (edges repeated): the inverse of
-    the centred 2 x 2 mean."""
-    c = np.asarray(c, np.float64)
-    for axis in (0, 1):
-        p = np.concatenate([c.take([0], axis), c, c.take([-1], axis)], axis)
-        n = c.shape[axis]
-        lo = 0.75 * c + 0.25 * p.take(np.arange(n), axis)
-        hi = 0.75 * c + 0.25 * p.take(np.arange(2, n + 2), axis)
-        c = np.stack([lo, hi], axis + 1).reshape(
-            c.shape[:axis] + (2 * n,) + c.shape[axis + 1:])
-    return c
-
-
-# (Kr, Kb) by matrix_coefficients as swscale (cv2's conversion) applies them:
-# BT.709 for 1, FCC for 4, SMPTE 240M for 7, BT.2020 non-constant luminance
-# for 9, BT.601 for the rest but 10 (`_REFUSED_MATRICES`)
-_MATRICES = {1: (0.2126, 0.0722), 4: (0.30, 0.11), 7: (0.212, 0.087), 9: (0.2627, 0.0593)}
-# BT.2020 constant luminance: swscale refuses it ("Unsupported input"), and
-# cv2 then hands back a buffer it never converted
-_REFUSED_MATRICES = {10: "BT.2020 constant luminance (matrix_coefficients 10)"}
-
-
-def _rgb_of(yy: np.ndarray, u: np.ndarray, v: np.ndarray, k: float, matrix: int) -> np.ndarray:
-    """R'G'B' (float, 0-255 scale) of Y' on that scale and Cb, Cr about 0
-    times `k` (the range's chroma scale), by `_MATRICES`."""
-    kr, kb = _MATRICES.get(matrix, (0.299, 0.114))
-    kg = 1 - kr - kb
-    return np.stack([yy + k * 2 * (1 - kr) * v,
-                     yy - k * (2 * kb * (1 - kb) / kg) * u - k * (2 * kr * (1 - kr) / kg) * v,
-                     yy + k * 2 * (1 - kb) * u], -1)
-
-
 def ycbcr_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray, full_range: bool = False,
                  matrix: int = 6, bit_depth: int = 8, primaries: int = 2, transfer: int = 2,
-                 mastering: colour.Mastering | None = None) -> np.ndarray:
-    """Y' (H, W) and Cb, Cr (H/2, W/2) -> (H, W, 3) uint8 R'G'B' as cv2
-    converts them, for the stream's range (limited: 16-235, 16-240 at 8
-    bits, unless `full_range`), matrix_coefficients (`_MATRICES`, else
-    BT.601; `_REFUSED_MATRICES` raise `container.UnsupportedCodecError`),
-    colour_primaries and transfer_characteristics.  Tags that cv2
-    colour-manages (`colour.managed`: BT.2020, P3 and other wide primaries,
-    PQ, HLG) go to `colour.to_rgb`, with the mastering display's luminance;
-    a transfer swscale refuses raises (`colour.check`).  The rest is
-    converted with the range and matrix alone: 8-bit planes (uint8) have
-    their chroma upsampled by `_upsample2`; deeper ones (`bit_depth` 9 or
-    10, the samples themselves in any integer type) go through
-    `_deep_to_rgb`, cv2's path for them."""
-    if matrix in _REFUSED_MATRICES:
-        raise container.UnsupportedCodecError(
-            f"{_REFUSED_MATRICES[matrix]} has no conversion to RGB here, nor in cv2's swscale; "
-            "converting it needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
+                 mastering: colour.Mastering | None = None,
+                 location: int = swscale.LEFT) -> np.ndarray:
+    """Y' (H, W) and Cb, Cr (4:2:0, or any of JPEG's samplings) -> (H, W, 3)
+    uint8 R'G'B' as cv2 converts them, for the stream's range (limited:
+    16-235, 16-240 at 8 bits, unless `full_range`), matrix_coefficients,
+    colour_primaries, transfer_characteristics and chroma siting
+    (`location`, an AVChromaLocation: left, as FFmpeg's H.264, HEVC and
+    MPEG-4 decoders give it unless the VUI says otherwise).  A matrix or a
+    transfer swscale refuses raises `container.UnsupportedCodecError`.  Tags
+    that cv2 colour-manages (`colour.managed`: BT.2020, P3 and other wide
+    primaries, PQ, HLG) go to `colour.to_rgb`, with the mastering display's
+    luminance; the rest go through swscale's own conversion
+    (`swscale.to_rgb`: its unscaled path for 8-bit 4:2:0 and 4:2:2 at an
+    even height, its scaled path for 9- and 10-bit samples, an odd height
+    and JPEG's other samplings), bit for bit."""
+    swscale.check(matrix)
     colour.check(colour.normalise(primaries, transfer)[1])
     if colour.managed(primaries, transfer):
         return colour.to_rgb(y, cb, cr, bit_depth=bit_depth, full_range=full_range, matrix=matrix,
                              primaries=primaries, transfer=transfer, mastering=mastering)
-    if bit_depth > 8:
-        return _deep_to_rgb(y, cb, cr, full_range, matrix, bit_depth)
-    if full_range:
-        yy, k = np.asarray(y, np.float64), 1.0
-    else:
-        yy, k = (np.asarray(y, np.float64) - 16) * (255 / 219), 255 / 224
-    u = _upsample2(cb)[:y.shape[0], :y.shape[1]] - 128
-    v = _upsample2(cr)[:y.shape[0], :y.shape[1]] - 128
-    return np.clip(np.rint(_rgb_of(yy, u, v, k, matrix)), 0, 255).astype(np.uint8)
-
-
-# cv2's green on that path sits this far below the matrix's (measured on
-# smooth 10-bit content in every range and matrix: 1.0-1.4 levels; its fixed
-# point rounds there)
-_DEEP_GREEN_BIAS = 1.0
-
-# swscale's bicubic kernel (B = 0, C = 0.6: Keys with a = -0.6) at the four
-# distances a quarter-sample phase gives: 1.75, 0.75, 0.25, 1.25 samples
-_BICUBIC_QUARTER = np.array([-0.028125, 0.240625, 0.871875, -0.084375])
-
-
-def _quarter_shift(c: np.ndarray, axis: int, ahead: bool) -> np.ndarray:
-    """c resampled along `axis` a quarter of a sample ahead (output k at
-    input k + 1/4) or back (k - 1/4), edges repeated."""
-    n = c.shape[axis]
-    weights = _BICUBIC_QUARTER[::-1] if ahead else _BICUBIC_QUARTER
-    offsets = np.arange(-1, 3) if ahead else np.arange(-2, 2)
-    idx = np.clip(np.arange(n)[:, None] + offsets[None, :], 0, n - 1)
-    taps = np.take(c, idx, axis)                        # the axis becomes (n, 4)
-    return np.tensordot(taps, weights, axes=([axis + 1], [0]))
-
-
-def _deep_chroma(c: np.ndarray, shape, bit_depth: int) -> np.ndarray:
-    """A 4:2:0 chroma plane as cv2's path for deeper samples (swscale's
-    bicubic scaler) brings it to the luma grid: columns first, resampled a
-    quarter of a sample ahead (into swscale's 15-bit intermediate, which
-    clips what overshoots its top), then rows doubled at the centred sites
-    (row 2k at k - 1/4, 2k + 1 at k + 1/4), each column shown for two
-    pixels."""
-    top = ((1 << 15) - 1) / (1 << (15 - bit_depth))
-    cols = np.minimum(_quarter_shift(np.asarray(c, np.float64), 1, True), top)
-    rows = np.stack([_quarter_shift(cols, 0, False), _quarter_shift(cols, 0, True)], 1)
-    rows = rows.reshape((2 * c.shape[0],) + c.shape[1:])
-    return np.repeat(rows, 2, 1)[:shape[0], :shape[1]]
-
-
-def _deep_to_rgb(y, cb, cr, full_range: bool, matrix: int, bit_depth: int) -> np.ndarray:
-    """9- or 10-bit Y', Cb, Cr -> (H, W, 3) uint8 R'G'B' as cv2 converts them:
-    chroma by `_deep_chroma`, the samples kept at their depth (a step of
-    2^(8 - bit_depth) of the 8-bit scale, full range too), green lowered by
-    `_DEEP_GREEN_BIAS`, rounded at the end."""
-    scale = float(1 << (bit_depth - 8))
-    yy = np.asarray(y, np.float64) / scale
-    u = _deep_chroma(cb, yy.shape, bit_depth) / scale - 128
-    v = _deep_chroma(cr, yy.shape, bit_depth) / scale - 128
-    if full_range:
-        k = 1.0
-    else:
-        yy, k = (yy - 16) * (255 / 219), 255 / 224
-    rgb = _rgb_of(yy, u, v, k, matrix)
-    rgb[..., 1] -= _DEEP_GREEN_BIAS
-    return np.clip(np.rint(rgb), 0, 255).astype(np.uint8)
+    return swscale.to_rgb(y, cb, cr, depth=bit_depth, matrix=matrix, full=full_range,
+                          location=location)
 
 
 # ── transforms and the standard's scaling (8.5) ─────────────────────────

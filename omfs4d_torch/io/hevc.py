@@ -17,9 +17,10 @@ RASL and RADL pictures, output in POC order cropped by the conformance window
 either).
 `HEVCFrames` shows a file's frames as cv2 does (`frames.SampleFrames`): in
 presentation order (`ctts`), those its edit list keeps, turned by the
-track's display matrix, converted with the VUI's range, matrix, primaries
-and transfer (`h264.ycbcr_to_rgb`, which takes 10-bit planes on a path of
-their own, as cv2 does).  A stream whose tags cv2 colour-manages (an
+track's display matrix, converted with the VUI's range, matrix, primaries,
+transfer and chroma siting as cv2 converts them (`h264.ycbcr_to_rgb`:
+swscale's unscaled path for 8-bit pictures, its scaled path for 9- and
+10-bit ones, each bit for bit).  A stream whose tags cv2 colour-manages (an
 iPhone's HDR capture, BT.2020 / HLG; HDR10, BT.2020 / PQ) is mapped as cv2
 maps it (`colour`), with the mastering display's luminance of an SEI 137 in
 the hvcC box or the first sample, else of the `mdcv` box; FFmpeg takes the
@@ -48,7 +49,7 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import colour, container, h264, hevc_tables
+from omfs4d_torch.io import colour, container, h264, hevc_tables, swscale
 from omfs4d_torch.io import frames as frames_base
 
 NAL_SPS, NAL_PPS, NAL_SEI_PREFIX = 33, 34, 39
@@ -177,7 +178,9 @@ def parse_sps(unit: bytes) -> dict:
     unit: id, the cropped width and height, bit_depth (luma = chroma), fps
     from the VUI's timing (0.0 where it has none), full_range, and primaries,
     transfer and matrix (colour_primaries, transfer_characteristics,
-    matrix_coeffs; 2, unspecified, where the VUI has none).  Raises
+    matrix_coeffs; 2, unspecified, where the VUI has none), and the chroma
+    siting as FFmpeg's decoder gives it (`location`, an AVChromaLocation:
+    the VUI's chroma_sample_loc_type_top_field + 1, else left).  Raises
     `container.UnsupportedCodecError` for what the decoder refuses."""
     r = _Reader(_rbsp(unit))
     r.u(4)
@@ -185,7 +188,7 @@ def parse_sps(unit: bytes) -> dict:
     r.u(1)
     profile = _profile_tier_level(r, msl)
     sps = {"id": r.ue(), "profile": profile, "fps": 0.0, "full_range": False, "primaries": 2,
-           "transfer": 2, "matrix": 2}
+           "transfer": 2, "matrix": 2, "location": swscale.LEFT}
     chroma = r.ue()
     if chroma != 1:
         names = {0: "4:0:0 (monochrome)", 2: "4:2:2", 3: "4:4:4"}
@@ -236,8 +239,10 @@ def parse_sps(unit: bytes) -> dict:
             sps["full_range"] = bool(r.u(1))
             if r.u(1):
                 sps["primaries"], sps["transfer"], sps["matrix"] = r.u(8), r.u(8), r.u(8)
-        if r.u(1):
-            r.ue(), r.ue()
+        if r.u(1):                                     # chroma_loc_info: the top field's
+            top = r.ue()
+            r.ue()
+            sps["location"] = top + 1 if top <= 5 else 0
         r.u(3)
         if r.u(1):                                     # the default display window: not applied
             for _ in range(4):
@@ -407,8 +412,9 @@ class HEVCFrames(frames_base.SampleFrames):
         mastering = colour.mastering_of(
             (_rbsp(u) for u in base if nal_type(u) == NAL_SEI_PREFIX), info)
         # FFmpeg's HEVC decoder takes the VUI's tags alone: a `colr` box changes nothing
-        self.colour = colour.stream(colour.from_container(self.params, None),
-                                    self.params["bit_depth"], mastering)
+        self.colour = dict(colour.stream(colour.from_container(self.params, None),
+                                         self.params["bit_depth"], mastering),
+                           location=self.params["location"])
 
     def header_units(self) -> list[bytes]:
         return self.headers

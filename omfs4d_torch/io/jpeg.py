@@ -31,6 +31,12 @@ cv2 carry) computes it, so the pixels are theirs:
   repeat each sample;
 - the fixed-point YCbCr -> RGB tables of `jdcolor.c` (SCALEBITS 16).
 
+A Motion JPEG *video frame* is another matter: cv2.VideoCapture reads it
+through FFmpeg's MJPEG decoder and swscale, not libjpeg.  `decode_planes`
+gives a frame's Y'CbCr planes at their own sampling through either IDCT,
+and `idct_simple` is FFmpeg's (its 8-bit simple IDCT); `mjpeg.frame_rgb`
+converts them as swscale does.
+
 Entropy decoding is serial by nature.  It runs in Python per scan, over a
 table indexed by the next 16 bits of the bit stream; the next 32 bits at
 every bit position of the scan are computed beforehand with NumPy.
@@ -259,6 +265,50 @@ def idct_islow(coef: np.ndarray) -> np.ndarray:
     return np.clip(out + 128, 0, 255).astype(np.uint8)
 
 
+# FFmpeg's simple_idct_template.c at 8 bits: round(cos(k pi / 16) sqrt(2) 2^14)
+# (W4 one below), the row and column shifts, the shift of a DC-only row
+_W1, _W2, _W3, _W4, _W5, _W6, _W7 = 22725, 21407, 19266, 16383, 12873, 8867, 4520
+_ROW_SHIFT, _COL_SHIFT, _DC_SHIFT = 11, 20, 3
+
+
+def _int16(x):
+    return ((x + (1 << 15)) & 0xFFFF) - (1 << 15)
+
+
+def _int32(x):
+    return ((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
+
+
+def _simple_1d(x, a0):
+    """The butterflies of FFmpeg's simple IDCT over the last axis from the
+    even part's common term `a0` (int64 in, the eight sums out)."""
+    x1, x2, x3, x4, x5, x6, x7 = (x[..., i] for i in range(1, 8))
+    a = (a0 + _W4 * x4 + _W2 * x2 + _W6 * x6, a0 - _W4 * x4 + _W6 * x2 - _W2 * x6,
+         a0 - _W4 * x4 - _W6 * x2 + _W2 * x6, a0 + _W4 * x4 - _W2 * x2 - _W6 * x6)
+    b = (_W1 * x1 + _W3 * x3 + _W5 * x5 + _W7 * x7, _W3 * x1 - _W7 * x3 - _W1 * x5 - _W5 * x7,
+         _W5 * x1 - _W1 * x3 + _W7 * x5 + _W3 * x7, _W7 * x1 - _W5 * x3 + _W3 * x5 - _W1 * x7)
+    return np.stack([a[0] + b[0], a[1] + b[1], a[2] + b[2], a[3] + b[3],
+                     a[3] - b[3], a[2] - b[2], a[1] - b[1], a[0] - b[0]], -1)
+
+
+def idct_simple(coef: np.ndarray) -> np.ndarray:
+    """(N, 8, 8) dequantized coefficients (row = vertical frequency) ->
+    (N, 8, 8) uint8 samples as FFmpeg's MJPEG decoder computes them (the
+    decoder cv2.VideoCapture reads Motion JPEG with): the 8-bit simple IDCT
+    (`ff_simple_idct_put_int16_8bit`), with the level shift of 128 carried in
+    the DC as FFmpeg does.  Rows first, each held in int16 (a row with only
+    its DC set is DC << 3), then columns, clipped to 0..255."""
+    c = coef.astype(np.int64)
+    c[:, 0, 0] += 1024
+    rows = _int16(_int32(_simple_1d(c, _W4 * c[..., 0] + (1 << (_ROW_SHIFT - 1))))
+                  >> _ROW_SHIFT)
+    dc_only = ~c[..., 1:].any(-1)
+    rows = np.where(dc_only[..., None], _int16(c[..., :1] << _DC_SHIFT), rows)
+    cols = rows.transpose(0, 2, 1)
+    out = _int32(_simple_1d(cols, _W4 * (cols[..., 0] + (1 << (_COL_SHIFT - 1)) // _W4)))
+    return np.clip(out >> _COL_SHIFT, 0, 255).astype(np.uint8).transpose(0, 2, 1)
+
+
 def _edge(x, axis):
     """x with its first and last sample along `axis` repeated once outward."""
     first = np.take(x, [0], axis=axis)
@@ -322,10 +372,12 @@ def _ycc_to_rgb(y, cb, cr):
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """JPEG bytes -> (H, W) uint8 for one component, (H, W, 3) uint8 RGB for
-    three.  Raises ValueError for what this decoder does not read (see the
-    module docstring) and for a corrupt stream."""
+def decode_planes(data: bytes, idct=idct_islow) -> tuple[list[np.ndarray], list, bool, tuple]:
+    """JPEG bytes -> its component planes at their own sampling (uint8, each
+    ceil(H * v / vmax) x ceil(W * h / hmax)) through `idct`, each one's
+    sampling factors (h, v), whether they are Y'CbCr (JFIF, the Adobe flag,
+    else not 'R', 'G', 'B' ids) and the frame's (H, W).  Raises ValueError as
+    `decode_jpeg` does."""
     data = bytes(data)
     if data[:2] != b"\xff\xd8":
         raise ValueError("not a JPEG file (no SOI marker)")
@@ -440,18 +492,27 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     planes = []
     for c in comps:
         blocks = np.frombuffer(c.coef, np.int32).reshape(-1, 8, 8) * c.q.reshape(8, 8)
-        pixels = idct_islow(blocks).reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3)
-        plane = pixels.reshape(c.bh * 8, c.bw * 8)[:c.height, :c.width]
-        planes.append(_upsample(plane, hmax // c.h, vmax // c.v))
-    planes = [p[:height, :width] for p in planes]
-    if len(comps) == 1:
-        return np.ascontiguousarray(planes[0], dtype=np.uint8)
+        pixels = idct(blocks).reshape(c.bh, c.bw, 8, 8).transpose(0, 2, 1, 3)
+        planes.append(pixels.reshape(c.bh * 8, c.bw * 8)[:c.height, :c.width])
     if jfif:
         ycc = True
     elif adobe is not None:
         ycc = adobe != 0
     else:
         ycc = tuple(c.cid for c in comps) != (82, 71, 66)      # 'R', 'G', 'B'
+    return planes, [(c.h, c.v) for c in comps], ycc, (height, width)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes -> (H, W) uint8 for one component, (H, W, 3) uint8 RGB for
+    three.  Raises ValueError for what this decoder does not read (see the
+    module docstring) and for a corrupt stream."""
+    planes, factors, ycc, (height, width) = decode_planes(data)
+    hmax, vmax = (max(f[k] for f in factors) for k in (0, 1))
+    planes = [_upsample(p, hmax // h, vmax // v)[:height, :width]
+              for p, (h, v) in zip(planes, factors)]
+    if len(planes) == 1:
+        return np.ascontiguousarray(planes[0], dtype=np.uint8)
     if not ycc:
         return np.stack(planes, axis=-1).astype(np.uint8)
     return _ycc_to_rgb(*(p.astype(np.int64) for p in planes))
@@ -607,6 +668,16 @@ def _h2v2_downsample(plane: np.ndarray, width_blocks: int) -> np.ndarray:
     s = x[0::2, 0::2] + x[0::2, 1::2] + x[1::2, 0::2] + x[1::2, 1::2]
     bias = np.tile([1, 2], s.shape[1] // 2)
     return (s + bias) >> 2
+
+
+def ycc_planes(rgb: np.ndarray) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """(H, W, 3) uint8 RGB -> the Y', Cb, Cr planes `encode_jpeg` codes
+    (uint8; chroma ceil(H / 2) x ceil(W / 2)): what a decode of its bytes
+    gives back but for the codec's loss."""
+    h, w = rgb.shape[:2]
+    y, cb, cr = _rgb_to_ycc(np.asarray(rgb))
+    chroma = [_h2v2_downsample(c, -(-w // 16))[:-(-h // 2), :-(-w // 2)] for c in (cb, cr)]
+    return tuple(p.astype(np.uint8) for p in [y] + chroma)
 
 
 def _y_blocks_420(y: np.ndarray, table: np.ndarray, mcus_y: int, mcus_x: int) -> np.ndarray:

@@ -18,7 +18,9 @@ JPEG file's frames from the index `omfs4d_torch.io.container` makes of it
 A frame whose bytes end early raises ValueError with its index.  A frame
 that omits its Huffman tables (the AVI1 convention of Motion-JPEG cameras)
 is given the standard ones, as FFmpeg's MJPEG decoder, which the reference
-reads through cv2, takes them.
+reads through cv2, takes them.  Frames come out as that decoder and
+swscale make them (`frame_rgb`), bit for bit: FFmpeg's simple IDCT, not
+libjpeg's, and swscale's conversion, not libjpeg's upsampling and tables.
 """
 
 from __future__ import annotations
@@ -30,8 +32,8 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import container, mp4
-from omfs4d_torch.io.jpeg import decode_jpeg, standard_dht
+from omfs4d_torch.io import container, mp4, swscale
+from omfs4d_torch.io.jpeg import decode_planes, idct_simple, standard_dht
 
 
 class MJPEGFrames(Sequence):
@@ -58,9 +60,8 @@ class MJPEGFrames(Sequence):
         return _checked_jpeg(data, self.path, i)
 
     def rgb(self, i: int) -> np.ndarray:
-        """Frame i decoded: (H, W, 3) uint8 RGB (grey repeated)."""
-        img = decode_jpeg(self[i])
-        return np.repeat(img[..., None], 3, axis=2) if img.ndim == 2 else img
+        """Frame i as cv2 reads it (`frame_rgb`): (H, W, 3) uint8 RGB."""
+        return frame_rgb(self[i])
 
     def probe(self) -> dict:
         """{"width", "height", "fps", "frame_count"}, the keys of the
@@ -69,6 +70,32 @@ class MJPEGFrames(Sequence):
         info = self.info
         return {"width": info["width"], "height": info["height"],
                 "fps": info["fps"] or 30.0, "frame_count": info["frame_count"]}
+
+
+def frame_rgb(data: bytes) -> np.ndarray:
+    """A Motion JPEG frame -> (H, W, 3) uint8 RGB as cv2.VideoCapture gives
+    it: decoded as FFmpeg's MJPEG decoder decodes it (`idct_simple`; a JPEG
+    *file* is read as libjpeg reads it, `decode_jpeg`), then converted by
+    swscale as the yuvj* formats, BT.601 in full range with chroma sited at
+    the centre (`swscale.to_rgb`: its unscaled path for 4:2:0 and 4:2:2 at an
+    even height, its scaled path for the rest).  Grey is repeated; an RGB
+    JPEG's planes are taken as they are.  A sampling FFmpeg has no pixel
+    format for (chroma wider than luma, Cb and Cr apart, a factor other than
+    1, 2 or 4 across and 1 or 2 down) raises `container.UnsupportedCodecError`."""
+    planes, factors, ycc, _ = decode_planes(data, idct=idct_simple)
+    if len(planes) == 1:
+        return np.repeat(planes[0][..., None], 3, axis=2)
+    hmax, vmax = factors[0]
+    across, down = hmax // factors[1][0], vmax // factors[1][1]
+    if (factors[1] != factors[2] or hmax % factors[1][0] or vmax % factors[1][1]
+            or across not in (1, 2, 4) or down not in (1, 2)
+            or (not ycc and factors[1] != factors[0])):
+        raise container.UnsupportedCodecError(
+            f"a JPEG frame sampled {factors} (h, v per component) has no pixel format in cv2's "
+            "FFmpeg; decoding it needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
+    if not ycc:
+        return np.stack(planes, axis=-1)
+    return swscale.to_rgb(*planes, depth=8, full=True, location=swscale.CENTER)
 
 
 def _checked_jpeg(data: bytes, path, i: int) -> bytes:

@@ -29,8 +29,10 @@ the picture size there.
 `MPEG4Frames` shows a file's frames as cv2 does: one a sample, in order
 (`low_delay`: no reordering), converted with the VO's range, matrix,
 primaries and transfer (where the VO has no colour description, a `colr`
-box's, as FFmpeg takes them) through `h264.ycbcr_to_rgb`, a frame decoded
-from the last I-VOP at or before it or on from the last one decoded.
+box's, as FFmpeg takes them) through `h264.ycbcr_to_rgb` (swscale's own
+conversion, bit for bit: its unscaled path at an even height, its scaled
+path, chroma sited left, at an odd one), a frame decoded from the last I-VOP
+at or before it or on from the last one decoded.
 """
 
 from __future__ import annotations

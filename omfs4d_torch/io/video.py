@@ -24,21 +24,25 @@ contract).  With none, the port's own codecs:
   ffmpeg; so do frames H.264 cannot hold (an odd side, beyond level 5.2).
 - `probe_video` / `extract_frames` index the file once
   (`omfs4d_torch.io.container`) and read it with its codec's module: Motion
-  JPEG in AVI or MP4 (`mjpeg.MJPEGFrames`, `decode_jpeg`); H.264 Main /
+  JPEG in AVI or MP4 (`mjpeg.MJPEGFrames`: each frame as FFmpeg's MJPEG
+  decoder and swscale give it to cv2, `mjpeg.frame_rgb`, where a JPEG file
+  is read as libjpeg reads it, `decode_jpeg`); H.264 Main /
   High profile I, P and B pictures in MP4 or QuickTime, as phones record
   them (`h264.H264Frames`, the host C++ decoder built by g++ at first use),
   turned by the track's display matrix and cut by its edit list as cv2
   reads them; HEVC Main and Main 10 profiles in MP4 or QuickTime (`hvc1` /
   `hev1`), as iPhones record by default (Main 10 with "HDR Video") and x265
-  writes, read alike (`hevc.HEVCFrames`, the host C++ decoder `hevcdec.cpp`;
-  10-bit pictures converted to 8-bit RGB as cv2 converts them, without cv2's
-  gamut and tone mapping of BT.2020 / PQ / HLG tagged streams); MPEG-4 Part 2
-  Simple profile in MP4 or AVI, as cv2's `mp4v`,
-  `XVID`, `DIVX` and `FMP4` writers (and so the JAX package's
-  `stitch_video` without an H.264 encoder) write it (`mpeg4.MPEG4Frames`,
-  the host C++ decoder `mpeg4dec.cpp`).  HEVC beyond Main 10 (more than 10
-  bits, tiles, long-term references, ...), H.264 with fields or more than 8 bits,
-  MPEG-4 Part 2 beyond Simple profile and other codecs raise
+  writes, read alike (`hevc.HEVCFrames`, the host C++ decoder `hevcdec.cpp`);
+  MPEG-4 Part 2 Simple profile in MP4 or AVI, as cv2's `mp4v`, `XVID`,
+  `DIVX` and `FMP4` writers (and so the JAX package's `stitch_video`
+  without an H.264 encoder) write it (`mpeg4.MPEG4Frames`, the host C++
+  decoder `mpeg4dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
+  swscale's own conversion bit for bit (`swscale`; 8-bit 4:2:0 on its
+  unscaled path, 10-bit pictures, odd heights and JPEG's other samplings on
+  its scaled one), and cv2's gamut and tone mapping of BT.2020 / PQ / HLG
+  tagged streams (`colour`).  HEVC beyond Main 10 (more than 10 bits, tiles
+  with WPP, ...), H.264 with fields or more than 8 bits, MPEG-4 Part 2
+  beyond Simple profile and other codecs raise
   `container.UnsupportedCodecError` naming the codec or feature.
 """
 

@@ -32,7 +32,7 @@ import pytest
 
 from omfs4d.io import video as jvideo
 from omfs4d_torch import native
-from omfs4d_torch.io import container, h264, h264_tables, mjpeg
+from omfs4d_torch.io import container, h264, h264_tables, mjpeg, swscale
 from omfs4d_torch.io import video as tvideo
 from tests import torch_h264_syntax as syn
 from tests.test_torch_h264 import annex_b, cv2_read, grey_clip, moving_patch
@@ -261,18 +261,28 @@ def test_empty_and_junk_units_raise_value_error():
 
 # ── the phone's file ────────────────────────────────────────
 
+# the fixed bound of the port's conversion against cv2's on each of
+# swscale's paths (`omfs4d_torch.io.swscale`, measured on x86 cv2 5.0.0 /
+# swscale 9.5.101): both bit for bit
+PATH_BOUND = {"unscaled": 0, "scaled": 0}
+
+
 def rgb_tolerance(ours_planes, colour, tmp_path, capfd, bit_depth: int = 8) -> int:
-    """The largest difference between the port's conversion of the planes
-    and cv2's decode of an I_PCM stream of them (`bit_depth` bits a sample,
-    `colour` as `syn.vui_colour` reads it): the conversions' own."""
+    """The fixed bound (`PATH_BOUND`) of the path swscale takes for these
+    planes, once the port's conversion of them is held within it of cv2's
+    decode of an I_PCM stream of them (`bit_depth` bits a sample, `colour`
+    as `syn.vui_colour` reads it)."""
     (tmp_path / "tol.h264").write_bytes(syn.pcm_stream(ours_planes, colour, bit_depth=bit_depth))
     theirs = cv2_read(tmp_path / "tol.h264", capfd)
     full, _, _, matrix = syn.vui_colour(colour)
-    worst = 0
+    y, cb, _ = ours_planes[0]
+    bound = PATH_BOUND["unscaled" if swscale.takes_unscaled(y.shape, cb.shape, bit_depth)
+                       else "scaled"]
+    assert len(theirs) == len(ours_planes)
     for planes, bgr in zip(ours_planes, theirs):
         ours = h264.ycbcr_to_rgb(*planes, full_range=bool(full), matrix=matrix, bit_depth=bit_depth)
-        worst = max(worst, int(np.abs(ours.astype(int) - bgr[..., ::-1]).max()))
-    return worst
+        assert np.abs(ours.astype(int) - bgr[..., ::-1]).max() <= bound
+    return bound
 
 
 @pytest.mark.parametrize("rotation, media_time, entry",

@@ -16,7 +16,7 @@ from omfs4d.io import video as jvideo
 from omfs4d_torch.io import container, hevc
 from omfs4d_torch.io import video as tvideo
 from tests import torch_hevc_syntax as syn
-from tests.test_torch_h264_high import planes_sha, rgb_tolerance
+from tests.test_torch_h264_high import PATH_BOUND, planes_sha, rgb_tolerance
 
 CORPUS = Path(__file__).resolve().parent / "data" / "hevc"
 
@@ -110,10 +110,11 @@ def test_corpus_decodes_to_its_manifest():
     assert probe["height"] > probe["width"]
 
 
-# clip_hevc10.mp4's largest difference from the JAX package's frames (cv2's
-# conversion of yuv420p10le), measured once: 41 at one pixel of the bottom row,
-# a mean of 0.209 (clip_hevc.mp4's 8-bit conversion: 207, 1.70)
-MAIN10_TOLERANCE, MAIN10_MEAN = 41, 0.21
+# clip_hevc10.mp4's largest and mean difference from the JAX package's frames
+# (cv2's conversion of yuv420p10le): swscale's scaled path, which the port
+# runs bit for bit (`omfs4d_torch.io.swscale`); its float model before was
+# 41 and 0.209 off
+MAIN10_TOLERANCE, MAIN10_MEAN = PATH_BOUND["scaled"], 0.0
 
 
 @pytest.mark.parametrize("name", ["clip_hevc.mp4", "portrait.mov", "clip_hevc10.mp4"])
@@ -123,9 +124,9 @@ def test_committed_clips_read_as_in_the_jax_package(tmp_path, capfd, name):
     portrait `hev1` QuickTime stream and clip_hevc10.mp4 (Main 10 in
     clip_hevc.mp4's layout, BT.709): the port's probe_video equals the JAX
     package's, and extract_frames gives as many frames, each within the
-    conversion tolerance the I_PCM stream of its pictures shows (the 8-bit
-    clips) or `MAIN10_TOLERANCE` (the Main 10 one, its mean difference within
-    `MAIN10_MEAN`)."""
+    conversion's fixed bound once the I_PCM stream of its pictures holds it
+    (the 8-bit clips) or `MAIN10_TOLERANCE` (the Main 10 one, its mean
+    difference within `MAIN10_MEAN`): 0, bit for bit, on both."""
     clip = CORPUS / name
     probe = tvideo.probe_video(clip)
     assert probe == jvideo.probe_video(clip)

@@ -37,6 +37,7 @@ from omfs4d_torch.io import container, h264, mpeg4, mpeg4_tables
 from omfs4d_torch.io import video as tvideo
 from tests import torch_h264_syntax as hsyn
 from tests import torch_mpeg4_syntax as syn
+from tests.test_torch_h264_high import PATH_BOUND
 
 CORPUS = Path(__file__).resolve().parent / "data" / "mpeg4"
 REPO = Path(__file__).resolve().parent.parent
@@ -415,16 +416,18 @@ def test_a_cut_vop_names_its_frame(tmp_path):
 # ── files cv2 and the JAX package write ─────────────────────
 
 def rgb_tolerance(planes, colour, tmp_path, capfd) -> int:
-    """The largest difference between the port's conversion of the planes
-    and cv2's decode of an I_PCM stream of them: the conversions' own."""
+    """The fixed bound of swscale's unscaled path (`PATH_BOUND`, 0: bit for
+    bit), once the port's conversion of the planes is held within it of
+    cv2's decode of an I_PCM stream of them."""
     (tmp_path / "tol.h264").write_bytes(hsyn.pcm_stream(planes, colour))
     theirs = cv2_read(tmp_path / "tol.h264", capfd)
-    worst = 0
+    bound = PATH_BOUND["unscaled"]
+    assert len(theirs) == len(planes)
     for p, bgr in zip(planes, theirs):
         ours = h264.ycbcr_to_rgb(*p, full_range=bool(colour and colour[0]),
                                  matrix=colour[1] if colour else 2)
-        worst = max(worst, int(np.abs(ours.astype(int) - bgr[..., ::-1]).max()))
-    return worst
+        assert np.abs(ours.astype(int) - bgr[..., ::-1]).max() <= bound
+    return bound
 
 
 def moving_clip(n: int, h: int, w: int, seed: int = 0) -> list[np.ndarray]:

@@ -178,13 +178,13 @@ def test_extract_frames_from_a_directory(tmp_path):
 def test_a_video_file_needs_ffmpeg_and_jpeg_is_refused(small_case, tmp_path, monkeypatch):
     """With no ffmpeg, a file that is no AVI or MP4 needs ffmpeg and says so;
     a Motion JPEG file does not: the capture stitched to an AVI is probed and
-    extracted, each frame the decode of its JPEG in the file.  A capture of
+    extracted, each frame the decode of its JPEG in the file as cv2 reads a
+    video frame (`mjpeg.frame_rgb`).  A capture of
     JPEG frames is probed, preprocessed (frames equal to cv2's decode) and
     tracked."""
     import shutil
 
     from omfs4d_torch.io import mjpeg
-    from omfs4d_torch.io.jpeg import decode_jpeg
 
     monkeypatch.setattr(tvideo, "find_ffmpeg", lambda: None)
     (tmp_path / "clip.mp4").write_bytes(b"not a video")
@@ -205,7 +205,7 @@ def test_a_video_file_needs_ffmpeg_and_jpeg_is_refused(small_case, tmp_path, mon
     jpegs = mjpeg.frames(avi)
     assert len(extracted) == len(jpegs) == 4
     for p, data in zip(extracted, jpegs):
-        np.testing.assert_array_equal(tvideo.read_image(p), decode_jpeg(data))
+        np.testing.assert_array_equal(tvideo.read_image(p), mjpeg.frame_rgb(data))
 
     jpegs = tmp_path / "jpegs"
     jpegs.mkdir()

@@ -37,7 +37,7 @@ through its own CABAC encoder (9.3.4, the context selection of 9.3.4.2):
   filter's PPS and slice overrides, slice_loop_filter_across_slices;
 - parameter sets: VPS, several SPS / PPS ids, sub-layer ordering info, a
   conformance window, the VUI's colour (`torch_h264_syntax.vui_colour`),
-  timing, default display window and HRD, explicit weighted prediction,
+  chroma sample location (`chroma_loc`, one type for both fields), timing, default display window and HRD, explicit weighted prediction,
   list modification, TMVP's collocated picture;
 - Main 10 (`bit_depth`): the depths in the SPS, SAO offsets up to 31, slice
   QPs, init_qp and cu_qp_delta over the range QpBdOffsetY widens (down to
@@ -212,7 +212,7 @@ DEFAULTS = dict(
     weighted=False, deblock=("on", "off", "offsets"), deblock_override=True, lf_across=(0, 1),
     list_mod=False, merge_level=(2, 3), cabac_init=True, chroma_offsets=(0, 0),
     slice_chroma=False, output_flag=False, no_output_prior=False, sublayers=False, cra=False,
-    colour=None, display_window=False, extra_bits=0, header_ext=False, sps_rps=0.6,
+    colour=None, chroma_loc=None, display_window=False, extra_bits=0, header_ext=False, sps_rps=0.6,
     inter_rps=0.5, non_ref=0.0, mvd_l1_zero=0.5, fps=25, hrd=False, level=93, big=0.05,
     param_sets=1, max_merge=(1, 5), idr_every=0, root_cbf=0.7, mvd_max=24, refuse=None,
     bit_depth=8, sei=(),
@@ -595,7 +595,8 @@ class Writer:
                 bw.u(1, used)
         bw.u(1, f["tmvp"])
         bw.u(1, f["strong"])
-        vui = f["colour"] is not None or f["display_window"] or f["hrd"] or rng.random() < 0.5
+        vui = (f["colour"] is not None or f["chroma_loc"] is not None or f["display_window"]
+               or f["hrd"] or rng.random() < 0.5)
         bw.u(1, vui)
         if vui:
             aspect = rng.random() < 0.3
@@ -613,7 +614,10 @@ class Writer:
                 bw.u(1, 1)
                 for v in colour[1:]:
                     bw.u(8, v)
-            bw.u(1, 0)
+            bw.u(1, f["chroma_loc"] is not None)
+            if f["chroma_loc"] is not None:        # top and bottom field alike
+                bw.ue(f["chroma_loc"])
+                bw.ue(f["chroma_loc"])
             bw.u(3, 0)
             bw.u(1, f["display_window"])
             if f["display_window"]:
