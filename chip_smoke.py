@@ -244,7 +244,13 @@ Phase M: the reference's user path from a video file to a prediction video,
   the port's conversion of Y'CbCr to RGB (`io/swscale.py`, swscale's as cv2
   runs it) against cv2's committed in tests/data/swscale/cv2_swscale.npz:
   every case (both of swscale's paths, both ranges) within SWSCALE_BOUND,
-  and a 1080p frame timed on each path.
+  and a 1080p frame timed on each path.  Then the Matroska and AVI readers
+  against tests/data/matroska/manifest.json (cv2's probes and frame
+  SHA-256s): cv2's committed `.mkv` files, and the remuxes of the committed
+  H.264, HEVC and MPEG-4 clips into Matroska and (Annex B) AVI, made again
+  here by the tests' muxer to the manifest's bytes; `cli preprocess --video
+  clip_b.mkv` (1080p H.264 B-pyramid in Matroska) gives clip_b.mp4's nine
+  frames at target_size 512, timed per frame.
   Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
   `encode_h264` (IDR and P) and the H.264 readers at 512^2 and at 1920 x
   1080 (the host decoder and the plain Python reader on encode_h264's 1080p
@@ -409,6 +415,8 @@ SWSCALE_BOUND = 0
 H264_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "h264"
 MPEG4_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpeg4"
 HEVC_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "hevc"
+# the committed Matroska / AVI corpus (tests/make_matroska_corpus.py)
+MATROSKA_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "matroska"
 # phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
 # the skull phantom's seed and noise, the crop held against the CPU path, the
 # share by which the raw mesh's enclosed volume may differ from the phantom's
@@ -3248,6 +3256,16 @@ def hevc_corpus(work: Path) -> dict:
             "preprocess_hdr_s": runs["clip_hevc10.mov"]}
 
 
+def tests_module(name: str):
+    """A module of this checkout's tests/ by path (a `tests` package
+    installed elsewhere would win an import by name)."""
+    spec = importlib.util.spec_from_file_location(
+        name, Path(__file__).resolve().parent / "tests" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
 def colour_against_cv2(work: Path) -> dict:
     """The port's colour management (`omfs4d_torch.io.colour`) held to cv2's
     output committed in `tests/data/hevc/cv2_colour.npz` (cv2 is not on the
@@ -3262,16 +3280,7 @@ def colour_against_cv2(work: Path) -> dict:
     conversion with the matrix and range alone that the mapping replaced."""
     from omfs4d_torch.io import colour, h264, hevc
 
-    def test_module(name: str):
-        """A module of this checkout's tests/ by path (a `tests` package
-        installed elsewhere would win an import by name)."""
-        spec = importlib.util.spec_from_file_location(
-            name, Path(__file__).resolve().parent / "tests" / f"{name}.py")
-        module = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(module)
-        return module
-
-    colour_relays, syn = test_module("colour_relays"), test_module("torch_h264_syntax")
+    colour_relays, syn = tests_module("colour_relays"), tests_module("torch_h264_syntax")
 
     manifest = json.loads((HEVC_CORPUS / "manifest.json").read_text())
     entry = manifest["samples"]["cv2_colour.npz"]
@@ -3362,6 +3371,71 @@ def swscale_against_cv2() -> dict:
               f"{path.name}: the 1080p conversion is its reader's frame")
         hd_s[name] = min(times)
     return {"cases": len(worst), "worst": max(worst.values()), "hd_s": hd_s}
+
+
+def matroska_corpus(work: Path) -> dict:
+    """The port's Matroska and AVI readers on the card's machine (no cv2
+    there), against `tests/data/matroska/manifest.json`, which cv2 wrote:
+    cv2's committed `.mkv` files have their SHA-256s and read to cv2's probe
+    and frames (SHA-256 of each RGB frame); each remux of the committed
+    clips (H.264, HEVC, Main 10 and MPEG-4 in Matroska, H.264 and HEVC as
+    Annex B in AVI) is re-made by the tests' muxer
+    (`tests/torch_mkv_mux.py`), has the manifest's bytes, and reads to
+    cv2's probe and frames.  Then `cli preprocess --video` on clip_b.mkv
+    (clip_b.mp4's 1080p H.264 B-pyramid in Matroska) at target_size 512 is
+    timed, its frames equal to clip_b.mp4's (h264_corpus's run)."""
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    mux = tests_module("torch_mkv_mux")
+    manifest = json.loads((MATROSKA_CORPUS / "manifest.json").read_text())
+
+    def read_as_cv2(path: Path, entry: dict) -> int:
+        frames = tvideo._own_reader(path)
+        check(tvideo.probe_video(path) == entry["probe"],
+              f"{path.name}: probe_video {tvideo.probe_video(path)} is cv2's {entry['probe']}")
+        got = [hashlib.sha256(frames.rgb(i).tobytes()).hexdigest() for i in range(len(frames))]
+        check(got == entry["sha256"], f"{path.name}: {len(got)} frames equal to cv2's "
+                                      f"{len(entry['sha256'])} of the manifest")
+        return len(got)
+
+    t0 = time.perf_counter()
+    n_frames = 0
+    for name, entry in manifest["files"].items():
+        path = MATROSKA_CORPUS / name
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the file's SHA-256 is the manifest's")
+        n_frames += read_as_cv2(path, entry)
+    remux_s, remux_bytes = 0.0, 0
+    for name, clip, kind in mux.REMUXES:
+        entry = manifest["remuxes"][name]
+        t1 = time.perf_counter()
+        path = mux.remux(clip, kind, work / name)
+        remux_s += time.perf_counter() - t1
+        data = path.read_bytes()
+        remux_bytes += len(data)
+        check(hashlib.sha256(data).hexdigest() == entry["file_sha256"],
+              f"{name}: the remux of {entry['clip']} has the manifest's SHA-256")
+        n_frames += read_as_cv2(path, entry)
+    corpus_s = time.perf_counter() - t0
+    wd = work / "wd_mkv_b"
+    t0 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(work / "clip_b.mkv"), "--workdir",
+                    str(wd)]) == 0, "cli preprocess --video clip_b.mkv")
+    preprocess_s = time.perf_counter() - t0
+    (stage,) = list((wd / "stages").glob("preprocess-*"))
+    ours = sorted((stage / "images").glob("*.png"))
+    (stage,) = list((work / "wd_mp4_b" / "stages").glob("preprocess-*"))
+    theirs = sorted((stage / "images").glob("*.png"))
+    check(len(ours) == len(theirs) == 9, f"clip_b.mkv preprocessed to {len(ours)} frames, "
+                                         f"clip_b.mp4 to {len(theirs)}: 9 each")
+    for a, b in zip(ours, theirs):
+        check(np.array_equal(tvideo.read_image(a), tvideo.read_image(b)),
+              f"clip_b.mkv's preprocessed {a.name} equals clip_b.mp4's")
+    return {"files": len(manifest["files"]), "remuxes": len(mux.REMUXES), "frames": n_frames,
+            "corpus_s": corpus_s, "remux_s": remux_s, "remux_bytes": remux_bytes,
+            "preprocess_s": preprocess_s, "preprocess_frames": len(ours),
+            "shape": tvideo.read_image(ours[0]).shape}
 
 
 def phase_m(model, device, card: str, work: Path) -> dict:
@@ -3570,6 +3644,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         hevc_s = time.perf_counter() - t_hevc
         col = colour_against_cv2(work)
         sws = swscale_against_cv2()
+        t_mkv = time.perf_counter()
+        mkv = matroska_corpus(work)
+        mkv_s = time.perf_counter() - t_mkv
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -3678,6 +3755,14 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"cases (both paths, both ranges) {sws['worst']} levels off at worst (bound "
           f"{SWSCALE_BOUND}); a 1080p frame in {sws['hd_s']['unscaled']:.4f} s (8-bit, "
           f"unscaled path) / {sws['hd_s']['scaled']:.4f} s (10-bit, scaled path) [{card}]")
+    print(f"  Matroska / AVI (matroska.py, container.py): cv2's {mkv['files']} .mkv files and "
+          f"the {mkv['remuxes']} remuxes of the committed clips (made again by the tests' muxer "
+          f"in {mkv['remux_s']:.2f} s, {mkv['remux_bytes']} bytes, each the manifest's SHA-256) "
+          f"read to cv2's probes and {mkv['frames']} frames in {mkv['corpus_s']:.2f} s; cli "
+          f"preprocess --video clip_b.mkv (1920x1080 H.264 B-pyramid) {mkv['preprocess_s']:.2f} "
+          f"s -> {mkv['preprocess_frames']} frames {mkv['shape'][1]}x{mkv['shape'][0]}, "
+          f"{mkv['preprocess_s'] / mkv['preprocess_frames']:.4f} s/frame, equal to clip_b.mp4's; "
+          f"the Matroska / AVI part {mkv_s:.2f} s [{card}]")
     print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
     return {"fwd": fwd, "bwd": bwd}
 

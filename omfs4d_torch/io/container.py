@@ -1,21 +1,27 @@
-"""The containers of the port's video files, AVI and MP4, with the standard
-library: which codec a file holds and where its frames lie (`index`), and
-the file writing the port's two written codecs share (`write_file`).  The
-codecs sit on top of it as siblings: Motion JPEG (`omfs4d_torch.io.mjpeg`),
-H.264 (`omfs4d_torch.io.h264`), HEVC (`omfs4d_torch.io.hevc`, read only) and
-MPEG-4 Part 2 (`omfs4d_torch.io.mpeg4`, read only); the MP4 boxes are
-`omfs4d_torch.io.mp4`'s.
+"""The containers of the port's video files, AVI, MP4 and Matroska / WebM,
+with the standard library: which codec a file holds and where its frames lie
+(`index`), and the file writing the port's two written codecs share
+(`write_file`).  The codecs sit on top of it as siblings: Motion JPEG
+(`omfs4d_torch.io.mjpeg`), H.264 (`omfs4d_torch.io.h264`), HEVC
+(`omfs4d_torch.io.hevc`, read only) and MPEG-4 Part 2
+(`omfs4d_torch.io.mpeg4`, read only); the MP4 boxes are
+`omfs4d_torch.io.mp4`'s, the Matroska elements `omfs4d_torch.io.matroska`'s.
 
 - AVI (RIFF): the `hdrl` list's first video `strl` (`strh` of type `vids`,
   a BITMAPINFOHEADER `strf` naming the codec), and its frames from the
   `movi` lists, walked chunk by chunk (`idx1` is not trusted, only counted),
   following the `RIFF AVIX` lists of an OpenDML file past 1 GB and skipping
-  `JUNK` and `ix##` chunks.  AVI holds Motion JPEG (`MJPG`, ...) or MPEG-4
+  `JUNK` and `ix##` chunks.  AVI holds Motion JPEG (`MJPG`, ...), MPEG-4
   Part 2 (`XVID`, `FMP4`, `DIVX`, `DX50`, `MP4V`, upper or lower case), the
   latter with whatever follows the BITMAPINFOHEADER in `strf` as its
-  extradata (`dsi`, maybe empty).  A zero-byte chunk is a frame the writer
-  dropped: it has no sample, but counts in `frame_count` (cv2 counts it and
-  shows no frame for it).
+  extradata (`dsi`, maybe empty), H.264 (`H264`, `X264`, `avc1`, `DAVC`,
+  ...) and HEVC (`HEVC`, `H265`, `hev1`, `hvc1`): an Annex B byte stream,
+  its parameter sets in band, as FFmpeg's AVI muxer writes x264's and
+  x265's output (`info["annexb"]`, the extradata, maybe empty), or
+  length-prefixed after an avcC / hvcC extradata (`info["avcC"]` /
+  `info["hvcC"]`, as FFmpeg tells the two apart).  A zero-byte chunk is a
+  frame the writer dropped: it has no sample, but counts in `frame_count`
+  (cv2 counts it and shows no frame for it).
 - MP4 / QuickTime: the first video track (`mp4.read_track`; a sound track
   beside it is skipped).  Its codec is Motion JPEG for an `mp4v` sample
   entry whose esds has objectTypeIndication 0x6C (as FFmpeg muxes MJPEG into
@@ -23,11 +29,16 @@ MPEG-4 Part 2 (`omfs4d_torch.io.mpeg4`, read only); the MP4 boxes are
   entry of objectTypeIndication 0x20, its DecoderSpecificInfo (the VOS / VOL
   headers) as `dsi`; H.264 for `avc1` / `avc3` with an `avcC` box; HEVC for
   `hvc1` / `hev1` with an `hvcC` box.
+- Matroska / WebM (EBML, whatever the suffix): the first video track, its
+  codec by CodecID (`matroska.index`): Motion JPEG, MPEG-4 Part 2, H.264 and
+  HEVC, and a VfW track's fourcc read as AVI's.
 
-Any other codec (AVI's `H264` or `HEVC`, AV1, VP9, ...) raises
-`UnsupportedCodecError` naming it: decoding it needs an ffmpeg binary.  So does a file that is
-neither container.  A frame whose bytes end early raises ValueError with its
-index, and a file holding fewer frames than its header declares raises too.
+Any other codec (VP8, VP9, AV1, MS MPEG-4 v3, ...) raises
+`UnsupportedCodecError` naming it: decoding it needs an ffmpeg binary.  So
+does a file that is none of the containers.  A frame whose bytes end early
+raises ValueError with its index (in Matroska, whose frames no header
+counts, the cut block is dropped as FFmpeg drops it), and an AVI or MP4
+file holding fewer frames than its header declares raises too.
 """
 
 from __future__ import annotations
@@ -38,19 +49,19 @@ from collections.abc import Callable
 from fractions import Fraction
 from pathlib import Path
 
-from omfs4d_torch.io import mp4
+from omfs4d_torch.io import matroska, mp4
 
 
 class UnsupportedCodecError(RuntimeError):
     """The video file holds a codec that the port cannot decode without an
-    ffmpeg binary, or it is no AVI or MP4 file at all."""
+    ffmpeg binary, or it is no AVI, MP4 or Matroska file at all."""
 
 
 def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
-        f"{path}: {what}; the port reads only Motion JPEG (MJPG) in AVI or MP4, H.264 "
-        "(Main / High profile I, P and B pictures) and HEVC (Main and Main 10 profiles, "
-        "whole) in MP4 or QuickTime and MPEG-4 Part 2 (Simple profile) in MP4 or AVI by "
+        f"{path}: {what}; the port reads only Motion JPEG (MJPG), H.264 (Main / High "
+        "profile I, P and B pictures), HEVC (Main and Main 10 profiles, whole) and MPEG-4 "
+        "Part 2 (Simple profile), each in AVI, MP4 / QuickTime or Matroska / WebM, by "
         "itself, decoding this needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
 
 
@@ -59,9 +70,12 @@ _AVI_MJPEG = {b"MJPG", b"mjpg", b"AVRn", b"dmb1", b"jpeg", b"JPEG"}
 # AVI fourccs of MPEG-4 Part 2 (Xvid, FFmpeg, DivX 4 and 5, generic)
 _AVI_MPEG4 = {b"XVID", b"xvid", b"FMP4", b"fmp4", b"DIVX", b"divx", b"DX50", b"MP4V",
               b"mp4v"}
-_AVI_NAMES = {b"H264": "H.264", b"h264": "H.264", b"X264": "H.264", b"avc1": "H.264",
-              b"DIV3": "MS MPEG-4 v3 (DivX 3)", b"MP43": "MS MPEG-4 v3",
-              b"HEVC": "H.265 / HEVC", b"H265": "H.265 / HEVC"}
+# AVI fourccs of H.264 and of HEVC
+_AVI_H264 = {b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1", b"DAVC"}
+_AVI_HEVC = {b"HEVC", b"H265", b"hev1", b"hvc1"}
+_AVI_NAMES = {b"DIV3": "MS MPEG-4 v3 (DivX 3)", b"MP43": "MS MPEG-4 v3",
+              b"VP80": "VP8", b"VP90": "VP9", b"AV01": "AV1", b"WMV3": "WMV 9",
+              b"mpg2": "MPEG-2 video", b"MPG2": "MPEG-2 video"}
 # MP4 sample entries of Motion JPEG and of H.264, and names of those that
 # need another decoder
 _MP4_MJPEG = {b"jpeg", b"mjpa"}
@@ -79,6 +93,30 @@ _OTI_NAMES = {0x21: "H.264", 0x60: "MPEG-2 video",
 
 
 # ── AVI ─────────────────────────────────────────────────────────────────
+
+def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI fourcc") -> dict:
+    """The codec keys of `index`'s info for a BITMAPINFOHEADER's fourcc and
+    the extradata after it (an AVI `strf`, a Matroska VfW CodecPrivate).
+    H.264 and HEVC samples are length-prefixed after an avcC / hvcC
+    extradata and an Annex B byte stream after any other, as FFmpeg's
+    decoders tell them apart (avcC starts with its version, 1; hvcC with no
+    start code)."""
+    if compression in _AVI_MJPEG:
+        return {"codec": "mjpeg"}
+    if compression in _AVI_MPEG4:
+        return {"codec": "mpeg4", "dsi": extradata}
+    if compression in _AVI_H264:
+        if extradata[:1] == b"\x01":
+            return {"codec": "h264", "avcC": extradata}
+        return {"codec": "h264", "annexb": extradata}
+    if compression in _AVI_HEVC:
+        if len(extradata) > 3 and (extradata[0] or extradata[1] or extradata[2] > 1):
+            return {"codec": "hevc", "hvcC": extradata}
+        return {"codec": "hevc", "annexb": extradata}
+    name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
+    raise _needs_ffmpeg(path, f"its video is {name} ({where} "
+                              f"{compression.decode('latin-1')!r})")
+
 
 def _avi_chunks(buf, start: int, end: int):
     """(fourcc, data start, data size, list type or None) of each chunk
@@ -149,13 +187,7 @@ def _read_avi(buf, path: Path):
     if video is None:
         raise ValueError(f"{path}: an AVI file with no video stream")
     compression, width, height, fps = video
-    codec = {"codec": "mjpeg"}
-    if compression in _AVI_MPEG4:
-        codec = {"codec": "mpeg4", "dsi": extradata}
-    elif compression not in _AVI_MJPEG:
-        name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
-        raise _needs_ffmpeg(path, f"its video is {name} (AVI fourcc "
-                                  f"{compression.decode('latin-1')!r})")
+    codec = avi_codec(compression, extradata, path)
     found = len(offsets)
     if max(declared, idx1_frames) > found + dropped[0]:
         raise ValueError(f"{path}: the file holds {found} frames of stream {stream}, its "
@@ -253,32 +285,45 @@ def _read_mp4(buf, path: Path):
 # ── the API ─────────────────────────────────────────────────────────────
 
 def index(path) -> tuple[list[int], list[int], dict]:
-    """(sample offsets, sample sizes, info) of the video track of an AVI or
-    MP4 file: info holds width, height (the container's), fps (0.0 where the
-    container gives none), frame_count, container ("avi" or "mp4") and
-    codec: "mjpeg"; "h264" for an MP4 `avc1` / `avc3` track, then with its
-    `avcC` box's body and `sync`, the indices of its sync samples (None:
-    every sample); "hevc" for `hvc1` / `hev1`, then with its `hvcC` box's
-    body and `sync`; "mpeg4" for MPEG-4 Part 2 in MP4 (`mp4v`, OTI 0x20) or
-    AVI, then with `dsi`, the headers the esds or the AVI extradata holds
-    (maybe b"").  Any other codec raises `UnsupportedCodecError` naming
-    it."""
+    """(sample offsets, sample sizes, info) of the video track of an AVI,
+    MP4 or Matroska / WebM file: info holds width, height (the container's),
+    fps (0.0 where the container gives none), frame_count, container ("avi",
+    "mp4" or "matroska") and codec: "mjpeg"; "h264", then with `avcC`, the
+    avcC box's body (MP4, Matroska, an AVI's avcC extradata), or `annexb`,
+    the extradata of a track of Annex B samples (AVI, maybe b""), and
+    `sync`, the indices of its sync samples (None: every sample, or for
+    Annex B: found by the reader); "hevc" alike with `hvcC`; "mpeg4" for
+    MPEG-4 Part 2, then with `dsi`, the headers the esds, the AVI extradata
+    or the CodecPrivate holds (maybe b"").  Matroska adds `prefix` where its
+    track strips a header from every frame.  Any other codec raises
+    `UnsupportedCodecError` naming it."""
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(f"no video file at {path}")
     with open(p, "rb") as f:
         head = f.read(12)
         if len(head) < 12:
-            raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 file (too short)")
+            raise _needs_ffmpeg(p, "it is no AVI, MP4 or Matroska file (too short)")
         with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as buf:
             try:
                 if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
                     return _read_avi(buf, p)
                 if head[4:8] in (b"ftyp", b"moov", b"mdat", b"free", b"wide", b"skip"):
                     return _read_mp4(buf, p)
-            except (struct.error, IndexError, TypeError) as e:
+                if head[:4] == matroska.MAGIC:
+                    return matroska.index(buf, p)
+            except (struct.error, IndexError, TypeError, matroska.Cut) as e:
                 raise ValueError(f"{p}: a corrupt or cut-short container ({e})") from e
-    raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 / QuickTime file")
+    raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 / QuickTime file, nor a Matroska "
+                           "/ WebM one")
+
+
+def read_sample(f, offset: int, size: int, info: dict) -> bytes:
+    """A sample's bytes from the file open as f, after the header its
+    Matroska track strips from every frame (`info["prefix"]`); fewer than
+    size bytes where the file ends early."""
+    f.seek(offset)
+    return info.get("prefix", b"") + f.read(size)
 
 
 def write_file(path, fps: float, width: int, height: int,

@@ -1,27 +1,30 @@
-"""What the port's MP4 video codecs with reordered output share
-(`h264`, `hevc`): the ctypes wrapper of their host C++ decoders
-(`HostDecoder`, one C API shape), and the sample reader (`SampleFrames`:
-length-prefixed NAL units of each sample, output order by presentation time,
-the edit list, the display rotation, restarts at the sync samples that start
-their output order cleanly, and a cache of the pictures decoded past the one
-asked for).
+"""What the port's video codecs with reordered output share (`h264`,
+`hevc`): the ctypes wrapper of their host C++ decoders (`HostDecoder`, one C
+API shape), the Annex B splitter (`annexb_units`), and the sample reader
+(`SampleFrames`: the NAL units of each sample, length-prefixed as MP4 and
+Matroska hold them or an Annex B byte stream as AVI does, output order by
+presentation time, the edit list, the display rotation, restarts at the sync
+samples that start their output order cleanly, and a cache of the pictures
+decoded past the one asked for).
 
-A `SampleFrames` subclass sets `length` (the NAL length size) and `params`
-(the parameter set's `width`, `height`, `fps`, `full_range` and `matrix`),
-and gives `header_units` (what a restart pushes first), `new_decoder` (its
-`HostDecoder`) and `rgb_of` (a picture's colour conversion).
+A `SampleFrames` subclass sets `length` (the NAL length size; 0 for Annex
+B) and `params` (the parameter set's `width`, `height`, `fps`, `full_range`
+and `matrix`), and gives `header_units` (what a restart pushes first),
+`new_decoder` (its `HostDecoder`) and `rgb_of` (a picture's colour
+conversion).
 """
 
 from __future__ import annotations
 
 import bisect
 import ctypes
-from collections.abc import Iterator, Sequence
+import re
+from collections.abc import Callable, Iterator, Sequence
 from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import mp4
+from omfs4d_torch.io import container, mp4
 
 # the C API every host decoder exports, after its prefix: (name, argtypes,
 # restype); `nal`, `end_picture` and `flush` return 0, 1 (corrupt) or 2
@@ -51,6 +54,19 @@ def bind_decoder(lib: ctypes.CDLL, prefix: str) -> ctypes.CDLL:
         if fn is not None:
             fn.argtypes, fn.restype = argtypes, restype
     return lib
+
+
+def annexb_units(data: bytes) -> list[bytes]:
+    """The NAL units of an Annex B byte stream (start code prefixes 00 00 01
+    and 00 00 00 01; trailing zero bytes dropped), H.264's or HEVC's."""
+    starts = [m.end() for m in re.finditer(rb"\x00\x00\x01", data)]
+    units = []
+    for k, s in enumerate(starts):
+        end = starts[k + 1] - 3 if k + 1 < len(starts) else len(data)
+        unit = data[s:end].rstrip(b"\x00")
+        if unit:
+            units.append(unit)
+    return units
 
 
 class HostDecoder:
@@ -126,15 +142,16 @@ class HostDecoder:
 
 
 class SampleFrames(Sequence):
-    """The frames of an MP4 / QuickTime video track as (H, W, 3) uint8 RGB,
-    decoded by a host decoder on access (`frames[i]`, `len(frames)`,
-    iteration), as cv2 shows them: in output order (presentation order,
-    which `ctts` gives where B pictures reorder them), only those the edit
-    list keeps, each turned by the track's display rotation.  A frame is
-    decoded from the last sync sample that starts its output order cleanly
-    (every sample before it shown before it, every one from it on after it:
-    no leading picture needs a reference decoded before it), or on from the
-    last one decoded."""
+    """The frames of a video track (MP4 / QuickTime, Matroska, AVI) as (H,
+    W, 3) uint8 RGB, decoded by a host decoder on access (`frames[i]`,
+    `len(frames)`, iteration), as cv2 shows them: in output order
+    (presentation order, which `ctts` or Matroska's block times give where B
+    pictures reorder them; the decoder's own where AVI gives no times), only
+    those the edit list keeps, each turned by the track's display rotation.
+    A frame is decoded from the last sync sample that starts its output
+    order cleanly (every sample before it shown before it, every one from it
+    on after it: no leading picture needs a reference decoded before it),
+    or on from the last one decoded."""
 
     length: int
     params: dict
@@ -156,6 +173,7 @@ class SampleFrames(Sequence):
                 self.starts.append(s)
             prefix_max = max(prefix_max, position[s])
         self.shown = info.get("shown") or list(range(n))
+        self.start_outputs = self.starts       # the output position each start's decode opens at
         self.rotation = info.get("rotation", 0)
         self._decoder = None
         self._pushed = self._next = -1      # the last sample pushed, the next frame out
@@ -175,11 +193,30 @@ class SampleFrames(Sequence):
     def __len__(self) -> int:
         return len(self.shown)
 
+    def in_band_starts(self, kind: Callable[[bytes], int],
+                       starts_at: Callable[[list[list[int]], int], bool],
+                       silent: Callable[[list[list[int]]], set[int]] = lambda kinds: set()
+                       ) -> None:
+        """Set the samples a decode may restart at in a track with no sync
+        table and no times (AVI): those `starts_at(kinds, s)` accepts,
+        `kinds` being the NAL unit types (`kind`) of every sample, read from
+        the file; the samples `silent(kinds)` names output no picture (RASL
+        pictures FFmpeg drops), so that the frames and the output positions
+        of the restarts leave them out."""
+        kinds = [[kind(u) for u in self.units(s)] for s in range(len(self.offsets))]
+        self.sync = self.starts = [s for s in range(len(kinds)) if starts_at(kinds, s)]
+        quiet = silent(kinds)
+        self.shown = list(range(len(kinds) - len(quiet)))
+        self.start_outputs = [s - sum(q < s for q in quiet) for s in self.starts]
+
     def units(self, i: int) -> list[bytes]:
         """The NAL units of sample i."""
         with open(self.path, "rb") as f:
-            f.seek(self.offsets[i])
-            data = f.read(self.sizes[i])
+            data = container.read_sample(f, self.offsets[i], self.sizes[i], self.info)
+        if self.length == 0:                       # an Annex B byte stream
+            if len(data) < self.sizes[i] + len(self.info.get("prefix", b"")):
+                raise ValueError(f"{self.path}: frame {i} is cut short")
+            return annexb_units(data)
         out, pos = [], 0
         while pos < len(data):
             size = int.from_bytes(data[pos:pos + self.length], "big")
@@ -203,7 +240,7 @@ class SampleFrames(Sequence):
         n = len(self.offsets)
         if i in self._held:
             return self._held[i]
-        k = bisect.bisect_right(self.starts, i) - 1
+        k = bisect.bisect_right(self.start_outputs, i) - 1
         if k < 0:
             raise ValueError(f"{self.path}: frame {i} follows no sync sample")
         start = self.starts[k]
@@ -211,7 +248,7 @@ class SampleFrames(Sequence):
             self._decoder = self.new_decoder()
             for unit in self.header_units():
                 self._decoder.push(unit)
-            self._pushed, self._next = start - 1, start
+            self._pushed, self._next = start - 1, self.start_outputs[k]
         self._held = {j: p for j, p in self._held.items() if j >= i}
         while i not in self._held:
             if self._pushed + 1 < n:

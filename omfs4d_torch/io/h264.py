@@ -1576,17 +1576,8 @@ class Decoder(frames_base.HostDecoder):
         return _unsupported(msg)
 
 
-def annexb_units(data: bytes) -> list[bytes]:
-    """The NAL units of an Annex B byte stream (start code prefixes 00 00 01
-    and 00 00 00 01; trailing zero bytes dropped)."""
-    starts = [m.end() for m in re.finditer(rb"\x00\x00\x01", data)]
-    units = []
-    for k, s in enumerate(starts):
-        end = starts[k + 1] - 3 if k + 1 < len(starts) else len(data)
-        unit = data[s:end].rstrip(b"\x00")
-        if unit:
-            units.append(unit)
-    return units
+# an Annex B stream's NAL units
+annexb_units = frames_base.annexb_units
 
 
 def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]]:
@@ -1602,15 +1593,29 @@ def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]
 
 
 class H264Frames(frames_base.SampleFrames):
-    """The frames of an H.264 MP4 / QuickTime file as (H, W, 3) uint8 RGB,
-    decoded by the host decoder on access, as cv2 shows them (see
-    `frames.SampleFrames`), converted with the VUI's range and matrix.  The
-    parameter sets are the avcC box's, or for `avc3` the first sample's."""
+    """The frames of an H.264 file (MP4 / QuickTime, Matroska, AVI) as (H, W,
+    3) uint8 RGB, decoded by the host decoder on access, as cv2 shows them
+    (see `frames.SampleFrames`), converted with the VUI's range and matrix.
+    The parameter sets are the avcC box's, or for `avc3` the first sample's;
+    an Annex B track's (AVI) are its extradata's or its first sample's.  An
+    AVI track, which has no sync table, restarts only at a sample holding an
+    IDR picture and parameter sets (its own, or the extradata's)."""
 
     def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
         super().__init__(path, offsets, sizes, info)
-        self.sps, self.pps, self.length = _avcc_units(info["avcC"], path)
-        if not self.sps:                       # avc3: the parameter sets in band
+        if "avcC" in info:
+            self.sps, self.pps, self.length = _avcc_units(info["avcC"], path)
+        else:                                  # Annex B samples
+            head = annexb_units(info["annexb"])
+            self.sps = [u for u in head if u[0] & 0x1F == _NAL_SPS][:1]
+            self.pps = [u for u in head if u[0] & 0x1F == _NAL_PPS]
+            self.length = 0
+        if "sync" not in info:                 # AVI: no sync table
+            extradata_sets = bool(self.sps and self.pps)
+            self.in_band_starts(lambda u: u[0] & 0x1F, lambda kinds, s: (
+                _NAL_IDR in kinds[s]
+                and (extradata_sets or {_NAL_SPS, _NAL_PPS} <= set(kinds[s]))))
+        if not self.sps:                       # avc3 / Annex B: the parameter sets in band
             self.sps = [u for u in self.units(0) if u[0] & 0x1F == _NAL_SPS][:1]
             self.pps = [u for u in self.units(0) if u[0] & 0x1F == _NAL_PPS]
             if not self.sps:

@@ -53,6 +53,10 @@ from omfs4d_torch.io import colour, container, h264, hevc_tables, swscale
 from omfs4d_torch.io import frames as frames_base
 
 NAL_SPS, NAL_PPS, NAL_SEI_PREFIX = 33, 34, 39
+NAL_VPS, NAL_CRA = 32, 21
+# the VCL types of trailing pictures (TRAIL, TSA, STSA), RASL pictures,
+# IRAP pictures (BLA, IDR, CRA and the reserved IRAP types) and BLA pictures
+_TRAILING, _RASL, _IRAP, _BLA = range(0, 6), (8, 9), range(16, 24), (16, 17, 18)
 
 
 def nal_type(unit: bytes) -> int:
@@ -389,15 +393,61 @@ def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]
     return out + dec.pictures()
 
 
+def _clean_start(kinds: list[list[int]], s: int, extradata_sets: bool) -> bool:
+    """Whether an Annex B stream's decode may restart at sample s (the NAL
+    types of every sample's base layer): it holds an IRAP picture and the
+    parameter sets (its own or the extradata's), and no RASL picture of a
+    mid-stream CRA follows it, which a decode started there would drop."""
+    k = kinds[s]
+    if not any(t in _IRAP for t in k):
+        return False
+    if not (extradata_sets or {NAL_VPS, NAL_SPS, NAL_PPS} <= set(k)):
+        return False
+    if s > 0 and NAL_CRA in k:
+        for later in kinds[s + 1:]:
+            if any(t in _RASL for t in later):
+                return False
+            if any(t in _TRAILING or t in _IRAP for t in later):
+                break
+    return True
+
+
+def _dropped_rasl(kinds: list[list[int]]) -> set[int]:
+    """The samples of an Annex B stream (the NAL types of every sample's
+    base layer) that output no picture: those of RASL pictures alone whose
+    IRAP picture is a BLA or the stream's first, which FFmpeg drops."""
+    out, irap = set(), None
+    for s, k in enumerate(kinds):
+        vcl = [t for t in k if t < 32]
+        if any(t in _IRAP for t in vcl):
+            irap = (s, next(t for t in vcl if t in _IRAP))
+        elif vcl and all(t in _RASL for t in vcl) and irap is not None and (
+                irap[0] == 0 or irap[1] in _BLA):
+            out.add(s)
+    return out
+
+
 class HEVCFrames(frames_base.SampleFrames):
-    """The frames of an HEVC MP4 / QuickTime file as (H, W, 3) uint8 RGB,
-    decoded by the host decoder on access, as cv2 shows them (see
-    `frames.SampleFrames`), converted with the VUI's range and matrix.  The
-    parameter sets are the hvcC box's and, for `hev1`, the first sample's."""
+    """The frames of an HEVC file (MP4 / QuickTime, Matroska, AVI) as (H, W,
+    3) uint8 RGB, decoded by the host decoder on access, as cv2 shows them
+    (see `frames.SampleFrames`), converted with the VUI's range and matrix.
+    The parameter sets are the hvcC box's and, for `hev1`, the first
+    sample's; an Annex B track's (AVI) are its extradata's and its first
+    sample's.  An AVI track, which has no sync table, restarts only where
+    `_clean_start` allows."""
 
     def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
         super().__init__(path, offsets, sizes, info)
-        self.headers, self.length = hvcc_units(info["hvcC"], path)
+        if "hvcC" in info:
+            self.headers, self.length = hvcc_units(info["hvcC"], path)
+        else:                                  # Annex B samples
+            self.headers, self.length = annexb_units(info["annexb"]), 0
+        if "sync" not in info:                 # AVI: no sync table
+            sets = {nal_type(u) for u in self.headers if nuh_layer_id(u) == 0}
+            extradata_sets = {NAL_VPS, NAL_SPS, NAL_PPS} <= sets
+            self.in_band_starts(
+                lambda u: nal_type(u) if nuh_layer_id(u) == 0 else -1,
+                lambda kinds, s: _clean_start(kinds, s, extradata_sets), _dropped_rasl)
         # refuse a stream outside the decoder's subset now, with no decode
         base = [u for u in self.headers + (self.units(0) if offsets else [])
                 if nuh_layer_id(u) == 0]

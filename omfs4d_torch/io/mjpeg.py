@@ -52,24 +52,29 @@ class MJPEGFrames(Sequence):
             raise IndexError(f"{self.path}: frame {i} of {n}")
         i %= n
         with open(self.path, "rb") as f:
-            f.seek(self.offsets[i])
-            data = f.read(self.sizes[i])
-        if len(data) < self.sizes[i]:
-            raise ValueError(f"{self.path}: frame {i} is cut short: {len(data)} of its "
-                             f"{self.sizes[i]} bytes are in the file")
+            data = container.read_sample(f, self.offsets[i], self.sizes[i], self.info)
+        prefix = len(self.info.get("prefix", b""))
+        if len(data) < prefix + self.sizes[i]:
+            raise ValueError(f"{self.path}: frame {i} is cut short: {len(data) - prefix} of "
+                             f"its {self.sizes[i]} bytes are in the file")
         return _checked_jpeg(data, self.path, i)
 
     def rgb(self, i: int) -> np.ndarray:
-        """Frame i as cv2 reads it (`frame_rgb`): (H, W, 3) uint8 RGB."""
-        return frame_rgb(self[i])
+        """Frame i as cv2 reads it (`frame_rgb`, turned by the container's
+        display rotation): (H, W, 3) uint8 RGB."""
+        rotation = self.info.get("rotation", 0)
+        return np.ascontiguousarray(np.rot90(frame_rgb(self[i]), -rotation // 90))
 
     def probe(self) -> dict:
         """{"width", "height", "fps", "frame_count"}, the keys of the
-        reference's `probe_video`; fps is 30.0 where the container gives 0,
-        as there."""
+        reference's `probe_video` (the size as displayed); fps is 30.0
+        where the container gives 0, as there."""
         info = self.info
-        return {"width": info["width"], "height": info["height"],
-                "fps": info["fps"] or 30.0, "frame_count": info["frame_count"]}
+        w, h = info["width"], info["height"]
+        if info.get("rotation", 0) in (90, 270):
+            w, h = h, w
+        return {"width": w, "height": h, "fps": info["fps"] or 30.0,
+                "frame_count": info["frame_count"]}
 
 
 def frame_rgb(data: bytes) -> np.ndarray:

@@ -339,8 +339,7 @@ class MPEG4Frames(Sequence):
         kinds, coded = [], []
         with open(path, "rb") as f:
             for i, (o, s) in enumerate(zip(offsets, sizes)):
-                f.seek(o)
-                data = f.read(s)
+                data = container.read_sample(f, o, s, info)
                 at = data.find(VOP)
                 if i == 0:
                     # AVI keeps the headers before the first VOP: every
@@ -358,7 +357,11 @@ class MPEG4Frames(Sequence):
                 kinds.append(kind)
                 coded.append(is_coded)
         if not offsets:
-            raise ValueError(f"{path}: no frames")
+            if not self.headers:
+                raise ValueError(f"{path}: no frames")
+            # no frame, but the container's headers (a Matroska file cut
+            # before its first frame): cv2 opens it and reads nothing
+            self.params = parse_headers(self.headers)
         self.colour = colour.stream(colour.from_container(self.params, info.get("colr")))
         self.shown = shown(coded)                # the sample each frame comes from
         self.starts = [i for i, (k, c) in enumerate(zip(kinds, coded)) if k == "I" and c]
@@ -371,9 +374,8 @@ class MPEG4Frames(Sequence):
 
     def sample(self, i: int) -> bytes:
         with open(self.path, "rb") as f:
-            f.seek(self.offsets[i])
-            data = f.read(self.sizes[i])
-        if len(data) != self.sizes[i]:
+            data = container.read_sample(f, self.offsets[i], self.sizes[i], self.info)
+        if len(data) != len(self.info.get("prefix", b"")) + self.sizes[i]:
             raise ValueError(f"{self.path}: frame {i} is cut short")
         return data
 
@@ -412,19 +414,23 @@ class MPEG4Frames(Sequence):
         return self._decoder.pictures()
 
     def __getitem__(self, i: int) -> np.ndarray:
-        return ycbcr_to_rgb(*self.ycbcr(i), **self.colour)
+        rgb = ycbcr_to_rgb(*self.ycbcr(i), **self.colour)
+        return np.ascontiguousarray(np.rot90(rgb, -self.info.get("rotation", 0) // 90))
 
     rgb = __getitem__
 
     def probe(self) -> dict:
         """{"width", "height", "fps", "frame_count"} as cv2 reports them, with
-        no decode: the VOL's size, the container's rate (else the VOL's fixed
-        rate, else 30.0) and the count of samples."""
+        no decode: the VOL's size (turned by the container's display
+        rotation), the container's rate (else the VOL's fixed rate, else
+        30.0) and the count of samples."""
         p = self.params
         fps = self.info["fps"] or (p["time_resolution"] / p["fixed_increment"]
                                    if p["fixed_increment"] else 30.0)
-        return {"width": p["width"], "height": p["height"], "fps": fps,
-                "frame_count": self.info["frame_count"]}
+        w, h = p["width"], p["height"]
+        if self.info.get("rotation", 0) in (90, 270):
+            w, h = h, w
+        return {"width": w, "height": h, "fps": fps, "frame_count": self.info["frame_count"]}
 
     def __iter__(self) -> Iterator[np.ndarray]:
         for i in range(len(self)):

@@ -23,26 +23,27 @@ contract).  With none, the port's own codecs:
   so that the port's own AVI captures stay readable where there is no
   ffmpeg; so do frames H.264 cannot hold (an odd side, beyond level 5.2).
 - `probe_video` / `extract_frames` index the file once
-  (`omfs4d_torch.io.container`) and read it with its codec's module: Motion
-  JPEG in AVI or MP4 (`mjpeg.MJPEGFrames`: each frame as FFmpeg's MJPEG
-  decoder and swscale give it to cv2, `mjpeg.frame_rgb`, where a JPEG file
-  is read as libjpeg reads it, `decode_jpeg`); H.264 Main /
-  High profile I, P and B pictures in MP4 or QuickTime, as phones record
-  them (`h264.H264Frames`, the host C++ decoder built by g++ at first use),
-  turned by the track's display matrix and cut by its edit list as cv2
-  reads them; HEVC Main and Main 10 profiles in MP4 or QuickTime (`hvc1` /
-  `hev1`), as iPhones record by default (Main 10 with "HDR Video") and x265
-  writes, read alike (`hevc.HEVCFrames`, the host C++ decoder `hevcdec.cpp`);
-  MPEG-4 Part 2 Simple profile in MP4 or AVI, as cv2's `mp4v`, `XVID`,
-  `DIVX` and `FMP4` writers (and so the JAX package's `stitch_video`
-  without an H.264 encoder) write it (`mpeg4.MPEG4Frames`, the host C++
-  decoder `mpeg4dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
+  (`omfs4d_torch.io.container`: AVI, MP4 / QuickTime, Matroska / WebM) and
+  read it with its codec's module, in any of the three containers: Motion
+  JPEG (`mjpeg.MJPEGFrames`: each frame as FFmpeg's MJPEG decoder and
+  swscale give it to cv2, `mjpeg.frame_rgb`, where a JPEG file is read as
+  libjpeg reads it, `decode_jpeg`); H.264 Main / High profile I, P and B
+  pictures, as phones record them in MP4 or QuickTime, x264 writes them
+  into Matroska and, as Annex B, into AVI (`h264.H264Frames`, the host C++
+  decoder built by g++ at first use), turned by the track's display matrix
+  (Matroska's projection) and cut by its edit list as cv2 reads them; HEVC
+  Main and Main 10 profiles, as iPhones record by default (Main 10 with
+  "HDR Video") and x265 writes, read alike (`hevc.HEVCFrames`, the host C++
+  decoder `hevcdec.cpp`); MPEG-4 Part 2 Simple profile, as cv2's `mp4v`,
+  `XVID`, `DIVX` and `FMP4` writers (and so the JAX package's
+  `stitch_video` without an H.264 encoder, into `.mp4`, `.avi` or `.mkv`)
+  write it (`mpeg4.MPEG4Frames`, the host C++ decoder `mpeg4dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
   swscale's own conversion bit for bit (`swscale`; 8-bit 4:2:0 on its
   unscaled path, 10-bit pictures, odd heights and JPEG's other samplings on
   its scaled one), and cv2's gamut and tone mapping of BT.2020 / PQ / HLG
   tagged streams (`colour`).  HEVC beyond Main 10 (more than 10 bits, tiles
   with WPP, ...), H.264 with fields or more than 8 bits, MPEG-4 Part 2
-  beyond Simple profile and other codecs raise
+  beyond Simple profile and other codecs (VP8, VP9, AV1, ...) raise
   `container.UnsupportedCodecError` naming the codec or feature.
 """
 
@@ -262,11 +263,11 @@ def probe_video(path: str | Path) -> dict:
     """Width, height, fps and frame count of a capture: a directory of PNG or
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
-    Motion JPEG in AVI or MP4, H.264 (Main / High, I, P and B pictures) or
-    HEVC (Main and Main 10) in MP4 or QuickTime or MPEG-4 Part 2 (Simple) in MP4
-    or AVI, with no decode: the size as displayed (turned by the track's matrix) and the
-    count of samples, as cv2 reports them (`container.UnsupportedCodecError`
-    for another codec)."""
+    Motion JPEG, H.264 (Main / High, I, P and B pictures), HEVC (Main and
+    Main 10) or MPEG-4 Part 2 (Simple) in AVI, MP4 / QuickTime or Matroska /
+    WebM, with no decode: the size as displayed (turned by the track's
+    matrix), the fps and the frame count as cv2 reports them
+    (`container.UnsupportedCodecError` for another codec)."""
     import re
 
     p = Path(path)
@@ -302,10 +303,10 @@ def extract_frames(
     stride: int = 1,
 ) -> list[Path]:
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
-    through ffmpeg when there is a binary, else Motion JPEG in AVI or MP4,
-    H.264 Main / High I, P and B pictures or HEVC Main / Main 10 in MP4 or QuickTime,
-    upright and edited as cv2 shows them, or MPEG-4 Part 2 Simple in MP4 or
-    AVI) into numbered PNG frames (RGB), every `stride`-th one, at most
+    through ffmpeg when there is a binary, else Motion JPEG, H.264 Main /
+    High I, P and B pictures, HEVC Main / Main 10 or MPEG-4 Part 2 Simple in
+    AVI, MP4 / QuickTime or Matroska / WebM, upright and edited as cv2 shows
+    them) into numbered PNG frames (RGB), every `stride`-th one, at most
     `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.
     A Motion JPEG file's frames are decoded only where they are kept; an
     H.264, HEVC or MPEG-4 file's in order up to the last one kept."""

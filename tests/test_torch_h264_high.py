@@ -32,7 +32,7 @@ import pytest
 
 from omfs4d.io import video as jvideo
 from omfs4d_torch import native
-from omfs4d_torch.io import container, h264, h264_tables, mjpeg, swscale
+from omfs4d_torch.io import container, h264, h264_tables, swscale
 from omfs4d_torch.io import video as tvideo
 from tests import torch_h264_syntax as syn
 from tests.test_torch_h264 import annex_b, cv2_read, grey_clip, moving_patch
@@ -488,18 +488,19 @@ REFUSED = {"b_slices": None, "sp_slices": "H.264 SP/SI slices",
            "field": "H.264 interlaced (field) coding", "mbaff": "H.264 MBAFF",
            "high10": "H.264 High 10 profile", "high422": "H.264 High 4:2:2 profile",
            "high444": "H.264 High 4:4:4 Predictive profile",
-           "hevc": None, "h264_in_avi": "H.264"}
+           "hevc": None, "h264_in_avi": None}
 
 
 @pytest.mark.parametrize("case", list(REFUSED))
 def test_what_stays_outside_is_refused_by_name(tmp_path, capfd, case):
     """SP slices, field coding, MBAFF, High 10, High 4:2:2 and High 4:4:4
-    and H.264 in AVI raise UnsupportedCodecError naming the feature and
-    ffmpeg, from probe_video or at the latest extract_frames.  B slices and
-    HEVC, which raised before their decoders read them, now read as the JAX
+    raise UnsupportedCodecError naming the feature and ffmpeg, from
+    probe_video or at the latest extract_frames.  B slices, HEVC and H.264
+    in AVI, which raised before the port read them, now read as the JAX
     package reads them: a B-pyramid clip with `ctts` and FFmpeg's edit list,
-    and an `hvc1` B-pyramid from the HEVC writer with a CRA and its RASL
-    pictures (an `hvc1` entry with no hvcC box stays refused:
+    an `hvc1` B-pyramid from the HEVC writer with a CRA and its RASL
+    pictures, and the stream as Annex B samples in an `H264` AVI (an `hvc1`
+    entry with no hvcC box stays refused:
     `test_torch_mjpeg.py::test_other_codecs_need_ffmpeg`)."""
     path = tmp_path / "clip.mov"
     aus = syn.write_stream(0, frames=2, width=48, height=32)
@@ -541,6 +542,22 @@ def test_what_stays_outside_is_refused_by_name(tmp_path, capfd, case):
             assert x.shape == y.shape == (32, 48, 3)
             assert np.abs(x - y).max() <= tol
         return
+    if case == "h264_in_avi":
+        from tests import torch_mkv_mux as mux
+
+        path = mux.write_avi(tmp_path / "clip.avi",
+                             [b"".join(b"\x00\x00\x00\x01" + u for u in au) for au in aus],
+                             [any(u[0] & 0x1F == 5 for u in au) for au in aus], 48, 32, b"H264",
+                             fps=25)
+        assert container.index(path)[2]["codec"] == "h264"
+        assert tvideo.probe_video(path) == jvideo.probe_video(path)
+        ours = tvideo.extract_frames(path, tmp_path / "ours")
+        theirs = jvideo.extract_frames(path, tmp_path / "theirs")
+        capfd.readouterr()
+        assert len(ours) == len(theirs) == 2
+        for a, b in zip(ours, theirs):
+            assert np.array_equal(tvideo.read_image(a), tvideo.read_image(b))
+        return
     if case == "sp_slices":
         pps_id = h264.parse_pps([u for u in aus[0] if u[0] & 0x1F == 8][-1])["id"]
         bw = syn.BitWriter()
@@ -555,10 +572,6 @@ def test_what_stays_outside_is_refused_by_name(tmp_path, capfd, case):
                        else 1, mbaff=int(case == "mbaff"))
         aus[0] = [sps] + [u for u in aus[0] if u[0] & 0x1F != 7]
     syn.write_mov(path, aus, 48, 32)
-    if case == "h264_in_avi":
-        path = tmp_path / "clip.avi"
-        mjpeg.write(path, [b"\xff\xd8\xff\xd9"] * 2, 25.0, 48, 32)
-        path.write_bytes(path.read_bytes().replace(b"MJPG", b"H264"))
     with pytest.raises(container.UnsupportedCodecError, match="ffmpeg") as err:
         tvideo.probe_video(path)
         tvideo.extract_frames(path, tmp_path / "out")

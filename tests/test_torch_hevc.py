@@ -34,7 +34,7 @@ import numpy as np
 import pytest
 
 from omfs4d_torch import native
-from omfs4d_torch.io import container, hevc, hevc_tables, mjpeg
+from omfs4d_torch.io import container, hevc, hevc_tables
 from omfs4d_torch.io import video as tvideo
 from tests import torch_h264_syntax as h264syn
 from tests import torch_hevc_syntax as syn
@@ -302,13 +302,24 @@ def test_what_stays_outside_is_refused_by_name(tmp_path, tool):
 
 
 def test_hevc_in_avi_and_an_hvc1_with_no_hvcc_need_ffmpeg(tmp_path):
-    """HEVC in AVI stays refused, as H.264 in AVI is; an `hvc1` entry
-    without its hvcC box too."""
-    path = tmp_path / "clip.avi"
-    mjpeg.write(path, [b"\xff\xd8\xff\xd9"] * 2, 25.0, 48, 32)
-    path.write_bytes(path.read_bytes().replace(b"MJPG", b"HEVC"))
-    with pytest.raises(container.UnsupportedCodecError, match="H.265 / HEVC.*ffmpeg"):
-        tvideo.probe_video(path)
+    """An `hvc1` entry without its hvcC box stays refused, naming it and
+    ffmpeg.  HEVC in AVI, refused before the port read it, now reads as the
+    JAX package reads it: an Annex B stream in an `HEVC` AVI gives cv2's
+    probe and frames (`tests/test_torch_avi_h26x.py` holds the rest)."""
+    from omfs4d.io import video as jvideo
+    from tests import torch_mkv_mux as mux
+
+    aus = syn.write_stream(0, frames=2)
+    path = mux.write_avi(tmp_path / "clip.avi",
+                         [b"".join(b"\x00\x00\x00\x01" + u for u in au) for au in aus],
+                         [True, False], 64, 48, b"HEVC", fps=25)
+    assert container.index(path)[2]["codec"] == "hevc"
+    assert tvideo.probe_video(path) == jvideo.probe_video(path)
+    ours = tvideo.extract_frames(path, tmp_path / "ours")
+    theirs = jvideo.extract_frames(path, tmp_path / "theirs")
+    assert len(ours) == len(theirs) == 2
+    for a, b in zip(ours, theirs):
+        assert np.array_equal(tvideo.read_image(a), tvideo.read_image(b))
     path = tmp_path / "clip.mp4"
     syn.write_mov(path, syn.write_stream(0, frames=2), 64, 48, quicktime=False, config=False)
     with pytest.raises(container.UnsupportedCodecError, match="no hvcC box.*ffmpeg"):
