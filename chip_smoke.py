@@ -417,6 +417,12 @@ MPEG4_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpeg4"
 HEVC_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "hevc"
 # the committed Matroska / AVI corpus (tests/make_matroska_corpus.py)
 MATROSKA_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "matroska"
+# the MPEG-TS corpus's manifest (tests/make_mpegts_corpus.py); the remuxes
+# held frame for frame (of the others, the leading MPEGTS_LEADING frames, and
+# every frame to a damaged one)
+MPEGTS_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpegts"
+MPEGTS_WHOLE = ("clip_b.m2ts", "clip_hevc10.ts", "clip_mp4v.ts")
+MPEGTS_LEADING = 2
 # phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
 # the skull phantom's seed and noise, the crop held against the CPU path, the
 # share by which the raw mesh's enclosed volume may differ from the phantom's
@@ -3438,6 +3444,75 @@ def matroska_corpus(work: Path) -> dict:
             "shape": tvideo.read_image(ours[0]).shape}
 
 
+def mpegts_corpus(work: Path) -> dict:
+    """The port's MPEG-TS reader on the card's machine (no cv2 there),
+    against `tests/data/mpegts/manifest.json`, which cv2 wrote: each remux
+    and variant of the committed clips (H.264, HEVC, Main 10 and MPEG-4 as
+    `.ts`, M2TS and 204-byte packets, several access units to a PES, one
+    split across PES, audio, two programs, a PTS wrap, mid-GOP starts, a
+    lost packet and a cut) is re-made by the tests' muxer
+    (`tests/torch_ts_mux.py`), has the manifest's bytes, and reads to cv2's
+    probe and frames: every frame of `MPEGTS_WHOLE`, the leading
+    `MPEGTS_LEADING` of the others, and to the damaged frame, which raises
+    ValueError, where the manifest says.  Then `cli preprocess --video clip_b.m2ts` (clip_b's
+    1080p H.264 B-pyramid as an AVCHD camcorder's M2TS, with audio) at
+    target_size 512 is timed, its frames equal to clip_b.mp4's
+    (h264_corpus's run)."""
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    mux = tests_module("torch_ts_mux")
+    manifest = json.loads((MPEGTS_CORPUS / "manifest.json").read_text())
+    check(set(manifest["remuxes"]) == {name for name, _, _ in mux.REMUXES},
+          "the MPEG-TS manifest lists the muxer's remuxes")
+    t0 = time.perf_counter()
+    remux_s, remux_bytes, n_frames = 0.0, 0, 0
+    for name, clip, options in mux.REMUXES:
+        entry = manifest["remuxes"][name]
+        t1 = time.perf_counter()
+        path = mux.remux(clip, work / name, **options)
+        remux_s += time.perf_counter() - t1
+        data = path.read_bytes()
+        remux_bytes += len(data)
+        check(hashlib.sha256(data).hexdigest() == entry["file_sha256"],
+              f"{name}: the remux of {entry['clip']} has the manifest's SHA-256")
+        probe = tvideo.probe_video(path)
+        check(probe == entry["probe"], f"{name}: probe_video {probe} is cv2's {entry['probe']}")
+        frames = tvideo._own_reader(path)
+        stop = entry["raises_at"] if entry["raises_at"] is not None else (
+            len(frames) if name in MPEGTS_WHOLE else min(MPEGTS_LEADING, len(frames)))
+        got = [hashlib.sha256(frames.rgb(i).tobytes()).hexdigest() for i in range(stop)]
+        check(len(frames) == len(entry["sha256"]) and got == entry["sha256"][:stop],
+              f"{name}: {len(got)} frames equal to cv2's {len(entry['sha256'])} of the "
+              "manifest")
+        if entry["raises_at"] is not None:
+            try:
+                frames.rgb(stop)
+                raised = False
+            except ValueError:
+                raised = True
+            check(raised, f"{name}: frame {stop}, in a damaged PES, raises ValueError")
+        n_frames += len(got)
+    corpus_s = time.perf_counter() - t0
+    wd = work / "wd_m2ts_b"
+    t0 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(work / "clip_b.m2ts"), "--workdir",
+                    str(wd)]) == 0, "cli preprocess --video clip_b.m2ts")
+    preprocess_s = time.perf_counter() - t0
+    (stage,) = list((wd / "stages").glob("preprocess-*"))
+    ours = sorted((stage / "images").glob("*.png"))
+    (stage,) = list((work / "wd_mp4_b" / "stages").glob("preprocess-*"))
+    theirs = sorted((stage / "images").glob("*.png"))
+    check(len(ours) == len(theirs) == 9, f"clip_b.m2ts preprocessed to {len(ours)} frames, "
+                                         f"clip_b.mp4 to {len(theirs)}: 9 each")
+    for a, b in zip(ours, theirs):
+        check(np.array_equal(tvideo.read_image(a), tvideo.read_image(b)),
+              f"clip_b.m2ts's preprocessed {a.name} equals clip_b.mp4's")
+    return {"remuxes": len(mux.REMUXES), "frames": n_frames, "corpus_s": corpus_s,
+            "remux_s": remux_s, "remux_bytes": remux_bytes, "preprocess_s": preprocess_s,
+            "preprocess_frames": len(ours), "shape": tvideo.read_image(ours[0]).shape}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -3647,6 +3722,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         t_mkv = time.perf_counter()
         mkv = matroska_corpus(work)
         mkv_s = time.perf_counter() - t_mkv
+        t_ts = time.perf_counter()
+        ts = mpegts_corpus(work)
+        ts_s = time.perf_counter() - t_ts
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -3763,6 +3841,14 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"s -> {mkv['preprocess_frames']} frames {mkv['shape'][1]}x{mkv['shape'][0]}, "
           f"{mkv['preprocess_s'] / mkv['preprocess_frames']:.4f} s/frame, equal to clip_b.mp4's; "
           f"the Matroska / AVI part {mkv_s:.2f} s [{card}]")
+    print(f"  MPEG-TS (mpegts.py): the {ts['remuxes']} remuxes and variants of the committed "
+          f"clips (.ts, M2TS, 204-byte packets; made again by the tests' muxer in "
+          f"{ts['remux_s']:.2f} s, {ts['remux_bytes']} bytes, each the manifest's SHA-256) read "
+          f"to cv2's probes and {ts['frames']} frames in {ts['corpus_s']:.2f} s; cli preprocess "
+          f"--video clip_b.m2ts (1920x1080 H.264 B-pyramid, AVCHD's 192-byte packets) "
+          f"{ts['preprocess_s']:.2f} s -> {ts['preprocess_frames']} frames "
+          f"{ts['shape'][1]}x{ts['shape'][0]}, {ts['preprocess_s'] / ts['preprocess_frames']:.4f} "
+          f"s/frame, equal to clip_b.mp4's; the MPEG-TS part {ts_s:.2f} s [{card}]")
     print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
     return {"fwd": fwd, "bwd": bwd}
 

@@ -1,11 +1,13 @@
-"""The containers of the port's video files, AVI, MP4 and Matroska / WebM,
-with the standard library: which codec a file holds and where its frames lie
-(`index`), and the file writing the port's two written codecs share
-(`write_file`).  The codecs sit on top of it as siblings: Motion JPEG
+"""The containers of the port's video files, AVI, MP4, Matroska / WebM and
+MPEG transport streams, with the standard library: which codec a file holds
+and where its frames lie (`index`), and the file writing the port's two
+written codecs share (`write_file`).  The codecs sit on top of it as
+siblings: Motion JPEG
 (`omfs4d_torch.io.mjpeg`), H.264 (`omfs4d_torch.io.h264`), HEVC
 (`omfs4d_torch.io.hevc`, read only) and MPEG-4 Part 2
 (`omfs4d_torch.io.mpeg4`, read only); the MP4 boxes are
-`omfs4d_torch.io.mp4`'s, the Matroska elements `omfs4d_torch.io.matroska`'s.
+`omfs4d_torch.io.mp4`'s, the Matroska elements `omfs4d_torch.io.matroska`'s,
+the transport stream's packets `omfs4d_torch.io.mpegts`'s.
 
 - AVI (RIFF): the `hdrl` list's first video `strl` (`strh` of type `vids`,
   a BITMAPINFOHEADER `strf` naming the codec), and its frames from the
@@ -32,6 +34,11 @@ with the standard library: which codec a file holds and where its frames lie
 - Matroska / WebM (EBML, whatever the suffix): the first video track, its
   codec by CodecID (`matroska.index`): Motion JPEG, MPEG-4 Part 2, H.264 and
   HEVC, and a VfW track's fourcc read as AVI's.
+- MPEG-TS (`.ts`, M2TS / AVCHD `.mts` / `.m2ts`; 188-, 192- or 204-byte
+  packets, found by their sync bytes whatever the suffix): the first video
+  stream of the programs (`mpegts.index`): H.264, HEVC and MPEG-4 Part 2,
+  split into frames as FFmpeg's parsers split them; its samples are ranges
+  of the elementary stream, gathered from the packets (`read_sample`).
 
 Any other codec (VP8, VP9, AV1, MS MPEG-4 v3, ...) raises
 `UnsupportedCodecError` naming it: decoding it needs an ffmpeg binary.  So
@@ -45,24 +52,28 @@ from __future__ import annotations
 
 import mmap
 import struct
+import traceback
 from collections.abc import Callable
 from fractions import Fraction
 from pathlib import Path
 
-from omfs4d_torch.io import matroska, mp4
+import numpy as np
+
+from omfs4d_torch.io import matroska, mp4, mpegts
 
 
 class UnsupportedCodecError(RuntimeError):
     """The video file holds a codec that the port cannot decode without an
-    ffmpeg binary, or it is no AVI, MP4 or Matroska file at all."""
+    ffmpeg binary, or it is no AVI, MP4, Matroska or MPEG-TS file at all."""
 
 
 def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
         f"{path}: {what}; the port reads only Motion JPEG (MJPG), H.264 (Main / High "
         "profile I, P and B pictures), HEVC (Main and Main 10 profiles, whole) and MPEG-4 "
-        "Part 2 (Simple profile), each in AVI, MP4 / QuickTime or Matroska / WebM, by "
-        "itself, decoding this needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
+        "Part 2 (Simple profile), each in AVI, MP4 / QuickTime, Matroska / WebM or "
+        "MPEG-TS, by itself, decoding this needs an ffmpeg binary (on PATH or from "
+        "imageio_ffmpeg)")
 
 
 # AVI fourccs of Motion JPEG, and names of those that need another decoder
@@ -286,24 +297,27 @@ def _read_mp4(buf, path: Path):
 
 def index(path) -> tuple[list[int], list[int], dict]:
     """(sample offsets, sample sizes, info) of the video track of an AVI,
-    MP4 or Matroska / WebM file: info holds width, height (the container's),
-    fps (0.0 where the container gives none), frame_count, container ("avi",
-    "mp4" or "matroska") and codec: "mjpeg"; "h264", then with `avcC`, the
-    avcC box's body (MP4, Matroska, an AVI's avcC extradata), or `annexb`,
-    the extradata of a track of Annex B samples (AVI, maybe b""), and
+    MP4, Matroska / WebM or MPEG-TS file: info holds width, height (the
+    container's; 0 for MPEG-TS), fps (0.0 where the container gives none),
+    frame_count, container ("avi", "mp4", "matroska" or "mpegts") and codec:
+    "mjpeg"; "h264", then with `avcC`, the avcC box's body (MP4, Matroska,
+    an AVI's avcC extradata), or `annexb`, the extradata of a track of
+    Annex B samples (AVI, MPEG-TS; maybe b""), and
     `sync`, the indices of its sync samples (None: every sample, or for
     Annex B: found by the reader); "hevc" alike with `hvcC`; "mpeg4" for
     MPEG-4 Part 2, then with `dsi`, the headers the esds, the AVI extradata
     or the CodecPrivate holds (maybe b"").  Matroska adds `prefix` where its
-    track strips a header from every frame.  Any other codec raises
-    `UnsupportedCodecError` naming it."""
+    track strips a header from every frame; MPEG-TS `es`, the map from its
+    samples' offsets (in the elementary stream) to the file, and `damaged`
+    (see `mpegts.index`).  Any other codec raises `UnsupportedCodecError`
+    naming it."""
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(f"no video file at {path}")
     with open(p, "rb") as f:
-        head = f.read(12)
+        head = f.read(2048)
         if len(head) < 12:
-            raise _needs_ffmpeg(p, "it is no AVI, MP4 or Matroska file (too short)")
+            raise _needs_ffmpeg(p, "it is no AVI, MP4, Matroska or MPEG-TS file (too short)")
         with mmap.mmap(f.fileno(), 0, access=mmap.ACCESS_READ) as buf:
             try:
                 if head[:4] == b"RIFF" and head[8:12] == b"AVI ":
@@ -312,18 +326,43 @@ def index(path) -> tuple[list[int], list[int], dict]:
                     return _read_mp4(buf, p)
                 if head[:4] == matroska.MAGIC:
                     return matroska.index(buf, p)
-            except (struct.error, IndexError, TypeError, matroska.Cut) as e:
+                if mpegts.probe(head):
+                    return mpegts.index(buf, p)
+                if mpegts.packet_size(np.frombuffer(head, np.uint8)):
+                    # packets, but fewer than FFmpeg's probe needs to take
+                    # the file for a transport stream
+                    raise mpegts.Cut("a transport stream of fewer than 2,040 bytes")
+            except (struct.error, IndexError, TypeError, matroska.Cut, mpegts.Cut) as e:
+                traceback.clear_frames(e.__traceback__)      # views of the map go first
                 raise ValueError(f"{p}: a corrupt or cut-short container ({e})") from e
+            except BaseException as e:
+                traceback.clear_frames(e.__traceback__)
+                raise
     raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 / QuickTime file, nor a Matroska "
-                           "/ WebM one")
+                           "/ WebM one, nor an MPEG transport stream")
 
 
 def read_sample(f, offset: int, size: int, info: dict) -> bytes:
     """A sample's bytes from the file open as f, after the header its
-    Matroska track strips from every frame (`info["prefix"]`); fewer than
-    size bytes where the file ends early."""
+    Matroska track strips from every frame (`info["prefix"]`), or gathered
+    from a transport stream's packets (`info["es"]`, the sample's offset
+    one in its elementary stream); fewer than size bytes where the file ends
+    early."""
+    if "es" in info:
+        return info["es"].read(f, offset, size)
     f.seek(offset)
     return info.get("prefix", b"") + f.read(size)
+
+
+def check_whole(path, info: dict, i: int) -> None:
+    """Raise ValueError where sample i of a transport stream lies in a
+    damaged PES (`info["damaged"]`: a lost packet, or the file's end inside
+    it), which cv2 decodes with FFmpeg's error concealment and the port
+    does not."""
+    if i in info.get("damaged", ()):
+        raise ValueError(f"{path}: frame {i} lies in a damaged PES (a packet lost or garbled "
+                         "in it, or the file's end inside it): cv2 shows FFmpeg's concealment "
+                         "of the damage, which the port does not copy")
 
 
 def write_file(path, fps: float, width: int, height: int,
@@ -350,5 +389,7 @@ def write_file(path, fps: float, width: int, height: int,
 
 
 def container_of(path) -> str:
-    """"avi" for a `.avi` suffix, else "mp4": the container a writer picks."""
+    """"avi" for a `.avi` suffix, else "mp4": the container a writer picks
+    (a `.mkv`, `.ts` or `.m2ts` path gets MP4 bytes, which cv2 reads by their
+    content whatever the suffix)."""
     return "avi" if Path(path).suffix.lower() == ".avi" else "mp4"

@@ -2,10 +2,10 @@
 `hevc`): the ctypes wrapper of their host C++ decoders (`HostDecoder`, one C
 API shape), the Annex B splitter (`annexb_units`), and the sample reader
 (`SampleFrames`: the NAL units of each sample, length-prefixed as MP4 and
-Matroska hold them or an Annex B byte stream as AVI does, output order by
-presentation time, the edit list, the display rotation, restarts at the sync
-samples that start their output order cleanly, and a cache of the pictures
-decoded past the one asked for).
+Matroska hold them or an Annex B byte stream as AVI and MPEG-TS do, output
+order by presentation time, the edit list, the display rotation, restarts at
+the sync samples that start their output order cleanly, and a cache of the
+pictures decoded past the one asked for).
 
 A `SampleFrames` subclass sets `length` (the NAL length size; 0 for Annex
 B) and `params` (the parameter set's `width`, `height`, `fps`, `full_range`
@@ -142,11 +142,11 @@ class HostDecoder:
 
 
 class SampleFrames(Sequence):
-    """The frames of a video track (MP4 / QuickTime, Matroska, AVI) as (H,
-    W, 3) uint8 RGB, decoded by a host decoder on access (`frames[i]`,
-    `len(frames)`, iteration), as cv2 shows them: in output order
+    """The frames of a video track (MP4 / QuickTime, Matroska, AVI,
+    MPEG-TS) as (H, W, 3) uint8 RGB, decoded by a host decoder on access
+    (`frames[i]`, `len(frames)`, iteration), as cv2 shows them: in output order
     (presentation order, which `ctts` or Matroska's block times give where B
-    pictures reorder them; the decoder's own where AVI gives no times), only
+    pictures reorder them; the decoder's own in AVI and MPEG-TS), only
     those the edit list keeps, each turned by the track's display rotation.
     A frame is decoded from the last sync sample that starts its output
     order cleanly (every sample before it shown before it, every one from it
@@ -198,14 +198,17 @@ class SampleFrames(Sequence):
                        silent: Callable[[list[list[int]]], set[int]] = lambda kinds: set()
                        ) -> None:
         """Set the samples a decode may restart at in a track with no sync
-        table and no times (AVI): those `starts_at(kinds, s)` accepts,
-        `kinds` being the NAL unit types (`kind`) of every sample, read from
-        the file; the samples `silent(kinds)` names output no picture (RASL
-        pictures FFmpeg drops), so that the frames and the output positions
-        of the restarts leave them out."""
+        table (AVI, MPEG-TS): those `starts_at(kinds, s)` accepts, `kinds`
+        being the NAL unit types (`kind`) of every sample, read from the
+        file; the samples `silent(kinds)` names output no picture (RASL
+        pictures FFmpeg drops, samples of no picture), nor do those before
+        the first restart (pictures FFmpeg's decoder drops until it meets
+        one), so that the frames and the output positions of the restarts
+        leave them out."""
         kinds = [[kind(u) for u in self.units(s)] for s in range(len(self.offsets))]
         self.sync = self.starts = [s for s in range(len(kinds)) if starts_at(kinds, s)]
-        quiet = silent(kinds)
+        first = self.starts[0] if self.starts else len(kinds)
+        quiet = silent(kinds) | set(range(first))
         self.shown = list(range(len(kinds) - len(quiet)))
         self.start_outputs = [s - sum(q < s for q in quiet) for s in self.starts]
 
@@ -253,6 +256,7 @@ class SampleFrames(Sequence):
         while i not in self._held:
             if self._pushed + 1 < n:
                 self._pushed += 1
+                container.check_whole(self.path, self.info, self._pushed)
                 for unit in self.units(self._pushed):
                     self._decoder.push(unit)
                 self._decoder.end_picture()

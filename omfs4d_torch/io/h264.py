@@ -1131,6 +1131,8 @@ def parse_sps(unit: bytes) -> dict:
             tick, scale = r.u(32), r.u(32)
             if tick:
                 sps["fps"] = scale / (2 * tick)
+            if tick and scale:                   # FFmpeg's parser's frame rate
+                sps["rate"] = Fraction(scale, 2 * tick)
     return sps
 
 
@@ -1592,14 +1594,63 @@ def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]
     return out + dec.pictures()
 
 
+def _refuse_recovered(path, leading: list[list[bytes]], pps: list[bytes]) -> None:
+    """Raise `UnsupportedCodecError` where a stream's samples before its
+    first IDR picture (`leading`, their NAL units) hold one that cv2's
+    FFmpeg shows rather than drops: a recovery point SEI, or an I picture
+    whose PPS has at most one default reference (FFmpeg's heuristic).  The
+    port starts a decode only at an IDR picture; the samples before it that
+    hold none of these FFmpeg drops too."""
+    sets = {parse_pps(u)["id"]: parse_pps(u) for u in pps}
+    for k, units in enumerate(leading):
+        for u in units:
+            t = u[0] & 0x1F
+            if t == _NAL_PPS:
+                p = parse_pps(u)
+                sets[p["id"]] = p
+            elif t == _NAL_SEI and 6 in _sei_types(_unescape(u[1:])):
+                raise _unsupported(f"H.264 that starts at a recovery point SEI ({path}: frame "
+                                   f"{k}, before the first IDR picture, which cv2 shows)")
+            elif t in (1, 5):
+                r = _Reader(_unescape(u[1:]))
+                r.ue()
+                slice_type, pps_id = r.ue() % 5, r.ue()
+                if slice_type in (2, 4) and pps_id in sets and sets[pps_id]["refs"] <= 1:
+                    raise _unsupported(f"H.264 that starts at a non-IDR I picture ({path}: "
+                                       f"frame {k}, before the first IDR picture, which cv2 "
+                                       "shows)")
+                break
+
+
+def _sei_types(rbsp: bytes) -> list[int]:
+    """The payloadType of each message of an SEI RBSP."""
+    out, pos = [], 0
+    while pos < len(rbsp) and rbsp[pos] != 0x80:
+        values = []
+        for _ in range(2):
+            v = 0
+            while pos < len(rbsp) and rbsp[pos] == 0xFF:
+                v += 255
+                pos += 1
+            if pos >= len(rbsp):
+                return out
+            values.append(v + rbsp[pos])
+            pos += 1
+        out.append(values[0])
+        pos += values[1]
+    return out
+
+
 class H264Frames(frames_base.SampleFrames):
     """The frames of an H.264 file (MP4 / QuickTime, Matroska, AVI) as (H, W,
     3) uint8 RGB, decoded by the host decoder on access, as cv2 shows them
     (see `frames.SampleFrames`), converted with the VUI's range and matrix.
     The parameter sets are the avcC box's, or for `avc3` the first sample's;
-    an Annex B track's (AVI) are its extradata's or its first sample's.  An
-    AVI track, which has no sync table, restarts only at a sample holding an
-    IDR picture and parameter sets (its own, or the extradata's)."""
+    an Annex B track's (AVI, MPEG-TS) are its extradata's or its first
+    restart's.  An AVI or MPEG-TS track, which has no sync table, restarts
+    only at a sample holding an IDR picture and parameter sets (its own, or
+    the extradata's); the samples before the first show nothing, as FFmpeg
+    drops them (`_refuse_recovered` refuses those it would show)."""
 
     def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
         super().__init__(path, offsets, sizes, info)
@@ -1610,14 +1661,19 @@ class H264Frames(frames_base.SampleFrames):
             self.sps = [u for u in head if u[0] & 0x1F == _NAL_SPS][:1]
             self.pps = [u for u in head if u[0] & 0x1F == _NAL_PPS]
             self.length = 0
-        if "sync" not in info:                 # AVI: no sync table
+        first = 0
+        if "sync" not in info:                 # AVI, MPEG-TS: no sync table
             extradata_sets = bool(self.sps and self.pps)
             self.in_band_starts(lambda u: u[0] & 0x1F, lambda kinds, s: (
                 _NAL_IDR in kinds[s]
-                and (extradata_sets or {_NAL_SPS, _NAL_PPS} <= set(kinds[s]))))
+                and (extradata_sets or {_NAL_SPS, _NAL_PPS} <= set(kinds[s]))),
+                lambda kinds: {s for s, k in enumerate(kinds) if not any(1 <= t <= 5 for t in k)})
+            first = self.starts[0] if self.starts else len(offsets)
+            _refuse_recovered(path, [self.units(s) for s in range(first)], self.pps)
         if not self.sps:                       # avc3 / Annex B: the parameter sets in band
-            self.sps = [u for u in self.units(0) if u[0] & 0x1F == _NAL_SPS][:1]
-            self.pps = [u for u in self.units(0) if u[0] & 0x1F == _NAL_PPS]
+            units = self.units(first if first < len(offsets) else 0) if offsets else []
+            self.sps = [u for u in units if u[0] & 0x1F == _NAL_SPS][:1]
+            self.pps = [u for u in units if u[0] & 0x1F == _NAL_PPS]
             if not self.sps:
                 raise ValueError(f"{path}: no sequence parameter set in the avcC box or the "
                                  "first sample")

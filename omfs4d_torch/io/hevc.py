@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+from fractions import Fraction
 from pathlib import Path
 
 import numpy as np
@@ -255,6 +256,8 @@ def parse_sps(unit: bytes) -> dict:
             tick, scale = r.u(32), r.u(32)
             if tick:
                 sps["fps"] = scale / tick
+            if tick and scale:                         # FFmpeg's frame rate
+                sps["rate"] = Fraction(scale, tick)
             if r.u(1):
                 r.ue()
             if r.u(1):
@@ -285,6 +288,27 @@ def _hrd(r: _Reader, max_sub_layers_minus1: int) -> None:
             for _ in range(4 if sub_pic else 2):
                 r.ue()
             r.u(1)
+
+
+def vps_rate(unit: bytes) -> Fraction | None:
+    """The frame rate of a VPS's timing information (vps_time_scale /
+    vps_num_units_in_tick), None where it has none: FFmpeg takes it before
+    the SPS's VUI timing."""
+    r = _Reader(_rbsp(unit))
+    r.u(4 + 1 + 1 + 6)
+    msl = r.u(3)
+    r.u(1 + 16)
+    _profile_tier_level(r, msl)
+    for _ in range(msl + 1 if r.u(1) else 1):
+        r.ue()
+        r.ue()
+        r.ue()
+    max_layer_id = r.u(6)
+    r.u(r.ue() * (max_layer_id + 1))
+    if not r.u(1):
+        return None
+    tick, scale = r.u(32), r.u(32)
+    return Fraction(scale, tick) if tick and scale else None
 
 
 def parse_pps(unit: bytes) -> dict:
@@ -393,17 +417,24 @@ def decode_annexb(data: bytes) -> list[tuple[np.ndarray, np.ndarray, np.ndarray]
     return out + dec.pictures()
 
 
+def _first_irap(kinds: list[list[int]]) -> int:
+    """The first sample holding an IRAP picture (len(kinds) where none
+    does)."""
+    return next((s for s, k in enumerate(kinds) if any(t in _IRAP for t in k)), len(kinds))
+
+
 def _clean_start(kinds: list[list[int]], s: int, extradata_sets: bool) -> bool:
     """Whether an Annex B stream's decode may restart at sample s (the NAL
     types of every sample's base layer): it holds an IRAP picture and the
     parameter sets (its own or the extradata's), and no RASL picture of a
-    mid-stream CRA follows it, which a decode started there would drop."""
+    mid-stream CRA follows it, which a decode started there would drop (the
+    stream's first IRAP's RASL pictures FFmpeg drops either way)."""
     k = kinds[s]
     if not any(t in _IRAP for t in k):
         return False
     if not (extradata_sets or {NAL_VPS, NAL_SPS, NAL_PPS} <= set(k)):
         return False
-    if s > 0 and NAL_CRA in k:
+    if s > _first_irap(kinds) and NAL_CRA in k:
         for later in kinds[s + 1:]:
             if any(t in _RASL for t in later):
                 return False
@@ -415,14 +446,17 @@ def _clean_start(kinds: list[list[int]], s: int, extradata_sets: bool) -> bool:
 def _dropped_rasl(kinds: list[list[int]]) -> set[int]:
     """The samples of an Annex B stream (the NAL types of every sample's
     base layer) that output no picture: those of RASL pictures alone whose
-    IRAP picture is a BLA or the stream's first, which FFmpeg drops."""
-    out, irap = set(), None
+    IRAP picture is a BLA or the stream's first, which FFmpeg drops, and
+    those of no picture at all."""
+    out, irap, first = set(), None, _first_irap(kinds)
     for s, k in enumerate(kinds):
         vcl = [t for t in k if t < 32]
-        if any(t in _IRAP for t in vcl):
+        if not vcl:
+            out.add(s)
+        elif any(t in _IRAP for t in vcl):
             irap = (s, next(t for t in vcl if t in _IRAP))
-        elif vcl and all(t in _RASL for t in vcl) and irap is not None and (
-                irap[0] == 0 or irap[1] in _BLA):
+        elif all(t in _RASL for t in vcl) and irap is not None and (
+                irap[0] == first or irap[1] in _BLA):
             out.add(s)
     return out
 
@@ -432,9 +466,10 @@ class HEVCFrames(frames_base.SampleFrames):
     3) uint8 RGB, decoded by the host decoder on access, as cv2 shows them
     (see `frames.SampleFrames`), converted with the VUI's range and matrix.
     The parameter sets are the hvcC box's and, for `hev1`, the first
-    sample's; an Annex B track's (AVI) are its extradata's and its first
-    sample's.  An AVI track, which has no sync table, restarts only where
-    `_clean_start` allows."""
+    sample's; an Annex B track's (AVI, MPEG-TS) are its extradata's and its
+    first restart's.  An AVI or MPEG-TS track, which has no sync table,
+    restarts only where `_clean_start` allows; the samples before the first
+    restart show nothing, as FFmpeg drops the pictures before an IRAP one."""
 
     def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
         super().__init__(path, offsets, sizes, info)
@@ -442,14 +477,16 @@ class HEVCFrames(frames_base.SampleFrames):
             self.headers, self.length = hvcc_units(info["hvcC"], path)
         else:                                  # Annex B samples
             self.headers, self.length = annexb_units(info["annexb"]), 0
-        if "sync" not in info:                 # AVI: no sync table
+        first = 0
+        if "sync" not in info:                 # AVI, MPEG-TS: no sync table
             sets = {nal_type(u) for u in self.headers if nuh_layer_id(u) == 0}
             extradata_sets = {NAL_VPS, NAL_SPS, NAL_PPS} <= sets
             self.in_band_starts(
                 lambda u: nal_type(u) if nuh_layer_id(u) == 0 else -1,
                 lambda kinds, s: _clean_start(kinds, s, extradata_sets), _dropped_rasl)
+            first = self.starts[0] if self.starts else 0
         # refuse a stream outside the decoder's subset now, with no decode
-        base = [u for u in self.headers + (self.units(0) if offsets else [])
+        base = [u for u in self.headers + (self.units(first) if offsets else [])
                 if nuh_layer_id(u) == 0]
         sps = [parse_sps(u) for u in base if nal_type(u) == NAL_SPS]
         for unit in base:

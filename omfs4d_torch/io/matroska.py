@@ -447,19 +447,22 @@ def _std_rate(j: int) -> int:
 _N_STD = 30 * 12 + 30 + 3 + 6
 
 
-def estimated_fps(times_ms: list[int]) -> tuple[Fraction, Fraction]:
-    """FFmpeg's (r_frame_rate, avg_frame_rate) estimate for a video stream
-    of a millisecond time base whose demuxer gives no rate
-    (`ff_rfps_add_frame` / `ff_rfps_calculate` over the first `_FPS_FRAMES`
-    frame intervals of its decoding times, snapped to a standard rate); 0
-    for either it finds none of."""
-    dts = sorted(times_ms)[:_FPS_FRAMES + 1]
+def rfps(dts: list[int | None], base: int = 1000, info_duration: int = 0
+         ) -> tuple[Fraction, int, int]:
+    """FFmpeg's r_frame_rate estimate for a video stream whose time base is
+    1 / `base` s and whose demuxer gives no rate (`ff_rfps_add_frame` over
+    the decoding times `dts`, None where a frame has none, then
+    `ff_rfps_calculate`: the intervals' common divisor past the 4th, else
+    the standard rate their ticks fit best, which is neither slower than one
+    frame in `info_duration` ticks, the frames' summed durations, nor, with
+    none, than 1 fps); returns (the rate, 0 where it finds none, the count
+    and the sum of the intervals)."""
     err = [[[0.0] * _N_STD for _ in range(2)] for _ in range(2)]
     count = dur_sum = gcd = 0
     last = None
     for ts in dts:
-        if last is not None and ts > last:
-            t = ts / 1000
+        if ts is not None and last is not None and ts > last:
+            t = ts / base
             for i in range(_N_STD):
                 if err[0][1][i] < 1e10:
                     sdts = t * _std_rate(i) / (1001 * 12)
@@ -481,34 +484,46 @@ def estimated_fps(times_ms: list[int]) -> tuple[Fraction, Fraction]:
                         e1 = err[1][1][i] / count - a1 * a1
                         if e0 > 0.04 and e1 > 0.04:
                             err[0][1][i] = err[1][1][i] = 2e10
-        last = ts
+        if ts is not None:
+            last = ts
+    if count > 15 and gcd > max(1, base // 500):   # the intervals' common divisor
+        return Fraction(base, gcd), count, dur_sum
+    if count <= 1:
+        return Fraction(0), count, dur_sum
+    return _snapped(err, count, dur_sum, base, info_duration), count, dur_sum
+
+
+def estimated_fps(times_ms: list[int]) -> tuple[Fraction, Fraction]:
+    """FFmpeg's (r_frame_rate, avg_frame_rate) estimate for a video stream
+    of a millisecond time base whose demuxer gives no rate (`rfps` over the
+    first `_FPS_FRAMES` frame intervals of its decoding times, the average
+    rate the same where the intervals average to it); 0 for either it finds
+    none of."""
+    rate, count, dur_sum = rfps(sorted(times_ms)[:_FPS_FRAMES + 1])
     zero = Fraction(0)
-    if count > 15 and gcd > 2:                # the intervals' common divisor, past the 4th
-        rate = Fraction(1000, gcd)
-    elif count <= 1:
-        return zero, zero
-    else:
-        rate = _snapped(err, count, dur_sum)
     avg = rate if rate and count > 2 and abs(1000 / rate - dur_sum / count) <= 1.0 else zero
     return rate, avg
 
 
-def _snapped(err, count: int, dur_sum: int) -> Fraction:
+def _snapped(err, count: int, dur_sum: int, base: int = 1000, info_duration: int = 0
+             ) -> Fraction:
     """The standard rate whose ticks the intervals fit best, as
     `ff_rfps_calculate` picks it; 0 where none fits."""
     best, num = 0.01, 0
     for j in range(_N_STD):
         rate = _std_rate(j)
-        if rate < 1001 * 12:
+        if info_duration and info_duration * (1 / base) < (1001 * 12.0) / rate:
             continue
-        if 0.001 * dur_sum / count < (1001 * 12.0 * 0.8) / rate:
+        if not info_duration and rate < 1001 * 12:
+            continue
+        if (1 / base) * dur_sum / count < (1001 * 12.0 * 0.8) / rate:
             continue
         for k in range(2):
             a = err[k][0][j] / count
             e = err[k][1][j] / count - a * a
             if e < best and best > 0.000000001:
                 best, num = e, rate
-    if num and num / (12 * 1001) < 1.01 * 1000:
+    if num and num / (12 * 1001) < 1.01 * base:
         return av_reduce(num, 12 * 1001, 2**31 - 1)
     return Fraction(0)
 

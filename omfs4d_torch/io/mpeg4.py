@@ -330,8 +330,10 @@ class MPEG4Frames(Sequence):
     shows nothing, but a stream that ends in one shows its last picture once
     more, as FFmpeg does.  Every sample's VOP header is read when the file is
     opened, so that a B- or S-VOP or a packed sample is refused before any
-    decode; a frame is decoded from the last I-VOP at or before it, or on
-    from the last one decoded."""
+    decode; a frame is decoded from the last I-VOP at or before it (or from
+    the first VOP: a stream that starts at a P-VOP, a capture cut mid-GOP,
+    predicts it from FFmpeg's grey dummy picture), or on from the last one
+    decoded."""
 
     def __init__(self, path: Path, offsets: list[int], sizes: list[int], info: dict):
         self.path, self.offsets, self.sizes, self.info = path, offsets, sizes, info
@@ -364,7 +366,10 @@ class MPEG4Frames(Sequence):
             self.params = parse_headers(self.headers)
         self.colour = colour.stream(colour.from_container(self.params, info.get("colr")))
         self.shown = shown(coded)                # the sample each frame comes from
-        self.starts = [i for i, (k, c) in enumerate(zip(kinds, coded)) if k == "I" and c]
+        # a decode may start at a coded I-VOP, or at the first VOP: a P-VOP
+        # first predicts from grey, as FFmpeg's dummy picture
+        self.starts = sorted({i for i, (k, c) in enumerate(zip(kinds, coded)) if k == "I" and c}
+                             | ({0} if offsets else set()))
         self._decoder: Decoder | None = None
         self._next = 0                           # the next sample to push
         self._last: tuple[int, tuple[np.ndarray, ...]] | None = None
@@ -396,6 +401,7 @@ class MPEG4Frames(Sequence):
                 self._decode(self.headers, "the headers")
             self._next = self.starts[k]
         while self._next <= s:
+            container.check_whole(self.path, self.info, self._next)
             planes = self._decode(self.sample(self._next), f"frame {self._next}")
             if planes:
                 self._last = (self._next, planes[-1])

@@ -390,7 +390,16 @@ void Decoder::vop(Bits& b) {
   if (type == P_VOP) {
     fcode = b.u(3);
     if (fcode == 0) corrupt("vop_fcode_forward 0");
-    if (!have_ref) corrupt("a P-VOP with no picture before it to predict from");
+    if (!have_ref) {  // a stream that starts at a P-VOP: FFmpeg's dummy picture,
+      // grey over the picture's own size, 0 (its zeroed buffer) past it
+      for (int c = 0; c < 3; ++c) {
+        Plane& pl = ref.p[c];
+        int w = c ? (width + 1) / 2 : width, h = c ? (height + 1) / 2 : height;
+        for (int y = 0; y < pl.h; ++y)
+          for (int x = 0; x < pl.w; ++x) *pl.at(x, y) = x < w && y < h ? 128 : 0;
+      }
+      have_ref = true;
+    }
   }
   int total = mbw * mbh;
   packet_start = 0;

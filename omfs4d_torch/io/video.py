@@ -23,15 +23,19 @@ contract).  With none, the port's own codecs:
   so that the port's own AVI captures stay readable where there is no
   ffmpeg; so do frames H.264 cannot hold (an odd side, beyond level 5.2).
 - `probe_video` / `extract_frames` index the file once
-  (`omfs4d_torch.io.container`: AVI, MP4 / QuickTime, Matroska / WebM) and
-  read it with its codec's module, in any of the three containers: Motion
+  (`omfs4d_torch.io.container`: AVI, MP4 / QuickTime, Matroska / WebM,
+  MPEG-TS and M2TS, each found by its content whatever the suffix) and read
+  it with its codec's module, in any of the containers: Motion
   JPEG (`mjpeg.MJPEGFrames`: each frame as FFmpeg's MJPEG decoder and
   swscale give it to cv2, `mjpeg.frame_rgb`, where a JPEG file is read as
   libjpeg reads it, `decode_jpeg`); H.264 Main / High profile I, P and B
   pictures, as phones record them in MP4 or QuickTime, x264 writes them
   into Matroska and, as Annex B, into AVI (`h264.H264Frames`, the host C++
   decoder built by g++ at first use), turned by the track's display matrix
-  (Matroska's projection) and cut by its edit list as cv2 reads them; HEVC
+  (Matroska's projection) and cut by its edit list as cv2 reads them, and
+  from an AVCHD camcorder's, a broadcast capture's or an HLS segment's
+  transport stream (`omfs4d_torch.io.mpegts`, split into frames as FFmpeg's
+  parsers split it); HEVC
   Main and Main 10 profiles, as iPhones record by default (Main 10 with
   "HDR Video") and x265 writes, read alike (`hevc.HEVCFrames`, the host C++
   decoder `hevcdec.cpp`); MPEG-4 Part 2 Simple profile, as cv2's `mp4v`,
@@ -264,8 +268,8 @@ def probe_video(path: str | Path) -> dict:
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
     Motion JPEG, H.264 (Main / High, I, P and B pictures), HEVC (Main and
-    Main 10) or MPEG-4 Part 2 (Simple) in AVI, MP4 / QuickTime or Matroska /
-    WebM, with no decode: the size as displayed (turned by the track's
+    Main 10) or MPEG-4 Part 2 (Simple) in AVI, MP4 / QuickTime, Matroska /
+    WebM or MPEG-TS, with no decode: the size as displayed (turned by the track's
     matrix), the fps and the frame count as cv2 reports them
     (`container.UnsupportedCodecError` for another codec)."""
     import re
@@ -305,8 +309,8 @@ def extract_frames(
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
     through ffmpeg when there is a binary, else Motion JPEG, H.264 Main /
     High I, P and B pictures, HEVC Main / Main 10 or MPEG-4 Part 2 Simple in
-    AVI, MP4 / QuickTime or Matroska / WebM, upright and edited as cv2 shows
-    them) into numbered PNG frames (RGB), every `stride`-th one, at most
+    AVI, MP4 / QuickTime, Matroska / WebM or MPEG-TS, upright and edited as
+    cv2 shows them) into numbered PNG frames (RGB), every `stride`-th one, at most
     `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.
     A Motion JPEG file's frames are decoded only where they are kept; an
     H.264, HEVC or MPEG-4 file's in order up to the last one kept."""

@@ -36,7 +36,7 @@ TRACKING_MODULES = ("omfs4d_torch.core.logging", "omfs4d_torch.render.texture",
 FRONT_END_MODULES = ("omfs4d_torch.track.detector", "omfs4d_torch.track.segnet",
                      "omfs4d_torch.track.matting", "omfs4d_torch.track.robustness",
                      "omfs4d_torch.core.artifacts", "omfs4d_torch.core.device",
-                     "omfs4d_torch.io.video",
+                     "omfs4d_torch.io.video", "omfs4d_torch.io.mpegts",
                      "omfs4d_torch.pipeline.runner")
 
 BACK_HALF_MODULES = ("omfs4d_torch.eval.reporting", "omfs4d_torch.pipeline.cli",
