@@ -240,8 +240,12 @@ Phase M: the reference's user path from a video file to a prediction video,
   XVID AVI of a 1080p scene, the JAX package's stitch_video output) has its
   manifest's SHA-256 and decodes to its frames' SHA-256s, clip_mp4v.mp4's
   I- and P-VOPs are timed, and `cli preprocess --video` runs on
-  clip_mp4v.mp4 and stitched.mp4, each frame the port's read shrunk.  Then
-  the port's conversion of Y'CbCr to RGB (`io/swscale.py`, swscale's as cv2
+  clip_mp4v.mp4 and stitched.mp4, each frame the port's read shrunk; the
+  Advanced Simple streams of tests/data/mpeg4_asp/manifest.json (B-VOPs,
+  quarter-sample, MPEG quantisation, Xvid's IDCT, DivX's packed bitstream)
+  are made again from their seeds by the tests' writer and read to cv2's
+  frames' SHA-256s, asp_1080p.avi's I-, P- and B-VOPs are timed and
+  `cli preprocess --video` runs on it.  Then the port's conversion of Y'CbCr to RGB (`io/swscale.py`, swscale's as cv2
   runs it) against cv2's committed in tests/data/swscale/cv2_swscale.npz:
   every case (both of swscale's paths, both ranges) within SWSCALE_BOUND,
   and a 1080p frame timed on each path.  Then the Matroska and AVI readers
@@ -414,6 +418,9 @@ SWSCALE_BOUND = 0
 # the committed H.264 corpus (tests/make_h264_corpus.py) and its phone clip
 H264_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "h264"
 MPEG4_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpeg4"
+# the Advanced Simple streams' manifest (tests/make_mpeg4_asp_manifest.py):
+# hashes of streams the tests' writer re-makes from seeds, and of cv2's frames
+MPEG4_ASP = Path(__file__).resolve().parent / "tests" / "data" / "mpeg4_asp"
 HEVC_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "hevc"
 # the committed Matroska / AVI corpus (tests/make_matroska_corpus.py)
 MATROSKA_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "matroska"
@@ -3152,6 +3159,77 @@ def mpeg4_corpus(work: Path) -> dict:
             "preprocess_stitched_s": runs["stitched.mp4"]}
 
 
+def mpeg4_asp(work: Path) -> dict:
+    """MPEG-4 Part 2 Advanced Simple on the card's machine (no cv2 there):
+    each stream of `tests/data/mpeg4_asp/manifest.json` is re-made from its
+    seed by the tests' random writer (`tests/torch_mpeg4_syntax.py`), has
+    the manifest's SHA-256, and reads from its AVI to the SHA-256s of cv2's
+    frames there (B-VOPs, quarter-sample, MPEG quantisation, Xvid's IDCT,
+    DivX's packed bitstream); asp_1080p's MPEG-quantised I-VOP,
+    quarter-sample P-VOP and B-VOP are timed (the median of 3 decodes from a
+    new decoder), and `cli preprocess --video` runs on it."""
+    from omfs4d_torch.io import mpeg4
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    def sha(planes) -> str:
+        h = hashlib.sha256()
+        for p in planes:
+            h.update(np.ascontiguousarray(p).tobytes())
+        return h.hexdigest()
+
+    syn = tests_module("torch_mpeg4_syntax")
+    manifest = json.loads((MPEG4_ASP / "manifest.json").read_text())
+    write_s = read_s = 0.0
+    paths = {}
+    for name, entry in manifest["streams"].items():
+        features = {k: tuple(v) if isinstance(v, list) else v
+                    for k, v in entry["features"].items()}
+        t0 = time.perf_counter()
+        writer, headers, vops = syn.write_stream(entry["seed"], **features)
+        chunks = syn.avi_chunks(writer, headers, vops, entry["pack"])
+        write_s += time.perf_counter() - t0
+        check(hashlib.sha256(b"".join(chunks)).hexdigest() == entry["stream_sha256"],
+              f"{name}: the writer re-made the manifest's stream from seed {entry['seed']}")
+        path = paths[name] = work / f"{name}.avi"
+        syn.write_avi(path, chunks, features.get("width", 48), features.get("height", 32),
+                      entry["fourcc"].encode())
+        t0 = time.perf_counter()
+        frames = mpeg4.frames(path)
+        pics = [frames.ycbcr(i) for i in range(len(frames))]
+        read_s += time.perf_counter() - t0
+        check([sha(p) for p in pics] == entry["sha256"],
+              f"{name}: {len(pics)} frames equal to cv2's (the manifest's)")
+    clip = mpeg4.frames(paths["asp_1080p"])
+    kinds = manifest["streams"]["asp_1080p"]["kinds"]
+    runs = {k: [] for k in kinds}
+    for _ in range(3):
+        host = mpeg4.Host(clip.tag)
+        host.push(clip.headers)
+        for i, kind in enumerate(kinds):
+            data = clip.sample(i)
+            t0 = time.perf_counter()
+            host.push(data)
+            runs[kind].append(time.perf_counter() - t0)
+    wd = work / "wd_asp_1080p"
+    t0 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(paths["asp_1080p"]), "--workdir", str(wd)]) == 0,
+          "cli preprocess --video asp_1080p.avi")
+    preprocess_s = time.perf_counter() - t0
+    (stage,) = list((wd / "stages").glob("preprocess-*"))
+    extracted = sorted((stage / "images").glob("*.png"))
+    check(len(extracted) == len(kinds) and
+          {tvideo.read_image(p).shape for p in extracted} == {(512, 910, 3)},
+          f"asp_1080p.avi preprocessed to {len(extracted)} frames of 910x512")
+    want = tvideo.area_resize(clip.rgb(1), 512, 910)
+    check(np.array_equal(tvideo.read_image(extracted[1]), want),
+          "preprocessed frame 1 (the B-VOP) is the port's read, shrunk")
+    sizes = manifest["streams"]["asp_1080p"]["vop_bytes"]
+    return {"streams": len(manifest["streams"]), "write_s": write_s, "read_s": read_s,
+            "s": {k: float(np.median(v)) for k, v in runs.items()},
+            "bytes": dict(zip(kinds, sizes)), "preprocess_s": preprocess_s}
+
+
 def hevc_corpus(work: Path) -> dict:
     """The host HEVC decoder on the card's machine (no cv2 there): built by
     g++ (timed); every file of the committed corpus has its manifest's
@@ -3714,6 +3792,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
                                      f"quality {tvideo.MJPEG_QUALITY} MP4's {mj_bytes}")
         corpus = h264_corpus(work)
         m4v = mpeg4_corpus(work)
+        t_asp = time.perf_counter()
+        asp = mpeg4_asp(work)
+        asp_s = time.perf_counter() - t_asp
         t_hevc = time.perf_counter()
         hev = hevc_corpus(work)
         hevc_s = time.perf_counter() - t_hevc
@@ -3771,6 +3852,14 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"clip_mp4v.mp4 {m4v['preprocess_clip_s']:.2f} s -> 30 frames 910x512, --video "
           f"stitched.mp4 (the JAX package's stitch_video, 512^2) "
           f"{m4v['preprocess_stitched_s']:.2f} s -> 8 frames")
+    print(f"  MPEG-4 Part 2 Advanced Simple (mpeg4dec.cpp): asp_1080p.avi (the tests' "
+          f"writer, seed 0, 1920x1080, XviD0064: Xvid's IDCT) MPEG-quantised I-VOP "
+          f"{asp['s']['I']:.4f} s, quarter-sample P-VOP {asp['s']['P']:.4f} s, B-VOP "
+          f"{asp['s']['B']:.4f} s (medians of 3; {asp['bytes']['I']} / {asp['bytes']['P']} / "
+          f"{asp['bytes']['B']} bytes); {asp['streams']} streams re-made from their seeds "
+          f"({asp['write_s']:.2f} s of the Python writer) and read to cv2's frames in "
+          f"{asp['read_s']:.2f} s; cli preprocess --video asp_1080p.avi "
+          f"{asp['preprocess_s']:.2f} s -> 3 frames 910x512; the part {asp_s:.2f} s [{card}]")
     print(f"  HEVC host decoder (hevcdec.cpp, built by g++ in {hev['build_s']:.2f} s): "
           f"clip_hevc.mp4 (x265's layout, 1920x1080, WPP, SAO, TMVP) I {hev['i_s']:.4f} s, "
           f"P {hev['p_s']:.4f} s, B {hev['b_s']:.4f} s/picture (means of {hev['n_i']} / "

@@ -16,8 +16,9 @@ the transport stream's packets `omfs4d_torch.io.mpegts`'s.
   `JUNK` and `ix##` chunks.  AVI holds Motion JPEG (`MJPG`, ...), MPEG-4
   Part 2 (`XVID`, `FMP4`, `DIVX`, `DX50`, `MP4V`, upper or lower case), the
   latter with whatever follows the BITMAPINFOHEADER in `strf` as its
-  extradata (`dsi`, maybe empty), H.264 (`H264`, `X264`, `avc1`, `DAVC`,
-  ...) and HEVC (`HEVC`, `H265`, `hev1`, `hvc1`): an Annex B byte stream,
+  extradata (`dsi`, maybe empty) and its fourcc (`fourcc`, which FFmpeg's
+  decoder reads the encoder from where the stream has no stamp), H.264
+  (`H264`, `X264`, `avc1`, `DAVC`, ...) and HEVC (`HEVC`, `H265`, `hev1`, `hvc1`): an Annex B byte stream,
   its parameter sets in band, as FFmpeg's AVI muxer writes x264's and
   x265's output (`info["annexb"]`, the extradata, maybe empty), or
   length-prefixed after an avcC / hvcC extradata (`info["avcC"]` /
@@ -71,9 +72,9 @@ def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
         f"{path}: {what}; the port reads only Motion JPEG (MJPG), H.264 (Main / High "
         "profile I, P and B pictures), HEVC (Main and Main 10 profiles, whole) and MPEG-4 "
-        "Part 2 (Simple profile), each in AVI, MP4 / QuickTime, Matroska / WebM or "
-        "MPEG-TS, by itself, decoding this needs an ffmpeg binary (on PATH or from "
-        "imageio_ffmpeg)")
+        "Part 2 (Simple and Advanced Simple profile), each in AVI, MP4 / QuickTime, "
+        "Matroska / WebM or MPEG-TS, by itself, decoding this needs an ffmpeg binary (on "
+        "PATH or from imageio_ffmpeg)")
 
 
 # AVI fourccs of Motion JPEG, and names of those that need another decoder
@@ -115,7 +116,7 @@ def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI four
     if compression in _AVI_MJPEG:
         return {"codec": "mjpeg"}
     if compression in _AVI_MPEG4:
-        return {"codec": "mpeg4", "dsi": extradata}
+        return {"codec": "mpeg4", "dsi": extradata, "fourcc": compression}
     if compression in _AVI_H264:
         if extradata[:1] == b"\x01":
             return {"codec": "h264", "avcC": extradata}
@@ -306,7 +307,8 @@ def index(path) -> tuple[list[int], list[int], dict]:
     `sync`, the indices of its sync samples (None: every sample, or for
     Annex B: found by the reader); "hevc" alike with `hvcC`; "mpeg4" for
     MPEG-4 Part 2, then with `dsi`, the headers the esds, the AVI extradata
-    or the CodecPrivate holds (maybe b"").  Matroska adds `prefix` where its
+    or the CodecPrivate holds (maybe b""), and an AVI's (or a Matroska VfW
+    track's) `fourcc`.  Matroska adds `prefix` where its
     track strips a header from every frame; MPEG-TS `es`, the map from its
     samples' offsets (in the elementary stream) to the file, and `damaged`
     (see `mpegts.index`).  Any other codec raises `UnsupportedCodecError`

@@ -1,5 +1,5 @@
-"""The tables of MPEG-4 Part 2 (ISO/IEC 14496-2) Simple profile that the
-port's host decoder (`omfs4d_torch/io/mpeg4dec.cpp`) and the test writer
+"""The tables of MPEG-4 Part 2 (ISO/IEC 14496-2) Simple and Advanced Simple
+profile that the port's host decoder (`omfs4d_torch/io/mpeg4dec.cpp`) and the test writer
 read, in one place.
 
 The C++ decoder gets them as a generated header (`cpp_header`), written
@@ -21,6 +21,9 @@ given as (code, length) pairs, the code's bits the low `length` bits of
   them (`max_level`, `max_run`).
 - Scans (Figure 7-3): zigzag, alternate horizontal, alternate vertical.
 - 4MV chroma rounding (Table 7-9): sixteenths of the summed vector.
+- Advanced Simple: the B-VOP mb_type (Table B-4; direct, interpolate,
+  backward, forward) and dbquant (Table 6-33) codes, and the default
+  intra and non-intra matrices of MPEG quantisation (6.3.3), raster order.
 """
 
 from __future__ import annotations
@@ -172,6 +175,24 @@ ALT_VERTICAL = np.array([
 CHROMA_ROUND = np.array([0, 0, 0, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 1, 2, 2])
 
 
+# ── Advanced Simple ─────────────────────────────────────────────────────
+# Table B-4, B-VOP mb_type: direct, interpolate, backward, forward
+MB_TYPE_B = np.array([[1, 1], [1, 2], [1, 3], [1, 4]])
+# Table 6-33, dbquant: 0 -> 0, 10 -> -2, 11 -> +2
+DBQUANT = np.array([[0, 1], [2, 2], [3, 2]])
+# 6.3.3: the default matrices of quant_type 1, raster order
+DEFAULT_INTRA_MATRIX = np.array([
+    8, 17, 18, 19, 21, 23, 25, 27, 17, 18, 19, 21, 23, 25, 27, 28,
+    20, 21, 22, 23, 24, 26, 28, 30, 21, 22, 23, 24, 26, 28, 30, 32,
+    22, 23, 24, 26, 28, 30, 32, 35, 23, 24, 26, 28, 30, 32, 35, 38,
+    25, 26, 28, 30, 32, 35, 38, 41, 27, 28, 30, 32, 35, 38, 41, 45])
+DEFAULT_INTER_MATRIX = np.array([
+    16, 17, 18, 19, 20, 21, 22, 23, 17, 18, 19, 20, 21, 22, 23, 24,
+    18, 19, 20, 21, 22, 23, 24, 25, 19, 20, 21, 22, 23, 24, 26, 27,
+    20, 21, 22, 23, 25, 26, 27, 28, 21, 22, 23, 24, 26, 27, 28, 30,
+    22, 23, 24, 26, 27, 28, 30, 31, 23, 24, 25, 27, 28, 30, 31, 33])
+
+
 def _c_array(ctype: str, name: str, values) -> str:
     flat = np.asarray(values).ravel()
     body = ", ".join(str(int(v)) for v in flat)
@@ -196,7 +217,10 @@ def cpp_header() -> str:
             ("int8_t", "INTER_MAX_LEVEL", INTER_MAX_LEVEL),
             ("int8_t", "INTER_MAX_RUN", INTER_MAX_RUN),
             ("uint8_t", "ZIGZAG", ZIGZAG), ("uint8_t", "ALT_HORIZONTAL", ALT_HORIZONTAL),
-            ("uint8_t", "ALT_VERTICAL", ALT_VERTICAL), ("uint8_t", "CHROMA_ROUND", CHROMA_ROUND)):
+            ("uint8_t", "ALT_VERTICAL", ALT_VERTICAL), ("uint8_t", "CHROMA_ROUND", CHROMA_ROUND),
+            ("uint16_t", "MB_TYPE_B", MB_TYPE_B), ("uint16_t", "DBQUANT", DBQUANT),
+            ("uint8_t", "DEFAULT_INTRA_MATRIX", DEFAULT_INTRA_MATRIX),
+            ("uint8_t", "DEFAULT_INTER_MATRIX", DEFAULT_INTER_MATRIX)):
         parts.append(_c_array(ctype, name, values))
     parts.append(f"static const int INTRA_LAST0 = {INTRA_LAST0};\n"
                  f"static const int INTER_LAST0 = {INTER_LAST0};\n"

@@ -38,16 +38,19 @@ contract).  With none, the port's own codecs:
   parsers split it); HEVC
   Main and Main 10 profiles, as iPhones record by default (Main 10 with
   "HDR Video") and x265 writes, read alike (`hevc.HEVCFrames`, the host C++
-  decoder `hevcdec.cpp`); MPEG-4 Part 2 Simple profile, as cv2's `mp4v`,
-  `XVID`, `DIVX` and `FMP4` writers (and so the JAX package's
-  `stitch_video` without an H.264 encoder, into `.mp4`, `.avi` or `.mkv`)
-  write it (`mpeg4.MPEG4Frames`, the host C++ decoder `mpeg4dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
+  decoder `hevcdec.cpp`); MPEG-4 Part 2 Simple and Advanced Simple profile,
+  as cv2's `mp4v`, `XVID`, `DIVX` and `FMP4` writers (and so the JAX
+  package's `stitch_video` without an H.264 encoder, into `.mp4`, `.avi` or
+  `.mkv`) and Xvid and DivX (B-VOPs, packed bitstreams, quarter-sample, MPEG
+  quantisation) write it (`mpeg4.MPEG4Frames`, the host C++ decoder
+  `mpeg4dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
   swscale's own conversion bit for bit (`swscale`; 8-bit 4:2:0 on its
   unscaled path, 10-bit pictures, odd heights and JPEG's other samplings on
   its scaled one), and cv2's gamut and tone mapping of BT.2020 / PQ / HLG
   tagged streams (`colour`).  HEVC beyond Main 10 (more than 10 bits, tiles
   with WPP, ...), H.264 with fields or more than 8 bits, MPEG-4 Part 2
-  beyond Simple profile and other codecs (VP8, VP9, AV1, ...) raise
+  sprites / GMC, interlacing or data partitioning, and other codecs (VP8,
+  VP9, AV1, ...) raise
   `container.UnsupportedCodecError` naming the codec or feature.
 """
 
@@ -268,7 +271,7 @@ def probe_video(path: str | Path) -> dict:
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
     Motion JPEG, H.264 (Main / High, I, P and B pictures), HEVC (Main and
-    Main 10) or MPEG-4 Part 2 (Simple) in AVI, MP4 / QuickTime, Matroska /
+    Main 10) or MPEG-4 Part 2 (Simple, Advanced Simple) in AVI, MP4 / QuickTime, Matroska /
     WebM or MPEG-TS, with no decode: the size as displayed (turned by the track's
     matrix), the fps and the frame count as cv2 reports them
     (`container.UnsupportedCodecError` for another codec)."""
@@ -308,7 +311,8 @@ def extract_frames(
 ) -> list[Path]:
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
     through ffmpeg when there is a binary, else Motion JPEG, H.264 Main /
-    High I, P and B pictures, HEVC Main / Main 10 or MPEG-4 Part 2 Simple in
+    High I, P and B pictures, HEVC Main / Main 10 or MPEG-4 Part 2 (Simple,
+    Advanced Simple) in
     AVI, MP4 / QuickTime, Matroska / WebM or MPEG-TS, upright and edited as
     cv2 shows them) into numbered PNG frames (RGB), every `stride`-th one, at most
     `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.

@@ -1,27 +1,36 @@
-"""A random legal-syntax MPEG-4 Part 2 Simple profile writer, for holding the
-port's decoder (`omfs4d_torch/io/mpeg4dec.cpp`) to cv2's FFmpeg.
+"""A random legal-syntax MPEG-4 Part 2 Simple and Advanced Simple profile
+writer, for holding the port's decoder (`omfs4d_torch/io/mpeg4dec.cpp`) to
+cv2's FFmpeg.
 
 `Writer(seed, **features).stream()` gives (headers, VOPs): the VOS / VO /
-VOL headers and user data, then one VOP a frame (a GOV header before an
-I-VOP where `gov`).  It writes syntax, not pictures: every syntax element is
-drawn at random within what the standard allows, and the writer keeps the
-decoder's state (DC and AC predictors by block, QP and vectors by MB, the
-video packet) only so that what it draws decodes to legal values:
+VOL headers and user data, then one VOP a frame in decoding order (a GOV
+header before an I-VOP where `gov`); `display` holds each VOP's place in
+display order and `kinds` its coding type.  It writes syntax, not pictures:
+every syntax element is drawn at random within what the standard allows,
+and the writer keeps the decoder's state (DC and AC predictors by block, QP
+and vectors by MB, the video packet, the future reference's MB kinds and
+vectors for B-VOPs, the time base) only so that what it draws decodes to
+legal values:
 
-- the inverse-quantised coefficients stay within [-2048, 2047] (where the
+- the inverse-quantised coefficients (H.263's, or MPEG's through the
+  default or loaded matrices) stay within [-2048, 2047] (where the
   standard saturates FFmpeg does not) and a block's absolute sum under
   2,900, so the IDCT's 16-bit rows never overflow;
 - an intra DC, predictor included, stays within [0, 2047] after scaling;
 - vectors stay within f_code's range, differences coded modulo it;
 - TCOEF events are coded the shortest legal way, in the standard's order:
-  the table, escape 1 (level - LMAX), escape 2 (run - RMAX - 1), escape 3.
+  the table, escape 1 (level - LMAX), escape 2 (run - RMAX - 1), escape 3;
+- B-VOP times lie strictly between their references' (FFmpeg skips a B-VOP
+  whose TRB is not within (0, TRD)), each VOP's modulo_time_base counted
+  from the time base FFmpeg keeps.
 
 `stats` counts what was written (MB kinds, escape modes, prediction
 directions, vectors past each edge, ...).  `raw`, `write_avi` and
 `write_mp4` put a stream in the three forms cv2 reads: an elementary
 `.m4v`, AVI (the headers before the first VOP in its first chunk, as cv2
 writes it) and MP4 (`mp4v`, OTI 0x20, the headers in the esds's
-DecoderSpecificInfo).
+DecoderSpecificInfo; `ctts` where B-VOPs reorder the frames); `packed`
+lays B-VOPs out as DivX's and Xvid's packed bitstream does.
 
 The tables are the decoder's, `omfs4d_torch.io.mpeg4_tables`.
 """
@@ -41,13 +50,21 @@ LAVC = "Lavc62.28.101"
 
 
 class BitWriter:
+    """Bits MSB first: whole bytes kept as they fill (so a 1080p VOP costs
+    no more a bit than a small one), the rest in `acc`."""
+
     def __init__(self):
-        self.acc, self.n = 0, 0
+        self.out, self.acc, self.n = bytearray(), 0, 0
 
     def u(self, n: int, v: int) -> None:
         if n:
             assert 0 <= v < 1 << n, (n, v)
             self.acc, self.n = self.acc << n | v, self.n + n
+            spare = self.n % 8
+            if self.n - len(self.out) * 8 - spare >= 64:
+                whole = (self.n - spare) // 8 - len(self.out)
+                self.out += (self.acc >> spare).to_bytes(whole, "big")
+                self.acc &= (1 << spare) - 1
 
     def code(self, pair) -> None:
         self.u(int(pair[1]), int(pair[0]))
@@ -61,7 +78,7 @@ class BitWriter:
 
     def data(self) -> bytes:
         assert self.n % 8 == 0
-        return self.acc.to_bytes(self.n // 8, "big") if self.n else b""
+        return bytes(self.out) + self.acc.to_bytes(self.n // 8 - len(self.out), "big")
 
 
 def start(code: int) -> bytes:
@@ -85,9 +102,11 @@ MV_CANDIDATES = (((-1, 0, 1), (0, -1, 2), (1, -1, 2)),
                  ((0, 0, 2), (0, 0, 0), (0, 0, 1)))
 
 # what each refusal flag writes, by name of the tool refused
-REFUSALS = ("b_vop", "sprite", "quant_type", "quarter_sample", "interlaced",
-            "data_partitioned", "shape", "not_8_bit", "scalability", "complexity", "newpred",
-            "reduced_resolution", "obmc", "short_header", "packed", "chroma_format")
+REFUSALS = ("sprite", "interlaced", "data_partitioned", "shape", "not_8_bit", "scalability",
+            "complexity", "newpred", "reduced_resolution", "obmc", "short_header",
+            "chroma_format")
+# B-VOP mb_type by index of its code (Table B-4)
+B_TYPES = ("direct", "interpolate", "backward", "forward")
 
 
 class Writer:
@@ -106,6 +125,19 @@ class Writer:
     transfer, matrix), in the VO header, or None);
     verid (1 or 2); vbv; par; fixed_rate; vop_not_coded (the chance a P-VOP
     is not coded); refuse (one of REFUSALS: the stream then uses that tool).
+
+    Advanced Simple: bframes (B-VOPs between references; the last frame is
+    a reference), b_modb (the chance of modb 1: direct with nothing coded),
+    b_types (weights of direct, interpolate, backward, forward), b_nocbp (the
+    chance of no cbpb), b_dquant (the chance of dbquant), bcode (the
+    b_code of each B-VOP in turn), delta (the largest direct-mode mvdb);
+    qpel (quarter_sample); quant_type (1: MPEG quantisation), matrices
+    (None: the defaults; "loaded": random ones loaded in the VOL, cut short
+    at random); stamps (more user data after `stamp`); low_delay (the
+    VOL's; default 0 with B-VOPs, else 1); vol_control (False: no
+    vol_control_parameters, so no low_delay); dc_over (the chance an intra
+    DC passes 2047 once scaled, which FFmpeg's predictor holds at 2047 but
+    under an Xvid stamp up to build 32).
     """
 
     def __init__(self, seed: int, width: int = 48, height: int = 32, frames: int = 4,
@@ -116,7 +148,11 @@ class Writer:
                  stuffing: float = 0.0, gov: bool = False, stamp: str | None = LAVC,
                  colour=None, verid: int = 1, vbv: bool = False, par: bool = False,
                  fixed_rate: bool = False, vop_not_coded: float = 0.0, time_res: int = 30,
-                 refuse: str | None = None):
+                 refuse: str | None = None, bframes: int = 0, b_modb: float = 0.1,
+                 b_types=(1, 1, 1, 1), b_nocbp: float = 0.2, b_dquant: float = 0.0,
+                 bcode=(1,), delta: int = 3, qpel: bool = False, quant_type: int = 0,
+                 matrices: str | None = None, stamps=(), low_delay: int | None = None,
+                 vol_control: bool = True, dc_over: float = 0.0):
         self.rng = np.random.default_rng(seed)
         self.w, self.h, self.frames, self.gop = width, height, frames, gop
         self.qp_range, self.p_dquant, self.p_ac_pred, self.dc_thrs = qp, dquant, ac_pred, dc_thr
@@ -127,6 +163,33 @@ class Writer:
         self.verid, self.vbv, self.par, self.fixed_rate = verid, vbv, par, fixed_rate
         self.p_not_coded, self.time_res, self.refuse = vop_not_coded, time_res, refuse
         assert refuse is None or refuse in REFUSALS, refuse
+        self.bframes, self.p_modb, self.b_weights = bframes, b_modb, np.asarray(b_types, float)
+        self.p_nocbp, self.p_bdquant, self.bcodes, self.delta = b_nocbp, b_dquant, bcode, delta
+        self.qpel, self.quant_type, self.matrices, self.stamps = qpel, quant_type, matrices, stamps
+        self.low_delay = (0 if bframes else 1) if low_delay is None else low_delay
+        self.vol_control = vol_control
+        self.p_dc_over = dc_over
+        xvid = [int(t[4:]) for t in (stamp or "",) + tuple(stamps)
+                if t.startswith("XviD") and t[4:].isdigit()]
+        self.dc_clip = bool(xvid) and xvid[0] <= 32
+        self.asp = bool(bframes or qpel or quant_type)
+        if qpel:
+            self.verid = 2
+        self.intra_w = np.asarray(T.DEFAULT_INTRA_MATRIX)
+        self.inter_w = np.asarray(T.DEFAULT_INTER_MATRIX)
+        self.loaded: list[list[int]] = [[], []]
+        if quant_type and matrices == "loaded":
+            for k, default in enumerate((self.intra_w, self.inter_w)):
+                n = 64 if self.chance(0.4) else self.draw(1, 63)
+                values = [self.draw(6, 80) for _ in range(n)]
+                self.loaded[k] = values
+                w = np.zeros(64, np.int64)
+                for i in range(64):
+                    w[T.ZIGZAG[i]] = values[min(i, n - 1)]
+                if k == 0:
+                    self.intra_w = w
+                else:
+                    self.inter_w = w
         self.mbw, self.mbh = -(-width // 16), -(-height // 16)
         n = self.mbw * self.mbh
         self.mb_bits = max(1, (n - 1).bit_length())
@@ -138,6 +201,12 @@ class Writer:
         self.dc = [[1024] * 6 for _ in range(n)]
         self.ac = [[[0] * 16 for _ in range(6)] for _ in range(n)]
         self.packet_start = 0
+        # the future reference, as a B-VOP's direct mode and skips read it
+        self.ref_skip, self.ref_four = [False] * n, [False] * n
+        self.ref_mvs = [[(0, 0)] * 4 for _ in range(n)]
+        self.time_base = self.last_time_base = 0
+        self.display: list[int] = []
+        self.kinds: list[str] = []
 
     # ── draws ───────────────────────────────────────────────────────────
     def chance(self, p: float) -> bool:
@@ -173,16 +242,16 @@ class Writer:
         out += start(0x20) + self.vol()
         if self.stamp:
             out += start(0xB2) + self.stamp.encode("latin-1")
-        if self.refuse == "packed":
-            out += start(0xB2) + b"DivX503b1393p"
+        for text in self.stamps:
+            out += start(0xB2) + text.encode("latin-1")
         return out
 
     def vol(self) -> bytes:
         r = self.refuse
         bw = BitWriter()
         bw.u(1, 0)
-        bw.u(8, 17 if r in ("b_vop", "quarter_sample") else 1)
-        verid = 2 if r in ("quarter_sample", "newpred", "reduced_resolution") else self.verid
+        bw.u(8, 17 if self.asp else 1)
+        verid = 2 if r in ("newpred", "reduced_resolution") else self.verid
         bw.u(1, 1)
         bw.u(4, verid)
         bw.u(3, 1)
@@ -190,9 +259,18 @@ class Writer:
         if self.par:
             bw.u(8, 12)
             bw.u(8, 11)
-        bw.u(1, 1)                                  # vol_control_parameters
+        bw.u(1, self.vol_control)                   # vol_control_parameters
+        if self.vol_control:
+            self.vol_control_parameters(bw, r)
+        else:
+            assert r != "chroma_format" and not self.vbv
+        self.vol_tail(bw, r, verid)
+        bw.stuffing()
+        return bw.data()
+
+    def vol_control_parameters(self, bw: BitWriter, r) -> None:
         bw.u(2, 2 if r == "chroma_format" else 1)
-        bw.u(1, 0 if r == "b_vop" else 1)           # low_delay
+        bw.u(1, self.low_delay)
         bw.u(1, self.vbv)
         if self.vbv:                                # bit rate, buffer size, occupancy
             for v in (0, 4000, 0):
@@ -203,6 +281,8 @@ class Writer:
             bw.u(1, 1)
             bw.u(15, 3000)
             bw.u(1, 1)
+
+    def vol_tail(self, bw: BitWriter, r, verid: int) -> None:
         bw.u(2, 2 if r == "shape" else 0)
         bw.u(1, 1)
         bw.u(16, self.time_res)
@@ -219,11 +299,18 @@ class Writer:
         bw.u(1, r != "obmc")                        # obmc_disable
         bw.u(1 if verid == 1 else 2, r == "sprite")  # sprite_enable (refused here)
         bw.u(1, r == "not_8_bit")
-        bw.u(1, r == "quant_type")
-        if r == "quant_type":
-            bw.u(2, 0)                              # no matrices loaded
+        bw.u(1, self.quant_type)
+        if self.quant_type:
+            for values in self.loaded:              # load_intra / load_nonintra_quant_mat
+                bw.u(1, bool(values))
+                for v in values:
+                    bw.u(8, v)
+                if values and len(values) < 64:
+                    bw.u(8, 0)
+                if values:
+                    self.stats["matrix_loaded" if len(values) == 64 else "matrix_cut"] += 1
         if verid != 1:
-            bw.u(1, r == "quarter_sample")
+            bw.u(1, self.qpel)
         bw.u(1, r != "complexity")                  # complexity_estimation_disable
         bw.u(1, self.p_packet == 0)                 # resync_marker_disable
         bw.u(1, r == "data_partitioned")
@@ -233,8 +320,6 @@ class Writer:
             bw.u(1, r == "newpred")
             bw.u(1, r == "reduced_resolution")
         bw.u(1, r == "scalability")
-        bw.stuffing()
-        return bw.data()
 
     def gov_header(self, frame: int) -> bytes:
         seconds = frame // self.time_res
@@ -249,37 +334,66 @@ class Writer:
         return start(0xB3) + bw.data()
 
     # ── the stream ──────────────────────────────────────────────────────
+    def order(self) -> list[tuple[int, str]]:
+        """(display index, coding type) of each VOP in decoding order: a
+        reference every bframes + 1 frames and at the last one (an I-VOP at
+        each multiple of gop), then the B-VOPs shown before it."""
+        refs = sorted(set(range(0, self.frames, self.bframes + 1)) | {self.frames - 1})
+        out, prev = [], None
+        for r in refs:
+            out.append((r, "I" if r % self.gop == 0 else "P"))
+            if prev is not None:
+                out += [(f, "B") for f in range(prev + 1, r)]
+            prev = r
+        return out
+
     def stream(self) -> tuple[bytes, list[bytes]]:
         headers = self.headers()
         vops = []
-        for f in range(self.frames):
-            kind = "I" if f % self.gop == 0 else "P"
-            if self.refuse == "b_vop" and f == 2:
-                kind = "B"
-            data = self.gov_header(f) if self.gov and kind == "I" else b""
+        order = self.order()
+        for k, (f, kind) in enumerate(order):
+            data = self.gov_header(self.gov_frame(order, k)) if self.gov and kind == "I" else b""
             data += self.vop(f, kind)
-            if self.refuse == "packed" and f == 1:
-                data += self.vop(f, "P")
             vops.append(data)
+            self.display.append(f)
+            self.kinds.append(kind)
         return headers, vops
 
-    def vop(self, frame: int, kind: str) -> bytes:
-        bw = BitWriter()
-        bw.u(2, "IPB".index(kind))
-        if frame and frame % self.time_res == 0:
+    def gov_frame(self, order, k: int) -> int:
+        """The frame a GOV before the k-th VOP (an I-VOP) dates itself by:
+        its own, or with B-VOPs the reference before it, whose time base the
+        B-VOPs shown before the I-VOP count from."""
+        f = order[k][0]
+        if not self.bframes:
+            return f
+        prev = [d for d, kind in order[:k] if kind != "B"]
+        return prev[-1] if prev else f
+
+    def time_code(self, bw: BitWriter, frame: int, kind: str) -> None:
+        """modulo_time_base and vop_time_increment of a VOP shown at `frame`:
+        with no B-VOPs a second marked at each whole second, as FFmpeg's
+        encoder marks it; with them the seconds since the time base FFmpeg
+        keeps (the last reference's, a B-VOP's the one before)."""
+        seconds = 0
+        if not self.bframes:
+            seconds = int(bool(frame and frame % self.time_res == 0))
+        elif kind == "B":
+            seconds = frame // self.time_res - self.last_time_base
+        else:
+            seconds = frame // self.time_res - self.time_base
+            self.last_time_base, self.time_base = self.time_base, frame // self.time_res
+        assert seconds >= 0, (frame, kind)
+        for _ in range(seconds):
             bw.u(1, 1)                              # modulo_time_base: a second has passed
         bw.u(1, 0)
         bw.u(1, 1)
         bw.u(self.time_bits, frame % self.time_res)
         bw.u(1, 1)
-        if kind == "B":                             # refused before its data is read
-            bw.u(1, 1)
-            bw.u(1, 0)
-            bw.u(3, 0)
-            bw.u(5, 8)
-            bw.u(3, 1)
-            bw.stuffing()
-            return start(0xB6) + bw.data()
+
+    def vop(self, frame: int, kind: str) -> bytes:
+        bw = BitWriter()
+        bw.u(2, "IPB".index(kind))
+        self.time_code(bw, frame, kind)
         if kind == "P" and self.chance(self.p_not_coded):
             bw.u(1, 0)                              # vop_coded
             bw.stuffing()
@@ -293,30 +407,127 @@ class Writer:
             if kind == "P" else getattr(self, "rounding", 0)
         self.dc_thr = int(self.dc_thrs[frame % len(self.dc_thrs)])
         qp = self.draw(*self.qp_range)
-        self.fcode = int(self.fcodes[frame % len(self.fcodes)]) if kind == "P" else 1
+        self.fcode = int(self.fcodes[frame % len(self.fcodes)]) if kind != "I" else 1
+        self.bcode = int(self.bcodes[frame % len(self.bcodes)]) if kind == "B" else 1
         if kind == "P":
             bw.u(1, self.rounding)
             self.stats[f"rounding{self.rounding}"] += 1
         bw.u(3, self.dc_thr)
         bw.u(5, qp)
-        if kind == "P":
+        if kind != "I":
             bw.u(3, self.fcode)
             self.stats[f"fcode{self.fcode}"] += 1
+        if kind == "B":
+            bw.u(3, self.bcode)
+            self.stats[f"bcode{self.bcode}"] += 1
         self.stats[f"dc_thr{self.dc_thr}"] += 1
         self.stats[f"vop_{kind}"] += 1
         self.packet_start = 0
         n = self.mbw * self.mbh
+        if kind == "B":
+            self.b_vop(bw, frame, qp)
+            bw.stuffing()
+            return start(0xB6) + bw.data()
         self.mb_intra = [False] * n
         for mbn in range(n):
             if mbn and self.chance(self.p_packet):
                 qp = self.packet_header(bw, mbn, frame, qp)
             qp = self.macroblock(bw, mbn, qp)
+        # what the B-VOPs before the next reference read of this one
+        for mbn in range(n):
+            if kind == "I":
+                self.ref_skip[mbn], self.ref_four[mbn] = False, False
+            self.ref_mvs[mbn] = list(self.mvs[mbn])
         bw.stuffing()
         return start(0xB6) + bw.data()
 
+    # ── B-VOPs ──────────────────────────────────────────────────────────
+    def b_vop(self, bw: BitWriter, frame: int, qp: int) -> None:
+        """The MBs of a B-VOP shown at `frame` between the two references."""
+        before = [d for d, k in zip(self.display, self.kinds) if k != "B"]
+        trd, trb = before[-1] - before[-2], frame - before[-2]
+        last = [[0, 0], [0, 0]]
+        coded_yet = False
+        for mbn in range(self.mbw * self.mbh):
+            if mbn % self.mbw == 0:
+                last = [[0, 0], [0, 0]]
+            if self.ref_skip[mbn]:                  # skipped as in the future reference
+                self.stats["B_colocated_skip"] += 1
+                continue
+            if coded_yet and self.chance(self.p_packet):
+                qp = self.packet_header(bw, mbn, frame, qp)
+                last = [[0, 0], [0, 0]]
+            coded_yet = True
+            qp = self.b_macroblock(bw, mbn, qp, last, trb, trd)
+
+    def b_macroblock(self, bw: BitWriter, mbn: int, qp: int, last, trb: int, trd: int) -> int:
+        if self.chance(self.p_modb):
+            bw.u(1, 1)                              # modb 1: direct, nothing coded
+            self.stats["B_modb1"] += 1
+            self.stats["direct4" if self.ref_four[mbn] else "direct1"] += 1
+            return qp
+        bw.u(1, 0)
+        kind = int(self.rng.choice(4, p=self.b_weights / self.b_weights.sum()))
+        name = B_TYPES[kind]
+        delta = 0
+        if name != "direct" and self.chance(self.p_bdquant):
+            delta = int(self.rng.choice([d for d in (-2, 2) if 1 <= qp + d <= 31]))
+        nocbp = self.chance(self.p_nocbp)
+        blocks = [([], 0)] * 6 if nocbp else [self.inter_block(qp + delta) for _ in range(6)]
+        cbp = [bool(b) for b, _ in blocks]
+        if not any(cbp):
+            delta = 0
+        bw.u(1, nocbp)
+        bw.code(T.MB_TYPE_B[kind])
+        if not nocbp:
+            for c in cbp:
+                bw.u(1, c)
+        if name != "direct" and any(cbp):
+            bw.code(T.DBQUANT[(0, -2, 2).index(delta)])
+            self.stats["dbquant" if delta else "dbquant0"] += 1
+        self.stats[f"B_{name}"] += 1
+        self.stats["B_nocbp" if nocbp else "B_cbp"] += 1
+        qp += delta
+        if name in ("interpolate", "forward"):
+            last[0] = self.b_vector(bw, last[0], self.fcode, "fwd")
+        if name in ("interpolate", "backward"):
+            last[1] = self.b_vector(bw, last[1], self.bcode, "bwd")
+        if name == "direct":
+            for _ in range(2):
+                d = self.draw(-self.delta, self.delta) if self.chance(0.6) else 0
+                self.write_mv_f(bw, d, 1)
+                self.stats["mvdb_nonzero" if d else "mvdb_zero"] += 1
+            self.stats["direct4" if self.ref_four[mbn] else "direct1"] += 1
+            if self.ref_four[mbn] or any(self.ref_mvs[mbn]):
+                self.stats["direct_scaled"] += 1
+        for events, _ in blocks:
+            if events:
+                self.write_tcoef(bw, events, False)
+        return qp
+
+    def b_vector(self, bw: BitWriter, pred, fcode: int, name: str) -> list[int]:
+        scale = 1 << (fcode - 1)
+        lo, hi = -32 * scale, 32 * scale - 1
+        if self.chance(self.p_far):
+            v = [self.draw(lo, hi), self.draw(lo, hi)]
+        else:
+            v = [min(hi, max(lo, p + self.draw(-6, 6))) for p in pred]
+        for c in (0, 1):
+            self.write_mv_f(bw, (v[c] - pred[c] + 32 * scale) % (64 * scale) - 32 * scale, fcode)
+        self.stats[f"mv_{name}"] += 1
+        self.frac_stats(v)
+        return v
+
+    def frac_stats(self, v) -> None:
+        if self.qpel:
+            self.stats[f"qpel{v[0] & 3}{v[1] & 3}"] += 1
+        else:
+            self.stats["mv_half" if (v[0] | v[1]) & 1 else "mv_full"] += 1
+
     def packet_header(self, bw: BitWriter, mbn: int, frame: int, qp: int) -> int:
         bw.stuffing()
-        zeros = 16 if self.kind == "I" else 15 + self.fcode
+        zeros = 16 if self.kind == "I" else 15 + self.fcode if self.kind == "P" else \
+            15 + max(self.fcode, self.bcode, 2)
         bw.u(zeros + 1, 1)
         bw.u(self.mb_bits, mbn)
         qp = self.draw(*self.qp_range)
@@ -328,10 +539,12 @@ class Writer:
             bw.u(1, 1)
             bw.u(self.time_bits, frame % self.time_res)
             bw.u(1, 1)
-            bw.u(2, "IP".index(self.kind))
+            bw.u(2, "IPB".index(self.kind))
             bw.u(3, self.dc_thr)
-            if self.kind == "P":
+            if self.kind != "I":
                 bw.u(3, self.fcode)
+            if self.kind == "B":
+                bw.u(3, self.bcode)
             self.stats["hec"] += 1
         self.packet_start = mbn
         self.stats["packet"] += 1
@@ -387,9 +600,11 @@ class Writer:
             self.mvs[mbn] = [(0, 0)] * 4
             self.clear_intra(mbn)
             self.stats["P_skip"] += 1
+            self.ref_skip[mbn], self.ref_four[mbn] = True, False
             return qp
         intra = self.kind == "I" or self.chance(self.p_intra)
         four = not intra and self.chance(self.p_four)
+        self.ref_skip[mbn], self.ref_four[mbn] = False, four
         delta = 0
         if not four and self.chance(self.p_dquant):
             delta = int(self.rng.choice([d for d in T.DQUANT if 1 <= qp + d <= 31]))
@@ -446,7 +661,14 @@ class Writer:
         """The largest |level| whose inverse quantisation stays within 2047."""
         return (2047 - qp) // (2 * qp)
 
-    def random_levels(self, positions: range, qp: int, budget: int = 2900) -> dict[int, int]:
+    def mpeg_level(self, level: int, qp: int, weight: int, intra: bool) -> int:
+        """The inverse-quantised magnitude of a level under MPEG
+        quantisation (7.4.4.2, as FFmpeg truncates it)."""
+        return ((level * 2 * qp * weight) >> 4 if intra
+                else ((2 * level + 1) * 2 * qp * weight) >> 5)
+
+    def random_levels(self, positions: range, qp: int, budget: int = 2900, scan=None,
+                      intra: bool = False) -> dict[int, int]:
         """Scan position -> level of a random block's non-zero coefficients,
         their inverse-quantised magnitudes summing to at most `budget`."""
         bound = self.level_bound(qp)
@@ -458,11 +680,17 @@ class Writer:
                 pos += self.draw(10, 45)
             if pos >= positions.stop:
                 break
+            if self.quant_type:
+                weight = int((self.intra_w if intra else self.inter_w)[scan[pos]])
+                # the largest level whose inverse quantisation stays within 2047
+                bound = (32767 // (2 * qp * weight) if intra
+                         else (65535 // (2 * qp * weight) - 1) // 2)
             if self.chance(self.p_big):
                 level = self.draw(1, bound)
             else:
                 level = min(bound, int(self.rng.choice([1, 1, 1, 1, 2, 2, 3, 4, 6, 9, 13])))
-            cost = (2 * level + 1) * qp
+            cost = (self.mpeg_level(level, qp, weight, intra) if self.quant_type
+                    else (2 * level + 1) * qp)
             if cost > budget:
                 break
             budget -= cost
@@ -492,9 +720,13 @@ class Writer:
             dc = min(hi, max(0, dc_pred + self.draw(-3, 3)))
         else:
             dc = self.draw(0, min(hi, (1500 + self.draw(0, 540)) // scale))
+        if self.chance(self.p_dc_over) and (hi + 1) * scale > 2047:
+            dc = hi + 1                             # past 2047 once scaled
+            self.stats["dc_over"] += 1
         qf[0] = dc
         if self.chance(self.p_coded):
-            for pos, level in self.random_levels(range(1, 64), qp, 2900 - dc * scale).items():
+            for pos, level in self.random_levels(range(1, 64), qp, 2900 - dc * scale, scan,
+                                                 True).items():
                 qf[scan[pos]] = level
         # the AC predictor
         pred = np.zeros(64, np.int64)
@@ -508,7 +740,9 @@ class Writer:
                     self.stats["ac_rescaled" if q != qp and a else "ac_same_qp"] += 1
         coded = qf - pred
         coded[0] = dc - dc_pred
-        self.dc[mbn][n] = int(dc * scale)
+        # the predictor as FFmpeg keeps it: held at 2047, or not under the
+        # DC_CLIP workaround of Xvid builds up to 32
+        self.dc[mbn][n] = int(dc * scale) if self.dc_clip else min(2047, int(dc * scale))
         self.ac[mbn][n] = [0] + [int(qf[8 * i]) for i in range(1, 8)] + [0] + \
             [int(qf[i]) for i in range(1, 8)]
         first = 1 if dc_vlc else 0
@@ -519,8 +753,12 @@ class Writer:
         if not self.chance(self.p_coded):
             return [], 0
         qf = np.zeros(64, np.int64)
-        for pos, level in self.random_levels(range(0, 64), qp).items():
+        for pos, level in self.random_levels(range(0, 64), qp, scan=T.ZIGZAG).items():
             qf[T.ZIGZAG[pos]] = level
+        if self.quant_type and qf.any():
+            total = sum(self.mpeg_level(abs(int(v)), qp, int(self.inter_w[k]), False)
+                        for k, v in enumerate(qf) if v)
+            self.stats["mismatch_even" if total % 2 == 0 else "mismatch_odd"] += 1
         return self.events(qf, T.ZIGZAG, 0), 0
 
     def events(self, coded: np.ndarray, scan, first: int) -> list[tuple[int, int, int]]:
@@ -554,14 +792,16 @@ class Writer:
             diffs.append(tuple(diff))
             for j in (range(k, k + 1) if four else range(4)):
                 self.mvs[mbn][j] = v
-            size = 8 if four else 16
-            x = 16 * mx + (8 * (k & 1) if four else 0) + (v[0] >> 1)
-            y = 16 * my + (8 * (k >> 1) if four else 0) + (v[1] >> 1)
-            edges = {"left": x < 0, "top": y < 0, "right": x + size + (v[0] & 1) > self.w,
-                     "bottom": y + size + (v[1] & 1) > self.h}
+            size, sh = 8 if four else 16, 2 if self.qpel else 1
+            x = 16 * mx + (8 * (k & 1) if four else 0) + (v[0] >> sh)
+            y = 16 * my + (8 * (k >> 1) if four else 0) + (v[1] >> sh)
+            frac = (1 << sh) - 1
+            edges = {"left": x < 0, "top": y < 0,
+                     "right": x + size + bool(v[0] & frac) > self.w,
+                     "bottom": y + size + bool(v[1] & frac) > self.h}
             for name, past in edges.items():
                 self.stats[f"mv_past_{name}"] += past
-            self.stats["mv_half" if (v[0] | v[1]) & 1 else "mv_full"] += 1
+            self.frac_stats(v)
         if four:
             cx = chroma_vector(sum(v[0] for v in self.mvs[mbn]))
             self.stats[f"chroma4_{abs(sum(v[0] for v in self.mvs[mbn])) & 15}"] += 1
@@ -569,7 +809,10 @@ class Writer:
         return diffs
 
     def write_mv(self, bw: BitWriter, d: int) -> None:
-        r = self.fcode - 1
+        self.write_mv_f(bw, d, self.fcode)
+
+    def write_mv_f(self, bw: BitWriter, d: int, fcode: int) -> None:
+        r = fcode - 1
         if d == 0:
             bw.code(T.MV[0])
             return
@@ -653,6 +896,14 @@ def raw(headers: bytes, vops: list[bytes]) -> bytes:
     return headers + b"".join(vops)
 
 
+def avi_chunks(writer: Writer, headers: bytes, vops: list[bytes],
+               pack: str | None = None) -> list[bytes]:
+    """An AVI's chunks of a stream: the headers before the first VOP, as cv2
+    writes them; `pack` lays B-VOPs out as `packed` does."""
+    samples = packed(writer, vops, pack) if pack else vops
+    return [headers + samples[0]] + samples[1:]
+
+
 def write_avi(path, chunks: list[bytes], width: int, height: int, fourcc: bytes = b"XVID",
               fps: int = 30, extradata: bytes = b"") -> None:
     """An AVI of one video stream: `chunks` as its `00dc` chunks (a b"" is a
@@ -683,23 +934,87 @@ def write_avi(path, chunks: list[bytes], width: int, height: int, fourcc: bytes 
         f.write(b"RIFF" + struct.pack("<I", len(body)) + body)
 
 
+def esds(headers: bytes, biggest: int) -> bytes:
+    """The esds box of an `mp4v` sample entry: objectTypeIndication 0x20
+    (visual stream), the headers as its DecoderSpecificInfo."""
+    def descriptor(tag, body):
+        n = len(body)
+        return bytes([tag, n >> 21 & 0x7F | 0x80, n >> 14 & 0x7F | 0x80, n >> 7 & 0x7F | 0x80,
+                      n & 0x7F]) + body
+
+    config = descriptor(4, struct.pack(">BB", 0x20, 0x11) + biggest.to_bytes(3, "big")
+                        + struct.pack(">II", 0, 0) + descriptor(5, headers))
+    return mp4.full(b"esds", 0, 0, descriptor(3, struct.pack(">HB", 1, 0) + config
+                                              + descriptor(6, b"\x02")))
+
+
+def is_key(sample: bytes) -> bool:
+    """A sample whose first VOP is an I-VOP."""
+    at = sample.find(b"\x00\x00\x01\xb6")
+    return at >= 0 and at + 4 < len(sample) and sample[at + 4] >> 6 == 0
+
+
 def write_mp4(path, headers: bytes, vops: list[bytes], width: int, height: int,
-              fps: int = 30, boxes: bytes = b"") -> None:
+              fps: int = 30, boxes: bytes = b"", display: list[int] | None = None,
+              media_time=None) -> None:
     """An MP4 of `mp4v` (objectTypeIndication 0x20, visual stream), the
     headers as the esds's DecoderSpecificInfo, one VOP a sample, I-VOPs the
     sync samples, as FFmpeg's mov muxer writes cv2's `mp4v`; `boxes` follow
-    the esds in the sample entry (a `colr` box)."""
-    def descriptor(tag, body):
-        return bytes([tag, 0x80, 0x80, 0x80, len(body)]) + body
+    the esds in the sample entry (a `colr` box).  With `display` (each VOP's
+    place in display order: B-VOPs) the file has `ctts` as FFmpeg's mov
+    muxer lays out reordered frames, and an edit list from `media_time`
+    ("ctts": the first sample's offset; None: none)."""
+    if display is not None:
+        from tests import torch_h264_syntax as hsyn
+
+        sync = [i + 1 for i, v in enumerate(vops) if is_key(v)]
+        hsyn.write_track_file(path, vops, sync, b"mp4v",
+                              esds(headers, max(len(v) for v in vops)) + boxes, width, height,
+                              fps, audio=False, quicktime=False, media_time=media_time,
+                              display=display)
+        return
 
     def entry(sizes):
-        config = descriptor(4, struct.pack(">BB", 0x20, 0x11) + max(sizes).to_bytes(3, "big")
-                            + struct.pack(">II", 0, 0) + descriptor(5, headers))
-        esds = mp4.full(b"esds", 0, 0, descriptor(3, struct.pack(">HB", 1, 0) + config
-                                                  + descriptor(6, b"\x02")))
-        return mp4.visual_entry(b"mp4v", width, height, esds, boxes)
+        return mp4.visual_entry(b"mp4v", width, height, esds(headers, max(sizes)), boxes)
 
-    samples = [(v, v.find(b"\x00\x00\x01\xb6") >= 0 and
-                v[v.find(b"\x00\x00\x01\xb6") + 4] >> 6 == 0) for v in vops]
     with open(path, "w+b") as f:
-        mp4.write_track(f, samples, Fraction(fps), width, height, entry)
+        mp4.write_track(f, [(v, is_key(v)) for v in vops], Fraction(fps), width, height, entry)
+
+
+def n_vop(time_bits: int, frame: int, time_res: int) -> bytes:
+    """A VOP that is not coded (P, vop_coded 0): the placeholder of DivX's
+    and Xvid's packed bitstream."""
+    bw = BitWriter()
+    bw.u(2, 1)
+    bw.u(1, 0)
+    bw.u(1, 1)
+    bw.u(time_bits, frame % time_res)
+    bw.u(1, 1)
+    bw.u(1, 0)
+    bw.stuffing()
+    return start(0xB6) + bw.data()
+
+
+def packed(writer: Writer, vops: list[bytes], placeholder: str = "nvop") -> list[bytes]:
+    """The VOPs laid out as DivX's (and Xvid's, packed) bitstream lays out
+    B-VOPs: a reference's sample holds the first B-VOP after it too, each
+    further B-VOP moves one sample on, and the group ends in a placeholder,
+    an N-VOP ("nvop") or a chunk of one byte ("byte"); as many samples as
+    VOPs."""
+    out, k = [], 0
+    kinds = writer.kinds
+    while k < len(vops):
+        if kinds[k] != "B" and k + 1 < len(vops) and kinds[k + 1] == "B":
+            j = k + 1
+            while j < len(vops) and kinds[j] == "B":
+                j += 1
+            out.append(vops[k] + vops[k + 1])
+            out += vops[k + 2:j]
+            out.append(n_vop(writer.time_bits, writer.display[k], writer.time_res)
+                       if placeholder == "nvop" else b"\x7f")
+            k = j
+        else:
+            out.append(vops[k])
+            k += 1
+    assert len(out) == len(vops)
+    return out
