@@ -171,7 +171,7 @@ Phase J: the clinical engine at the size of a head CBCT.  A seeded skull
 Phase K: the parallel package, SPMD over torch.distributed, with rank groups
   of gloo processes sharing the one card (`chip_smoke.py --k-rank ...`, one
   process each; nccl refuses two ranks on a card).  The one-process runs come
-  first, in this process: the trainer over a 30-step window from phase D's
+  first, in this process: the trainer over a 20-step window from phase D's
   init (the bench avatar compacted to 73,728 slots, co-optimization on, the
   frame indices drawn once), twice each for the run-to-run spread (K2 sums
   with float atomics), and the tracker's landmark stages on phase I's clip.
@@ -230,12 +230,16 @@ Phase M: the reference's user path from a video file to a prediction video,
   read back by the port bit-equal to that reconstruction, within
   H264_PSNR_FLOOR of each PNG, and smaller than the MJPG (quality 95) MP4 of
   the same frames, which `mjpeg.write` writes and which reads back within
-  VIDEO_PSNR_FLOOR.  Then the host H.264 decoder (g++-built C++): every
-  stream of tests/data/h264/ decodes to its manifest's SHA-256s, `cli
-  preprocess --video clip.mov` (a phone's portrait capture: 1080p High
-  profile, CABAC, a 90-degree display matrix, a sound track) gives its six
-  frames turned upright at target_size 512, each the port's own read of the
-  file shrunk.  Then the host MPEG-4 Part 2 decoder (g++-built C++): every
+  VIDEO_PSNR_FLOOR.  The host libraries the corpora decode with (MPEG-4
+  Part 2, HEVC, the colour table, VP8) are built by g++ at once in the
+  background while those CLI calls run.  Then the host H.264 decoder
+  (g++-built C++): every stream of tests/data/h264/ decodes to its
+  manifest's SHA-256s, `cli preprocess --video clip.mov` (a phone's portrait
+  capture: 1080p High profile, CABAC, a 90-degree display matrix, a sound
+  track) gives its first PREPROCESS_FRAMES frames turned upright at
+  target_size 512, each the port's own read of the file shrunk (each 1080p
+  preprocess stops there but clip_b.mp4's, asp_1080p.avi's and
+  clip_1080p.webm's).  Then the host MPEG-4 Part 2 decoder (g++-built C++): every
   file of tests/data/mpeg4/ (the random writer's streams, cv2's mp4v MP4 and
   XVID AVI of a 1080p scene, the JAX package's stitch_video output) has its
   manifest's SHA-256 and decodes to its frames' SHA-256s, clip_mp4v.mp4's
@@ -254,12 +258,19 @@ Phase M: the reference's user path from a video file to a prediction video,
   H.264, HEVC and MPEG-4 clips into Matroska and (Annex B) AVI, made again
   here by the tests' muxer to the manifest's bytes; `cli preprocess --video
   clip_b.mkv` (1080p H.264 B-pyramid in Matroska) gives clip_b.mp4's nine
-  frames at target_size 512, timed per frame.
+  frames at target_size 512, timed per frame.  Then VP8 against
+  tests/data/vp8/manifest.json (cv2's probes and frame SHA-256s): cv2's
+  committed VP80 clips (WebM, Matroska, AVI, 1080p) and the tests' writer's
+  streams (versions 0-3, hidden frames, odd sizes, a browser's recording
+  layout, 1080p) re-made here from their seeds to the manifest's bytes; the
+  1080p key and inter frames of cv2's clip and of the writer's stream timed;
+  `cli preprocess --video clip_1080p.webm` gives its 3 frames at
+  target_size 512.
   Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
-  `encode_h264` (IDR and P) and the H.264 readers at 512^2 and at 1920 x
-  1080 (the host decoder and the plain Python reader on encode_h264's 1080p
-  IDR and P, the host decoder on clip.mov's), the stage seconds, the
-  launches, bytes a frame of both codecs and every PSNR.
+  `encode_h264` (IDR and P) at 512^2 and at 1920 x 1080, the H.264 readers
+  (the host decoder on encode_h264's 1080p IDR and P and on clip.mov's, the
+  tests' plain Python reader at 512^2), the stage seconds, the launches,
+  bytes a frame of both codecs and every PSNR.
 
     python3 chip_smoke.py --only-track
     python3 chip_smoke.py --only-nets
@@ -319,6 +330,7 @@ import sys
 import tempfile
 import time
 from collections import defaultdict
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -430,6 +442,15 @@ MATROSKA_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "matroska
 MPEGTS_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpegts"
 MPEGTS_WHOLE = ("clip_b.m2ts", "clip_hevc10.ts", "clip_mp4v.ts")
 MPEGTS_LEADING = 2
+# the VP8 corpus (tests/make_vp8_corpus.py): cv2's VP80 clips, and the hashes
+# of cv2's frames of the tests' writer's streams, which are re-made here
+VP8_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "vp8"
+# `cli preprocess --video` of a 1080p clip costs ~0.35 s a frame on the host
+# (colour conversion, area_resize, PNG): one clip a codec runs whole
+# (clip_b.mp4's 9 frames, asp_1080p.avi's 3, clip_1080p.webm's 3), the other
+# 1080p clips stop at PREPROCESS_FRAMES (`pipeline.max_frames`), which still
+# reads a B picture of the B-pyramids in display order
+PREPROCESS_FRAMES = 3
 # phase J: a head CBCT's size, (Z, Y, X) voxels at 0.3 mm (64.2 M voxels),
 # the skull phantom's seed and noise, the crop held against the CPU path, the
 # share by which the raw mesh's enclosed volume may differ from the phantom's
@@ -443,16 +464,16 @@ BRIDGE_FRAMES = 2
 # from phase D's init (the bench avatar compacted to 73,728 slots); the
 # tracker's rgb steps on its ranks; the torchrun pipeline's iterations
 K_PAIR, K_QUAD = 2, 4
-K_STEPS = 30
+K_STEPS = 20
 K_COMPACTED = 73_728
 K_RGB_STEPS = 5
-K_E2E_ITERS = 60
+K_E2E_ITERS = 30
 # the per-tile capacity at which no list of the bench frame overflows, in one
 # process or in a depth slice: the sharded and one-process losses and curves
 # are held to each other there (every large gaussian in the large window)
 K_EXACT = 4096
 K_TIMEOUT_S = 400
-# the trainers' 30-step curves are held to one process within max(4 x the
+# the trainers' 20-step curves are held to one process within max(4 x the
 # one-process run-to-run spread, K_CURVE_FLOOR): the floor is 2.5 x the
 # largest sharded-vs-one-process difference measured (1.2e-4, on an H100 SXM at 700 W)
 K_CURVE_FLOOR = 3e-4
@@ -2971,8 +2992,8 @@ def h264_corpus(work: Path) -> dict:
     which cv2's FFmpeg agreed with where the corpus was written; clip.mov's
     IDR and P pictures and clip_b.mp4's IDR, P and B pictures (x264's layout:
     a B-pyramid, reordered by `ctts`) are timed; `cli preprocess --video`
-    gives clip.mov's frames turned upright and clip_b.mp4's in display order
-    at target_size 512."""
+    gives clip.mov's first PREPROCESS_FRAMES frames turned upright and
+    clip_b.mp4's nine in display order at target_size 512."""
     from omfs4d_torch.io import h264
     from omfs4d_torch.io import video as tvideo
     from omfs4d_torch.pipeline import cli
@@ -3014,16 +3035,17 @@ def h264_corpus(work: Path) -> dict:
               f"clip.mov picture {i} (timed) equal to the manifest")
     wd = work / "wd_mov"
     t0 = time.perf_counter()
-    check(cli.main(["preprocess", "--video", str(clip_path), "--workdir", str(wd)]) == 0,
+    check(cli.main(["preprocess", "--video", str(clip_path), "--workdir", str(wd),
+                    f"pipeline.max_frames={PREPROCESS_FRAMES}"]) == 0,
           "cli preprocess --video clip.mov")
     preprocess_s = time.perf_counter() - t0
     (stage,) = list((wd / "stages").glob("preprocess-*"))
     extracted = sorted((stage / "images").glob("*.png"))
     shapes = {tvideo.read_image(p).shape for p in extracted}
-    check(len(extracted) == 6 and shapes == {(910, 512, 3)},
-          f"clip.mov preprocessed to {len(extracted)} frames of {shapes}: 6 upright 1920 x "
-          "1080 frames at target_size 512")
-    for i in (0, 5):
+    check(len(extracted) == PREPROCESS_FRAMES and shapes == {(910, 512, 3)},
+          f"clip.mov preprocessed to {len(extracted)} frames of {shapes}: the first "
+          f"{PREPROCESS_FRAMES} of its 6 upright 1920 x 1080 frames at target_size 512")
+    for i in (0, PREPROCESS_FRAMES - 1):
         want = tvideo.area_resize(clip.rgb(i), 910, 512)
         check(np.array_equal(tvideo.read_image(extracted[i]), want),
               f"preprocessed frame {i} is the port's read of clip.mov, upright and shrunk")
@@ -3086,9 +3108,10 @@ def mpeg4_corpus(work: Path) -> dict:
     every file of the committed corpus has its manifest's SHA-256 and decodes
     to the SHA-256s of its planes there, which cv2's FFmpeg agreed with where
     the corpus was written; clip_mp4v.mp4's (cv2's mp4v writer, 1080p, 30
-    frames) I- and P-VOPs are timed; `cli preprocess --video` runs on it and
-    on stitched.mp4 (the JAX package's own `stitch_video` output, 512^2),
-    each extracted frame the port's read shrunk to target_size 512."""
+    frames) I- and P-VOPs are timed; `cli preprocess --video` runs on it (its
+    first PREPROCESS_FRAMES frames) and on stitched.mp4 (the JAX package's
+    own `stitch_video` output, 512^2), each extracted frame the port's read
+    shrunk to target_size 512."""
     from omfs4d_torch.io import mpeg4
     from omfs4d_torch.io import video as tvideo
     from omfs4d_torch.pipeline import cli
@@ -3099,9 +3122,6 @@ def mpeg4_corpus(work: Path) -> dict:
             h.update(np.ascontiguousarray(p).tobytes())
         return h.hexdigest()
 
-    t0 = time.perf_counter()
-    mpeg4._library()                                 # g++, at first use
-    build_s = time.perf_counter() - t0
     manifest = json.loads((MPEG4_CORPUS / "manifest.json").read_text())
     t0 = time.perf_counter()
     for name, entry in manifest["files"].items():
@@ -3132,13 +3152,13 @@ def mpeg4_corpus(work: Path) -> dict:
     check([sha(p) for p in out] == manifest["files"]["clip_mp4v.mp4"]["sha256"],
           f"clip_mp4v.mp4: {len(out)} frames (timed) equal to the manifest")
     runs = {}
-    for name, n, shape in (("clip_mp4v.mp4", 30, (512, 910, 3)),
+    for name, n, shape in (("clip_mp4v.mp4", PREPROCESS_FRAMES, (512, 910, 3)),
                            ("stitched.mp4", 8, (512, 512, 3))):
         path = MPEG4_CORPUS / name
         wd = work / f"wd_{path.stem}"
         t0 = time.perf_counter()
-        check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd)]) == 0,
-              f"cli preprocess --video {name}")
+        check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd),
+                        f"pipeline.max_frames={n}"]) == 0, f"cli preprocess --video {name}")
         runs[name] = time.perf_counter() - t0
         (stage,) = list((wd / "stages").glob("preprocess-*"))
         extracted = sorted((stage / "images").glob("*.png"))
@@ -3151,7 +3171,7 @@ def mpeg4_corpus(work: Path) -> dict:
             want = rgb if rgb.shape == shape else tvideo.area_resize(rgb, *shape[:2])
             check(np.array_equal(tvideo.read_image(extracted[i]), want),
                   f"preprocessed frame {i} of {name} is the port's read, shrunk")
-    return {"build_s": build_s, "files": len(manifest["files"]), "corpus_s": corpus_s,
+    return {"files": len(manifest["files"]), "corpus_s": corpus_s,
             "i_s": float(np.mean(by_type["I"])), "p_s": float(np.mean(by_type["P"])),
             "n_i": len(by_type["I"]), "n_p": len(by_type["P"]),
             "i_bytes": float(np.mean(sizes["I"])), "p_bytes": float(np.mean(sizes["P"])),
@@ -3231,18 +3251,19 @@ def mpeg4_asp(work: Path) -> dict:
 
 
 def hevc_corpus(work: Path) -> dict:
-    """The host HEVC decoder on the card's machine (no cv2 there): built by
-    g++ (timed); every file of the committed corpus has its manifest's
-    SHA-256 and decodes to the SHA-256s of its pictures there, which cv2's
+    """The host HEVC decoder on the card's machine (no cv2 there; built by
+    g++ in phase M's background): every file of the committed corpus has its
+    manifest's SHA-256 and decodes to the SHA-256s of its pictures there, which cv2's
     FFmpeg agreed with where the corpus was written (10-bit planes hashed as
     little-endian uint16); clip_hevc.mp4's (x265's layout at 1080p: WPP, SAO,
     TMVP, a B-pyramid, a CRA with RASL pictures), clip_hevc10.mov's (the
     same layout in Main 10, an iPhone HDR capture's HLG tags) and
     clip_hevc_tools.mp4's (the layout with a 3 x 3 tile grid, scaling lists,
     a long-term reference, PCM and bypass CUs) I, P and B pictures are
-    timed; `cli preprocess --video` gives clip_hevc.mp4's 9
-    frames in display order at target_size 512, portrait.mov's (`hev1`, a
-    90-degree matrix) 6 frames upright and clip_hevc10.mov's 5."""
+    timed; `cli preprocess --video` gives clip_hevc.mp4's first
+    PREPROCESS_FRAMES frames in display order at target_size 512,
+    portrait.mov's (`hev1`, a 90-degree matrix) 6 frames upright and
+    clip_hevc10.mov's first PREPROCESS_FRAMES."""
     from omfs4d_torch.io import hevc
     from omfs4d_torch.io import video as tvideo
     from omfs4d_torch.pipeline import cli
@@ -3278,9 +3299,6 @@ def hevc_corpus(work: Path) -> dict:
               f"{name}: {len(out)} pictures (timed) equal to the manifest")
         return by_kind, sizes
 
-    t0 = time.perf_counter()
-    hevc._library()                                  # g++, at first use
-    build_s = time.perf_counter() - t0
     manifest = json.loads((HEVC_CORPUS / "manifest.json").read_text())
     t0 = time.perf_counter()
     for name, entry in manifest["streams"].items():
@@ -3301,13 +3319,14 @@ def hevc_corpus(work: Path) -> dict:
     check(hevc.frames(HEVC_CORPUS / "clip_hevc10.mov").params["bit_depth"] == 10,
           "clip_hevc10.mov is Main 10")
     runs, shapes_out = {}, {}
-    for name, n, shape in (("clip_hevc.mp4", 9, (512, 910, 3)), ("portrait.mov", 6, (320, 176, 3)),
-                           ("clip_hevc10.mov", 5, (512, 910, 3))):
+    for name, n, shape in (("clip_hevc.mp4", PREPROCESS_FRAMES, (512, 910, 3)),
+                           ("portrait.mov", 6, (320, 176, 3)),
+                           ("clip_hevc10.mov", PREPROCESS_FRAMES, (512, 910, 3))):
         path = HEVC_CORPUS / name
         wd = work / f"wd_{path.stem}"
         t0 = time.perf_counter()
-        check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd)]) == 0,
-              f"cli preprocess --video {name}")
+        check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd),
+                        f"pipeline.max_frames={n}"]) == 0, f"cli preprocess --video {name}")
         runs[name] = time.perf_counter() - t0
         (stage,) = list((wd / "stages").glob("preprocess-*"))
         extracted = sorted((stage / "images").glob("*.png"))
@@ -3326,7 +3345,7 @@ def hevc_corpus(work: Path) -> dict:
     mean = {k: float(np.mean(v)) for k, v in by_kind.items()}
     mean10 = {k: float(np.mean(v)) for k, v in by_kind10.items()}
     mean_t = {k: float(np.mean(v)) for k, v in by_kind_t.items()}
-    return {"build_s": build_s, "files": len(manifest["streams"]), "corpus_s": corpus_s,
+    return {"files": len(manifest["streams"]), "corpus_s": corpus_s,
             "i_s": mean["I"], "p_s": mean["P"], "b_s": mean["B"], "n_i": len(by_kind["I"]),
             "n_p": len(by_kind["P"]), "n_b": len(by_kind["B"]),
             "bytes": {k: float(np.mean(v)) for k, v in sizes.items()},
@@ -3467,7 +3486,8 @@ def matroska_corpus(work: Path) -> dict:
     (`tests/torch_mkv_mux.py`), has the manifest's bytes, and reads to
     cv2's probe and frames.  Then `cli preprocess --video` on clip_b.mkv
     (clip_b.mp4's 1080p H.264 B-pyramid in Matroska) at target_size 512 is
-    timed, its frames equal to clip_b.mp4's (h264_corpus's run)."""
+    timed, its first PREPROCESS_FRAMES frames equal to clip_b.mp4's
+    (h264_corpus's run)."""
     from omfs4d_torch.io import video as tvideo
     from omfs4d_torch.pipeline import cli
 
@@ -3505,14 +3525,16 @@ def matroska_corpus(work: Path) -> dict:
     wd = work / "wd_mkv_b"
     t0 = time.perf_counter()
     check(cli.main(["preprocess", "--video", str(work / "clip_b.mkv"), "--workdir",
-                    str(wd)]) == 0, "cli preprocess --video clip_b.mkv")
+                    str(wd), f"pipeline.max_frames={PREPROCESS_FRAMES}"]) == 0,
+          "cli preprocess --video clip_b.mkv")
     preprocess_s = time.perf_counter() - t0
     (stage,) = list((wd / "stages").glob("preprocess-*"))
     ours = sorted((stage / "images").glob("*.png"))
     (stage,) = list((work / "wd_mp4_b" / "stages").glob("preprocess-*"))
     theirs = sorted((stage / "images").glob("*.png"))
-    check(len(ours) == len(theirs) == 9, f"clip_b.mkv preprocessed to {len(ours)} frames, "
-                                         f"clip_b.mp4 to {len(theirs)}: 9 each")
+    check(len(ours) == PREPROCESS_FRAMES and len(theirs) == 9,
+          f"clip_b.mkv preprocessed to {len(ours)} frames (of 9), clip_b.mp4 to "
+          f"{len(theirs)}")
     for a, b in zip(ours, theirs):
         check(np.array_equal(tvideo.read_image(a), tvideo.read_image(b)),
               f"clip_b.mkv's preprocessed {a.name} equals clip_b.mp4's")
@@ -3534,8 +3556,8 @@ def mpegts_corpus(work: Path) -> dict:
     `MPEGTS_LEADING` of the others, and to the damaged frame, which raises
     ValueError, where the manifest says.  Then `cli preprocess --video clip_b.m2ts` (clip_b's
     1080p H.264 B-pyramid as an AVCHD camcorder's M2TS, with audio) at
-    target_size 512 is timed, its frames equal to clip_b.mp4's
-    (h264_corpus's run)."""
+    target_size 512 is timed, its first PREPROCESS_FRAMES frames equal to
+    clip_b.mp4's (h264_corpus's run)."""
     from omfs4d_torch.io import video as tvideo
     from omfs4d_torch.pipeline import cli
 
@@ -3575,20 +3597,110 @@ def mpegts_corpus(work: Path) -> dict:
     wd = work / "wd_m2ts_b"
     t0 = time.perf_counter()
     check(cli.main(["preprocess", "--video", str(work / "clip_b.m2ts"), "--workdir",
-                    str(wd)]) == 0, "cli preprocess --video clip_b.m2ts")
+                    str(wd), f"pipeline.max_frames={PREPROCESS_FRAMES}"]) == 0,
+          "cli preprocess --video clip_b.m2ts")
     preprocess_s = time.perf_counter() - t0
     (stage,) = list((wd / "stages").glob("preprocess-*"))
     ours = sorted((stage / "images").glob("*.png"))
     (stage,) = list((work / "wd_mp4_b" / "stages").glob("preprocess-*"))
     theirs = sorted((stage / "images").glob("*.png"))
-    check(len(ours) == len(theirs) == 9, f"clip_b.m2ts preprocessed to {len(ours)} frames, "
-                                         f"clip_b.mp4 to {len(theirs)}: 9 each")
+    check(len(ours) == PREPROCESS_FRAMES and len(theirs) == 9,
+          f"clip_b.m2ts preprocessed to {len(ours)} frames (of 9), clip_b.mp4 to "
+          f"{len(theirs)}")
     for a, b in zip(ours, theirs):
         check(np.array_equal(tvideo.read_image(a), tvideo.read_image(b)),
               f"clip_b.m2ts's preprocessed {a.name} equals clip_b.mp4's")
     return {"remuxes": len(mux.REMUXES), "frames": n_frames, "corpus_s": corpus_s,
             "remux_s": remux_s, "remux_bytes": remux_bytes, "preprocess_s": preprocess_s,
             "preprocess_frames": len(ours), "shape": tvideo.read_image(ours[0]).shape}
+
+
+def vp8_corpus(work: Path) -> dict:
+    """The host VP8 decoder on the card's machine (no cv2 and no libvpx
+    there), against `tests/data/vp8/manifest.json`, which cv2 wrote: cv2's
+    committed VP80 clips (WebM, Matroska, AVI, 1080p) have their SHA-256s
+    and read to cv2's probe and frames (SHA-256 of each RGB frame); the
+    tests' writer's streams (`tests/torch_vp8_syntax.py`: versions 0-3,
+    hidden frames, odd sizes, a browser's recording layout, 1080p) are
+    re-made from their seeds to the manifest's bytes and read to cv2's
+    frames.  clip_1080p.webm's (cv2's libvpx at 1080p) and the writer's
+    1080p stream's key and inter frames are timed (medians of 3 decodes from
+    a new decoder), and `cli preprocess --video clip_1080p.webm` gives its
+    3 frames at target_size 512, each the port's read shrunk."""
+    from omfs4d_torch.io import vp8
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    syn = tests_module("torch_vp8_syntax")
+    manifest = json.loads((VP8_CORPUS / "manifest.json").read_text())
+
+    def read_as_cv2(path: Path, entry: dict) -> int:
+        frames = tvideo._own_reader(path)
+        check(tvideo.probe_video(path) == entry["probe"],
+              f"{path.name}: probe_video {tvideo.probe_video(path)} is cv2's {entry['probe']}")
+        got = [hashlib.sha256(frames.rgb(i).tobytes()).hexdigest() for i in range(len(frames))]
+        check(got == entry["sha256"], f"{path.name}: {len(got)} frames equal to cv2's "
+                                      f"{len(entry['sha256'])} of the manifest")
+        return len(got)
+
+    t0 = time.perf_counter()
+    n_frames = 0
+    for name, entry in manifest["files"].items():
+        path = VP8_CORPUS / name
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the file's SHA-256 is the manifest's")
+        n_frames += read_as_cv2(path, entry)
+    write_s, paths = 0.0, {}
+    for name, entry in manifest["streams"].items():
+        t1 = time.perf_counter()
+        path = paths[name] = syn.make_file(
+            work / name, entry["seed"], entry["frames"], entry["key_frames"], entry["hidden"],
+            entry["features"], entry["mux"])
+        write_s += time.perf_counter() - t1
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the writer re-made the manifest's stream from seed {entry['seed']}")
+        n_frames += read_as_cv2(path, entry)
+    corpus_s = time.perf_counter() - t0
+
+    def timed(path: Path) -> tuple[dict, dict]:
+        """Seconds (median of 3 from a new decoder) and bytes of a clip's
+        first key frame and first inter frame."""
+        reader = tvideo._own_reader(path)
+        samples = [reader.sample(i) for i in range(2)]
+        check([vp8.probe_frame(x).key for x in samples] == [True, False],
+              f"{path.name} starts with a key frame and an inter frame")
+        runs = [[], []]
+        for _ in range(3):
+            host = vp8.Host()
+            for k, x in enumerate(samples):
+                t1 = time.perf_counter()
+                host.decode(x)
+                runs[k].append(time.perf_counter() - t1)
+        return ({"key": float(np.median(runs[0])), "inter": float(np.median(runs[1]))},
+                {"key": len(samples[0]), "inter": len(samples[1])})
+
+    cv2_s, cv2_bytes = timed(VP8_CORPUS / "clip_1080p.webm")
+    syn_s, syn_bytes = timed(paths["syn_1080p.webm"])
+    path = VP8_CORPUS / "clip_1080p.webm"
+    wd = work / "wd_vp8"
+    t0 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd)]) == 0,
+          "cli preprocess --video clip_1080p.webm")
+    preprocess_s = time.perf_counter() - t0
+    (stage,) = list((wd / "stages").glob("preprocess-*"))
+    extracted = sorted((stage / "images").glob("*.png"))
+    check(len(extracted) == 3 and {tvideo.read_image(p).shape for p in extracted}
+          == {(512, 910, 3)}, f"clip_1080p.webm preprocessed to {len(extracted)} frames of "
+                             "910x512")
+    frames = tvideo._own_reader(path)
+    for i in (0, 2):
+        check(np.array_equal(tvideo.read_image(extracted[i]),
+                             tvideo.area_resize(frames.rgb(i), 512, 910)),
+              f"preprocessed frame {i} of clip_1080p.webm is the port's read, shrunk")
+    return {"files": len(manifest["files"]), "streams": len(manifest["streams"]),
+            "frames": n_frames, "corpus_s": corpus_s, "write_s": write_s,
+            "cv2_s": cv2_s, "cv2_bytes": cv2_bytes, "syn_s": syn_s, "syn_bytes": syn_bytes,
+            "preprocess_s": preprocess_s}
 
 
 def phase_m(model, device, card: str, work: Path) -> dict:
@@ -3606,6 +3718,19 @@ def phase_m(model, device, card: str, work: Path) -> dict:
     t_phase = time.perf_counter()
     work = work / "video"
     work.mkdir()
+    # the host libraries the corpus parts decode with, built by g++ (one
+    # process each, at once) while the phase's CLI calls run
+    from omfs4d_torch.io import colour, hevc, mpeg4, vp8
+
+    def timed_build(build) -> float:
+        t0 = time.perf_counter()
+        build()
+        return time.perf_counter() - t0
+
+    pool = ThreadPoolExecutor(4)
+    builds = {name: pool.submit(timed_build, lib._library)
+              for name, lib in (("mpeg4", mpeg4), ("hevc", hevc), ("colour", colour),
+                                ("vp8", vp8))}
     images, _, _ = tracking_clip(model, device, work)
     src = [tvideo.read_image(p) for p in sorted(images.glob("*.png"))]
 
@@ -3637,14 +3762,6 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         h264_hd_s.append(time.perf_counter() - t0)
         hd_units.append(units)
         hd_recon.append(recon)
-    hd_dec = h264.H264Decoder(hd_enc.sps, hd_enc.pps)
-    h264_hd_dec_s = []
-    for units, recon in zip(hd_units, hd_recon):
-        t0 = time.perf_counter()
-        got = hd_dec.decode(units)
-        h264_hd_dec_s.append(time.perf_counter() - t0)
-        check(all(np.array_equal(a, b) for a, b in zip(got, recon)),
-              "the H.264 reader gives encode_h264's 1080p reconstruction")
     h264_hd_bytes = [sum(map(len, u)) for u in hd_units]
     t0 = time.perf_counter()
     h264._library()                                  # g++, at first use
@@ -3770,6 +3887,15 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         check(all(np.array_equal(a, b) for got, want in zip(out_ycc, stream.recon)
                   for a, b in zip(got, want)),
               "pred.mp4 reads back as encode_h264's reconstruction, bit for bit")
+        # the tests' plain Python reader (off the user path), timed at 512^2
+        plain_dec = h264.H264Decoder(stream.sps, stream.pps)
+        plain_s = []
+        for units, recon in zip(stream.access_units[:2], stream.recon[:2]):
+            t0 = time.perf_counter()
+            got = plain_dec.decode(units)
+            plain_s.append(time.perf_counter() - t0)
+            check(all(np.array_equal(a, b) for a, b in zip(got, recon)),
+                  "the plain H.264 reader gives encode_h264's 512^2 reconstruction")
         out_psnr = [psnr_u8(h264.ycbcr_to_rgb(*r), x) for r, x in zip(out_ycc, render_imgs)]
         check(min(out_psnr) >= H264_PSNR_FLOOR,
               f"pred.mp4's frames within {H264_PSNR_FLOOR} dB of the render PNGs: "
@@ -3790,6 +3916,8 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         h264_bytes, mj_bytes = pred_path.stat().st_size, mjpeg_path.stat().st_size
         check(h264_bytes < mj_bytes, f"pred.mp4 (H.264) {h264_bytes} bytes < the MJPG "
                                      f"quality {tvideo.MJPEG_QUALITY} MP4's {mj_bytes}")
+        built = {name: future.result() for name, future in builds.items()}
+        pool.shutdown()
         corpus = h264_corpus(work)
         m4v = mpeg4_corpus(work)
         t_asp = time.perf_counter()
@@ -3806,6 +3934,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         t_ts = time.perf_counter()
         ts = mpegts_corpus(work)
         ts_s = time.perf_counter() - t_ts
+        t_vp8 = time.perf_counter()
+        vp = vp8_corpus(work)
+        vp8_s = time.perf_counter() - t_vp8
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -3825,31 +3956,35 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"included)")
     print(f"  H.264 host s/frame: encode_h264 {h264_s:.4f} at {SIZE}x{SIZE} (the {n_train} "
           f"render PNGs, 1 IDR + {n_train - 1} P), the reader {readback_s:.4f} (pred.mp4); at "
-          f"1920x1080 encode IDR {h264_hd_s[0]:.4f} / P {h264_hd_s[1]:.4f}, read "
-          f"{h264_hd_dec_s[0]:.4f} / {h264_hd_dec_s[1]:.4f} (frames 0 and 1 resized, "
+          f"1920x1080 encode IDR {h264_hd_s[0]:.4f} / P {h264_hd_s[1]:.4f} (frames 0 and 1 "
+          f"resized, "
           f"{h264_hd_bytes[0]} / {h264_hd_bytes[1]} bytes, PSNR "
-          f"{h264_hd_psnr[0]:.3f} / {h264_hd_psnr[1]:.3f} dB)")
+          f"{h264_hd_psnr[0]:.3f} / {h264_hd_psnr[1]:.3f} dB); the tests' plain Python "
+          f"reader at {SIZE}x{SIZE} IDR {plain_s[0]:.4f} / P {plain_s[1]:.4f}")
     print(f"  H.264 host decoder (h264dec.cpp, built by g++ in {build_h264_s:.2f} s): "
-          f"encode_h264's 1080p IDR {host_hd_s[0]:.4f} / P {host_hd_s[1]:.4f} s (the plain "
-          f"Python reader above: {h264_hd_dec_s[0]:.4f} / {h264_hd_dec_s[1]:.4f}); clip.mov "
+          f"encode_h264's 1080p IDR {host_hd_s[0]:.4f} / P {host_hd_s[1]:.4f} s; clip.mov "
           f"(1920x1080 High, CABAC, 8x8, deblocking, 3 references) IDR {corpus['idr_s']:.4f} "
           f"s, P {corpus['p_s']:.4f} s/frame (mean of {corpus['n_p']}; "
           f"{corpus['idr_bytes']} / {corpus['p_bytes']:.0f} bytes); the corpus's "
           f"{corpus['streams']} streams equal to the manifest in {corpus['corpus_s']:.2f} s; "
           f"cli preprocess --video clip.mov {corpus['preprocess_s']:.2f} s -> "
-          f"{corpus['frames']} frames {corpus['shape'][1]}x{corpus['shape'][0]} (portrait)")
+          f"{corpus['frames']} frames (of 6) {corpus['shape'][1]}x{corpus['shape'][0]} "
+          "(portrait)")
     print(f"  H.264 B pictures (h264dec.cpp): clip_b.mp4 (1920x1080 High, CABAC, 8x8, "
           f"deblocking, B-pyramid of 3, spatial direct, implicit weights, ctts) IDR "
           f"{corpus['b_idr_s']:.4f} s, P {corpus['b_p_s']:.4f} s/frame, B {corpus['b_s']:.4f} "
           f"s/frame (mean of {corpus['n_b']}; {corpus['b_bytes']:.0f} bytes a B); cli "
           f"preprocess --video clip_b.mp4 {corpus['preprocess_b_s']:.2f} s -> "
           f"{corpus['frames_b']} frames in display order")
-    print(f"  MPEG-4 Part 2 host decoder (mpeg4dec.cpp, built by g++ in {m4v['build_s']:.2f} "
+    print(f"  host libraries built by g++ at once, beside the CLI calls: "
+          + ", ".join(f"{k} {v:.2f} s" for k, v in built.items()) + f" [{card}]")
+    print(f"  MPEG-4 Part 2 host decoder (mpeg4dec.cpp, built by g++ in {built['mpeg4']:.2f} "
           f"s): clip_mp4v.mp4 (cv2's mp4v, 1920x1080, 30 frames) I-VOP {m4v['i_s']:.4f} s, "
           f"P-VOP {m4v['p_s']:.4f} s/frame (means of {m4v['n_i']} / {m4v['n_p']}; "
           f"{m4v['i_bytes']:.0f} / {m4v['p_bytes']:.0f} bytes); the corpus's {m4v['files']} "
           f"files equal to the manifest in {m4v['corpus_s']:.2f} s; cli preprocess --video "
-          f"clip_mp4v.mp4 {m4v['preprocess_clip_s']:.2f} s -> 30 frames 910x512, --video "
+          f"clip_mp4v.mp4 {m4v['preprocess_clip_s']:.2f} s -> {PREPROCESS_FRAMES} frames (of 30) "
+          f"910x512, --video "
           f"stitched.mp4 (the JAX package's stitch_video, 512^2) "
           f"{m4v['preprocess_stitched_s']:.2f} s -> 8 frames")
     print(f"  MPEG-4 Part 2 Advanced Simple (mpeg4dec.cpp): asp_1080p.avi (the tests' "
@@ -3860,21 +3995,23 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"({asp['write_s']:.2f} s of the Python writer) and read to cv2's frames in "
           f"{asp['read_s']:.2f} s; cli preprocess --video asp_1080p.avi "
           f"{asp['preprocess_s']:.2f} s -> 3 frames 910x512; the part {asp_s:.2f} s [{card}]")
-    print(f"  HEVC host decoder (hevcdec.cpp, built by g++ in {hev['build_s']:.2f} s): "
+    print(f"  HEVC host decoder (hevcdec.cpp, built by g++ in {built['hevc']:.2f} s): "
           f"clip_hevc.mp4 (x265's layout, 1920x1080, WPP, SAO, TMVP) I {hev['i_s']:.4f} s, "
           f"P {hev['p_s']:.4f} s, B {hev['b_s']:.4f} s/picture (means of {hev['n_i']} / "
           f"{hev['n_p']} / {hev['n_b']}; "
           + " / ".join(f"{hev['bytes'][k]:.0f}" for k in "IPB") + " bytes); the corpus's "
           f"{hev['files']} files equal to the manifest in {hev['corpus_s']:.2f} s; cli "
-          f"preprocess --video clip_hevc.mp4 {hev['preprocess_clip_s']:.2f} s -> 9 frames "
-          f"910x512, --video portrait.mov {hev['preprocess_portrait_s']:.2f} s -> 6 frames "
-          f"176x320 (portrait); the HEVC part {hevc_s:.2f} s [{card}]")
+          f"preprocess --video clip_hevc.mp4 {hev['preprocess_clip_s']:.2f} s -> "
+          f"{PREPROCESS_FRAMES} frames (of 9) 910x512, --video portrait.mov "
+          f"{hev['preprocess_portrait_s']:.2f} s -> 6 frames 176x320 (portrait); the HEVC "
+          f"part {hevc_s:.2f} s [{card}]")
     print(f"  HEVC Main 10 (hevcdec.cpp, 16-bit samples): clip_hevc10.mov (an iPhone HDR "
           f"capture's layout, 1920x1080, HLG tags, WPP, SAO, TMVP) I {hev['i10_s']:.4f} s, "
           f"P {hev['p10_s']:.4f} s, B {hev['b10_s']:.4f} s/picture (means of "
           + " / ".join(str(hev["n10"][k]) for k in "IPB") + "; "
           + " / ".join(f"{hev['bytes10'][k]:.0f}" for k in "IPB") + " bytes); cli preprocess "
-          f"--video clip_hevc10.mov {hev['preprocess_hdr_s']:.2f} s -> 5 frames 910x512 [{card}]")
+          f"--video clip_hevc10.mov {hev['preprocess_hdr_s']:.2f} s -> {PREPROCESS_FRAMES} frames "
+          f"(of 5) 910x512 [{card}]")
     print(f"  HEVC tools (hevcdec.cpp): clip_hevc_tools.mp4 (clip_hevc.mp4's layout, 3x3 tiles, "
           f"SPS + PPS scaling lists, a long-term reference, PCM and bypass CUs) "
           + ", ".join(f"{k} {hev['tools_s'][k]:.4f} s" for k in "IPB") + "/picture (means of "
@@ -3938,6 +4075,16 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"{ts['preprocess_s']:.2f} s -> {ts['preprocess_frames']} frames "
           f"{ts['shape'][1]}x{ts['shape'][0]}, {ts['preprocess_s'] / ts['preprocess_frames']:.4f} "
           f"s/frame, equal to clip_b.mp4's; the MPEG-TS part {ts_s:.2f} s [{card}]")
+    print(f"  VP8 (vp8dec.cpp, built by g++ in {built['vp8']:.2f} s): cv2's {vp['files']} VP80 "
+          f"clips and the tests' writer's {vp['streams']} streams (re-made from their seeds in "
+          f"{vp['write_s']:.2f} s, each the manifest's SHA-256) read to cv2's probes and "
+          f"{vp['frames']} frames in {vp['corpus_s']:.2f} s; clip_1080p.webm (cv2's libvpx, "
+          f"1920x1080) key {vp['cv2_s']['key']:.4f} s / inter {vp['cv2_s']['inter']:.4f} s "
+          f"({vp['cv2_bytes']['key']} / {vp['cv2_bytes']['inter']} bytes), the writer's 1080p "
+          f"stream key {vp['syn_s']['key']:.4f} s / inter {vp['syn_s']['inter']:.4f} s "
+          f"({vp['syn_bytes']['key']} / {vp['syn_bytes']['inter']} bytes), medians of 3; cli "
+          f"preprocess --video clip_1080p.webm {vp['preprocess_s']:.2f} s -> 3 frames 910x512; "
+          f"the VP8 part {vp8_s:.2f} s [{card}]")
     print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
     return {"fwd": fwd, "bwd": bwd}
 

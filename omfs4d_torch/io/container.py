@@ -4,8 +4,9 @@ and where its frames lie (`index`), and the file writing the port's two
 written codecs share (`write_file`).  The codecs sit on top of it as
 siblings: Motion JPEG
 (`omfs4d_torch.io.mjpeg`), H.264 (`omfs4d_torch.io.h264`), HEVC
-(`omfs4d_torch.io.hevc`, read only) and MPEG-4 Part 2
-(`omfs4d_torch.io.mpeg4`, read only); the MP4 boxes are
+(`omfs4d_torch.io.hevc`, read only), MPEG-4 Part 2
+(`omfs4d_torch.io.mpeg4`, read only) and VP8 (`omfs4d_torch.io.vp8`, read
+only); the MP4 boxes are
 `omfs4d_torch.io.mp4`'s, the Matroska elements `omfs4d_torch.io.matroska`'s,
 the transport stream's packets `omfs4d_torch.io.mpegts`'s.
 
@@ -22,7 +23,8 @@ the transport stream's packets `omfs4d_torch.io.mpegts`'s.
   its parameter sets in band, as FFmpeg's AVI muxer writes x264's and
   x265's output (`info["annexb"]`, the extradata, maybe empty), or
   length-prefixed after an avcC / hvcC extradata (`info["avcC"]` /
-  `info["hvcC"]`, as FFmpeg tells the two apart).  A zero-byte chunk is a
+  `info["hvcC"]`, as FFmpeg tells the two apart), and VP8 (`VP80`, a frame
+  a chunk, as cv2's writer lays it out).  A zero-byte chunk is a
   frame the writer dropped: it has no sample, but counts in `frame_count`
   (cv2 counts it and shows no frame for it).
 - MP4 / QuickTime: the first video track (`mp4.read_track`; a sound track
@@ -33,15 +35,15 @@ the transport stream's packets `omfs4d_torch.io.mpegts`'s.
   headers) as `dsi`; H.264 for `avc1` / `avc3` with an `avcC` box; HEVC for
   `hvc1` / `hev1` with an `hvcC` box.
 - Matroska / WebM (EBML, whatever the suffix): the first video track, its
-  codec by CodecID (`matroska.index`): Motion JPEG, MPEG-4 Part 2, H.264 and
-  HEVC, and a VfW track's fourcc read as AVI's.
+  codec by CodecID (`matroska.index`): Motion JPEG, MPEG-4 Part 2, H.264,
+  HEVC and VP8, and a VfW track's fourcc read as AVI's.
 - MPEG-TS (`.ts`, M2TS / AVCHD `.mts` / `.m2ts`; 188-, 192- or 204-byte
   packets, found by their sync bytes whatever the suffix): the first video
   stream of the programs (`mpegts.index`): H.264, HEVC and MPEG-4 Part 2,
   split into frames as FFmpeg's parsers split them; its samples are ranges
   of the elementary stream, gathered from the packets (`read_sample`).
 
-Any other codec (VP8, VP9, AV1, MS MPEG-4 v3, ...) raises
+Any other codec (VP9, AV1, MS MPEG-4 v3, VP8 in MP4, ...) raises
 `UnsupportedCodecError` naming it: decoding it needs an ffmpeg binary.  So
 does a file that is none of the containers.  A frame whose bytes end early
 raises ValueError with its index (in Matroska, whose frames no header
@@ -85,8 +87,9 @@ _AVI_MPEG4 = {b"XVID", b"xvid", b"FMP4", b"fmp4", b"DIVX", b"divx", b"DX50", b"M
 # AVI fourccs of H.264 and of HEVC
 _AVI_H264 = {b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1", b"DAVC"}
 _AVI_HEVC = {b"HEVC", b"H265", b"hev1", b"hvc1"}
+_AVI_VP8 = {b"VP80", b"vp80"}
 _AVI_NAMES = {b"DIV3": "MS MPEG-4 v3 (DivX 3)", b"MP43": "MS MPEG-4 v3",
-              b"VP80": "VP8", b"VP90": "VP9", b"AV01": "AV1", b"WMV3": "WMV 9",
+              b"VP90": "VP9", b"AV01": "AV1", b"WMV3": "WMV 9",
               b"mpg2": "MPEG-2 video", b"MPG2": "MPEG-2 video"}
 # MP4 sample entries of Motion JPEG and of H.264, and names of those that
 # need another decoder
@@ -125,6 +128,8 @@ def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI four
         if len(extradata) > 3 and (extradata[0] or extradata[1] or extradata[2] > 1):
             return {"codec": "hevc", "hvcC": extradata}
         return {"codec": "hevc", "annexb": extradata}
+    if compression in _AVI_VP8:
+        return {"codec": "vp8"}
     name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
     raise _needs_ffmpeg(path, f"its video is {name} ({where} "
                               f"{compression.decode('latin-1')!r})")

@@ -1,7 +1,7 @@
 """Matroska and WebM read with the standard library: the EBML walker and
 `index`, which gives what `container.index` gives for AVI and MP4: the
 offsets and sizes of the video track's frames in the file and the track's
-info, for the port's codecs (Motion JPEG, MPEG-4 Part 2, H.264, HEVC).
+info, for the port's codecs (Motion JPEG, MPEG-4 Part 2, H.264, HEVC, VP8).
 
 Read as FFmpeg's `matroskadec` reads a file for cv2:
 - EBML: element IDs keep their length marker, sizes drop it; a size of all
@@ -18,10 +18,11 @@ Read as FFmpeg's `matroskadec` reads a file for cv2:
 - The codec from `CodecID`: `V_MJPEG`; `V_MPEG4/ISO/SP`, `/ASP`, `/AP` (MPEG-4
   Part 2, `CodecPrivate` its headers); `V_MPEG4/ISO/AVC` and
   `V_MPEGH/ISO/HEVC` (`CodecPrivate` the avcC / hvcC body, the frames
-  length-prefixed); `V_MS/VFW/FOURCC` (`CodecPrivate` a BITMAPINFOHEADER,
-  its fourcc read as AVI's, `container.avi_codec`).  Any other (VP8, VP9,
-  AV1, MPEG-1 / 2, Theora, ProRes, ...) raises `UnsupportedCodecError`
-  naming it.
+  length-prefixed); `V_VP8` (no CodecPrivate; its BlockAdditions, an
+  alpha channel, are skipped as cv2 skips them); `V_MS/VFW/FOURCC`
+  (`CodecPrivate` a BITMAPINFOHEADER, its fourcc read as AVI's,
+  `container.avi_codec`).  Any other (VP9, AV1, MPEG-1 / 2, Theora, ProRes,
+  ...) raises `UnsupportedCodecError` naming it.
 - Frames: `SimpleBlock`s (FFmpeg's muxer; the keyframe flag gives `sync`)
   and `BlockGroup`s (mkvmerge's: a `Block` with no `ReferenceBlock` is a
   key frame), unlaced or in Xiph, EBML or fixed-size lacing (every laced
@@ -83,7 +84,7 @@ _CLUSTER_CHILDREN = {CLUSTER_TIMESTAMP, SIMPLE_BLOCK, BLOCK_GROUP, 0x5854, 0xA7,
 TRACK_TYPE_VIDEO = 1
 # CodecIDs the port reads, and names of those it does not
 _MPEG4 = {"V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP"}
-_NAMES = {"V_VP8": "VP8", "V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG1": "MPEG-1 video",
+_NAMES = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG1": "MPEG-1 video",
           "V_MPEG2": "MPEG-2 video", "V_THEORA": "Theora", "V_PRORES": "ProRes",
           "V_UNCOMPRESSED": "uncompressed video", "V_REAL/RV40": "RealVideo 4",
           "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_FFV1": "FFV1", "V_DIRAC": "Dirac",
@@ -303,6 +304,8 @@ def _codec(track: dict, path) -> dict:
         return {"codec": "mjpeg"}
     if cid in _MPEG4:
         return {"codec": "mpeg4", "dsi": private}
+    if cid == "V_VP8":
+        return {"codec": "vp8"}
     if cid == "V_MPEG4/ISO/AVC":
         if not private:
             raise container._needs_ffmpeg(path, "its video is H.264 with no CodecPrivate "
@@ -545,7 +548,8 @@ def cv2_fps(times_ms: list[int], stream_rate: float, codec: str) -> float:
     each frame from the third on a duration of 1 / the rate of their VUI
     timing (`stream_rate`) in whole milliseconds, and the rate is that
     average, snapped to a standard rate within 1%.  MPEG-4 Part 2 takes its
-    VOL's rate where it lies in [5, 101).  Else FFmpeg estimates the rate
+    VOL's rate where it lies in [5, 101).  Else (Motion JPEG, VP8: no rate
+    in the stream, as in a browser's recording) FFmpeg estimates the rate
     from the frames' times (`estimated_fps`): its average rate where it sets
     one, else the rate it found, else the stream's rate (an H.264 stream's
     doubled, as FFmpeg counts its fields; none for HEVC), else 1000 (the
@@ -582,7 +586,7 @@ def _stream_rate(buf, info: dict, offsets: list[int], sizes: list[int], prefix: 
     """The frame rate the codec reads from the stream's headers, 0.0 where
     they give none: H.264's and HEVC's VUI timing, MPEG-4 Part 2's VOL
     (time_increment_resolution over the fixed VOP increment, or 1), none for
-    Motion JPEG."""
+    Motion JPEG and VP8."""
     from omfs4d_torch.io import h264, hevc, mpeg4
 
     codec = info["codec"]

@@ -347,11 +347,13 @@ def write_full(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int,
                full: bool) -> np.ndarray:
     """`output.c`'s yuv2rgb_write_full: Y' and Cb, Cr - 128 at the vertical
     filter's scale (the 8-bit value times 512) -> (..., 3) uint8 R'G'B',
-    30-bit sums."""
+    30-bit sums, kept in a 32-bit int as swscale keeps them (a sum past 2^31,
+    a saturated Y' and chroma in full range, wraps negative and clips to 0)."""
     yc, yo, v2r, v2g, u2g, u2b = (np.int64(c) for c in full_coefficients(matrix, full))
     y = (np.asarray(y, np.int64) - yo) * yc + (1 << 21)
     u, v = np.asarray(u, np.int64), np.asarray(v, np.int64)
     rgb = np.stack([y + v * v2r, y + v * v2g + u * u2g, y + u * u2b], -1)
+    rgb = ((rgb + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)
     return (np.clip(rgb, 0, (1 << 30) - 1) >> 22).astype(np.uint8)
 
 

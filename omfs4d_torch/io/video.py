@@ -43,14 +43,16 @@ contract).  With none, the port's own codecs:
   package's `stitch_video` without an H.264 encoder, into `.mp4`, `.avi` or
   `.mkv`) and Xvid and DivX (B-VOPs, packed bitstreams, quarter-sample, MPEG
   quantisation) write it (`mpeg4.MPEG4Frames`, the host C++ decoder
-  `mpeg4dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
+  `mpeg4dec.cpp`); VP8, as a browser's `MediaRecorder` writes it into WebM
+  and cv2's `VP80` writer into WebM, Matroska and AVI (`vp8.VP8Frames`, the
+  host C++ decoder `vp8dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
   swscale's own conversion bit for bit (`swscale`; 8-bit 4:2:0 on its
   unscaled path, 10-bit pictures, odd heights and JPEG's other samplings on
   its scaled one), and cv2's gamut and tone mapping of BT.2020 / PQ / HLG
   tagged streams (`colour`).  HEVC beyond Main 10 (more than 10 bits, tiles
   with WPP, ...), H.264 with fields or more than 8 bits, MPEG-4 Part 2
-  sprites / GMC, interlacing or data partitioning, and other codecs (VP8,
-  VP9, AV1, ...) raise
+  sprites / GMC, interlacing or data partitioning, and other codecs (VP9,
+  AV1, ...) raise
   `container.UnsupportedCodecError` naming the codec or feature.
 """
 
@@ -65,7 +67,7 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg4
+from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg4, vp8
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
 
 log = get_logger("video")
@@ -271,8 +273,8 @@ def probe_video(path: str | Path) -> dict:
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
     Motion JPEG, H.264 (Main / High, I, P and B pictures), HEVC (Main and
-    Main 10) or MPEG-4 Part 2 (Simple, Advanced Simple) in AVI, MP4 / QuickTime, Matroska /
-    WebM or MPEG-TS, with no decode: the size as displayed (turned by the track's
+    Main 10), MPEG-4 Part 2 (Simple, Advanced Simple) or VP8 in AVI, MP4 /
+    QuickTime, Matroska / WebM or MPEG-TS, with no decode: the size as displayed (turned by the track's
     matrix), the fps and the frame count as cv2 reports them
     (`container.UnsupportedCodecError` for another codec)."""
     import re
@@ -311,13 +313,13 @@ def extract_frames(
 ) -> list[Path]:
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
     through ffmpeg when there is a binary, else Motion JPEG, H.264 Main /
-    High I, P and B pictures, HEVC Main / Main 10 or MPEG-4 Part 2 (Simple,
-    Advanced Simple) in
+    High I, P and B pictures, HEVC Main / Main 10, MPEG-4 Part 2 (Simple,
+    Advanced Simple) or VP8 in
     AVI, MP4 / QuickTime, Matroska / WebM or MPEG-TS, upright and edited as
     cv2 shows them) into numbered PNG frames (RGB), every `stride`-th one, at most
     `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.
     A Motion JPEG file's frames are decoded only where they are kept; an
-    H.264, HEVC or MPEG-4 file's in order up to the last one kept."""
+    H.264, HEVC, MPEG-4 or VP8 file's in order up to the last one kept."""
     import tempfile
 
     src = Path(video_path)
@@ -350,11 +352,11 @@ def extract_frames(
 
 
 _READERS = {"h264": h264.H264Frames, "hevc": hevc.HEVCFrames, "mpeg4": mpeg4.MPEG4Frames,
-            "mjpeg": mjpeg.MJPEGFrames}
+            "vp8": vp8.VP8Frames, "mjpeg": mjpeg.MJPEGFrames}
 
 
 def _own_reader(path: Path) -> (h264.H264Frames | hevc.HEVCFrames | mpeg4.MPEG4Frames
-                                | mjpeg.MJPEGFrames):
+                                | vp8.VP8Frames | mjpeg.MJPEGFrames):
     """A video file's frames through the port's own readers, with no ffmpeg:
     the file is indexed once and read by its codec's module."""
     offsets, sizes, info = container.index(path)

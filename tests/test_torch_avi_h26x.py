@@ -29,6 +29,7 @@ from omfs4d_torch.io import video as tvideo
 from tests import torch_h264_syntax as syn
 from tests import torch_hevc_syntax as hsyn
 from tests import torch_mkv_mux as mux
+from tests import torch_vp8_syntax as vp8_syntax
 from tests.test_torch_matroska import avcc_of, read_as_cv2
 from tests.test_torch_mpeg4 import cv2_write, moving_clip
 
@@ -202,7 +203,7 @@ def test_matroska_vfw_tracks_read_as_avi(tmp_path, capfd):
     """A `V_MS/VFW/FOURCC` track (mkvmerge's and FFmpeg's for a codec with no
     Matroska ID): its BITMAPINFOHEADER's fourcc is read as AVI's, an H.264
     `H264` track of Annex B samples and an `XVID` one read as cv2 reads
-    them, a `VP80` one is refused naming VP8."""
+    them, and a `VP80` one (VP8) too."""
     aus = h264_aus(13)
     key = [is_key("h264", a) for a in aus]
 
@@ -228,16 +229,18 @@ def test_matroska_vfw_tracks_read_as_avi(tmp_path, capfd):
                          width=48, height=32, default_duration=40_000_000, duration_ms=240.0)
     assert container.index(path)[2]["codec"] == "mpeg4"
     read_as_cv2(path, capfd)
-    path = mux.write_mkv(tmp_path / "vp8.mkv", [b"\x00" * 8], [True], [0],
-                         codec_id="V_MS/VFW/FOURCC", private=bih(b"VP80", 48, 32), width=48,
-                         height=32)
-    with pytest.raises(container.UnsupportedCodecError, match="VP8"):
-        tvideo.probe_video(path)
+    _, frames = vp8_syntax.write_stream(0, frames=4, key_frames=(0,), width=48, height=32)
+    path = mux.write_mkv(tmp_path / "vp8.mkv", frames, [vp8_syntax.is_key(f) for f in frames],
+                         [40 * i for i in range(4)], codec_id="V_MS/VFW/FOURCC",
+                         private=bih(b"VP80", 48, 32), width=48, height=32,
+                         default_duration=40_000_000, duration_ms=160.0)
+    assert container.index(path)[2]["codec"] == "vp8"
+    read_as_cv2(path, capfd)
 
 
 # ── what stays refused ──────────────────────────────────────
 
-@pytest.mark.parametrize("fourcc, name", [(b"VP80", "VP8"), (b"DIV3", "MS MPEG-4 v3"),
+@pytest.mark.parametrize("fourcc, name", [(b"VP90", "VP9"), (b"DIV3", "MS MPEG-4 v3"),
                                           (b"WMV3", "WMV 9"), (b"ABCD", "'ABCD'")])
 def test_other_fourccs_refused_by_name(tmp_path, fourcc, name):
     """A fourcc outside the port's codecs raises UnsupportedCodecError naming

@@ -14,7 +14,8 @@ for bit, and `probe_video` equal to cv2's width, height, fps and frame count.
   the VUI's, WebM's DocType.
 - Files cut at several byte positions: the frames cv2 reads, its count, and
   a ValueError where cv2 cannot open the file.
-- VP8, VP9 (cv2's `.webm` and `.mkv`), AV1 and the rest refused by name.
+- VP9 (cv2's `.webm` and `.mkv`), AV1 and the rest refused by name (VP8 is
+  read: `tests/test_torch_vp8.py`).
 - The JAX package's `stitch_video` into `.mkv` with no ffmpeg, read by both
   packages to the same probe and frames.
 - The committed corpus (`tests/data/matroska/`) against its manifest.
@@ -382,10 +383,9 @@ def test_cut_files_read_as_cv2(tmp_path, capfd, source):
 
 # ── what stays refused ──────────────────────────────────────
 
-@pytest.mark.parametrize("fourcc, suffix, name", [("VP80", "webm", "VP8"), ("VP90", "webm", "VP9"),
-                                                  ("VP80", "mkv", "VP8"), ("VP90", "mkv", "VP9")])
+@pytest.mark.parametrize("fourcc, suffix, name", [("VP90", "webm", "VP9"), ("VP90", "mkv", "VP9")])
 def test_vp8_vp9_refused_by_name(tmp_path, capfd, fourcc, suffix, name):
-    """cv2's VP8 and VP9 writers (WebM and Matroska), which cv2 reads back:
+    """cv2's VP9 writer (WebM and Matroska), which cv2 reads back:
     the port has no decoder for them and says which codec, from probe_video
     and extract_frames both."""
     path = tmp_path / f"clip.{suffix}"

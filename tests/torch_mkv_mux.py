@@ -121,7 +121,7 @@ def write_mkv(path, frames: list[bytes], key: list[bool], times_ms: list[int], *
               unknown_segment: bool = False, unknown_cluster: bool = False,
               colour: dict | None = None, strip: bytes = b"", audio: str | None = None,
               doc_type: str = "matroska", cues: bool = True, entry_extra: bytes = b"",
-              video_extra: bytes = b"") -> Path:
+              video_extra: bytes = b"", additions: list[bytes] | None = None) -> Path:
     """A Matroska file of one video track: `frames` in decoding order, `key`
     their key-frame flags, `times_ms` their presentation times (ms, the
     TimestampScale 1,000,000).  `default_duration` (ns) and `duration_ms`
@@ -134,7 +134,8 @@ def write_mkv(path, frames: list[bytes], key: list[bool], times_ms: list[int], *
     PCM track beside the video one (its TrackEntry after or before), a
     block of it after each video block; `cues` False leaves out the Cues;
     `entry_extra` and `video_extra`, elements as bytes, end the video
-    TrackEntry and its Video element."""
+    TrackEntry and its Video element; `additions`, an element a frame (its
+    BlockAdditions), follows each frame's Block in its BlockGroup."""
     vnum, anum = (2, 1) if audio == "before" else (1, 2)
     video = el(mk.VIDEO, uint(mk.PIXEL_WIDTH, width) + uint(mk.PIXEL_HEIGHT, height)
                + (colour_element(colour) if colour else b"") + video_extra)
@@ -184,7 +185,8 @@ def write_mkv(path, frames: list[bytes], key: list[bool], times_ms: list[int], *
             0x80 if key[i] and not block_group else 0)) + head + b"".join(body)
         if block_group:
             ref = b"" if key[i] else el(mk.REFERENCE_BLOCK, struct.pack(">b", -1))
-            cluster.append(el(mk.BLOCK_GROUP, el(mk.BLOCK, data) + ref))
+            more = additions[i] if additions else b""
+            cluster.append(el(mk.BLOCK_GROUP, el(mk.BLOCK, data) + more + ref))
         else:
             cluster.append(el(mk.SIMPLE_BLOCK, data))
         if audio:
