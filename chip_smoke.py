@@ -265,7 +265,14 @@ Phase M: the reference's user path from a video file to a prediction video,
   layout, 1080p) re-made here from their seeds to the manifest's bytes; the
   1080p key and inter frames of cv2's clip and of the writer's stream timed;
   `cli preprocess --video clip_1080p.webm` gives its 3 frames at
-  target_size 512.
+  target_size 512.  Then VP9 alike against tests/data/vp9/manifest.json:
+  cv2's committed VP90 clips (WebM, Matroska, AVI, MP4, 1080p with four tile
+  columns) and the tests' writer's streams (backward adaptation, hidden
+  alt-refs and show_existing_frame, intra-only frames, segmentation with
+  tiles, lossless, a browser's recording layout, and a realtime and a
+  two-pass layout at 1080p) re-made here from their seeds; the 1080p key and
+  inter frames of cv2's clip and of the writer's two 1080p streams timed;
+  `cli preprocess --video clip_1080p.webm` (VP9) gives its 3 frames.
   Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
   `encode_h264` (IDR and P) at 512^2 and at 1920 x 1080, the H.264 readers
   (the host decoder on encode_h264's 1080p IDR and P and on clip.mov's, the
@@ -445,6 +452,9 @@ MPEGTS_LEADING = 2
 # the VP8 corpus (tests/make_vp8_corpus.py): cv2's VP80 clips, and the hashes
 # of cv2's frames of the tests' writer's streams, which are re-made here
 VP8_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "vp8"
+# the VP9 corpus (tests/make_vp9_corpus.py): cv2's VP90 clips, and the hashes
+# of cv2's frames of the tests' writer's streams, which are re-made here
+VP9_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "vp9"
 # `cli preprocess --video` of a 1080p clip costs ~0.35 s a frame on the host
 # (colour conversion, area_resize, PNG): one clip a codec runs whole
 # (clip_b.mp4's 9 frames, asp_1080p.avi's 3, clip_1080p.webm's 3), the other
@@ -3703,6 +3713,98 @@ def vp8_corpus(work: Path) -> dict:
             "preprocess_s": preprocess_s}
 
 
+def vp9_corpus(work: Path) -> dict:
+    """The host VP9 decoder on the card's machine (no cv2 and no libvpx
+    there), against `tests/data/vp9/manifest.json`, which cv2 wrote: cv2's
+    committed VP90 clips (WebM, Matroska, AVI, MP4, 1080p) have their
+    SHA-256s and read to cv2's probe and frames (SHA-256 of each RGB frame);
+    the tests' writer's streams (`tests/torch_vp9_syntax.py`) are re-made
+    from their seeds to the manifest's bytes and read to cv2's frames.
+    clip_1080p.webm's (cv2's libvpx at 1080p, four tile columns) and the
+    writer's two 1080p streams' key and inter packets are timed (medians of
+    3 decodes from a new decoder; the two-pass stream's inter packet is a
+    superframe: a hidden alt-ref and a shown frame), and `cli preprocess
+    --video clip_1080p.webm` gives its 3 frames at target_size 512, each the
+    port's read shrunk."""
+    from omfs4d_torch.io import vp9
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    syn = tests_module("torch_vp9_syntax")
+    manifest = json.loads((VP9_CORPUS / "manifest.json").read_text())
+
+    def read_as_cv2(path: Path, entry: dict) -> int:
+        frames = tvideo._own_reader(path)
+        check(tvideo.probe_video(path) == entry["probe"],
+              f"{path.name}: probe_video {tvideo.probe_video(path)} is cv2's {entry['probe']}")
+        got = [hashlib.sha256(frames.rgb(i).tobytes()).hexdigest() for i in range(len(frames))]
+        check(got == entry["sha256"], f"{path.name}: {len(got)} frames equal to cv2's "
+                                      f"{len(entry['sha256'])} of the manifest")
+        return len(got)
+
+    t0 = time.perf_counter()
+    n_frames = 0
+    for name, entry in manifest["files"].items():
+        path = VP9_CORPUS / name
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the file's SHA-256 is the manifest's")
+        n_frames += read_as_cv2(path, entry)
+    write_s, paths = 0.0, {}
+    for name, entry in manifest["streams"].items():
+        t1 = time.perf_counter()
+        path = paths[name] = syn.make_file(work / name, entry["seed"], entry["plan"],
+                                           entry["options"], entry["mux"])
+        write_s += time.perf_counter() - t1
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the writer re-made the manifest's stream from seed {entry['seed']}")
+        n_frames += read_as_cv2(path, entry)
+    corpus_s = time.perf_counter() - t0
+
+    def timed(path: Path) -> tuple[dict, dict]:
+        """Seconds (median of 3 from a new decoder) and bytes of a clip's
+        first packet (a key frame) and second (inter, maybe a superframe)."""
+        reader = tvideo._own_reader(path)
+        samples = [reader.sample(i) for i in range(2)]
+        check([vp9.probe_frame(x).key for x in samples] == [True, False],
+              f"{path.name} starts with a key frame and an inter frame")
+        runs = [[], []]
+        for _ in range(3):
+            host = vp9.Host()
+            for k, x in enumerate(samples):
+                parts = vp9.split_superframe(x)
+                t1 = time.perf_counter()
+                for part in parts:
+                    host.decode(part)
+                runs[k].append(time.perf_counter() - t1)
+        return ({"key": float(np.median(runs[0])), "inter": float(np.median(runs[1]))},
+                {"key": len(samples[0]), "inter": len(samples[1])})
+
+    cv2_s, cv2_bytes = timed(VP9_CORPUS / "clip_1080p.webm")
+    rt_s, rt_bytes = timed(paths["syn_1080p_rt.webm"])
+    two_s, two_bytes = timed(paths["syn_1080p_2pass.webm"])
+    path = VP9_CORPUS / "clip_1080p.webm"
+    wd = work / "wd_vp9"
+    t0 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd),
+                    f"pipeline.max_frames={PREPROCESS_FRAMES}"]) == 0,
+          "cli preprocess --video clip_1080p.webm (VP9)")
+    preprocess_s = time.perf_counter() - t0
+    (stage,) = list((wd / "stages").glob("preprocess-*"))
+    extracted = sorted((stage / "images").glob("*.png"))
+    check(len(extracted) == 3 and {tvideo.read_image(p).shape for p in extracted}
+          == {(512, 910, 3)}, f"clip_1080p.webm (VP9) preprocessed to {len(extracted)} frames "
+                             "of 910x512")
+    frames = tvideo._own_reader(path)
+    for i in (0, 2):
+        check(np.array_equal(tvideo.read_image(extracted[i]),
+                             tvideo.area_resize(frames.rgb(i), 512, 910)),
+              f"preprocessed frame {i} of clip_1080p.webm (VP9) is the port's read, shrunk")
+    return {"files": len(manifest["files"]), "streams": len(manifest["streams"]),
+            "frames": n_frames, "corpus_s": corpus_s, "write_s": write_s,
+            "cv2_s": cv2_s, "cv2_bytes": cv2_bytes, "rt_s": rt_s, "rt_bytes": rt_bytes,
+            "two_s": two_s, "two_bytes": two_bytes, "preprocess_s": preprocess_s}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -3720,17 +3822,18 @@ def phase_m(model, device, card: str, work: Path) -> dict:
     work.mkdir()
     # the host libraries the corpus parts decode with, built by g++ (one
     # process each, at once) while the phase's CLI calls run
-    from omfs4d_torch.io import colour, hevc, mpeg4, vp8
+    from omfs4d_torch.io import colour, hevc, mpeg4, vp8, vp9
 
     def timed_build(build) -> float:
         t0 = time.perf_counter()
         build()
         return time.perf_counter() - t0
 
-    pool = ThreadPoolExecutor(4)
+    pool = ThreadPoolExecutor(6)
     builds = {name: pool.submit(timed_build, lib._library)
               for name, lib in (("mpeg4", mpeg4), ("hevc", hevc), ("colour", colour),
-                                ("vp8", vp8))}
+                                ("vp8", vp8), ("vp9", vp9),
+                                ("vp9 writer", tests_module("torch_vp9_syntax")))}
     images, _, _ = tracking_clip(model, device, work)
     src = [tvideo.read_image(p) for p in sorted(images.glob("*.png"))]
 
@@ -3937,6 +4040,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         t_vp8 = time.perf_counter()
         vp = vp8_corpus(work)
         vp8_s = time.perf_counter() - t_vp8
+        t_vp9 = time.perf_counter()
+        v9 = vp9_corpus(work)
+        vp9_s = time.perf_counter() - t_vp9
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -4085,6 +4191,18 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"({vp['syn_bytes']['key']} / {vp['syn_bytes']['inter']} bytes), medians of 3; cli "
           f"preprocess --video clip_1080p.webm {vp['preprocess_s']:.2f} s -> 3 frames 910x512; "
           f"the VP8 part {vp8_s:.2f} s [{card}]")
+    print(f"  VP9 (vp9dec.cpp, built by g++ in {built['vp9']:.2f} s; the tests' writer in "
+          f"{built['vp9 writer']:.2f} s): cv2's {v9['files']} VP90 clips and the writer's "
+          f"{v9['streams']} streams (re-made from their seeds in {v9['write_s']:.2f} s, each the "
+          f"manifest's SHA-256) read to cv2's probes and {v9['frames']} frames in "
+          f"{v9['corpus_s']:.2f} s; 1920x1080 key / inter packet: cv2's clip_1080p.webm "
+          f"{v9['cv2_s']['key']:.4f} / {v9['cv2_s']['inter']:.4f} s ({v9['cv2_bytes']['key']} / "
+          f"{v9['cv2_bytes']['inter']} bytes), the writer's realtime layout "
+          f"{v9['rt_s']['key']:.4f} / {v9['rt_s']['inter']:.4f} s ({v9['rt_bytes']['key']} / "
+          f"{v9['rt_bytes']['inter']} bytes), its two-pass layout {v9['two_s']['key']:.4f} / "
+          f"{v9['two_s']['inter']:.4f} s ({v9['two_bytes']['key']} / {v9['two_bytes']['inter']} "
+          f"bytes, a superframe), medians of 3; cli preprocess --video clip_1080p.webm "
+          f"{v9['preprocess_s']:.2f} s -> 3 frames 910x512; the VP9 part {vp9_s:.2f} s [{card}]")
     print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
     return {"fwd": fwd, "bwd": bwd}
 

@@ -5,8 +5,8 @@ written codecs share (`write_file`).  The codecs sit on top of it as
 siblings: Motion JPEG
 (`omfs4d_torch.io.mjpeg`), H.264 (`omfs4d_torch.io.h264`), HEVC
 (`omfs4d_torch.io.hevc`, read only), MPEG-4 Part 2
-(`omfs4d_torch.io.mpeg4`, read only) and VP8 (`omfs4d_torch.io.vp8`, read
-only); the MP4 boxes are
+(`omfs4d_torch.io.mpeg4`, read only), VP8 (`omfs4d_torch.io.vp8`, read
+only) and VP9 (`omfs4d_torch.io.vp9`, read only); the MP4 boxes are
 `omfs4d_torch.io.mp4`'s, the Matroska elements `omfs4d_torch.io.matroska`'s,
 the transport stream's packets `omfs4d_torch.io.mpegts`'s.
 
@@ -23,8 +23,8 @@ the transport stream's packets `omfs4d_torch.io.mpegts`'s.
   its parameter sets in band, as FFmpeg's AVI muxer writes x264's and
   x265's output (`info["annexb"]`, the extradata, maybe empty), or
   length-prefixed after an avcC / hvcC extradata (`info["avcC"]` /
-  `info["hvcC"]`, as FFmpeg tells the two apart), and VP8 (`VP80`, a frame
-  a chunk, as cv2's writer lays it out).  A zero-byte chunk is a
+  `info["hvcC"]`, as FFmpeg tells the two apart), VP8 (`VP80`, a frame
+  a chunk, as cv2's writer lays it out) and VP9 (`VP90`, a packet a chunk).  A zero-byte chunk is a
   frame the writer dropped: it has no sample, but counts in `frame_count`
   (cv2 counts it and shows no frame for it).
 - MP4 / QuickTime: the first video track (`mp4.read_track`; a sound track
@@ -33,17 +33,19 @@ the transport stream's packets `omfs4d_torch.io.mpegts`'s.
   `.mp4`) and for QuickTime's `jpeg` and `mjpa`; MPEG-4 Part 2 for an `mp4v`
   entry of objectTypeIndication 0x20, its DecoderSpecificInfo (the VOS / VOL
   headers) as `dsi`; H.264 for `avc1` / `avc3` with an `avcC` box; HEVC for
-  `hvc1` / `hev1` with an `hvcC` box.
+  `hvc1` / `hev1` with an `hvcC` box; VP9 for `vp09` (its `vpcC` box, where
+  there is one, as `info["vpcC"]`; FFmpeg's decoder tags the frames from the
+  stream's own colour bits whatever it says).
 - Matroska / WebM (EBML, whatever the suffix): the first video track, its
   codec by CodecID (`matroska.index`): Motion JPEG, MPEG-4 Part 2, H.264,
-  HEVC and VP8, and a VfW track's fourcc read as AVI's.
+  HEVC, VP8 and VP9, and a VfW track's fourcc read as AVI's.
 - MPEG-TS (`.ts`, M2TS / AVCHD `.mts` / `.m2ts`; 188-, 192- or 204-byte
   packets, found by their sync bytes whatever the suffix): the first video
   stream of the programs (`mpegts.index`): H.264, HEVC and MPEG-4 Part 2,
   split into frames as FFmpeg's parsers split them; its samples are ranges
   of the elementary stream, gathered from the packets (`read_sample`).
 
-Any other codec (VP9, AV1, MS MPEG-4 v3, VP8 in MP4, ...) raises
+Any other codec (AV1, MS MPEG-4 v3, VP8 in MP4, ...) raises
 `UnsupportedCodecError` naming it: decoding it needs an ffmpeg binary.  So
 does a file that is none of the containers.  A frame whose bytes end early
 raises ValueError with its index (in Matroska, whose frames no header
@@ -88,15 +90,16 @@ _AVI_MPEG4 = {b"XVID", b"xvid", b"FMP4", b"fmp4", b"DIVX", b"divx", b"DX50", b"M
 _AVI_H264 = {b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1", b"DAVC"}
 _AVI_HEVC = {b"HEVC", b"H265", b"hev1", b"hvc1"}
 _AVI_VP8 = {b"VP80", b"vp80"}
+_AVI_VP9 = {b"VP90", b"vp90"}
 _AVI_NAMES = {b"DIV3": "MS MPEG-4 v3 (DivX 3)", b"MP43": "MS MPEG-4 v3",
-              b"VP90": "VP9", b"AV01": "AV1", b"WMV3": "WMV 9",
+              b"AV01": "AV1", b"WMV3": "WMV 9",
               b"mpg2": "MPEG-2 video", b"MPG2": "MPEG-2 video"}
 # MP4 sample entries of Motion JPEG and of H.264, and names of those that
 # need another decoder
 _MP4_MJPEG = {b"jpeg", b"mjpa"}
 _MP4_H264 = {b"avc1", b"avc3"}
 _MP4_HEVC = {b"hvc1", b"hev1"}
-_MP4_NAMES = {b"av01": "AV1", b"vp09": "VP9", b"vp08": "VP8",
+_MP4_NAMES = {b"av01": "AV1", b"vp08": "VP8",
               b"mjpb": "Motion JPEG format B", b"s263": "H.263", b"apcn": "ProRes"}
 # objectTypeIndication of an `mp4v` entry's esds (ISO/IEC 14496-1, Table 5)
 OTI_JPEG = 0x6C
@@ -130,6 +133,8 @@ def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI four
         return {"codec": "hevc", "annexb": extradata}
     if compression in _AVI_VP8:
         return {"codec": "vp8"}
+    if compression in _AVI_VP9:
+        return {"codec": "vp9"}
     name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
     raise _needs_ffmpeg(path, f"its video is {name} ({where} "
                               f"{compression.decode('latin-1')!r})")
@@ -292,6 +297,11 @@ def _read_mp4(buf, path: Path):
             raise _needs_ffmpeg(path, f"its video is H.265 / HEVC with no hvcC box (sample "
                                       f"entry {kind.decode('latin-1')!r})")
         info["codec"], info["hvcC"] = "hevc", bytes(buf[hvcc[0]:hvcc[1]])
+    elif kind == b"vp09":
+        info["codec"] = "vp9"
+        vpcc = mp4.child(buf, children, eend, b"vpcC")
+        if vpcc is not None:
+            info["vpcC"] = bytes(buf[vpcc[0]:vpcc[1]])
     elif kind not in _MP4_MJPEG:
         name = _MP4_NAMES.get(kind, "an unknown codec")
         raise _needs_ffmpeg(path, f"its video is {name} (sample entry "
@@ -335,9 +345,11 @@ def index(path) -> tuple[list[int], list[int], dict]:
                     return matroska.index(buf, p)
                 if mpegts.probe(head):
                     return mpegts.index(buf, p)
-                if mpegts.packet_size(np.frombuffer(head, np.uint8)):
+                if len(buf) < 2040 and mpegts.packet_size(np.frombuffer(head, np.uint8)):
                     # packets, but fewer than FFmpeg's probe needs to take
-                    # the file for a transport stream
+                    # the file for a transport stream; a longer file that
+                    # the probe turned down is some other container (an
+                    # ASF file may hold what looks like sync bytes)
                     raise mpegts.Cut("a transport stream of fewer than 2,040 bytes")
             except (struct.error, IndexError, TypeError, matroska.Cut, mpegts.Cut) as e:
                 traceback.clear_frames(e.__traceback__)      # views of the map go first

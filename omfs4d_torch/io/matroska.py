@@ -1,7 +1,8 @@
 """Matroska and WebM read with the standard library: the EBML walker and
 `index`, which gives what `container.index` gives for AVI and MP4: the
 offsets and sizes of the video track's frames in the file and the track's
-info, for the port's codecs (Motion JPEG, MPEG-4 Part 2, H.264, HEVC, VP8).
+info, for the port's codecs (Motion JPEG, MPEG-4 Part 2, H.264, HEVC, VP8,
+VP9).
 
 Read as FFmpeg's `matroskadec` reads a file for cv2:
 - EBML: element IDs keep their length marker, sizes drop it; a size of all
@@ -19,9 +20,10 @@ Read as FFmpeg's `matroskadec` reads a file for cv2:
   Part 2, `CodecPrivate` its headers); `V_MPEG4/ISO/AVC` and
   `V_MPEGH/ISO/HEVC` (`CodecPrivate` the avcC / hvcC body, the frames
   length-prefixed); `V_VP8` (no CodecPrivate; its BlockAdditions, an
-  alpha channel, are skipped as cv2 skips them); `V_MS/VFW/FOURCC`
+  alpha channel, are skipped as cv2 skips them); `V_VP9` (no CodecPrivate;
+  its frames may be superframes, split by the codec); `V_MS/VFW/FOURCC`
   (`CodecPrivate` a BITMAPINFOHEADER, its fourcc read as AVI's,
-  `container.avi_codec`).  Any other (VP9, AV1, MPEG-1 / 2, Theora, ProRes,
+  `container.avi_codec`).  Any other (AV1, MPEG-1 / 2, Theora, ProRes,
   ...) raises `UnsupportedCodecError` naming it.
 - Frames: `SimpleBlock`s (FFmpeg's muxer; the keyframe flag gives `sync`)
   and `BlockGroup`s (mkvmerge's: a `Block` with no `ReferenceBlock` is a
@@ -84,7 +86,7 @@ _CLUSTER_CHILDREN = {CLUSTER_TIMESTAMP, SIMPLE_BLOCK, BLOCK_GROUP, 0x5854, 0xA7,
 TRACK_TYPE_VIDEO = 1
 # CodecIDs the port reads, and names of those it does not
 _MPEG4 = {"V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP"}
-_NAMES = {"V_VP9": "VP9", "V_AV1": "AV1", "V_MPEG1": "MPEG-1 video",
+_NAMES = {"V_AV1": "AV1", "V_MPEG1": "MPEG-1 video",
           "V_MPEG2": "MPEG-2 video", "V_THEORA": "Theora", "V_PRORES": "ProRes",
           "V_UNCOMPRESSED": "uncompressed video", "V_REAL/RV40": "RealVideo 4",
           "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_FFV1": "FFV1", "V_DIRAC": "Dirac",
@@ -306,6 +308,8 @@ def _codec(track: dict, path) -> dict:
         return {"codec": "mpeg4", "dsi": private}
     if cid == "V_VP8":
         return {"codec": "vp8"}
+    if cid == "V_VP9":
+        return {"codec": "vp9"}
     if cid == "V_MPEG4/ISO/AVC":
         if not private:
             raise container._needs_ffmpeg(path, "its video is H.264 with no CodecPrivate "
@@ -548,7 +552,7 @@ def cv2_fps(times_ms: list[int], stream_rate: float, codec: str) -> float:
     each frame from the third on a duration of 1 / the rate of their VUI
     timing (`stream_rate`) in whole milliseconds, and the rate is that
     average, snapped to a standard rate within 1%.  MPEG-4 Part 2 takes its
-    VOL's rate where it lies in [5, 101).  Else (Motion JPEG, VP8: no rate
+    VOL's rate where it lies in [5, 101).  Else (Motion JPEG, VP8, VP9: no rate
     in the stream, as in a browser's recording) FFmpeg estimates the rate
     from the frames' times (`estimated_fps`): its average rate where it sets
     one, else the rate it found, else the stream's rate (an H.264 stream's

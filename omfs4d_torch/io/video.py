@@ -45,14 +45,17 @@ contract).  With none, the port's own codecs:
   quantisation) write it (`mpeg4.MPEG4Frames`, the host C++ decoder
   `mpeg4dec.cpp`); VP8, as a browser's `MediaRecorder` writes it into WebM
   and cv2's `VP80` writer into WebM, Matroska and AVI (`vp8.VP8Frames`, the
-  host C++ decoder `vp8dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
+  host C++ decoder `vp8dec.cpp`); VP9 profile 0, as a browser's
+  `MediaRecorder` or YouTube writes it into WebM and cv2's `VP90` writer into
+  WebM, Matroska, AVI and MP4 (`vp9.VP9Frames`, the host C++ decoder
+  `vp9dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
   swscale's own conversion bit for bit (`swscale`; 8-bit 4:2:0 on its
   unscaled path, 10-bit pictures, odd heights and JPEG's other samplings on
   its scaled one), and cv2's gamut and tone mapping of BT.2020 / PQ / HLG
   tagged streams (`colour`).  HEVC beyond Main 10 (more than 10 bits, tiles
   with WPP, ...), H.264 with fields or more than 8 bits, MPEG-4 Part 2
-  sprites / GMC, interlacing or data partitioning, and other codecs (VP9,
-  AV1, ...) raise
+  sprites / GMC, interlacing or data partitioning, VP9 beyond profile 0 or
+  with references of another size, and other codecs (AV1, ...) raise
   `container.UnsupportedCodecError` naming the codec or feature.
 """
 
@@ -67,7 +70,7 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg4, vp8
+from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg4, vp8, vp9
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
 
 log = get_logger("video")
@@ -352,11 +355,11 @@ def extract_frames(
 
 
 _READERS = {"h264": h264.H264Frames, "hevc": hevc.HEVCFrames, "mpeg4": mpeg4.MPEG4Frames,
-            "vp8": vp8.VP8Frames, "mjpeg": mjpeg.MJPEGFrames}
+            "vp8": vp8.VP8Frames, "vp9": vp9.VP9Frames, "mjpeg": mjpeg.MJPEGFrames}
 
 
 def _own_reader(path: Path) -> (h264.H264Frames | hevc.HEVCFrames | mpeg4.MPEG4Frames
-                                | vp8.VP8Frames | mjpeg.MJPEGFrames):
+                                | vp8.VP8Frames | vp9.VP9Frames | mjpeg.MJPEGFrames):
     """A video file's frames through the port's own readers, with no ffmpeg:
     the file is indexed once and read by its codec's module."""
     offsets, sizes, info = container.index(path)

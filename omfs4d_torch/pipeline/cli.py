@@ -23,8 +23,9 @@ through libx264; with none, the port reads by itself Motion JPEG (MJPG) in
 re-export) and MPEG-4 Part 2 Simple and Advanced Simple profile in `.mp4` /
 `.avi` (cv2's `mp4v` / `XVID` / `DIVX` / `FMP4`, as the JAX package writes
 it, and Xvid's and DivX's B-VOPs, packed bitstream, quarter-sample and MPEG
-quantisation), and VP8 in `.webm` / `.mkv` / `.avi` (a browser's recording,
-cv2's `VP80`), and writes the
+quantisation), VP8 in `.webm` / `.mkv` / `.avi` (a browser's recording,
+cv2's `VP80`) and VP9 profile 0 in `.webm` / `.mkv` / `.avi` / `.mp4` (a
+browser's or YouTube's WebM, cv2's `VP90`), and writes the
 prediction with its own H.264 encoder (Motion JPEG AVI for a `.avi` output),
 while H.264 with fields, HEVC's range extensions (4:0:0, 4:2:2, 4:4:4, above
 10 bits), screen content coding and other codecs raise, naming the codec or
@@ -57,9 +58,11 @@ VIDEO_HELP = ("the capture: a directory of PNG or JPEG frames, or a video file; 
               "Main / High I, P and B pictures in .mp4 / .mov (a phone's capture), HEVC "
               "Main and Main 10 in .mp4 / .mov (hvc1 / hev1) and MPEG-4 Part 2 Simple and "
               "Advanced Simple in .mp4 / .avi (cv2's mp4v / XVID / DIVX / FMP4, Xvid's and "
-              "DivX's B-VOPs, quarter-sample and MPEG quantisation) and VP8 in .webm / .mkv / "
-              ".avi (a browser's recording, cv2's VP80) are read (HEVC's range "
-              "extensions and screen content coding, and other codecs, need ffmpeg)")
+              "DivX's B-VOPs, quarter-sample and MPEG quantisation), VP8 in .webm / .mkv / "
+              ".avi (a browser's recording, cv2's VP80) and VP9 profile 0 in .webm / .mkv "
+              "/ .avi / .mp4 (a browser's or YouTube's WebM, cv2's VP90) are read (HEVC's "
+              "range extensions and screen content coding, VP9 profiles 1-3, and other "
+              "codecs, need ffmpeg)")
 
 
 def _add_device(p: argparse.ArgumentParser):

@@ -14,8 +14,8 @@ for bit, and `probe_video` equal to cv2's width, height, fps and frame count.
   the VUI's, WebM's DocType.
 - Files cut at several byte positions: the frames cv2 reads, its count, and
   a ValueError where cv2 cannot open the file.
-- VP9 (cv2's `.webm` and `.mkv`), AV1 and the rest refused by name (VP8 is
-  read: `tests/test_torch_vp8.py`).
+- cv2's MPEG-2 and FFV1 in `.mkv`, AV1 and the rest refused by name (VP8
+  and VP9 are read: `tests/test_torch_vp8.py`, `tests/test_torch_vp9.py`).
 - The JAX package's `stitch_video` into `.mkv` with no ffmpeg, read by both
   packages to the same probe and frames.
 - The committed corpus (`tests/data/matroska/`) against its manifest.
@@ -383,11 +383,13 @@ def test_cut_files_read_as_cv2(tmp_path, capfd, source):
 
 # ── what stays refused ──────────────────────────────────────
 
-@pytest.mark.parametrize("fourcc, suffix, name", [("VP90", "webm", "VP9"), ("VP90", "mkv", "VP9")])
-def test_vp8_vp9_refused_by_name(tmp_path, capfd, fourcc, suffix, name):
-    """cv2's VP9 writer (WebM and Matroska), which cv2 reads back:
+@pytest.mark.parametrize("fourcc, suffix, name", [("MPG2", "mkv", "MPEG-2 video"),
+                                                   ("FFV1", "mkv", "FFV1")])
+def test_cv2_mpeg2_ffv1_refused_by_name(tmp_path, capfd, fourcc, suffix, name):
+    """cv2's MPEG-2 and FFV1 writers into Matroska, which cv2 reads back:
     the port has no decoder for them and says which codec, from probe_video
-    and extract_frames both."""
+    and extract_frames both (VP9, once refused here, is read:
+    `tests/test_torch_vp9.py`)."""
     path = tmp_path / f"clip.{suffix}"
     cv2_write(path, fourcc, moving_clip(4, 32, 48))
     capfd.readouterr()

@@ -479,3 +479,47 @@ def test_container_of_ts_paths_is_mp4():
     port writes no transport stream): cv2 reads such a file by its content."""
     assert container.container_of("a.ts") == container.container_of("b.m2ts") == "mp4"
     assert mpegts.packet_size(np.frombuffer(bytes(188 * 12), np.uint8)) is None
+
+
+# ── an ASF file is no transport stream ──────────────────────
+
+ASF = Path(__file__).resolve().parent / "data" / "asf"
+
+
+def write_wmv1(path: Path) -> Path | None:
+    """cv2's WMV1 writer in `.wmv` (ASF) on a 64 x 48 gradient of 40
+    frames, whose first 2 KiB FFmpeg's packet-size count scores as 192-byte
+    packets; None where this cv2 lacks the writer."""
+    vw = cv2.VideoWriter(str(path), cv2.VideoWriter_fourcc(*"WMV1"), 30, (64, 48))
+    if not vw.isOpened():
+        return None
+    yy, xx = np.mgrid[0:48, 0:64]
+    for i in range(40):
+        vw.write(np.stack([(xx * 3 + i * 5) % 256, (yy * 2 + i * 7) % 256,
+                           ((xx + yy) // 3 + i * 11) % 256], -1).astype(np.uint8))
+    vw.release()
+    return path
+
+
+@pytest.mark.parametrize("source", ["cv2", "committed"])
+def test_asf_file_is_refused_as_needing_ffmpeg(tmp_path, source):
+    """A healthy ASF file (cv2's WMV1 `.wmv`, or the committed first 4,096
+    bytes of one: past FFmpeg's 2,040-byte probe) whose head looks like
+    transport stream packets to the packet-size count but not to FFmpeg's
+    probe: refused as needing ffmpeg, not called a cut transport stream."""
+    if source == "cv2":
+        path = write_wmv1(tmp_path / "w.wmv")
+        if path is None:
+            pytest.skip("this cv2 has no WMV1 writer")
+        assert cv2.VideoCapture(str(path)).get(cv2.CAP_PROP_FRAME_COUNT) > 0
+    else:
+        entry = json.loads((ASF / "manifest.json").read_text())["files"]["wmv1_head.wmv"]
+        path = ASF / "wmv1_head.wmv"
+        assert hashlib.sha256(path.read_bytes()).hexdigest() == entry["sha256"]
+    head = np.frombuffer(path.read_bytes()[:2048], np.uint8)
+    assert mpegts.packet_size(head) and not mpegts.probe(head.tobytes())
+    assert path.stat().st_size >= 4096
+    with pytest.raises(container.UnsupportedCodecError, match="ffmpeg"):
+        tvideo.probe_video(path)
+    with pytest.raises(container.UnsupportedCodecError, match="ffmpeg"):
+        tvideo.extract_frames(path, tmp_path / "out")
