@@ -272,7 +272,14 @@ Phase M: the reference's user path from a video file to a prediction video,
   tiles, lossless, a browser's recording layout, and a realtime and a
   two-pass layout at 1080p) re-made here from their seeds; the 1080p key and
   inter frames of cv2's clip and of the writer's two 1080p streams timed;
-  `cli preprocess --video clip_1080p.webm` (VP9) gives its 3 frames.
+  `cli preprocess --video clip_1080p.webm` (VP9) gives its 3 frames.  Then
+  MPEG-1 / MPEG-2 alike against tests/data/mpeg2/manifest.json: cv2's
+  committed MPG1 / PIM1 / MPG2 clips (MPEG-PS, TS, AVI, Matroska, MP4,
+  QuickTime, 97x63 asked, 1080p) and the tests' writer's streams
+  (interlaced frame pictures in PS and TS, frames flagged interlaced,
+  MPEG-1, low_delay) re-made here from their seeds; the 1080p clip's I, P
+  and B pictures timed; `cli preprocess --video` of it (3 frames) and of
+  the writer's interlaced program stream.
   Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
   `encode_h264` (IDR and P) at 512^2 and at 1920 x 1080, the H.264 readers
   (the host decoder on encode_h264's 1080p IDR and P and on clip.mov's, the
@@ -455,6 +462,10 @@ VP8_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "vp8"
 # the VP9 corpus (tests/make_vp9_corpus.py): cv2's VP90 clips, and the hashes
 # of cv2's frames of the tests' writer's streams, which are re-made here
 VP9_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "vp9"
+# the MPEG-1 / MPEG-2 corpus (tests/make_mpeg2_corpus.py): cv2's MPG1 / PIM1 /
+# MPG2 clips in every container, and the hashes of cv2's frames of the tests'
+# writer's streams (interlaced frame pictures in PS and TS), re-made here
+MPEG2_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpeg2"
 # `cli preprocess --video` of a 1080p clip costs ~0.35 s a frame on the host
 # (colour conversion, area_resize, PNG): one clip a codec runs whole
 # (clip_b.mp4's 9 frames, asp_1080p.avi's 3, clip_1080p.webm's 3), the other
@@ -3805,6 +3816,97 @@ def vp9_corpus(work: Path) -> dict:
             "two_s": two_s, "two_bytes": two_bytes, "preprocess_s": preprocess_s}
 
 
+def mpeg2_corpus(work: Path) -> dict:
+    """The host MPEG-1 / MPEG-2 decoder and the program stream reader on the
+    card's machine (no cv2 there), against `tests/data/mpeg2/manifest.json`,
+    which cv2 wrote: cv2's committed MPG1 / PIM1 / MPG2 clips (MPEG-PS, TS,
+    AVI, Matroska, MP4, QuickTime, 97x63 asked, 1080p) have their SHA-256s
+    and read to cv2's probe and frames (SHA-256 of each RGB frame); the
+    tests' writer's streams (`tests/torch_mpeg2_syntax.py`: interlaced frame
+    pictures with field and dual-prime prediction in PS and TS, frames
+    flagged interlaced, MPEG-1, low_delay) are re-made from their seeds to
+    the manifest's bytes and read to cv2's frames.  mpg2_1080p.mpg's I, P and
+    B packets are timed (medians of 3 decodes from a new decoder), and `cli
+    preprocess --video` runs on it (3 frames at target_size 512, each the
+    port's read shrunk) and on the writer's interlaced program stream."""
+    from omfs4d_torch.io import container, mpeg2
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    syn = tests_module("torch_mpeg2_syntax")
+    manifest = json.loads((MPEG2_CORPUS / "manifest.json").read_text())
+
+    def read_as_cv2(path: Path, entry: dict) -> int:
+        frames = tvideo._own_reader(path)
+        check(tvideo.probe_video(path) == entry["probe"],
+              f"{path.name}: probe_video {tvideo.probe_video(path)} is cv2's {entry['probe']}")
+        got = [hashlib.sha256(frames.rgb(i).tobytes()).hexdigest() for i in range(len(frames))]
+        check(got == entry["sha256"], f"{path.name}: {len(got)} frames equal to cv2's "
+                                      f"{len(entry['sha256'])} of the manifest")
+        return len(got)
+
+    t0 = time.perf_counter()
+    n_frames = 0
+    for name, entry in manifest["files"].items():
+        path = MPEG2_CORPUS / name
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the file's SHA-256 is the manifest's")
+        n_frames += read_as_cv2(path, entry)
+    write_s, paths = 0.0, {}
+    for name, entry in manifest["streams"].items():
+        t1 = time.perf_counter()
+        path = paths[name] = syn.make_file(work / name, entry["seed"], entry["plan"],
+                                           entry["mpeg2"], entry["options"], entry["mux"])
+        write_s += time.perf_counter() - t1
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the writer re-made the manifest's stream from seed {entry['seed']}")
+        n_frames += read_as_cv2(path, entry)
+    corpus_s = time.perf_counter() - t0
+
+    path = MPEG2_CORPUS / "mpg2_1080p.mpg"
+    reader = tvideo._own_reader(path)
+    packets = [reader.sample(k) for k in range(len(reader.offsets))]
+    timeline = mpeg2.Timeline()
+    kinds = [timeline.packet(x, k).kind for k, x in enumerate(packets)]
+    check(set(kinds) == {"I", "P", "B"}, f"mpg2_1080p.mpg holds I, P and B pictures: {kinds}")
+    runs: dict = {kind: [] for kind in kinds}
+    for _ in range(3):
+        host = mpeg2.Host()
+        for k, x in enumerate(packets):
+            t1 = time.perf_counter()
+            host.push(x, k)
+            runs[kinds[k]].append(time.perf_counter() - t1)
+            host.take()
+    picture_s = {kind: float(np.median(v)) for kind, v in runs.items()}
+    picture_bytes = {kind: len(packets[kinds.index(kind)]) for kind in runs}
+    pre = {}
+    for name, src, shape in (("mpg2_1080p.mpg", path, (512, 910, 3)),
+                             ("syn_interlaced.mpg", paths["syn_interlaced.mpg"], None)):
+        wd = work / f"wd_{name}"
+        t1 = time.perf_counter()
+        check(cli.main(["preprocess", "--video", str(src), "--workdir", str(wd),
+                        f"pipeline.max_frames={PREPROCESS_FRAMES}"]) == 0,
+              f"cli preprocess --video {name}")
+        pre[name] = time.perf_counter() - t1
+        (stage,) = list((wd / "stages").glob("preprocess-*"))
+        extracted = sorted((stage / "images").glob("*.png"))
+        frames = tvideo._own_reader(src)
+        want = shape or frames.rgb(0).shape
+        check(len(extracted) == min(3, len(frames)) and
+              {tvideo.read_image(p).shape for p in extracted} == {want},
+              f"{name} preprocessed to {len(extracted)} frames of {want}")
+        for i in (0, len(extracted) - 1):
+            img = frames.rgb(i)
+            if shape:
+                img = tvideo.area_resize(img, *shape[:2])
+            check(np.array_equal(tvideo.read_image(extracted[i]), img),
+                  f"preprocessed frame {i} of {name} is the port's read")
+    check(container.index(path)[2]["container"] == "mpegps", "mpg2_1080p.mpg is a program stream")
+    return {"files": len(manifest["files"]), "streams": len(manifest["streams"]),
+            "frames": n_frames, "corpus_s": corpus_s, "write_s": write_s,
+            "picture_s": picture_s, "picture_bytes": picture_bytes, "preprocess_s": pre}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -3822,17 +3924,17 @@ def phase_m(model, device, card: str, work: Path) -> dict:
     work.mkdir()
     # the host libraries the corpus parts decode with, built by g++ (one
     # process each, at once) while the phase's CLI calls run
-    from omfs4d_torch.io import colour, hevc, mpeg4, vp8, vp9
+    from omfs4d_torch.io import colour, hevc, mpeg2, mpeg4, vp8, vp9
 
     def timed_build(build) -> float:
         t0 = time.perf_counter()
         build()
         return time.perf_counter() - t0
 
-    pool = ThreadPoolExecutor(6)
+    pool = ThreadPoolExecutor(7)
     builds = {name: pool.submit(timed_build, lib._library)
               for name, lib in (("mpeg4", mpeg4), ("hevc", hevc), ("colour", colour),
-                                ("vp8", vp8), ("vp9", vp9),
+                                ("vp8", vp8), ("vp9", vp9), ("mpeg2", mpeg2),
                                 ("vp9 writer", tests_module("torch_vp9_syntax")))}
     images, _, _ = tracking_clip(model, device, work)
     src = [tvideo.read_image(p) for p in sorted(images.glob("*.png"))]
@@ -4043,6 +4145,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         t_vp9 = time.perf_counter()
         v9 = vp9_corpus(work)
         vp9_s = time.perf_counter() - t_vp9
+        t_m2 = time.perf_counter()
+        m2 = mpeg2_corpus(work)
+        mpeg2_s = time.perf_counter() - t_m2
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -4203,6 +4308,18 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"{v9['two_s']['inter']:.4f} s ({v9['two_bytes']['key']} / {v9['two_bytes']['inter']} "
           f"bytes, a superframe), medians of 3; cli preprocess --video clip_1080p.webm "
           f"{v9['preprocess_s']:.2f} s -> 3 frames 910x512; the VP9 part {vp9_s:.2f} s [{card}]")
+    ps, pb = m2["picture_s"], m2["picture_bytes"]
+    print(f"  MPEG-1/2 (mpeg2dec.cpp, built by g++ in {built['mpeg2']:.2f} s): cv2's "
+          f"{m2['files']} MPG1 / PIM1 / MPG2 clips (PS, TS, AVI, Matroska, MP4, QuickTime) and "
+          f"the writer's {m2['streams']} streams (interlaced frame pictures in PS and TS, "
+          f"re-made from their seeds in {m2['write_s']:.2f} s, each the manifest's SHA-256) "
+          f"read to cv2's probes and {m2['frames']} frames in {m2['corpus_s']:.2f} s; "
+          f"mpg2_1080p.mpg (cv2's MPG2, 1920x1080) I / P / B picture {ps['I']:.4f} / "
+          f"{ps['P']:.4f} / {ps['B']:.4f} s ({pb['I']} / {pb['P']} / {pb['B']} bytes), medians "
+          f"of 3; cli preprocess --video mpg2_1080p.mpg "
+          f"{m2['preprocess_s']['mpg2_1080p.mpg']:.2f} s -> 3 frames 910x512, "
+          f"syn_interlaced.mpg {m2['preprocess_s']['syn_interlaced.mpg']:.2f} s; the MPEG-1/2 "
+          f"part {mpeg2_s:.2f} s [{card}]")
     print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
     return {"fwd": fwd, "bwd": bwd}
 

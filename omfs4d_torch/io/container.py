@@ -1,14 +1,16 @@
 """The containers of the port's video files, AVI, MP4, Matroska / WebM and
-MPEG transport streams, with the standard library: which codec a file holds
+MPEG transport and program streams, with the standard library: which codec a file holds
 and where its frames lie (`index`), and the file writing the port's two
 written codecs share (`write_file`).  The codecs sit on top of it as
 siblings: Motion JPEG
 (`omfs4d_torch.io.mjpeg`), H.264 (`omfs4d_torch.io.h264`), HEVC
 (`omfs4d_torch.io.hevc`, read only), MPEG-4 Part 2
 (`omfs4d_torch.io.mpeg4`, read only), VP8 (`omfs4d_torch.io.vp8`, read
-only) and VP9 (`omfs4d_torch.io.vp9`, read only); the MP4 boxes are
+only), VP9 (`omfs4d_torch.io.vp9`, read only) and MPEG-1 / MPEG-2
+(`omfs4d_torch.io.mpeg2`, read only); the MP4 boxes are
 `omfs4d_torch.io.mp4`'s, the Matroska elements `omfs4d_torch.io.matroska`'s,
-the transport stream's packets `omfs4d_torch.io.mpegts`'s.
+the transport stream's packets `omfs4d_torch.io.mpegts`'s, the program
+stream's `omfs4d_torch.io.mpegps`'s.
 
 - AVI (RIFF): the `hdrl` list's first video `strl` (`strh` of type `vids`,
   a BITMAPINFOHEADER `strf` naming the codec), and its frames from the
@@ -24,7 +26,9 @@ the transport stream's packets `omfs4d_torch.io.mpegts`'s.
   x265's output (`info["annexb"]`, the extradata, maybe empty), or
   length-prefixed after an avcC / hvcC extradata (`info["avcC"]` /
   `info["hvcC"]`, as FFmpeg tells the two apart), VP8 (`VP80`, a frame
-  a chunk, as cv2's writer lays it out) and VP9 (`VP90`, a packet a chunk).  A zero-byte chunk is a
+  a chunk, as cv2's writer lays it out), VP9 (`VP90`, a packet a chunk)
+  and MPEG-1 / MPEG-2 (`mpg1`, `mpg2`, `PIM1`, `MPEG`, ... of FFmpeg's
+  table; the extradata, maybe empty, as `extradata`).  A zero-byte chunk is a
   frame the writer dropped: it has no sample, but counts in `frame_count`
   (cv2 counts it and shows no frame for it).
 - MP4 / QuickTime: the first video track (`mp4.read_track`; a sound track
@@ -35,15 +39,25 @@ the transport stream's packets `omfs4d_torch.io.mpegts`'s.
   headers) as `dsi`; H.264 for `avc1` / `avc3` with an `avcC` box; HEVC for
   `hvc1` / `hev1` with an `hvcC` box; VP9 for `vp09` (its `vpcC` box, where
   there is one, as `info["vpcC"]`; FFmpeg's decoder tags the frames from the
-  stream's own colour bits whatever it says).
+  stream's own colour bits whatever it says); MPEG-1 / MPEG-2 for an `mp4v`
+  entry of objectTypeIndication 0x60-0x65 or 0x6A (its DecoderSpecificInfo
+  as `extradata`) and for QuickTime's `m2v1` (cv2's), `m1v1`, `mpeg`, HDV's
+  `hdv*`, XDCAM's `xdv*` / `xd5*` / `xdhd`, IMX's `mx*`.
 - Matroska / WebM (EBML, whatever the suffix): the first video track, its
   codec by CodecID (`matroska.index`): Motion JPEG, MPEG-4 Part 2, H.264,
-  HEVC, VP8 and VP9, and a VfW track's fourcc read as AVI's.
+  HEVC, VP8, VP9 and MPEG-1 / MPEG-2, and a VfW track's fourcc read as
+  AVI's.
 - MPEG-TS (`.ts`, M2TS / AVCHD `.mts` / `.m2ts`; 188-, 192- or 204-byte
   packets, found by their sync bytes whatever the suffix): the first video
-  stream of the programs (`mpegts.index`): H.264, HEVC and MPEG-4 Part 2,
-  split into frames as FFmpeg's parsers split them; its samples are ranges
-  of the elementary stream, gathered from the packets (`read_sample`).
+  stream of the programs (`mpegts.index`): H.264, HEVC, MPEG-4 Part 2 and
+  MPEG-1 / MPEG-2, split into frames as FFmpeg's parsers split them; its
+  samples are ranges of the elementary stream, gathered from the packets
+  (`read_sample`).
+- MPEG-PS (`.mpg`, `.mpeg`, `.vob`: MPEG-1 system streams and MPEG-2
+  program streams, found by FFmpeg's probe whatever the suffix): the first
+  video stream (`mpegps.index`), MPEG-1 / MPEG-2, or H.264, HEVC or MPEG-4
+  Part 2 by its PSM or its payload, read as from a transport stream.  A raw
+  MPEG-1 / 2 elementary stream (`.m1v` / `.m2v`) is refused by name.
 
 Any other codec (AV1, MS MPEG-4 v3, VP8 in MP4, ...) raises
 `UnsupportedCodecError` naming it: decoding it needs an ffmpeg binary.  So
@@ -64,21 +78,23 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import matroska, mp4, mpegts
+from omfs4d_torch.io import matroska, mp4, mpegps, mpegts
 
 
 class UnsupportedCodecError(RuntimeError):
     """The video file holds a codec that the port cannot decode without an
-    ffmpeg binary, or it is no AVI, MP4, Matroska or MPEG-TS file at all."""
+    ffmpeg binary, or it is no AVI, MP4, Matroska, MPEG-TS or MPEG-PS file
+    at all."""
 
 
 def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
         f"{path}: {what}; the port reads only Motion JPEG (MJPG), H.264 (Main / High "
-        "profile I, P and B pictures), HEVC (Main and Main 10 profiles, whole) and MPEG-4 "
-        "Part 2 (Simple and Advanced Simple profile), each in AVI, MP4 / QuickTime, "
-        "Matroska / WebM or MPEG-TS, by itself, decoding this needs an ffmpeg binary (on "
-        "PATH or from imageio_ffmpeg)")
+        "profile I, P and B pictures), HEVC (Main and Main 10 profiles, whole), MPEG-4 "
+        "Part 2 (Simple and Advanced Simple profile), VP8, VP9 (profile 0) and MPEG-1 / "
+        "MPEG-2 (4:2:0 frame pictures), each in AVI, MP4 / QuickTime, Matroska / WebM, "
+        "MPEG-TS or MPEG-PS, by itself, decoding this needs an ffmpeg binary (on PATH or "
+        "from imageio_ffmpeg)")
 
 
 # AVI fourccs of Motion JPEG, and names of those that need another decoder
@@ -91,23 +107,38 @@ _AVI_H264 = {b"H264", b"h264", b"X264", b"x264", b"avc1", b"AVC1", b"DAVC"}
 _AVI_HEVC = {b"HEVC", b"H265", b"hev1", b"hvc1"}
 _AVI_VP8 = {b"VP80", b"vp80"}
 _AVI_VP9 = {b"VP90", b"vp90"}
+# AVI fourccs of MPEG-1 / MPEG-2 video (FFmpeg's ff_codec_bmp_tags, matched
+# upper- or lower-case as FFmpeg falls back to)
+_AVI_MPEG2 = {c for t in (b"mpg1", b"mpg2", b"MPEG", b"PIM1", b"PIM2", b"DVR ", b"MMES",
+                          b"LMP2", b"EM2V", b"mpgv", b"BW10", b"XMPG", b"M701", b"M702",
+                          b"M703", b"M705") for c in (t, t.upper(), t.lower())}
 _AVI_NAMES = {b"DIV3": "MS MPEG-4 v3 (DivX 3)", b"MP43": "MS MPEG-4 v3",
               b"AV01": "AV1", b"WMV3": "WMV 9",
-              b"mpg2": "MPEG-2 video", b"MPG2": "MPEG-2 video"}
+              b"VCR2": "MPEG-1 video of ATI VCR2 (its chroma planes swapped)",
+              b"slif": "MPEG-2 video of SoftLab-NSK (a first slice FFmpeg reads its own way)",
+              b"SLIF": "MPEG-2 video of SoftLab-NSK (a first slice FFmpeg reads its own way)",
+              b"M704": "MPEG-2 video with Matrox's alpha plane (M704)"}
 # MP4 sample entries of Motion JPEG and of H.264, and names of those that
 # need another decoder
 _MP4_MJPEG = {b"jpeg", b"mjpa"}
 _MP4_H264 = {b"avc1", b"avc3"}
 _MP4_HEVC = {b"hvc1", b"hev1"}
+# QuickTime sample entries of MPEG-1 / MPEG-2 video (FFmpeg's
+# ff_codec_movvideo_tags: cv2's m2v1, HDV, XDCAM, IMX; the 4:2:2 ones are
+# refused by the decoder's headers)
+_MP4_MPEG2 = ({b"m1v1", b"m1v ", b"mpeg", b"m2v1", b"mp2v", b"xdhd", b"xdh2"}
+              | {b"hdv" + bytes([c]) for c in b"123456789a"}
+              | {b"xdv" + bytes([c]) for c in b"123456789abcdef"}
+              | {b"xd5" + bytes([c]) for c in b"1459abcdef"}
+              | {b"mx%d%s" % (n, c) for n in (3, 4, 5) for c in (b"n", b"p")})
 _MP4_NAMES = {b"av01": "AV1", b"vp08": "VP8",
               b"mjpb": "Motion JPEG format B", b"s263": "H.263", b"apcn": "ProRes"}
 # objectTypeIndication of an `mp4v` entry's esds (ISO/IEC 14496-1, Table 5)
 OTI_JPEG = 0x6C
 OTI_MPEG4 = 0x20
-_OTI_NAMES = {0x21: "H.264", 0x60: "MPEG-2 video",
-              0x61: "MPEG-2 video", 0x62: "MPEG-2 video", 0x63: "MPEG-2 video",
-              0x64: "MPEG-2 video", 0x65: "MPEG-2 video", 0x6A: "MPEG-1 video",
-              0x6E: "JPEG 2000"}
+# of MPEG-2 video (0x60-0x65, each profile) and MPEG-1 video (0x6A)
+OTI_MPEG2 = {0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A}
+_OTI_NAMES = {0x21: "H.264", 0x6E: "JPEG 2000"}
 
 
 # ── AVI ─────────────────────────────────────────────────────────────────
@@ -135,6 +166,8 @@ def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI four
         return {"codec": "vp8"}
     if compression in _AVI_VP9:
         return {"codec": "vp9"}
+    if compression in _AVI_MPEG2:
+        return {"codec": "mpeg2", "extradata": extradata, "fourcc": compression}
     name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
     raise _needs_ffmpeg(path, f"its video is {name} ({where} "
                               f"{compression.decode('latin-1')!r})")
@@ -281,6 +314,8 @@ def _read_mp4(buf, path: Path):
         oti, dsi = _esds_oti(buf, *esds) if esds else (None, b"")
         if oti == OTI_MPEG4:
             info["codec"], info["dsi"] = "mpeg4", dsi
+        elif oti in OTI_MPEG2:
+            info["codec"], info["extradata"] = "mpeg2", dsi
         elif oti != OTI_JPEG:
             name = _OTI_NAMES.get(oti, "an unknown codec")
             raise _needs_ffmpeg(path, f"its video is {name} (sample entry 'mp4v', "
@@ -297,6 +332,8 @@ def _read_mp4(buf, path: Path):
             raise _needs_ffmpeg(path, f"its video is H.265 / HEVC with no hvcC box (sample "
                                       f"entry {kind.decode('latin-1')!r})")
         info["codec"], info["hvcC"] = "hevc", bytes(buf[hvcc[0]:hvcc[1]])
+    elif kind in _MP4_MPEG2:
+        info["codec"], info["extradata"] = "mpeg2", b""
     elif kind == b"vp09":
         info["codec"] = "vp9"
         vpcc = mp4.child(buf, children, eend, b"vpcC")
@@ -315,7 +352,7 @@ def index(path) -> tuple[list[int], list[int], dict]:
     """(sample offsets, sample sizes, info) of the video track of an AVI,
     MP4, Matroska / WebM or MPEG-TS file: info holds width, height (the
     container's; 0 for MPEG-TS), fps (0.0 where the container gives none),
-    frame_count, container ("avi", "mp4", "matroska" or "mpegts") and codec:
+    frame_count, container ("avi", "mp4", "matroska", "mpegts" or "mpegps") and codec:
     "mjpeg"; "h264", then with `avcC`, the avcC box's body (MP4, Matroska,
     an AVI's avcC extradata), or `annexb`, the extradata of a track of
     Annex B samples (AVI, MPEG-TS; maybe b""), and
@@ -323,8 +360,10 @@ def index(path) -> tuple[list[int], list[int], dict]:
     Annex B: found by the reader); "hevc" alike with `hvcC`; "mpeg4" for
     MPEG-4 Part 2, then with `dsi`, the headers the esds, the AVI extradata
     or the CodecPrivate holds (maybe b""), and an AVI's (or a Matroska VfW
-    track's) `fourcc`.  Matroska adds `prefix` where its
-    track strips a header from every frame; MPEG-TS `es`, the map from its
+    track's) `fourcc`; "mpeg2" for MPEG-1 / MPEG-2 video, then with
+    `extradata` (its sequence header where the container keeps one apart,
+    maybe b""); "vp8", "vp9".  Matroska adds `prefix` where its
+    track strips a header from every frame; MPEG-TS and MPEG-PS `es`, the map from its
     samples' offsets (in the elementary stream) to the file, and `damaged`
     (see `mpegts.index`).  Any other codec raises `UnsupportedCodecError`
     naming it."""
@@ -345,20 +384,28 @@ def index(path) -> tuple[list[int], list[int], dict]:
                     return matroska.index(buf, p)
                 if mpegts.probe(head):
                     return mpegts.index(buf, p)
+                if mpegps.probe(buf):
+                    return mpegps.index(buf, p)
+                if head[:4] == b"\x00\x00\x01\xb3":
+                    raise _needs_ffmpeg(p, "it is a raw MPEG-1 / MPEG-2 video elementary stream "
+                                           "(.m1v / .m2v), for which cv2 reports a frame rate "
+                                           "of 25 and a frame count that do not follow from "
+                                           "the stream")
                 if len(buf) < 2040 and mpegts.packet_size(np.frombuffer(head, np.uint8)):
                     # packets, but fewer than FFmpeg's probe needs to take
                     # the file for a transport stream; a longer file that
                     # the probe turned down is some other container (an
                     # ASF file may hold what looks like sync bytes)
                     raise mpegts.Cut("a transport stream of fewer than 2,040 bytes")
-            except (struct.error, IndexError, TypeError, matroska.Cut, mpegts.Cut) as e:
+            except (struct.error, IndexError, TypeError, matroska.Cut, mpegts.Cut,
+                    mpegps.Cut) as e:
                 traceback.clear_frames(e.__traceback__)      # views of the map go first
                 raise ValueError(f"{p}: a corrupt or cut-short container ({e})") from e
             except BaseException as e:
                 traceback.clear_frames(e.__traceback__)
                 raise
     raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 / QuickTime file, nor a Matroska "
-                           "/ WebM one, nor an MPEG transport stream")
+                           "/ WebM one, nor an MPEG transport or program stream")
 
 
 def read_sample(f, offset: int, size: int, info: dict) -> bytes:

@@ -2,7 +2,7 @@
 `index`, which gives what `container.index` gives for AVI and MP4: the
 offsets and sizes of the video track's frames in the file and the track's
 info, for the port's codecs (Motion JPEG, MPEG-4 Part 2, H.264, HEVC, VP8,
-VP9).
+VP9, MPEG-1 / MPEG-2).
 
 Read as FFmpeg's `matroskadec` reads a file for cv2:
 - EBML: element IDs keep their length marker, sizes drop it; a size of all
@@ -21,10 +21,11 @@ Read as FFmpeg's `matroskadec` reads a file for cv2:
   `V_MPEGH/ISO/HEVC` (`CodecPrivate` the avcC / hvcC body, the frames
   length-prefixed); `V_VP8` (no CodecPrivate; its BlockAdditions, an
   alpha channel, are skipped as cv2 skips them); `V_VP9` (no CodecPrivate;
-  its frames may be superframes, split by the codec); `V_MS/VFW/FOURCC`
-  (`CodecPrivate` a BITMAPINFOHEADER, its fourcc read as AVI's,
-  `container.avi_codec`).  Any other (AV1, MPEG-1 / 2, Theora, ProRes,
-  ...) raises `UnsupportedCodecError` naming it.
+  its frames may be superframes, split by the codec); `V_MPEG1` /
+  `V_MPEG2` (`CodecPrivate` the sequence header, as `extradata`);
+  `V_MS/VFW/FOURCC` (`CodecPrivate` a BITMAPINFOHEADER, its fourcc read as
+  AVI's, `container.avi_codec`).  Any other (AV1, Theora, ProRes, ...)
+  raises `UnsupportedCodecError` naming it.
 - Frames: `SimpleBlock`s (FFmpeg's muxer; the keyframe flag gives `sync`)
   and `BlockGroup`s (mkvmerge's: a `Block` with no `ReferenceBlock` is a
   key frame), unlaced or in Xiph, EBML or fixed-size lacing (every laced
@@ -86,8 +87,7 @@ _CLUSTER_CHILDREN = {CLUSTER_TIMESTAMP, SIMPLE_BLOCK, BLOCK_GROUP, 0x5854, 0xA7,
 TRACK_TYPE_VIDEO = 1
 # CodecIDs the port reads, and names of those it does not
 _MPEG4 = {"V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP"}
-_NAMES = {"V_AV1": "AV1", "V_MPEG1": "MPEG-1 video",
-          "V_MPEG2": "MPEG-2 video", "V_THEORA": "Theora", "V_PRORES": "ProRes",
+_NAMES = {"V_AV1": "AV1", "V_THEORA": "Theora", "V_PRORES": "ProRes",
           "V_UNCOMPRESSED": "uncompressed video", "V_REAL/RV40": "RealVideo 4",
           "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_FFV1": "FFV1", "V_DIRAC": "Dirac",
           "V_QUICKTIME": "a QuickTime codec", "V_MPEGI/ISO/VVC": "H.266 / VVC"}
@@ -310,6 +310,8 @@ def _codec(track: dict, path) -> dict:
         return {"codec": "vp8"}
     if cid == "V_VP9":
         return {"codec": "vp9"}
+    if cid in ("V_MPEG1", "V_MPEG2"):
+        return {"codec": "mpeg2", "extradata": private}
     if cid == "V_MPEG4/ISO/AVC":
         if not private:
             raise container._needs_ffmpeg(path, "its video is H.264 with no CodecPrivate "
@@ -591,10 +593,13 @@ def _stream_rate(buf, info: dict, offsets: list[int], sizes: list[int], prefix: 
     they give none: H.264's and HEVC's VUI timing, MPEG-4 Part 2's VOL
     (time_increment_resolution over the fixed VOP increment, or 1), none for
     Motion JPEG and VP8."""
-    from omfs4d_torch.io import h264, hevc, mpeg4
+    from omfs4d_torch.io import h264, hevc, mpeg2, mpeg4
 
     codec = info["codec"]
     first = prefix + bytes(buf[offsets[0]:offsets[0] + sizes[0]]) if offsets else b""
+    if codec == "mpeg2":
+        rate = mpeg2.parse_headers(info["extradata"] + first)["rate"]
+        return float(rate) if rate else 0.0
     if codec == "mpeg4":
         headers = info["dsi"] + first[:max(first.find(mpeg4.VOP), 0)]
         p = mpeg4.parse_headers(headers)

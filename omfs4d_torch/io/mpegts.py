@@ -2,7 +2,8 @@
 `.mts` / `.m2ts`) read with the standard library and numpy: `index`, which
 gives what `container.index` gives for the other containers: where each
 frame of the first video stream lies and the stream's info, for the port's
-codecs that a transport stream carries (H.264, HEVC, MPEG-4 Part 2).
+codecs that a transport stream carries (H.264, HEVC, MPEG-4 Part 2, MPEG-1
+/ MPEG-2); its parsers, rates and duration estimate serve `mpegps` too.
 
 Read as FFmpeg's `mpegts` demuxer and its parsers read a file for cv2
 (measured against cv2 5.0.0, libavformat 62):
@@ -18,11 +19,11 @@ Read as FFmpeg's `mpegts` demuxer and its parsers read a file for cv2
   whose CRC holds, within the first 5,000,000 bytes: FFmpeg's header scan).
   Its streams are FFmpeg's in the order it meets the PMTs, and the video is
   the first one FFmpeg takes for video, as OpenCV takes the first video
-  stream: stream type 0x1B (H.264), 0x24 (HEVC), 0x10 (MPEG-4 Part 2), or
-  0x06 with a registration descriptor `HEVC`.  A first video stream of
-  another codec (MPEG-1 / 2, VC-1, VVC, AVS, Dirac, JPEG 2000, H.264 MVC,
-  ...), scrambled packets, or no video raise `container.UnsupportedCodecError`
-  naming it.
+  stream: stream type 0x1B (H.264), 0x24 (HEVC), 0x10 (MPEG-4 Part 2), 0x01
+  / 0x02 (MPEG-1 / MPEG-2), or 0x06 with a registration descriptor `HEVC`.
+  A first video stream of another codec (VC-1, VVC, AVS, Dirac, JPEG 2000,
+  H.264 MVC, ...), scrambled packets, or no video raise
+  `container.UnsupportedCodecError` naming it.
 - PES: reassembled as `mpegts_push_data` does (a PES starts at
   payload_unit_start_indicator with 00 00 01; PES_packet_length set or 0;
   adaptation fields skipped).  The video's elementary stream is split into
@@ -31,7 +32,9 @@ Read as FFmpeg's `mpegts` demuxer and its parsers read a file for cv2
   first_mb_in_slice is not past the last one's; `hevc_parser`: before a
   VPS / SPS / PPS / AUD / EOS / prefix SEI after a slice, or before a slice
   with first_slice_segment_in_pic_flag; `mpeg4video_parser`: after a VOP,
-  at the next start code), not into PES payloads.  Each frame takes the PTS
+  at the next start code; `mpegvideo_parser`: at the first start code
+  after a picture's slices that is no slice, a field pair kept whole), not
+  into PES payloads.  Each frame takes the PTS
   and DTS of the PES its first byte lies in, where that PES starts after the
   frame before begins (`ff_fetch_timestamp`), else none.  A frame is given
   as its offset and size in the elementary stream (`ElementaryStream` maps
@@ -71,10 +74,10 @@ DURATION_RETRY = 6
 FPS_FRAMES = 20                            # find_stream_info's fps_analyze_framecount
 
 # stream types of the codecs the port reads
-READ = {0x1B: "h264", 0x24: "hevc", 0x10: "mpeg4"}
+READ = {0x1B: "h264", 0x24: "hevc", 0x10: "mpeg4", 0x01: "mpeg2", 0x02: "mpeg2"}
 # FFmpeg's ISO_types / HDMV_types / MISC_types / REGD_types that are video,
 # by name, and those that are audio
-_VIDEO_NAMES = {0x01: "MPEG-1 video", 0x02: "MPEG-2 video", 0x20: "H.264 MVC (stream type 0x20)",
+_VIDEO_NAMES = {0x20: "H.264 MVC (stream type 0x20)",
                 0x21: "JPEG 2000", 0x33: "H.266 / VVC", 0x42: "AVS (Chinese AVS video)",
                 0xD1: "Dirac", 0xD2: "AVS2", 0xD4: "AVS3", 0xEA: "VC-1"}
 _REGD_VIDEO = {b"HEVC": "hevc", b"drac": "Dirac", b"VVC ": "H.266 / VVC", b"VC-1": "VC-1"}
@@ -470,9 +473,12 @@ def _first_mb(data: bytes) -> int | None:
 
 class Splitter:
     """FFmpeg's frame boundaries (`h264_find_frame_end`,
-    `hevc_find_frame_end`, `ff_mpeg4_find_frame_end`) in an elementary
-    stream fed in pieces (`feed`, then `end`): `starts` holds the offset of
-    each frame's first byte."""
+    `hevc_find_frame_end`, `ff_mpeg4_find_frame_end`,
+    `ff_mpeg1_find_frame_end`) in an elementary stream fed in pieces
+    (`feed`, then `end`): `starts` holds the offset of each frame's first
+    byte; for MPEG-1 / MPEG-2 video `pictures` the offset of each picture
+    start code at which the parser fetches a frame's time stamps (the
+    frame's first picture)."""
 
     def __init__(self, codec: str):
         self.codec = codec
@@ -480,10 +486,12 @@ class Splitter:
         self.found = False
         self.last_mb = 0
         self.starts = [0]
+        self.state = 0                        # mpegvideo's frame_start_found
+        self.pictures: list[int] = []
 
     def feed(self, chunk: bytes, final: bool = False) -> None:
         self.data += chunk
-        data, need = self.data, {"h264": 10, "hevc": 6, "mpeg4": 4}[self.codec]
+        data, need = self.data, {"h264": 10, "hevc": 6, "mpeg4": 4, "mpeg2": 7}[self.codec]
         while True:
             s = data.find(b"\x00\x00\x01", self.scan)
             if s < 0:
@@ -534,6 +542,8 @@ class Splitter:
                 if self.found:
                     self._boundary(data, s)
                 self.found = True
+        elif self.codec == "mpeg2":
+            self._mpeg2(data, s, h)
         else:
             if not self.found:
                 self.found = h == 0xB6
@@ -542,11 +552,56 @@ class Splitter:
                     self.starts.append(self.base + s)
                 self.found = h == 0xB6
 
+    def _mpeg2(self, data: bytes, s: int, h: int) -> None:
+        """`ff_mpeg1_find_frame_end` at the start code at s: a frame ends at
+        the first start code after its slices that is no slice (or after a
+        sequence end code), where the picture coding extension does not
+        show it to be a field pair's first field."""
+        slice_code = 0x01 <= h <= 0xAF
+        if self.state == 4 and not slice_code and h != 0xB7:
+            if self.base + s > self.starts[-1]:
+                self.starts.append(self.base + s)
+            self.state = 0
+        if self.state == 0 and slice_code:
+            self.state = 4
+        elif h == 0xB7:                                  # sequence end: the frame ends after it
+            self.state = 0
+            if self.base + s + 4 > self.starts[-1]:
+                self.starts.append(self.base + s + 4)
+            return
+        if self.state == 2 and h == 0xB3:
+            self.state = 0
+        if self.state < 4 and h == 0xB5:
+            self.state += 1
+            if s + 6 < len(data):
+                if data[s + 4] & 0xF0 != 0x80:
+                    self.state -= 1
+                elif data[s + 6] & 3 == 3:
+                    self.state = 0
+                else:
+                    self.state = (self.state + 1) & 3
+        if self.state == 0 and h == 0x00:
+            self.pictures.append(self.base + s)
+
     def end(self, total: int) -> list[tuple[int, int]]:
         """(offset, size) of every frame of a stream of `total` bytes."""
         self.feed(b"", final=True)
         bounds = [b for b in self.starts if b < total] + [total]
         return [(a, b - a) for a, b in zip(bounds, bounds[1:]) if b > a]
+
+    def stamp_at(self, frames: list[tuple[int, int]]) -> list[int]:
+        """The offset at which the parser fetches each frame's time stamps:
+        its first byte, or for MPEG-1 / MPEG-2 video its first picture start
+        code (`ff_fetch_timestamp` from `ff_mpeg1_find_frame_end`)."""
+        if self.codec != "mpeg2":
+            return [o for o, _ in frames]
+        out, j = [], 0
+        for o, n in frames:
+            while j < len(self.pictures) and self.pictures[j] < o:
+                j += 1
+            out.append(self.pictures[j] if j < len(self.pictures) and
+                       self.pictures[j] < o + n else o)
+        return out
 
 
 class ElementaryStream:
@@ -617,8 +672,10 @@ def codec_rate(codec: str, head: bytes) -> Fraction | None:
     H.264's VUI timing (time_scale / (2 num_units_in_tick)), HEVC's VPS
     timing, else its VUI's (time_scale / num_units_in_tick), MPEG-4 Part 2's
     VOL (time_increment_resolution over the fixed increment, else 1)."""
-    from omfs4d_torch.io import h264, hevc, mpeg4
+    from omfs4d_torch.io import h264, hevc, mpeg2, mpeg4
 
+    if codec == "mpeg2":
+        return mpeg2.parse_headers(head)["rate"] if b"\x00\x00\x01\xb3" in head else None
     if codec == "h264":
         sps = [u for u in h264.annexb_units(head) if u and u[0] & 0x1F == 7]
         return h264.parse_sps(sps[0]).get("rate") if sps else None
@@ -871,6 +928,7 @@ def index(buf, path: Path) -> tuple[list[int], list[int], dict]:
         piece += count
         at += p["size"]
     frames = splitter.end(es.total)
+    stamp_at = splitter.stamp_at(frames)
     # every audio / video stream FFmpeg times: the video read, and the others;
     # each program's wrap reference, from the first stamp FFmpeg hands on
     timed_streams = [s for s in streams if s["kind"] in ("video", "audio")]
@@ -884,11 +942,12 @@ def index(buf, path: Path) -> tuple[list[int], list[int], dict]:
                   for f in [_first_stamp(all_pes[s["pid"]])] if f]
         wraps[number] = Wrap(min(firsts)[1] if firsts else None)
     wrap = wraps[video["program"]]
-    # each frame's time stamps: those of the PES its first byte is in, where
-    # that PES starts after the frame before it does
+    # each frame's time stamps: those of the PES its first byte (MPEG-1 / 2:
+    # its first picture) is in, where that PES starts after the frame before
+    # it does
     times, damaged = [], []
     for f, (o, n) in enumerate(frames):
-        p = int(np.searchsorted(pes_at, o, "right")) - 1
+        p = int(np.searchsorted(pes_at, stamp_at[f], "right")) - 1
         if f == 0 or pes_at[p] > frames[f - 1][0]:
             times.append((wrap(pes[p]["pts"]), wrap(pes[p]["dts"])))
         else:
@@ -951,6 +1010,8 @@ def index(buf, path: Path) -> tuple[list[int], list[int], dict]:
             "packet_size": size}
     if codec == "mpeg4":
         info["dsi"] = b""
+    elif codec == "mpeg2":
+        info["extradata"] = b""
     else:
         info["annexb"] = b""
     if all(t[0] is not None for t in times):

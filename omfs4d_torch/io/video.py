@@ -48,15 +48,21 @@ contract).  With none, the port's own codecs:
   host C++ decoder `vp8dec.cpp`); VP9 profile 0, as a browser's
   `MediaRecorder` or YouTube writes it into WebM and cv2's `VP90` writer into
   WebM, Matroska, AVI and MP4 (`vp9.VP9Frames`, the host C++ decoder
-  `vp9dec.cpp`).  Every reader converts to 8-bit RGB as cv2 does:
+  `vp9dec.cpp`); MPEG-1 and MPEG-2 4:2:0 frame pictures, progressive or
+  interlaced, as cv2's `MPG1` / `PIM1` / `MPG2` writers put them into MPEG-PS
+  (`.mpg`, `.mpeg`, `.vob`; `omfs4d_torch.io.mpegps`), MPEG-TS, AVI,
+  Matroska, MP4 and QuickTime, and as DVDs and broadcast captures hold them
+  (`mpeg2.MPEG2Frames`, the host C++ decoder `mpeg2dec.cpp`).  Every reader
+  converts to 8-bit RGB as cv2 does:
   swscale's own conversion bit for bit (`swscale`; 8-bit 4:2:0 on its
   unscaled path, 10-bit pictures, odd heights and JPEG's other samplings on
   its scaled one), and cv2's gamut and tone mapping of BT.2020 / PQ / HLG
   tagged streams (`colour`).  HEVC beyond Main 10 (more than 10 bits, tiles
   with WPP, ...), H.264 with fields or more than 8 bits, MPEG-4 Part 2
   sprites / GMC, interlacing or data partitioning, VP9 beyond profile 0 or
-  with references of another size, and other codecs (AV1, ...) raise
-  `container.UnsupportedCodecError` naming the codec or feature.
+  with references of another size, MPEG-2 field pictures and 4:2:2, and
+  other codecs (AV1, ...) raise `container.UnsupportedCodecError` naming the
+  codec or feature.
 """
 
 from __future__ import annotations
@@ -70,7 +76,7 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg4, vp8, vp9
+from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg2, mpeg4, vp8, vp9
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
 
 log = get_logger("video")
@@ -276,8 +282,9 @@ def probe_video(path: str | Path) -> dict:
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
     Motion JPEG, H.264 (Main / High, I, P and B pictures), HEVC (Main and
-    Main 10), MPEG-4 Part 2 (Simple, Advanced Simple) or VP8 in AVI, MP4 /
-    QuickTime, Matroska / WebM or MPEG-TS, with no decode: the size as displayed (turned by the track's
+    Main 10), MPEG-4 Part 2 (Simple, Advanced Simple), VP8, VP9 or MPEG-1 /
+    MPEG-2 in AVI, MP4 / QuickTime, Matroska / WebM, MPEG-TS or MPEG-PS,
+    with no decode: the size as displayed (turned by the track's
     matrix), the fps and the frame count as cv2 reports them
     (`container.UnsupportedCodecError` for another codec)."""
     import re
@@ -317,12 +324,12 @@ def extract_frames(
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
     through ffmpeg when there is a binary, else Motion JPEG, H.264 Main /
     High I, P and B pictures, HEVC Main / Main 10, MPEG-4 Part 2 (Simple,
-    Advanced Simple) or VP8 in
-    AVI, MP4 / QuickTime, Matroska / WebM or MPEG-TS, upright and edited as
-    cv2 shows them) into numbered PNG frames (RGB), every `stride`-th one, at most
+    Advanced Simple), VP8, VP9 or MPEG-1 / MPEG-2 in AVI, MP4 / QuickTime,
+    Matroska / WebM, MPEG-TS or MPEG-PS, upright and edited as cv2 shows
+    them) into numbered PNG frames (RGB), every `stride`-th one, at most
     `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.
-    A Motion JPEG file's frames are decoded only where they are kept; an
-    H.264, HEVC, MPEG-4 or VP8 file's in order up to the last one kept."""
+    A Motion JPEG file's frames are decoded only where they are kept; any
+    other codec's in order up to the last one kept."""
     import tempfile
 
     src = Path(video_path)
@@ -355,11 +362,13 @@ def extract_frames(
 
 
 _READERS = {"h264": h264.H264Frames, "hevc": hevc.HEVCFrames, "mpeg4": mpeg4.MPEG4Frames,
-            "vp8": vp8.VP8Frames, "vp9": vp9.VP9Frames, "mjpeg": mjpeg.MJPEGFrames}
+            "vp8": vp8.VP8Frames, "vp9": vp9.VP9Frames, "mpeg2": mpeg2.MPEG2Frames,
+            "mjpeg": mjpeg.MJPEGFrames}
 
 
 def _own_reader(path: Path) -> (h264.H264Frames | hevc.HEVCFrames | mpeg4.MPEG4Frames
-                                | vp8.VP8Frames | vp9.VP9Frames | mjpeg.MJPEGFrames):
+                                | vp8.VP8Frames | vp9.VP9Frames | mpeg2.MPEG2Frames
+                                | mjpeg.MJPEGFrames):
     """A video file's frames through the port's own readers, with no ffmpeg:
     the file is indexed once and read by its codec's module."""
     offsets, sizes, info = container.index(path)

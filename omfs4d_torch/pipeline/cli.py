@@ -24,12 +24,15 @@ re-export) and MPEG-4 Part 2 Simple and Advanced Simple profile in `.mp4` /
 `.avi` (cv2's `mp4v` / `XVID` / `DIVX` / `FMP4`, as the JAX package writes
 it, and Xvid's and DivX's B-VOPs, packed bitstream, quarter-sample and MPEG
 quantisation), VP8 in `.webm` / `.mkv` / `.avi` (a browser's recording,
-cv2's `VP80`) and VP9 profile 0 in `.webm` / `.mkv` / `.avi` / `.mp4` (a
-browser's or YouTube's WebM, cv2's `VP90`), and writes the
+cv2's `VP80`), VP9 profile 0 in `.webm` / `.mkv` / `.avi` / `.mp4` (a
+browser's or YouTube's WebM, cv2's `VP90`) and MPEG-1 / MPEG-2 in `.mpg` /
+`.mpeg` / `.vob` / `.ts` / `.avi` / `.mkv` / `.mp4` / `.mov` (cv2's `MPG1` /
+`PIM1` / `MPG2`, a DVD's or a broadcast capture's progressive or interlaced
+frame pictures), and writes the
 prediction with its own H.264 encoder (Motion JPEG AVI for a `.avi` output),
 while H.264 with fields, HEVC's range extensions (4:0:0, 4:2:2, 4:4:4, above
-10 bits), screen content coding and other codecs raise, naming the codec or
-feature.
+10 bits), screen content coding, MPEG-2 field pictures and other codecs
+raise, naming the codec or feature.
 
 Under `torchrun` (WORLD_SIZE > 1) each process is one rank: the pipeline's
 commands join the process group first (`init_distributed`; the backend is
@@ -60,9 +63,11 @@ VIDEO_HELP = ("the capture: a directory of PNG or JPEG frames, or a video file; 
               "Advanced Simple in .mp4 / .avi (cv2's mp4v / XVID / DIVX / FMP4, Xvid's and "
               "DivX's B-VOPs, quarter-sample and MPEG quantisation), VP8 in .webm / .mkv / "
               ".avi (a browser's recording, cv2's VP80) and VP9 profile 0 in .webm / .mkv "
-              "/ .avi / .mp4 (a browser's or YouTube's WebM, cv2's VP90) are read (HEVC's "
-              "range extensions and screen content coding, VP9 profiles 1-3, and other "
-              "codecs, need ffmpeg)")
+              "/ .avi / .mp4 (a browser's or YouTube's WebM, cv2's VP90) and MPEG-1 / MPEG-2 "
+              "in .mpg / .mpeg / .vob / .ts / .avi / .mkv / .mp4 / .mov (cv2's MPG1 / MPG2, "
+              "a DVD's frame pictures) are read (HEVC's range extensions and screen content "
+              "coding, VP9 profiles 1-3, MPEG-2 field pictures and 4:2:2, and other codecs, "
+              "need ffmpeg)")
 
 
 def _add_device(p: argparse.ArgumentParser):

@@ -16,8 +16,9 @@ both packages' `extract_frames` PNGs equal where a test says so.
 - Damage: a lost packet, a file cut mid-packet, garbage before a resync:
   cv2's probe, cv2's frames up to the damaged one, which raises ValueError
   (cv2 shows FFmpeg's concealment); files cv2 cannot open raise ValueError.
-- Refused by name: MPEG-1 / 2, VC-1, VVC, AVS, Dirac, a private stream of
-  video, scrambled packets, no video, interlaced H.264.
+- Refused by name: H.264 MVC, JPEG 2000, VC-1, VVC, AVS, Dirac, a private
+  stream of video, scrambled packets, no video, interlaced H.264 (MPEG-1 /
+  2, once refused here, are read: `tests/test_torch_mpeg2.py`).
 - The committed corpus (`tests/data/mpegts/manifest.json`) against the
   muxer and the port; the HLG clip as the port reads its QuickTime source.
 """
@@ -340,7 +341,7 @@ def test_garbage_then_resync(tmp_path, capfd, packet, at):
 
 # ── refused ─────────────────────────────────────────────────
 
-REFUSED = {"MPEG-1 video": {"stream_type": 0x01}, "MPEG-2 video": {"stream_type": 0x02},
+REFUSED = {"H.264 MVC": {"stream_type": 0x20}, "JPEG 2000": {"stream_type": 0x21},
            "VC-1": {"stream_type": 0xEA}, "H.266 / VVC": {"stream_type": 0x33},
            "AVS": {"stream_type": 0x42}, "Dirac": {"stream_type": 0xD1},
            "VC-1 ": {"stream_type": 0x06, "descriptor": mux.registration(b"VC-1")},
@@ -351,7 +352,7 @@ REFUSED = {"MPEG-1 video": {"stream_type": 0x01}, "MPEG-2 video": {"stream_type"
 @pytest.mark.parametrize("name", list(REFUSED))
 def test_refused_by_name(tmp_path, name):
     """Video the port does not decode, whatever the bytes hold: the stream
-    type FFmpeg goes by (MPEG-1 / 2, VC-1, VVC, AVS, Dirac; 0x06 with a
+    type FFmpeg goes by (H.264 MVC, JPEG 2000, VC-1, VVC, AVS, Dirac; 0x06 with a
     `VC-1` registration or none, whose content FFmpeg probes), and
     scrambled packets: `UnsupportedCodecError` naming it."""
     path = write(tmp_path / "r.ts", h264_stream(6), **REFUSED[name])
