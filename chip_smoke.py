@@ -161,9 +161,12 @@ Phase J: the clinical engine at the size of a head CBCT.  A seeded skull
   (`nifti_label_to_separate_meshes`) feeds a `PlanningSession` with no
   device (the card): preview, cut, `set_movement` 5/3 mm, undo and redo
   (the same segments back), a distance and an angle, STL / PLY / OBJ
-  exports read back equal, the preview HTML.  Then `cli.main(["clinical",
-  "--dicom", ...])` at the same cut must write the DICOM path's STL byte for
-  byte, and the session's `surgical_plan()` goes to `render_prediction` on
+  exports read back equal, the preview HTML.  Then the 128^3 crop is
+  written as a DICOM series of its own and `cli.main(["clinical", "--dicom",
+  ...])` on it, at the crop's cut, must write the STL of the same plan made
+  in process (the series read back, `hu_volume_to_bone_mesh`, cut, 5/3 mm
+  move, merge) byte for byte (the full-size DICOM path is not run twice),
+  and the session's `surgical_plan()` goes to `render_prediction` on
   phase A's avatar for 2 frames: K1 launches once a frame, and the PNGs equal
   phase B's 5/3 mm frames within 1 grey level.  Printed: stage seconds,
   counts at each step, peak card memory.
@@ -279,7 +282,13 @@ Phase M: the reference's user path from a video file to a prediction video,
   (interlaced frame pictures in PS and TS, frames flagged interlaced,
   MPEG-1, low_delay) re-made here from their seeds; the 1080p clip's I, P
   and B pictures timed; `cli preprocess --video` of it (3 frames) and of
-  the writer's interlaced program stream.
+  the writer's interlaced program stream.  Then the Windows family alike
+  against tests/data/msmpeg4/manifest.json: cv2's committed WMV1 / WMV2 /
+  MP42 / MP43 / DIV3 clips (ASF, AVI, Matroska, 97x63 asked, 1080p) and its
+  MJPG / mp4v / VP80 / MPG2 clips in `.wmv`, and the tests' writer's
+  streams (every version, ASF's three payload layouts, ABT, mspel, the loop
+  filter) re-made here from their seeds; the 1080p I and P pictures of v3
+  and WMV2 timed; `cli preprocess --video wmv2_1080p.wmv` (3 frames).
   Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
   `encode_h264` (IDR and P) at 512^2 and at 1920 x 1080, the H.264 readers
   (the host decoder on encode_h264's 1080p IDR and P and on clip.mov's, the
@@ -466,6 +475,10 @@ VP9_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "vp9"
 # MPG2 clips in every container, and the hashes of cv2's frames of the tests'
 # writer's streams (interlaced frame pictures in PS and TS), re-made here
 MPEG2_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpeg2"
+# the Windows family's corpus (tests/make_msmpeg4_corpus.py): cv2's WMV1 /
+# WMV2 / MP42 / MP43 clips in ASF, AVI and Matroska, its other codecs in
+# .wmv, and the hashes of cv2's frames of the tests' writer's streams
+MSMPEG4_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "msmpeg4"
 # `cli preprocess --video` of a 1080p clip costs ~0.35 s a frame on the host
 # (colour conversion, area_resize, PNG): one clip a codec runs whole
 # (clip_b.mp4's 9 frames, asp_1080p.avi's 3, clip_1080p.webm's 3), the other
@@ -2220,20 +2233,46 @@ def phase_j(model, device, card: str, work: Path, data_dir: Path,
           f"{secs['session export']:.3f} s, preview HTML {secs['preview html']:.3f} s "
           f"({html.stat().st_size / 1e6:.1f} MB)")
 
-    # ── the CLI ──
+    # ── the CLI, on the crop written as a DICOM series: the same path as the
+    # full-size DICOM plan above, without redoing its marching and QEM ──
+    t0 = time.perf_counter()
+    crop_series = work / "crop_series"
+    crop_series.mkdir()
+    crop_raw = raw[z0:z0 + CT_CROP, y0:y0 + CT_CROP, x0:x0 + CT_CROP]
+    for i in range(CT_CROP):
+        write_dicom_slice(crop_series / f"{i:04d}.dcm", crop_raw[i],
+                          position=(0.0, 0.0, i * CT_SPACING),
+                          pixel_spacing=(CT_SPACING, CT_SPACING), slice_thickness=CT_SPACING,
+                          rescale_intercept=-1024.0)
+    crop_hu, crop_spacing = loader.load_dicom_volume(str(crop_series))
+    check(np.array_equal(crop_hu, crop), "the crop's DICOM series reads back as the crop")
+    plan_mesh = loader.hu_volume_to_bone_mesh(crop_hu, crop_spacing, c.hu_threshold,
+                                              c.smooth_iterations, c.decimate_fraction)
+    plan_cutter = SurgicalCutter(plan_mesh)
+    plan_cutter.perform_cut(**crop_cut)
+    combined = None
+    for seg in plan_cutter.move_segments(LEFORT_MM, BSSO_MM).values():
+        if seg.n_points:
+            combined = seg if combined is None else combined.merge(seg)
+    plan_stl = work / "crop_plan.stl"
+    save_stl(plan_stl, *combined.numpy())
+    secs["crop plan"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     cli_stl = work / "cli_plan.stl"
-    check(cli.main(["clinical", "--dicom", str(series), "--lefort-z", repr(cut["lefort_z"]),
-                    "--bsso-l-x", repr(cut["bsso_l_x"]), "--bsso-r-x", repr(cut["bsso_r_x"]),
+    check(cli.main(["clinical", "--dicom", str(crop_series),
+                    "--lefort-z", repr(crop_cut["lefort_z"]),
+                    "--bsso-l-x", repr(crop_cut["bsso_l_x"]),
+                    "--bsso-r-x", repr(crop_cut["bsso_r_x"]),
                     "--maxilla-mm", str(LEFORT_MM), "--mandible-mm", str(BSSO_MM),
                     "--out", str(cli_stl)]) == 0, "cli clinical returned 0")
     secs["cli"] = time.perf_counter() - t0
     lv, lf = load_mesh(cli_stl)
     check(len(lf) == combined.n_faces and np.isfinite(lv).all()
-          and cli_stl.read_bytes() == dicom_stl.read_bytes(),
-          "the CLI's STL loads back and equals the DICOM path's plan byte for byte")
-    print(f"phase J: cli clinical --dicom at the same cut, 5/3 mm: {secs['cli']:.3f} s, "
-          f"{len(lf):,} faces, the STL equals the DICOM path's")
+          and cli_stl.read_bytes() == plan_stl.read_bytes(),
+          "the CLI's STL loads back and equals the in-process plan of the crop byte for byte")
+    print(f"phase J: cli clinical --dicom on the {CT_CROP}^3 crop's series, 5/3 mm: "
+          f"{secs['cli']:.3f} s, {len(lf):,} faces, the STL equals the in-process plan's "
+          f"(series, read and plan {secs['crop plan']:.3f} s)")
 
     # ── the bridge: the session's plan renders with K1 ──
     if model_dir is None:
@@ -3907,6 +3946,93 @@ def mpeg2_corpus(work: Path) -> dict:
             "picture_s": picture_s, "picture_bytes": picture_bytes, "preprocess_s": pre}
 
 
+def msmpeg4_corpus(work: Path) -> dict:
+    """The host MS MPEG-4 / WMV decoder and the ASF demuxer on the card's
+    machine (no cv2 there), against `tests/data/msmpeg4/manifest.json`,
+    which cv2 wrote: cv2's committed WMV1 / WMV2 / MP42 / MP43 / DIV3 clips
+    (ASF, AVI, Matroska, 97x63 asked, 1080p) and its MJPG / mp4v / VP80 /
+    MPG2 clips in `.wmv` have their SHA-256s and read to cv2's probe and
+    frames (SHA-256 of each RGB frame); the tests' writer's streams (every
+    version, ASF's three payload layouts, ABT, mspel, the loop filter, a
+    whole-skipped picture) are re-made from their seeds to the manifest's
+    bytes and read to cv2's frames.  The 1080p clips' I and P packets of v3
+    and of WMV2 are timed (medians of 3 decodes from a new decoder), and
+    `cli preprocess --video` runs on the 1080p WMV2 `.wmv` (3 frames at
+    target_size 512, each the port's read shrunk)."""
+    from omfs4d_torch.io import container, msmpeg4
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    syn = tests_module("torch_msmpeg4_syntax")
+    manifest = json.loads((MSMPEG4_CORPUS / "manifest.json").read_text())
+
+    def read_as_cv2(path: Path, entry: dict) -> int:
+        frames = tvideo._own_reader(path)
+        check(tvideo.probe_video(path) == entry["probe"],
+              f"{path.name}: probe_video {tvideo.probe_video(path)} is cv2's {entry['probe']}")
+        got = [hashlib.sha256(frames.rgb(i).tobytes()).hexdigest() for i in range(len(frames))]
+        check(got == entry["sha256"], f"{path.name}: {len(got)} frames equal to cv2's "
+                                      f"{len(entry['sha256'])} of the manifest")
+        return len(got)
+
+    t0 = time.perf_counter()
+    n_frames = 0
+    for name, entry in manifest["files"].items():
+        path = MSMPEG4_CORPUS / name
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the file's SHA-256 is the manifest's")
+        n_frames += read_as_cv2(path, entry)
+    write_s = 0.0
+    for name, entry in manifest["streams"].items():
+        t1 = time.perf_counter()
+        path = syn.make_file(work / name, entry["seed"], entry["version"], entry["plan"],
+                             entry["options"], entry["mux"])
+        write_s += time.perf_counter() - t1
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the writer re-made the manifest's stream from seed {entry['seed']}")
+        n_frames += read_as_cv2(path, entry)
+    corpus_s = time.perf_counter() - t0
+
+    picture_s, picture_bytes = {}, {}
+    for name in ("mp43_1080p.wmv", "wmv2_1080p.wmv"):
+        reader = tvideo._own_reader(MSMPEG4_CORPUS / name)
+        packets = [reader.sample(k) for k in range(len(reader.offsets))]
+        kinds = [msmpeg4.picture_type(x, reader.version, reader.ext) for x in packets]
+        check(kinds[:2] == [msmpeg4.I, msmpeg4.P], f"{name} starts with an I and a P picture")
+        runs: dict = {"I": [], "P": []}
+        for _ in range(3):
+            host = msmpeg4.Host(reader.version, 1920, 1080, reader.extradata)
+            for kind, x in zip(kinds[:2], packets[:2]):
+                t1 = time.perf_counter()
+                host.decode(x)
+                runs[kind].append(time.perf_counter() - t1)
+                host.take()
+        tag = msmpeg4.NAMES[reader.version]
+        picture_s[tag] = {k: float(np.median(v)) for k, v in runs.items()}
+        picture_bytes[tag] = {k: len(packets[kinds.index(k)]) for k in runs}
+    path = MSMPEG4_CORPUS / "wmv2_1080p.wmv"
+    wd = work / "wd_wmv2_1080p"
+    t1 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd),
+                    f"pipeline.max_frames={PREPROCESS_FRAMES}"]) == 0,
+          "cli preprocess --video wmv2_1080p.wmv")
+    preprocess_s = time.perf_counter() - t1
+    (stage,) = list((wd / "stages").glob("preprocess-*"))
+    extracted = sorted((stage / "images").glob("*.png"))
+    frames = tvideo._own_reader(path)
+    check(len(extracted) == 3 and {tvideo.read_image(p).shape for p in extracted}
+          == {(512, 910, 3)}, f"wmv2_1080p.wmv preprocessed to {len(extracted)} frames")
+    for i in (0, len(extracted) - 1):
+        check(np.array_equal(tvideo.read_image(extracted[i]),
+                             tvideo.area_resize(frames.rgb(i), 512, 910)),
+              f"preprocessed frame {i} of wmv2_1080p.wmv is the port's read")
+    check(container.index(path)[2]["container"] == "asf", "wmv2_1080p.wmv is ASF")
+    return {"files": len(manifest["files"]), "streams": len(manifest["streams"]),
+            "frames": n_frames, "corpus_s": corpus_s, "write_s": write_s,
+            "picture_s": picture_s, "picture_bytes": picture_bytes,
+            "preprocess_s": preprocess_s}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -3924,17 +4050,18 @@ def phase_m(model, device, card: str, work: Path) -> dict:
     work.mkdir()
     # the host libraries the corpus parts decode with, built by g++ (one
     # process each, at once) while the phase's CLI calls run
-    from omfs4d_torch.io import colour, hevc, mpeg2, mpeg4, vp8, vp9
+    from omfs4d_torch.io import colour, hevc, mpeg2, mpeg4, msmpeg4, vp8, vp9
 
     def timed_build(build) -> float:
         t0 = time.perf_counter()
         build()
         return time.perf_counter() - t0
 
-    pool = ThreadPoolExecutor(7)
+    pool = ThreadPoolExecutor(8)
     builds = {name: pool.submit(timed_build, lib._library)
               for name, lib in (("mpeg4", mpeg4), ("hevc", hevc), ("colour", colour),
                                 ("vp8", vp8), ("vp9", vp9), ("mpeg2", mpeg2),
+                                ("msmpeg4", msmpeg4),
                                 ("vp9 writer", tests_module("torch_vp9_syntax")))}
     images, _, _ = tracking_clip(model, device, work)
     src = [tvideo.read_image(p) for p in sorted(images.glob("*.png"))]
@@ -4148,6 +4275,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         t_m2 = time.perf_counter()
         m2 = mpeg2_corpus(work)
         mpeg2_s = time.perf_counter() - t_m2
+        t_ms = time.perf_counter()
+        ms = msmpeg4_corpus(work)
+        msmpeg4_s = time.perf_counter() - t_ms
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -4320,6 +4450,16 @@ def phase_m(model, device, card: str, work: Path) -> dict:
           f"{m2['preprocess_s']['mpg2_1080p.mpg']:.2f} s -> 3 frames 910x512, "
           f"syn_interlaced.mpg {m2['preprocess_s']['syn_interlaced.mpg']:.2f} s; the MPEG-1/2 "
           f"part {mpeg2_s:.2f} s [{card}]")
+    print(f"  Windows family (msmpeg4dec.cpp, built by g++ in {built['msmpeg4']:.2f} s; "
+          f"asf.py): cv2's {ms['files']} WMV1 / WMV2 / MP42 / MP43 clips (ASF, AVI, Matroska) "
+          f"and MJPG / mp4v / VP80 / MPG2 in .wmv, and the writer's {ms['streams']} streams "
+          f"(re-made from their seeds in {ms['write_s']:.2f} s, each the manifest's SHA-256) "
+          f"read to cv2's probes and {ms['frames']} frames in {ms['corpus_s']:.2f} s; 1920x1080 "
+          "I / P picture: " + ", ".join(
+              f"{k} {v['I']:.4f} / {v['P']:.4f} s ({ms['picture_bytes'][k]['I']} / "
+              f"{ms['picture_bytes'][k]['P']} bytes)" for k, v in ms["picture_s"].items())
+          + f", medians of 3; cli preprocess --video wmv2_1080p.wmv {ms['preprocess_s']:.2f} s "
+          f"-> 3 frames 910x512; the Windows family part {msmpeg4_s:.2f} s [{card}]")
     print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
     return {"fwd": fwd, "bwd": bwd}
 

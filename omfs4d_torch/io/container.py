@@ -1,16 +1,18 @@
-"""The containers of the port's video files, AVI, MP4, Matroska / WebM and
-MPEG transport and program streams, with the standard library: which codec a file holds
+"""The containers of the port's video files, AVI, MP4, Matroska / WebM,
+MPEG transport and program streams and ASF, with the standard library: which codec a file holds
 and where its frames lie (`index`), and the file writing the port's two
 written codecs share (`write_file`).  The codecs sit on top of it as
 siblings: Motion JPEG
 (`omfs4d_torch.io.mjpeg`), H.264 (`omfs4d_torch.io.h264`), HEVC
 (`omfs4d_torch.io.hevc`, read only), MPEG-4 Part 2
 (`omfs4d_torch.io.mpeg4`, read only), VP8 (`omfs4d_torch.io.vp8`, read
-only), VP9 (`omfs4d_torch.io.vp9`, read only) and MPEG-1 / MPEG-2
-(`omfs4d_torch.io.mpeg2`, read only); the MP4 boxes are
+only), VP9 (`omfs4d_torch.io.vp9`, read only), MPEG-1 / MPEG-2
+(`omfs4d_torch.io.mpeg2`, read only) and MS MPEG-4 v2 / v3 and WMV1 / WMV2
+(`omfs4d_torch.io.msmpeg4`, read only); the MP4 boxes are
 `omfs4d_torch.io.mp4`'s, the Matroska elements `omfs4d_torch.io.matroska`'s,
 the transport stream's packets `omfs4d_torch.io.mpegts`'s, the program
-stream's `omfs4d_torch.io.mpegps`'s.
+stream's `omfs4d_torch.io.mpegps`'s, ASF's objects and packets
+`omfs4d_torch.io.asf`'s.
 
 - AVI (RIFF): the `hdrl` list's first video `strl` (`strh` of type `vids`,
   a BITMAPINFOHEADER `strf` naming the codec), and its frames from the
@@ -27,8 +29,11 @@ stream's `omfs4d_torch.io.mpegps`'s.
   length-prefixed after an avcC / hvcC extradata (`info["avcC"]` /
   `info["hvcC"]`, as FFmpeg tells the two apart), VP8 (`VP80`, a frame
   a chunk, as cv2's writer lays it out), VP9 (`VP90`, a packet a chunk)
-  and MPEG-1 / MPEG-2 (`mpg1`, `mpg2`, `PIM1`, `MPEG`, ... of FFmpeg's
-  table; the extradata, maybe empty, as `extradata`).  A zero-byte chunk is a
+  MPEG-1 / MPEG-2 (`mpg1`, `mpg2`, `PIM1`, `MPEG`, ... of FFmpeg's
+  table; the extradata, maybe empty, as `extradata`) and Microsoft's MPEG-4
+  family (`MP42`, `MP43` / `DIV3` and FFmpeg's other v3 tags, `WMV1`,
+  `WMV2`: codec "msmpeg4" with its `version`, 2 to 5, and `extradata`,
+  WMV2's extended header).  A zero-byte chunk is a
   frame the writer dropped: it has no sample, but counts in `frame_count`
   (cv2 counts it and shows no frame for it).
 - MP4 / QuickTime: the first video track (`mp4.read_track`; a sound track
@@ -53,13 +58,16 @@ stream's `omfs4d_torch.io.mpegps`'s.
   MPEG-1 / MPEG-2, split into frames as FFmpeg's parsers split them; its
   samples are ranges of the elementary stream, gathered from the packets
   (`read_sample`).
+- ASF (`.wmv`, `.asf`, found by its header object's GUID): the first video
+  stream (`asf.index`), its codec by the BITMAPINFOHEADER's fourcc as AVI's,
+  its media objects gathered from the data packets (`info["es"]`).
 - MPEG-PS (`.mpg`, `.mpeg`, `.vob`: MPEG-1 system streams and MPEG-2
   program streams, found by FFmpeg's probe whatever the suffix): the first
   video stream (`mpegps.index`), MPEG-1 / MPEG-2, or H.264, HEVC or MPEG-4
   Part 2 by its PSM or its payload, read as from a transport stream.  A raw
   MPEG-1 / 2 elementary stream (`.m1v` / `.m2v`) is refused by name.
 
-Any other codec (AV1, MS MPEG-4 v3, VP8 in MP4, ...) raises
+Any other codec (AV1, WMV 9 / VC-1, VP8 in MP4, ...) raises
 `UnsupportedCodecError` naming it: decoding it needs an ffmpeg binary.  So
 does a file that is none of the containers.  A frame whose bytes end early
 raises ValueError with its index (in Matroska, whose frames no header
@@ -78,23 +86,25 @@ from pathlib import Path
 
 import numpy as np
 
-from omfs4d_torch.io import matroska, mp4, mpegps, mpegts
+from omfs4d_torch.io import asf, matroska, mp4, mpegps, mpegts
 
 
 class UnsupportedCodecError(RuntimeError):
     """The video file holds a codec that the port cannot decode without an
-    ffmpeg binary, or it is no AVI, MP4, Matroska, MPEG-TS or MPEG-PS file
-    at all."""
+    ffmpeg binary, or it is no AVI, MP4, Matroska, MPEG-TS, MPEG-PS or ASF
+    file at all."""
 
 
 def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
     return UnsupportedCodecError(
         f"{path}: {what}; the port reads only Motion JPEG (MJPG), H.264 (Main / High "
         "profile I, P and B pictures), HEVC (Main and Main 10 profiles, whole), MPEG-4 "
-        "Part 2 (Simple and Advanced Simple profile), VP8, VP9 (profile 0) and MPEG-1 / "
-        "MPEG-2 (4:2:0 frame pictures), each in AVI, MP4 / QuickTime, Matroska / WebM, "
-        "MPEG-TS or MPEG-PS, by itself, decoding this needs an ffmpeg binary (on PATH or "
-        "from imageio_ffmpeg)")
+        "Part 2 (Simple and Advanced Simple profile), VP8, VP9 (profile 0), MPEG-1 / "
+        "MPEG-2 (4:2:0 frame pictures), MS MPEG-4 v2 / v3 (DivX 3) and WMV1 / WMV2 (WMV 7 "
+        "/ 8, no IntraX8 pictures), each in AVI, MP4 / QuickTime, Matroska / WebM, "
+        "MPEG-TS, MPEG-PS or ASF (.wmv / .asf), by itself (not MS MPEG-4 v1, WMV 9 / VC-1, "
+        "HuffYUV, FFV1, raw I420 or FLV's Sorenson H.263); decoding this needs an ffmpeg "
+        "binary (on PATH or from imageio_ffmpeg)")
 
 
 # AVI fourccs of Motion JPEG, and names of those that need another decoder
@@ -112,8 +122,21 @@ _AVI_VP9 = {b"VP90", b"vp90"}
 _AVI_MPEG2 = {c for t in (b"mpg1", b"mpg2", b"MPEG", b"PIM1", b"PIM2", b"DVR ", b"MMES",
                           b"LMP2", b"EM2V", b"mpgv", b"BW10", b"XMPG", b"M701", b"M702",
                           b"M703", b"M705") for c in (t, t.upper(), t.lower())}
-_AVI_NAMES = {b"DIV3": "MS MPEG-4 v3 (DivX 3)", b"MP43": "MS MPEG-4 v3",
-              b"AV01": "AV1", b"WMV3": "WMV 9",
+# AVI fourccs of Microsoft's MPEG-4 family (FFmpeg's ff_codec_bmp_tags, upper
+# or lower case): MS MPEG-4 v2 and v3 (DivX 3 and its relabellings), WMV 7
+# and 8; the version the decoder takes
+_AVI_MSMPEG4 = {c: v for t, v in ((b"MP42", 2), (b"DIV2", 2), (b"MP43", 3), (b"DIV3", 3),
+                                 (b"MPG3", 3), (b"DIV4", 3), (b"DIV5", 3), (b"DIV6", 3),
+                                 (b"DVX3", 3), (b"AP41", 3), (b"COL1", 3), (b"COL0", 3),
+                                 (b"WMV1", 4), (b"WMV2", 5))
+                for c in (t, t.lower())}
+_AVI_NAMES = {b"MPG4": "MS MPEG-4 v1", b"DIV1": "MS MPEG-4 v1", b"MP41": "MS MPEG-4 v1",
+              b"mpg4": "MS MPEG-4 v1", b"div1": "MS MPEG-4 v1", b"mp41": "MS MPEG-4 v1",
+              b"AV01": "AV1", b"WMV3": "WMV 9 / VC-1 (Simple and Main profile)",
+              b"wmv3": "WMV 9 / VC-1 (Simple and Main profile)",
+              b"WVC1": "VC-1 Advanced profile (WMV 9 Advanced)",
+              b"WMVA": "VC-1 Advanced profile (WMV 9 Advanced)",
+              b"HFYU": "HuffYUV", b"FFV1": "FFV1", b"I420": "raw I420", b"FLV1": "Sorenson H.263 (FLV)",
               b"VCR2": "MPEG-1 video of ATI VCR2 (its chroma planes swapped)",
               b"slif": "MPEG-2 video of SoftLab-NSK (a first slice FFmpeg reads its own way)",
               b"SLIF": "MPEG-2 video of SoftLab-NSK (a first slice FFmpeg reads its own way)",
@@ -168,6 +191,9 @@ def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI four
         return {"codec": "vp9"}
     if compression in _AVI_MPEG2:
         return {"codec": "mpeg2", "extradata": extradata, "fourcc": compression}
+    if compression in _AVI_MSMPEG4:
+        return {"codec": "msmpeg4", "version": _AVI_MSMPEG4[compression],
+                "extradata": extradata, "fourcc": compression}
     name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
     raise _needs_ffmpeg(path, f"its video is {name} ({where} "
                               f"{compression.decode('latin-1')!r})")
@@ -362,7 +388,9 @@ def index(path) -> tuple[list[int], list[int], dict]:
     or the CodecPrivate holds (maybe b""), and an AVI's (or a Matroska VfW
     track's) `fourcc`; "mpeg2" for MPEG-1 / MPEG-2 video, then with
     `extradata` (its sequence header where the container keeps one apart,
-    maybe b""); "vp8", "vp9".  Matroska adds `prefix` where its
+    maybe b""); "vp8", "vp9"; "msmpeg4", then with `version` (2 to 5: MS
+    MPEG-4 v2, v3, WMV1, WMV2) and `extradata`.  ASF adds `es`, the media
+    objects its samples are gathered from.  Matroska adds `prefix` where its
     track strips a header from every frame; MPEG-TS and MPEG-PS `es`, the map from its
     samples' offsets (in the elementary stream) to the file, and `damaged`
     (see `mpegts.index`).  Any other codec raises `UnsupportedCodecError`
@@ -386,6 +414,8 @@ def index(path) -> tuple[list[int], list[int], dict]:
                     return mpegts.index(buf, p)
                 if mpegps.probe(buf):
                     return mpegps.index(buf, p)
+                if asf.probe(head):
+                    return asf.index(buf, p)
                 if head[:4] == b"\x00\x00\x01\xb3":
                     raise _needs_ffmpeg(p, "it is a raw MPEG-1 / MPEG-2 video elementary stream "
                                            "(.m1v / .m2v), for which cv2 reports a frame rate "
@@ -398,14 +428,14 @@ def index(path) -> tuple[list[int], list[int], dict]:
                     # ASF file may hold what looks like sync bytes)
                     raise mpegts.Cut("a transport stream of fewer than 2,040 bytes")
             except (struct.error, IndexError, TypeError, matroska.Cut, mpegts.Cut,
-                    mpegps.Cut) as e:
+                    mpegps.Cut, asf.Cut) as e:
                 traceback.clear_frames(e.__traceback__)      # views of the map go first
                 raise ValueError(f"{p}: a corrupt or cut-short container ({e})") from e
             except BaseException as e:
                 traceback.clear_frames(e.__traceback__)
                 raise
     raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 / QuickTime file, nor a Matroska "
-                           "/ WebM one, nor an MPEG transport or program stream")
+                           "/ WebM one, nor an MPEG transport or program stream, nor ASF")
 
 
 def read_sample(f, offset: int, size: int, info: dict) -> bytes:

@@ -2,7 +2,7 @@
 `index`, which gives what `container.index` gives for AVI and MP4: the
 offsets and sizes of the video track's frames in the file and the track's
 info, for the port's codecs (Motion JPEG, MPEG-4 Part 2, H.264, HEVC, VP8,
-VP9, MPEG-1 / MPEG-2).
+VP9, MPEG-1 / MPEG-2, MS MPEG-4 v2 / v3 and WMV1 / WMV2).
 
 Read as FFmpeg's `matroskadec` reads a file for cv2:
 - EBML: element IDs keep their length marker, sizes drop it; a size of all
@@ -23,8 +23,10 @@ Read as FFmpeg's `matroskadec` reads a file for cv2:
   alpha channel, are skipped as cv2 skips them); `V_VP9` (no CodecPrivate;
   its frames may be superframes, split by the codec); `V_MPEG1` /
   `V_MPEG2` (`CodecPrivate` the sequence header, as `extradata`);
-  `V_MS/VFW/FOURCC` (`CodecPrivate` a BITMAPINFOHEADER, its fourcc read as
-  AVI's, `container.avi_codec`).  Any other (AV1, Theora, ProRes, ...)
+  `V_MPEG4/MS/V3` (MS MPEG-4 v3, DivX 3); `V_MS/VFW/FOURCC` (`CodecPrivate`
+  a BITMAPINFOHEADER, its fourcc read as AVI's, `container.avi_codec`: cv2's
+  WMV1 / WMV2 / MP42 / MP43 among them, WMV2's extended header the bytes
+  after it).  Any other (AV1, Theora, ProRes, ...)
   raises `UnsupportedCodecError` naming it.
 - Frames: `SimpleBlock`s (FFmpeg's muxer; the keyframe flag gives `sync`)
   and `BlockGroup`s (mkvmerge's: a `Block` with no `ReferenceBlock` is a
@@ -89,7 +91,7 @@ TRACK_TYPE_VIDEO = 1
 _MPEG4 = {"V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP"}
 _NAMES = {"V_AV1": "AV1", "V_THEORA": "Theora", "V_PRORES": "ProRes",
           "V_UNCOMPRESSED": "uncompressed video", "V_REAL/RV40": "RealVideo 4",
-          "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_FFV1": "FFV1", "V_DIRAC": "Dirac",
+          "V_FFV1": "FFV1", "V_DIRAC": "Dirac",
           "V_QUICKTIME": "a QuickTime codec", "V_MPEGI/ISO/VVC": "H.266 / VVC"}
 _COMP_ALGOS = {0: "zlib", 1: "bzlib", 2: "LZO"}
 HEADER_STRIPPING = 3
@@ -312,6 +314,8 @@ def _codec(track: dict, path) -> dict:
         return {"codec": "vp9"}
     if cid in ("V_MPEG1", "V_MPEG2"):
         return {"codec": "mpeg2", "extradata": private}
+    if cid == "V_MPEG4/MS/V3":
+        return {"codec": "msmpeg4", "version": 3, "extradata": private}
     if cid == "V_MPEG4/ISO/AVC":
         if not private:
             raise container._needs_ffmpeg(path, "its video is H.264 with no CodecPrivate "

@@ -1,10 +1,11 @@
 // FFmpeg's simple IDCT as cv2's x86-64 build runs it (the 8-bit
 // simple_idct: rows with the DC-only shortcut, then columns), shared by the
-// host decoders of MPEG-4 Part 2 (mpeg4dec.cpp) and MPEG-1 / MPEG-2
-// (mpeg2dec.cpp), which FFmpeg's idctdsp gives the same IDCT.  Included
-// inside each decoder's anonymous namespace.  mpeg4dec.cpp finds it beside
-// itself and its library's name is hashed from its own source and tables
-// only: after an edit here, clear omfs4d_torch/_build/ to rebuild it.
+// host decoders of MPEG-4 Part 2 (mpeg4dec.cpp), MPEG-1 / MPEG-2
+// (mpeg2dec.cpp) and Microsoft's MPEG-4 family (msmpeg4dec.cpp), which
+// FFmpeg's idctdsp gives the same IDCT.  Included inside each decoder's
+// anonymous namespace.  mpeg4dec.cpp finds it beside itself and its
+// library's name is hashed from its own source and tables only: after an
+// edit here, clear omfs4d_torch/_build/ to rebuild it.
 #pragma once
 
 // ── the simple IDCT ──────────────────────────────────────────────────────

@@ -24,7 +24,8 @@ contract).  With none, the port's own codecs:
   ffmpeg; so do frames H.264 cannot hold (an odd side, beyond level 5.2).
 - `probe_video` / `extract_frames` index the file once
   (`omfs4d_torch.io.container`: AVI, MP4 / QuickTime, Matroska / WebM,
-  MPEG-TS and M2TS, each found by its content whatever the suffix) and read
+  MPEG-TS and M2TS, MPEG-PS, ASF, each found by its content whatever the
+  suffix) and read
   it with its codec's module, in any of the containers: Motion
   JPEG (`mjpeg.MJPEGFrames`: each frame as FFmpeg's MJPEG decoder and
   swscale give it to cv2, `mjpeg.frame_rgb`, where a JPEG file is read as
@@ -52,7 +53,12 @@ contract).  With none, the port's own codecs:
   interlaced, as cv2's `MPG1` / `PIM1` / `MPG2` writers put them into MPEG-PS
   (`.mpg`, `.mpeg`, `.vob`; `omfs4d_torch.io.mpegps`), MPEG-TS, AVI,
   Matroska, MP4 and QuickTime, and as DVDs and broadcast captures hold them
-  (`mpeg2.MPEG2Frames`, the host C++ decoder `mpeg2dec.cpp`).  Every reader
+  (`mpeg2.MPEG2Frames`, the host C++ decoder `mpeg2dec.cpp`); MS MPEG-4 v2
+  and v3 (DivX 3) and WMV1 / WMV2 (WMV 7 / 8), as cv2's `MP42`, `MP43` /
+  `DIV3`, `WMV1` and `WMV2` writers put them into ASF (`.wmv`, `.asf`;
+  `omfs4d_torch.io.asf`), AVI and Matroska and as Windows capture tools and
+  DivX 3 wrote them (`msmpeg4.MSMPEG4Frames`, the host C++ decoder
+  `msmpeg4dec.cpp`).  Every reader
   converts to 8-bit RGB as cv2 does:
   swscale's own conversion bit for bit (`swscale`; 8-bit 4:2:0 on its
   unscaled path, 10-bit pictures, odd heights and JPEG's other samplings on
@@ -60,8 +66,9 @@ contract).  With none, the port's own codecs:
   tagged streams (`colour`).  HEVC beyond Main 10 (more than 10 bits, tiles
   with WPP, ...), H.264 with fields or more than 8 bits, MPEG-4 Part 2
   sprites / GMC, interlacing or data partitioning, VP9 beyond profile 0 or
-  with references of another size, MPEG-2 field pictures and 4:2:2, and
-  other codecs (AV1, ...) raise `container.UnsupportedCodecError` naming the
+  with references of another size, MPEG-2 field pictures and 4:2:2, WMV2's
+  IntraX8 pictures, MS MPEG-4 v1, WMV 9 / VC-1 and other codecs (AV1, ...)
+  raise `container.UnsupportedCodecError` naming the
   codec or feature.
 """
 
@@ -76,7 +83,7 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg2, mpeg4, vp8, vp9
+from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg2, mpeg4, msmpeg4, vp8, vp9
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
 
 log = get_logger("video")
@@ -363,12 +370,13 @@ def extract_frames(
 
 _READERS = {"h264": h264.H264Frames, "hevc": hevc.HEVCFrames, "mpeg4": mpeg4.MPEG4Frames,
             "vp8": vp8.VP8Frames, "vp9": vp9.VP9Frames, "mpeg2": mpeg2.MPEG2Frames,
+            "msmpeg4": msmpeg4.MSMPEG4Frames,
             "mjpeg": mjpeg.MJPEGFrames}
 
 
 def _own_reader(path: Path) -> (h264.H264Frames | hevc.HEVCFrames | mpeg4.MPEG4Frames
                                 | vp8.VP8Frames | vp9.VP9Frames | mpeg2.MPEG2Frames
-                                | mjpeg.MJPEGFrames):
+                                | msmpeg4.MSMPEG4Frames | mjpeg.MJPEGFrames):
     """A video file's frames through the port's own readers, with no ffmpeg:
     the file is indexed once and read by its codec's module."""
     offsets, sizes, info = container.index(path)

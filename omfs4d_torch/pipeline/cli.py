@@ -28,11 +28,15 @@ cv2's `VP80`), VP9 profile 0 in `.webm` / `.mkv` / `.avi` / `.mp4` (a
 browser's or YouTube's WebM, cv2's `VP90`) and MPEG-1 / MPEG-2 in `.mpg` /
 `.mpeg` / `.vob` / `.ts` / `.avi` / `.mkv` / `.mp4` / `.mov` (cv2's `MPG1` /
 `PIM1` / `MPG2`, a DVD's or a broadcast capture's progressive or interlaced
-frame pictures), and writes the
+frame pictures), and MS MPEG-4 v2 / v3 (DivX 3) and WMV1 / WMV2 (WMV 7 / 8)
+in `.wmv` / `.asf` / `.avi` / `.mkv` (a Windows capture cart's or Movie
+Maker's export, a DivX 3 archive, cv2's `MP42` / `MP43` / `WMV1` / `WMV2`;
+ASF also holds every codec above as cv2 writes it), and writes the
 prediction with its own H.264 encoder (Motion JPEG AVI for a `.avi` output),
 while H.264 with fields, HEVC's range extensions (4:0:0, 4:2:2, 4:4:4, above
-10 bits), screen content coding, MPEG-2 field pictures and other codecs
-raise, naming the codec or feature.
+10 bits), screen content coding, MPEG-2 field pictures, WMV2's IntraX8
+pictures, MS MPEG-4 v1, WMV 9 / VC-1 and other codecs raise, naming the
+codec or feature.
 
 Under `torchrun` (WORLD_SIZE > 1) each process is one rank: the pipeline's
 commands join the process group first (`init_distributed`; the backend is
@@ -65,9 +69,11 @@ VIDEO_HELP = ("the capture: a directory of PNG or JPEG frames, or a video file; 
               ".avi (a browser's recording, cv2's VP80) and VP9 profile 0 in .webm / .mkv "
               "/ .avi / .mp4 (a browser's or YouTube's WebM, cv2's VP90) and MPEG-1 / MPEG-2 "
               "in .mpg / .mpeg / .vob / .ts / .avi / .mkv / .mp4 / .mov (cv2's MPG1 / MPG2, "
-              "a DVD's frame pictures) are read (HEVC's range extensions and screen content "
-              "coding, VP9 profiles 1-3, MPEG-2 field pictures and 4:2:2, and other codecs, "
-              "need ffmpeg)")
+              "a DVD's frame pictures) and MS MPEG-4 v2 / v3 (DivX 3) and WMV1 / WMV2 in "
+              ".wmv / .asf / .avi / .mkv (cv2's MP42 / MP43 / WMV1 / WMV2; ASF holding any "
+              "codec above) are read (HEVC's range extensions and screen content coding, VP9 "
+              "profiles 1-3, MPEG-2 field pictures and 4:2:2, WMV2's IntraX8 pictures, MS "
+              "MPEG-4 v1, WMV 9 / VC-1, and other codecs, need ffmpeg)")
 
 
 def _add_device(p: argparse.ArgumentParser):

@@ -240,7 +240,7 @@ def test_matroska_vfw_tracks_read_as_avi(tmp_path, capfd):
 
 # ── what stays refused ──────────────────────────────────────
 
-@pytest.mark.parametrize("fourcc, name", [(b"AV01", "AV1"), (b"DIV3", "MS MPEG-4 v3"),
+@pytest.mark.parametrize("fourcc, name", [(b"AV01", "AV1"), (b"MPG4", "MS MPEG-4 v1"),
                                           (b"WMV3", "WMV 9"), (b"ABCD", "'ABCD'")])
 def test_other_fourccs_refused_by_name(tmp_path, fourcc, name):
     """A fourcc outside the port's codecs raises UnsupportedCodecError naming

@@ -408,7 +408,7 @@ def test_cv2_mpeg2_ffv1_refused_by_name(tmp_path, capfd, fourcc, suffix, name):
         assert f"its video is {name}" in str(err.value)
 
 
-REFUSED = {"V_AV1": "AV1", "V_MPEG4/MS/V3": "MS MPEG-4 v3", "V_THEORA": "Theora",
+REFUSED = {"V_AV1": "AV1", "V_REAL/RV40": "RealVideo 4", "V_THEORA": "Theora",
            "V_PRORES": "ProRes", "V_SOMETHING": "an unknown codec"}
 
 

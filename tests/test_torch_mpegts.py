@@ -503,11 +503,14 @@ def write_wmv1(path: Path) -> Path | None:
 
 
 @pytest.mark.parametrize("source", ["cv2", "committed"])
-def test_asf_file_is_refused_as_needing_ffmpeg(tmp_path, source):
+def test_asf_file_is_no_transport_stream_and_reads_as_cv2(tmp_path, capfd, source):
     """A healthy ASF file (cv2's WMV1 `.wmv`, or the committed first 4,096
     bytes of one: past FFmpeg's 2,040-byte probe) whose head looks like
     transport stream packets to the packet-size count but not to FFmpeg's
-    probe: refused as needing ffmpeg, not called a cut transport stream."""
+    probe: not called a cut transport stream, but read as the ASF it is, as
+    cv2 reads it: its probe, and every frame (cv2 shows 23 of the cut
+    head's, the 23rd its concealment of a frame the cut ends inside, which
+    the port refuses as cut short)."""
     if source == "cv2":
         path = write_wmv1(tmp_path / "w.wmv")
         if path is None:
@@ -520,7 +523,27 @@ def test_asf_file_is_refused_as_needing_ffmpeg(tmp_path, source):
     head = np.frombuffer(path.read_bytes()[:2048], np.uint8)
     assert mpegts.packet_size(head) and not mpegts.probe(head.tobytes())
     assert path.stat().st_size >= 4096
-    with pytest.raises(container.UnsupportedCodecError, match="ffmpeg"):
-        tvideo.probe_video(path)
-    with pytest.raises(container.UnsupportedCodecError, match="ffmpeg"):
-        tvideo.extract_frames(path, tmp_path / "out")
+    assert container.index(path)[2]["container"] == "asf"
+    cap = cv2.VideoCapture(str(path))
+    probe = {"width": int(cap.get(cv2.CAP_PROP_FRAME_WIDTH)),
+             "height": int(cap.get(cv2.CAP_PROP_FRAME_HEIGHT)),
+             "fps": cap.get(cv2.CAP_PROP_FPS),
+             "frame_count": int(cap.get(cv2.CAP_PROP_FRAME_COUNT))}
+    theirs = []
+    while True:
+        ok, bgr = cap.read()
+        if not ok:
+            break
+        theirs.append(bgr[..., ::-1])
+    capfd.readouterr()
+    assert tvideo.probe_video(path) == probe
+    reader = tvideo._own_reader(path)
+    assert len(reader) == len(theirs) == (40 if source == "cv2" else 23)
+    whole = len(theirs) if source == "cv2" else 22
+    for i in range(whole):
+        assert np.array_equal(reader.rgb(i), theirs[i])
+    if source == "committed":
+        with pytest.raises(ValueError, match="cut short"):
+            reader.rgb(22)
+    else:
+        assert len(tvideo.extract_frames(path, tmp_path / "out")) == 40
