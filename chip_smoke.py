@@ -288,8 +288,14 @@ Phase M: the reference's user path from a video file to a prediction video,
   MJPG / mp4v / VP80 / MPG2 clips in `.wmv`, and the tests' writer's
   streams (every version, ASF's three payload layouts, ABT, mspel, the loop
   filter) re-made here from their seeds; the 1080p I and P pictures of v3
-  and WMV2 timed; `cli preprocess --video wmv2_1080p.wmv` (3 frames).
-  Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
+  and WMV2 timed; `cli preprocess --video wmv2_1080p.wmv` (3 frames).  Then
+  raw and lossless video alike against tests/data/lossless/manifest.json:
+  cv2's committed raw I420 / IYUV / YV12 / Y800 / RGBA, PNG, HFYU, FFVH and
+  FFV1 clips (AVI, Matroska, QuickTime, MP4), its JPGL / LJPG AVIs and
+  VP80 / VP90 IVFs, and the tests' writer's streams (a 1080p one of each
+  codec) re-made from their seeds; one 1080p frame of each decoder timed,
+  `decode_png` beside its plain Python rows; `cli preprocess --video
+  syn_ffv1_1080p.mkv` (3 frames).  Printed: host s/frame of `encode_jpeg` / `decode_jpeg` and of
   `encode_h264` (IDR and P) at 512^2 and at 1920 x 1080, the H.264 readers
   (the host decoder on encode_h264's 1080p IDR and P and on clip.mov's, the
   tests' plain Python reader at 512^2), the stage seconds, the launches,
@@ -479,6 +485,13 @@ MPEG2_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "mpeg2"
 # WMV2 / MP42 / MP43 clips in ASF, AVI and Matroska, its other codecs in
 # .wmv, and the hashes of cv2's frames of the tests' writer's streams
 MSMPEG4_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "msmpeg4"
+# the lossless corpus (tests/make_lossless_corpus.py): cv2's raw, PNG, HuffYUV
+# and FFV1 clips, its JPGL / LJPG AVIs and VP80 / VP90 IVFs, and the hashes of
+# cv2's frames of the tests' writer's streams (a 1080p one of each codec)
+LOSSLESS_CORPUS = Path(__file__).resolve().parent / "tests" / "data" / "lossless"
+# the rows of the 1080p Paeth frame the plain Python unfilter is timed on (a
+# tenth: the whole frame takes seconds of the phase)
+PLAIN_PNG_ROWS = 108
 # `cli preprocess --video` of a 1080p clip costs ~0.35 s a frame on the host
 # (colour conversion, area_resize, PNG): one clip a codec runs whole
 # (clip_b.mp4's 9 frames, asp_1080p.avi's 3, clip_1080p.webm's 3), the other
@@ -4033,6 +4046,141 @@ def msmpeg4_corpus(work: Path) -> dict:
             "preprocess_s": preprocess_s}
 
 
+def lossless_corpus(work: Path) -> dict:
+    """The raw, PNG, HuffYUV and FFV1 readers on the card's machine (no cv2
+    there), against `tests/data/lossless/manifest.json`, which cv2 wrote:
+    cv2's committed clips (raw I420 / IYUV / YV12 / Y800 / RGBA, PNG, HFYU,
+    FFVH, FFV1 in AVI, Matroska, QuickTime and MP4, JPGL / LJPG, VP80 / VP90
+    in IVF) have their SHA-256s and read to cv2's probe and frames; the
+    tests' writer's streams (BI_RGB, odd-size I420, every PNG filter,
+    HuffYUV versions 0-2, FFV1 versions 0 / 1 / 3, and a 1080p one of each
+    codec) are re-made from their seeds to the manifest's bytes and read to
+    cv2's frames.  One 1080p frame of each decoder is timed (medians of 3):
+    raw BGRA, `decode_png` on FFmpeg's Paeth frame (beside the plain Python
+    rows once on its first `PLAIN_PNG_ROWS`, equal), HuffYUV 4:2:2 median,
+    FFV1 10-bit 4:2:2 key and non-key frame (144 slices); `cli preprocess --video` runs on the 1080p
+    FFV1 `.mkv` (3 frames at target_size 512, each the port's read
+    shrunk)."""
+    import zlib
+
+    from omfs4d_torch.io import container, ffv1
+    from omfs4d_torch.io import video as tvideo
+    from omfs4d_torch.pipeline import cli
+
+    syn = tests_module("torch_lossless_syntax")
+    manifest = json.loads((LOSSLESS_CORPUS / "manifest.json").read_text())
+
+    def read_as_cv2(path: Path, entry: dict) -> int:
+        frames = tvideo._own_reader(path)
+        check(tvideo.probe_video(path) == entry["probe"],
+              f"{path.name}: probe_video {tvideo.probe_video(path)} is cv2's {entry['probe']}")
+        got = [hashlib.sha256(frames.rgb(i).tobytes()).hexdigest() for i in range(len(frames))]
+        check(got == entry["sha256"], f"{path.name}: {len(got)} frames equal to cv2's "
+                                      f"{len(entry['sha256'])} of the manifest")
+        return len(got)
+
+    t0 = time.perf_counter()
+    n_frames = 0
+    for name, entry in manifest["files"].items():
+        path = LOSSLESS_CORPUS / name
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the file's SHA-256 is the manifest's")
+        n_frames += read_as_cv2(path, entry)
+    write_s = 0.0
+    for name, entry in manifest["streams"].items():
+        t1 = time.perf_counter()
+        path = syn.make_file(work / name, entry["seed"], entry["codec"], entry["options"])
+        write_s += time.perf_counter() - t1
+        check(hashlib.sha256(path.read_bytes()).hexdigest() == entry["file_sha256"],
+              f"{name}: the writer re-made the manifest's stream from seed {entry['seed']}")
+        n_frames += read_as_cv2(path, entry)
+    corpus_s = time.perf_counter() - t0
+
+    def median3(fn) -> float:
+        runs = []
+        for _ in range(3):
+            t1 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t1)
+        return float(np.median(runs))
+
+    frame_s, frame_bytes = {}, {}
+    raw = tvideo._own_reader(work / "syn_raw_1080p.avi")
+    data = raw.sample(0)
+    frame_s["raw BGRA"], frame_bytes["raw BGRA"] = median3(lambda: raw.decode(data)), len(data)
+    png = tvideo._own_reader(work / "syn_png_1080p.mkv")
+    data = png.sample(0)
+    frame_s["PNG"], frame_bytes["PNG"] = median3(lambda: tvideo.decode_png(data)), len(data)
+    # the same frame through the plain Python rows, once
+    t1 = time.perf_counter()
+    idat, pos = [], 8
+    while pos < len(data):
+        size = int.from_bytes(data[pos:pos + 4], "big")
+        if data[pos + 4:pos + 8] == b"IDAT":
+            idat.append(data[pos + 8:pos + 8 + size])
+        pos += 12 + size
+    inflated = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    rows = inflated.reshape(1080, 1 + 1920 * 3)
+    prev = np.zeros(1920 * 3, np.uint8)
+    plain = []
+    for y in range(PLAIN_PNG_ROWS):
+        prev = tvideo._unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, 3)
+        plain.append(prev)
+    plain_png_s = time.perf_counter() - t1
+    check(np.array_equal(np.stack(plain).reshape(-1, 1920, 3),
+                         tvideo.decode_png(data)[:PLAIN_PNG_ROWS]),
+          f"decode_png's C++ rows equal the plain Python rows on FFmpeg's 1080p Paeth frame "
+          f"(its first {PLAIN_PNG_ROWS})")
+    check(int(rows[0, 0]) == 1 and set(rows[1:, 0].tolist()) == {4},
+          "the 1080p PNG is FFmpeg-style: a Sub row, then Paeth")
+    hy = tvideo._own_reader(work / "syn_hfyu_1080p.avi")
+    data = hy.sample(0)
+    frame_s["HuffYUV"] = median3(lambda: hy.host.decode(data))
+    frame_s["HuffYUV + swscale"] = median3(lambda: hy.decode(data))
+    frame_bytes["HuffYUV"] = len(data)
+    fv = tvideo._own_reader(work / "syn_ffv1_1080p.mkv")
+    key, inter = fv.sample(0), fv.sample(1)
+
+    runs: dict = {"key": [], "inter": []}
+    for _ in range(3):                    # a non-key frame follows its key frame's states
+        host = ffv1.Host(1920, 1080, fv.extradata)
+        for kind, packet in (("key", key), ("inter", inter)):
+            t1 = time.perf_counter()
+            host.decode(packet)
+            runs[kind].append(time.perf_counter() - t1)
+    frame_s["FFV1 key"] = float(np.median(runs["key"]))
+    frame_s["FFV1 non-key"] = float(np.median(runs["inter"]))
+    frame_bytes["FFV1 key"], frame_bytes["FFV1 non-key"] = len(key), len(inter)
+    info = host.info()
+    check((info["version"], info["bits"], info["h_shift"], info["v_shift"], info["slices"])
+          == (3, 10, 1, 0, 144), f"syn_ffv1_1080p.mkv is 10-bit 4:2:2 in 144 slices: {info}")
+    # cv2's own FFV1 is RGB in 4 slices
+    cv2_info = ffv1.frames(LOSSLESS_CORPUS / "ffv1_cv2.mkv")
+    cv2_info.ycbcr(0)
+    check(cv2_info._host.info()["colorspace"] == 1, "cv2's FFV1 is RGB")
+
+    path = work / "syn_ffv1_1080p.mkv"
+    wd = work / "wd_ffv1_1080p"
+    t1 = time.perf_counter()
+    check(cli.main(["preprocess", "--video", str(path), "--workdir", str(wd),
+                    f"pipeline.max_frames={PREPROCESS_FRAMES}"]) == 0,
+          "cli preprocess --video syn_ffv1_1080p.mkv")
+    preprocess_s = time.perf_counter() - t1
+    (stage,) = list((wd / "stages").glob("preprocess-*"))
+    extracted = sorted((stage / "images").glob("*.png"))
+    check(len(extracted) == 3 and {tvideo.read_image(p).shape for p in extracted}
+          == {(512, 910, 3)}, f"syn_ffv1_1080p.mkv preprocessed to {len(extracted)} frames")
+    for i in (0, len(extracted) - 1):
+        check(np.array_equal(tvideo.read_image(extracted[i]),
+                             tvideo.area_resize(fv.rgb(i), 512, 910)),
+              f"preprocessed frame {i} of syn_ffv1_1080p.mkv is the port's read")
+    check(container.index(path)[2]["codec"] == "ffv1", "syn_ffv1_1080p.mkv is FFV1")
+    return {"files": len(manifest["files"]), "streams": len(manifest["streams"]),
+            "frames": n_frames, "corpus_s": corpus_s, "write_s": write_s,
+            "frame_s": frame_s, "frame_bytes": frame_bytes, "plain_png_s": plain_png_s,
+            "preprocess_s": preprocess_s}
+
+
 def phase_m(model, device, card: str, work: Path) -> dict:
     """The reference's user path from a video file to a prediction video on
     the card, through the port's CLI in process, with the video ladder's
@@ -4050,7 +4198,8 @@ def phase_m(model, device, card: str, work: Path) -> dict:
     work.mkdir()
     # the host libraries the corpus parts decode with, built by g++ (one
     # process each, at once) while the phase's CLI calls run
-    from omfs4d_torch.io import colour, hevc, mpeg2, mpeg4, msmpeg4, vp8, vp9
+    from omfs4d_torch.io import (colour, ffv1, hevc, huffyuv, mpeg2, mpeg4, msmpeg4, vp8,
+                                 vp9)
 
     def timed_build(build) -> float:
         t0 = time.perf_counter()
@@ -4058,11 +4207,14 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         return time.perf_counter() - t0
 
     pool = ThreadPoolExecutor(8)
-    builds = {name: pool.submit(timed_build, lib._library)
-              for name, lib in (("mpeg4", mpeg4), ("hevc", hevc), ("colour", colour),
-                                ("vp8", vp8), ("vp9", vp9), ("mpeg2", mpeg2),
-                                ("msmpeg4", msmpeg4),
-                                ("vp9 writer", tests_module("torch_vp9_syntax")))}
+    builds = {name: pool.submit(timed_build, build)
+              for name, build in (("mpeg4", mpeg4._library), ("hevc", hevc._library),
+                                  ("colour", colour._library), ("vp8", vp8._library),
+                                  ("vp9", vp9._library), ("mpeg2", mpeg2._library),
+                                  ("msmpeg4", msmpeg4._library),
+                                  ("huffyuv", huffyuv._library), ("ffv1", ffv1._library),
+                                  ("png unfilter", tvideo._unfilter_library),
+                                  ("vp9 writer", tests_module("torch_vp9_syntax")._library))}
     images, _, _ = tracking_clip(model, device, work)
     src = [tvideo.read_image(p) for p in sorted(images.glob("*.png"))]
 
@@ -4278,6 +4430,9 @@ def phase_m(model, device, card: str, work: Path) -> dict:
         t_ms = time.perf_counter()
         ms = msmpeg4_corpus(work)
         msmpeg4_s = time.perf_counter() - t_ms
+        t_ll = time.perf_counter()
+        ll = lossless_corpus(work)
+        lossless_s = time.perf_counter() - t_ll
     finally:
         tvideo.find_ffmpeg = real_find
     evs = [json.loads(line) for line in (wd / "events.jsonl").read_text().splitlines()]
@@ -4460,6 +4615,20 @@ def phase_m(model, device, card: str, work: Path) -> dict:
               f"{ms['picture_bytes'][k]['P']} bytes)" for k, v in ms["picture_s"].items())
           + f", medians of 3; cli preprocess --video wmv2_1080p.wmv {ms['preprocess_s']:.2f} s "
           f"-> 3 frames 910x512; the Windows family part {msmpeg4_s:.2f} s [{card}]")
+    fs, fb = ll["frame_s"], ll["frame_bytes"]
+    print(f"  raw / PNG / HuffYUV / FFV1 (huffyuvdec.cpp, ffv1dec.cpp, pngfilter.cpp, built by "
+          f"g++ in {built['huffyuv']:.2f} / {built['ffv1']:.2f} / {built['png unfilter']:.2f} "
+          f"s): cv2's {ll['files']} clips (raw I420 / IYUV / YV12 / Y800 / RGBA, PNG, HFYU, "
+          f"FFVH, FFV1 in AVI, Matroska, QuickTime, MP4; JPGL / LJPG; VP80 / VP90 in IVF) and "
+          f"the writer's {ll['streams']} streams (re-made from their seeds in "
+          f"{ll['write_s']:.2f} s, each the manifest's SHA-256) read to cv2's probes and "
+          f"{ll['frames']} frames in {ll['corpus_s']:.2f} s; one 1920x1080 frame: "
+          + ", ".join(f"{k} {v:.4f} s" + (f" ({fb[k]} bytes)" if k in fb else "")
+                      for k, v in fs.items())
+          + f", medians of 3; decode_png's plain Python rows on the Paeth frame's first "
+          f"{PLAIN_PNG_ROWS} of 1080 {ll['plain_png_s']:.3f} s; cli preprocess --video "
+          f"syn_ffv1_1080p.mkv {ll['preprocess_s']:.2f} s -> 3 frames 910x512; the lossless part "
+          f"{lossless_s:.2f} s [{card}]")
     print(f"phase M ran in {time.perf_counter() - t_phase:.2f} s [{card}]")
     return {"fwd": fwd, "bwd": bwd}
 

@@ -8,7 +8,10 @@ siblings: Motion JPEG
 (`omfs4d_torch.io.mpeg4`, read only), VP8 (`omfs4d_torch.io.vp8`, read
 only), VP9 (`omfs4d_torch.io.vp9`, read only), MPEG-1 / MPEG-2
 (`omfs4d_torch.io.mpeg2`, read only) and MS MPEG-4 v2 / v3 and WMV1 / WMV2
-(`omfs4d_torch.io.msmpeg4`, read only); the MP4 boxes are
+(`omfs4d_torch.io.msmpeg4`, read only), and the lossless ones, raw video
+(`omfs4d_torch.io.rawvideo`), PNG (`omfs4d_torch.io.video.decode_png`),
+HuffYUV (`omfs4d_torch.io.huffyuv`) and FFV1 (`omfs4d_torch.io.ffv1`), read
+only; the MP4 boxes are
 `omfs4d_torch.io.mp4`'s, the Matroska elements `omfs4d_torch.io.matroska`'s,
 the transport stream's packets `omfs4d_torch.io.mpegts`'s, the program
 stream's `omfs4d_torch.io.mpegps`'s, ASF's objects and packets
@@ -33,7 +36,14 @@ stream's `omfs4d_torch.io.mpegps`'s, ASF's objects and packets
   table; the extradata, maybe empty, as `extradata`) and Microsoft's MPEG-4
   family (`MP42`, `MP43` / `DIV3` and FFmpeg's other v3 tags, `WMV1`,
   `WMV2`: codec "msmpeg4" with its `version`, 2 to 5, and `extradata`,
-  WMV2's extended header).  A zero-byte chunk is a
+  WMV2's extended header), raw video (compression 0, BI_RGB, at 24 or 32
+  bits, bottom-up where biHeight > 0; `I420` / `IYUV`, `YV12`, `Y800` /
+  `GREY` / `Y8  `, `RGBA`: codec "raw" with its `fourcc`, `bits` and
+  `bottom_up`), PNG (`MPNG`, `PNG `, upper or lower case), HuffYUV (`HFYU`,
+  FFmpeg's `FFVH`: codec "huffyuv" with `fourcc`, `bits` and `extradata`)
+  and FFV1 (`FFV1`, its configuration record as `extradata`).  cv2's raw
+  `YUY2` / `UYVY` AVIs (I420 bytes under a 4:2:2 tag: cv2 shows no frame)
+  are refused by name.  A zero-byte chunk is a
   frame the writer dropped: it has no sample, but counts in `frame_count`
   (cv2 counts it and shows no frame for it).
 - MP4 / QuickTime: the first video track (`mp4.read_track`; a sound track
@@ -47,11 +57,19 @@ stream's `omfs4d_torch.io.mpegps`'s, ASF's objects and packets
   stream's own colour bits whatever it says); MPEG-1 / MPEG-2 for an `mp4v`
   entry of objectTypeIndication 0x60-0x65 or 0x6A (its DecoderSpecificInfo
   as `extradata`) and for QuickTime's `m2v1` (cv2's), `m1v1`, `mpeg`, HDV's
-  `hdv*`, XDCAM's `xdv*` / `xd5*` / `xdhd`, IMX's `mx*`.
+  `hdv*`, XDCAM's `xdv*` / `xd5*` / `xdhd`, IMX's `mx*`; PNG for `png ` and
+  for an `mp4v` entry of objectTypeIndication 0x6D; raw RGBA for QuickTime's
+  `RGBA`; HuffYUV for `HFYU` / `FFVH` and FFV1 for `FFV1`, each with the
+  `glbl` box as its extradata.  QuickTime's other raw entries (`raw `,
+  `yuv2`, `2vuy`, `v308`, `I420`: cv2 shows no frame from its own) are
+  refused by name.
 - Matroska / WebM (EBML, whatever the suffix): the first video track, its
   codec by CodecID (`matroska.index`): Motion JPEG, MPEG-4 Part 2, H.264,
-  HEVC, VP8, VP9 and MPEG-1 / MPEG-2, and a VfW track's fourcc read as
-  AVI's.
+  HEVC, VP8, VP9, MPEG-1 / MPEG-2, FFV1 (`V_FFV1`) and raw video
+  (`V_UNCOMPRESSED`, its `ColourSpace` fourcc read as AVI's), and a VfW
+  track's fourcc read as AVI's.
+- IVF (`.ivf`, `DKIF`): VP8 or VP9, a frame a record, as cv2's `VP80` /
+  `VP90` writers and libvpx's tools write it.
 - MPEG-TS (`.ts`, M2TS / AVCHD `.mts` / `.m2ts`; 188-, 192- or 204-byte
   packets, found by their sync bytes whatever the suffix): the first video
   stream of the programs (`mpegts.index`): H.264, HEVC, MPEG-4 Part 2 and
@@ -101,14 +119,20 @@ def _needs_ffmpeg(path, what: str) -> UnsupportedCodecError:
         "profile I, P and B pictures), HEVC (Main and Main 10 profiles, whole), MPEG-4 "
         "Part 2 (Simple and Advanced Simple profile), VP8, VP9 (profile 0), MPEG-1 / "
         "MPEG-2 (4:2:0 frame pictures), MS MPEG-4 v2 / v3 (DivX 3) and WMV1 / WMV2 (WMV 7 "
-        "/ 8, no IntraX8 pictures), each in AVI, MP4 / QuickTime, Matroska / WebM, "
-        "MPEG-TS, MPEG-PS or ASF (.wmv / .asf), by itself (not MS MPEG-4 v1, WMV 9 / VC-1, "
-        "HuffYUV, FFV1, raw I420 or FLV's Sorenson H.263); decoding this needs an ffmpeg "
-        "binary (on PATH or from imageio_ffmpeg)")
+        "/ 8, no IntraX8 pictures), raw video (I420 / IYUV, YV12, Y800, RGBA, BI_RGB at "
+        "24 / 32 bits), PNG, HuffYUV (FFmpeg's huffyuv and ffvhuff at 8 bits) and FFV1 "
+        "(versions 0, 1 and 3, YCbCr and grey at 8 to 10 bits, RGB at 8), each in AVI, MP4 / "
+        "QuickTime, Matroska / WebM, IVF, MPEG-TS, MPEG-PS or ASF (.wmv / .asf), by itself "
+        "(not MS MPEG-4 v1, WMV 9 / VC-1, UtVideo, JPEG-LS, JPEG 2000, Snow, FFV1 above "
+        "10 bits or with alpha, ffvhuff version 3, FLV's Sorenson H.263 or Theora); "
+        "decoding this needs an ffmpeg binary (on PATH or from imageio_ffmpeg)")
 
 
-# AVI fourccs of Motion JPEG, and names of those that need another decoder
-_AVI_MJPEG = {b"MJPG", b"mjpg", b"AVRn", b"dmb1", b"jpeg", b"JPEG"}
+# AVI fourccs of Motion JPEG (cv2 writes Motion JPEG under each of FFmpeg's
+# tags from JPGL on and reads it back as MJPG), and names of those that need
+# another decoder
+_AVI_MJPEG = {b"MJPG", b"mjpg", b"AVRn", b"dmb1", b"jpeg", b"JPEG", b"JPGL", b"LJPG", b"IJPG",
+              b"ACDV", b"QIVG", b"SLMJ", b"CJPG", b"MVJP", b"AVI1", b"mjpa"}
 # AVI fourccs of MPEG-4 Part 2 (Xvid, FFmpeg, DivX 4 and 5, generic)
 _AVI_MPEG4 = {b"XVID", b"xvid", b"FMP4", b"fmp4", b"DIVX", b"divx", b"DX50", b"MP4V",
               b"mp4v"}
@@ -136,7 +160,14 @@ _AVI_NAMES = {b"MPG4": "MS MPEG-4 v1", b"DIV1": "MS MPEG-4 v1", b"MP41": "MS MPE
               b"wmv3": "WMV 9 / VC-1 (Simple and Main profile)",
               b"WVC1": "VC-1 Advanced profile (WMV 9 Advanced)",
               b"WMVA": "VC-1 Advanced profile (WMV 9 Advanced)",
-              b"HFYU": "HuffYUV", b"FFV1": "FFV1", b"I420": "raw I420", b"FLV1": "Sorenson H.263 (FLV)",
+              b"FLV1": "Sorenson H.263 (FLV)",
+              **{t: "UtVideo" for t in (b"ULRA", b"ULRG", b"ULY0", b"ULY2", b"ULY4", b"ULH0",
+                                        b"ULH2", b"ULH4", b"UQY0", b"UQY2", b"UQRG", b"UQRA",
+                                        b"UMY2", b"UMH2", b"UMY4", b"UMH4", b"UMRG", b"UMRA")},
+              b"MJLS": "JPEG-LS", b"MJ2C": "JPEG 2000", b"mjp2": "JPEG 2000",
+              b"SNOW": "Snow", b"snow": "Snow", b"theo": "Theora", b"Thra": "Theora",
+              **{t: f"raw {t.decode()} (cv2 writes I420 bytes under this 4:2:2 tag and shows "
+                    "no frame from them)" for t in (b"YUY2", b"UYVY", b"YUYV", b"yuv2")},
               b"VCR2": "MPEG-1 video of ATI VCR2 (its chroma planes swapped)",
               b"slif": "MPEG-2 video of SoftLab-NSK (a first slice FFmpeg reads its own way)",
               b"SLIF": "MPEG-2 video of SoftLab-NSK (a first slice FFmpeg reads its own way)",
@@ -155,20 +186,34 @@ _MP4_MPEG2 = ({b"m1v1", b"m1v ", b"mpeg", b"m2v1", b"mp2v", b"xdhd", b"xdh2"}
               | {b"xd5" + bytes([c]) for c in b"1459abcdef"}
               | {b"mx%d%s" % (n, c) for n in (3, 4, 5) for c in (b"n", b"p")})
 _MP4_NAMES = {b"av01": "AV1", b"vp08": "VP8",
+              **{t: f"raw video ({t.decode()!r}; cv2 shows no frame from its own)"
+                 for t in (b"raw ", b"yuv2", b"2vuy", b"v308", b"I420", b"v210", b"v410")},
+              b"mjp2": "JPEG 2000", b"SNOW": "Snow",
               b"mjpb": "Motion JPEG format B", b"s263": "H.263", b"apcn": "ProRes"}
 # objectTypeIndication of an `mp4v` entry's esds (ISO/IEC 14496-1, Table 5)
 OTI_JPEG = 0x6C
 OTI_MPEG4 = 0x20
 # of MPEG-2 video (0x60-0x65, each profile) and MPEG-1 video (0x6A)
 OTI_MPEG2 = {0x60, 0x61, 0x62, 0x63, 0x64, 0x65, 0x6A}
+# of PNG (FFmpeg's ff_mp4_obj_type; its MP4 muxer writes it for `MPNG`)
+OTI_PNG = 0x6D
+# AVI fourccs of the lossless codecs (upper or lower case as FFmpeg falls
+# back to); raw video's are FFmpeg's raw pixel format tags the port reads
+_AVI_PNG = {c for t in (b"MPNG", b"PNG ") for c in (t, t.lower())}
+_AVI_HUFFYUV = {c for t in (b"HFYU", b"FFVH") for c in (t, t.lower())}
+_AVI_FFV1 = {b"FFV1", b"ffv1"}
+RAW_TAGS = {b"I420", b"IYUV", b"YV12", b"Y800", b"GREY", b"Y8  ", b"RGBA", b"\0\0\0\0"}
 _OTI_NAMES = {0x21: "H.264", 0x6E: "JPEG 2000"}
 
 
 # ── AVI ─────────────────────────────────────────────────────────────────
 
-def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI fourcc") -> dict:
+def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI fourcc",
+              bits: int = 0, bottom_up: bool = False) -> dict:
     """The codec keys of `index`'s info for a BITMAPINFOHEADER's fourcc and
-    the extradata after it (an AVI `strf`, a Matroska VfW CodecPrivate).
+    the extradata after it (an AVI `strf`, a Matroska VfW CodecPrivate), its
+    biBitCount (`bits`) and whether its rows run bottom-up (an AVI's BI_RGB
+    with biHeight > 0, which FFmpeg's AVI demuxer flags).
     H.264 and HEVC samples are length-prefixed after an avcC / hvcC
     extradata and an Annex B byte stream after any other, as FFmpeg's
     decoders tell them apart (avcC starts with its version, 1; hvcC with no
@@ -194,6 +239,15 @@ def avi_codec(compression: bytes, extradata: bytes, path, where: str = "AVI four
     if compression in _AVI_MSMPEG4:
         return {"codec": "msmpeg4", "version": _AVI_MSMPEG4[compression],
                 "extradata": extradata, "fourcc": compression}
+    if compression in _AVI_PNG:
+        return {"codec": "png"}
+    if compression in _AVI_HUFFYUV:
+        return {"codec": "huffyuv", "fourcc": compression.upper(), "bits": bits,
+                "extradata": extradata}
+    if compression in _AVI_FFV1:
+        return {"codec": "ffv1", "extradata": extradata}
+    if compression in RAW_TAGS:
+        return {"codec": "raw", "fourcc": compression, "bits": bits, "bottom_up": bottom_up}
     name = _AVI_NAMES.get(compression, repr(compression.decode("latin-1")))
     raise _needs_ffmpeg(path, f"its video is {name} ({where} "
                               f"{compression.decode('latin-1')!r})")
@@ -255,9 +309,11 @@ def _read_avi(buf, path: Path):
                     fp, fsize = strl[b"strf"]
                     extradata = bytes(buf[fp + 40:fp + max(fsize, 40)])
                     width, height = struct.unpack_from("<ii", buf, fp + 4)
+                    (bits,) = struct.unpack_from("<H", buf, fp + 14)
                     compression = bytes(buf[fp + 16:fp + 20])
                     stream = n
-                    video = (compression, width, abs(height), rate / scale if scale else 0.0)
+                    video = (compression, width, abs(height), rate / scale if scale else 0.0,
+                             bits, height > 0)
                     ids = (b"%02ddc" % n, b"%02ddb" % n)
             elif ckind == b"movi":
                 walk_movi(cpos, min(cpos + csize, file_end))
@@ -267,8 +323,9 @@ def _read_avi(buf, path: Path):
                                   for k in range(entries))
     if video is None:
         raise ValueError(f"{path}: an AVI file with no video stream")
-    compression, width, height, fps = video
-    codec = avi_codec(compression, extradata, path)
+    compression, width, height, fps, bits, positive = video
+    codec = avi_codec(compression, extradata, path, bits=bits,
+                      bottom_up=positive and compression == b"\0\0\0\0")
     found = len(offsets)
     if max(declared, idx1_frames) > found + dropped[0]:
         raise ValueError(f"{path}: the file holds {found} frames of stream {stream}, its "
@@ -342,6 +399,8 @@ def _read_mp4(buf, path: Path):
             info["codec"], info["dsi"] = "mpeg4", dsi
         elif oti in OTI_MPEG2:
             info["codec"], info["extradata"] = "mpeg2", dsi
+        elif oti == OTI_PNG:
+            info["codec"] = "png"
         elif oti != OTI_JPEG:
             name = _OTI_NAMES.get(oti, "an unknown codec")
             raise _needs_ffmpeg(path, f"its video is {name} (sample entry 'mp4v', "
@@ -360,6 +419,15 @@ def _read_mp4(buf, path: Path):
         info["codec"], info["hvcC"] = "hevc", bytes(buf[hvcc[0]:hvcc[1]])
     elif kind in _MP4_MPEG2:
         info["codec"], info["extradata"] = "mpeg2", b""
+    elif kind == b"png ":
+        info["codec"] = "png"
+    elif kind == b"RGBA":
+        info.update(codec="raw", fourcc=b"RGBA", bits=32, bottom_up=False)
+    elif kind in (b"HFYU", b"FFVH", b"FFV1"):
+        glbl = mp4.child(buf, children, eend, b"glbl")
+        extradata = bytes(buf[glbl[0]:glbl[1]]) if glbl else b""
+        (depth,) = struct.unpack_from(">H", buf, ebody + 74)
+        info.update(avi_codec(kind, extradata, path, "QuickTime sample entry", bits=depth))
     elif kind == b"vp09":
         info["codec"] = "vp9"
         vpcc = mp4.child(buf, children, eend, b"vpcC")
@@ -372,13 +440,53 @@ def _read_mp4(buf, path: Path):
     return offsets, sizes, info
 
 
+# ── IVF ─────────────────────────────────────────────────────────────────
+
+_IVF_CODECS = {b"VP80": "vp8", b"VP90": "vp9"}
+
+
+def _read_ivf(buf, path: Path):
+    """libvpx's IVF: a 32-byte header (`DKIF`, version, header size, fourcc,
+    width, height, the time base's denominator and numerator, a frame
+    count), then each frame behind a 12-byte header (its size, its time);
+    as FFmpeg's `ivf` demuxer reads it, the header's count as the stream's
+    duration in time base ticks."""
+    fourcc = bytes(buf[8:12])
+    if fourcc not in _IVF_CODECS:
+        raise _needs_ffmpeg(path, f"its video is {_AVI_NAMES.get(fourcc, 'an unknown codec')} "
+                                  f"(IVF fourcc {fourcc.decode('latin-1')!r})")
+    (head,) = struct.unpack_from("<H", buf, 6)
+    width, height, den, num, declared = struct.unpack_from("<HHIII", buf, 12)
+    offsets, sizes, times = [], [], []
+    pos, end = max(head, 32), len(buf)
+    while pos + 12 <= end:
+        size, t = struct.unpack_from("<Iq", buf, pos)
+        if pos + 12 + size > end:
+            raise ValueError(f"{path}: frame {len(offsets)} is cut short: "
+                             f"{end - pos - 12} of its {size} bytes are in the file")
+        offsets.append(pos + 12)
+        sizes.append(size)
+        times.append(t)
+        pos += 12 + size
+    steps = sorted(b - a for a, b in zip(times, times[1:]) if b > a)
+    step = steps[len(steps) // 2] if steps else 1
+    rate = Fraction(den, num * step) if den and num else Fraction(0)
+    count = len(offsets)
+    if declared and num and den:
+        count = round(Fraction(declared * num, den) * rate)
+    return offsets, sizes, {"width": width, "height": height, "fps": float(rate),
+                            "frame_count": count, "container": "ivf",
+                            "codec": _IVF_CODECS[fourcc]}
+
+
 # ── the API ─────────────────────────────────────────────────────────────
 
 def index(path) -> tuple[list[int], list[int], dict]:
     """(sample offsets, sample sizes, info) of the video track of an AVI,
     MP4, Matroska / WebM or MPEG-TS file: info holds width, height (the
     container's; 0 for MPEG-TS), fps (0.0 where the container gives none),
-    frame_count, container ("avi", "mp4", "matroska", "mpegts" or "mpegps") and codec:
+    frame_count, container ("avi", "mp4", "matroska", "ivf", "mpegts", "mpegps" or "asf")
+    and codec:
     "mjpeg"; "h264", then with `avcC`, the avcC box's body (MP4, Matroska,
     an AVI's avcC extradata), or `annexb`, the extradata of a track of
     Annex B samples (AVI, MPEG-TS; maybe b""), and
@@ -410,6 +518,8 @@ def index(path) -> tuple[list[int], list[int], dict]:
                     return _read_mp4(buf, p)
                 if head[:4] == matroska.MAGIC:
                     return matroska.index(buf, p)
+                if head[:4] == b"DKIF":
+                    return _read_ivf(buf, p)
                 if mpegts.probe(head):
                     return mpegts.index(buf, p)
                 if mpegps.probe(buf):
@@ -435,7 +545,8 @@ def index(path) -> tuple[list[int], list[int], dict]:
                 traceback.clear_frames(e.__traceback__)
                 raise
     raise _needs_ffmpeg(p, "it is neither an AVI nor an MP4 / QuickTime file, nor a Matroska "
-                           "/ WebM one, nor an MPEG transport or program stream, nor ASF")
+                           "/ WebM one, nor IVF, nor an MPEG transport or program stream, nor "
+                           "ASF")
 
 
 def read_sample(f, offset: int, size: int, info: dict) -> bytes:

@@ -26,7 +26,10 @@ Read as FFmpeg's `matroskadec` reads a file for cv2:
   `V_MPEG4/MS/V3` (MS MPEG-4 v3, DivX 3); `V_MS/VFW/FOURCC` (`CodecPrivate`
   a BITMAPINFOHEADER, its fourcc read as AVI's, `container.avi_codec`: cv2's
   WMV1 / WMV2 / MP42 / MP43 among them, WMV2's extended header the bytes
-  after it).  Any other (AV1, Theora, ProRes, ...)
+  after it, HuffYUV's and PNG's); `V_FFV1` (`CodecPrivate` its configuration
+  record); `V_UNCOMPRESSED` (raw video, its `ColourSpace` fourcc as its
+  pixel format, cv2's `I420`, `RGBA` and `Y800`).  Any other (AV1, Theora,
+  ProRes, ...)
   raises `UnsupportedCodecError` naming it.
 - Frames: `SimpleBlock`s (FFmpeg's muxer; the keyframe flag gives `sync`)
   and `BlockGroup`s (mkvmerge's: a `Block` with no `ReferenceBlock` is a
@@ -71,7 +74,7 @@ INFO, TIMESTAMP_SCALE, DURATION = 0x1549A966, 0x2AD7B1, 0x4489
 TRACKS, TRACK_ENTRY = 0x1654AE6B, 0xAE
 TRACK_NUMBER, TRACK_TYPE, CODEC_ID, CODEC_PRIVATE = 0xD7, 0x83, 0x86, 0x63A2
 DEFAULT_DURATION, VIDEO = 0x23E383, 0xE0
-PIXEL_WIDTH, PIXEL_HEIGHT = 0xB0, 0xBA
+PIXEL_WIDTH, PIXEL_HEIGHT, COLOUR_SPACE = 0xB0, 0xBA, 0x2EB524
 PROJECTION, PROJECTION_TYPE, POSE_YAW, POSE_PITCH, POSE_ROLL = \
     0x7670, 0x7671, 0x7673, 0x7674, 0x7675
 COLOUR, MATRIX, RANGE, TRANSFER, PRIMARIES = 0x55B0, 0x55B1, 0x55B9, 0x55BA, 0x55BB
@@ -90,8 +93,7 @@ TRACK_TYPE_VIDEO = 1
 # CodecIDs the port reads, and names of those it does not
 _MPEG4 = {"V_MPEG4/ISO/SP", "V_MPEG4/ISO/ASP", "V_MPEG4/ISO/AP"}
 _NAMES = {"V_AV1": "AV1", "V_THEORA": "Theora", "V_PRORES": "ProRes",
-          "V_UNCOMPRESSED": "uncompressed video", "V_REAL/RV40": "RealVideo 4",
-          "V_FFV1": "FFV1", "V_DIRAC": "Dirac",
+          "V_REAL/RV40": "RealVideo 4", "V_DIRAC": "Dirac",
           "V_QUICKTIME": "a QuickTime codec", "V_MPEGI/ISO/VVC": "H.266 / VVC"}
 _COMP_ALGOS = {0: "zlib", 1: "bzlib", 2: "LZO"}
 HEADER_STRIPPING = 3
@@ -224,11 +226,14 @@ def _track(buf, f: dict, path) -> dict:
              "codec_id": text(CODEC_ID),
              "private": bytes(buf[slice(*f[CODEC_PRIVATE])]) if CODEC_PRIVATE in f else b"",
              "default_duration": _uint(buf, *f[DEFAULT_DURATION])
-             if DEFAULT_DURATION in f else 0, "width": 0, "height": 0, "prefix": b""}
+             if DEFAULT_DURATION in f else 0, "width": 0, "height": 0, "prefix": b"",
+             "colour_space": b""}
     if VIDEO in f:
         v = _fields(buf, *f[VIDEO])
         track["width"] = _uint(buf, *v[PIXEL_WIDTH]) if PIXEL_WIDTH in v else 0
         track["height"] = _uint(buf, *v[PIXEL_HEIGHT]) if PIXEL_HEIGHT in v else 0
+        if COLOUR_SPACE in v:
+            track["colour_space"] = bytes(buf[slice(*v[COLOUR_SPACE])])
         if COLOUR in v:
             track.update(_colour(buf, _fields(buf, *v[COLOUR])))
         if PROJECTION in v:
@@ -314,6 +319,15 @@ def _codec(track: dict, path) -> dict:
         return {"codec": "vp9"}
     if cid in ("V_MPEG1", "V_MPEG2"):
         return {"codec": "mpeg2", "extradata": private}
+    if cid == "V_FFV1":
+        return {"codec": "ffv1", "extradata": private}
+    if cid == "V_UNCOMPRESSED":
+        tag = track["colour_space"]
+        if tag not in container.RAW_TAGS - {b"\0\0\0\0"}:
+            raise container._needs_ffmpeg(path, f"its video is raw video of ColourSpace "
+                                                f"{tag.decode('latin-1')!r} (Matroska "
+                                                "V_UNCOMPRESSED)")
+        return {"codec": "raw", "fourcc": tag, "bits": 0, "bottom_up": False}
     if cid == "V_MPEG4/MS/V3":
         return {"codec": "msmpeg4", "version": 3, "extradata": private}
     if cid == "V_MPEG4/ISO/AVC":
@@ -329,7 +343,8 @@ def _codec(track: dict, path) -> dict:
     if cid == "V_MS/VFW/FOURCC":
         if len(private) < 40:
             raise ValueError(f"{path}: a V_MS/VFW/FOURCC track with no BITMAPINFOHEADER")
-        return container.avi_codec(private[16:20], private[40:], path, "Matroska VfW fourcc")
+        return container.avi_codec(private[16:20], private[40:], path, "Matroska VfW fourcc",
+                                   bits=int.from_bytes(private[14:16], "little"))
     name = _NAMES.get(cid, "an unknown codec")
     raise container._needs_ffmpeg(path, f"its video is {name} (Matroska CodecID {cid!r})")
 

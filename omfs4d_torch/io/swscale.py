@@ -358,11 +358,18 @@ def write_full(y: np.ndarray, u: np.ndarray, v: np.ndarray, matrix: int,
 
 
 def _full_chroma(y15, u15, v15, vf, vstart, matrix: int, full: bool) -> np.ndarray:
-    """`output.c`'s yuv2rgb_full_X: chroma at every pixel."""
+    """`output.c`'s yuv2rgb_full_X, chroma at every pixel: its sums rounded
+    at 2^9; but a row whose chroma filter is two taps summing to 4096 (the
+    second in 0..4096) goes to yuv2rgb_full_1 (`packed_vscale`), whose
+    blend of the two rows is not rounded."""
     idx = _taps(vf, vstart, u15.shape[0])
     yy = ((1 << 9) + y15.astype(np.int64) * 4096) >> 10
-    u, v = ((((1 << 9) - (128 << 19) + sum(c[idx[:, j]].astype(np.int64) * vf[:, j, None]
-                                             for j in range(vf.shape[1]))) >> 10)
+    rounder = np.full((vf.shape[0], 1), 1 << 9, np.int64)
+    if vf.shape[1] == 2:
+        one = (vf.sum(1) == 4096) & (vf[:, 1] >= 0) & (vf[:, 1] <= 4096)
+        rounder[one] = 0
+    u, v = (((rounder - (128 << 19) + sum(c[idx[:, j]].astype(np.int64) * vf[:, j, None]
+                                          for j in range(vf.shape[1]))) >> 10)
             for c in (u15, v15))
     return write_full(yy, u, v, matrix, full)
 

@@ -3,7 +3,9 @@
 Port of `omfs4d.io.video` (`probe_video`, `extract_frames`, `read_image`,
 `write_image`, `find_ffmpeg`, `ffmpeg_stitch_cmd`, `stitch_video`).  PNG is encoded and decoded here with
 the standard library's `zlib` and `struct` plus numpy: 8-bit grayscale,
-grayscale+alpha, RGB and RGBA, non-interlaced, all five row filters on read.
+grayscale+alpha, RGB and RGBA, non-interlaced, all five row filters on read
+(undone by the host C++ `pngfilter.cpp`, built by g++ at first use; a
+failed build raises).
 That reads what the JAX package wrote with cv2, and cv2 reads what this
 module writes.
 
@@ -58,7 +60,11 @@ contract).  With none, the port's own codecs:
   `DIV3`, `WMV1` and `WMV2` writers put them into ASF (`.wmv`, `.asf`;
   `omfs4d_torch.io.asf`), AVI and Matroska and as Windows capture tools and
   DivX 3 wrote them (`msmpeg4.MSMPEG4Frames`, the host C++ decoder
-  `msmpeg4dec.cpp`).  Every reader
+  `msmpeg4dec.cpp`); raw video, PNG, HuffYUV and FFV1, as cv2's writers
+  put them into AVI, Matroska, QuickTime and MP4 and as capture cards,
+  editors and archives write them (`rawvideo.RawFrames`, `PNGFrames`,
+  `huffyuv.HuffYUVFrames`, `ffv1.FFV1Frames`; the host C++ decoders
+  `huffyuvdec.cpp` and `ffv1dec.cpp`), and VP8 / VP9 in IVF.  Every reader
   converts to 8-bit RGB as cv2 does:
   swscale's own conversion bit for bit (`swscale`; 8-bit 4:2:0 on its
   unscaled path, 10-bit pictures, odd heights and JPEG's other samplings on
@@ -67,13 +73,16 @@ contract).  With none, the port's own codecs:
   with WPP, ...), H.264 with fields or more than 8 bits, MPEG-4 Part 2
   sprites / GMC, interlacing or data partitioning, VP9 beyond profile 0 or
   with references of another size, MPEG-2 field pictures and 4:2:2, WMV2's
-  IntraX8 pictures, MS MPEG-4 v1, WMV 9 / VC-1 and other codecs (AV1, ...)
+  IntraX8 pictures, MS MPEG-4 v1, WMV 9 / VC-1, FFV1 above 10 bits and
+  other codecs (AV1, UtVideo, JPEG-LS, ...)
   raise `container.UnsupportedCodecError` naming the
   codec or feature.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import shutil
 import struct
 import subprocess
@@ -83,7 +92,8 @@ from pathlib import Path
 import numpy as np
 
 from omfs4d_torch.core.logging import get_logger
-from omfs4d_torch.io import container, h264, hevc, mjpeg, mpeg2, mpeg4, msmpeg4, vp8, vp9
+from omfs4d_torch.io import (container, ffv1, h264, hevc, huffyuv, mjpeg, mpeg2, mpeg4, msmpeg4,
+                             rawvideo, vp8, vp9)
 from omfs4d_torch.io.jpeg import decode_jpeg, encode_jpeg
 
 log = get_logger("video")
@@ -92,6 +102,7 @@ log = get_logger("video")
 MJPEG_QUALITY = 95
 
 _PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
+_UNFILTER_SOURCE = Path(__file__).resolve().with_name("pngfilter.cpp")
 
 _CHANNELS = {0: 1, 2: 3, 4: 2, 6: 4}          # PNG colour type -> channels
 _COLOR_TYPE = {v: k for k, v in _CHANNELS.items()}
@@ -128,7 +139,42 @@ def encode_png(arr: np.ndarray) -> bytes:
             + _chunk(b"IEND", b""))
 
 
+@functools.cache
+def _unfilter_library() -> ctypes.CDLL:
+    """Build (at first use, with g++, into `omfs4d_torch/_build/`) and load
+    the host PNG unfilter (`pngfilter.cpp`); raises RuntimeError with g++'s
+    message when it cannot: no PNG is unfiltered in Python on the reading
+    path."""
+    from omfs4d_torch import native
+
+    path = native.build(_UNFILTER_SOURCE, "pngfilter", ("-std=c++17", "-O2", "-shared", "-fPIC"),
+                        "omfs4d_torch/io/pngfilter.cpp (the PNG row unfilter)")
+    lib = ctypes.CDLL(str(path))
+    lib.png_unfilter.restype = ctypes.c_int
+    lib.png_unfilter.argtypes = [ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
+                                 ctypes.c_void_p]
+    return lib
+
+
+def unfilter(raw: bytes, height: int, rowbytes: int, bpp: int) -> np.ndarray:
+    """A PNG image's inflated data (each row its filter byte, then
+    `rowbytes` bytes) -> the (height, rowbytes) uint8 samples, every row's
+    filter undone by the host C++ (`pngfilter.cpp`); ValueError for data of
+    the wrong size or an unknown filter type."""
+    if len(raw) < height * (rowbytes + 1):
+        raise ValueError(f"PNG: {len(raw)} bytes of image data, fewer than the "
+                         f"{height * (rowbytes + 1)} of {height} rows")
+    out = np.empty((height, rowbytes), np.uint8)
+    rc = _unfilter_library().png_unfilter(raw, height, rowbytes, bpp, out.ctypes.data)
+    if rc:
+        raise ValueError(f"PNG: unknown row filter {raw[(rc - 1) * (rowbytes + 1)]} in row "
+                         f"{rc - 1}")
+    return out
+
+
 def _unfilter_row(ft: int, line: np.ndarray, prev: np.ndarray, bpp: int) -> np.ndarray:
+    """One row's filter undone in numpy and Python: the plain version of
+    `unfilter`, which the tests hold the C++ to."""
     if ft == 0:
         return line
     if ft == 1:   # Sub: running sum along the row, per channel
@@ -179,13 +225,7 @@ def decode_png(data: bytes) -> np.ndarray:
                          f"interlace {interlace} not supported (8-bit gray, "
                          "gray+alpha, RGB, RGBA; not interlaced)")
     C = _CHANNELS[color_type]
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    rows = raw.reshape(H, 1 + W * C)
-    out = np.empty((H, W * C), np.uint8)
-    prev = np.zeros(W * C, np.uint8)
-    for y in range(H):
-        prev = out[y] = _unfilter_row(int(rows[y, 0]), rows[y, 1:], prev, C)
-    return out.reshape(H, W, C)
+    return unfilter(zlib.decompress(b"".join(idat)), H, W * C, C).reshape(H, W, C)
 
 
 def decode_image(data: bytes) -> np.ndarray:
@@ -205,7 +245,11 @@ def read_image(path: str | Path) -> np.ndarray:
     p = Path(path)
     if not p.is_file():
         raise FileNotFoundError(f"cannot read image: {path}")
-    img = decode_image(p.read_bytes())
+    return _rgb(decode_image(p.read_bytes()))
+
+
+def _rgb(img: np.ndarray) -> np.ndarray:
+    """(H, W, C) uint8 as (H, W, 3) RGB: grey repeated, alpha dropped."""
     if img.shape[2] <= 2:
         return np.repeat(img[..., :1], 3, axis=2)
     return np.ascontiguousarray(img[..., :3])
@@ -289,8 +333,9 @@ def probe_video(path: str | Path) -> dict:
     JPEG frames (fps is then the 30.0 the reference assumes), or a video file,
     read through ffmpeg when there is a binary and, when there is none, as
     Motion JPEG, H.264 (Main / High, I, P and B pictures), HEVC (Main and
-    Main 10), MPEG-4 Part 2 (Simple, Advanced Simple), VP8, VP9 or MPEG-1 /
-    MPEG-2 in AVI, MP4 / QuickTime, Matroska / WebM, MPEG-TS or MPEG-PS,
+    Main 10), MPEG-4 Part 2 (Simple, Advanced Simple), VP8, VP9, MPEG-1 /
+    MPEG-2, the Windows family, raw video, PNG, HuffYUV or FFV1 in AVI, MP4
+    / QuickTime, Matroska / WebM, IVF, MPEG-TS, MPEG-PS or ASF,
     with no decode: the size as displayed (turned by the track's
     matrix), the fps and the frame count as cv2 reports them
     (`container.UnsupportedCodecError` for another codec)."""
@@ -331,8 +376,9 @@ def extract_frames(
     """Turn a capture (a directory of PNG or JPEG frames, or a video file:
     through ffmpeg when there is a binary, else Motion JPEG, H.264 Main /
     High I, P and B pictures, HEVC Main / Main 10, MPEG-4 Part 2 (Simple,
-    Advanced Simple), VP8, VP9 or MPEG-1 / MPEG-2 in AVI, MP4 / QuickTime,
-    Matroska / WebM, MPEG-TS or MPEG-PS, upright and edited as cv2 shows
+    Advanced Simple), VP8, VP9, MPEG-1 / MPEG-2, the Windows family, raw
+    video, PNG, HuffYUV or FFV1 in AVI, MP4 / QuickTime, Matroska / WebM,
+    IVF, MPEG-TS, MPEG-PS or ASF, upright and edited as cv2 shows
     them) into numbered PNG frames (RGB), every `stride`-th one, at most
     `max_frames`, shrunk by area averaging so that min(H, W) ~ target_size.
     A Motion JPEG file's frames are decoded only where they are kept; any
@@ -368,15 +414,25 @@ def extract_frames(
     return paths
 
 
+class PNGFrames(rawvideo.IntraFrames):
+    """The frames of a PNG video track (AVI `MPNG`, QuickTime `png `, MP4
+    `mp4v` of objectTypeIndication 0x6D, Matroska), one PNG a sample,
+    through `decode_png`: grey repeated, alpha dropped, as cv2 shows them."""
+
+    def decode(self, data: bytes) -> np.ndarray:
+        return _rgb(decode_png(data))
+
+
 _READERS = {"h264": h264.H264Frames, "hevc": hevc.HEVCFrames, "mpeg4": mpeg4.MPEG4Frames,
             "vp8": vp8.VP8Frames, "vp9": vp9.VP9Frames, "mpeg2": mpeg2.MPEG2Frames,
-            "msmpeg4": msmpeg4.MSMPEG4Frames,
-            "mjpeg": mjpeg.MJPEGFrames}
+            "msmpeg4": msmpeg4.MSMPEG4Frames, "raw": rawvideo.RawFrames, "png": PNGFrames,
+            "huffyuv": huffyuv.HuffYUVFrames, "ffv1": ffv1.FFV1Frames, "mjpeg": mjpeg.MJPEGFrames}
 
 
 def _own_reader(path: Path) -> (h264.H264Frames | hevc.HEVCFrames | mpeg4.MPEG4Frames
                                 | vp8.VP8Frames | vp9.VP9Frames | mpeg2.MPEG2Frames
-                                | msmpeg4.MSMPEG4Frames | mjpeg.MJPEGFrames):
+                                | msmpeg4.MSMPEG4Frames | rawvideo.IntraFrames
+                                | mjpeg.MJPEGFrames):
     """A video file's frames through the port's own readers, with no ffmpeg:
     the file is indexed once and read by its codec's module."""
     offsets, sizes, info = container.index(path)

@@ -14,10 +14,10 @@ for bit, and `probe_video` equal to cv2's width, height, fps and frame count.
   the VUI's, WebM's DocType.
 - Files cut at several byte positions: the frames cv2 reads, its count, and
   a ValueError where cv2 cannot open the file.
-- cv2's MPEG-2 in `.mkv` read as cv2 reads it; FFV1, AV1 and the rest
-  refused by name (VP8, VP9 and MPEG-1 / 2 are read:
+- cv2's MPEG-2 and FFV1 in `.mkv` read as cv2 reads them; AV1 and the rest
+  refused by name (VP8, VP9, MPEG-1 / 2 and FFV1 are read:
   `tests/test_torch_vp8.py`, `tests/test_torch_vp9.py`,
-  `tests/test_torch_mpeg2.py`).
+  `tests/test_torch_mpeg2.py`, `tests/test_torch_ffv1.py`).
 - The JAX package's `stitch_video` into `.mkv` with no ffmpeg, read by both
   packages to the same probe and frames.
 - The committed corpus (`tests/data/matroska/`) against its manifest.
@@ -389,23 +389,16 @@ def test_cut_files_read_as_cv2(tmp_path, capfd, source):
                                                    ("FFV1", "mkv", "FFV1")])
 def test_cv2_mpeg2_ffv1_refused_by_name(tmp_path, capfd, fourcc, suffix, name):
     """cv2's MPEG-2 and FFV1 writers into Matroska, which cv2 reads back:
-    MPEG-2 (V_MPEG2), once refused here, is read as cv2 reads it (its frames
-    and count; `tests/test_torch_mpeg2.py` holds the rest); FFV1 the port
-    has no decoder for, and says so by name, from probe_video and
-    extract_frames both (VP9, once refused here, is read:
-    `tests/test_torch_vp9.py`)."""
+    MPEG-2 (V_MPEG2) and FFV1 (V_FFV1), once refused here, are read as cv2
+    reads them (their frames and count; `tests/test_torch_mpeg2.py` and
+    `tests/test_torch_ffv1.py` hold the rest; VP9, once refused here too, is
+    read: `tests/test_torch_vp9.py`)."""
     path = tmp_path / f"clip.{suffix}"
     cv2_write(path, fourcc, moving_clip(4, 32, 48))
     capfd.readouterr()
     assert jvideo.probe_video(path)["width"] == 48
-    if fourcc == "MPG2":
-        assert container.index(path)[2]["codec"] == "mpeg2"
-        assert len(read_as_cv2(path, capfd)) == 4
-        return
-    for fn in (tvideo.probe_video, lambda p: tvideo.extract_frames(p, tmp_path / "out")):
-        with pytest.raises(container.UnsupportedCodecError, match="ffmpeg") as err:
-            fn(path)
-        assert f"its video is {name}" in str(err.value)
+    assert container.index(path)[2]["codec"] == {"MPG2": "mpeg2", "FFV1": "ffv1"}[fourcc]
+    assert len(read_as_cv2(path, capfd)) == 4
 
 
 REFUSED = {"V_AV1": "AV1", "V_REAL/RV40": "RealVideo 4", "V_THEORA": "Theora",
